@@ -1,0 +1,5 @@
+from .gmrf import (TABLE2, ar1_precision, kronecker_st_precision,
+                   lattice_precision, make_arrowhead, table2_matrix)
+
+__all__ = ["TABLE2", "ar1_precision", "kronecker_st_precision",
+           "lattice_precision", "make_arrowhead", "table2_matrix"]

@@ -1,0 +1,117 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file becomes one shared library with a plain C
+interface, compiled for ``sm_90a`` at first use into
+``src/repro_torch/_build/`` (listed in ``.gitignore``).  A library's file
+name carries a hash of the sources and flags, so an edited kernel is
+rebuilt and a current one is loaded as it is.  :func:`build_all` compiles
+every missing library at once, one ``nvcc`` process per source, and is
+what ``chip_smoke.py`` calls first.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
+
+__all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+SOURCES = ("potrf", "trsm", "band_cholesky")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures: pointers and the stream as c_void_p, sizes as c_int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "potrf": ("stiles_potrf_f32", [_P, _P, _I, _I, _P]),
+    "trsm": ("stiles_trsm_f32", [_P, _P, _P, _I, _I, _I, _P]),
+    "band_cholesky": ("stiles_band_cholesky_sweep_f32",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Sequence[str] = SOURCES,
+              defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
+    """Compile every library in ``names`` that is not built yet, all
+    ``nvcc`` processes started together; returns name -> library path.
+    ``defines`` are preprocessor macros of a measurement build.  Raises
+    with the compiler's output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: _lib_path(n, defines) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    procs = {}
+    for n, p in todo.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"--- {n}.cu ---\n{out}")
+            continue
+        paths[n].with_suffix(".ptxas.txt").write_text(out)
+        os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of a
+    built library."""
+    f = _lib_path(name).with_suffix(".ptxas.txt")
+    return f.read_text() if f.exists() else ""
+
+
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get((name, defines))
+    if lib is None:
+        path = build_all([name], defines)[name]
+        lib = ctypes.CDLL(str(path))
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.stiles_error_string.argtypes = [ctypes.c_int]
+        lib.stiles_error_string.restype = ctypes.c_char_p
+        _loaded[name, defines] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.stiles_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,93 @@
+"""CUDA kernel: the whole banded-arrowhead Cholesky in one launch,
+``csrc/band_cholesky.cu``.
+
+Port of the TPU kernel
+``repro/kernels/band_cholesky.py::band_cholesky_sweep_pallas``.  One block
+walks the band columns in order; the last ``band_tiles`` finalized panels
+are read back from the outputs (they stay in L2) instead of a VMEM ring.
+Outputs and semantics match ``ref.band_cholesky_sweep_ref``: column
+panels, factored arrow rows, per-chunk corner-Schur sums and the status
+word ``[min_pivot, nonfinite, first_bad]`` folded in the kernel.  The
+partitioned sweep is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .potrf import check_tiles
+from .ref import empty_sweep_status
+from .ring import chunk_layout
+
+__all__ = ["band_cholesky_sweep_cuda", "sweep_phase_cycles", "PHASES"]
+
+PHASES = ("diagonal products", "potrf", "band products", "arrow products",
+          "substitution", "status fold", "Schur products", "column start")
+
+
+def band_cholesky_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor,
+                             nchunks: int = 1, start_tile: int = 0):
+    """``Ac (ndt, bt+1, t, t)`` column-band tiles and ``R (ndt, nat, t, t)``
+    arrow rows -> ``(panels, R_out, schur, status)`` on the card, with
+    ``schur (nch, nat, nat, t, t)``, ``nch = chunk_layout(ndt, nchunks)[1]``.
+    Columns ``k < start_tile`` are an identity-embedding prefix."""
+    t = check_tiles("band_cholesky_sweep", Ac, R)
+    if Ac.dim() != 4 or R.dim() != 4 or R.shape[0] != Ac.shape[0]:
+        raise ValueError(f"band_cholesky_sweep: want Ac (ndt, bt+1, t, t) and "
+                         f"R (ndt, nat, t, t), got {tuple(Ac.shape)} and "
+                         f"{tuple(R.shape)}")
+    ndt, b1 = Ac.shape[:2]
+    nat = R.shape[1]
+    csz, nch = chunk_layout(ndt, nchunks)
+    if ndt == 0:
+        return (torch.empty_like(Ac), torch.empty_like(R),
+                torch.zeros((nch, nat, nat, t, t), dtype=Ac.dtype,
+                            device=Ac.device), empty_sweep_status(Ac.device))
+    # the kernel writes every output element, so nothing is zeroed here
+    panels = torch.empty_like(Ac)
+    R_out = torch.empty_like(R)
+    schur = torch.empty((nch, nat, nat, t, t), dtype=Ac.dtype, device=Ac.device)
+    status = torch.empty(3, dtype=torch.float32, device=Ac.device)
+    lib = _build.load("band_cholesky")
+    stream = torch.cuda.current_stream(Ac.device).cuda_stream
+    code = lib.stiles_band_cholesky_sweep_f32(
+        Ac.data_ptr(), R.data_ptr(), panels.data_ptr(), R_out.data_ptr(),
+        schur.data_ptr(), status.data_ptr(), ndt, b1 - 1, nat, t, csz,
+        int(start_tile), stream)
+    _build.check(lib, code, "band_cholesky_sweep")
+    band_cholesky_sweep_cuda.launches += 1
+    return panels, R_out, schur, status
+
+
+band_cholesky_sweep_cuda.launches = 0
+
+
+def sweep_phase_cycles(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1):
+    """Where one sweep's time goes: the SM cycles its block spent in each of
+    :data:`PHASES`, summed over the columns, from a separate build of the
+    kernel with a clock mark (and a block barrier) between phases.  For
+    measurement only: the main path never loads that build, and this call
+    does not count as a launch of the kernel."""
+    import ctypes
+
+    t = check_tiles("sweep_phase_cycles", Ac, R)
+    ndt, b1 = Ac.shape[:2]
+    nat = R.shape[1]
+    csz, nch = chunk_layout(ndt, nchunks)
+    defines = ("STILES_SWEEP_PHASES",)
+    lib = _build.load("band_cholesky", defines)
+    lib.stiles_sweep_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.stiles_sweep_phase_cycles.restype = ctypes.c_int
+    cycles = (ctypes.c_ulonglong * len(PHASES))()
+    _build.check(lib, lib.stiles_sweep_phase_cycles(None, 1), "sweep_phase_cycles")
+    outs = (torch.empty_like(Ac), torch.empty_like(R),
+            torch.empty((nch, nat, nat, t, t), dtype=Ac.dtype, device=Ac.device),
+            torch.empty(3, dtype=torch.float32, device=Ac.device))
+    code = lib.stiles_band_cholesky_sweep_f32(
+        Ac.data_ptr(), R.data_ptr(), *(x.data_ptr() for x in outs), ndt, b1 - 1, nat,
+        t, csz, 0, torch.cuda.current_stream(Ac.device).cuda_stream)
+    _build.check(lib, code, "sweep_phase_cycles")
+    torch.cuda.synchronize(Ac.device)
+    _build.check(lib, lib.stiles_sweep_phase_cycles(ctypes.addressof(cycles), 0),
+                 "sweep_phase_cycles")
+    return dict(zip(PHASES, (int(c) for c in cycles)))

@@ -1,0 +1,60 @@
+"""CUDA kernel: Cholesky of SPD tiles (POTRF), ``csrc/potrf.cu``.
+
+Port of the TPU kernel ``repro/kernels/potrf.py::potrf_pallas``.  The tile
+stays in registers across its right-looking column loop
+(``csrc/tile.cuh::factorize_tile``, shared with the band-Cholesky sweep);
+one block per tile of the batch.  The plain version is
+``ref.potrf_ref``; ``ops.potrf`` chooses between them by device.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+__all__ = ["potrf_cuda", "check_tiles", "TILE_SIZES"]
+
+TILE_SIZES = (8, 16, 32, 64)
+
+
+def check_tiles(name: str, *tensors: torch.Tensor) -> int:
+    """Validate float32, contiguous, 16-byte aligned CUDA tensors of
+    (..., t, t) tiles with t in :data:`TILE_SIZES`; returns t."""
+    t = tensors[0].shape[-1]
+    for x in tensors:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, "
+                             f"got {x.device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: float32 only, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+        if x.dim() < 2 or x.shape[-1] != t or x.shape[-2] != t:
+            raise ValueError(f"{name}: want (..., {t}, {t}) tiles, got "
+                             f"{tuple(x.shape)}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    if t not in TILE_SIZES:
+        raise ValueError(f"{name}: tile size {t} not supported "
+                         f"(want one of {TILE_SIZES})")
+    return t
+
+
+def potrf_cuda(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky of a (..., t, t) batch of SPD tiles on the card: L lower
+    (zeros above the diagonal); a non-positive pivot gives NaN from that
+    column on."""
+    t = check_tiles("potrf", a)
+    out = torch.empty_like(a)
+    nb = a.numel() // (t * t)
+    if nb == 0:
+        return out
+    lib = _build.load("potrf")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _build.check(lib, lib.stiles_potrf_f32(a.data_ptr(), out.data_ptr(), nb, t,
+                                           stream), "potrf")
+    potrf_cuda.launches += 1
+    return out
+
+
+potrf_cuda.launches = 0

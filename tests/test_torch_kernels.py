@@ -1,0 +1,192 @@
+"""The port's kernels module against the JAX package: the band-layout
+converters, and the plain versions of potrf, trsm and the band-Cholesky
+sweep against ``repro.kernels.ref`` and against the Pallas kernels in
+interpret mode, at rtol = atol = 2e-4 (the tolerance of test_kernels.py;
+both sides are float32 and differ only in summation order).  The CUDA
+kernels themselves are held to the plain versions on the card by
+test_torch_gpu.py and chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import BandedCTSF as JBandedCTSF
+from repro.core import TileGrid as JTileGrid
+from repro.data import make_arrowhead
+from repro.kernels import ref as jref
+from repro.kernels import ring as jring
+from repro.kernels.band_cholesky import band_cholesky_sweep_pallas
+from repro.kernels.potrf import potrf_pallas
+from repro.kernels.trsm import trsm_pallas
+from repro_torch.kernels import ops, ref, ring
+from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+from repro_torch.kernels.potrf import potrf_cuda
+from repro_torch.kernels.trsm import trsm_cuda
+
+TILES = [8, 16, 32, 64]
+TOL = dict(rtol=2e-4, atol=2e-4)
+# grids (n, bandwidth, arrow, t): a single tile (bt=0), bt=0 with an arrow,
+# nat=0 with bt=1, a thick arrow and wide band, a deep band of small tiles,
+# and t = 32 and t = 64
+GRIDS = [(16, 4, 0, 16), (30, 6, 14, 16), (160, 8, 0, 16), (130, 40, 30, 16),
+         (96, 40, 16, 8), (200, 40, 40, 32), (300, 70, 70, 64)]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _spd(rng, nb, t):
+    a = rng.standard_normal((nb, t, t)).astype(np.float32)
+    return a @ a.transpose(0, 2, 1) + t * np.eye(t, dtype=np.float32)
+
+
+def _band(n, bw, ar, t, seed=0):
+    A, st = make_arrowhead(n, bw, ar, rho=0.6, seed=seed)
+    bm = JBandedCTSF.from_sparse(A, JTileGrid(st, t=t))
+    return np.array(jring.band_row_to_col(bm.Dr)), np.array(bm.R)
+
+
+@pytest.mark.parametrize("ndt,b1", [(1, 1), (5, 1), (5, 3), (3, 4), (7, 5)])
+def test_ring_converters(ndt, b1):
+    x = np.random.default_rng(ndt * 10 + b1).standard_normal(
+        (ndt, b1, 4, 4)).astype(np.float32)
+    np.testing.assert_array_equal(ring.band_row_to_col(_t(x)).numpy(),
+                                  np.asarray(jring.band_row_to_col(jnp.asarray(x))))
+    np.testing.assert_array_equal(ring.band_col_to_row(_t(x)).numpy(),
+                                  np.asarray(jring.band_col_to_row(jnp.asarray(x))))
+
+
+def test_ring_helpers():
+    for n in range(0, 20):
+        for c in range(0, 10):
+            assert ring.chunk_layout(n, c) == jring.chunk_layout(n, c)
+    for bt, t in [(0, 8), (3, 16)]:
+        np.testing.assert_array_equal(ring.identity_prefix_panel(bt, t).numpy(),
+                                      np.asarray(jring.identity_prefix_panel(bt, t)))
+        np.testing.assert_array_equal(ring.eye_tile(t).numpy(),
+                                      np.asarray(jring.eye_tile(t)))
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_potrf_ref(rng, t):
+    a = _spd(rng, 3, t)
+    got = ref.potrf_ref(_t(a)).numpy()
+    for i in range(3):
+        np.testing.assert_allclose(got[i], np.asarray(jref.potrf_ref(jnp.asarray(a[i]))), **TOL)
+    np.testing.assert_allclose(got, np.asarray(potrf_pallas(jnp.asarray(a))), **TOL)
+
+
+def test_potrf_ref_breakdown_is_nan():
+    """A non-PD tile gives a factor whose lower triangle is NaN, as
+    jnp.linalg.cholesky does, instead of torch's exception; the PD tiles of
+    the batch are unharmed."""
+    a = _spd(np.random.default_rng(1), 2, 8)
+    a[1, 3, 3] = -50.0
+    got = ref.potrf_ref(_t(a)).numpy()
+    want = np.asarray(jref.potrf_ref(jnp.asarray(a[1])))
+    np.testing.assert_array_equal(np.isnan(got[1]), np.isnan(want))
+    assert np.isnan(got[1][np.tril_indices(8)]).all()
+    np.testing.assert_allclose(got[0], np.asarray(jref.potrf_ref(jnp.asarray(a[0]))), **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_trsm_ref(rng, t):
+    l = np.asarray(jref.potrf_ref(jnp.asarray(_spd(rng, 1, t)[0])))
+    a = rng.standard_normal((4, t, t)).astype(np.float32)
+    got = ref.trsm_ref(_t(l), _t(a)).numpy()
+    for i in range(4):
+        np.testing.assert_allclose(got[i], np.asarray(jref.trsm_ref(jnp.asarray(l), jnp.asarray(a[i]))),
+                                   **TOL)
+    np.testing.assert_allclose(got, np.asarray(trsm_pallas(jnp.asarray(l), jnp.asarray(a))), **TOL)
+
+
+@pytest.mark.parametrize("n,bw,ar,t,nchunks", [g + (c,) for g, c in zip(GRIDS, (1, 3, 3, 3, 1, 3, 2))])
+def test_band_cholesky_sweep_ref(n, bw, ar, t, nchunks):
+    """The plain sweep against the JAX scan oracle and the Pallas kernel:
+    panels, factored arrow rows, per-chunk Schur sums and the status word."""
+    Ac, R = _band(n, bw, ar, t)
+    got = ref.band_cholesky_sweep_ref(_t(Ac), _t(R), nchunks=nchunks)
+    want = jref.band_cholesky_sweep_ref(jnp.asarray(Ac), jnp.asarray(R), nchunks=nchunks)
+    pallas = band_cholesky_sweep_pallas(jnp.asarray(Ac), jnp.asarray(R), nchunks=nchunks,
+                                        interpret=True)
+    for g, w, p, name in zip(got, want, pallas, ("panels", "R_out", "schur", "status")):
+        assert tuple(g.shape) == w.shape == p.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), err_msg=name, **TOL)
+    # the dispatcher takes the plain version for CPU tensors
+    for g, d in zip(got, ops.band_cholesky_sweep(_t(Ac), _t(R), nchunks=nchunks)):
+        torch.testing.assert_close(g, d, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("start_tile", [2, 5])
+def test_band_cholesky_sweep_start_tile(start_tile):
+    """Prefix columns emit identity panels and zero arrow rows; the rest
+    matches both JAX backends."""
+    Ac, R = _band(96, 16, 8, 8)
+    ndt, b1, t, _ = Ac.shape
+    pad = np.zeros((start_tile, b1, t, t), np.float32)
+    Ac = np.concatenate([pad, Ac])
+    R = np.concatenate([np.zeros((start_tile,) + R.shape[1:], np.float32), R])
+    got = ref.band_cholesky_sweep_ref(_t(Ac), _t(R), nchunks=3, start_tile=start_tile)
+    st = jnp.asarray(start_tile, jnp.int32)
+    want = jref.band_cholesky_sweep_ref(jnp.asarray(Ac), jnp.asarray(R), nchunks=3, start_tile=st)
+    pallas = band_cholesky_sweep_pallas(jnp.asarray(Ac), jnp.asarray(R), nchunks=3,
+                                        start_tile=st, interpret=True)
+    for g, w, p, name in zip(got, want, pallas, ("panels", "R_out", "schur", "status")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), err_msg=name, **TOL)
+    panels = got[0].numpy()
+    np.testing.assert_array_equal(panels[:start_tile, 0],
+                                  np.broadcast_to(np.eye(t), (start_tile, t, t)))
+    assert np.abs(panels[:start_tile, 1:]).max() == 0.0
+    assert np.abs(got[1].numpy()[:start_tile]).max() == 0.0
+
+
+@pytest.mark.parametrize("n,bw,ar,t", [(130, 40, 30, 16), (96, 40, 16, 8), (16, 4, 0, 16)])
+def test_band_cholesky_sweep_breakdown_status(n, bw, ar, t):
+    """An indefinite diagonal tile is flagged with the same nonfinite bit
+    and first failing column as both JAX backends, and the same pivot."""
+    Ac, R = _band(n, bw, ar, t)
+    bad = Ac.shape[0] // 2
+    Ac[bad, 0] -= 10.0 * np.abs(np.diagonal(Ac[:, 0], axis1=-2, axis2=-1)).mean() * np.eye(t, dtype=np.float32)
+    got = ref.band_cholesky_sweep_ref(_t(Ac), _t(R))[3].numpy()
+    want = np.asarray(jref.band_cholesky_sweep_ref(jnp.asarray(Ac), jnp.asarray(R))[3])
+    pallas = np.asarray(band_cholesky_sweep_pallas(jnp.asarray(Ac), jnp.asarray(R),
+                                                   interpret=True)[3])
+    assert got[1] == want[1] == pallas[1] == 1.0
+    assert got[2] == want[2] == pallas[2]
+    assert 0 <= got[2] <= bad
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(got[0], pallas[0], rtol=2e-4, atol=1e-6)
+
+
+def test_sweep_status_matches_reference():
+    rng = np.random.default_rng(3)
+    panels = rng.standard_normal((6, 3, 8, 8)).astype(np.float32)
+    r_out = rng.standard_normal((6, 2, 8, 8)).astype(np.float32)
+    panels[2, 1, 0, 0] = np.nan
+    panels[4, 0, 3, 3] = 0.0
+    r_out[5, 0, 1, 1] = np.inf
+    np.testing.assert_array_equal(ref.sweep_status(_t(panels), _t(r_out)).numpy(),
+                                  np.asarray(jref.sweep_status(jnp.asarray(panels),
+                                                               jnp.asarray(r_out))))
+    np.testing.assert_array_equal(ref.empty_sweep_status().numpy(),
+                                  np.asarray(jref.empty_sweep_status()))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never compute on the CPU, and the dispatcher
+    never sends a CPU tensor to them on its own."""
+    a = _t(_spd(np.random.default_rng(0), 1, 8)[0])
+    for call in (lambda: potrf_cuda(a), lambda: trsm_cuda(a, a),
+                 lambda: band_cholesky_sweep_cuda(a[None, None], a[None, None]),
+                 lambda: ops.potrf(a, impl="cuda")):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="impl"):
+        ops.trsm(a, a, impl="pallas")
+    before = (potrf_cuda.launches, trsm_cuda.launches, band_cholesky_sweep_cuda.launches)
+    ops.potrf(a), ops.trsm(a, a), ops.band_cholesky_sweep(a[None, None], a[None, None])
+    assert (potrf_cuda.launches, trsm_cuda.launches,
+            band_cholesky_sweep_cuda.launches) == before
