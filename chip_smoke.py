@@ -178,24 +178,25 @@ def dense_from_ctsf(torch, m, dtype, symmetric):
     return out
 
 
-def sweep_flops(ndt, bt, nat, t, start=0):
-    """Operations the band sweep does on this shape: per computed column
-    the band and arrow updates, the Schur partial sum (j <= i), one potrf
-    and bt + nat tile solves."""
-    f = 0.0
-    for k in range(start, ndt):
-        jmax = min(bt, k)
-        prods = sum(min(bt - e, k) for e in range(bt + 1)) + nat * jmax + nat * (nat + 1) // 2
-        f += prods * 2.0 * t ** 3 + t ** 3 / 3.0 + (bt + nat) * t ** 3
-    return f
-
-
-def corner_flops(nat, t):
-    """Operations of the dense corner factorization (syrk, gemm, potrf, trsm)."""
-    f = 0.0
-    for k in range(nat):
-        f += 2.0 * k * t ** 3 + 2.0 * nat * k * t ** 3 + t ** 3 / 3.0 + nat * t ** 3
-    return f
+def needed_flops(grid):
+    """Operations the factorization of ``grid`` needs, split into the band
+    sweep's share and the dense corner's: the symbolic task list of its
+    dense-band pattern (``core.symbolic``), a POTRF t^3/3, a SYRK t^3 (its
+    product is symmetric, so one triangle is needed), a TRSM t^3 and a GEMM
+    2 t^3.  The sweep owns every task on a band column and every
+    corner-Schur update from one; the rest is the corner's."""
+    from repro_torch.core import (TaskType, banded_arrowhead_tile_pattern,
+                                  symbolic_factorize)
+    t, ndt = grid.t, grid.n_diag_tiles
+    cost = {TaskType.POTRF: t ** 3 / 3.0, TaskType.SYRK: float(t) ** 3,
+            TaskType.TRSM: float(t) ** 3, TaskType.GEMM: 2.0 * t ** 3}
+    sweep = corner = 0.0
+    for task in symbolic_factorize(banded_arrowhead_tile_pattern(grid)).tasks:
+        if task.k < ndt or 0 <= task.n < ndt:
+            sweep += cost[task.type]
+        else:
+            corner += cost[task.type]
+    return sweep, corner
 
 
 def run_matrix(torch, matrix_id, device=None, scale=1.0, kern_counts=None):
@@ -235,13 +236,16 @@ def run_matrix(torch, matrix_id, device=None, scale=1.0, kern_counts=None):
     ld_rel = abs(ld - oracle) / abs(oracle)
     del Ad, Ld
     finite = all(torch.isfinite(x).all().item() for x in f.ctsf.arrays())
-    if not finite or resid > 1e-4 or ld_rel > 1e-4:
-        raise AssertionError(f"matrix {matrix_id}: finite={finite} residual={resid:.3e} "
-                             f"logdet={ld} oracle={oracle} rel={ld_rel:.3e}")
+    status = f.status.tolist()
+    if not finite or status[1:] != [0.0, -1.0] or resid > 1e-4 or ld_rel > 1e-4:
+        raise AssertionError(f"matrix {matrix_id}: finite={finite} status={status} "
+                             f"residual={resid:.3e} logdet={ld} oracle={oracle} "
+                             f"rel={ld_rel:.3e}")
     rec = dict(matrix=matrix_id, n=measured.n, bandwidth=measured.bandwidth,
                arrow=measured.arrow, t=t, ndt=ndt, bt=bt, nat=nat,
                host_setup_s=round(host_s, 3), residual=resid, logdet=ld,
-               logdet_oracle=oracle, logdet_rel_err=ld_rel, launches=launches)
+               logdet_oracle=oracle, logdet_rel_err=ld_rel, status=status,
+               launches=launches)
     return rec, m, f
 
 
@@ -348,6 +352,7 @@ def main() -> int:
     m, f = mats[TABLE2_IDS[0]]
     g = m.grid
     ndt, bt, nat, t = g.n_diag_tiles, g.band_tiles, g.n_arrow_tiles, g.t
+    sweep_ops, _ = needed_flops(g)
     nchunks = max(1, min(8, ndt))
     Ac = band_row_to_col(m.Dr)
     sweep_k = lambda: band_cholesky_sweep_cuda(Ac, m.R, nchunks=nchunks)
@@ -379,7 +384,7 @@ def main() -> int:
              20, nat * float(t) ** 3, 4 * t * t * (1 + 2 * nat), trsm_err),
             ("band_cholesky_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
              "src/repro/kernels/band_cholesky.py:168", sweep_k, sweep_p, None, 1,
-             sweep_flops(ndt, bt, nat, t), sweep_bytes, sweep_err)):
+             sweep_ops, sweep_bytes, sweep_err)):
         # call time: CUDA events around `inner` calls, host overhead included;
         # device time: the kernels alone, from the profiler
         call = dict(kernel=time_ms(torch, fk, inner=inner),
@@ -395,13 +400,19 @@ def main() -> int:
         timing = "device" if all(on_device.get(w) for w in on_device) else "events"
         pick = on_device if timing == "device" else call
         b_ms, b_by = bound(flops, nbytes)
+        # launches: the main path's total over every matrix it ran, and per
+        # factorize_window of each; the times are at matrix TABLE2_IDS[0]'s shapes
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=main_launches[name], max_abs_err=err,
+                            launches=main_launches[name],
+                            launches_per_factorize_window={
+                                str(r["matrix"]): r["launches"][name] for r in records},
+                            max_abs_err=err,
                             ms=pick["kernel"], plain_ms=pick["plain"], bound_ms=b_ms,
                             bound_by=b_by, library_ms=pick.get("library"), timing=timing,
                             call_ms=call["kernel"], plain_call_ms=call["plain"],
                             library_call_ms=call["library"],
-                            shape=dict(ndt=ndt, bt=bt, nat=nat, t=t)))
+                            timed_shape=dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt,
+                                             nat=nat, t=t)))
         fmt = lambda v: "-" if v is None else f"{v:.4f}"
         log(f"time {name}: device {fmt(on_device.get('kernel'))} ms, call {fmt(call['kernel'])} ms; "
             f"plain device {fmt(on_device.get('plain'))} ms, call {fmt(call['plain'])} ms; library "
@@ -432,8 +443,7 @@ def main() -> int:
         fw()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        fl = sweep_flops(gg.n_diag_tiles, gg.band_tiles, gg.n_arrow_tiles, gg.t) + \
-            corner_flops(gg.n_arrow_tiles, gg.t)
+        fl = sum(needed_flops(gg))
         log(f"factorize_window+logdet: Table II matrix {rec['matrix']}: {ms:.3f} ms "
             f"median of 7, {fl / ms / 1e6:.1f} GFLOP/s ({fl / 1e9:.3f} GFLOP counted), "
             f"peak {peak / 2 ** 20:.1f} MiB above the inputs, card {card}")

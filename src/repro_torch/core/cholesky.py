@@ -4,10 +4,10 @@
 BandedCTSF` in two phases:
 
 * the band + arrow rows in one sweep (``kernels.ops.band_cholesky_sweep``):
-  on the card a single CUDA kernel launch walks every band column
-  (``sweep="fused"``); the plain version is a column loop (``"ring"``).
-  The sweep also returns the corner-Schur complement as per-chunk partial
-  sums, the leaves of the paper's Alg. 3 tree;
+  on the card a single CUDA kernel launch walks every band column; the
+  plain version is a column loop.  The sweep also returns the
+  corner-Schur complement as per-chunk partial sums, the leaves of the
+  paper's Alg. 3 tree;
 * the dense corner, ``C - sum(schur)``, column by column with the
   ``potrf`` and ``trsm`` tile kernels.
 
@@ -36,9 +36,18 @@ __all__ = ["CholeskyFactor", "factorize_window"]
 
 @dataclasses.dataclass
 class CholeskyFactor:
-    """Factor L in the banded-arrowhead CTSF layout."""
+    """Factor L in the banded-arrowhead CTSF layout.
+
+    ``status`` is the (3,) float32 breakdown word ``[min_pivot, nonfinite,
+    first_bad]`` over band and corner, on the factor's device:
+    ``first_bad`` is the first band column whose tile broke down (``ndt``
+    for the corner) and -1 when the factorization is clean.  A breakdown
+    is reported here, not raised: the factor then holds NaN from that
+    column on, as the reference's does.
+    """
 
     ctsf: BandedCTSF
+    status: Optional[torch.Tensor] = None
 
     def logdet(self) -> torch.Tensor:
         """log det A = 2 * sum log diag(L); padded diagonal entries are 1."""
@@ -73,25 +82,15 @@ def _corner_dense_cholesky(c: torch.Tensor, impl: Optional[str]) -> torch.Tensor
 
 
 def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
-                           tree_chunks: int, sweep: str = "auto"):
-    """Window factorization with sweep-mode dispatch: ``"auto"`` is
-    ``"fused"`` on the CUDA backend and ``"ring"`` on the plain one.
-    Returns ``(Dr_L, R_L, C_L, status)``, ``status`` the (3,) float32 word
-    ``[min_pivot, nonfinite, first_bad]`` over band and corner (a corner
-    breakdown reports ``first_bad = ndt``)."""
+                           tree_chunks: int):
+    """Window factorization: the one-launch sweep on the CUDA backend, the
+    column loop on the plain one.  Returns ``(Dr_L, R_L, C_L, status)``,
+    ``status`` the (3,) float32 word ``[min_pivot, nonfinite, first_bad]``
+    over band and corner (a corner breakdown reports ``first_bad = ndt``)."""
     nat = grid.n_arrow_tiles
-    if (sweep == "ring" and impl == "cuda") or (sweep == "fused" and impl == "ref"):
-        raise ValueError(
-            f"sweep={sweep!r} contradicts impl={impl!r}: the ring sweep is the "
-            "plain column loop and the fused sweep is the CUDA kernel; use "
-            "sweep='auto' to dispatch by impl")
-    mode = sweep
-    if mode == "auto":
-        mode = "fused" if ops.resolve_impl(impl, Dr) == "cuda" else "ring"
     nchunks = max(1, min(tree_chunks or 1, grid.n_diag_tiles or 1))
     panels, R_out, schur, status = ops.band_cholesky_sweep(
-        band_row_to_col(Dr), R, nchunks=nchunks,
-        impl="cuda" if mode == "fused" else "ref")
+        band_row_to_col(Dr), R, nchunks=nchunks, impl=impl)
     Dr_out = band_col_to_row(panels)
     if nat:
         # the chunks are the tree-reduction leaves; summing them is the
@@ -110,8 +109,9 @@ def factorize_window(m: BandedCTSF, tree_chunks: int = 8,
     On the card the whole band + arrow block factorizes in one CUDA kernel
     launch and the corner with ``nat`` ``potrf`` and ``nat`` ``trsm``
     launches; ``options`` (:class:`~repro_torch.core.options.SolverOptions`)
-    can force the plain versions (``impl="ref"``) or a sweep mode."""
+    can force the plain versions (``impl="ref"``).  A breakdown does not
+    raise: the factor's ``status`` word reports it."""
     opts = options if options is not None else SolverOptions()
-    Dr, R, C, _status = _factorize_window_impl(
-        m.Dr, m.R, m.C, m.grid, opts.impl, tree_chunks, opts.sweep)
-    return CholeskyFactor(BandedCTSF(m.grid, Dr, R, C))
+    Dr, R, C, status = _factorize_window_impl(
+        m.Dr, m.R, m.C, m.grid, opts.impl, tree_chunks)
+    return CholeskyFactor(BandedCTSF(m.grid, Dr, R, C), status)

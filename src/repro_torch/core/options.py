@@ -1,17 +1,18 @@
 """Solver options for the port's entry points.
 
-The JAX package's ``SolverOptions`` also carries the bucketing policy, the
-regularization ladder, the partition plan and the marginal-variance
-method; those fields come with the slices that port them.
+The JAX package's ``SolverOptions`` also carries the sweep schedule, the
+bucketing policy, the regularization ladder, the partition plan and the
+marginal-variance method; those fields come with the slices that port
+them.  The sweep schedule has no field yet: the port has one sweep per
+backend (the one-launch CUDA kernel, or the plain column loop), so
+``impl`` chooses it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["SolverOptions", "SWEEPS"]
-
-SWEEPS = ("auto", "fused", "ring")
+__all__ = ["SolverOptions"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,21 +20,15 @@ class SolverOptions:
     """How to factorize — everything except the data itself.
 
     Fields:
-      impl: kernel backend — ``"cuda"`` (the hand-written kernels),
-        ``"ref"`` (the plain PyTorch versions) or None: the kernels for
-        tensors on the card, the plain versions for tensors on the CPU.
-      sweep: factorization sweep — ``"auto"`` (default: ``"fused"`` with
-        the kernels, else ``"ring"``), ``"fused"`` (the one-launch CUDA
-        sweep) or ``"ring"`` (the plain column loop).
+      impl: kernel backend — ``"cuda"`` (the hand-written kernels, the
+        band sweep in one launch), ``"ref"`` (the plain PyTorch versions,
+        the band sweep as a column loop) or None: the kernels for tensors
+        on the card, the plain versions for tensors on the CPU.
     """
 
     impl: Optional[str] = None
-    sweep: str = "auto"
 
     def __post_init__(self):
         if self.impl not in (None, "ref", "cuda"):
             raise ValueError(f"unknown impl {self.impl!r} (want 'cuda', "
                              "'ref' or None)")
-        if self.sweep not in SWEEPS:
-            raise ValueError(f"unknown sweep {self.sweep!r} (want one of "
-                             f"{SWEEPS})")

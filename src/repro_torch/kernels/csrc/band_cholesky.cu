@@ -13,7 +13,7 @@
 //   V[i] = sum_j L[ndt+i, k-j] L[k, k-j]^T (j = 1..bt)
 //   L_kk = chol(A_kk - U[0]), in registers
 //   the bt band tiles and nat arrow rows below it: (input - update) L_kk^{-T},
-//   one batched right-substitution, four rows to a warp
+//   one batched right-substitution, kSubRows (8) rows to a warp
 //   schur[k / csz] += L_a L_a^T, the chunk's partial sum
 //   the status fold of the TPU kernel, from the emitted column
 // Columns k < start are an identity-embedding prefix: they emit an identity
@@ -25,10 +25,13 @@
 // there is no ring.
 //
 // Bound on this card: operations.  Per column the updates are
-// bt(bt+1)/2 + bt*nat + nat(nat+1)/2 tile products of 2 T^3 flops each, so
-// the Table II matrix 5 shape (ndt = 157, bt = 4, nat = 4, T = 64) does
-// about 3.7 Gflop and moves about 45 MB: tens of microseconds at the card's
-// fp32 rate, a few at its memory rate.  This first design is one block of
+// bt(bt+1)/2 + bt*nat + nat(nat+1)/2 tile products.  The diagonal update
+// U[0] and the Schur tiles S[i, i] are symmetric, so each of their products
+// needs T^3 flops and every other one 2 T^3: the Table II matrix 5 shape
+// (ndt = 157, bt = 4, nat = 4, T = 64) needs about 2.94 Gflop (this kernel
+// forms the symmetric tiles in full, about 3.27 Gflop) and moves about
+// 48 MB: tens of microseconds at the card's fp32 rate, a few at its memory
+// rate.  This first design is one block of
 // 256 threads, so it is held to the fp32 rate of one SM of 132; its tile
 // products are plain FP32 FMAs (no TF32: it keeps about 3 decimal digits)
 // from operands staged transposed in shared memory, a 4 x 4 block of

@@ -9,7 +9,7 @@
 // little work to reach either bound, and the T-long dependency chain of the
 // substitution is what its time is made of.  The design gives each block
 // one tile with L (transposed) in shared memory; the rows of X L^T = A are
-// independent, so each warp solves four rows at once with its lanes owning
+// independent, so each warp solves kSubRows (8) rows at once with its lanes owning
 // columns, broadcasting each solved entry by shuffle: no block barrier
 // inside the substitution.
 #include "tile.cuh"

@@ -2,8 +2,9 @@
 
 Port of the TPU kernel ``repro/kernels/trsm.py::trsm_pallas``: ``X = A
 L^{-T}`` for a batch of tiles, one L for all of them or one per tile.
-Each thread solves whole rows of ``X L^T = A`` with the row in registers
-(``csrc/tile.cuh::substitute_right_row``, shared with the band-Cholesky
+Each warp solves eight rows of ``X L^T = A`` together, its lanes owning
+the columns and each solved entry broadcast by shuffle
+(``csrc/tile.cuh::substitute_right_rows``, shared with the band-Cholesky
 sweep).  The plain version is ``ref.trsm_ref``; ``ops.trsm`` chooses
 between them by device.  ``solve_panel_pallas`` is not ported yet.
 """

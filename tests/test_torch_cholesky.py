@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -147,34 +148,44 @@ def test_options_dispatch_on_the_cpu():
     _, tm = _pair(130, 40, 30, 16)
     counts = (potrf_cuda.launches, trsm_cuda.launches, band_cholesky_sweep_cuda.launches)
     f_auto = factorize_window(tm)
-    f_ring = factorize_window(tm, options=SolverOptions(impl="ref", sweep="ring"))
-    for a, b in zip(f_auto.ctsf.arrays(), f_ring.ctsf.arrays()):
+    f_ref = factorize_window(tm, options=SolverOptions(impl="ref"))
+    for a, b in zip(f_auto.ctsf.arrays(), f_ref.ctsf.arrays()):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(f_auto.status, f_ref.status, rtol=0, atol=0)
     assert (potrf_cuda.launches, trsm_cuda.launches,
             band_cholesky_sweep_cuda.launches) == counts
     with pytest.raises(ValueError, match="CUDA"):
-        factorize_window(tm, options=SolverOptions(sweep="fused"))
-    with pytest.raises(ValueError, match="CUDA"):
         factorize_window(tm, options=SolverOptions(impl="cuda"))
-    with pytest.raises(ValueError, match="contradicts"):
-        factorize_window(tm, options=SolverOptions(impl="ref", sweep="fused"))
     with pytest.raises(ValueError, match="unknown"):
         SolverOptions(impl="pallas")
-    with pytest.raises(ValueError, match="unknown"):
-        SolverOptions(sweep="window")
+    with pytest.raises(TypeError):
+        SolverOptions(sweep="fused")
 
 
-def test_breakdown_is_reported_not_raised():
-    """An indefinite matrix factorizes to a non-finite factor through the
-    plain path, as the reference does, instead of raising."""
+@pytest.mark.parametrize("where,first_bad", [("band", 3.0), ("corner", None)])
+def test_breakdown_is_reported_not_raised(where, first_bad):
+    """An indefinite matrix factorizes to a non-finite factor, as the
+    reference does, and the factor's status word says where: the band
+    column of the bad tile, or ``ndt`` for the corner.  The word matches
+    the reference's ``[min_pivot, nonfinite, first_bad]`` fold."""
+    from repro.core.cholesky import _factorize_window_impl as j_impl
     jm, tm = _pair(130, 40, 30, 16)
-    Dr = tm.Dr.clone()
-    Dr[3, 0] -= 1e3 * torch.eye(16)
-    bad = BandedCTSF(tm.grid, Dr, tm.R, tm.C)
-    from repro_torch.core.cholesky import _factorize_window_impl
-    *_, status = _factorize_window_impl(bad.Dr, bad.R, bad.C, bad.grid, None, 8)
-    assert status[1].item() == 1.0 and status[2].item() == 3.0
-    *_, clean = _factorize_window_impl(tm.Dr, tm.R, tm.C, tm.grid, None, 8)
+    ndt = tm.grid.n_diag_tiles
+    Dr, C = tm.Dr.clone(), tm.C.clone()
+    if where == "band":
+        Dr[3, 0] -= 1e3 * torch.eye(16)
+    else:
+        C[1, 1] -= 1e3 * torch.eye(16)
+        first_bad = float(ndt)
+    bad = BandedCTSF(tm.grid, Dr, tm.R, C)
+    f = factorize_window(bad)
+    assert f.status.shape == (3,) and f.status.dtype == torch.float32
+    assert f.status[1].item() == 1.0 and f.status[2].item() == first_bad
+    assert not bool(torch.isfinite(f.ctsf.C).all())
+    *_, jstatus = j_impl(jnp.asarray(Dr.numpy()), jm.R, jnp.asarray(C.numpy()), jm.grid,
+                         "ref", 8)
+    np.testing.assert_array_equal(f.status[1:].numpy(), np.asarray(jstatus)[1:])
+    clean = factorize_window(tm).status
     assert clean[1].item() == 0.0 and clean[2].item() == -1.0 and clean[0].item() > 0
 
 

@@ -101,3 +101,21 @@ def test_factorize_window_on_the_card(cuda, t):
         torch.testing.assert_close(g.cpu(), w, **TOL)
     want = float(logdet(fc))
     assert abs(ld - want) <= 1e-5 * abs(want)
+    assert f.status.device == cuda
+    assert f.status[1:].tolist() == fc.status[1:].tolist() == [0.0, -1.0]
+
+
+def test_factorize_window_breakdown_status_on_the_card(cuda):
+    """A breakdown on the card is reported on the factor, as on the CPU:
+    the band column of the bad tile, or ``ndt`` for the corner."""
+    for where in ("band", "corner"):
+        m = _matrix(16, cuda)
+        Dr, C = m.Dr.clone(), m.C.clone()
+        if where == "band":
+            Dr[3, 0] -= 1e3 * torch.eye(16, device=cuda)
+        else:
+            C[1, 1] -= 1e3 * torch.eye(16, device=cuda)
+        f = factorize_window(BandedCTSF(m.grid, Dr, m.R, C))
+        fc = factorize_window(BandedCTSF(m.grid, Dr.cpu(), m.R.cpu(), C.cpu()))
+        want = 3.0 if where == "band" else float(m.grid.n_diag_tiles)
+        assert f.status[1:].tolist() == fc.status[1:].tolist() == [1.0, want], where

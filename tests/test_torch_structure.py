@@ -141,3 +141,32 @@ def test_tile_counts_constructor():
     tp = tordering.PartitionPlan(boundaries=(0, 3, 7)).shifted(2)
     assert (jp.boundaries, jp.max_tiles, jp.n_partitions) == \
         (tp.boundaries, tp.max_tiles, tp.n_partitions)
+
+
+@pytest.mark.parametrize("tiles", [(157, 4, 4), (157, 4, 1), (6, 2, 0), (1, 0, 2), (9, 3, 3)])
+def test_chip_smoke_counts_needed_flops(tiles):
+    """The operation count behind chip_smoke.py's bounds is the work the
+    factorization needs: per band column a symmetric diagonal update (t^3
+    per product), band and arrow updates (2 t^3), a potrf, one solve per
+    existing tile below it and the corner-Schur update (t^3 per symmetric
+    S[i, i], 2 t^3 per other tile); the corner is a dense Cholesky."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ndt, bt, nat = tiles
+    t = 16
+    sweep, corner = chip_smoke.needed_flops(
+        tstructure.TileGrid.from_tile_counts(t, ndt, bt, nat))
+    want = 0.0
+    for k in range(ndt):
+        jmax, nb = min(bt, k), min(bt, ndt - 1 - k)
+        want += jmax * t ** 3 + sum(min(bt - e, k) for e in range(1, nb + 1)) * 2 * t ** 3
+        want += nat * jmax * 2 * t ** 3 + t ** 3 / 3 + (nb + nat) * t ** 3 + nat * nat * t ** 3
+    assert sweep == pytest.approx(want, rel=1e-12)
+    # corner column k: potrf, syrk over k columns, nat-1-k solves and gemms
+    want_corner = sum(t ** 3 / 3 + k * t ** 3 + (nat - 1 - k) * (1 + 2 * k) * t ** 3
+                      for k in range(nat))
+    assert corner == pytest.approx(want_corner, rel=1e-12)
