@@ -9,19 +9,30 @@ Phases, each of which raises on a failed check:
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a and print what
    ptxas reports (registers, shared memory, spills);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   t in {8, 16, 32, 64}, bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile in
-   {0, 2}, nchunks in {1, 3}, plus a breakdown input whose status word
-   must match exactly;
+   at rtol = atol = 2e-4: potrf and trsm for t in {8, 16, 32, 64}; the
+   band-Cholesky sweep for bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile
+   in {0, 2}, nchunks in {1, 3}, plus a breakdown input whose status word
+   must match exactly; solve_panel for both trans and k in {1, 7, 32, 64};
+   both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
+   (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}; the selinv
+   sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1, 4},
+   start_tile in {0, 2};
 3. main path at full size: Table II matrices 5 (n=10,200, bandwidth 200,
    arrow 200) and 2 (n=10,010, bandwidth 200, arrow 10), seed 0, t=64:
    measure_arrowhead -> TileGrid -> BandedCTSF.from_sparse ->
-   factorize_window -> logdet, with launch counts, the factor residual and
-   logdet against a float64 oracle on the card;
+   factorize_window -> logdet, then solve (k=1), solve_many (k=32),
+   sample_gmrf_many (32 draws), selected_inverse and marginal_variances
+   with both methods, each with its launch counts and checked on the card
+   against float64 oracles (factor residual, logdet, solve residual and
+   forward error, L^T x = z, every stored entry of Σ, the variances);
 4. timings at the main path's shapes: each kernel, its plain version and
-   a one-call PyTorch yardstick where there is one (device time from
-   torch.profiler, call time from CUDA events), beside the kernel's bound;
-   where the sweep's cycles go, from a phase-marked build of its kernel;
-   factorize_window end to end.
+   a one-call PyTorch yardstick where there is one (device time, for all
+   three alike, from CUDA events around a CUDA graph of the calls; call
+   time from CUDA events around the calls themselves), beside the
+   kernel's bound;
+   where the factorization sweep's cycles go, from a phase-marked build
+   of its kernel; factorize_window, solve_many, selected_inverse and
+   marginal_variances end to end.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -46,6 +57,15 @@ PEAK_HBM_BYTES = 3.35e12
 TOL = 2e-4          # rtol = atol, the tolerance of the repo's kernel tests
 TILES = (8, 16, 32, 64)
 TABLE2_IDS = (5, 2)
+# limits of the main path's checks (PERF.md section 2): the factor's and
+# the solves' relative residuals, the solve's forward error against
+# float64 (test_solve_batched.py's rtol), Σ's error on its stored pattern
+# relative to max|Σ|, and the variances' relative error (test_selinv.py)
+RESIDUAL_LIMIT = 1e-4
+SOLVE_RTOL = 2e-3
+SIGMA_LIMIT = 1e-4
+VARIANCE_RTOL = 1e-4
+SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
 
 
 def log(msg: str) -> None:
@@ -88,6 +108,56 @@ def random_band_arrow(torch, ndt, bt, nat, t, seed, device, bad_tile=None):
         for i in range(nat):
             R[k, i] = a[(ndt + i) * t:(ndt + i + 1) * t, k * t:(k + 1) * t]
     return (torch.from_numpy(Ac).to(device), torch.from_numpy(R).to(device))
+
+
+def random_lower(torch, nb, t, seed, device):
+    """Well-conditioned lower-triangular (nb, t, t) tiles."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = np.tril(rng.standard_normal((nb, t, t))) + t * np.eye(t)
+    return torch.from_numpy(x.astype(np.float32)).to(device)
+
+
+def random_band_factor(torch, ndt, bt, nat, t, seed, device):
+    """Row-band factor tiles Dr (ndt, bt+1, t, t), zero above the band,
+    and arrow rows R (ndt, nat, t, t), as the repo's kernel tests make."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Dr = rng.standard_normal((ndt, bt + 1, t, t)).astype(np.float32)
+    Dr[:, 0] = random_lower(torch, ndt, t, seed + 1, "cpu").numpy()
+    for m in range(ndt):
+        Dr[m, min(m, bt) + 1:] = 0.0
+    R = rng.standard_normal((ndt, nat, t, t)).astype(np.float32)
+    return torch.from_numpy(Dr).to(device), torch.from_numpy(R).to(device)
+
+
+def selinv_inputs(torch, ndt, bt, nat, t, seed, device):
+    """A real factor's column view (ndt, bt+1, t, t), arrow rows and full
+    corner Σ, from the float64 Cholesky factor of a random diagonally
+    dominant banded-arrowhead matrix scaled to a unit mean diagonal."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = (ndt + nat) * t
+    tile = np.arange(n) // t
+    ti, tj = tile[:, None], tile[None, :]
+    mask = ((ti < ndt) & (tj < ndt) & (np.abs(ti - tj) <= bt)) | (ti >= ndt) | (tj >= ndt)
+    a = np.where(mask, rng.standard_normal((n, n)), 0.0)
+    a = np.tril(a) + np.tril(a, -1).T
+    a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + 1.0
+    L = np.linalg.cholesky(a / a.diagonal().mean())
+    tl = lambda i, j: L[i * t:(i + 1) * t, j * t:(j + 1) * t]
+    lcol = np.zeros((ndt, bt + 1, t, t))
+    R = np.zeros((ndt, nat, t, t))
+    for j in range(ndt):
+        for d in range(bt + 1):
+            if j + d < ndt:
+                lcol[j, d] = tl(j + d, j)
+        for i in range(nat):
+            R[j, i] = tl(ndt + i, j)
+    w = np.linalg.inv(L[ndt * t:, ndt * t:])
+    sc = (w.T @ w).reshape(nat, t, nat, t).transpose(0, 2, 1, 3)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+                 for x in (lcol, R, sc))
 
 
 def random_spd(torch, nb, t, seed, device):
@@ -153,6 +223,52 @@ def phase_kernels(torch, device, kern, ref):
                                  "not flag tile 2")
         assert_close(torch, got[0][:2], want[0][:2], f"breakdown t={t} clean panels")
         nchecks += 1
+    return nchecks
+
+
+def phase_solve_kernels(torch, device, kern, ref):
+    """The solve and selected-inversion kernels against their plain
+    versions; returns the number of comparisons."""
+    nchecks = 0
+    for t in TILES:
+        l = random_lower(torch, 3, t, t, device)
+        for k in (1, 7, 32, 64):
+            b = torch.randn((3, t, k), generator=torch.Generator().manual_seed(k)).to(device)
+            for trans in (False, True):
+                what = f"solve_panel t={t} k={k} trans={trans}"
+                assert_close(torch, kern["solve_panel"](l[0], b, trans=trans),
+                             ref.solve_panel_ref(l[0], b, trans=trans), what)
+                nchecks += 1
+        for ndt, bt, nat in SOLVE_SWEEPS:
+            Dr, R = random_band_factor(torch, ndt, bt, nat, t, 10 * ndt + bt, device)
+            for k in (1, 33):
+                g = torch.Generator().manual_seed(k)
+                bd = torch.randn((ndt, t, k), generator=g).to(device)
+                xa = torch.randn((nat, t, k), generator=g).to(device)
+                for start in (0, 2):
+                    start = min(start, ndt - 1)
+                    b0 = bd.clone()
+                    b0[:start] = 0.0
+                    what = f"t={t} ndt={ndt} bt={bt} nat={nat} k={k} start={start}"
+                    got = kern["band_forward_sweep"](Dr, R, b0, start)
+                    want = ref.band_forward_sweep_ref(Dr, R, b0, start)
+                    for a, w, part in zip(got, want, ("yd", "acc_a")):
+                        assert_close(torch, a, w, f"band_forward_sweep {what} {part}")
+                    assert_close(torch, kern["band_backward_sweep"](Dr, R, b0, xa, start),
+                                 ref.band_backward_sweep_ref(Dr, R, b0, xa, start),
+                                 f"band_backward_sweep {what}")
+                    nchecks += 2
+    for t in (16, 64):
+        for bt in (0, 1, 4):
+            for nat in (0, 1, 4):
+                lcol, R, sc = selinv_inputs(torch, 6, bt, nat, t, 1000 + 10 * bt + nat, device)
+                for start in (0, 2):
+                    what = f"selinv_sweep t={t} bt={bt} nat={nat} start={start}"
+                    got = kern["selinv_sweep"](lcol, R, sc, start)
+                    want = ref.selinv_sweep_ref(lcol, R, sc, start)
+                    for a, w, part in zip(got, want, ("panels", "acols")):
+                        assert_close(torch, a, w, f"{what} {part}")
+                    nchecks += 1
     return nchecks
 
 
@@ -223,7 +339,8 @@ def run_matrix(torch, matrix_id, device=None, scale=1.0, kern_counts=None):
     if kern_counts:
         after = kern_counts()
         launches = {k: after[k] - before[k] for k in after}
-        want = {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+        want = {k: 0 for k in after}
+        want.update(band_cholesky_sweep=1, potrf=nat, trsm=nat)
         if launches != want:
             raise AssertionError(f"matrix {matrix_id}: launches {launches} != {want}")
 
@@ -249,6 +366,113 @@ def run_matrix(torch, matrix_id, device=None, scale=1.0, kern_counts=None):
     return rec, m, f
 
 
+def launch_delta(kern_counts, fn, want, what):
+    """Run ``fn`` and check the kernel launches it made against ``want``
+    (name -> count, every kernel not named must stay at 0)."""
+    before = kern_counts()
+    out = fn()
+    after = kern_counts()
+    got = {k: after[k] - before[k] for k in after}
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got} != {full}")
+    return out, {k: v for k, v in got.items() if v}
+
+
+def run_solves(torch, matrix_id, m, f, kern_counts):
+    """The solve half of the main path on one factored Table II matrix:
+    solve, solve_many, sample_gmrf_many, selected_inverse and both
+    marginal_variances methods, each with its launch counts, checked
+    against float64 oracles on the card; returns their record."""
+    from repro_torch.core import (SolverOptions, marginal_variances, sample_gmrf_many,
+                                  selected_inverse, solve, solve_many)
+    g = m.grid
+    n, ndt, nat, t = g.structure.n, g.n_diag_tiles, g.n_arrow_tiles, g.t
+    dev = m.device
+    per_solve = {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2 * nat}
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    gen = torch.Generator(device=dev).manual_seed(matrix_id)
+    B = torch.randn((g.padded_n, 32), generator=gen, device=dev)
+    real = torch.zeros(g.padded_n, dtype=torch.bool, device=dev)
+    real[:g.structure.n_diag] = True
+    real[ndt * t:ndt * t + g.structure.arrow] = True
+    B[~real] = 0.0
+    rec, launches = {}, {}
+
+    def solve_check(X, Bk, what):
+        X64, B64 = X.double(), Bk.double()
+        resid = ((Ad @ X64 - B64).abs().max() / (Ad.abs().max() * X64.abs().max())).item()
+        exact = torch.cholesky_solve(B64, Ld)
+        fwd = ((X64 - exact).abs().max() / exact.abs().max()).item()
+        if not (resid <= RESIDUAL_LIMIT and fwd <= SOLVE_RTOL):
+            raise AssertionError(f"matrix {matrix_id} {what}: residual {resid:.3e} "
+                                 f"(limit {RESIDUAL_LIMIT}), forward error {fwd:.3e} "
+                                 f"(limit {SOLVE_RTOL})")
+        return resid, fwd
+
+    x, launches["solve"] = launch_delta(kern_counts, lambda: solve(f, B[:, 0]), per_solve,
+                                        f"matrix {matrix_id} solve")
+    rec["solve_residual"], rec["solve_forward_error"] = solve_check(x[:, None], B[:, :1],
+                                                                    "solve")
+    X, launches["solve_many"] = launch_delta(kern_counts, lambda: solve_many(f, B), per_solve,
+                                             f"matrix {matrix_id} solve_many")
+    rec["solve_many_residual"], rec["solve_many_forward_error"] = solve_check(X, B, "solve_many")
+
+    # posterior draws: x = L^{-T} z, z drawn again from the same seed
+    Xs, launches["sample_gmrf_many"] = launch_delta(
+        kern_counts, lambda: sample_gmrf_many(f, 32, generator=torch.Generator(
+            device=dev).manual_seed(7)),
+        {"band_backward_sweep": 1, "solve_panel": nat}, f"matrix {matrix_id} sample_gmrf_many")
+    z = torch.randn((g.padded_n, 32), generator=torch.Generator(device=dev).manual_seed(7),
+                    dtype=torch.float32, device=dev).double()
+    rec["sample_residual"] = ((Ld.mT @ Xs.double() - z).abs().max()
+                              / (Ld.abs().max() * Xs.abs().max())).item()
+    if not rec["sample_residual"] <= RESIDUAL_LIMIT:
+        raise AssertionError(f"matrix {matrix_id} sample_gmrf_many: L^T x = z residual "
+                             f"{rec['sample_residual']:.3e} (limit {RESIDUAL_LIMIT})")
+
+    # every stored entry of the selected inverse against the float64 inverse
+    inv = torch.cholesky_inverse(Ld)
+    sigma, launches["selected_inverse"] = launch_delta(
+        kern_counts, lambda: selected_inverse(f), {"selinv_sweep": 1},
+        f"matrix {matrix_id} selected_inverse")
+    from repro_torch.core import BandedCTSF
+    Sd = dense_from_ctsf(torch, BandedCTSF(g, *sigma.arrays()), torch.float64, symmetric=True)
+    ones = BandedCTSF(g, *(torch.ones_like(a) for a in sigma.arrays()))
+    stored = dense_from_ctsf(torch, ones, torch.float64, symmetric=True) > 0
+    rec["sigma_error"] = ((Sd - inv).abs()[stored].max() / inv.abs().max()).item()
+    del Sd, stored
+    if not rec["sigma_error"] <= SIGMA_LIMIT:
+        raise AssertionError(f"matrix {matrix_id} selected_inverse: error "
+                             f"{rec['sigma_error']:.3e} of max|Σ| (limit {SIGMA_LIMIT})")
+
+    # marginal variances, both methods, against each other and the inverse
+    idx = [0, n // 2, n - g.structure.arrow, n - 1]
+    want = torch.diagonal(inv)[torch.as_tensor([g.padded_index(i) for i in idx], device=dev)]
+    got = {}
+    for method, expect in (("selinv", {"selinv_sweep": 1}),
+                           ("panels", {"band_forward_sweep": 1, "solve_panel": nat})):
+        got[method], launches[f"marginal_variances_{method}"] = launch_delta(
+            kern_counts, lambda: marginal_variances(f, idx, options=SolverOptions(method=method)),
+            expect, f"matrix {matrix_id} marginal_variances {method}")
+        err = ((got[method].double() - want).abs() / want.abs()).max().item()
+        rec[f"variance_rel_error_{method}"] = err
+        if not err <= VARIANCE_RTOL:
+            raise AssertionError(f"matrix {matrix_id} marginal_variances {method}: relative "
+                                 f"error {err:.3e} (limit {VARIANCE_RTOL})")
+    rec["variances_selinv_vs_panels"] = (
+        (got["selinv"] - got["panels"]).abs() / got["panels"].abs()).max().item()
+    if not rec["variances_selinv_vs_panels"] <= VARIANCE_RTOL:
+        raise AssertionError(f"matrix {matrix_id}: the two marginal_variances methods differ "
+                             f"by {rec['variances_selinv_vs_panels']:.3e}")
+    rec["variances"] = got["selinv"].tolist()
+    rec["variance_indices"] = idx
+    rec["launches"] = launches
+    del Ad, Ld, inv
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
@@ -270,29 +494,66 @@ def time_ms(torch, fn, inner=1, reps=7, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls=10):
-    """Device time per call: the CUDA kernels' time summed over ``calls``
-    calls by torch.profiler, and the kernels by name; (None, {}) if the
-    profiler records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+def device_ms(torch, fn, calls=1, reps=5):
+    """Device time per call: ``calls`` calls captured in one CUDA graph and
+    replayed between CUDA events, so no host launch gaps enter; median of
+    ``reps`` replays.  The kernels and their plain versions are timed alike.
+    None when ``fn`` cannot be captured (it waits on the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()        # handles and workspaces are made outside the capture
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as err:
+        log(f"  not captured: {str(err).splitlines()[0]}")
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + e.self_device_time_total / 1e3 / calls
-    total = sum(by_name.values())
-    return (total if total > 0 else None), by_name
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    del graph
+    return statistics.median(times)
 
 
 def bound(flops, nbytes):
     tf, tb = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
+
+
+def solve_work(grid, k):
+    """(operations, bytes) each new kernel needs at ``grid``'s shapes with
+    k right-hand sides, counted from the tiles the data has: a panel
+    product 2 t^2 k, a triangular solve t^2 per column; in selinv column j
+    (d = band tiles below it) the (d + nat)^2 Σ-row products at 2 t^3, the
+    d + nat products by the triangular W = L_jj^{-1} (TRMM, t^3), the
+    d + nat products summed into the symmetric Σ_jj (SYRK, t^3), W^T W and
+    the triangular inverse W (t^3 / 3 each); each input read once and each
+    output written once."""
+    t, ndt, bt, nat = grid.t, grid.n_diag_tiles, grid.band_tiles, grid.n_arrow_tiles
+    tt, tk = t * t, t * k
+    below = [min(bt, ndt - 1 - m) for m in range(ndt)]   # band tiles under column m
+    band = sum(below)                                      # = band tiles above each row
+    fwd_ops = 2 * tt * k * (band + nat * ndt) + tt * k * ndt
+    sweep_bytes = 4 * ((band + ndt) * tt + ndt * nat * tt + 2 * ndt * tk + nat * tk)
+    sel_ops = float(t) ** 3 * sum(2 * (d + nat) ** 2 + 2 * (d + nat) + 2 / 3.0 for d in below)
+    sel_bytes = 4 * (2 * (band + ndt) * tt + 2 * ndt * nat * tt + nat * nat * tt)
+    return {"solve_panel": (float(tt * k), 4 * (tt + 2 * tk)),
+            "band_forward_sweep": (float(fwd_ops), sweep_bytes),
+            "band_backward_sweep": (float(fwd_ops), sweep_bytes),
+            "selinv_sweep": (sel_ops, sel_bytes)}
 
 
 def main() -> int:
@@ -307,14 +568,18 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+    from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
     from repro_torch.kernels.potrf import potrf_cuda
-    from repro_torch.kernels.trsm import trsm_cuda
+    from repro_torch.kernels.selinv import selinv_sweep_cuda
+    from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
     from repro_torch.kernels.ring import band_row_to_col, chunk_layout
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda:0"
-    kern = {"potrf": potrf_cuda, "trsm": trsm_cuda, "band_cholesky_sweep": band_cholesky_sweep_cuda}
+    kern = {"potrf": potrf_cuda, "trsm": trsm_cuda, "band_cholesky_sweep": band_cholesky_sweep_cuda,
+            "solve_panel": solve_panel_cuda, "band_forward_sweep": band_forward_sweep_cuda,
+            "band_backward_sweep": band_backward_sweep_cuda, "selinv_sweep": selinv_sweep_cuda}
 
     def counts():
         return {k: f.launches for k, f in kern.items()}
@@ -333,6 +598,7 @@ def main() -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     n = phase_kernels(torch, dev, kern, ref)
+    n += phase_solve_kernels(torch, dev, kern, ref)
     torch.cuda.synchronize()
     log(f"kernels: {n} comparisons with the plain versions pass "
         f"(rtol=atol={TOL}) in {time.perf_counter() - t0:.1f} s")
@@ -346,6 +612,8 @@ def main() -> int:
         records.append(rec)
         mats[mid] = (m, f)
         log(f"main path: Table II matrix {mid}: " + json.dumps(rec))
+        rec["solves"] = run_solves(torch, mid, m, f, counts)
+        log(f"main path, solves: Table II matrix {mid}: " + json.dumps(rec["solves"]))
     main_launches = counts()
 
     # 4. timings at the main path's shapes (matrix 5), kernel vs plain
@@ -372,11 +640,37 @@ def main() -> int:
 
     csz, nch = chunk_layout(ndt, nchunks)
     sweep_bytes = 4 * t * t * (2 * ndt * (bt + 1) + 2 * ndt * nat + nch * nat * nat) + 12
+    # the solve half's inputs at the same shapes: the factor, a k = 32 panel
+    from repro_torch.core.selinv import corner_sigma
+    from repro_torch.core.solve import _split_rhs
+    fc = f.ctsf
+    bd32, xa32 = _split_rhs(g, torch.randn((g.padded_n, 32), device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(11)))
+    xa32 = xa32.contiguous()
+    bd1, xa1 = bd32[..., :1].contiguous(), xa32[..., :1].contiguous()
+    l_c, b_c = fc.C[0, 0].contiguous(), xa32[0].contiguous()
+    lcol, sc = band_row_to_col(fc.Dr), corner_sigma(fc.C)
+    solve_k = {"solve_panel": lambda: solve_panel_cuda(l_c, b_c),
+               "band_forward_sweep": lambda: band_forward_sweep_cuda(fc.Dr, fc.R, bd32),
+               "band_backward_sweep": lambda: band_backward_sweep_cuda(fc.Dr, fc.R, bd32, xa32),
+               "selinv_sweep": lambda: selinv_sweep_cuda(lcol, fc.R, sc)}
+    solve_p = {"solve_panel": lambda: ref.solve_panel_ref(l_c, b_c),
+               "band_forward_sweep": lambda: ref.band_forward_sweep_ref(fc.Dr, fc.R, bd32),
+               "band_backward_sweep": lambda: ref.band_backward_sweep_ref(fc.Dr, fc.R, bd32, xa32),
+               "selinv_sweep": lambda: ref.selinv_sweep_ref(lcol, fc.R, sc)}
+    errs = {}
+    for name in solve_k:
+        got, want = solve_k[name](), solve_p[name]()
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        errs[name] = max(assert_close(torch, a, b, f"main-path {name}") for a, b in zip(got, want))
+    work = solve_work(g, 32)
+
     kernels = []
+    sweeps = ("band_cholesky_sweep", "band_forward_sweep", "band_backward_sweep", "selinv_sweep")
     for name, src, replaces, fk, fp, flib, inner, flops, nbytes, err in (
             ("potrf", "src/repro_torch/kernels/csrc/potrf.cu", "src/repro/kernels/potrf.py:70",
              lambda: potrf_cuda(a_kk), lambda: ref.potrf_ref(a_kk),
-             lambda: torch.linalg.cholesky(a_kk), 20, t ** 3 / 3.0, 2 * 4 * t * t,
+             lambda: torch.linalg.cholesky_ex(a_kk).L, 20, t ** 3 / 3.0, 2 * 4 * t * t,
              potrf_err),
             ("trsm", "src/repro_torch/kernels/csrc/trsm.cu", "src/repro/kernels/trsm.py:82",
              lambda: trsm_cuda(l_kk, col), lambda: ref.trsm_ref(l_kk, col),
@@ -384,40 +678,70 @@ def main() -> int:
              20, nat * float(t) ** 3, 4 * t * t * (1 + 2 * nat), trsm_err),
             ("band_cholesky_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
              "src/repro/kernels/band_cholesky.py:168", sweep_k, sweep_p, None, 1,
-             sweep_ops, sweep_bytes, sweep_err)):
+             sweep_ops, sweep_bytes, sweep_err),
+            ("solve_panel", "src/repro_torch/kernels/csrc/solve_panel.cu",
+             "src/repro/kernels/trsm.py:111", solve_k["solve_panel"], solve_p["solve_panel"],
+             lambda: torch.linalg.solve_triangular(l_c, b_c, upper=False), 20,
+             *work["solve_panel"], errs["solve_panel"]),
+            ("band_forward_sweep", "src/repro_torch/kernels/csrc/band_solve.cu",
+             "src/repro/kernels/band_solve.py:106", solve_k["band_forward_sweep"],
+             solve_p["band_forward_sweep"], None, 1, *work["band_forward_sweep"],
+             errs["band_forward_sweep"]),
+            ("band_backward_sweep", "src/repro_torch/kernels/csrc/band_solve.cu",
+             "src/repro/kernels/band_solve.py:202", solve_k["band_backward_sweep"],
+             solve_p["band_backward_sweep"], None, 1, *work["band_backward_sweep"],
+             errs["band_backward_sweep"]),
+            ("selinv_sweep", "src/repro_torch/kernels/csrc/selinv.cu",
+             "src/repro/kernels/selinv.py:213", solve_k["selinv_sweep"], solve_p["selinv_sweep"],
+             None, 1, *work["selinv_sweep"], errs["selinv_sweep"])):
         # call time: CUDA events around `inner` calls, host overhead included;
-        # device time: the kernels alone, from the profiler
+        # device time: the calls replayed from a CUDA graph (device_ms)
         call = dict(kernel=time_ms(torch, fk, inner=inner),
-                    plain=time_ms(torch, fp, inner=1 if name == "band_cholesky_sweep" else inner,
+                    plain=time_ms(torch, fp, inner=1 if name in sweeps else inner,
                                   reps=5, warmup=1),
                     library=time_ms(torch, flib, inner=inner) if flib else None)
-        on_device = {}
-        for what, fn in (("kernel", fk), ("plain", fp), ("library", flib)):
-            if fn is not None:
-                on_device[what], names = device_ms(torch, fn, calls=3 if name == "band_cholesky_sweep" else 10)
-                log(f"  {name} {what} device kernels: " + ", ".join(
-                    f"{k[:60]} {v:.4f} ms" for k, v in sorted(names.items(), key=lambda kv: -kv[1])[:4]))
-        timing = "device" if all(on_device.get(w) for w in on_device) else "events"
-        pick = on_device if timing == "device" else call
+        on_device = {what: device_ms(torch, fn, calls=1 if name in sweeps else inner)
+                     for what, fn in (("kernel", fk), ("plain", fp), ("library", flib)) if fn}
+        # a side whose calls could not be captured keeps its call time
+        timing = {w: "graph" if on_device.get(w) is not None else "call"
+                  for w in call if call[w] is not None}
+        pick = {w: on_device.get(w) if timing.get(w) == "graph" else call[w] for w in call}
         b_ms, b_by = bound(flops, nbytes)
         # launches: the main path's total over every matrix it ran, and per
-        # factorize_window of each; the times are at matrix TABLE2_IDS[0]'s shapes
+        # call of each entry point on each matrix; the times are at matrix
+        # TABLE2_IDS[0]'s shapes
+        per_call = {str(r["matrix"]): {call_name: c[name]
+                                       for call_name, c in ([("factorize_window", r["launches"])]
+                                                            + list(r["solves"]["launches"].items()))
+                                       if c.get(name)}
+                    for r in records}
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=main_launches[name],
-                            launches_per_factorize_window={
-                                str(r["matrix"]): r["launches"][name] for r in records},
+                            launches=main_launches[name], launches_per_call=per_call,
                             max_abs_err=err,
                             ms=pick["kernel"], plain_ms=pick["plain"], bound_ms=b_ms,
                             bound_by=b_by, library_ms=pick.get("library"), timing=timing,
                             call_ms=call["kernel"], plain_call_ms=call["plain"],
                             library_call_ms=call["library"],
-                            timed_shape=dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt,
-                                             nat=nat, t=t)))
+                            timed_shape=dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t,
+                                             **({"k": 32} if name in solve_k else {}))))
         fmt = lambda v: "-" if v is None else f"{v:.4f}"
         log(f"time {name}: device {fmt(on_device.get('kernel'))} ms, call {fmt(call['kernel'])} ms; "
             f"plain device {fmt(on_device.get('plain'))} ms, call {fmt(call['plain'])} ms; library "
             f"device {fmt(on_device.get('library'))} ms, call {fmt(call['library'])} ms; bound "
             f"{b_ms:.5f} ms by {b_by}")
+
+    # the band sweeps at k = 1 (a single solve), beside their bound
+    work1 = solve_work(g, 1)
+    for entry, fk in ((kernels[4], lambda: band_forward_sweep_cuda(fc.Dr, fc.R, bd1)),
+                      (kernels[5], lambda: band_backward_sweep_cuda(fc.Dr, fc.R, bd1, xa1))):
+        b_ms, b_by = bound(*work1[entry["name"]])
+        fp = ((lambda: ref.band_forward_sweep_ref(fc.Dr, fc.R, bd1))
+              if entry["name"] == "band_forward_sweep"
+              else (lambda: ref.band_backward_sweep_ref(fc.Dr, fc.R, bd1, xa1)))
+        entry["k1"] = dict(ms=device_ms(torch, fk), call_ms=time_ms(torch, fk), bound_ms=b_ms,
+                           bound_by=b_by, plain_ms=device_ms(torch, fp),
+                           plain_call_ms=time_ms(torch, fp, reps=3, warmup=1))
+        log(f"time {entry['name']} k=1: " + json.dumps(entry["k1"]))
 
     # where the sweep's time goes, from the phase-marked build of the kernel
     from repro_torch.kernels.band_cholesky import sweep_phase_cycles
@@ -428,7 +752,7 @@ def main() -> int:
         rec["sweep_phase_cycles"] = cyc
         log(f"sweep phases: Table II matrix {rec['matrix']}: {total / 1e6:.2f} M cycles: " +
             ", ".join(f"{k} {v / 1e6:.2f} M ({100 * v / total:.0f}%)" for k, v in cyc.items()))
-    kernels[-1]["phase_cycles"] = records[0]["sweep_phase_cycles"]
+    kernels[2]["phase_cycles"] = records[0]["sweep_phase_cycles"]
 
     # factorize_window end to end, and its peak memory, per matrix
     from repro_torch.core import factorize_window, logdet
@@ -447,6 +771,26 @@ def main() -> int:
         log(f"factorize_window+logdet: Table II matrix {rec['matrix']}: {ms:.3f} ms "
             f"median of 7, {fl / ms / 1e6:.1f} GFLOP/s ({fl / 1e9:.3f} GFLOP counted), "
             f"peak {peak / 2 ** 20:.1f} MiB above the inputs, card {card}")
+
+    # the solve half end to end, per matrix: median of 7, CUDA events
+    from repro_torch.core import (SolverOptions, marginal_variances, selected_inverse,
+                                  solve_many)
+    for rec in records:
+        mm, ff = mats[rec["matrix"]]
+        gg = mm.grid
+        nn = gg.structure.n
+        B32 = torch.randn((gg.padded_n, 32), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(5))
+        B1 = B32[:, :1].contiguous()
+        idx = [0, nn // 2, nn - gg.structure.arrow, nn - 1]
+        e2e = {"solve_many_k1": lambda: solve_many(ff, B1),
+               "solve_many_k32": lambda: solve_many(ff, B32),
+               "selected_inverse": lambda: selected_inverse(ff),
+               "marginal_variances_selinv": lambda: marginal_variances(
+                   ff, idx, options=SolverOptions(method="selinv"))}
+        rec["e2e_ms"] = {k: time_ms(torch, fn, reps=7, warmup=2) for k, fn in e2e.items()}
+        log(f"solves end to end: Table II matrix {rec['matrix']}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in rec["e2e_ms"].items()) + f" (median of 7), card {card}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -49,6 +49,13 @@ class CholeskyFactor:
     ctsf: BandedCTSF
     status: Optional[torch.Tensor] = None
 
+    @classmethod
+    def from_arrays(cls, grid, Dr, R, C, device=None) -> "CholeskyFactor":
+        """Carry a factor over from the JAX package: its ``Dr``, ``R`` and
+        ``C`` as numpy arrays and its grid, as
+        :meth:`BandedCTSF.from_arrays` takes them; no status word."""
+        return cls(BandedCTSF.from_arrays(grid, Dr, R, C, device=device))
+
     def logdet(self) -> torch.Tensor:
         """log det A = 2 * sum log diag(L); padded diagonal entries are 1."""
         g = self.ctsf.grid

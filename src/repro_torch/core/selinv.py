@@ -1,0 +1,158 @@
+"""Selected inversion of banded-arrowhead factors: the blocked Takahashi
+recurrence.
+
+With ``A = L L^T``, ``Σ = A^{-1}`` and the normalized factor column
+``G_kj = L_kj L_jj^{-1}``:
+
+    i > j:   Σ_ij = - Σ_{k>j} Σ_ik G_kj
+    i = j:   Σ_jj = (L_jj L_jj^T)^{-1} - Σ_{k>j} Σ_kj^T G_kj
+
+so column j of Σ needs only trailing columns, and for the banded-arrowhead
+pattern the sums stay on the factor's own pattern: one backward sweep over
+the band columns (``kernels.ops.selinv_sweep``, one CUDA launch on the
+card) computes every Σ entry of the band and the arrow exactly, seeded by
+the corner ``Σ_cc = L_c^{-T} L_c^{-1}`` (one small dense triangular solve).
+
+Port of the JAX package's ``core/selinv.py`` (``SelectedInverse``,
+``_selinv_impl``, ``selected_inverse``).  The canonical-grid embedding
+(``policy=``) comes with the bucketing policy, and ``selinv_batched``
+with the batched factorization.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
+from .cholesky import CholeskyFactor
+from .ctsf import BandedCTSF
+from .options import SolverOptions
+from .structure import TileGrid
+
+__all__ = ["SelectedInverse", "selected_inverse"]
+
+
+@dataclasses.dataclass
+class SelectedInverse:
+    """Band + arrow block of Σ = A^{-1} in banded-arrowhead tile layout.
+
+    Dr: (ndt, bt+1, t, t)  band rows   — Dr[m, d] = Σ_tile[m, m-d]
+    R:  (ndt, nat, t, t)   arrow rows  — R[k, i]  = Σ_tile[ndt+i, k]
+    C:  (nat, nat, t, t)   corner      — C[i, j]  = Σ_tile[ndt+i, ndt+j] (lower)
+    """
+
+    grid: TileGrid
+    Dr: torch.Tensor
+    R: torch.Tensor
+    C: torch.Tensor
+
+    @classmethod
+    def from_arrays(cls, grid: Union[TileGrid, Tuple[int, int, int, int]],
+                    Dr, R, C, device=None) -> "SelectedInverse":
+        """Carry a selected inverse over from the JAX package: numpy arrays
+        and a grid, as :meth:`BandedCTSF.from_arrays` takes them."""
+        m = BandedCTSF.from_arrays(grid, Dr, R, C, device=device)
+        return cls(m.grid, m.Dr, m.R, m.C)
+
+    def diagonal(self, padded: bool = False) -> torch.Tensor:
+        """diag(Σ), INLA's posterior marginal variances of every latent at
+        once: the unpadded (n,) diagonal unless ``padded``."""
+        g = self.grid
+        full = torch.diagonal(self.Dr[:, 0], dim1=-2, dim2=-1).reshape(-1)
+        if g.n_arrow_tiles:
+            ar = torch.arange(g.n_arrow_tiles, device=self.C.device)
+            dc = torch.diagonal(self.C[ar, ar], dim1=-2, dim2=-1).reshape(-1)
+            full = torch.cat([full, dc])
+        if padded:
+            return full
+        idx = np.vectorize(g.padded_index, otypes=[np.int64])(np.arange(g.structure.n))
+        return full[torch.as_tensor(idx, device=full.device)]
+
+    def covariance(self, i: int, j: int) -> torch.Tensor:
+        """Σ_ij for element indices of the original matrix, wherever the
+        entry lies on the stored pattern: |i-j| within the tile band, or
+        at least one index in the arrow block."""
+        g = self.grid
+        s = g.structure
+        for v in (i, j):
+            if not 0 <= int(v) < s.n:
+                raise ValueError(f"index {v} out of range [0, {s.n})")
+        pi, pj = g.padded_index(int(i)), g.padded_index(int(j))
+        if pi < pj:
+            pi, pj = pj, pi                              # Σ is symmetric
+        bi, ri = divmod(pi, g.t)
+        bj, rj = divmod(pj, g.t)
+        ndt = g.n_diag_tiles
+        if bi < ndt:                                     # band x band
+            d = bi - bj
+            if d > g.band_tiles:
+                raise ValueError(f"covariance({i}, {j}) lies outside the stored band "
+                                 f"(tile offset {d} > {g.band_tiles})")
+            return self.Dr[bi, d, ri, rj]
+        if bj < ndt:                                     # arrow row x band col
+            return self.R[bj, bi - ndt, ri, rj]
+        return self.C[bi - ndt, bj - ndt, ri, rj]        # corner (lower stored)
+
+    def to_dense_band(self, lower_only: bool = False) -> np.ndarray:
+        """The stored band + arrow entries as a dense (padded_n, padded_n)
+        float32 array (zeros off the pattern), symmetrized unless
+        ``lower_only``."""
+        return BandedCTSF(self.grid, self.Dr, self.R, self.C).to_dense(lower_only=lower_only)
+
+    def arrays(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.Dr, self.R, self.C
+
+    def nbytes(self) -> int:
+        return int((self.Dr.numel() + self.R.numel() + self.C.numel()) * 4)
+
+
+def _tril_tiles(sc_full: torch.Tensor) -> torch.Tensor:
+    """The lower tile triangle of the (nat, nat, t, t) corner block (the
+    storage convention shared with BandedCTSF)."""
+    nat = sc_full.shape[0]
+    keep = torch.ones((nat, nat), dtype=torch.bool, device=sc_full.device).tril()
+    return torch.where(keep[:, :, None, None], sc_full, torch.zeros_like(sc_full))
+
+
+def corner_sigma(C: torch.Tensor) -> torch.Tensor:
+    """The seed of the recurrence: the full (symmetric) corner block
+    ``Σ_cc = L_c^{-T} L_c^{-1}`` of the factor's (nat, nat, t, t) corner,
+    by one dense triangular solve (nat t square) and one product."""
+    nat, t = C.shape[0], C.shape[-1]
+    if not nat:
+        return C.new_zeros((0, 0, t, t))
+    nc = nat * t
+    cd = C.permute(0, 2, 1, 3).reshape(nc, nc)
+    eye = torch.eye(nc, dtype=C.dtype, device=C.device)
+    winv = torch.linalg.solve_triangular(cd, eye, upper=False)
+    return (winv.mT @ winv).reshape(nat, t, nat, t).permute(0, 2, 1, 3).contiguous()
+
+
+def _selinv_impl(Dr, R, C, grid: TileGrid, impl=None, start_tile: int = 0):
+    """Blocked Takahashi sweep over one factor: ``(Sd, Sr, Sc)`` in the
+    row-band / arrow-row / lower-corner layout of :class:`SelectedInverse`.
+    ``start_tile`` declares the first columns an identity-embedding prefix."""
+    t, ndt, nat, bt = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles, grid.band_tiles
+    sc_full = corner_sigma(C)
+    if ndt == 0:
+        return (Dr.new_zeros((0, bt + 1, t, t)), R.new_zeros((0, nat, t, t)),
+                _tril_tiles(sc_full))
+    panels, sr = ops.selinv_sweep(band_row_to_col(Dr), R, sc_full, start_tile, impl=impl)
+    # panels[j, e] = Σ_{j+e, j} -> Sd[m, d] = Σ_{m, m-d}
+    return band_col_to_row(panels), sr, _tril_tiles(sc_full)
+
+
+def selected_inverse(factor: CholeskyFactor,
+                     options: Optional[SolverOptions] = None) -> SelectedInverse:
+    """Band + arrow block of Σ = A^{-1} from a banded-arrowhead factor, by
+    the blocked Takahashi recurrence: one backward tile sweep, whatever
+    the number of entries wanted.  On the card the sweep is one CUDA
+    launch; ``options.impl`` forces a backend."""
+    opts = options if options is not None else SolverOptions()
+    c = factor.ctsf
+    sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)
+    return SelectedInverse(c.grid, sd, sr, sc)

@@ -1,17 +1,250 @@
-"""Quantities read off a factor.
+"""Triangular solves, log-determinant, GMRF sampling and marginal variances
+from a banded-arrowhead factor.
 
-Only :func:`logdet` is ported so far; the multi-RHS solves, sampling and
-marginal variances come with the solve slice.
+INLA needs, per factorization: solves ``A x = b`` (posterior means),
+``log det A``, samples ``L^{-T} z`` (posterior draws) and selected entries
+of ``A^{-1}`` (posterior variances).  Every solve here is a multi-RHS panel
+sweep over ``(padded_n, k)`` right-hand sides; the single-RHS entry points
+are its k = 1 case.  On the card each band sweep is one CUDA kernel launch
+(``kernels.ops.band_forward_sweep`` / ``band_backward_sweep``) and each
+corner tile one ``solve_panel`` launch; on the CPU the plain versions run.
+
+Port of the JAX package's ``core/solve.py``.  The canonical-grid
+embedding (``policy=``) and the iterative refinement of jitter-recovered
+factors are not ported yet (they come with the bucketing policy and with
+``FactorInfo``), so every factor here is solved as a clean factor on its
+own grid; ``solve_many_batched`` waits for the batched factorization.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from .cholesky import CholeskyFactor
+from .options import SolverOptions
 
-__all__ = ["logdet"]
+__all__ = ["forward_solve", "backward_solve", "solve", "logdet",
+           "forward_solve_many", "backward_solve_many", "solve_many",
+           "sample_gmrf", "sample_gmrf_many", "marginal_variances"]
+
+
+def _split_rhs(g, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split an (padded_n, k) RHS panel into band (ndt, t, k) and arrow
+    (nat, t, k) tile panels (views of ``b``)."""
+    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+    if b.dim() != 2 or b.shape[0] != g.padded_n:
+        raise ValueError(
+            f"rhs panel must be (padded_n={g.padded_n}, k), got {tuple(b.shape)}")
+    k = b.shape[1]
+    b = b.contiguous()
+    return b[:ndt * t].reshape(ndt, t, k), b[ndt * t:].reshape(nat, t, k)
+
+
+def _merge_panels(xd: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+    """Rejoin band and arrow tile panels into one (padded_n, k) panel, the
+    inverse of :func:`_split_rhs`; a k = 0 panel round-trips."""
+    k = xd.shape[-1]
+    return torch.cat([xd.reshape(xd.shape[0] * xd.shape[1], k),
+                      xa.reshape(xa.shape[0] * xa.shape[1], k)])
+
+
+def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
+    """Solve ``L Y = B`` for an RHS panel: bd (ndt, t, k), ba (nat, t, k).
+
+    The band part is one :func:`repro_torch.kernels.ops.band_forward_sweep`
+    (the arrow-RHS sums ride it); the corner is a block forward
+    substitution with one ``solve_panel`` per corner tile.  ``start_tile``
+    exploits RHS sparsity: when the panel is zero above band tile
+    ``start_tile``, Y is zero there too and the sweep starts at it."""
+    t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
+    k = bd.shape[-1]
+    if ndt:
+        yd, acc_a = ops.band_forward_sweep(Dr, R, bd, start_tile=start_tile, impl=impl)
+    else:
+        yd, acc_a = bd.new_zeros((0, t, k)), bd.new_zeros((nat, t, k))
+    if not nat:
+        return yd, ba
+    # arrow rows: Y_a = Lc^{-1} (B_a - sum_n R[n] Y_n), block forward
+    rhs0 = ba - acc_a
+    ya = torch.zeros_like(rhs0)
+    for i in range(nat):
+        # rhs_i = rhs0_i - sum_{j<i} C[i, j] Y_j
+        contrib = torch.einsum("jab,jbk->ak", C[i, :i], ya[:i])
+        ya[i] = ops.solve_panel(C[i, i], (rhs0[i] - contrib).contiguous(), impl=impl)
+    return yd, ya
+
+
+def _backward_impl(Dr, R, C, yd, ya, grid, impl=None, start_tile: int = 0):
+    """Solve ``L^T X = Y`` for an RHS panel: yd (ndt, t, k), ya (nat, t, k).
+
+    Corner first (the arrow panel seeds the band rows), then the band part
+    as one :func:`repro_torch.kernels.ops.band_backward_sweep`.  Rows
+    below ``start_tile`` (an identity prefix with zero RHS) stay zero."""
+    t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
+    k = yd.shape[-1]
+    if nat:
+        xa = torch.zeros_like(ya)
+        for i in range(nat - 1, -1, -1):
+            # rhs_i = Y_i - sum_{j>i} C[j, i]^T X_j
+            contrib = torch.einsum("jba,jbk->ak", C[i + 1:, i], xa[i + 1:])
+            xa[i] = ops.solve_panel(C[i, i], (ya[i] - contrib).contiguous(), trans=True,
+                                    impl=impl)
+    else:
+        xa = ya
+    if ndt:
+        xd = ops.band_backward_sweep(Dr, R, yd, xa.contiguous(), start_tile=start_tile,
+                                     impl=impl)
+    else:
+        xd = yd.new_zeros((0, t, k))
+    return xd, xa
+
+
+def _solve_panels(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
+    """Full ``A X = B`` on split panels: forward then backward sweep."""
+    yd, ya = _forward_impl(Dr, R, C, bd, ba, grid, impl, start_tile)
+    return _backward_impl(Dr, R, C, yd, ya, grid, impl, start_tile)
+
+
+def _impl(options: Optional[SolverOptions]):
+    return (options if options is not None else SolverOptions()).impl
+
+
+def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, start_tile: int = 0,
+                       options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Solve ``L Y = B`` for a panel of right-hand sides in one blocked sweep.
+
+    ``B`` is a ``(padded_n, k)`` float32 panel in the padded layout of
+    ``factor.ctsf.grid`` (band rows, then padding, then arrow rows; see
+    ``TileGrid.padded_index``), on the factor's device; rows in the padding
+    region must be zero.  ``start_tile`` is the first band tile holding a
+    nonzero: the caller guarantees the rows above ``start_tile * t`` are
+    zero, and Y is zero there.  ``options.impl`` forces a backend.
+
+    Returns the ``(padded_n, k)`` panel Y."""
+    c = factor.ctsf
+    bd, ba = _split_rhs(c.grid, B)
+    yd, ya = _forward_impl(c.Dr, c.R, c.C, bd, ba, c.grid, _impl(options),
+                           int(start_tile))
+    return _merge_panels(yd, ya)
+
+
+def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor,
+                        options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Solve ``L^T X = Y`` for a ``(padded_n, k)`` panel in one blocked sweep."""
+    c = factor.ctsf
+    yd, ya = _split_rhs(c.grid, Y)
+    xd, xa = _backward_impl(c.Dr, c.R, c.C, yd, ya, c.grid, _impl(options))
+    return _merge_panels(xd, xa)
+
+
+def solve_many(factor: CholeskyFactor, B: torch.Tensor,
+               options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """``A X = B`` for a ``(padded_n, k)`` panel of right-hand sides via
+    ``L L^T``: one forward and one backward sweep for all k columns, each
+    band step a ``(t, t) @ (t, k)`` product.  On the card that is one
+    forward-sweep launch, one backward-sweep launch and ``2 nat``
+    ``solve_panel`` launches."""
+    c = factor.ctsf
+    bd, ba = _split_rhs(c.grid, B)
+    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, c.grid, _impl(options))
+    return _merge_panels(xd, xa)
+
+
+def forward_solve(factor: CholeskyFactor, b: torch.Tensor,
+                  options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Solve ``L y = b`` (k = 1 case of the panel sweep)."""
+    return forward_solve_many(factor, b.reshape(-1, 1), options=options)[:, 0]
+
+
+def backward_solve(factor: CholeskyFactor, y: torch.Tensor,
+                   options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Solve ``L^T x = y`` (k = 1 case of the panel sweep)."""
+    return backward_solve_many(factor, y.reshape(-1, 1), options=options)[:, 0]
+
+
+def solve(factor: CholeskyFactor, b: torch.Tensor,
+          options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """``A x = b`` via ``L L^T``."""
+    return solve_many(factor, b.reshape(-1, 1), options=options)[:, 0]
 
 
 def logdet(factor: CholeskyFactor) -> torch.Tensor:
     """log det A from its Cholesky factor."""
     return factor.logdet()
+
+
+def _normal(factor: CholeskyFactor, shape, generator: Optional[torch.Generator]):
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=factor.ctsf.device)
+
+
+def sample_gmrf(factor: CholeskyFactor, generator: Optional[torch.Generator] = None,
+                z: Optional[torch.Tensor] = None,
+                options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Draw ``x ~ N(0, A^{-1})`` as ``x = L^{-T} z``, ``z`` standard normal
+    of length ``padded_n``: drawn from ``generator`` (a ``torch.Generator``
+    on the factor's device) unless given."""
+    if z is None:
+        z = _normal(factor, (factor.ctsf.grid.padded_n,), generator)
+    return backward_solve(factor, z, options=options)
+
+
+def sample_gmrf_many(factor: CholeskyFactor, num: int,
+                     generator: Optional[torch.Generator] = None,
+                     z: Optional[torch.Tensor] = None,
+                     options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Draw ``num`` samples ``x ~ N(0, A^{-1})`` as one ``(padded_n, num)``
+    panel sharing a single backward sweep; ``z`` as in :func:`sample_gmrf`,
+    ``(padded_n, num)``."""
+    if z is None:
+        z = _normal(factor, (factor.ctsf.grid.padded_n, num), generator)
+    return backward_solve_many(factor, z, options=options)
+
+
+def _validate_indices(grid, indices) -> np.ndarray:
+    """Validate selected indices against the original matrix dimension and
+    map them into the padded layout (arrow indices shift past the band
+    padding).  Out-of-range indices raise."""
+    s = grid.structure
+    idx = np.asarray(indices)
+    if idx.ndim != 1:
+        raise ValueError(f"indices must be 1-D, got shape {idx.shape}")
+    if idx.size and (idx.min() < 0 or idx.max() >= s.n):
+        bad = idx[(idx < 0) | (idx >= s.n)]
+        raise ValueError(f"indices {bad.tolist()} out of range [0, {s.n})")
+    return np.vectorize(grid.padded_index, otypes=[np.int64])(idx)
+
+
+def marginal_variances(factor: CholeskyFactor, indices,
+                       options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Selected diagonal of ``A^{-1}``, INLA's posterior marginal variances.
+
+    ``options.method`` picks the path:
+
+    * ``"selinv"`` (default, ``None``): the blocked Takahashi recurrence
+      (:func:`repro_torch.core.selinv.selected_inverse`), one backward tile
+      sweep for the whole band + arrow block of Σ, then a gather;
+    * ``"panels"``: ``(A^{-1})_ii = ||L^{-1} e_i||^2`` with all k unit
+      vectors in one forward sweep, started at the first nonzero tile.
+
+    ``indices`` are element indices of the original matrix (a 1-D host
+    array); out-of-range values raise.  Returns the ``(k,)`` variances in
+    the order of ``indices``, on the factor's device."""
+    opts = options if options is not None else SolverOptions()
+    g = factor.ctsf.grid
+    padded = _validate_indices(g, indices)
+    dev = factor.ctsf.device
+    if (opts.method or "selinv") == "selinv":
+        from .selinv import selected_inverse
+        sigma = selected_inverse(factor, options=opts)
+        return sigma.diagonal(padded=True)[torch.as_tensor(padded, device=dev)]
+    k = padded.shape[0]
+    E = torch.zeros((g.padded_n, k), dtype=torch.float32, device=dev)
+    E[torch.as_tensor(padded, device=dev), torch.arange(k, device=dev)] = 1.0
+    # unit-vector panels are zero above the smallest selected row
+    start = min(int(padded.min()) // g.t, g.n_diag_tiles) if k else 0
+    Y = forward_solve_many(factor, E, start_tile=start, options=opts)
+    return (Y * Y).sum(dim=0)

@@ -23,17 +23,24 @@ __all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("potrf", "trsm", "band_cholesky")
+SOURCES = ("potrf", "trsm", "band_cholesky", "solve_panel", "band_solve", "selinv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: pointers and the stream as c_void_p, sizes as c_int
+# C signatures of each library's entry points: pointers and the stream as
+# c_void_p, sizes as c_int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "potrf": ("stiles_potrf_f32", [_P, _P, _I, _I, _P]),
-    "trsm": ("stiles_trsm_f32", [_P, _P, _P, _I, _I, _I, _P]),
-    "band_cholesky": ("stiles_band_cholesky_sweep_f32",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "potrf": {"stiles_potrf_f32": [_P, _P, _I, _I, _P]},
+    "trsm": {"stiles_trsm_f32": [_P, _P, _P, _I, _I, _I, _P]},
+    "band_cholesky": {"stiles_band_cholesky_sweep_f32":
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
+    "band_solve": {
+        "stiles_band_forward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "stiles_band_backward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "selinv": {"stiles_selinv_sweep_f32":
+               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
 _loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -100,10 +107,10 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     if lib is None:
         path = build_all([name], defines)[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.stiles_error_string.argtypes = [ctypes.c_int]
         lib.stiles_error_string.restype = ctypes.c_char_p
         _loaded[name, defines] = lib

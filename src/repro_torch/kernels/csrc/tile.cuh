@@ -1,4 +1,5 @@
-// Device functions shared by the potrf, trsm and band-Cholesky kernels.
+// Device functions shared by the potrf, trsm, band-Cholesky, solve-panel,
+// band-solve and selected-inversion kernels.
 //
 // Every kernel here runs kThreads threads per block over float32 T x T
 // tiles, T in {8, 16, 32, 64}.  A tile held in registers is spread over the
@@ -98,16 +99,28 @@ struct Stage {
         }
     }
 
-    // As[c * LDK + r] = A[r, c], likewise Bs
-    __device__ __forceinline__ void store(float* As, float* Bs) const {
+    // Staged float4 p into dst: transposed, dst[c * LDK + r] = X[r, c], or
+    // as it is, dst[r * LDK + c] = X[r, c].
+    static __device__ __forceinline__ void put(float* dst, const float4& x, int v,
+                                               bool transpose) {
         constexpr int LDK = Tile<T>::LDK;
+        const int r = v % T, c = 4 * (v / T);
+        if (transpose) {
+            dst[c * LDK + r] = x.x; dst[(c + 1) * LDK + r] = x.y;
+            dst[(c + 2) * LDK + r] = x.z; dst[(c + 3) * LDK + r] = x.w;
+        } else {
+            *reinterpret_cast<float4*>(dst + r * LDK + c) = x;
+        }
+    }
+
+    // Either operand transposed or not (see put).
+    __device__ __forceinline__ void store(float* As, float* Bs, bool ta, bool tb) const {
 #pragma unroll
         for (int p = 0; p < kPer; ++p) {
             const int v = threadIdx.x + p * kThreads;
             if (v < kVec) {
-                const int o = 4 * (v / T) * LDK + v % T;
-                As[o] = a[p].x; As[o + LDK] = a[p].y; As[o + 2 * LDK] = a[p].z; As[o + 3 * LDK] = a[p].w;
-                Bs[o] = b[p].x; Bs[o + LDK] = b[p].y; Bs[o + 2 * LDK] = b[p].z; Bs[o + 3 * LDK] = b[p].w;
+                put(As, a[p], v, ta);
+                put(Bs, b[p], v, tb);
             }
         }
     }
@@ -132,24 +145,47 @@ __device__ __forceinline__ void mma_staged(Acc<T>& acc, const float* As, const f
     }
 }
 
-// acc += sum_{q < n} A(q) B(q)^T for row-major T x T tiles in device memory
-// (A and B map q to a tile address), staged through the shared buffers As
-// and Bs (T * LDK floats each).  The next pair's loads are in flight while
-// the current pair is multiplied.  n must be the same in every thread:
-// every thread of the block calls it, and it synchronises the block twice
-// per pair.
+// A tile operand of gemm_sum: a row-major T x T tile in device memory,
+// taken as it is or transposed.
+struct Op {
+    const float* p;
+    bool t;
+};
+
+// acc += sum_{q < n} op(A(q)) op(B(q)) for row-major T x T tiles in device
+// memory, op(X) = X^T where the operand says so, staged through the shared
+// buffers As and Bs (T * LDK floats each).  mma_staged needs
+// As[k, r] = op(A)[r, k] and Bs[k, c] = op(B)[k, c], so A is stored
+// transposed unless op transposes it and B the other way round.  The next
+// pair's loads are in flight while the current pair is multiplied.  n must
+// be the same in every thread: every thread of the block calls it, and it
+// synchronises the block twice per pair.
 template <int T, typename FA, typename FB>
-__device__ void gemm_nt_sum(Acc<T>& acc, int n, FA A, FB B, float* As, float* Bs) {
+__device__ void gemm_sum(Acc<T>& acc, int n, FA A, FB B, float* As, float* Bs) {
     if (n <= 0) return;
     Stage<T> st;
-    st.load(A(0), B(0));
+    Op oa = A(0), ob = B(0);
+    st.load(oa.p, ob.p);
     for (int q = 0; q < n; ++q) {
         __syncthreads();  // the staging buffers are free
-        st.store(As, Bs);
+        st.store(As, Bs, !oa.t, ob.t);
         __syncthreads();
-        if (q + 1 < n) st.load(A(q + 1), B(q + 1));
+        if (q + 1 < n) {
+            oa = A(q + 1);
+            ob = B(q + 1);
+            st.load(oa.p, ob.p);
+        }
         mma_staged<T>(acc, As, Bs);
     }
+}
+
+// acc += sum_{q < n} A(q) B(q)^T for row-major T x T tiles in device memory
+// (A and B map q to a tile address): gemm_sum with B transposed.
+template <int T, typename FA, typename FB>
+__device__ __forceinline__ void gemm_nt_sum(Acc<T>& acc, int n, FA A, FB B, float* As,
+                                            float* Bs) {
+    gemm_sum<T>(acc, n, [&](int q) { return Op{A(q), false}; },
+                [&](int q) { return Op{B(q), true}; }, As, Bs);
 }
 
 // Owner-layout tile from a row-major T x T tile, minus acc.
@@ -371,6 +407,75 @@ __device__ bool substitute_right_rows(const float* Lt, const float* dinv, int nr
             }
     }
     return bad;
+}
+
+// One row-major T x T tile of device memory into shared memory with row
+// stride Tile<T>::LDK, as it is or transposed (dst[c * LDK + r] = src[r, c]).
+// Every thread of the block calls it; it does not synchronise.
+template <int T>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, bool transpose) {
+    constexpr int kVec = T * T / 4, kPer = (kVec + kThreads - 1) / kThreads;
+    float4 x[kPer];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {      // every load in flight before the first store
+        const int v = threadIdx.x + p * kThreads;
+        if (v < kVec) x[p] = *reinterpret_cast<const float4*>(src + (v % T) * T + 4 * (v / T));
+    }
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int v = threadIdx.x + p * kThreads;
+        if (v < kVec) Stage<T>::put(dst, x[p], v, transpose);
+    }
+}
+
+// Solve one right-hand-side column of L x = b (BACK false, forward
+// substitution) or L^T x = b (BACK true, backward substitution), the column
+// in registers x.  S is the T x T tile in shared memory with row stride ld (a
+// multiple of 4; S 16-byte aligned), laid out so that row j of S holds what
+// x_j updates: S[j * ld + i] = L[i, j] (L transposed) forward, L[j, i] (L as
+// it is) backward; only the lower triangle of L is read.  Right-looking: x_j
+// is final once divided by its pivot and then updates every later entry,
+// independent FMAs with the row of S read as float4 broadcasts.  Both loops
+// unroll, so x stays in registers and the masks fold away.  The columns of
+// a panel are independent, so a block gives each thread its own column.
+// Does not synchronise.
+template <int T, bool BACK>
+__device__ __forceinline__ void substitute_panel(const float* S, int ld, float (&x)[T]) {
+#pragma unroll
+    for (int s = 0; s < T; ++s) {
+        const int j = BACK ? T - 1 - s : s;
+        x[j] = x[j] / S[j * ld + j];
+#pragma unroll
+        for (int q = 0; q < T / 4; ++q) {
+            if (BACK ? 4 * q < j : 4 * q + 3 > j) {
+                const float4 v = *reinterpret_cast<const float4*>(S + j * ld + 4 * q);
+                const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int i = 4 * q + u;
+                    if (BACK ? i < j : i > j) x[i] = fmaf(-w[u], x[j], x[i]);
+                }
+            }
+        }
+    }
+}
+
+// One column of a panel through substitute_panel, in a function of its
+// own: x[i] = src[i * ss], solved, then dst[i * ds] = x[i].  A kernel that
+// also holds tile-product accumulators calls this instead of inlining
+// substitute_panel, so the T-float column is allocated apart from them:
+// what the caller keeps live is saved around the call, once a column,
+// instead of spilling inside the substitution or the products (inlined at
+// T = 64 both kernels reached 255 registers and spilled 4 KB).
+template <int T, bool BACK>
+__device__ __noinline__ void solve_column(const float* S, int ld, const float* src, int ss,
+                                          float* dst, size_t ds) {
+    float x[T];
+#pragma unroll
+    for (int i = 0; i < T; ++i) x[i] = src[i * ss];
+    substitute_panel<T, BACK>(S, ld, x);
+#pragma unroll
+    for (int i = 0; i < T; ++i) dst[i * ds] = x[i];
 }
 
 }  // namespace stiles

@@ -14,10 +14,14 @@ import torch
 
 from . import ref
 from .band_cholesky import band_cholesky_sweep_cuda
+from .band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
 from .potrf import potrf_cuda
-from .trsm import trsm_cuda
+from .selinv import selinv_sweep_cuda
+from .trsm import solve_panel_cuda, trsm_cuda
 
-__all__ = ["potrf", "trsm", "band_cholesky_sweep", "resolve_impl", "IMPLS"]
+__all__ = ["potrf", "trsm", "solve_panel", "band_forward_sweep",
+           "band_backward_sweep", "band_cholesky_sweep", "selinv_sweep",
+           "resolve_impl", "IMPLS"]
 
 IMPLS = ("ref", "cuda")
 
@@ -50,6 +54,35 @@ def trsm(l_kk: torch.Tensor, a_mk: torch.Tensor,
     return ref.trsm_ref(l_kk, a_mk)
 
 
+def solve_panel(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """``L X = B`` (or ``L^T X = B``) for a (..., t, k) batch of panels
+    against one (t, t) L."""
+    if resolve_impl(impl, b_panel) == "cuda":
+        return solve_panel_cuda(l_kk, b_panel, trans=trans)
+    return ref.solve_panel_ref(l_kk, b_panel, trans=trans)
+
+
+def band_forward_sweep(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
+                       start_tile: int = 0, impl: Optional[str] = None):
+    """Forward band sweep ``L Y = B`` plus the arrow sums ``acc_a[i] =
+    sum_m R[m, i] @ Y_m``: ``(yd (ndt, t, k), acc_a (nat, t, k))``.
+    ``"cuda"`` is one kernel launch; ``"ref"`` a loop of ``solve_panel``."""
+    if resolve_impl(impl, bd) == "cuda":
+        return band_forward_sweep_cuda(Dr, R, bd, start_tile=start_tile)
+    return ref.band_forward_sweep_ref(Dr, R, bd, start_tile=start_tile)
+
+
+def band_backward_sweep(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
+                        xa: torch.Tensor, start_tile: int = 0,
+                        impl: Optional[str] = None) -> torch.Tensor:
+    """Backward band sweep ``L^T X = Y - R^T Xa``: ``xd (ndt, t, k)``, with
+    the same backend split as :func:`band_forward_sweep`."""
+    if resolve_impl(impl, yd) == "cuda":
+        return band_backward_sweep_cuda(Dr, R, yd, xa, start_tile=start_tile)
+    return ref.band_backward_sweep_ref(Dr, R, yd, xa, start_tile=start_tile)
+
+
 def band_cholesky_sweep(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1,
                         start_tile: int = 0, impl: Optional[str] = None):
     """Whole band+arrow Cholesky factorization as one sweep: ``Ac (ndt,
@@ -63,3 +96,14 @@ def band_cholesky_sweep(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1,
                                         start_tile=start_tile)
     return ref.band_cholesky_sweep_ref(Ac, R, nchunks=nchunks,
                                        start_tile=start_tile)
+
+
+def selinv_sweep(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
+                 start_tile: int = 0, impl: Optional[str] = None):
+    """Whole backward Takahashi recurrence: ``lcol (ndt, bt+1, t, t)``
+    column view of the factor, ``R (ndt, nat, t, t)`` and the full corner
+    ``sc_full (nat, nat, t, t)`` -> ``(panels, acols)`` of Σ.  ``"cuda"``
+    is one kernel launch; ``"ref"`` the column loop of ``ref.py``."""
+    if resolve_impl(impl, lcol) == "cuda":
+        return selinv_sweep_cuda(lcol, R, sc_full, start_tile=start_tile)
+    return ref.selinv_sweep_ref(lcol, R, sc_full, start_tile=start_tile)

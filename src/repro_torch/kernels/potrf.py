@@ -12,15 +12,14 @@ import torch
 
 from . import _build
 
-__all__ = ["potrf_cuda", "check_tiles", "TILE_SIZES"]
+__all__ = ["potrf_cuda", "check_cuda", "check_tiles", "TILE_SIZES"]
 
 TILE_SIZES = (8, 16, 32, 64)
 
 
-def check_tiles(name: str, *tensors: torch.Tensor) -> int:
-    """Validate float32, contiguous, 16-byte aligned CUDA tensors of
-    (..., t, t) tiles with t in :data:`TILE_SIZES`; returns t."""
-    t = tensors[0].shape[-1]
+def check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = True) -> None:
+    """Validate float32, contiguous CUDA tensors, 16-byte aligned unless
+    ``aligned`` is False (what a kernel reads a word at a time)."""
     for x in tensors:
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, "
@@ -29,11 +28,19 @@ def check_tiles(name: str, *tensors: torch.Tensor) -> int:
             raise ValueError(f"{name}: float32 only, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if aligned and x.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+def check_tiles(name: str, *tensors: torch.Tensor) -> int:
+    """:func:`check_cuda` for tensors of (..., t, t) tiles with t in
+    :data:`TILE_SIZES`; returns t."""
+    check_cuda(name, *tensors)
+    t = tensors[0].shape[-1]
+    for x in tensors:
         if x.dim() < 2 or x.shape[-1] != t or x.shape[-2] != t:
             raise ValueError(f"{name}: want (..., {t}, {t}) tiles, got "
                              f"{tuple(x.shape)}")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be 16-byte aligned")
     if t not in TILE_SIZES:
         raise ValueError(f"{name}: tile size {t} not supported "
                          f"(want one of {TILE_SIZES})")

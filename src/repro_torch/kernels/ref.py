@@ -13,8 +13,10 @@ import torch
 
 from .ring import chunk_layout, identity_prefix_panel
 
-__all__ = ["potrf_ref", "trsm_ref", "band_cholesky_sweep_ref",
-           "sweep_status", "empty_sweep_status"]
+__all__ = ["potrf_ref", "trsm_ref", "solve_panel_ref", "selinv_step_ref",
+           "band_forward_sweep_ref", "band_backward_sweep_ref",
+           "band_cholesky_sweep_ref", "selinv_sweep_ref", "sweep_status",
+           "empty_sweep_status"]
 
 
 def empty_sweep_status(device=None) -> torch.Tensor:
@@ -39,8 +41,8 @@ def sweep_status(panels: torch.Tensor, R_out: torch.Tensor) -> torch.Tensor:
         return empty_sweep_status(panels.device)
     diag = torch.diagonal(panels[:, 0], dim1=-2, dim2=-1)          # (ndt, t)
     fin_diag = torch.isfinite(diag).all(dim=-1)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=diag.device)
-    piv = torch.where(fin_diag, (diag * diag).amin(dim=-1), inf)
+    piv = (diag * diag).amin(dim=-1)
+    piv = torch.where(fin_diag, piv, torch.full_like(piv, float("inf")))
     fin = (torch.isfinite(panels).reshape(ndt, -1).all(dim=1)
            & torch.isfinite(R_out).reshape(ndt, -1).all(dim=1))
     bad = ~fin | (piv <= 0.0)
@@ -68,6 +70,80 @@ def trsm_ref(l_kk: torch.Tensor, a_mk: torch.Tensor) -> torch.Tensor:
     (t, t) broadcast over a (..., t, t) batch of A or batched alike."""
     xt = torch.linalg.solve_triangular(l_kk, a_mk.mT, upper=False)
     return xt.mT.contiguous()
+
+
+def solve_panel_ref(l_kk: torch.Tensor, b_panel: torch.Tensor,
+                    trans: bool = False) -> torch.Tensor:
+    """Multi-RHS triangular panel solve: ``L X = B`` (or ``L^T X = B``) for
+    a (..., t, k) panel of k right-hand sides, one L (t, t) for the
+    panels' whole batch."""
+    if trans:
+        return torch.linalg.solve_triangular(l_kk.mT, b_panel, upper=True)
+    return torch.linalg.solve_triangular(l_kk, b_panel, upper=False)
+
+
+def selinv_step_ref(s_row: torch.Tensor, g_col: torch.Tensor) -> torch.Tensor:
+    """One Takahashi tile step: ``u[e] = sum_j s_row[e, j] @ g_col[j]`` for
+    ``s_row (e_n, j_n, t, t)`` already-computed Σ tiles and ``g_col (j_n,
+    t, t)`` the normalized factor column ``G[k_j] = L[k_j, j] L[j, j]^{-1}``."""
+    return torch.einsum("ejab,jbc->eac", s_row, g_col)
+
+
+def band_forward_sweep_ref(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
+                           start_tile: int = 0):
+    """Multi-RHS forward band sweep: ``L Y = B`` over the band rows, one
+    ``solve_panel`` per tile row.
+
+    Input:  Dr (ndt, bt+1, t, t) row-band factor tiles, Dr[m, j] = L[m, m-j]
+            R  (ndt, nat, t, t)  arrow rows, R[m, i] = L[ndt+i, m]
+            bd (ndt, t, k)       RHS tile panel
+    Output: yd (ndt, t, k)       with L Y = B on the band
+            acc_a (nat, t, k)    = sum_m R[m, i] @ Y_m  (arrow-RHS correction)
+
+    Rows ``m < start_tile`` are never visited and stay zero (the caller
+    guarantees the RHS is zero there).
+    """
+    ndt, b1 = Dr.shape[:2]
+    bt = b1 - 1
+    yd = torch.zeros_like(bd)
+    for m in range(start_tile, ndt):
+        # Y_m = Lmm^{-1} (B_m - sum_{j=1..bt} L[m, m-j] Y_{m-j}); Dr[m, j] is
+        # structurally zero for j > m and rows above start_tile are zero
+        jmax = min(bt, m)
+        acc = torch.einsum("jab,jbk->ak", Dr[m, 1:jmax + 1],
+                           yd[m - jmax:m].flip(0)) if jmax else 0.0
+        yd[m] = solve_panel_ref(Dr[m, 0], bd[m] - acc)
+    acc_a = torch.einsum("niab,nbk->iak", R, yd)
+    return yd, acc_a
+
+
+def band_backward_sweep_ref(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
+                            xa: torch.Tensor, start_tile: int = 0) -> torch.Tensor:
+    """Multi-RHS backward band sweep: ``L^T X = Y - R^T Xa`` over the band
+    rows in reverse, one ``solve_panel(trans=True)`` per tile row.
+
+    Input:  Dr (ndt, bt+1, t, t), R (ndt, nat, t, t) as in the forward sweep
+            yd (ndt, t, k)  forward-solved band panel
+            xa (nat, t, k)  already-solved arrow panel
+    Output: xd (ndt, t, k) with
+            X_m = Lmm^{-T}(Y_m - sum_j L[m+j,m]^T X_{m+j} - sum_i R[m,i]^T Xa_i)
+
+    The walk stops before ``start_tile``: rows ``m < start_tile`` (an
+    identity-diagonal prefix with zero RHS) are left zero.
+    """
+    ndt, b1 = Dr.shape[:2]
+    bt = b1 - 1
+    nat = R.shape[1]
+    xd = torch.zeros_like(yd)
+    for m in range(ndt - 1, start_tile - 1, -1):
+        jmax = min(bt, ndt - 1 - m)
+        # L[m+j, m] = Dr[m+j, j]
+        sub = torch.stack([Dr[m + j, j] for j in range(1, jmax + 1)]) if jmax else None
+        acc = torch.einsum("jab,jak->bk", sub, xd[m + 1:m + 1 + jmax]) if jmax else 0.0
+        if nat:
+            acc = acc + torch.einsum("iab,iak->bk", R[m], xa)
+        xd[m] = solve_panel_ref(Dr[m, 0], yd[m] - acc, trans=True)
+    return xd
 
 
 def band_cholesky_sweep_ref(Ac: torch.Tensor, R: torch.Tensor,
@@ -120,3 +196,60 @@ def band_cholesky_sweep_ref(Ac: torch.Tensor, R: torch.Tensor,
     rchunk = rpad.reshape((nch, csz) + tuple(R_out.shape[1:]))
     schur = torch.einsum("nkiab,nkjcb->nijac", rchunk, rchunk)
     return panels, R_out, schur, sweep_status(panels, R_out)
+
+
+def selinv_sweep_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
+                     start_tile: int = 0):
+    """Whole backward Takahashi recurrence, column by column.
+
+    Input:  lcol (ndt, bt+1, t, t) column view of the factor,
+            lcol[j, d] = L[j+d, j] (zero past ndt)
+            R (ndt, nat, t, t) arrow rows, R[j, i] = L[ndt+i, j]
+            sc_full (nat, nat, t, t) full (symmetric) corner Σ seed
+    Output: panels (ndt, bt+1, t, t)  Σ columns: panels[j, e] = Σ[j+e, j]
+            acols  (ndt, nat, t, t)   arrow entries: acols[j, i] = Σ[ndt+i, j]
+
+    Each step contracts the Σ block row visible from column j (band window
+    + arrow rows + corner) against the normalized factor column
+    ``G_kj = L_kj L_jj^{-1}`` (one :func:`selinv_step_ref`), walking
+    columns j = ndt-1..0 and reading the last bt computed Σ columns (zero
+    past ndt).  Columns ``j < start_tile`` are an identity-embedding
+    prefix: the identity column is fed through the step, which emits an
+    identity Σ panel and a zero arrow row.
+    """
+    ndt, b1, t, _ = lcol.shape
+    bt = b1 - 1
+    nat = R.shape[1]
+    eye = torch.eye(t, dtype=lcol.dtype, device=lcol.device)
+    # Σ columns with bt zero columns past the end, the ring's zero init
+    panels = torch.zeros((ndt + bt, b1, t, t), dtype=lcol.dtype, device=lcol.device)
+    acols = torch.zeros((ndt + bt, nat, t, t), dtype=lcol.dtype, device=lcol.device)
+    id_col = identity_prefix_panel(bt, t, lcol.dtype, lcol.device)
+    for j in range(ndt - 1, -1, -1):
+        lc, rc = (id_col, torch.zeros_like(R[j])) if j < start_tile else (lcol[j], R[j])
+        winv = solve_panel_ref(lc[0], eye)                 # L_jj^{-1}
+        s0 = winv.mT @ winv                                # (L_jj L_jj^T)^{-1}
+        g = lc[1:] @ winv                                  # G_d = L_{j+d,j} L_jj^{-1}
+        ga = rc @ winv                                     # Ga_i = R[j,i] L_jj^{-1}
+        gcat = torch.cat([g, ga])                          # (bt+nat, t, t)
+        # Σ block row visible from column j, rows (j+1..j+bt, arrow):
+        #   band e, band d:  e>=d -> Σ col j+d at e-d; e<d -> (Σ col j+e at d-e)^T
+        #   band e, arrow i: (arrow Σ of col j+e)[i]^T
+        #   arrow i, band d: (arrow Σ of col j+d)[i];  arrow i, arrow i': Σ_cc[i, i']
+        srow = torch.zeros((bt + nat, bt + nat, t, t), dtype=lcol.dtype,
+                           device=lcol.device)
+        for e in range(1, bt + 1):
+            for d in range(1, bt + 1):
+                srow[e - 1, d - 1] = (panels[j + d, e - d] if e >= d
+                                      else panels[j + e, d - e].mT)
+            srow[e - 1, bt:] = acols[j + e].mT
+        for d in range(1, bt + 1):
+            srow[bt:, d - 1] = acols[j + d]
+        srow[bt:, bt:] = sc_full
+        off = -selinv_step_ref(srow, gcat)                 # (bt+nat, t, t)
+        # diagonal: Σ_jj = s0 - Σ_{k>j} Σ_kj^T G_kj  (off = the fresh Σ_kj)
+        sjj = s0 - torch.einsum("kba,kbc->ac", off, gcat)
+        panels[j, 0] = 0.5 * (sjj + sjj.mT)
+        panels[j, 1:] = off[:bt]
+        acols[j] = off[bt:]
+    return panels[:ndt], acols[:ndt]

@@ -1,21 +1,30 @@
-"""CUDA kernel: off-diagonal tile solve (TRSM), ``csrc/trsm.cu``.
+"""CUDA kernels: the triangular tile solves, ``csrc/trsm.cu`` and
+``csrc/solve_panel.cu``.
 
-Port of the TPU kernel ``repro/kernels/trsm.py::trsm_pallas``: ``X = A
-L^{-T}`` for a batch of tiles, one L for all of them or one per tile.
-Each warp solves eight rows of ``X L^T = A`` together, its lanes owning
-the columns and each solved entry broadcast by shuffle
+:func:`trsm_cuda` ports the TPU kernel ``repro/kernels/trsm.py::
+trsm_pallas``: ``X = A L^{-T}`` for a batch of tiles, one L for all of them
+or one per tile.  Each warp solves eight rows of ``X L^T = A`` together,
+its lanes owning the columns and each solved entry broadcast by shuffle
 (``csrc/tile.cuh::substitute_right_rows``, shared with the band-Cholesky
-sweep).  The plain version is ``ref.trsm_ref``; ``ops.trsm`` chooses
-between them by device.  ``solve_panel_pallas`` is not ported yet.
+sweep).
+
+:func:`solve_panel_cuda` ports ``solve_panel_pallas``: ``L X = B`` or
+``L^T X = B`` for (..., t, k) panels of any width k, one thread per
+right-hand-side column with L staged in shared memory
+(``csrc/tile.cuh::substitute_panel``, shared with the band-solve and
+selected-inversion sweeps).
+
+The plain versions are ``ref.trsm_ref`` and ``ref.solve_panel_ref``;
+``ops.trsm`` and ``ops.solve_panel`` choose between them by device.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .potrf import check_tiles
+from .potrf import check_cuda, check_tiles
 
-__all__ = ["trsm_cuda"]
+__all__ = ["trsm_cuda", "solve_panel_cuda"]
 
 
 def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor) -> torch.Tensor:
@@ -40,3 +49,31 @@ def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor) -> torch.Tensor:
 
 
 trsm_cuda.launches = 0
+
+
+def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor,
+                     trans: bool = False) -> torch.Tensor:
+    """``L X = B`` (or ``L^T X = B``) on the card for a (..., t, k) batch of
+    panels; ``l_kk`` is one (t, t) tile for the whole batch."""
+    t = check_tiles("solve_panel", l_kk)
+    check_cuda("solve_panel", b_panel, aligned=False)
+    if l_kk.dim() != 2:
+        raise ValueError(f"solve_panel: want one ({t}, {t}) L, got {tuple(l_kk.shape)}")
+    if b_panel.dim() < 2 or b_panel.shape[-2] != t:
+        raise ValueError(f"solve_panel: want (..., {t}, k) panels, got "
+                         f"{tuple(b_panel.shape)}")
+    k = b_panel.shape[-1]
+    out = torch.empty_like(b_panel)
+    nb = b_panel.numel() // (t * k) if k else 0
+    if nb == 0:
+        return out
+    lib = _build.load("solve_panel")
+    stream = torch.cuda.current_stream(b_panel.device).cuda_stream
+    _build.check(lib, lib.stiles_solve_panel_f32(l_kk.data_ptr(), b_panel.data_ptr(),
+                                                 out.data_ptr(), nb, t, k, int(trans),
+                                                 stream), "solve_panel")
+    solve_panel_cuda.launches += 1
+    return out
+
+
+solve_panel_cuda.launches = 0

@@ -190,16 +190,23 @@ def test_breakdown_is_reported_not_raised(where, first_bad):
 
 
 def test_port_never_loads_jax():
-    """A fresh interpreter that imports the port and factorizes on the CPU
-    never imports jax (nor the JAX package)."""
+    """A fresh interpreter that imports the port, factorizes, solves and
+    inverts on the CPU never imports jax (nor the JAX package)."""
     code = (
         "import sys\n"
         "from repro_torch.core import BandedCTSF, TileGrid, factorize_window, logdet\n"
+        "from repro_torch.core import marginal_variances, selected_inverse, solve_many\n"
         "from repro_torch.data import make_arrowhead\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.core.solve, repro_torch.core.selinv\n"
+        "import repro_torch.kernels.band_solve, repro_torch.kernels.selinv\n"
+        "import torch\n"
         "A, st = make_arrowhead(200, 24, 16, seed=0)\n"
         "f = factorize_window(BandedCTSF.from_sparse(A, TileGrid(st, t=16), device='cpu'))\n"
         "assert float(logdet(f)) > 0\n"
+        "x = solve_many(f, torch.ones(f.ctsf.grid.padded_n, 2))\n"
+        "assert float(selected_inverse(f).diagonal().min()) > 0\n"
+        "assert float(marginal_variances(f, [0, 199]).min()) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.'))"
         " or m == 'repro']\n"
         "assert not bad, bad\n"

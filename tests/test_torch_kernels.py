@@ -1,5 +1,6 @@
 """The port's kernels module against the JAX package: the band-layout
-converters, and the plain versions of potrf, trsm and the band-Cholesky
+converters, and the plain versions of potrf, trsm, solve_panel, the
+band-Cholesky sweep, the band-solve sweeps and the selected-inversion
 sweep against ``repro.kernels.ref`` and against the Pallas kernels in
 interpret mode, at rtol = atol = 2e-4 (the tolerance of test_kernels.py;
 both sides are float32 and differ only in summation order).  The CUDA
@@ -16,12 +17,16 @@ from repro.data import make_arrowhead
 from repro.kernels import ref as jref
 from repro.kernels import ring as jring
 from repro.kernels.band_cholesky import band_cholesky_sweep_pallas
+from repro.kernels.band_solve import band_backward_sweep_pallas, band_forward_sweep_pallas
 from repro.kernels.potrf import potrf_pallas
-from repro.kernels.trsm import trsm_pallas
+from repro.kernels.selinv import selinv_sweep_pallas
+from repro.kernels.trsm import solve_panel_pallas, trsm_pallas
 from repro_torch.kernels import ops, ref, ring
 from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
 from repro_torch.kernels.potrf import potrf_cuda
-from repro_torch.kernels.trsm import trsm_cuda
+from repro_torch.kernels.selinv import selinv_sweep_cuda
+from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
 
 TILES = [8, 16, 32, 64]
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -175,18 +180,143 @@ def test_sweep_status_matches_reference():
                                   np.asarray(jref.empty_sweep_status()))
 
 
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_solve_panel_ref(rng, t, trans, k):
+    l = np.asarray(jref.potrf_ref(jnp.asarray(_spd(rng, 1, t)[0])))
+    b = rng.standard_normal((2, t, k)).astype(np.float32)
+    got = ref.solve_panel_ref(_t(l), _t(b), trans=trans).numpy()
+    for i in range(2):
+        np.testing.assert_allclose(got[i], np.asarray(jref.solve_panel_ref(
+            jnp.asarray(l), jnp.asarray(b[i]), trans=trans)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(solve_panel_pallas(
+        jnp.asarray(l), jnp.asarray(b), trans=trans, interpret=True)), **TOL)
+    # the dispatcher's plain version for CPU tensors
+    torch.testing.assert_close(ops.solve_panel(_t(l), _t(b), trans=trans),
+                               ref.solve_panel_ref(_t(l), _t(b), trans=trans), rtol=0, atol=0)
+
+
+def _band_factor(rng, ndt, bt, nat, t):
+    """Random row-band factor tiles with the BandedCTSF conventions, as
+    test_kernels.py makes them: well-conditioned lower-triangular diagonal
+    tiles, structural zeros above the band."""
+    Dr = rng.standard_normal((ndt, bt + 1, t, t)).astype(np.float32)
+    for m in range(ndt):
+        Dr[m, 0] = np.tril(Dr[m, 0]) + t * np.eye(t)
+        Dr[m, min(m, bt) + 1:] = 0.0
+    return Dr, rng.standard_normal((ndt, nat, t, t)).astype(np.float32)
+
+
+# (ndt, bt, nat, start_tile, k): one tile (bt = 0), no arrow, a wider band,
+# a deep band, and start_tile > 0 with and without an arrow, each at one
+# of k = 1 and k = 13
+SOLVE_SWEEPS = [(1, 0, 0, 0, 1), (5, 1, 0, 0, 13), (6, 2, 2, 0, 1), (9, 4, 1, 0, 13),
+                (9, 4, 1, 0, 1), (7, 2, 1, 3, 13), (6, 0, 2, 2, 1), (5, 3, 0, 1, 13)]
+
+
+@pytest.mark.parametrize("ndt,bt,nat,start_tile,k", SOLVE_SWEEPS)
+def test_band_solve_sweeps_ref(rng, ndt, bt, nat, start_tile, k):
+    """Both band sweeps' plain versions against the JAX oracles and the
+    Pallas kernels; the rows before start_tile come out zero."""
+    t = 8
+    Dr, R = _band_factor(rng, ndt, bt, nat, t)
+    bd = rng.standard_normal((ndt, t, k)).astype(np.float32)
+    bd[:start_tile] = 0.0
+    xa = rng.standard_normal((nat, t, k)).astype(np.float32)
+    jargs = (jnp.asarray(Dr), jnp.asarray(R), jnp.asarray(bd))
+    st = jnp.asarray(start_tile, jnp.int32)
+    got = ref.band_forward_sweep_ref(_t(Dr), _t(R), _t(bd), start_tile)
+    for want in (jref.band_forward_sweep_ref(*jargs, start_tile),
+                 band_forward_sweep_pallas(*jargs, start_tile=st, interpret=True)):
+        for g, w, name in zip(got, want, ("yd", "acc_a")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    assert np.abs(got[0].numpy()[:start_tile]).max(initial=0.0) == 0.0
+    got = ref.band_backward_sweep_ref(_t(Dr), _t(R), _t(bd), _t(xa), start_tile)
+    for want in (jref.band_backward_sweep_ref(*jargs, jnp.asarray(xa), st),
+                 band_backward_sweep_pallas(*jargs, jnp.asarray(xa), start_tile=st,
+                                            interpret=True)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.abs(got.numpy()[:start_tile]).max(initial=0.0) == 0.0
+    # the dispatcher takes the plain versions for CPU tensors
+    for g, d in zip(ref.band_forward_sweep_ref(_t(Dr), _t(R), _t(bd), start_tile),
+                    ops.band_forward_sweep(_t(Dr), _t(R), _t(bd), start_tile)):
+        torch.testing.assert_close(g, d, rtol=0, atol=0)
+    torch.testing.assert_close(got, ops.band_backward_sweep(_t(Dr), _t(R), _t(bd), _t(xa),
+                                                            start_tile), rtol=0, atol=0)
+
+
+def _selinv_inputs(n, bw, ar, t, pad=0):
+    """The reference factor's column view, arrow rows and full corner Σ,
+    with ``pad`` identity-prefix columns in front (a canonical-grid
+    embedding, as test_kernels.py builds it)."""
+    from repro.core import SolverOptions as JSolverOptions
+    from repro.core import embed_ctsf, factorize_window
+    A, st = make_arrowhead(n, bw, ar, rho=0.6, seed=0)
+    grid = JTileGrid(st, t=t)
+    bm = JBandedCTSF.from_sparse(A, grid)
+    if pad:
+        grid = JTileGrid.from_tile_counts(t, grid.n_diag_tiles + pad, grid.band_tiles,
+                                          grid.n_arrow_tiles)
+        bm = embed_ctsf(bm, grid)
+    f = factorize_window(bm, options=JSolverOptions(impl="ref")).ctsf
+    nat = grid.n_arrow_tiles
+    nc = nat * t
+    w = np.linalg.inv(np.asarray(f.C).transpose(0, 2, 1, 3).reshape(nc, nc).astype(np.float64))
+    sc = (w.T @ w).reshape(nat, t, nat, t).transpose(0, 2, 1, 3).astype(np.float32)
+    return np.asarray(jring.band_row_to_col(f.Dr)), np.asarray(f.R), sc
+
+
+@pytest.mark.parametrize("n,bw,ar,t,pad", [(96, 16, 8, 8, 3), (130, 40, 30, 16, 0),
+                                           (160, 8, 0, 16, 2), (16, 4, 0, 16, 0)])
+def test_selinv_sweep_ref(n, bw, ar, t, pad):
+    """The plain Takahashi sweep against the JAX oracle and the Pallas
+    kernel; identity-prefix columns emit identity Σ panels."""
+    lcol, R, sc = _selinv_inputs(n, bw, ar, t, pad)
+    got = ref.selinv_sweep_ref(_t(lcol), _t(R), _t(sc), start_tile=pad)
+    st = jnp.asarray(pad, jnp.int32)
+    jargs = (jnp.asarray(lcol), jnp.asarray(R), jnp.asarray(sc))
+    for want in (jref.selinv_sweep_ref(*jargs, start_tile=st),
+                 selinv_sweep_pallas(*jargs, start_tile=st, interpret=True)):
+        for g, w, name in zip(got, want, ("panels", "acols")):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **TOL)
+    panels = got[0].numpy()
+    np.testing.assert_array_equal(panels[:pad, 0], np.broadcast_to(np.eye(t), (pad, t, t)))
+    assert np.abs(panels[:pad, 1:]).max(initial=0.0) == 0.0
+    for g, d in zip(got, ops.selinv_sweep(_t(lcol), _t(R), _t(sc), start_tile=pad)):
+        torch.testing.assert_close(g, d, rtol=0, atol=0)
+
+
+def test_selinv_step_ref(rng):
+    s = rng.standard_normal((3, 5, 8, 8)).astype(np.float32)
+    g = rng.standard_normal((5, 8, 8)).astype(np.float32)
+    np.testing.assert_allclose(ref.selinv_step_ref(_t(s), _t(g)).numpy(),
+                               np.asarray(jref.selinv_step_ref(jnp.asarray(s), jnp.asarray(g))),
+                               **TOL)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never compute on the CPU, and the dispatcher
     never sends a CPU tensor to them on its own."""
     a = _t(_spd(np.random.default_rng(0), 1, 8)[0])
+    t4, p = a[None, None], a[None]
     for call in (lambda: potrf_cuda(a), lambda: trsm_cuda(a, a),
-                 lambda: band_cholesky_sweep_cuda(a[None, None], a[None, None]),
-                 lambda: ops.potrf(a, impl="cuda")):
+                 lambda: band_cholesky_sweep_cuda(t4, t4),
+                 lambda: solve_panel_cuda(a, a), lambda: band_forward_sweep_cuda(t4, t4, p),
+                 lambda: band_backward_sweep_cuda(t4, t4, p, p),
+                 lambda: selinv_sweep_cuda(t4, t4, t4),
+                 lambda: ops.potrf(a, impl="cuda"), lambda: ops.solve_panel(a, a, impl="cuda"),
+                 lambda: ops.band_forward_sweep(t4, t4, p, impl="cuda"),
+                 lambda: ops.band_backward_sweep(t4, t4, p, p, impl="cuda"),
+                 lambda: ops.selinv_sweep(t4, t4, t4, impl="cuda")):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(ValueError, match="impl"):
         ops.trsm(a, a, impl="pallas")
-    before = (potrf_cuda.launches, trsm_cuda.launches, band_cholesky_sweep_cuda.launches)
-    ops.potrf(a), ops.trsm(a, a), ops.band_cholesky_sweep(a[None, None], a[None, None])
-    assert (potrf_cuda.launches, trsm_cuda.launches,
-            band_cholesky_sweep_cuda.launches) == before
+    kernels = (potrf_cuda, trsm_cuda, band_cholesky_sweep_cuda, solve_panel_cuda,
+               band_forward_sweep_cuda, band_backward_sweep_cuda, selinv_sweep_cuda)
+    before = [k.launches for k in kernels]
+    ops.potrf(a), ops.trsm(a, a), ops.band_cholesky_sweep(t4, t4), ops.solve_panel(a, a)
+    ops.band_forward_sweep(t4, t4, p), ops.band_backward_sweep(t4, t4, p, p)
+    ops.selinv_sweep(t4, t4, t4)
+    assert [k.launches for k in kernels] == before

@@ -170,3 +170,34 @@ def test_chip_smoke_counts_needed_flops(tiles):
     want_corner = sum(t ** 3 / 3 + k * t ** 3 + (nat - 1 - k) * (1 + 2 * k) * t ** 3
                       for k in range(nat))
     assert corner == pytest.approx(want_corner, rel=1e-12)
+
+
+@pytest.mark.parametrize("ndt,bt,nat", [(6, 2, 1), (9, 4, 4), (5, 1, 0)])
+def test_chip_smoke_counts_solve_work(ndt, bt, nat):
+    """The work behind chip_smoke.py's bounds of the solve kernels, counted
+    a row and a column at a time from the tiles the grid has: a forward
+    row reads min(bt, m) band tiles, its diagonal tile and nat arrow tiles;
+    a selinv column j, d = min(bt, ndt - 1 - j), makes (d + nat)^2 general
+    tile products (2 t^3), d + nat by the triangular L_jj^{-1} (t^3), d +
+    nat summed into the symmetric diagonal (t^3), one W^T W and one
+    triangular inverse (t^3 / 3 each)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    t, k = 16, 3
+    work = chip_smoke.solve_work(tstructure.TileGrid.from_tile_counts(t, ndt, bt, nat), k)
+    rows = [min(bt, m) for m in range(ndt)]
+    ops = sum(2 * t * t * k * (r + nat) + t * t * k for r in rows)
+    tiles = sum(r + 1 for r in rows) + ndt * nat
+    assert work["band_forward_sweep"] == (ops, 4 * (tiles * t * t + 2 * ndt * t * k + nat * t * k))
+    assert work["band_backward_sweep"] == work["band_forward_sweep"]
+    assert work["solve_panel"] == (t * t * k, 4 * (t * t + 2 * t * k))
+    cols = [min(bt, ndt - 1 - j) for j in range(ndt)]
+    gemms = sum(d * (d + nat) + nat * (nat + d) for d in cols)
+    trmms = syrks = sum(d + nat for d in cols)
+    assert work["selinv_sweep"][0] == pytest.approx(
+        t ** 3 * (2 * gemms + trmms + syrks + 2 * ndt / 3))
+    assert work["selinv_sweep"][1] == 4 * t * t * (2 * tiles + nat * nat)
