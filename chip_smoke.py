@@ -6,8 +6,9 @@
 Phases, each of which raises on a failed check:
 
 1. card: the card's name and power limit; build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a and print what
-   ptxas reports (registers, shared memory, spills);
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
+   source, all started together) and print what ptxas reports (registers,
+   shared memory, spills);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at rtol = atol = 2e-4: potrf and trsm for t in {8, 16, 32, 64}; the
    band-Cholesky sweep for bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile
@@ -16,23 +17,41 @@ Phases, each of which raises on a failed check:
    both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
    (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}; the selinv
    sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1, 4},
-   start_tile in {0, 2};
-3. main path at full size: Table II matrices 5 (n=10,200, bandwidth 200,
-   arrow 200) and 2 (n=10,010, bandwidth 200, arrow 10), seed 0, t=64:
-   measure_arrowhead -> TileGrid -> BandedCTSF.from_sparse ->
-   factorize_window -> logdet, then solve (k=1), solve_many (k=32),
-   sample_gmrf_many (32 draws), selected_inverse and marginal_variances
-   with both methods, each with its launch counts and checked on the card
-   against float64 oracles (factor residual, logdet, solve residual and
-   forward error, L^T x = z, every stored entry of Σ, the variances);
-4. timings at the main path's shapes: each kernel, its plain version and
+   start_tile in {0, 2}; gemm, syrk and geadd with batched, broadcast,
+   in-place and strided operands; the partitioned sweep for P in {1, 2,
+   4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
+   bit against the fused kernel;
+3. main paths at full size, each with the launch counts set to 0 just
+   before it and read just after:
+   - Table II matrices 5 (n=10,200, bandwidth 200, arrow 200) and 2
+     (n=10,010, bandwidth 200, arrow 10), seed 0, t=64:
+     measure_arrowhead -> TileGrid -> BandedCTSF.from_sparse ->
+     factorize_window -> logdet, then solve (k=1), solve_many (k=32),
+     sample_gmrf_many (32 draws), selected_inverse and marginal_variances
+     with both methods, each with its launch counts and checked on the
+     card against float64 oracles (factor residual, logdet, solve residual
+     and forward error, L^T x = z, every stored entry of Σ, the variances);
+   - the same two matrices through TileMatrix.from_sparse ->
+     factorize_tasklist, tree reduction off and on (8 workers): launch
+     counts derived from the symbolic task list, factor residual,
+     agreement with the window factor, logdet from the tiles;
+   - Table II matrices 4 (n=10,200, bandwidth 100, arrow 200) and 1
+     (n=10,010, bandwidth 100, arrow 10), block-diagonal, with the plan
+     detect_partition_plan finds (7 partitions): the partitioned sweep bit
+     for bit against the fused kernel, then factorize_window with the plan
+     (one partitioned launch, a geadd per tree level, the corner against
+     the fused route's, factor residual, logdet);
+   - python -m repro_torch.quickstart's main, its task-list agreement;
+4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
    time from CUDA events around the calls themselves), beside the
-   kernel's bound;
+   kernel's bound; the partitioned sweep beside the fused kernel on the
+   same matrix and on its widest partition alone;
    where the factorization sweep's cycles go, from a phase-marked build
    of its kernel; factorize_window, solve_many, selected_inverse and
-   marginal_variances end to end.
+   marginal_variances end to end; factorize_tasklist (call time against
+   device time) and the partitioned factorize_window end to end.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -41,6 +60,7 @@ result where there is no CUDA device or no checkout around the script.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -65,6 +85,13 @@ RESIDUAL_LIMIT = 1e-4
 SOLVE_RTOL = 2e-3
 SIGMA_LIMIT = 1e-4
 VARIANCE_RTOL = 1e-4
+# the task list's factor against the window factor, relative to max|L|: the
+# reference's backend agreement atol (tests/test_cholesky.py:57)
+AGREEMENT_LIMIT = 5e-4
+# the task list on TABLE2_IDS; the partitioned route on the block-diagonal
+# matrices 4 (n=10,200, bandwidth 100, arrow 200) and 1 (n=10,010,
+# bandwidth 100, arrow 10)
+PARTITIONED_IDS = (4, 1)
 SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
 
 
@@ -83,16 +110,22 @@ def card_line() -> str:
 # inputs
 # ---------------------------------------------------------------------------
 
-def random_band_arrow(torch, ndt, bt, nat, t, seed, device, bad_tile=None):
+def random_band_arrow(torch, ndt, bt, nat, t, seed, device, bad_tile=None, bounds=None):
     """Column-band tiles Ac (ndt, bt+1, t, t) and arrow rows R (ndt, nat, t,
     t) of a random diagonally dominant (so SPD) banded-arrowhead matrix;
-    with ``bad_tile`` one diagonal entry of that band tile is negative."""
+    with ``bad_tile`` one diagonal entry of that band tile is negative; with
+    ``bounds`` (partition boundaries) the band tiles across the cuts are
+    zero, so the band is block-separable."""
     import numpy as np
     rng = np.random.default_rng(seed)
     n = (ndt + nat) * t
     tile = np.arange(n) // t
     ti, tj = tile[:, None], tile[None, :]
-    mask = ((ti < ndt) & (tj < ndt) & (np.abs(ti - tj) <= bt)) | (ti >= ndt) | (tj >= ndt)
+    part = np.searchsorted(np.asarray(bounds if bounds else (0, ndt)),
+                           np.minimum(tile, ndt - 1), side="right")
+    same = part[:, None] == part[None, :]
+    mask = (((ti < ndt) & (tj < ndt) & (np.abs(ti - tj) <= bt) & same)
+            | (ti >= ndt) | (tj >= ndt))
     a = np.where(mask, rng.standard_normal((n, n)), 0.0)
     a = np.tril(a) + np.tril(a, -1).T
     a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + 1.0
@@ -180,6 +213,57 @@ def assert_close(torch, got, want, what, tol=TOL):
     return diff[torch.isfinite(diff)].max().item() if diff.numel() else 0.0
 
 
+def assert_update(got, want, scale, what):
+    """``got`` against ``want`` relative to ``scale``, the size of what the
+    kernel adds to its input (max|A B^T| of an update, the smaller operand's
+    max of a sum), so a kernel that drops that part fails however small it
+    is beside the rest; returns the relative error."""
+    if not scale > 0:
+        raise AssertionError(f"{what}: the kernel's own part is zero, the check would be vacuous")
+    err = (got - want).abs().max().item() / scale
+    if not err <= TOL:
+        raise AssertionError(f"{what}: error {err:.3e} of the kernel's own part (limit {TOL})")
+    return err
+
+
+def largest_band_task(torch, tm, L, task_type):
+    """The GEMM or SYRK task of ``tm``'s task list in the band (every index
+    below ndt) whose product ``L[row, n] L[k, n]^T`` is largest, from the
+    factor's tile buffer ``L``: many band tiles of a Table II factor are
+    zero or tiny, and a kernel's check on those could not tell a skipped
+    product."""
+    from repro_torch.core import TaskType
+    ndt = tm.grid.n_diag_tiles
+    row = (lambda x: x.m) if task_type == TaskType.GEMM else (lambda x: x.k)
+    tasks = [x for x in tm.symbolic.tasks if x.type == task_type and row(x) < ndt]
+    prods = torch.einsum("nab,ncb->nac", L[[tm.slot[(row(x), x.n)] for x in tasks]],
+                         L[[tm.slot[(x.k, x.n)] for x in tasks]])
+    return tasks[int(prods.abs().amax(dim=(1, 2)).argmax())]
+
+
+def first_tree_operands(torch, tm, L, workers):
+    """geadd's operands at the first level of the task list's first tree
+    (the first accumulation chain on which ``should_use_tree`` holds, with
+    ``workers`` workers), from the factor's tile buffer ``L``: the even and
+    odd chunk partials, strided halves of a (workers, t, t) stack; and the
+    tile (row, k) the chain updates."""
+    from repro_torch.core import TaskType, should_use_tree
+    chains = {}
+    for task in tm.symbolic.tasks:
+        if task.type in (TaskType.SYRK, TaskType.GEMM):
+            row = task.k if task.type == TaskType.SYRK else task.m
+            chains.setdefault((task.k, row), []).append(task.n)
+    k, row, ns = next((k, row, ns) for (k, row), ns in chains.items()
+                      if should_use_tree(len(ns), workers))
+    t = tm.grid.t
+    terms = torch.einsum("nab,ncb->nac", L[[tm.slot[(row, n)] for n in ns]],
+                         L[[tm.slot[(k, n)] for n in ns]])
+    terms = torch.cat([terms, terms.new_zeros(((-len(ns)) % workers, t, t))])
+    partials = terms.reshape((workers, -1, t, t)).sum(dim=1)
+    half = 2 * (workers // 2)
+    return partials[0:half:2], partials[1:half:2], (row, k)
+
+
 def check_status(got, want, what):
     g, w = got.tolist(), want.tolist()
     if g[1] != w[1] or g[2] != w[2]:
@@ -223,6 +307,56 @@ def phase_kernels(torch, device, kern, ref):
                                  "not flag tile 2")
         assert_close(torch, got[0][:2], want[0][:2], f"breakdown t={t} clean panels")
         nchecks += 1
+    return nchecks
+
+
+# (ndt, bt, nat, boundaries) of the partitioned sweep's checks: P = 1, 2,
+# 4 and 7, with bt = 0, nat = 0 and ragged last partitions
+PARTITIONED_CASES = ((6, 2, 1, (0, 6)), (8, 0, 2, (0, 4, 8)), (9, 2, 0, (0, 3, 5, 7, 9)),
+                     (15, 3, 2, (0, 2, 4, 6, 8, 10, 12, 15)), (10, 1, 3, (0, 3, 6, 9, 10)))
+
+
+def phase_tasklist_kernels(torch, device, kern, ref):
+    """The task list's tile kernels (gemm, syrk, geadd) and the partitioned
+    sweep against their plain versions; the partitioned sweep also bit for
+    bit against the fused kernel on block-separable input.  Returns the
+    number of comparisons."""
+    nchecks = 0
+    for t in TILES:
+        g = torch.Generator().manual_seed(t)
+        x = lambda *shape: torch.randn(shape, generator=g).to(device)
+        c, a, b = x(5, t, t), x(5, t, t), x(5, t, t)
+        for what, got, want in (
+                ("batched", kern["gemm"](c, a, b), ref.gemm_ref(c, a, b)),
+                ("broadcast A", kern["gemm"](c, a[0], b), ref.gemm_ref(c, a[0], b)),
+                ("broadcast B", kern["gemm"](c, a, b[1]), ref.gemm_ref(c, a, b[1])),
+                ("one tile", kern["gemm"](c[2], a[0], b[1]), ref.gemm_ref(c[2], a[0], b[1]))):
+            assert_close(torch, got, want, f"gemm t={t} {what}")
+        assert_close(torch, kern["syrk"](c, a), ref.syrk_ref(c, a), f"syrk t={t} batched")
+        assert_close(torch, kern["syrk"](c[1], a[3]), ref.syrk_ref(c[1], a[3]), f"syrk t={t}")
+        want = ref.gemm_ref(c[0], a[1], b[2])
+        kern["gemm"](c[0], a[1], b[2], out=c[0])
+        assert_close(torch, c[0], want, f"gemm t={t} in place")
+        leaves = x(7, 2, 2, t, t)
+        assert_close(torch, kern["geadd"](leaves[0:6:2], leaves[1:6:2]),
+                     ref.geadd_ref(leaves[0:6:2], leaves[1:6:2]), f"geadd t={t} strided")
+        assert_close(torch, kern["geadd"](a, b), ref.geadd_ref(a, b), f"geadd t={t}")
+        nchecks += 9
+        for ndt, bt, nat, bounds in PARTITIONED_CASES:
+            Ac, R = random_band_arrow(torch, ndt, bt, nat, t, seed=7 * ndt + t, device=device,
+                                      bounds=bounds)
+            for start in (0, 3):
+                what = f"partitioned sweep t={t} bt={bt} nat={nat} P={len(bounds) - 1} start={start}"
+                got = kern["band_cholesky_partitioned_sweep"](Ac, R, bounds, start_tile=start)
+                want = ref.band_cholesky_partitioned_sweep_ref(Ac, R, bounds, start_tile=start)
+                for gg, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
+                    assert_close(torch, gg, w, f"{what} {part}")
+                check_status(got[3], want[3], what)
+                fused = kern["band_cholesky_sweep"](Ac, R, nchunks=1, start_tile=start)
+                if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+                        and got[3].tolist() == fused[3].tolist()):
+                    raise AssertionError(f"{what}: not bit-identical to the fused kernel")
+                nchecks += 2
     return nchecks
 
 
@@ -294,20 +428,27 @@ def dense_from_ctsf(torch, m, dtype, symmetric):
     return out
 
 
-def needed_flops(grid):
+def needed_flops(grid, boundaries=None):
     """Operations the factorization of ``grid`` needs, split into the band
     sweep's share and the dense corner's: the symbolic task list of its
     dense-band pattern (``core.symbolic``), a POTRF t^3/3, a SYRK t^3 (its
     product is symmetric, so one triangle is needed), a TRSM t^3 and a GEMM
     2 t^3.  The sweep owns every task on a band column and every
-    corner-Schur update from one; the rest is the corner's."""
+    corner-Schur update from one; the rest is the corner's.  With partition
+    ``boundaries`` the band tiles across the cuts are zero, and so is their
+    work."""
+    import numpy as np
     from repro_torch.core import (TaskType, banded_arrowhead_tile_pattern,
                                   symbolic_factorize)
     t, ndt = grid.t, grid.n_diag_tiles
     cost = {TaskType.POTRF: t ** 3 / 3.0, TaskType.SYRK: float(t) ** 3,
             TaskType.TRSM: float(t) ** 3, TaskType.GEMM: 2.0 * t ** 3}
+    pattern = banded_arrowhead_tile_pattern(grid)
+    if boundaries is not None:
+        part = np.searchsorted(np.asarray(boundaries), np.arange(ndt), side="right")
+        pattern[:ndt, :ndt] &= part[:, None] == part[None, :]
     sweep = corner = 0.0
-    for task in symbolic_factorize(banded_arrowhead_tile_pattern(grid)).tasks:
+    for task in symbolic_factorize(pattern).tasks:
         if task.k < ndt or 0 <= task.n < ndt:
             sweep += cost[task.type]
         else:
@@ -473,6 +614,158 @@ def run_solves(torch, matrix_id, m, f, kern_counts):
     return rec
 
 
+def tree_levels(n_partials):
+    """geadd launches of a tree over ``n_partials`` leaves: one a level."""
+    levels = 0
+    while n_partials > 1:
+        n_partials, levels = (n_partials + 1) // 2, levels + 1
+    return levels
+
+
+def tasklist_launches(tm, workers):
+    """The kernel launches of ``factorize_tasklist(tm)`` with ``workers``
+    tree workers (0: no tree), derived from the symbolic task list: a
+    launch per task, except that an accumulation chain on which
+    ``should_use_tree`` holds is one batched product and a geadd per level
+    of the tree over ``min(workers, chain)`` partials."""
+    from repro_torch.core import TaskType, should_use_tree
+    chains = {}
+    want = dict(potrf=0, trsm=0, syrk=0, gemm=0, geadd=0)
+    for task in tm.symbolic.tasks:
+        name = task.type.name.lower()
+        if task.type in (TaskType.SYRK, TaskType.GEMM):
+            key = (task.k, task.k if task.type == TaskType.SYRK else task.m)
+            chains.setdefault(key, [name, 0])[1] += 1
+        else:
+            want[name] += 1
+    for name, n in chains.values():
+        if should_use_tree(n, workers):
+            want["geadd"] += tree_levels(min(workers, n))
+        else:
+            want[name] += n
+    return want
+
+
+def dense_from_tiles(torch, tm, tiles, dtype):
+    """The padded dense lower factor of a TileMatrix's tile buffer, on its
+    device."""
+    t = tm.grid.t
+    out = torch.zeros((tm.grid.padded_n, tm.grid.padded_n), dtype=dtype, device=tiles.device)
+    for (i, j), idx in tm.slot.items():
+        out[i * t:(i + 1) * t, j * t:(j + 1) * t] = tiles[idx]
+    return torch.tril(out)
+
+
+def run_tasklist(torch, matrix_id, m, f, rec, kern_counts):
+    """The paper's task list on one factored Table II matrix, tree
+    reduction off and on (8 workers): launch counts against the symbolic
+    task list, the factor residual, the agreement with the window factor
+    ``f`` and the logdet from the tiles; returns the records and the
+    TileMatrix."""
+    from repro_torch.core import TileMatrix, factorize_tasklist
+    from repro_torch.data import table2_matrix
+    t0 = time.perf_counter()
+    A, _ = table2_matrix(matrix_id, seed=0)
+    tm = TileMatrix.from_sparse(A, m.grid)
+    host_s = time.perf_counter() - t0
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Lw = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    out = {}
+    for tree in (False, True):
+        workers = 8 if tree else 0
+        what = f"matrix {matrix_id} factorize_tasklist tree={tree}"
+        want = tasklist_launches(tm, workers)
+        tiles, launches = launch_delta(
+            kern_counts, lambda: factorize_tasklist(tm, tree_reduction=tree, tree_workers=8),
+            want, what)
+        Lt = dense_from_tiles(torch, tm, tiles, torch.float64)
+        resid = ((Lt @ Lt.mT - Ad).abs().max() / Ad.abs().max()).item()
+        agree = ((Lt - Lw).abs().max() / Lw.abs().max()).item()
+        ld = (2.0 * torch.log(torch.diagonal(Lt))).sum().item()
+        ld_rel = abs(ld - rec["logdet_oracle"]) / abs(rec["logdet_oracle"])
+        del Lt
+        if not (resid <= RESIDUAL_LIMIT and agree <= AGREEMENT_LIMIT and ld_rel <= 1e-4):
+            raise AssertionError(f"{what}: residual {resid:.3e} (limit {RESIDUAL_LIMIT}), "
+                                 f"agreement with factorize_window {agree:.3e} (limit "
+                                 f"{AGREEMENT_LIMIT}), logdet rel {ld_rel:.3e} (limit 1e-4)")
+        out[f"tree_{'on' if tree else 'off'}"] = dict(
+            residual=resid, agreement=agree, logdet=ld, logdet_rel_err=ld_rel,
+            launches=launches)
+    del Ad, Lw
+    return dict(n_tasks=len(tm.symbolic.tasks), n_alloc=tm.n_alloc, nbytes=tm.nbytes(),
+                host_setup_s=round(host_s, 3), **out), tm
+
+
+def partitioned_matrix(torch, matrix_id):
+    """A block-diagonal Table II matrix on the card and the plan
+    ``detect_partition_plan`` finds for it; returns ``(m, plan, seconds)``."""
+    from repro_torch.core import BandedCTSF, TileGrid, detect_partition_plan, measure_arrowhead
+    from repro_torch.data import table2_matrix
+    t0 = time.perf_counter()
+    A, st = table2_matrix(matrix_id, seed=0)
+    measured = measure_arrowhead(A, arrow_hint=st.arrow)
+    grid = TileGrid(measured, t=64)
+    m = BandedCTSF.from_sparse(A, grid)
+    plan = detect_partition_plan(A, measured, grid.t)
+    if plan.n_partitions < 2:
+        raise AssertionError(f"matrix {matrix_id}: detect_partition_plan found one partition")
+    return m, plan, time.perf_counter() - t0
+
+
+def run_partitioned(torch, matrix_id, m, plan, kern_counts):
+    """``factorize_window`` with ``plan`` on one matrix, and its launches:
+    one partitioned sweep, a geadd per level of the tree over the
+    partitions' Schur leaves, nat potrf and nat trsm."""
+    from repro_torch.core import SolverOptions, factorize_window
+    nat = m.grid.n_arrow_tiles
+    return launch_delta(
+        kern_counts, lambda: factorize_window(m, options=SolverOptions(partition_plan=plan)),
+        {"band_cholesky_partitioned_sweep": 1, "geadd": tree_levels(plan.n_partitions),
+         "potrf": nat, "trsm": nat}, f"matrix {matrix_id} partitioned factorize_window")
+
+
+def check_partitioned(torch, matrix_id, m, plan, f, launches, host_s):
+    """The partitioned route's checks on one matrix: the partitioned sweep
+    bit for bit against the fused kernel (panels, arrow rows, status), the
+    factor ``f`` against the fused route's (band bit for bit, the corner
+    within 1e-4 relative), its residual and logdet; returns the record."""
+    from repro_torch.core import factorize_window, logdet
+    from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                                   band_cholesky_sweep_cuda)
+    from repro_torch.kernels.ring import band_row_to_col
+    what = f"matrix {matrix_id} partitioned"
+    Ac = band_row_to_col(m.Dr)
+    got = band_cholesky_partitioned_sweep_cuda(Ac, m.R, plan.boundaries)
+    fused = band_cholesky_sweep_cuda(Ac, m.R, nchunks=1)
+    if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+            and got[3].tolist() == fused[3].tolist()):
+        raise AssertionError(f"{what}: sweep not bit-identical to the fused kernel")
+    ff = factorize_window(m)
+    corner = ((f.ctsf.C - ff.ctsf.C).abs().max() / ff.ctsf.C.abs().max()).item()
+    ld = logdet(f).item()
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    resid = ((Ld @ Ld.mT - Ad).abs().max() / Ad.abs().max()).item()
+    oracle = (2.0 * torch.log(torch.diagonal(torch.linalg.cholesky(Ad)))).sum().item()
+    ld_rel = abs(ld - oracle) / abs(oracle)
+    del Ad, Ld
+    same = all(torch.equal(getattr(f.ctsf, x), getattr(ff.ctsf, x)) for x in ("Dr", "R"))
+    status = f.status.tolist()
+    if not (same and corner <= 1e-4 and resid <= RESIDUAL_LIMIT and ld_rel <= 1e-4
+            and status[1:] == [0.0, -1.0]):
+        raise AssertionError(f"{what}: band bit-identical to the fused route {same}, corner "
+                             f"{corner:.3e} (limit 1e-4), residual {resid:.3e}, logdet rel "
+                             f"{ld_rel:.3e}, status {status}")
+    g = m.grid
+    return dict(matrix=matrix_id, n=g.structure.n, bandwidth=g.structure.bandwidth,
+                arrow=g.structure.arrow, t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles,
+                nat=g.n_arrow_tiles, boundaries=list(plan.boundaries),
+                partitions=plan.n_partitions, max_tiles=plan.max_tiles,
+                host_setup_s=round(host_s, 3), residual=resid, corner_rel_to_fused=corner,
+                logdet=ld, logdet_oracle=oracle, logdet_rel_err=ld_rel, status=status,
+                launches=launches)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
@@ -528,6 +821,21 @@ def device_ms(torch, fn, calls=1, reps=5):
     return statistics.median(times)
 
 
+def launches_per_call(records, precords, name):
+    """Launches of kernel ``name`` per call of each entry point on each
+    matrix of the main paths."""
+    out = {}
+    for r in records:
+        calls = [("factorize_window", r["launches"])] + list(r["solves"]["launches"].items())
+        calls += [(f"factorize_tasklist_{k}", v["launches"]) for k, v in r["tasklist"].items()
+                  if isinstance(v, dict) and "launches" in v]
+        out[str(r["matrix"])] = {c: n[name] for c, n in calls if n.get(name)}
+    for r in precords:
+        if r["launches"].get(name):
+            out[str(r["matrix"])] = {"factorize_window partitioned": r["launches"][name]}
+    return {k: v for k, v in out.items() if v}
+
+
 def bound(flops, nbytes):
     tf, tb = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (tf, "operations") if tf >= tb else (tb, "bytes")
@@ -567,8 +875,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+    from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                                   band_cholesky_sweep_cuda)
     from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+    from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
     from repro_torch.kernels.potrf import potrf_cuda
     from repro_torch.kernels.selinv import selinv_sweep_cuda
     from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
@@ -579,10 +889,25 @@ def main() -> int:
     dev = "cuda:0"
     kern = {"potrf": potrf_cuda, "trsm": trsm_cuda, "band_cholesky_sweep": band_cholesky_sweep_cuda,
             "solve_panel": solve_panel_cuda, "band_forward_sweep": band_forward_sweep_cuda,
-            "band_backward_sweep": band_backward_sweep_cuda, "selinv_sweep": selinv_sweep_cuda}
+            "band_backward_sweep": band_backward_sweep_cuda, "selinv_sweep": selinv_sweep_cuda,
+            "gemm": gemm_cuda, "syrk": syrk_cuda, "geadd": geadd_cuda,
+            "band_cholesky_partitioned_sweep": band_cholesky_partitioned_sweep_cuda}
 
     def counts():
         return {k: f.launches for k, f in kern.items()}
+
+    path_launches = {}
+
+    def run_path(name, fn):
+        """One path of the main run: every count set to 0 just before it and
+        read just after."""
+        for k in kern.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[name] = {k: v for k, v in counts().items() if v}
+        log(f"launches, {name}: {json.dumps(path_launches[name])}")
+        return out
 
     # 1. card and build
     card = card_line()
@@ -599,22 +924,54 @@ def main() -> int:
     t0 = time.perf_counter()
     n = phase_kernels(torch, dev, kern, ref)
     n += phase_solve_kernels(torch, dev, kern, ref)
+    n += phase_tasklist_kernels(torch, dev, kern, ref)
     torch.cuda.synchronize()
     log(f"kernels: {n} comparisons with the plain versions pass "
         f"(rtol=atol={TOL}) in {time.perf_counter() - t0:.1f} s")
 
-    # 3. main path at full size; counts reset just before, read just after
-    for k in kern.values():
-        k.launches = 0
+    # 3. main paths at full size, each with its counts reset just before
+    #    and read just after: the window factorization and the solves, the
+    #    task list, the partitioned route, the quickstart
     records, mats = [], {}
-    for mid in TABLE2_IDS:
-        rec, m, f = run_matrix(torch, mid, kern_counts=counts)
-        records.append(rec)
-        mats[mid] = (m, f)
-        log(f"main path: Table II matrix {mid}: " + json.dumps(rec))
-        rec["solves"] = run_solves(torch, mid, m, f, counts)
-        log(f"main path, solves: Table II matrix {mid}: " + json.dumps(rec["solves"]))
-    main_launches = counts()
+
+    def window_path():
+        for mid in TABLE2_IDS:
+            rec, m, f = run_matrix(torch, mid, kern_counts=counts)
+            records.append(rec)
+            mats[mid] = (m, f)
+            log(f"main path: Table II matrix {mid}: " + json.dumps(rec))
+            rec["solves"] = run_solves(torch, mid, m, f, counts)
+            log(f"main path, solves: Table II matrix {mid}: " + json.dumps(rec["solves"]))
+
+    run_path("factorize_window and solves", window_path)
+    tms = {}
+
+    def tasklist_path():
+        for rec in records:
+            m, f = mats[rec["matrix"]]
+            rec["tasklist"], tms[rec["matrix"]] = run_tasklist(torch, rec["matrix"], m, f, rec,
+                                                               counts)
+            log(f"main path, task list: Table II matrix {rec['matrix']}: "
+                + json.dumps(rec["tasklist"]))
+
+    run_path("factorize_tasklist", tasklist_path)
+    pmats = {mid: partitioned_matrix(torch, mid) for mid in PARTITIONED_IDS}
+    pfs = run_path("partitioned factorize_window", lambda: {
+        mid: run_partitioned(torch, mid, m, plan, counts) for mid, (m, plan, _) in pmats.items()})
+    precords = []
+    for mid, (m, plan, host_s) in pmats.items():
+        precords.append(check_partitioned(torch, mid, m, plan, *pfs[mid], host_s))
+        log(f"main path, partitioned: Table II matrix {mid}: " + json.dumps(precords[-1]))
+    from repro_torch.quickstart import main as quickstart
+    qs = run_path("quickstart", lambda: quickstart([]))
+    if not (qs["tasklist_agreement"] <= AGREEMENT_LIMIT
+            and all(math.isfinite(v) for v in (qs["solve_residual"], qs["logdet"]))):
+        raise AssertionError(f"quickstart: task-list agreement {qs['tasklist_agreement']:.3e} "
+                             f"(limit {AGREEMENT_LIMIT}), {qs}")
+    main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
+    unused = [k for k, v in main_launches.items() if not v]
+    if unused:
+        raise AssertionError(f"kernels the main paths never launched: {unused}")
 
     # 4. timings at the main path's shapes (matrix 5), kernel vs plain
     m, f = mats[TABLE2_IDS[0]]
@@ -665,8 +1022,73 @@ def main() -> int:
         errs[name] = max(assert_close(torch, a, b, f"main-path {name}") for a, b in zip(got, want))
     work = solve_work(g, 32)
 
+    # the task list's tiles of matrix 5 as its band GEMM and SYRK tasks with
+    # the largest products meet them: C from the matrix, A and B factored.
+    # Each is held to its plain version, and also relative to its update
+    # A B^T alone
+    from repro_torch.core import TaskType, factorize_tasklist
+    tm5 = tms[TABLE2_IDS[0]]
+    L5 = factorize_tasklist(tm5)
+    a_tile = lambda i, j: tm5.tiles[tm5.slot[(i, j)]]
+    l_tile = lambda i, j: L5[tm5.slot[(i, j)]]
+    gt, st_ = (largest_band_task(torch, tm5, L5, ty) for ty in (TaskType.GEMM, TaskType.SYRK))
+    cg, ag, bg = a_tile(gt.m, gt.k), l_tile(gt.m, gt.n), l_tile(gt.k, gt.n)
+    cs, as_ = a_tile(st_.k, st_.k), l_tile(st_.k, st_.n)
+    # geadd on the operands the tree gives it: the first level's even and
+    # odd partials of the first tree chain of matrix 5 (8 workers)
+    ga, gb, tree_tile = first_tree_operands(torch, tm5, L5, 8)
+    tl_k = {"gemm": lambda: gemm_cuda(cg, ag, bg), "syrk": lambda: syrk_cuda(cs, as_),
+            "geadd": lambda: geadd_cuda(ga, gb)}
+    tl_p = {"gemm": lambda: ref.gemm_ref(cg, ag, bg), "syrk": lambda: ref.syrk_ref(cs, as_),
+            "geadd": lambda: ref.geadd_ref(ga, gb)}
+    own = {"gemm": lambda want: (want - cg).abs().max().item(),
+           "syrk": lambda want: (want - cs).abs().max().item(),
+           "geadd": lambda want: min(ga.abs().max().item(), gb.abs().max().item())}
+    rel_errs = {}
+    for name in tl_k:
+        got, want = tl_k[name](), tl_p[name]()
+        errs[name] = assert_close(torch, got, want, f"main-path {name}")
+        rel_errs[name] = assert_update(got, want, own[name](want), f"main-path {name}")
+    # the partitioned sweep at matrix 4's shapes, with its plan
+    pid = PARTITIONED_IDS[0]
+    m4, plan4, _ = pmats[pid]
+    g4 = m4.grid
+    Ac4 = band_row_to_col(m4.Dr)
+    part_k = lambda: band_cholesky_partitioned_sweep_cuda(Ac4, m4.R, plan4.boundaries)
+    part_p = lambda: ref.band_cholesky_partitioned_sweep_ref(Ac4, m4.R, plan4.boundaries)
+    got, want = part_k(), part_p()
+    errs["band_cholesky_partitioned_sweep"] = max(
+        assert_close(torch, a, b, f"main-path partitioned sweep {p}")
+        for a, b, p in zip(got[:3], want[:3], ("panels", "R_out", "schur")))
+    check_status(got[3], want[3], "main-path partitioned sweep")
+    # geadd on the partitioned route's first tree level: the even and odd
+    # Schur leaves, (P // 2, nat, nat, t, t) strided halves
+    leaves = got[2]
+    pl = 2 * (leaves.shape[0] // 2)
+    la, lb = leaves[0:pl:2], leaves[1:pl:2]
+    leaf_got, leaf_want = geadd_cuda(la, lb), ref.geadd_ref(la, lb)
+    errs["geadd"] = max(errs["geadd"], assert_close(torch, leaf_got, leaf_want,
+                                                    "main-path geadd, partitioned leaves"))
+    rel_errs["geadd"] = max(rel_errs["geadd"], assert_update(
+        leaf_got, leaf_want, min(la.abs().max().item(), lb.abs().max().item()),
+        "main-path geadd, partitioned leaves"))
+    P4 = plan4.n_partitions
+    part_bytes = 4 * g4.t ** 2 * (2 * g4.n_diag_tiles * (g4.band_tiles + 1)
+                                  + 2 * g4.n_diag_tiles * g4.n_arrow_tiles
+                                  + P4 * g4.n_arrow_tiles ** 2) + 12 * P4
+    tt4 = 4 * t * t
+    timed = {"band_cholesky_partitioned_sweep": dict(
+        matrix=pid, ndt=g4.n_diag_tiles, bt=g4.band_tiles, nat=g4.n_arrow_tiles, t=g4.t,
+        partitions=P4, max_tiles=plan4.max_tiles),
+        "gemm": dict(matrix=TABLE2_IDS[0], t=t, tiles=1, task=[int(gt.m), gt.k, int(gt.n)]),
+        "syrk": dict(matrix=TABLE2_IDS[0], t=t, tiles=1, task=[st_.k, int(st_.n)]),
+        "geadd": dict(matrix=TABLE2_IDS[0], t=t, shape=list(ga.shape),
+                      operands="partials[0:8:2] and partials[1:8:2] of the first tree "
+                               f"chain's (8, {t}, {t}) stack, tile {[int(i) for i in tree_tile]}")}
+
     kernels = []
-    sweeps = ("band_cholesky_sweep", "band_forward_sweep", "band_backward_sweep", "selinv_sweep")
+    sweeps = ("band_cholesky_sweep", "band_forward_sweep", "band_backward_sweep", "selinv_sweep",
+              "band_cholesky_partitioned_sweep")
     for name, src, replaces, fk, fp, flib, inner, flops, nbytes, err in (
             ("potrf", "src/repro_torch/kernels/csrc/potrf.cu", "src/repro/kernels/potrf.py:70",
              lambda: potrf_cuda(a_kk), lambda: ref.potrf_ref(a_kk),
@@ -693,7 +1115,22 @@ def main() -> int:
              errs["band_backward_sweep"]),
             ("selinv_sweep", "src/repro_torch/kernels/csrc/selinv.cu",
              "src/repro/kernels/selinv.py:213", solve_k["selinv_sweep"], solve_p["selinv_sweep"],
-             None, 1, *work["selinv_sweep"], errs["selinv_sweep"])):
+             None, 1, *work["selinv_sweep"], errs["selinv_sweep"]),
+            ("gemm", "src/repro_torch/kernels/csrc/gemm.cu", "src/repro/kernels/gemm.py:40",
+             tl_k["gemm"], tl_p["gemm"],
+             lambda: torch.baddbmm(cg[None], ag[None], bg.mT[None], alpha=-1.0), 20,
+             2.0 * t ** 3, 4 * tt4, errs["gemm"]),
+            ("syrk", "src/repro_torch/kernels/csrc/gemm.cu", "src/repro/kernels/gemm.py:68",
+             tl_k["syrk"], tl_p["syrk"],
+             lambda: torch.baddbmm(cs[None], as_[None], as_.mT[None], alpha=-1.0), 20,
+             float(t) ** 3, 3 * tt4, errs["syrk"]),
+            ("geadd", "src/repro_torch/kernels/csrc/gemm.cu", "src/repro/kernels/gemm.py:79",
+             tl_k["geadd"], tl_p["geadd"], lambda: torch.add(ga, gb), 20, float(ga.numel()),
+             3 * 4 * ga.numel(), errs["geadd"]),
+            ("band_cholesky_partitioned_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
+             "src/repro/kernels/band_cholesky.py:341", part_k, part_p, None, 1,
+             needed_flops(g4, plan4.boundaries)[0], part_bytes,
+             errs["band_cholesky_partitioned_sweep"])):
         # call time: CUDA events around `inner` calls, host overhead included;
         # device time: the calls replayed from a CUDA graph (device_ms)
         call = dict(kernel=time_ms(torch, fk, inner=inner),
@@ -710,20 +1147,18 @@ def main() -> int:
         # launches: the main path's total over every matrix it ran, and per
         # call of each entry point on each matrix; the times are at matrix
         # TABLE2_IDS[0]'s shapes
-        per_call = {str(r["matrix"]): {call_name: c[name]
-                                       for call_name, c in ([("factorize_window", r["launches"])]
-                                                            + list(r["solves"]["launches"].items()))
-                                       if c.get(name)}
-                    for r in records}
+        per_call = launches_per_call(records, precords, name)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=main_launches[name], launches_per_call=per_call,
                             max_abs_err=err,
+                            **({"update_rel_err": rel_errs[name]} if name in rel_errs else {}),
                             ms=pick["kernel"], plain_ms=pick["plain"], bound_ms=b_ms,
                             bound_by=b_by, library_ms=pick.get("library"), timing=timing,
                             call_ms=call["kernel"], plain_call_ms=call["plain"],
                             library_call_ms=call["library"],
-                            timed_shape=dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t,
-                                             **({"k": 32} if name in solve_k else {}))))
+                            timed_shape=timed.get(name, dict(
+                                matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t,
+                                **({"k": 32} if name in solve_k else {})))))
         fmt = lambda v: "-" if v is None else f"{v:.4f}"
         log(f"time {name}: device {fmt(on_device.get('kernel'))} ms, call {fmt(call['kernel'])} ms; "
             f"plain device {fmt(on_device.get('plain'))} ms, call {fmt(call['plain'])} ms; library "
@@ -742,6 +1177,17 @@ def main() -> int:
                            bound_by=b_by, plain_ms=device_ms(torch, fp),
                            plain_call_ms=time_ms(torch, fp, reps=3, warmup=1))
         log(f"time {entry['name']} k=1: " + json.dumps(entry["k1"]))
+
+    # geadd on the partitioned route's leaves (matrix 4), beside its bound
+    entry = next(k for k in kernels if k["name"] == "geadd")
+    b_ms, b_by = bound(float(la.numel()), 3 * 4 * la.numel())
+    entry["partitioned_leaves"] = dict(
+        matrix=pid, shape=list(la.shape),
+        ms=device_ms(torch, lambda: geadd_cuda(la, lb), calls=20),
+        plain_ms=device_ms(torch, lambda: ref.geadd_ref(la, lb), calls=20),
+        library_ms=device_ms(torch, lambda: torch.add(la, lb), calls=20),
+        bound_ms=b_ms, bound_by=b_by)
+    log("time geadd, partitioned leaves: " + json.dumps(entry["partitioned_leaves"]))
 
     # where the sweep's time goes, from the phase-marked build of the kernel
     from repro_torch.kernels.band_cholesky import sweep_phase_cycles
@@ -791,6 +1237,42 @@ def main() -> int:
         rec["e2e_ms"] = {k: time_ms(torch, fn, reps=7, warmup=2) for k, fn in e2e.items()}
         log(f"solves end to end: Table II matrix {rec['matrix']}: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in rec["e2e_ms"].items()) + f" (median of 7), card {card}")
+
+    # beside the partitioned sweep: the fused kernel on the same matrix, and
+    # the fused kernel on the widest partition alone (one block's share)
+    entry = next(k for k in kernels if k["name"] == "band_cholesky_partitioned_sweep")
+    b = plan4.boundaries
+    w = max(range(P4), key=lambda q: b[q + 1] - b[q])
+    wide = (Ac4[b[w]:b[w + 1]].contiguous(), m4.R[b[w]:b[w + 1]].contiguous())
+    entry["fused_ms"] = device_ms(torch, lambda: band_cholesky_sweep_cuda(Ac4, m4.R, nchunks=1))
+    entry["widest_partition_ms"] = device_ms(
+        torch, lambda: band_cholesky_sweep_cuda(*wide, nchunks=1))
+    log(f"time band_cholesky_partitioned_sweep beside it: fused kernel on the same matrix "
+        f"{entry['fused_ms']:.4f} ms, fused kernel on the widest partition alone "
+        f"({b[w + 1] - b[w]} of {g4.n_diag_tiles} columns) {entry['widest_partition_ms']:.4f} ms")
+
+    # the task list end to end: call time (the host's launch loop included)
+    # against device time (the same launches replayed from a CUDA graph)
+    for rec in records:
+        tm = tms[rec["matrix"]]
+        for tree in (False, True):
+            fn = lambda: factorize_tasklist(tm, tree_reduction=tree, tree_workers=8)
+            key = f"tree_{'on' if tree else 'off'}"
+            rec["tasklist"][key]["e2e"] = e = dict(
+                call_ms=time_ms(torch, fn, reps=5, warmup=1), device_ms=device_ms(torch, fn))
+            log(f"factorize_tasklist {key}: Table II matrix {rec['matrix']}: call {e['call_ms']:.3f} "
+                f"ms, device {e['device_ms']:.3f} ms (median of 5), card {card}")
+    # the partitioned route end to end, beside the fused route on the same matrix
+    for rec in precords:
+        mm, plan, _ = pmats[rec["matrix"]]
+        opts = SolverOptions(partition_plan=plan)
+        rec["e2e"] = {}
+        for route, fn in (("partitioned", lambda: logdet(factorize_window(mm, options=opts))),
+                          ("fused", lambda: logdet(factorize_window(mm)))):
+            rec["e2e"][route] = dict(call_ms=time_ms(torch, fn, reps=7, warmup=2),
+                                     device_ms=device_ms(torch, fn))
+        log(f"factorize_window+logdet: Table II matrix {rec['matrix']} (P = {rec['partitions']}): "
+            + json.dumps(rec["e2e"]) + f" (call median of 7, device median of 5), card {card}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,28 +1,36 @@
-"""Banded-arrowhead Compressed Tile Storage Format on a torch device.
+"""Compressed Tile Storage Format (CTSF, paper §III-B, Fig. 5) on a torch
+device, the two layouts of the JAX package's ``core/ctsf.py``:
 
-:class:`BandedCTSF` is the regular banded-arrowhead layout the window
-factorization works on, the same layout as the JAX package's
-``BandedCTSF``:
+* :class:`TileMatrix` — the general CTSF: only the nonzero tiles of the
+  factor's pattern (fill included, from symbolic factorization) are stored,
+  stacked in one ``(n_alloc, t, t)`` buffer, with a host-side map from
+  ``(row_tile, col_tile)`` to buffer slot.  The task-list factorization
+  works on it.
+* :class:`BandedCTSF` — the regular banded-arrowhead layout the window
+  factorization works on:
 
     Dr: (ndt, bt+1, t, t)  band rows   — Dr[m, d] = A_tile[m, m-d] (d<=min(m,bt))
     R:  (ndt, nat, t, t)   arrow rows  — R[k, i]  = A_tile[ndt+i, k]
     C:  (nat, nat, t, t)   corner      — C[i, j]  = A_tile[ndt+i, ndt+j] (lower)
 
-All float32.  The arrays live on the card unless the caller asks for the
-CPU: ``device=None`` means ``cuda:0`` and raises where there is no card.
+Both fill their tiles straight from the matrix's COO entries, bit-identical
+to slicing the dense padded matrix as the reference does, without building
+it.  All float32.  The arrays live on the card unless the caller asks for
+the CPU: ``device=None`` means ``cuda:0`` and raises where there is no card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .structure import ArrowheadStructure, TileGrid
+from .structure import ArrowheadStructure, TileGrid, tile_pattern_from_coo
+from .symbolic import SymbolicFactorization, symbolic_factorize
 
-__all__ = ["BandedCTSF", "resolve_device"]
+__all__ = ["BandedCTSF", "TileMatrix", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,10 +44,105 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def _padded_index(grid: TileGrid, i: np.ndarray) -> np.ndarray:
-    """Vectorized ``TileGrid.padded_index``."""
-    nd = grid.structure.n_diag
-    return np.where(i < nd, i, grid.n_diag_tiles * grid.t + (i - nd))
+def _as_grid(grid: Union[TileGrid, Tuple[int, int, int, int]]) -> TileGrid:
+    """A port ``TileGrid``, or one rebuilt from ``(n, bandwidth, arrow, t)``."""
+    if isinstance(grid, TileGrid):
+        return grid
+    n, bandwidth, arrow, t = (int(x) for x in grid)
+    return TileGrid(ArrowheadStructure(n=n, bandwidth=bandwidth, arrow=arrow), t)
+
+
+def _padding_diagonal(grid: TileGrid) -> np.ndarray:
+    """Padded indices of the identity diagonal that keeps padded tiles SPD:
+    the band's padding, then the arrow's."""
+    ndt_t = grid.n_diag_tiles * grid.t
+    return np.concatenate([np.arange(grid.structure.n_diag, ndt_t),
+                           np.arange(ndt_t + grid.structure.arrow, grid.padded_n)])
+
+
+@dataclasses.dataclass
+class TileMatrix:
+    """General CTSF: the stacked nonzero tiles of the factor's pattern and
+    the host-side map from tile coordinates to buffer slot.  Slots are
+    numbered in row-major order of the factor pattern (``np.argwhere``), as
+    the reference numbers them; fill tiles start at zero."""
+
+    grid: TileGrid
+    symbolic: SymbolicFactorization
+    slot: Dict[Tuple[int, int], int]       # (row_tile, col_tile) -> buffer slot
+    tiles: torch.Tensor                    # (n_alloc, t, t) float32
+    # the task list's schedule on a device, built once (core.cholesky)
+    schedules: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+    @classmethod
+    def from_sparse(cls, mat: sp.spmatrix, grid: TileGrid,
+                    symbolic: Optional[SymbolicFactorization] = None,
+                    device=None) -> "TileMatrix":
+        """Tiles of the (full, symmetric) matrix's lower tile pattern, filled
+        straight from its COO entries: each entry lands in the slot of the
+        tile that holds its padded position (entries of tiles above the
+        diagonal are dropped), and the padding diagonal is the identity."""
+        dev = resolve_device(device)
+        a_tiles = tile_pattern_from_coo(mat, grid)
+        symb = symbolic or symbolic_factorize(a_tiles)
+        coords = np.argwhere(symb.l_pattern)
+        slot = {(int(i), int(j)): idx for idx, (i, j) in enumerate(coords)}
+        t, nt = grid.t, grid.n_tiles
+        # slot of each input tile, -1 where nothing is filled
+        filled = np.full((nt, nt), -1, dtype=np.int64)
+        filled[coords[:, 0], coords[:, 1]] = np.arange(len(coords))
+        filled[~a_tiles] = -1
+        buf = np.zeros((len(coords), t, t), dtype=np.float32)
+        coo = sp.coo_matrix(mat)
+        r, c = grid.padded_indices(coo.row), grid.padded_indices(coo.col)
+        s = filled[r // t, c // t]
+        keep = s >= 0
+        buf[s[keep], r[keep] % t, c[keep] % t] = coo.data[keep]
+        pad = _padding_diagonal(grid)
+        s = filled[pad // t, pad // t]
+        buf[s[s >= 0], pad[s >= 0] % t, pad[s >= 0] % t] = 1.0
+        return cls(grid, symb, slot, torch.from_numpy(buf).to(dev))
+
+    @classmethod
+    def from_arrays(cls, grid: Union[TileGrid, Tuple[int, int, int, int]],
+                    symbolic: SymbolicFactorization, slot: Dict[Tuple[int, int], int],
+                    tiles, device=None) -> "TileMatrix":
+        """Carry a tile matrix over from the JAX package: its slot map and
+        its tile buffer (``np.asarray(tm.tiles)``), with the port's symbolic
+        factorization of the same pattern and the grid as
+        :meth:`BandedCTSF.from_arrays` takes it."""
+        g = _as_grid(grid)
+        buf = np.array(tiles, dtype=np.float32)
+        slot = {(int(i), int(j)): int(v) for (i, j), v in slot.items()}
+        want = (int(symbolic.l_pattern.sum()), g.t, g.t)
+        if buf.shape != want or sorted(slot.values()) != list(range(want[0])):
+            raise ValueError(f"tiles have shape {buf.shape} for {len(slot)} slots; the "
+                             f"factor pattern wants {want}")
+        return cls(g, symbolic, slot, torch.from_numpy(buf).to(resolve_device(device)))
+
+    def to_dense(self, tiles: Optional[torch.Tensor] = None,
+                 lower_only: bool = True) -> np.ndarray:
+        """The dense padded matrix of ``tiles`` (this matrix's own buffer by
+        default, or a factor's with the same slot map), float32."""
+        t = self.grid.t
+        out = np.zeros((self.grid.padded_n, self.grid.padded_n), dtype=np.float32)
+        buf = (self.tiles if tiles is None else tiles).detach().cpu().numpy()
+        for (i, j), idx in self.slot.items():
+            out[i * t:(i + 1) * t, j * t:(j + 1) * t] = buf[idx]
+        if not lower_only:
+            out = np.tril(out) + np.tril(out, -1).T
+        return out
+
+    @property
+    def n_alloc(self) -> int:
+        return self.tiles.shape[0]
+
+    def nbytes(self) -> int:
+        return int(self.tiles.numel() * 4)
 
 
 @dataclasses.dataclass
@@ -66,8 +169,8 @@ class BandedCTSF:
         dev = resolve_device(device)
         t, ndt, nat, bt = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles, grid.band_tiles
         coo = sp.coo_matrix(mat)
-        r = _padded_index(grid, coo.row.astype(np.int64))
-        c = _padded_index(grid, coo.col.astype(np.int64))
+        r = grid.padded_indices(coo.row)
+        c = grid.padded_indices(coo.col)
         tr, tc, ir, ic = r // t, c // t, r % t, c % t
         data = coo.data
         Dr = np.zeros((ndt, bt + 1, t, t), dtype=np.float32)
@@ -80,11 +183,12 @@ class BandedCTSF:
         corner = (tr >= ndt) & (tc >= ndt) & (tc <= tr)
         C[(tr - ndt)[corner], (tc - ndt)[corner], ir[corner], ic[corner]] = data[corner]
         # pad diagonal with identity so padded tiles stay SPD
-        for k in range(grid.structure.n_diag, ndt * t):
-            Dr[k // t, 0, k % t, k % t] = 1.0
-        for k in range(ndt * t + grid.structure.arrow, grid.padded_n):
-            kk = k - ndt * t
-            C[kk // t, kk // t, kk % t, kk % t] = 1.0
+        for k in _padding_diagonal(grid):
+            if k < ndt * t:
+                Dr[k // t, 0, k % t, k % t] = 1.0
+            else:
+                kk = k - ndt * t
+                C[kk // t, kk // t, kk % t, kk % t] = 1.0
         return cls._on(grid, Dr, R, C, dev)
 
     @classmethod
@@ -130,11 +234,7 @@ class BandedCTSF:
         ``C`` as numpy arrays (``np.asarray(bm.Dr)`` and so on) and its grid
         as ``(n, bandwidth, arrow, t)``, from which the port's ``TileGrid``
         is rebuilt (a port ``TileGrid`` is taken as it is)."""
-        if isinstance(grid, TileGrid):
-            g = grid
-        else:
-            n, bandwidth, arrow, t = (int(x) for x in grid)
-            g = TileGrid(ArrowheadStructure(n=n, bandwidth=bandwidth, arrow=arrow), t)
+        g = _as_grid(grid)
         t, ndt, nat, bt = g.t, g.n_diag_tiles, g.n_arrow_tiles, g.band_tiles
         arrs = [np.array(x, dtype=np.float32) for x in (Dr, R, C)]
         want = [(ndt, bt + 1, t, t), (ndt, nat, t, t), (nat, nat, t, t)]

@@ -69,7 +69,7 @@ class SelectedInverse:
             full = torch.cat([full, dc])
         if padded:
             return full
-        idx = np.vectorize(g.padded_index, otypes=[np.int64])(np.arange(g.structure.n))
+        idx = g.padded_indices(np.arange(g.structure.n))
         return full[torch.as_tensor(idx, device=full.device)]
 
     def covariance(self, i: int, j: int) -> torch.Tensor:

@@ -215,7 +215,7 @@ def _validate_indices(grid, indices) -> np.ndarray:
     if idx.size and (idx.min() < 0 or idx.max() >= s.n):
         bad = idx[(idx < 0) | (idx >= s.n)]
         raise ValueError(f"indices {bad.tolist()} out of range [0, {s.n})")
-    return np.vectorize(grid.padded_index, otypes=[np.int64])(idx)
+    return grid.padded_indices(idx)
 
 
 def marginal_variances(factor: CholeskyFactor, indices,

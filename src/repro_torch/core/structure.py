@@ -161,6 +161,12 @@ class TileGrid:
             return i
         return self.n_diag_tiles * self.t + (i - s.n_diag)
 
+    def padded_indices(self, i: np.ndarray) -> np.ndarray:
+        """:meth:`padded_index` of every entry of an integer array."""
+        i = np.asarray(i, dtype=np.int64)
+        nd = self.structure.n_diag
+        return np.where(i < nd, i, self.n_diag_tiles * self.t + (i - nd))
+
 
 def measure_arrowhead(pattern: sp.spmatrix, arrow_hint: Optional[int] = None,
                       arrow_density_threshold: float = 0.5) -> ArrowheadStructure:
@@ -211,9 +217,8 @@ def tile_pattern_from_coo(pattern: sp.spmatrix, grid: TileGrid) -> np.ndarray:
     coo = sp.coo_matrix(pattern)
     nt = grid.n_tiles
     out = np.zeros((nt, nt), dtype=bool)
-    pi = np.vectorize(grid.padded_index, otypes=[np.int64])
-    r = pi(np.maximum(coo.row, coo.col))
-    c = pi(np.minimum(coo.row, coo.col))
+    r = grid.padded_indices(np.maximum(coo.row, coo.col))
+    c = grid.padded_indices(np.minimum(coo.row, coo.col))
     out[r // grid.t, c // grid.t] = True
     out[np.arange(nt), np.arange(nt)] = True  # diagonal tiles always exist
     return np.tril(out)

@@ -23,24 +23,28 @@ __all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("potrf", "trsm", "band_cholesky", "solve_panel", "band_solve", "selinv")
+SOURCES = ("potrf", "trsm", "band_cholesky", "solve_panel", "band_solve", "selinv", "gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures of each library's entry points: pointers and the stream as
-# c_void_p, sizes as c_int
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# c_void_p, sizes as c_int, strides as c_longlong
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "potrf": {"stiles_potrf_f32": [_P, _P, _I, _I, _P]},
     "trsm": {"stiles_trsm_f32": [_P, _P, _P, _I, _I, _I, _P]},
-    "band_cholesky": {"stiles_band_cholesky_sweep_f32":
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "band_cholesky": {
+        "stiles_band_cholesky_sweep_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "stiles_band_cholesky_partitioned_sweep_f32":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
     "band_solve": {
         "stiles_band_forward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "stiles_band_backward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "selinv": {"stiles_selinv_sweep_f32":
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
+             "stiles_geadd_f32": [_P, _P, _P, _L, _L, _L, _L, _P]},
 }
 
 _loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

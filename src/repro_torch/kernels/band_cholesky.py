@@ -1,25 +1,35 @@
-"""CUDA kernel: the whole banded-arrowhead Cholesky in one launch,
-``csrc/band_cholesky.cu``.
+"""CUDA kernels: the whole banded-arrowhead Cholesky in one launch, and
+its partition-parallel form, ``csrc/band_cholesky.cu``.
 
-Port of the TPU kernel
+:func:`band_cholesky_sweep_cuda` ports the TPU kernel
 ``repro/kernels/band_cholesky.py::band_cholesky_sweep_pallas``.  One block
 walks the band columns in order; the last ``band_tiles`` finalized panels
 are read back from the outputs (they stay in L2) instead of a VMEM ring.
 Outputs and semantics match ``ref.band_cholesky_sweep_ref``: column
 panels, factored arrow rows, per-chunk corner-Schur sums and the status
-word ``[min_pivot, nonfinite, first_bad]`` folded in the kernel.  The
-partitioned sweep is not ported yet.
+word ``[min_pivot, nonfinite, first_bad]`` folded in the kernel.
+
+:func:`band_cholesky_partitioned_sweep_cuda` ports
+``band_cholesky_partitioned_sweep_pallas``: the same kernel on one block
+per independent partition of a block-separable band, each with its own
+Schur leaf and status word (folded by ``ref.combine_sweep_status``), as
+``ref.band_cholesky_partitioned_sweep_ref`` defines it.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .potrf import check_tiles
-from .ref import empty_sweep_status
+from .ref import check_boundaries, combine_sweep_status, empty_sweep_status
 from .ring import chunk_layout
 
-__all__ = ["band_cholesky_sweep_cuda", "sweep_phase_cycles", "PHASES"]
+__all__ = ["band_cholesky_sweep_cuda", "band_cholesky_partitioned_sweep_cuda",
+           "sweep_phase_cycles", "PHASES", "MAX_PARTITIONS"]
+
+MAX_PARTITIONS = 512   # csrc/band_cholesky.cu::kMaxParts
 
 PHASES = ("diagonal products", "potrf", "band products", "arrow products",
           "substitution", "status fold", "Schur products", "column start")
@@ -60,6 +70,45 @@ def band_cholesky_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor,
 
 
 band_cholesky_sweep_cuda.launches = 0
+
+
+def band_cholesky_partitioned_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor, boundaries,
+                                         start_tile: int = 0):
+    """The sweep of :func:`band_cholesky_sweep_cuda` over the partitions
+    ``[boundaries[p], boundaries[p+1])`` of a block-separable band, one block
+    each, in one launch -> ``(panels, R_out, schur, status)`` with
+    ``schur (P, nat, nat, t, t)``, one corner-Schur leaf per partition, and
+    the (3,) status word folded over the partitions (``first_bad`` global).
+    Columns ``k < start_tile`` (global) are an identity-embedding prefix."""
+    t = check_tiles("band_cholesky_partitioned_sweep", Ac, R)
+    if Ac.dim() != 4 or R.dim() != 4 or R.shape[0] != Ac.shape[0]:
+        raise ValueError(f"band_cholesky_partitioned_sweep: want Ac (ndt, bt+1, t, t) and "
+                         f"R (ndt, nat, t, t), got {tuple(Ac.shape)} and {tuple(R.shape)}")
+    ndt, b1 = Ac.shape[:2]
+    nat = R.shape[1]
+    bounds = check_boundaries(boundaries, ndt)
+    nparts = len(bounds) - 1
+    if nparts > MAX_PARTITIONS:
+        raise ValueError(f"band_cholesky_partitioned_sweep: {nparts} partitions, the "
+                         f"kernel takes at most {MAX_PARTITIONS}")
+    # the kernel writes every output element, so nothing is zeroed here
+    panels = torch.empty_like(Ac)
+    R_out = torch.empty_like(R)
+    schur = torch.empty((nparts, nat, nat, t, t), dtype=Ac.dtype, device=Ac.device)
+    words = torch.empty((nparts, 3), dtype=torch.float32, device=Ac.device)
+    host_bounds = (ctypes.c_int * (nparts + 1))(*bounds)
+    lib = _build.load("band_cholesky")
+    stream = torch.cuda.current_stream(Ac.device).cuda_stream
+    code = lib.stiles_band_cholesky_partitioned_sweep_f32(
+        Ac.data_ptr(), R.data_ptr(), panels.data_ptr(), R_out.data_ptr(), schur.data_ptr(),
+        words.data_ptr(), ctypes.addressof(host_bounds), nparts, b1 - 1, nat, t,
+        int(start_tile), stream)
+    _build.check(lib, code, "band_cholesky_partitioned_sweep")
+    band_cholesky_partitioned_sweep_cuda.launches += 1
+    return panels, R_out, schur, combine_sweep_status(words)
+
+
+band_cholesky_partitioned_sweep_cuda.launches = 0
 
 
 def sweep_phase_cycles(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1):

@@ -1,8 +1,10 @@
-// The whole banded-arrowhead Cholesky factorization in one launch.
+// The whole banded-arrowhead Cholesky factorization in one launch, and its
+// partition-parallel form.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 // src/repro/kernels/band_cholesky.py::band_cholesky_sweep_pallas (body
-// _band_cholesky_kernel).  Inputs are the column-band tiles
+// _band_cholesky_kernel) and band_cholesky_partitioned_sweep_pallas (body
+// _band_cholesky_partitioned_kernel).  Inputs are the column-band tiles
 // ac (ndt, bt+1, T, T), ac[k, e] = A[k+e, k], and the arrow rows
 // r (ndt, nat, T, T); outputs are the column panels of L, the factored
 // arrow rows, the per-chunk corner-Schur sums schur (nch, nat, nat, T, T)
@@ -18,6 +20,19 @@
 //   the status fold of the TPU kernel, from the emitted column
 // Columns k < start are an identity-embedding prefix: they emit an identity
 // panel and a zero arrow row and do no arithmetic.
+//
+// The partitioned sweep is the same kernel on P blocks.  Block p walks the
+// columns [bounds[p], bounds[p+1]) of a block-separable band (no band tile
+// crosses a cut), with its own Schur leaf schur[p] and its own status word;
+// the host folds the P words.  A block never reads across its cut: a
+// column's update stops at the partition's first column, where the fused
+// sweep would go on to products with L[k, k-j] = 0 (the zero tiles across
+// the cut).  Those products add exact zeros, so on a block-separable input
+// the panels, arrow rows and status are bit-identical to the fused sweep's,
+// and no block reads a panel that a neighbouring block may be writing.  The
+// fused sweep is the one-block case, bounds = {0, ndt}; its Schur chunks are
+// csz columns long, the partitioned sweep's one partition long.  The
+// critical path falls from ndt columns to the widest partition's.
 //
 // The TPU kernel keeps a ring of the last bt panels in VMEM.  Here the last
 // bt columns are simply the outputs already written to device memory; at
@@ -63,6 +78,14 @@ __device__ unsigned long long g_phase_cycles[8];
 
 namespace stiles {
 
+// The partitions' column boundaries, passed by value so that a launch
+// needs no device copy of them (and can be captured in a CUDA graph); a
+// __grid_constant__ parameter is read in place, without a local copy.
+constexpr int kMaxParts = 512;
+struct Bounds {
+    int b[kMaxParts + 1];
+};
+
 template <int T>
 constexpr size_t sweep_smem_bytes() {
     // L_kk transposed (T*T) and its diagonal's reciprocals (T), two staged
@@ -74,7 +97,8 @@ template <int T>
 __global__ void __launch_bounds__(kThreads, 1)
 band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_in,
                      float* panels, float* r_out, float* schur, float* status,
-                     int ndt, int bt, int nat, int csz, int start) {
+                     const __grid_constant__ Bounds bounds, int bt, int nat, int csz,
+                     int start) {
     extern __shared__ __align__(16) float smem[];
     float* Lt = smem;
     float* dinv = Lt + T * T;
@@ -94,14 +118,17 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
         return schur + ((static_cast<size_t>(c) * nat + i) * nat + j) * TT;
     };
 
+    // this block's partition [s0, s1); kl is a column's index within it
+    const int s0 = bounds.b[blockIdx.x], s1 = bounds.b[blockIdx.x + 1];
     // the status carry lives in thread 0
     float min_piv = INFINITY, nonfinite = 0.f, first_bad = -1.f;
     Acc<T> acc;
     PHASE_START;
 
-    for (int k = 0; k < ndt; ++k) {
-        const int c = k / csz;
-        if (k % csz == 0) {
+    for (int k = s0; k < s1; ++k) {
+        const int kl = k - s0;
+        const int c = blockIdx.x + kl / csz;
+        if (kl % csz == 0) {
             float* sc = S(c, 0, 0);
             for (size_t idx = threadIdx.x; idx < nat * nat * TT; idx += kThreads) sc[idx] = 0.f;
         }
@@ -116,7 +143,7 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
             continue;
         }
         PHASE(7);  // column start: chunk zeroing
-        const int jmax = min(bt, k);
+        const int jmax = min(bt, kl);  // columns back within the partition
 
         // diagonal tile: L_kk = chol(A_kk - sum_j L[k, k-j] L[k, k-j]^T)
         // (pair q of each update is column j = q + 1 back: L[., k-j] L[k, k-j]^T)
@@ -135,7 +162,7 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
         // right-hand sides of the substitution: band tiles, then arrow rows
         for (int e = 1; e <= bt; ++e) {
             zero_acc<T>(acc);
-            gemm_nt_sum<T>(acc, min(bt - e, k), [&](int q) { return P(k - 1 - q, e + q + 1); },
+            gemm_nt_sum<T>(acc, min(bt - e, kl), [&](int q) { return P(k - 1 - q, e + q + 1); },
                            Lkj, As, Bs);
             store_minus<T>(P(k, e), AC(k, e), acc);
         }
@@ -194,33 +221,29 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
         PHASE(6);  // Schur products
     }
     if (threadIdx.x == 0) {
-        status[0] = min_piv;
-        status[1] = nonfinite;
-        status[2] = first_bad;
+        status[3 * blockIdx.x] = min_piv;
+        status[3 * blockIdx.x + 1] = nonfinite;
+        status[3 * blockIdx.x + 2] = first_bad;
     }
 }
 
 template <int T>
 int launch_sweep(const float* ac, const float* r, float* panels, float* r_out, float* schur,
-                 float* status, int ndt, int bt, int nat, int csz, int start,
-                 cudaStream_t s) {
+                 float* status, const Bounds& bounds, int nparts, int bt, int nat, int csz,
+                 int start, cudaStream_t s) {
     constexpr size_t smem = sweep_smem_bytes<T>();
     cudaError_t err = cudaFuncSetAttribute(band_cholesky_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    band_cholesky_kernel<T><<<1, kThreads, smem, s>>>(ac, r, panels, r_out, schur, status,
-                                                      ndt, bt, nat, csz, start);
+    band_cholesky_kernel<T><<<nparts, kThreads, smem, s>>>(ac, r, panels, r_out, schur, status,
+                                                           bounds, bt, nat, csz, start);
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace stiles
-
-extern "C" int stiles_band_cholesky_sweep_f32(const void* ac, const void* r, void* panels,
-                                              void* r_out, void* schur, void* status,
-                                              int ndt, int bt, int nat, int t, int csz,
-                                              int start, void* stream) {
-    using namespace stiles;
+int sweep(const void* ac, const void* r, void* panels, void* r_out, void* schur, void* status,
+          const Bounds& bounds, int nparts, int bt, int nat, int t, int csz, int start,
+          void* stream) {
     const auto* pac = static_cast<const float*>(ac);
     const auto* pr = static_cast<const float*>(r);
     auto* pp = static_cast<float*>(panels);
@@ -229,12 +252,41 @@ extern "C" int stiles_band_cholesky_sweep_f32(const void* ac, const void* r, voi
     auto* pst = static_cast<float*>(status);
     auto s = static_cast<cudaStream_t>(stream);
     switch (t) {
-        case 8: return launch_sweep<8>(pac, pr, pp, pro, ps, pst, ndt, bt, nat, csz, start, s);
-        case 16: return launch_sweep<16>(pac, pr, pp, pro, ps, pst, ndt, bt, nat, csz, start, s);
-        case 32: return launch_sweep<32>(pac, pr, pp, pro, ps, pst, ndt, bt, nat, csz, start, s);
-        case 64: return launch_sweep<64>(pac, pr, pp, pro, ps, pst, ndt, bt, nat, csz, start, s);
+        case 8: return launch_sweep<8>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
+        case 16: return launch_sweep<16>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
+        case 32: return launch_sweep<32>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
+        case 64: return launch_sweep<64>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+}  // namespace stiles
+
+// The fused sweep: one block over columns 0..ndt-1, Schur chunks of csz
+// columns, status (3,).
+extern "C" int stiles_band_cholesky_sweep_f32(const void* ac, const void* r, void* panels,
+                                              void* r_out, void* schur, void* status,
+                                              int ndt, int bt, int nat, int t, int csz,
+                                              int start, void* stream) {
+    stiles::Bounds bounds{};
+    bounds.b[1] = ndt;
+    return stiles::sweep(ac, r, panels, r_out, schur, status, bounds, 1, bt, nat, t, csz,
+                         start, stream);
+}
+
+// The partitioned sweep: nparts blocks, block p over columns
+// [bounds[p], bounds[p+1]) (bounds: nparts + 1 ints in host memory, rising
+// from 0 to ndt), one Schur leaf schur[p] and one status word status[p] each.
+extern "C" int stiles_band_cholesky_partitioned_sweep_f32(
+        const void* ac, const void* r, void* panels, void* r_out, void* schur, void* status,
+        const void* bounds, int nparts, int bt, int nat, int t, int start, void* stream) {
+    if (nparts < 1 || nparts > stiles::kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
+    stiles::Bounds b{};
+    const int* hb = static_cast<const int*>(bounds);
+    for (int p = 0; p <= nparts; ++p) b.b[p] = hb[p];
+    // a chunk as long as the band: one leaf per partition
+    return stiles::sweep(ac, r, panels, r_out, schur, status, b, nparts, bt, nat, t,
+                         hb[nparts] > 0 ? hb[nparts] : 1, start, stream);
 }
 
 #ifdef STILES_SWEEP_PHASES

@@ -9,14 +9,16 @@
 // steps, two block barriers each, so one tile's time is latency.  The
 // design keeps the tile in registers across the whole loop (one block per
 // tile, the owner layout of tile.cuh), touches device memory once in and
-// once out, and runs the batch as independent blocks.
+// once out, and runs the batch as independent blocks.  out may be a itself:
+// an owner thread reads its elements before the column loop and writes them
+// after it, and no other thread touches them.
 #include "tile.cuh"
 
 namespace stiles {
 
 template <int T>
 __global__ void __launch_bounds__(kThreads)
-potrf_kernel(const float* __restrict__ a, float* __restrict__ out) {
+potrf_kernel(const float* a, float* out) {  // out may be a: see the wrapper
     __shared__ float colv[T + 1];
     const size_t off = static_cast<size_t>(blockIdx.x) * T * T;
     Acc<T> zero, tile;

@@ -11,15 +11,16 @@
 // one tile with L (transposed) in shared memory; the rows of X L^T = A are
 // independent, so each warp solves kSubRows (8) rows at once with its lanes owning
 // columns, broadcasting each solved entry by shuffle: no block barrier
-// inside the substitution.
+// inside the substitution.  out may be a itself (an in-place solve): a
+// warp reads its rows before it writes them, and no other warp touches
+// them; out must not overlap l.
 #include "tile.cuh"
 
 namespace stiles {
 
 template <int T>
 __global__ void __launch_bounds__(kThreads)
-trsm_kernel(const float* __restrict__ l, const float* __restrict__ a,
-            float* __restrict__ out, int l_stride) {
+trsm_kernel(const float* __restrict__ l, const float* a, float* out, int l_stride) {
     __shared__ float Lt[T * T];
     __shared__ float dinv[T];
     const float* lb = l + static_cast<size_t>(blockIdx.x) * l_stride;

@@ -1,0 +1,126 @@
+"""CUDA kernels: the task list's tile updates, ``csrc/gemm.cu``.
+
+Ports of the TPU kernels ``repro/kernels/gemm.py``: :func:`gemm_cuda`
+(``gemm_pallas``, ``C - A B^T``), :func:`syrk_cuda` (``syrk_pallas``,
+``C - A A^T`` over the full tile) and :func:`geadd_cuda` (``geadd_pallas``,
+``A + B``, the Alg. 3 tree-reduction combine).  GEMM and SYRK run one block
+per tile of the batch with the product in plain FP32 FMAs
+(``csrc/tile.cuh::gemm_nt_sum``); GEADD is a vectorised elementwise add.
+The plain versions are ``ref.gemm_ref``, ``ref.syrk_ref`` and
+``ref.geadd_ref``; ``ops`` chooses by device.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .potrf import TILE_SIZES, check_cuda, check_out, check_tiles
+
+__all__ = ["gemm_cuda", "syrk_cuda", "geadd_cuda"]
+
+
+def _tile_batch(x: torch.Tensor, batch_shape, t: int) -> Tuple[torch.Tensor, int]:
+    """``x`` (contiguous, broadcasting against ``batch_shape`` tiles) as a
+    base tensor and a uniform tile stride in floats: 0 for one tile against
+    the whole batch, ``t * t`` for a batch of the same shape; any other
+    broadcast is materialised."""
+    nb = 1
+    for d in batch_shape:
+        nb *= d
+    if x.numel() == t * t:
+        return x, 0
+    if x.numel() == nb * t * t:
+        return x, t * t
+    return x.expand(tuple(batch_shape) + (t, t)).contiguous(), t * t
+
+
+def _broadcasts(x: torch.Tensor, c: torch.Tensor) -> bool:
+    try:
+        return torch.broadcast_shapes(x.shape, c.shape) == c.shape
+    except RuntimeError:
+        return False
+
+
+def _launch(name: str, c, a, b, out) -> torch.Tensor:
+    if not (_broadcasts(a, c) and _broadcasts(b, c)):
+        raise ValueError(f"{name}: A {tuple(a.shape)} and B {tuple(b.shape)} must "
+                         f"broadcast against C {tuple(c.shape)}")
+    t = check_tiles(name, c, a, b)
+    out = check_out(name, c, out)
+    batch = tuple(c.shape[:-2])
+    nb = c.numel() // (t * t)
+    if nb == 0:
+        return out
+    (a, sa), (b, sb) = _tile_batch(a, batch, t), _tile_batch(b, batch, t)
+    lib = _build.load("gemm")
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    _build.check(lib, lib.stiles_gemm_f32(c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                          out.data_ptr(), nb, sa, sb, t, stream), name)
+    return out
+
+
+def gemm_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C - A B^T`` on the card for a (..., t, t) batch C, with A and B
+    each one tile or a batch broadcast against C.  ``out`` (C's shape) takes
+    the result in place of a new tensor and may be C itself; it must not
+    overlap A or B."""
+    out = _launch("gemm", c, a, b, out)
+    gemm_cuda.launches += 1
+    return out
+
+
+gemm_cuda.launches = 0
+
+
+def syrk_cuda(c: torch.Tensor, a: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C - A A^T`` on the card over the full tile, as ``syrk_pallas``
+    computes it; ``out`` as in :func:`gemm_cuda`."""
+    out = _launch("syrk", c, a, a, out)
+    syrk_cuda.launches += 1
+    return out
+
+
+syrk_cuda.launches = 0
+
+
+def _operands(x: torch.Tensor) -> Tuple[torch.Tensor, int, int, int]:
+    """``x`` as ``outer`` operands of ``inner`` contiguous floats at a uniform
+    stride along its first dim: ``(base, stride, outer, inner)``; copied
+    first where ``x[i]`` is not contiguous or the stride is not a multiple
+    of 4 (a float4)."""
+    inner, dense = 1, True
+    for size, stride in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        dense &= size == 1 or stride == inner
+        inner *= size
+    if not dense or x.stride(0) % 4:
+        x = x.contiguous()
+    return x, x.stride(0), x.shape[0], inner
+
+
+def geadd_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A + B`` on the card for two (..., t, t) batches of one shape; each
+    may be a strided view along its first dim (the tree's even and odd
+    partials)."""
+    if a.shape != b.shape:
+        raise ValueError(f"geadd: shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    if a.dim() < 2 or a.shape[-1] != a.shape[-2] or a.shape[-1] not in TILE_SIZES:
+        raise ValueError(f"geadd: want (..., t, t) tiles with t in {TILE_SIZES}, got "
+                         f"{tuple(a.shape)}")
+    (a, sa, outer, inner), (b, sb, _, _) = _operands(a), _operands(b)
+    check_cuda("geadd", a, b, contiguous=False)
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("gemm")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _build.check(lib, lib.stiles_geadd_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), outer,
+                                           inner, sa, sb, stream), "geadd")
+    geadd_cuda.launches += 1
+    return out
+
+
+geadd_cuda.launches = 0

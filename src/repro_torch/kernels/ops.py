@@ -5,6 +5,10 @@ and the CUDA kernel for a tensor on the card; there is no fallback from
 one to the other.  ``impl="ref"`` forces the plain version on any device
 (``chip_smoke.py`` uses it to check the kernels); ``impl="cuda"`` forces
 the kernel, and raises for a CPU tensor.
+
+The task list's tile updates (``potrf``, ``trsm``, ``syrk``, ``gemm``) take
+``out=``: the kernel writes its result there (it may be the updated tile
+itself, a slot of the tile buffer), and the plain version copies into it.
 """
 from __future__ import annotations
 
@@ -13,15 +17,16 @@ from typing import Optional
 import torch
 
 from . import ref
-from .band_cholesky import band_cholesky_sweep_cuda
+from .band_cholesky import band_cholesky_partitioned_sweep_cuda, band_cholesky_sweep_cuda
 from .band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from .gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from .potrf import potrf_cuda
 from .selinv import selinv_sweep_cuda
 from .trsm import solve_panel_cuda, trsm_cuda
 
-__all__ = ["potrf", "trsm", "solve_panel", "band_forward_sweep",
-           "band_backward_sweep", "band_cholesky_sweep", "selinv_sweep",
-           "resolve_impl", "IMPLS"]
+__all__ = ["potrf", "trsm", "syrk", "gemm", "geadd", "solve_panel",
+           "band_forward_sweep", "band_backward_sweep", "band_cholesky_sweep",
+           "band_cholesky_partitioned_sweep", "selinv_sweep", "resolve_impl", "IMPLS"]
 
 IMPLS = ("ref", "cuda")
 
@@ -39,19 +44,48 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
-def potrf(a: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+def _into(out: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """A plain version's result, copied into ``out`` when there is one."""
+    return x if out is None else out.copy_(x)
+
+
+def potrf(a: torch.Tensor, impl: Optional[str] = None,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cholesky of a (..., t, t) batch of SPD tiles."""
     if resolve_impl(impl, a) == "cuda":
-        return potrf_cuda(a)
-    return ref.potrf_ref(a)
+        return potrf_cuda(a, out=out)
+    return _into(out, ref.potrf_ref(a))
 
 
-def trsm(l_kk: torch.Tensor, a_mk: torch.Tensor,
-         impl: Optional[str] = None) -> torch.Tensor:
+def trsm(l_kk: torch.Tensor, a_mk: torch.Tensor, impl: Optional[str] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``X = A L^{-T}`` for a (..., t, t) batch of A against one L."""
     if resolve_impl(impl, a_mk) == "cuda":
-        return trsm_cuda(l_kk, a_mk)
-    return ref.trsm_ref(l_kk, a_mk)
+        return trsm_cuda(l_kk, a_mk, out=out)
+    return _into(out, ref.trsm_ref(l_kk, a_mk))
+
+
+def syrk(c_kk: torch.Tensor, a_kn: torch.Tensor, impl: Optional[str] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C - A A^T`` over the full tile (the diagonal tile's update)."""
+    if resolve_impl(impl, c_kk) == "cuda":
+        return syrk_cuda(c_kk, a_kn, out=out)
+    return _into(out, ref.syrk_ref(c_kk, a_kn))
+
+
+def gemm(c_mk: torch.Tensor, a_mn: torch.Tensor, b_kn: torch.Tensor,
+         impl: Optional[str] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C - A B^T``, batched over C's leading dims with A and B broadcast."""
+    if resolve_impl(impl, c_mk) == "cuda":
+        return gemm_cuda(c_mk, a_mn, b_kn, out=out)
+    return _into(out, ref.gemm_ref(c_mk, a_mn, b_kn))
+
+
+def geadd(a: torch.Tensor, b: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+    """``A + B``: the combine of the Alg. 3 tree reduction."""
+    if resolve_impl(impl, a) == "cuda":
+        return geadd_cuda(a, b)
+    return ref.geadd_ref(a, b)
 
 
 def solve_panel(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False,
@@ -96,6 +130,19 @@ def band_cholesky_sweep(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1,
                                         start_tile=start_tile)
     return ref.band_cholesky_sweep_ref(Ac, R, nchunks=nchunks,
                                        start_tile=start_tile)
+
+
+def band_cholesky_partitioned_sweep(Ac: torch.Tensor, R: torch.Tensor, boundaries,
+                                    start_tile: int = 0, impl: Optional[str] = None):
+    """The sweep of :func:`band_cholesky_sweep` over the independent
+    partitions ``[boundaries[p], boundaries[p+1])`` of a block-separable
+    band -> ``(panels, R_out, schur, status)`` with ``schur (P, nat, nat,
+    t, t)``, one corner-Schur leaf per partition, and ``first_bad`` global.
+    ``"cuda"`` is one kernel launch, a block per partition; ``"ref"`` the
+    column loop of ``ref.py`` on each partition."""
+    if resolve_impl(impl, Ac) == "cuda":
+        return band_cholesky_partitioned_sweep_cuda(Ac, R, boundaries, start_tile=start_tile)
+    return ref.band_cholesky_partitioned_sweep_ref(Ac, R, boundaries, start_tile=start_tile)
 
 
 def selinv_sweep(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,

@@ -8,17 +8,21 @@ one block per tile of the batch.  The plain version is
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
 
-__all__ = ["potrf_cuda", "check_cuda", "check_tiles", "TILE_SIZES"]
+__all__ = ["potrf_cuda", "check_cuda", "check_tiles", "check_out", "TILE_SIZES"]
 
 TILE_SIZES = (8, 16, 32, 64)
 
 
-def check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = True) -> None:
-    """Validate float32, contiguous CUDA tensors, 16-byte aligned unless
+def check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = True,
+               contiguous: bool = True) -> None:
+    """Validate float32 CUDA tensors, contiguous unless ``contiguous`` is
+    False (the caller checks their strides) and 16-byte aligned unless
     ``aligned`` is False (what a kernel reads a word at a time)."""
     for x in tensors:
         if x.device.type != "cuda":
@@ -26,7 +30,7 @@ def check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = True) -> None:
                              f"got {x.device}")
         if x.dtype != torch.float32:
             raise ValueError(f"{name}: float32 only, got {x.dtype}")
-        if not x.is_contiguous():
+        if contiguous and not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if aligned and x.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
@@ -47,12 +51,25 @@ def check_tiles(name: str, *tensors: torch.Tensor) -> int:
     return t
 
 
-def potrf_cuda(a: torch.Tensor) -> torch.Tensor:
+def check_out(name: str, like: torch.Tensor, out) -> torch.Tensor:
+    """``out`` checked to take a result shaped like ``like``, or a new
+    tensor when it is None."""
+    if out is None:
+        return torch.empty_like(like)
+    check_cuda(name, out)
+    if out.shape != like.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} is not the result's shape "
+                         f"{tuple(like.shape)}")
+    return out
+
+
+def potrf_cuda(a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cholesky of a (..., t, t) batch of SPD tiles on the card: L lower
     (zeros above the diagonal); a non-positive pivot gives NaN from that
-    column on."""
+    column on.  ``out`` takes the result in place of a new tensor and may be
+    ``a`` itself: each element is read and then written by one thread."""
     t = check_tiles("potrf", a)
-    out = torch.empty_like(a)
+    out = check_out("potrf", a, out)
     nb = a.numel() // (t * t)
     if nb == 0:
         return out

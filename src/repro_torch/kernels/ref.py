@@ -13,10 +13,12 @@ import torch
 
 from .ring import chunk_layout, identity_prefix_panel
 
-__all__ = ["potrf_ref", "trsm_ref", "solve_panel_ref", "selinv_step_ref",
-           "band_forward_sweep_ref", "band_backward_sweep_ref",
-           "band_cholesky_sweep_ref", "selinv_sweep_ref", "sweep_status",
-           "empty_sweep_status"]
+__all__ = ["potrf_ref", "trsm_ref", "syrk_ref", "gemm_ref", "geadd_ref",
+           "solve_panel_ref", "selinv_step_ref", "band_forward_sweep_ref",
+           "band_backward_sweep_ref", "band_cholesky_sweep_ref",
+           "band_cholesky_partitioned_sweep_ref", "selinv_sweep_ref",
+           "sweep_status", "combine_sweep_status", "empty_sweep_status",
+           "check_boundaries"]
 
 
 def empty_sweep_status(device=None) -> torch.Tensor:
@@ -70,6 +72,24 @@ def trsm_ref(l_kk: torch.Tensor, a_mk: torch.Tensor) -> torch.Tensor:
     (t, t) broadcast over a (..., t, t) batch of A or batched alike."""
     xt = torch.linalg.solve_triangular(l_kk, a_mk.mT, upper=False)
     return xt.mT.contiguous()
+
+
+def syrk_ref(c_kk: torch.Tensor, a_kn: torch.Tensor) -> torch.Tensor:
+    """Symmetric rank-t update of a diagonal tile, the full tile:
+    ``C - A A^T``."""
+    return c_kk - a_kn @ a_kn.mT
+
+
+def gemm_ref(c_mk: torch.Tensor, a_mn: torch.Tensor, b_kn: torch.Tensor) -> torch.Tensor:
+    """Off-diagonal accumulation ``C - A B^T``, batched over leading dims
+    with A and B broadcast against C."""
+    return c_mk - a_mn @ b_kn.mT
+
+
+def geadd_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Generalized addition (the tree-reduction combine step, paper
+    Fig. 6): ``A + B``."""
+    return a + b
 
 
 def solve_panel_ref(l_kk: torch.Tensor, b_panel: torch.Tensor,
@@ -196,6 +216,65 @@ def band_cholesky_sweep_ref(Ac: torch.Tensor, R: torch.Tensor,
     rchunk = rpad.reshape((nch, csz) + tuple(R_out.shape[1:]))
     schur = torch.einsum("nkiab,nkjcb->nijac", rchunk, rchunk)
     return panels, R_out, schur, sweep_status(panels, R_out)
+
+
+def combine_sweep_status(words: torch.Tensor) -> torch.Tensor:
+    """Fold per-partition status words ``(P, 3)``, ``first_bad`` already in
+    global column indices, into one word: the least pivot, the largest
+    nonfinite flag and the smallest non-negative ``first_bad`` (-1 when
+    every partition is clean).  An empty stack folds to
+    :func:`empty_sweep_status`."""
+    if words.shape[0] == 0:
+        return empty_sweep_status(words.device)
+    first = words[:, 2]
+    best = torch.where(first >= 0, first, torch.full_like(first, float("inf"))).amin()
+    return torch.stack([words[:, 0].amin(), words[:, 1].amax(),
+                        torch.where(torch.isfinite(best), best, torch.full_like(best, -1.0))])
+
+
+def check_boundaries(boundaries, ndt: int) -> tuple:
+    """``boundaries`` as a tuple of ints, or ValueError unless it rises
+    strictly from 0 to ``ndt``."""
+    bounds = tuple(int(b) for b in boundaries)
+    if len(bounds) < 2 or bounds[0] != 0 or bounds[-1] != ndt or \
+            any(b1 <= b0 for b0, b1 in zip(bounds, bounds[1:])):
+        raise ValueError(f"boundaries {bounds!r} must be strictly increasing from 0 "
+                         f"to ndt={ndt}")
+    return bounds
+
+
+def band_cholesky_partitioned_sweep_ref(Ac: torch.Tensor, R: torch.Tensor, boundaries,
+                                        start_tile: int = 0):
+    """Partition-parallel band+arrow Cholesky sweep.
+
+    ``boundaries`` ``(0, c_1, ..., ndt)`` cut the band into partitions,
+    partition ``p`` owning columns ``[boundaries[p], boundaries[p+1])``;
+    the input must be block-separable across the cuts (no band tile
+    crosses one, what ``core.ordering.detect_partition_plan`` certifies).
+    Each partition then factorizes on its own: :func:`band_cholesky_sweep_ref`
+    on its slice with one Schur chunk.
+
+    Output: panels (ndt, bt+1, t, t), R_out (ndt, nat, t, t) as the fused
+            sweep's;
+            schur (P, nat, nat, t, t) one corner-Schur partial sum per
+            partition (the tree-reduction leaves);
+            status (3,) the partitions' words folded by
+            :func:`combine_sweep_status`, ``first_bad`` global.
+
+    Columns ``k < start_tile`` (global) are the identity prefix, so
+    partition ``p`` skips its first ``max(0, start_tile - boundaries[p])``.
+    """
+    bounds = check_boundaries(boundaries, Ac.shape[0])
+    panels, r_out, schurs, words = [], [], [], []
+    for s0, s1 in zip(bounds, bounds[1:]):
+        p, r, sch, w = band_cholesky_sweep_ref(Ac[s0:s1], R[s0:s1], nchunks=1,
+                                               start_tile=max(0, start_tile - s0))
+        panels.append(p)
+        r_out.append(r)
+        schurs.append(sch[0])
+        words.append(torch.cat([w[:2], torch.where(w[2:] >= 0, w[2:] + s0, w[2:])]))
+    return (torch.cat(panels), torch.cat(r_out), torch.stack(schurs),
+            combine_sweep_status(torch.stack(words)))
 
 
 def selinv_sweep_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,

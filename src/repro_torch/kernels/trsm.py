@@ -19,23 +19,28 @@ The plain versions are ``ref.trsm_ref`` and ``ref.solve_panel_ref``;
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build
-from .potrf import check_cuda, check_tiles
+from .potrf import check_cuda, check_out, check_tiles
 
 __all__ = ["trsm_cuda", "solve_panel_cuda"]
 
 
-def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor) -> torch.Tensor:
+def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``X = A L^{-T}`` on the card.  ``l_kk`` is one (t, t) tile for the
-    whole (..., t, t) batch ``a_mk``, or has the batch's shape."""
+    whole (..., t, t) batch ``a_mk``, or has the batch's shape.  ``out``
+    takes the result in place of a new tensor and may be ``a_mk`` itself
+    (each row is read and then written by one warp); it must not overlap L."""
     t = check_tiles("trsm", l_kk, a_mk)
     batched = l_kk.dim() > 2
     if batched and l_kk.shape != a_mk.shape:
         raise ValueError(f"trsm: L {tuple(l_kk.shape)} is neither one tile "
                          f"nor the shape of A {tuple(a_mk.shape)}")
-    out = torch.empty_like(a_mk)
+    out = check_out("trsm", a_mk, out)
     nb = a_mk.numel() // (t * t)
     if nb == 0:
         return out

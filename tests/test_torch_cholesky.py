@@ -200,10 +200,23 @@ def test_port_never_loads_jax():
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
         "import repro_torch.core.solve, repro_torch.core.selinv\n"
         "import repro_torch.kernels.band_solve, repro_torch.kernels.selinv\n"
+        "import repro_torch.kernels.gemm, repro_torch.core.tree_reduction\n"
+        "import repro_torch.data.synthetic, repro_torch.quickstart\n"
+        "from repro_torch.core import (SolverOptions, TileMatrix, detect_partition_plan,\n"
+        "                              factorize_tasklist)\n"
+        "from repro_torch.data import block_separable_arrowhead\n"
         "import torch\n"
         "A, st = make_arrowhead(200, 24, 16, seed=0)\n"
         "f = factorize_window(BandedCTSF.from_sparse(A, TileGrid(st, t=16), device='cpu'))\n"
         "assert float(logdet(f)) > 0\n"
+        "tm = TileMatrix.from_sparse(A, TileGrid(st, t=16), device='cpu')\n"
+        "assert factorize_tasklist(tm, tree_reduction=True, tree_workers=4).shape[0] == tm.n_alloc\n"
+        "B, bs, bounds = block_separable_arrowhead(100, 5, 4, 8, n_parts=4)\n"
+        "plan = detect_partition_plan(B, bs, 8)\n"
+        "assert plan.n_partitions == 4\n"
+        "fp = factorize_window(BandedCTSF.from_sparse(B, TileGrid(bs, t=8), device='cpu'),\n"
+        "                      options=SolverOptions(partition_plan=plan))\n"
+        "assert float(logdet(fp)) > 0\n"
         "x = solve_many(f, torch.ones(f.ctsf.grid.padded_n, 2))\n"
         "assert float(selected_inverse(f).diagonal().min()) > 0\n"
         "assert float(marginal_variances(f, [0, 199]).min()) > 0\n"

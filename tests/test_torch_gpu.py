@@ -1,7 +1,9 @@
 """The port on the card: each CUDA kernel against its plain version, and
-``factorize_window``, the solves and the selected inverse on the card
-against the CPU path, at rtol = atol = 2e-4 (float32 on both sides,
-different summation orders).
+``factorize_window`` (fused and partitioned), ``factorize_tasklist``, the
+solves and the selected inverse on the card against the CPU path, at
+rtol = atol = 2e-4 (float32 on both sides, different summation orders).
+The partitioned sweep is also held bit for bit to the fused one on
+block-separable input.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of jax or of the JAX package, so it runs where only
@@ -13,13 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (BandedCTSF, SolverOptions, TileGrid, factorize_window, logdet,
-                              marginal_variances, sample_gmrf_many, selected_inverse,
-                              solve_many)
-from repro_torch.data import make_arrowhead
+from repro_torch.core import (BandedCTSF, PartitionPlan, SolverOptions, TileGrid, TileMatrix,
+                              factorize_tasklist, factorize_window, logdet, marginal_variances,
+                              sample_gmrf_many, selected_inverse, solve_many)
+from repro_torch.data import block_separable_arrowhead, make_arrowhead
 from repro_torch.kernels import ref
-from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                               band_cholesky_sweep_cuda)
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.ring import band_row_to_col
 from repro_torch.kernels.selinv import selinv_sweep_cuda
@@ -256,3 +260,125 @@ def test_solves_and_selected_inverse_on_the_card(cuda, t):
         got = marginal_variances(f, idx, options=SolverOptions(method=method))
         want = marginal_variances(fc, idx, options=SolverOptions(method=method))
         torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_gemm_syrk_geadd_kernels(cuda, t):
+    """C - A B^T with A and B batched or one broadcast tile, in place into C,
+    SYRK over the full tile, and A + B on the strided even and odd halves of
+    a batch (how the tree reduction calls it)."""
+    rng = np.random.default_rng(t)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    c, a, b = x(3, t, t), x(3, t, t), x(3, t, t)
+    torch.testing.assert_close(gemm_cuda(c, a, b), ref.gemm_ref(c, a, b), **TOL)
+    torch.testing.assert_close(gemm_cuda(c, a[0], b), ref.gemm_ref(c, a[0], b), **TOL)
+    torch.testing.assert_close(gemm_cuda(c, a, b[1]), ref.gemm_ref(c, a, b[1]), **TOL)
+    c4, a4 = x(2, 3, t, t), x(2, 1, t, t)
+    torch.testing.assert_close(gemm_cuda(c4, a4, c4[0, 0]), ref.gemm_ref(c4, a4, c4[0, 0]), **TOL)
+    torch.testing.assert_close(syrk_cuda(c, a), ref.syrk_ref(c, a), **TOL)
+    want = ref.gemm_ref(c[1], a[0], b[2])
+    assert gemm_cuda(c[1], a[0], b[2], out=c[1]).data_ptr() == c[1].data_ptr()
+    torch.testing.assert_close(c[1], want, **TOL)
+    for shape in ((5, t, t), (7, 2, 3, t, t), (t, t)):
+        p = x(*shape)
+        if p.dim() > 2:
+            ev, od = p[0:p.shape[0] - 1:2], p[1::2]
+            torch.testing.assert_close(geadd_cuda(ev, od), ref.geadd_ref(ev, od), rtol=0, atol=0)
+        torch.testing.assert_close(geadd_cuda(p, p), ref.geadd_ref(p, p), rtol=0, atol=0)
+
+
+def _separable_band(t, ndt, bt, nat, bounds, seed=0):
+    """Column-band tiles and arrow rows of a random diagonally dominant
+    banded-arrowhead matrix whose band tiles across the cuts ``bounds`` are
+    zero (block-separable)."""
+    rng = np.random.default_rng(seed)
+    n = (ndt + nat) * t
+    tile = np.arange(n) // t
+    part = np.searchsorted(np.asarray(bounds), np.minimum(tile, ndt - 1), side="right")
+    ti, tj = tile[:, None], tile[None, :]
+    band = (ti < ndt) & (tj < ndt) & (np.abs(ti - tj) <= bt) & (part[:, None] == part[None, :])
+    a = np.where(band | (ti >= ndt) | (tj >= ndt), rng.standard_normal((n, n)), 0.0)
+    a = np.tril(a) + np.tril(a, -1).T
+    a[np.diag_indices(n)] = np.abs(a).sum(axis=1) + 1.0
+    Ac = np.zeros((ndt, bt + 1, t, t), np.float32)
+    R = np.zeros((ndt, nat, t, t), np.float32)
+    for k in range(ndt):
+        for e in range(min(bt, ndt - 1 - k) + 1):
+            Ac[k, e] = a[(k + e) * t:(k + e + 1) * t, k * t:(k + 1) * t]
+        for i in range(nat):
+            R[k, i] = a[(ndt + i) * t:(ndt + i + 1) * t, k * t:(k + 1) * t]
+    return torch.from_numpy(Ac), torch.from_numpy(R)
+
+
+# (ndt, bt, nat, bounds): one partition, bt = 0 over three, nat = 0 over
+# two, four partitions, four with a ragged last one, and seven (odd) with a
+# ragged last one
+PARTITIONS = [(5, 2, 1, (0, 5)), (6, 0, 2, (0, 2, 4, 6)), (8, 2, 0, (0, 4, 8)),
+              (9, 3, 2, (0, 3, 5, 7, 9)), (11, 2, 1, (0, 4, 8, 10, 11)),
+              (15, 1, 3, (0, 3, 6, 8, 10, 12, 14, 15))]
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("ndt,bt,nat,bounds", PARTITIONS)
+def test_partitioned_sweep_kernel(cuda, t, ndt, bt, nat, bounds):
+    """The partitioned kernel against its plain version, and bit for bit
+    against the fused kernel in panels, arrow rows and status."""
+    Ac, R = (x.to(cuda) for x in _separable_band(t, ndt, bt, nat, bounds, seed=ndt + t))
+    for start in (0, 3):
+        got = band_cholesky_partitioned_sweep_cuda(Ac, R, bounds, start_tile=start)
+        want = ref.band_cholesky_partitioned_sweep_ref(Ac, R, bounds, start_tile=start)
+        assert got[2].shape == (len(bounds) - 1, nat, nat, t, t)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+        fused = band_cholesky_sweep_cuda(Ac, R, nchunks=1, start_tile=start)
+        for g, w in zip(got[:2], fused[:2]):
+            assert torch.equal(g, w)
+        assert got[3].tolist() == fused[3].tolist()
+        torch.testing.assert_close(got[2].sum(0), fused[2][0], **TOL)
+
+
+def test_tasklist_on_the_card(cuda):
+    """factorize_tasklist on the card: one kernel launch per task (or per
+    tree level), and the CPU path's factor."""
+    A, st = make_arrowhead(200, 24, 16, rho=0.6, seed=0)
+    grid = TileGrid(st, t=16)
+    tm, tc = (TileMatrix.from_sparse(A, grid, device=d) for d in (cuda, "cpu"))
+    kinds = {}
+    for task in tm.symbolic.tasks:
+        kinds[task.type.name] = kinds.get(task.type.name, 0) + 1
+    kern = (potrf_cuda, trsm_cuda, syrk_cuda, gemm_cuda, geadd_cuda)
+    for tree in (False, True):
+        before = [k.launches for k in kern]
+        got = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+        launches = [k.launches - b for k, b in zip(kern, before)]
+        torch.testing.assert_close(got.cpu(), factorize_tasklist(tc, tree_reduction=tree,
+                                                                 tree_workers=4), **TOL)
+        assert launches[:2] == [kinds["POTRF"], kinds["TRSM"]]
+        if not tree:
+            assert launches[2:] == [kinds["SYRK"], kinds["GEMM"], 0]
+        else:
+            assert launches[2] < kinds["SYRK"] and launches[4] > 0
+    assert torch.equal(tm.tiles.cpu(), tc.tiles)
+
+
+def test_partitioned_factorize_window_on_the_card(cuda):
+    """A plan of four partitions: one partitioned launch and no fused one,
+    two geadd levels before the corner, and the fused route's factor."""
+    A, st, bounds = block_separable_arrowhead(200, 12, 24, 8, n_parts=4, seed=2)
+    m = BandedCTSF.from_sparse(A, TileGrid(st, t=8), device=cuda)
+    plan = PartitionPlan(boundaries=bounds, sep_tiles=m.grid.n_arrow_tiles)
+    kern = (band_cholesky_partitioned_sweep_cuda, band_cholesky_sweep_cuda, geadd_cuda,
+            potrf_cuda, trsm_cuda)
+    before = [k.launches for k in kern]
+    f = factorize_window(m, options=SolverOptions(partition_plan=plan))
+    nat = m.grid.n_arrow_tiles
+    assert [k.launches - b for k, b in zip(kern, before)] == [1, 0, 2, nat, nat]
+    fused = factorize_window(m)
+    for name in ("Dr", "R"):
+        assert torch.equal(getattr(f.ctsf, name), getattr(fused.ctsf, name)), name
+    torch.testing.assert_close(f.ctsf.C, fused.ctsf.C, **TOL)
+    assert f.status[1:].tolist() == [0.0, -1.0]
+    fc = factorize_window(BandedCTSF(m.grid, m.Dr.cpu(), m.R.cpu(), m.C.cpu()),
+                          options=SolverOptions(partition_plan=plan))
+    for g, w in zip(f.ctsf.arrays(), fc.ctsf.arrays()):
+        torch.testing.assert_close(g.cpu(), w, **TOL)

@@ -1,7 +1,7 @@
 """The port's kernels module against the JAX package: the band-layout
-converters, and the plain versions of potrf, trsm, solve_panel, the
-band-Cholesky sweep, the band-solve sweeps and the selected-inversion
-sweep against ``repro.kernels.ref`` and against the Pallas kernels in
+converters, and the plain versions of potrf, trsm, gemm, syrk, geadd,
+solve_panel, the band-Cholesky sweep, the band-solve sweeps and the
+selected-inversion sweep against ``repro.kernels.ref`` and against the Pallas kernels in
 interpret mode, at rtol = atol = 2e-4 (the tolerance of test_kernels.py;
 both sides are float32 and differ only in summation order).  The CUDA
 kernels themselves are held to the plain versions on the card by
@@ -18,12 +18,14 @@ from repro.kernels import ref as jref
 from repro.kernels import ring as jring
 from repro.kernels.band_cholesky import band_cholesky_sweep_pallas
 from repro.kernels.band_solve import band_backward_sweep_pallas, band_forward_sweep_pallas
+from repro.kernels.gemm import geadd_pallas, gemm_pallas, syrk_pallas
 from repro.kernels.potrf import potrf_pallas
 from repro.kernels.selinv import selinv_sweep_pallas
 from repro.kernels.trsm import solve_panel_pallas, trsm_pallas
 from repro_torch.kernels import ops, ref, ring
 from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.selinv import selinv_sweep_cuda
 from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
@@ -104,6 +106,37 @@ def test_trsm_ref(rng, t):
         np.testing.assert_allclose(got[i], np.asarray(jref.trsm_ref(jnp.asarray(l), jnp.asarray(a[i]))),
                                    **TOL)
     np.testing.assert_allclose(got, np.asarray(trsm_pallas(jnp.asarray(l), jnp.asarray(a))), **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_gemm_syrk_geadd_ref(rng, t):
+    """The task list's tile updates: C - A B^T batched and with one A or B
+    broadcast, C - A A^T over the full tile, A + B; against the JAX oracles
+    and the Pallas kernels in interpret mode."""
+    c, a, b = (rng.standard_normal((3, t, t)).astype(np.float32) for _ in range(3))
+    J = jnp.asarray
+    for args in ((c, a, b), (c, a[0], b[1]), (c[0], a[1], b[2])):
+        got = ref.gemm_ref(*map(_t, args)).numpy()
+        if args[0].ndim == 2:
+            np.testing.assert_allclose(got, np.asarray(jref.gemm_ref(*map(J, args))), **TOL)
+        else:
+            np.testing.assert_allclose(
+                got, np.asarray(gemm_pallas(*map(J, args), interpret=True)), **TOL)
+        torch.testing.assert_close(ops.gemm(*map(_t, args)), _t(got), rtol=0, atol=0)
+    got = ref.syrk_ref(_t(c), _t(a)).numpy()
+    np.testing.assert_allclose(got, np.asarray(syrk_pallas(J(c), J(a), interpret=True)), **TOL)
+    np.testing.assert_allclose(got[1], np.asarray(jref.syrk_ref(J(c[1]), J(a[1]))), **TOL)
+    got = ref.geadd_ref(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(geadd_pallas(J(a), J(b), interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(jref.geadd_ref(J(a), J(b))))
+    # out= takes the result in place, the dispatcher's plain versions copy
+    ct = _t(c)
+    want = ref.gemm_ref(ct[1], _t(a[0]), _t(b[0]))
+    assert ops.gemm(ct[1], _t(a[0]), _t(b[0]), out=ct[1]).data_ptr() == ct[1].data_ptr()
+    torch.testing.assert_close(ct[1], want, rtol=0, atol=0)
+    want = ref.syrk_ref(ct[2], _t(a[0]))
+    ops.syrk(ct[2], _t(a[0]), out=ct[2])
+    torch.testing.assert_close(ct[2], want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n,bw,ar,t,nchunks", [g + (c,) for g, c in zip(GRIDS, (1, 3, 3, 3, 1, 3, 2))])
@@ -295,6 +328,22 @@ def test_selinv_step_ref(rng):
                                **TOL)
 
 
+def test_gemm_cuda_refuses_operands_that_do_not_broadcast():
+    """gemm/syrk accept what broadcasts against C and nothing else, on the
+    card as in the plain version: a batch of C's size in another shape is
+    refused before any launch."""
+    rng = np.random.default_rng(0)
+    c = _t(rng.standard_normal((2, 3, 8, 8)).astype(np.float32))
+    a = _t(rng.standard_normal((3, 2, 8, 8)).astype(np.float32))
+    for call in (lambda: gemm_cuda(c, a, c), lambda: gemm_cuda(c, c, a),
+                 lambda: syrk_cuda(c, a), lambda: gemm_cuda(c[0], c, c[0])):
+        with pytest.raises(ValueError, match="broadcast"):
+            call()
+    for call in (lambda: ref.gemm_ref(c, a, c), lambda: ref.syrk_ref(c, a)):
+        with pytest.raises(RuntimeError):
+            call()
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never compute on the CPU, and the dispatcher
     never sends a CPU tensor to them on its own."""
@@ -308,15 +357,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                  lambda: ops.potrf(a, impl="cuda"), lambda: ops.solve_panel(a, a, impl="cuda"),
                  lambda: ops.band_forward_sweep(t4, t4, p, impl="cuda"),
                  lambda: ops.band_backward_sweep(t4, t4, p, p, impl="cuda"),
-                 lambda: ops.selinv_sweep(t4, t4, t4, impl="cuda")):
+                 lambda: ops.selinv_sweep(t4, t4, t4, impl="cuda"),
+                 lambda: gemm_cuda(a, a, a), lambda: syrk_cuda(a, a), lambda: geadd_cuda(p, p),
+                 lambda: ops.gemm(a, a, a, impl="cuda"), lambda: ops.syrk(a, a, impl="cuda"),
+                 lambda: ops.geadd(a, a, impl="cuda"), lambda: ops.potrf(a, impl="cuda", out=a)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(ValueError, match="impl"):
         ops.trsm(a, a, impl="pallas")
     kernels = (potrf_cuda, trsm_cuda, band_cholesky_sweep_cuda, solve_panel_cuda,
-               band_forward_sweep_cuda, band_backward_sweep_cuda, selinv_sweep_cuda)
+               band_forward_sweep_cuda, band_backward_sweep_cuda, selinv_sweep_cuda,
+               gemm_cuda, syrk_cuda, geadd_cuda)
     before = [k.launches for k in kernels]
     ops.potrf(a), ops.trsm(a, a), ops.band_cholesky_sweep(t4, t4), ops.solve_panel(a, a)
     ops.band_forward_sweep(t4, t4, p), ops.band_backward_sweep(t4, t4, p, p)
-    ops.selinv_sweep(t4, t4, t4)
+    ops.selinv_sweep(t4, t4, t4), ops.gemm(a, a, a), ops.syrk(a, a), ops.geadd(p, p)
     assert [k.launches for k in kernels] == before

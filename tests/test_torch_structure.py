@@ -201,3 +201,25 @@ def test_chip_smoke_counts_solve_work(ndt, bt, nat):
     assert work["selinv_sweep"][0] == pytest.approx(
         t ** 3 * (2 * gemms + trmms + syrks + 2 * ndt / 3))
     assert work["selinv_sweep"][1] == 4 * t * t * (2 * tiles + nat * nat)
+
+
+@pytest.mark.parametrize("sizes,bt,nat", [((25, 25, 7), 1, 4), ((3, 3, 4), 2, 1), ((5, 5), 3, 0)])
+def test_chip_smoke_counts_partitioned_flops(sizes, bt, nat):
+    """With partition boundaries the band tiles across the cuts are zero:
+    the sweep's work is the sum of the partitions' own sweeps, and the
+    corner's is unchanged."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    t = 16
+    bounds = tuple(np.concatenate([[0], np.cumsum(sizes)]).tolist())
+    grid = tstructure.TileGrid.from_tile_counts(t, bounds[-1], bt, nat)
+    sweep, corner = chip_smoke.needed_flops(grid, bounds)
+    parts = [chip_smoke.needed_flops(tstructure.TileGrid.from_tile_counts(t, s, bt, nat))
+             for s in sizes]
+    assert sweep == pytest.approx(sum(p[0] for p in parts), rel=1e-12)
+    assert corner == pytest.approx(chip_smoke.needed_flops(grid)[1], rel=1e-12)
+    assert sweep < chip_smoke.needed_flops(grid)[0] or bt == 0 or len(sizes) == 1
