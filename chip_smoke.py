@@ -20,7 +20,12 @@ Phases, each of which raises on a failed check:
    start_tile in {0, 2}; gemm, syrk and geadd with batched, broadcast,
    in-place and strided operands; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
-   bit against the fused kernel;
+   bit against the fused kernel; band_update for b+1 in {1, 2, 5, 9}
+   against both plain versions, also on a strided batch of windows;
+   selinv_step for (e_n, j_n) in {(1, 1), (3, 5), (8, 8), (2, 17)} and
+   the empty shapes; trsm with one L a group of tiles; the fused and
+   partitioned sweeps on a batch of three, each element also bit for bit
+   against its unbatched launch;
 3. main paths at full size, each with the launch counts set to 0 just
    before it and read just after:
    - Table II matrices 5 (n=10,200, bandwidth 200, arrow 200) and 2
@@ -41,6 +46,21 @@ Phases, each of which raises on a failed check:
      for bit against the fused kernel, then factorize_window with the plan
      (one partitioned launch, a geadd per tree level, the corner against
      the fused route's, factor residual, logdet);
+   - the window route, factorize_window(sweep="window"), on matrices 5
+     and 2: launch counts (a band_update, a potrf and two trsm a column,
+     the corner's, three geadd), factor residual, logdet, agreement with
+     the fused route's factor;
+   - factorize_window_batched on 8 θ-candidates A_θ = τ A + δ I of
+     matrix 5 (fused and window routes) and of matrix 4 (partitioned
+     route): one sweep launch for the batch (the window route one
+     band_update a column), each element against its unbatched call (the
+     sweep bit for bit on the fused and partitioned routes) and its logdet
+     against the candidate's float64 oracle; then the batched kernels
+     against their plain versions on those batches: both sweeps,
+     band_update on the window route's strided windows, and the grouped
+     trsm of a window panel and of the corner;
+   - ops.selinv_step on the Takahashi operands of an interior column of
+     matrix 5's selected inverse, against that column's Σ tiles;
    - python -m repro_torch.quickstart's main, its task-list agreement;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
@@ -51,7 +71,10 @@ Phases, each of which raises on a failed check:
    where the factorization sweep's cycles go, from a phase-marked build
    of its kernel; factorize_window, solve_many, selected_inverse and
    marginal_variances end to end; factorize_tasklist (call time against
-   device time) and the partitioned factorize_window end to end.
+   device time) and the partitioned factorize_window end to end; the
+   window route end to end beside the fused route; the batched routes
+   end to end against one candidate alone, and the batched sweep and
+   band_update kernels against one element's launch.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -93,6 +116,8 @@ AGREEMENT_LIMIT = 5e-4
 # bandwidth 100, arrow 10)
 PARTITIONED_IDS = (4, 1)
 SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
+# θ-candidates of the batched factorization (factorize_window_batched)
+BATCH = 8
 
 
 def log(msg: str) -> None:
@@ -403,6 +428,62 @@ def phase_solve_kernels(torch, device, kern, ref):
                     for a, w, part in zip(got, want, ("panels", "acols")):
                         assert_close(torch, a, w, f"{what} {part}")
                     nchecks += 1
+    return nchecks
+
+
+def phase_window_kernels(torch, device, kern, ref):
+    """band_update, selinv_step, the trsm of one L per group of tiles and
+    the batched sweeps against their plain versions; the batched sweeps
+    also bit for bit against the unbatched launch on each element.
+    Returns the number of comparisons."""
+    nchecks = 0
+    for t in TILES:
+        g = torch.Generator().manual_seed(1000 + t)
+        x = lambda *shape: torch.randn(shape, generator=g).to(device)
+        for b1 in (1, 2, 5, 9):
+            w = x(b1, b1, t, t)
+            got = kern["band_update"](w)
+            assert_close(torch, got, ref.band_update_unrolled_ref(w), f"band_update t={t} b+1={b1}")
+            assert_close(torch, got, ref.band_update_ref(w), f"band_update t={t} b+1={b1} einsum")
+            rows = x(3, 6 + b1, b1, t, t)      # a batch of padded band rows
+            win = rows[:, 3:3 + b1]
+            assert_close(torch, kern["band_update"](win), ref.band_update_unrolled_ref(win),
+                         f"band_update t={t} b+1={b1} strided batch")
+            nchecks += 3
+        for e_n, j_n in ((1, 1), (3, 5), (8, 8), (2, 17)):
+            s_row, g_col = x(e_n, j_n, t, t), x(j_n, t, t)
+            assert_close(torch, kern["selinv_step"](s_row, g_col), ref.selinv_step_ref(s_row, g_col),
+                         f"selinv_step t={t} e_n={e_n} j_n={j_n}")
+            nchecks += 1
+        for e_n, j_n in ((0, 3), (2, 0)):
+            s_row, g_col = x(e_n, j_n, t, t), x(j_n, t, t)
+            assert_close(torch, kern["selinv_step"](s_row, g_col), ref.selinv_step_ref(s_row, g_col),
+                         f"selinv_step t={t} empty e_n={e_n} j_n={j_n}")
+            nchecks += 1
+        l = ref.potrf_ref(random_spd(torch, 4, t, t, device))[:, None]
+        b = x(4, 3, t, t)
+        assert_close(torch, kern["trsm"](l, b), ref.trsm_ref(l, b), f"trsm t={t} one L a group")
+        nchecks += 1
+        for bt, nat in ((0, 2), (2, 0), (3, 3)):
+            bounds = (0, 3, 6, 9)
+            els = [random_band_arrow(torch, 9, bt, nat, t, seed=50 * t + 5 * bt + nat + i,
+                                     device=device, bounds=bounds) for i in range(3)]
+            Ac, R = (torch.stack(z) for z in zip(*els))
+            for name, args in (("band_cholesky_sweep", dict(nchunks=3, start_tile=2)),
+                               ("band_cholesky_partitioned_sweep", dict(boundaries=bounds,
+                                                                        start_tile=2))):
+                what = f"batched {name} t={t} bt={bt} nat={nat}"
+                got = kern[name](Ac, R, **args)
+                want = getattr(ref, f"{name}_ref")(Ac, R, **args)
+                for gg, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
+                    assert_close(torch, gg, w, f"{what} {part}")
+                for i in range(3):
+                    check_status(got[3][i], want[3][i], f"{what} element {i}")
+                    one = kern[name](Ac[i], R[i], **args)
+                    if not all(torch.equal(gg[i], w) for gg, w in zip(got, one)):
+                        raise AssertionError(f"{what}: element {i} not bit-identical to its "
+                                             "unbatched launch")
+                nchecks += 2
     return nchecks
 
 
@@ -766,6 +847,274 @@ def check_partitioned(torch, matrix_id, m, plan, f, launches, host_s):
                 launches=launches)
 
 
+def window_launches(grid):
+    """Kernel launches of ``factorize_window`` with ``sweep="window"`` (one
+    matrix or a batch alike): per band column one band_update, one potrf,
+    one trsm of the bt band tiles (none when bt = 0) and one of the arrow
+    row (none when nat = 0); the corner's nat potrf and nat trsm; a geadd
+    per level of the Schur tree over min(8, ndt) partials where
+    ``should_use_tree(ndt, 8)`` holds."""
+    from repro_torch.core import should_use_tree
+    ndt, bt, nat = grid.n_diag_tiles, grid.band_tiles, grid.n_arrow_tiles
+    tree = nat and should_use_tree(ndt, 8)
+    return {"band_update": ndt, "potrf": ndt + nat,
+            "trsm": ndt * (int(bt > 0) + int(nat > 0)) + nat,
+            "geadd": tree_levels(min(8, ndt)) if tree else 0}
+
+
+def run_window(torch, matrix_id, m, kern_counts):
+    """``factorize_window(sweep="window")`` on one matrix, and its launches."""
+    from repro_torch.core import SolverOptions, factorize_window
+    return launch_delta(kern_counts,
+                        lambda: factorize_window(m, options=SolverOptions(sweep="window")),
+                        window_launches(m.grid), f"matrix {matrix_id} window route")
+
+
+def rel_diff(torch, got, want):
+    """max over the arrays of |got - want|, over max|want|: how far one
+    factor is from another, relative to the factor's size."""
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return err / max(b.abs().max().item() for b in want)
+
+
+def check_window(torch, matrix_id, m, f, fused, launches, rec):
+    """The window route's checks on one matrix: the factor residual and the
+    logdet against the float64 oracle of ``rec``, the agreement with the
+    fused route's factor, a clean status; returns the record."""
+    from repro_torch.core import logdet
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    resid = ((Ld @ Ld.mT - Ad).abs().max() / Ad.abs().max()).item()
+    del Ad, Ld
+    ld = logdet(f).item()
+    ld_rel = abs(ld - rec["logdet_oracle"]) / abs(rec["logdet_oracle"])
+    agree = rel_diff(torch, f.ctsf.arrays(), fused.ctsf.arrays())
+    status = f.status.tolist()
+    if not (resid <= RESIDUAL_LIMIT and ld_rel <= 1e-4 and agree <= AGREEMENT_LIMIT
+            and status[1:] == [0.0, -1.0]):
+        raise AssertionError(f"matrix {matrix_id} window route: residual {resid:.3e} (limit "
+                             f"{RESIDUAL_LIMIT}), logdet rel {ld_rel:.3e} (limit 1e-4), "
+                             f"agreement with the fused route {agree:.3e} (limit "
+                             f"{AGREEMENT_LIMIT}), status {status}")
+    return dict(matrix=matrix_id, residual=resid, logdet=ld, logdet_rel_err=ld_rel,
+                agreement_with_fused=agree, status=status, launches=launches)
+
+
+def theta_batch(torch, m, B, seed):
+    """B θ-candidates of one matrix on its device, the INLA hyperparameter
+    sweep over one sparsity pattern: ``A_θ = τ_θ A + δ_θ I`` with τ in
+    [0.5, 2) and δ in [0, 0.5) drawn from ``seed``, so each stays SPD,
+    stored as ``BandedCTSF.from_sparse`` stores it (the padding diagonal
+    the identity, as in ``m``); returns the stacked BandedCTSF and the (τ,
+    δ) pairs."""
+    import numpy as np
+    from repro_torch.core import BandedCTSF
+    from repro_torch.core.ctsf import _padding_diagonal
+    rng = np.random.default_rng(seed)
+    tau, delta = rng.uniform(0.5, 2.0, B), rng.uniform(0.0, 0.5, B)
+    g, dev = m.grid, m.device
+    t = g.t
+    tt = torch.as_tensor(tau, dtype=torch.float32, device=dev)
+    di = torch.as_tensor(delta, dtype=torch.float32, device=dev)[:, None, None, None]
+    di = di * torch.eye(t, device=dev)
+    Dr = tt[:, None, None, None, None] * m.Dr
+    Dr[:, :, 0] += di
+    C = tt[:, None, None, None, None] * m.C
+    for i in range(g.n_arrow_tiles):
+        C[:, i, i] += di[:, 0]
+    # τ and δ scale the matrix, not its padding: its diagonal stays 1
+    pad, ndt_t = torch.as_tensor(_padding_diagonal(g), device=dev), g.n_diag_tiles * t
+    band, arrow = pad[pad < ndt_t], pad[pad >= ndt_t] - ndt_t
+    Dr[:, band // t, 0, band % t, band % t] = 1.0
+    C[:, arrow // t, arrow // t, arrow % t, arrow % t] = 1.0
+    return BandedCTSF(g, Dr, tt[:, None, None, None, None] * m.R, C), list(zip(tau, delta))
+
+
+def element(mb, i):
+    """Element ``i`` of a stacked BandedCTSF, as a matrix of its own."""
+    from repro_torch.core import BandedCTSF
+    return BandedCTSF(mb.grid, *(x[i] for x in mb.arrays()))
+
+
+def run_batched(torch, mb5, mb4, plan4, kern_counts):
+    """``factorize_window_batched`` on B θ-candidates: the fused and window
+    routes on matrix 5's, the partitioned route on matrix 4's; each
+    call's launches are checked (one sweep launch for the whole batch, the
+    window route one band_update a column).  Returns the factors and the
+    launches."""
+    from repro_torch.core import SolverOptions, factorize_window_batched
+    nat5, nat4 = mb5.grid.n_arrow_tiles, mb4.grid.n_arrow_tiles
+    out = {}
+    out["fused"] = launch_delta(kern_counts, lambda: factorize_window_batched(mb5),
+                                {"band_cholesky_sweep": 1, "potrf": nat5, "trsm": nat5},
+                                "batched fused route")
+    out["window"] = launch_delta(
+        kern_counts, lambda: factorize_window_batched(mb5, options=SolverOptions(sweep="window")),
+        window_launches(mb5.grid), "batched window route")
+    out["partitioned"] = launch_delta(
+        kern_counts,
+        lambda: factorize_window_batched(mb4, options=SolverOptions(partition_plan=plan4)),
+        {"band_cholesky_partitioned_sweep": 1, "geadd": tree_levels(plan4.n_partitions),
+         "potrf": nat4, "trsm": nat4}, "batched partitioned route")
+    return out
+
+
+def check_batched(torch, mb5, mb4, plan4, fbs):
+    """Each element of the batched factors against the unbatched call on it.
+    Fused and partitioned routes: the batched sweep kernel's panels, arrow
+    rows and status word bit for bit the unbatched launch's, and so the
+    factor's band and arrow rows; the corner (batched products, summed in
+    another order) within 1e-5 relative, and the status word's pivot too.
+    Window route: within AGREEMENT_LIMIT.  A clean status everywhere, and
+    every element's logdet within 1e-4 relative of the float64 oracle of
+    its candidate.  Returns the record."""
+    from repro_torch.core import SolverOptions, factorize_window, logdet
+    from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                                   band_cholesky_sweep_cuda)
+    from repro_torch.kernels.ring import band_row_to_col
+    nch = max(1, min(8, mb5.grid.n_diag_tiles))
+    sweeps = {"fused": lambda ac, r: band_cholesky_sweep_cuda(ac, r, nchunks=nch),
+              "partitioned": lambda ac, r: band_cholesky_partitioned_sweep_cuda(
+                  ac, r, plan4.boundaries)}
+    # the float64 oracle of each candidate's logdet (the padded dense
+    # matrix's; its identity padding adds nothing)
+    oracles = {}
+    for mb in (mb5, mb4):
+        oracles[id(mb)] = []
+        for i in range(mb.Dr.shape[0]):
+            Ad = dense_from_ctsf(torch, element(mb, i), torch.float64, symmetric=True)
+            oracles[id(mb)].append(
+                (2.0 * torch.log(torch.diagonal(torch.linalg.cholesky(Ad)))).sum().item())
+            del Ad
+    rec = {}
+    for route, mb, opts in (("fused", mb5, SolverOptions()),
+                            ("window", mb5, SolverOptions(sweep="window")),
+                            ("partitioned", mb4, SolverOptions(partition_plan=plan4))):
+        fb, launches = fbs[route]
+        nb = mb.Dr.shape[0]
+        worst, same = 0.0, True
+        if route in sweeps:
+            Ac = band_row_to_col(mb.Dr)
+            batched = sweeps[route](Ac, mb.R)
+        for i in range(nb):
+            one = factorize_window(element(mb, i), options=opts)
+            got = [x[i] for x in fb.ctsf.arrays()]
+            if route == "window":
+                worst = max(worst, rel_diff(torch, got, one.ctsf.arrays()))
+                continue
+            alone = sweeps[route](Ac[i].contiguous(), mb.R[i].contiguous())
+            same &= all(torch.equal(batched[q][i], alone[q]) for q in (0, 1, 3))
+            same &= torch.equal(got[0], one.ctsf.Dr) and torch.equal(got[1], one.ctsf.R)
+            same &= fb.status[i, 1:].tolist() == one.status[1:].tolist()
+            worst = max(worst, rel_diff(torch, got[2:], [one.ctsf.C]),
+                        abs(fb.status[i, 0].item() - one.status[0].item())
+                        / abs(one.status[0].item()))
+        clean = fb.status[:, 1:].tolist() == [[0.0, -1.0]] * nb
+        limit = AGREEMENT_LIMIT if route == "window" else 1e-5
+        lds = logdet(fb).tolist()
+        ld_rel = max(abs(a - b) / abs(b) for a, b in zip(lds, oracles[id(mb)]))
+        if not (same and clean and worst <= limit and ld_rel <= 1e-4):
+            raise AssertionError(f"batched {route} route: bit-identical sweep and band {same}, "
+                                 f"clean {clean}, worst element {worst:.3e} (limit {limit}), "
+                                 f"worst logdet rel err {ld_rel:.3e} (limit 1e-4)")
+        rec[route] = dict(batch=nb, matrix=5 if mb is mb5 else 4, elementwise=worst,
+                          sweep_bit_identical=(route != "window") and same,
+                          logdet_rel_err=ld_rel, launches=launches)
+    return rec
+
+
+def check_batched_kernels(torch, ref, mb5, mb4, plan4, fb_window):
+    """The batched kernels against their plain versions on the inputs the
+    batched routes give them, at TOL: the fused sweep on matrix 5's θ-batch
+    and the partitioned sweep on matrix 4's (every output, each element's
+    status word); on the window route's batch, band_update on the strided
+    windows of the padded band rows at the panel whose update is largest
+    (also relative to the update), and the grouped trsm of that panel, one
+    L per element against its bt band tiles; the grouped trsm of the
+    batched corner's first column, one L per element against its nat
+    tiles.  The window route reads at panel k the factor's columns below k
+    and the matrix's column k, so those are the operands.  Returns the
+    errors and the batched window for the timings."""
+    from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                                   band_cholesky_sweep_cuda)
+    from repro_torch.kernels.band_update import band_update_cuda
+    from repro_torch.kernels.ring import band_row_to_col
+    from repro_torch.kernels.trsm import trsm_cuda
+    g = mb5.grid
+    ndt, bt, t = g.n_diag_tiles, g.band_tiles, g.t
+    nb, b1 = mb5.Dr.shape[0], bt + 1
+    nch = max(1, min(8, ndt))
+    errs = {}
+    for name, mb, kernel, plain in (
+            ("band_cholesky_sweep", mb5,
+             lambda ac, r: band_cholesky_sweep_cuda(ac, r, nchunks=nch),
+             lambda ac, r: ref.band_cholesky_sweep_ref(ac, r, nchunks=nch)),
+            ("band_cholesky_partitioned_sweep", mb4,
+             lambda ac, r: band_cholesky_partitioned_sweep_cuda(ac, r, plan4.boundaries),
+             lambda ac, r: ref.band_cholesky_partitioned_sweep_ref(ac, r, plan4.boundaries))):
+        Ac = band_row_to_col(mb.Dr)
+        got, want = kernel(Ac, mb.R), plain(Ac, mb.R)
+        errs[name] = max(assert_close(torch, a, b, f"batched {name} {p}")
+                         for a, b, p in zip(got[:3], want[:3], ("panels", "R_out", "schur")))
+        for i in range(nb):
+            check_status(got[3][i], want[3][i], f"batched {name}, element {i}")
+        if name == "band_cholesky_sweep":
+            # the batched corner's first column, from the kernel's Schur chunks
+            corner = mb.C - got[2].sum(dim=-5)
+            lc = ref.potrf_ref(corner[:, 0, 0].contiguous())[:, None].contiguous()
+            colc = corner[:, :, 0].contiguous()
+            errs["trsm_corner"] = assert_close(torch, trsm_cuda(lc, colc),
+                                               ref.trsm_ref(lc, colc), "batched corner trsm")
+            errs["trsm_corner_shapes"] = [list(lc.shape), list(colc.shape)]
+    zeros = mb5.Dr.new_zeros((nb, bt, b1, t, t))
+    Drp_f = torch.cat([fb_window.ctsf.Dr, zeros], dim=1)
+    Drp_a = torch.cat([mb5.Dr, zeros], dim=1)
+    kwin = max(range(ndt), key=lambda k: ref.band_update_unrolled_ref(
+        Drp_f[:, k:k + b1]).abs().max().item())
+    w = Drp_f[:, kwin:kwin + b1]
+    if w.is_contiguous():
+        raise AssertionError("batched band_update: the windows should lie strided in the batch")
+    got, want = band_update_cuda(w), ref.band_update_unrolled_ref(w)
+    errs["band_update"] = assert_close(torch, got, want, "batched band_update")
+    errs["band_update_rel"] = assert_update(got, want, want.abs().max().item(),
+                                            "batched band_update")
+    diag = torch.arange(1, b1, device=w.device)
+    aw = Drp_a[:, kwin:kwin + b1]
+    lw = ref.potrf_ref((aw[:, 0, 0] - want[:, 0]).contiguous())[:, None].contiguous()
+    colw = (aw[:, diag, diag] - want[:, 1:]).contiguous()
+    errs["trsm_window"] = assert_close(torch, trsm_cuda(lw, colw), ref.trsm_ref(lw, colw),
+                                       "batched window-route trsm")
+    errs["trsm_window_shapes"] = [list(lw.shape), list(colw.shape)]
+    errs["band_update_window"] = dict(shape=list(w.shape), panel=kwin,
+                                      batch_stride=w.stride(0))
+    return errs, w
+
+
+def takahashi_column(torch, f, sigma, j):
+    """The operands of one column's Takahashi step, built from the factor
+    ``f`` and its selected inverse ``sigma`` exactly as
+    ``ref.selinv_sweep_ref`` builds them: ``(srow (bt+nat, bt+nat, t, t),
+    gcat (bt+nat, t, t), want)``, ``want`` the column's Σ tiles below the
+    diagonal and in the arrow, which ``-selinv_step(srow, gcat)`` gives."""
+    from repro_torch.core.selinv import corner_sigma
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ring import band_row_to_col
+    g = f.ctsf.grid
+    bt, nat, t = g.band_tiles, g.n_arrow_tiles, g.t
+    lcol, panels, acols = band_row_to_col(f.ctsf.Dr), band_row_to_col(sigma.Dr), sigma.R
+    winv = ref.solve_panel_ref(lcol[j, 0], torch.eye(t, device=lcol.device))
+    gcat = torch.cat([lcol[j, 1:] @ winv, f.ctsf.R[j] @ winv])
+    srow = lcol.new_zeros((bt + nat, bt + nat, t, t))
+    for e in range(1, bt + 1):
+        for d in range(1, bt + 1):
+            srow[e - 1, d - 1] = panels[j + d, e - d] if e >= d else panels[j + e, d - e].mT
+        srow[e - 1, bt:] = acols[j + e].mT
+    for d in range(1, bt + 1):
+        srow[bt:, d - 1] = acols[j + d]
+    srow[bt:, bt:] = corner_sigma(f.ctsf.C)
+    return srow, gcat.contiguous(), torch.cat([panels[j, 1:], acols[j]])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
@@ -821,9 +1170,10 @@ def device_ms(torch, fn, calls=1, reps=5):
     return statistics.median(times)
 
 
-def launches_per_call(records, precords, name):
+def launches_per_call(records, precords, extra, name):
     """Launches of kernel ``name`` per call of each entry point on each
-    matrix of the main paths."""
+    matrix of the main paths; ``extra`` adds ``(matrix, call, launches)``
+    entries of the paths without a record of their own."""
     out = {}
     for r in records:
         calls = [("factorize_window", r["launches"])] + list(r["solves"]["launches"].items())
@@ -832,7 +1182,11 @@ def launches_per_call(records, precords, name):
         out[str(r["matrix"])] = {c: n[name] for c, n in calls if n.get(name)}
     for r in precords:
         if r["launches"].get(name):
-            out[str(r["matrix"])] = {"factorize_window partitioned": r["launches"][name]}
+            out.setdefault(str(r["matrix"]), {})["factorize_window partitioned"] = \
+                r["launches"][name]
+    for matrix, call, launches in extra:
+        if launches.get(name):
+            out.setdefault(str(matrix), {})[call] = launches[name]
     return {k: v for k, v in out.items() if v}
 
 
@@ -878,9 +1232,10 @@ def main() -> int:
     from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
                                                    band_cholesky_sweep_cuda)
     from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+    from repro_torch.kernels.band_update import band_update_cuda
     from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
     from repro_torch.kernels.potrf import potrf_cuda
-    from repro_torch.kernels.selinv import selinv_sweep_cuda
+    from repro_torch.kernels.selinv import selinv_step_cuda, selinv_sweep_cuda
     from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
     from repro_torch.kernels.ring import band_row_to_col, chunk_layout
 
@@ -891,7 +1246,8 @@ def main() -> int:
             "solve_panel": solve_panel_cuda, "band_forward_sweep": band_forward_sweep_cuda,
             "band_backward_sweep": band_backward_sweep_cuda, "selinv_sweep": selinv_sweep_cuda,
             "gemm": gemm_cuda, "syrk": syrk_cuda, "geadd": geadd_cuda,
-            "band_cholesky_partitioned_sweep": band_cholesky_partitioned_sweep_cuda}
+            "band_cholesky_partitioned_sweep": band_cholesky_partitioned_sweep_cuda,
+            "band_update": band_update_cuda, "selinv_step": selinv_step_cuda}
 
     def counts():
         return {k: f.launches for k, f in kern.items()}
@@ -925,6 +1281,7 @@ def main() -> int:
     n = phase_kernels(torch, dev, kern, ref)
     n += phase_solve_kernels(torch, dev, kern, ref)
     n += phase_tasklist_kernels(torch, dev, kern, ref)
+    n += phase_window_kernels(torch, dev, kern, ref)
     torch.cuda.synchronize()
     log(f"kernels: {n} comparisons with the plain versions pass "
         f"(rtol=atol={TOL}) in {time.perf_counter() - t0:.1f} s")
@@ -962,6 +1319,46 @@ def main() -> int:
     for mid, (m, plan, host_s) in pmats.items():
         precords.append(check_partitioned(torch, mid, m, plan, *pfs[mid], host_s))
         log(f"main path, partitioned: Table II matrix {mid}: " + json.dumps(precords[-1]))
+    # the window route on the window path's two matrices, against the fused
+    # route's factor of each
+    wfs = run_path("factorize_window, sweep='window'", lambda: {
+        mid: run_window(torch, mid, mats[mid][0], counts) for mid in TABLE2_IDS})
+    extra_calls = []
+    for rec in records:
+        mid = rec["matrix"]
+        rec["window"] = check_window(torch, mid, mats[mid][0], wfs[mid][0], mats[mid][1],
+                                     wfs[mid][1], rec)
+        extra_calls.append((mid, "factorize_window window", wfs[mid][1]))
+        log(f"main path, window route: Table II matrix {mid}: " + json.dumps(rec["window"]))
+    # the θ-sweep: BATCH candidates of matrix 5 (fused and window routes)
+    # and of matrix 4 (partitioned route, its plan)
+    m5, f5 = mats[TABLE2_IDS[0]]
+    mp4, pplan4, _ = pmats[PARTITIONED_IDS[0]]
+    mb5, thetas5 = theta_batch(torch, m5, BATCH, seed=TABLE2_IDS[0])
+    mb4, thetas4 = theta_batch(torch, mp4, BATCH, seed=PARTITIONED_IDS[0])
+    fbs = run_path("factorize_window_batched",
+                   lambda: run_batched(torch, mb5, mb4, pplan4, counts))
+    batched = check_batched(torch, mb5, mb4, pplan4, fbs)
+    for route, r in batched.items():
+        extra_calls.append((r["matrix"], f"factorize_window_batched {route}", r["launches"]))
+    log("main path, factorize_window_batched: " + json.dumps(batched))
+    # the batched kernels against their plain versions on the θ-batches
+    batched_errs, w5b = check_batched_kernels(torch, ref, mb5, mb4, pplan4, fbs["window"][0])
+    log("main path, batched kernels against their plain versions: " + json.dumps(batched_errs))
+    # selinv_step on the Takahashi column of an interior column of matrix 5
+    from repro_torch.core import selected_inverse
+    from repro_torch.kernels import ops
+    jcol = m5.grid.n_diag_tiles // 2
+    srow, gcat, want_col = takahashi_column(torch, f5, selected_inverse(f5), jcol)
+    col = run_path("selinv_step on a Takahashi column", lambda: -ops.selinv_step(srow, gcat))
+    takahashi = dict(matrix=TABLE2_IDS[0], column=jcol, s_row=list(srow.shape),
+                     rel_err=((col - want_col).abs().max() / want_col.abs().max()).item(),
+                     launches=path_launches["selinv_step on a Takahashi column"])
+    extra_calls.append((TABLE2_IDS[0], "ops.selinv_step", takahashi["launches"]))
+    if not takahashi["rel_err"] <= 1e-4:
+        raise AssertionError(f"selinv_step on column {jcol} of matrix 5's Σ: error "
+                             f"{takahashi['rel_err']:.3e} of the column's max (limit 1e-4)")
+    log("main path, Takahashi column: " + json.dumps(takahashi))
     from repro_torch.quickstart import main as quickstart
     qs = run_path("quickstart", lambda: quickstart([]))
     if not (qs["tasklist_agreement"] <= AGREEMENT_LIMIT
@@ -1072,6 +1469,37 @@ def main() -> int:
     rel_errs["geadd"] = max(rel_errs["geadd"], assert_update(
         leaf_got, leaf_want, min(la.abs().max().item(), lb.abs().max().item()),
         "main-path geadd, partitioned leaves"))
+    # band_update on matrix 5's window route: the window of the padded band
+    # rows of its factor whose update is largest (many band tiles of a Table
+    # II factor are zero, and a kernel's check on those could not tell a
+    # skipped product), held to the plain version ops takes at b + 1 = 5;
+    # and on a random b + 1 = 9 window against the masked einsum
+    b1 = bt + 1
+    wf5 = wfs[TABLE2_IDS[0]][0]
+    Drp = torch.cat([wf5.ctsf.Dr, wf5.ctsf.Dr.new_zeros((bt, b1, t, t))])
+    kwin = max(range(ndt), key=lambda k: ref.band_update_unrolled_ref(
+        Drp[k:k + b1]).abs().max().item())
+    w5 = Drp[kwin:kwin + b1]
+    got, want = band_update_cuda(w5), ref.band_update_unrolled_ref(w5)
+    errs["band_update"] = assert_close(torch, got, want, "main-path band_update")
+    rel_errs["band_update"] = assert_update(got, want, want.abs().max().item(),
+                                            "main-path band_update")
+    w9 = torch.randn((9, 9, t, t), generator=torch.Generator().manual_seed(9)).to(dev)
+    w9_err = assert_close(torch, band_update_cuda(w9), ref.band_update_ref(w9),
+                          "band_update b+1=9")
+    # the library yardstick: one einsum over the operands gathered beforehand,
+    # as band_update_ref gathers them
+    idx = torch.arange(b1, device=dev)
+    wsh = w5[idx[:, None], (idx[:, None] + idx[None, :]).clamp(max=bt)]
+    wsh = wsh * ((idx[:, None] + idx[None, :] <= bt) & (idx[None, :] >= 1))[..., None, None]
+    rhs = w5[0] * (idx >= 1)[:, None, None]
+    pairs = bt * b1 // 2
+    # selinv_step on the Takahashi column's own operands
+    got, want = selinv_step_cuda(srow, gcat), ref.selinv_step_ref(srow, gcat)
+    errs["selinv_step"] = assert_close(torch, got, want, "main-path selinv_step")
+    rel_errs["selinv_step"] = assert_update(got, want, want.abs().max().item(),
+                                            "main-path selinv_step")
+    e_n, j_n = srow.shape[:2]
     P4 = plan4.n_partitions
     part_bytes = 4 * g4.t ** 2 * (2 * g4.n_diag_tiles * (g4.band_tiles + 1)
                                   + 2 * g4.n_diag_tiles * g4.n_arrow_tiles
@@ -1084,7 +1512,14 @@ def main() -> int:
         "syrk": dict(matrix=TABLE2_IDS[0], t=t, tiles=1, task=[st_.k, int(st_.n)]),
         "geadd": dict(matrix=TABLE2_IDS[0], t=t, shape=list(ga.shape),
                       operands="partials[0:8:2] and partials[1:8:2] of the first tree "
-                               f"chain's (8, {t}, {t}) stack, tile {[int(i) for i in tree_tile]}")}
+                               f"chain's (8, {t}, {t}) stack, tile {[int(i) for i in tree_tile]}"),
+        "band_update": dict(matrix=TABLE2_IDS[0], t=t, window=list(w5.shape), panel=kwin,
+                            operands="the window route's factor, padded band rows "
+                                     f"{kwin}..{kwin + bt}",
+                            b9_random_max_abs_err_against_einsum=w9_err),
+        "selinv_step": dict(matrix=TABLE2_IDS[0], t=t, s_row=list(srow.shape), column=jcol,
+                            library="the plain version is itself one torch.einsum; the "
+                                    "library time is that call")}
 
     kernels = []
     sweeps = ("band_cholesky_sweep", "band_forward_sweep", "band_backward_sweep", "selinv_sweep",
@@ -1130,7 +1565,19 @@ def main() -> int:
             ("band_cholesky_partitioned_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
              "src/repro/kernels/band_cholesky.py:341", part_k, part_p, None, 1,
              needed_flops(g4, plan4.boundaries)[0], part_bytes,
-             errs["band_cholesky_partitioned_sweep"])):
+             errs["band_cholesky_partitioned_sweep"]),
+            ("band_update", "src/repro_torch/kernels/csrc/band_update.cu",
+             "src/repro/kernels/band_update.py:59", lambda: band_update_cuda(w5),
+             lambda: ref.band_update_unrolled_ref(w5),
+             lambda: torch.einsum("ejab,jcb->eac", wsh, rhs), 20,
+             float(t) ** 3 * (bt + 2 * (pairs - bt)), 4 * t * t * (pairs + b1),
+             errs["band_update"]),
+            ("selinv_step", "src/repro_torch/kernels/csrc/selinv_step.cu",
+             "src/repro/kernels/selinv.py:75", lambda: selinv_step_cuda(srow, gcat),
+             lambda: ref.selinv_step_ref(srow, gcat),
+             lambda: torch.einsum("ejab,jbc->eac", srow, gcat), 20,
+             2.0 * t ** 3 * e_n * j_n, 4 * t * t * (e_n * j_n + j_n + e_n),
+             errs["selinv_step"])):
         # call time: CUDA events around `inner` calls, host overhead included;
         # device time: the calls replayed from a CUDA graph (device_ms)
         call = dict(kernel=time_ms(torch, fk, inner=inner),
@@ -1147,7 +1594,7 @@ def main() -> int:
         # launches: the main path's total over every matrix it ran, and per
         # call of each entry point on each matrix; the times are at matrix
         # TABLE2_IDS[0]'s shapes
-        per_call = launches_per_call(records, precords, name)
+        per_call = launches_per_call(records, precords, extra_calls, name)
         kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                             launches=main_launches[name], launches_per_call=per_call,
                             max_abs_err=err,
@@ -1273,6 +1720,55 @@ def main() -> int:
                                      device_ms=device_ms(torch, fn))
         log(f"factorize_window+logdet: Table II matrix {rec['matrix']} (P = {rec['partitions']}): "
             + json.dumps(rec["e2e"]) + f" (call median of 7, device median of 5), card {card}")
+
+    # the window route end to end, beside the fused route on the same matrix
+    wopts = SolverOptions(sweep="window")
+    for rec in records:
+        mm, _ = mats[rec["matrix"]]
+        rec["window"]["e2e"] = {}
+        for route, fn in (("window", lambda: logdet(factorize_window(mm, options=wopts))),
+                          ("fused", lambda: logdet(factorize_window(mm)))):
+            rec["window"]["e2e"][route] = dict(call_ms=time_ms(torch, fn, reps=5, warmup=1),
+                                               device_ms=device_ms(torch, fn))
+        log(f"factorize_window+logdet, sweep='window': Table II matrix {rec['matrix']}: "
+            + json.dumps(rec["window"]["e2e"]) + f" (call median of 5, device median of 5), "
+            f"card {card}")
+    # the θ-sweep end to end: BATCH candidates in one call against one
+    # candidate alone; and the batched sweep kernels alone
+    from repro_torch.core import factorize_window_batched
+    for route, mb, opts in (("fused", mb5, SolverOptions()), ("window", mb5, wopts),
+                            ("partitioned", mb4, SolverOptions(partition_plan=pplan4))):
+        one = element(mb, 0)
+        fb = lambda: logdet(factorize_window_batched(mb, options=opts))
+        f1 = lambda: logdet(factorize_window(one, options=opts))
+        batched[route]["e2e"] = dict(
+            batched_call_ms=time_ms(torch, fb, reps=5, warmup=1),
+            batched_device_ms=device_ms(torch, fb),
+            single_call_ms=time_ms(torch, f1, reps=5, warmup=1),
+            single_device_ms=device_ms(torch, f1))
+        log(f"factorize_window_batched+logdet, {route} route, B = {BATCH}: "
+            + json.dumps(batched[route]["e2e"]) + f" (medians of 5), card {card}")
+    Ac5b, Ac4b = band_row_to_col(mb5.Dr), band_row_to_col(mb4.Dr)
+    for name, fk, f1 in (
+            ("band_cholesky_sweep", lambda: band_cholesky_sweep_cuda(Ac5b, mb5.R, nchunks=nchunks),
+             lambda: band_cholesky_sweep_cuda(Ac5b[0], mb5.R[0], nchunks=nchunks)),
+            ("band_cholesky_partitioned_sweep",
+             lambda: band_cholesky_partitioned_sweep_cuda(Ac4b, mb4.R, pplan4.boundaries),
+             lambda: band_cholesky_partitioned_sweep_cuda(Ac4b[0], mb4.R[0], pplan4.boundaries)),
+            ("band_update", lambda: band_update_cuda(w5b), lambda: band_update_cuda(w5b[0]))):
+        entry = next(k for k in kernels if k["name"] == name)
+        calls = 20 if name == "band_update" else 1
+        entry["batched"] = dict(batch=BATCH, max_abs_err=batched_errs[name],
+                                **({"update_rel_err": batched_errs["band_update_rel"],
+                                    **batched_errs["band_update_window"]}
+                                   if name == "band_update" else {}),
+                                ms=device_ms(torch, fk, calls=calls),
+                                single_ms=device_ms(torch, f1, calls=calls))
+        log(f"time {name}, a batch of {BATCH} in one launch: " + json.dumps(entry["batched"]))
+    entry = next(k for k in kernels if k["name"] == "trsm")
+    entry["batched"] = {k: v for k, v in batched_errs.items() if k.startswith("trsm")}
+    entry = next(k for k in kernels if k["name"] == "selinv_step")
+    entry["takahashi_column"] = takahashi
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

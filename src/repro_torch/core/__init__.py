@@ -1,6 +1,7 @@
 """sTiles core on PyTorch: structure, tile storage, the task-list and window
 factorizations of banded-arrowhead SPD matrices (with the Alg. 3 tree
-reduction and the partition plan of the partitioned sweep), and the solves,
+reduction, the partition plan of the partitioned sweep, the legacy window
+sweep and the batched θ-sweep factorization), and the solves,
 sampling, marginal variances and selected inverse read off the factor."""
 from .structure import (ArrowheadStructure, TileGrid, measure_arrowhead,
                         tile_pattern_from_coo, banded_arrowhead_tile_pattern)
@@ -9,7 +10,8 @@ from .ordering import PartitionPlan, detect_partition_plan
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
 from .tree_reduction import chunked_tree_sum, should_use_tree, tree_combine
-from .cholesky import CholeskyFactor, factorize_tasklist, factorize_window
+from .cholesky import (CholeskyFactor, factorize_tasklist, factorize_window,
+                       factorize_window_batched)
 from .solve import (backward_solve, backward_solve_many, forward_solve,
                     forward_solve_many, logdet, marginal_variances, sample_gmrf,
                     sample_gmrf_many, solve, solve_many)
@@ -22,7 +24,8 @@ __all__ = [
     "PartitionPlan", "detect_partition_plan",
     "BandedCTSF", "TileMatrix", "SolverOptions",
     "should_use_tree", "tree_combine", "chunked_tree_sum",
-    "CholeskyFactor", "factorize_tasklist", "factorize_window", "logdet",
+    "CholeskyFactor", "factorize_tasklist", "factorize_window", "factorize_window_batched",
+    "logdet",
     "forward_solve", "forward_solve_many", "backward_solve", "backward_solve_many",
     "solve", "solve_many", "sample_gmrf", "sample_gmrf_many", "marginal_variances",
     "SelectedInverse", "selected_inverse",

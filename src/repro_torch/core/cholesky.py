@@ -1,6 +1,6 @@
 """Sparse tile Cholesky factorization (the paper's Algorithms 1-3).
 
-Two backends:
+Two backends, the second also batched:
 
 * :func:`factorize_tasklist` — the paper's own algorithm: the static task
   list of symbolic factorization (Algorithm 1's left-looking order) over
@@ -18,12 +18,17 @@ Two backends:
   of more than one partition, the partitioned sweep walks each independent
   partition in a block of its own, and its leaves (one a partition) are
   combined by the GEADD tree.  The plain version is a column loop.
+  ``SolverOptions(sweep="window")`` takes the legacy window sweep instead:
+  a ``band_update``, ``potrf`` and ``trsm`` launch per panel, and the
+  corner's Schur sum through the chunked GEADD tree.
+* :func:`factorize_window_batched` — the same on a batch of matrices of one
+  grid (the INLA θ-sweep), every route one dispatch for the whole batch.
 
 Port of the JAX package's ``core/cholesky.py`` (``factorize_tasklist``,
-``_factorize_window_impl`` with the fused, ring and partitioned sweeps,
-``_corner_dense_cholesky`` and ``CholeskyFactor``).  Batched factorization,
-the legacy ``"window"`` sweep, the bucketing policy and regularization come
-with later slices.
+``_factorize_window_impl`` with its five sweep modes,
+``_band_arrow_sweep``, ``_corner_schur``, ``_corner_dense_cholesky``,
+``factorize_window_batched`` and ``CholeskyFactor``).  The bucketing
+policy and regularization come with later slices.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
@@ -41,7 +46,8 @@ from .structure import TileGrid
 from .symbolic import Task, TaskType
 from .tree_reduction import chunked_tree_sum, should_use_tree, tree_combine
 
-__all__ = ["CholeskyFactor", "factorize_window", "factorize_tasklist"]
+__all__ = ["CholeskyFactor", "factorize_window", "factorize_window_batched",
+           "factorize_tasklist"]
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +163,8 @@ class CholeskyFactor:
     """Factor L in the banded-arrowhead CTSF layout.
 
     ``status`` is the (3,) float32 breakdown word ``[min_pivot, nonfinite,
-    first_bad]`` over band and corner, on the factor's device:
+    first_bad]`` over band and corner, on the factor's device ((B, 3) for
+    a batch):
     ``first_bad`` is the first band column whose tile broke down (``ndt``
     for the corner) and -1 when the factorization is clean.  A breakdown
     is reported here, not raised: the factor then holds NaN from that
@@ -175,7 +182,8 @@ class CholeskyFactor:
         return cls(BandedCTSF.from_arrays(grid, Dr, R, C, device=device))
 
     def logdet(self) -> torch.Tensor:
-        """log det A = 2 * sum log diag(L); padded diagonal entries are 1."""
+        """log det A = 2 * sum log diag(L); padded diagonal entries are 1.
+        A batched factor gives one value per element."""
         g = self.ctsf.grid
         db = torch.diagonal(self.ctsf.Dr[..., 0, :, :], dim1=-2, dim2=-1)
         total = torch.log(torch.abs(db)).sum(dim=(-2, -1))
@@ -188,59 +196,130 @@ class CholeskyFactor:
 
 
 def _corner_dense_cholesky(c: torch.Tensor, impl: Optional[str]) -> torch.Tensor:
-    """Blocked left-looking dense Cholesky of the (nat, nat, t, t) corner:
-    per column one SYRK/GEMM contraction over the finalized columns, one
-    ``potrf`` of the diagonal tile and one batched ``trsm`` of the column
-    (all ``nat`` rows, as the reference does: nat launches of each)."""
-    nat = c.shape[0]
+    """Blocked left-looking dense Cholesky of the (..., nat, nat, t, t)
+    corner: per column one SYRK/GEMM contraction over the finalized
+    columns, one ``potrf`` of the diagonal tile and one batched ``trsm`` of
+    the column (all ``nat`` rows, as the reference does: nat launches of
+    each, whatever the leading batch dims)."""
+    nat = c.shape[-4]
     c = c.clone()
     for k in range(nat):
-        rk = c[k, :k]                                   # L[k, :k]
-        syrk_acc = torch.einsum("jab,jcb->ac", rk, rk)
-        lkk = ops.potrf(c[k, k] - syrk_acc, impl=impl)
-        col_k = c[:, k]
-        gemm_acc = torch.einsum("mjab,jcb->mac", c[:, :k], rk)
-        panel = ops.trsm(lkk, (col_k - gemm_acc).contiguous(), impl=impl)
-        c[k + 1:, k] = panel[k + 1:]
-        c[k, k] = lkk
+        rk = c[..., k, :k, :, :]                        # L[k, :k]
+        syrk_acc = torch.einsum("...jab,...jcb->...ac", rk, rk)
+        lkk = ops.potrf(c[..., k, k, :, :] - syrk_acc, impl=impl)
+        gemm_acc = torch.einsum("...mjab,...jcb->...mac", c[..., :, :k, :, :], rk)
+        panel = ops.trsm(lkk.unsqueeze(-3), (c[..., :, k, :, :] - gemm_acc).contiguous(),
+                         impl=impl)
+        c[..., k + 1:, k, :, :] = panel[..., k + 1:, :, :]
+        c[..., k, k, :, :] = lkk
     return c
 
 
+def _band_arrow_sweep(Dr: torch.Tensor, R: torch.Tensor, grid: TileGrid,
+                      impl: Optional[str], start_tile: int = 0):
+    """The legacy window sweep: the band and arrow rows panel by panel,
+    the corner left as it is; returns ``(Dr_L, R_L)`` in the input's
+    layout, leading batch dims included.
+
+    Per panel k: one ``band_update`` over the (b+1, b+1) window of the
+    padded band rows (read in place), one ``potrf`` of the diagonal tile,
+    one ``trsm`` of the ``bt`` tiles below it and, with an arrow, the
+    arrow update ``V`` by one contraction and one ``trsm`` of the arrow
+    row.  Rows ``k < start_tile`` keep their input values, which is right
+    exactly when they are an identity-embedding prefix."""
+    t, ndt, nat, bt = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles, grid.band_tiles
+    b1 = bt + 1
+    lead = tuple(Dr.shape[:-4])
+    # pad: bt trailing zero rows on Dr (the last windows' slack), bt leading on R
+    Drp = torch.cat([Dr, Dr.new_zeros(lead + (bt, b1, t, t))], dim=-4)
+    Rp = torch.cat([R.new_zeros(lead + (bt, nat, t, t)), R], dim=-4)
+    diag = torch.arange(1, b1, device=Dr.device)
+    for k in range(start_tile, ndt):
+        w = Drp[..., k:k + b1, :, :, :]                 # w[e, d] = L[k+e, k+e-d]
+        u = ops.band_update(w, impl=impl)
+        lkk = ops.potrf(w[..., 0, 0, :, :] - u[..., 0, :, :], impl=impl)
+        # the sub-diagonal panel tiles A[k+e, k] sit on the window's diagonal
+        lmk = ops.trsm(lkk.unsqueeze(-3), w[..., diag, diag, :, :] - u[..., 1:, :, :],
+                       impl=impl)
+        if nat:
+            # V[i] = sum_{j=1..bt} R[k-j, i] L[k, k-j]^T, with Rp[k+bt-j] = R[k-j]
+            v = torch.einsum("...jiab,...jcb->...iac", Rp[..., k:k + bt, :, :, :],
+                             w[..., 0, 1:, :, :].flip(-3))
+            Rp[..., k + bt, :, :, :] = ops.trsm(lkk.unsqueeze(-3),
+                                                Rp[..., k + bt, :, :, :] - v, impl=impl)
+        Drp[..., k, 0, :, :] = lkk
+        Drp[..., k + diag, diag, :, :] = lmk
+    return Drp[..., :ndt, :, :, :].contiguous(), Rp[..., bt:, :, :, :].contiguous()
+
+
+def _corner_schur(R_L: torch.Tensor, tree_chunks: int, impl: Optional[str]) -> torch.Tensor:
+    """``sum_n R[n] R[n]^T`` over every band column, the paper's flagship
+    accumulation chain, summed by Alg. 3's chunked tree (``ceil(log2
+    tree_chunks)`` geadd launches) where ``should_use_tree`` holds."""
+    ndt = R_L.shape[-4]
+    terms = torch.einsum("...niab,...njcb->...nijac", R_L, R_L).movedim(-5, 0)
+    chunks = tree_chunks or 1
+    if should_use_tree(ndt, chunks):
+        return chunked_tree_sum(terms, chunks, impl=impl)
+    return terms.sum(dim=0)
+
+
 def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
-                           tree_chunks: int, plan=None):
-    """Window factorization: the band sweep, then the dense corner.
+                           tree_chunks: int, sweep: str = "auto", plan=None):
+    """Window factorization: the band sweep, then the dense corner, on
+    arrays with or without a leading batch axis.
 
-    With ``plan`` (a :class:`~repro_torch.core.ordering.PartitionPlan`) of
-    more than one partition, the sweep runs over its independent
-    partitions in one launch and their Schur leaves are combined by the
-    GEADD tree before the corner.  Otherwise it is the fused kernel on the
-    CUDA backend (``impl``, or the device when it is None) and the ring
-    column loop on the plain one, so a trivial plan gives the plan-less
-    factor bit for bit.
+    ``sweep`` (see :class:`~repro_torch.core.options.SolverOptions`):
+    ``"auto"`` is ``"partitioned"`` when ``plan`` (a
+    :class:`~repro_torch.core.ordering.PartitionPlan`) has more than one
+    partition, else ``"fused"`` on the CUDA backend (``impl``, or the
+    device when it is None) and ``"ring"`` on the plain one, so a trivial
+    plan gives the plan-less factor bit for bit.  ``"fused"`` is the
+    one-launch sweep kernel and ``"ring"`` its plain column loop, each
+    leaving chunked Schur sums that are summed before the corner;
+    ``"partitioned"`` runs the plan's independent partitions in one launch
+    and combines their Schur leaves by the GEADD tree; ``"window"`` is the
+    panel loop of :func:`_band_arrow_sweep`, with the corner Schur
+    complement summed by :func:`_corner_schur`.
 
-    Returns ``(Dr_L, R_L, C_L, status)``, ``status`` the (3,) float32 word
-    ``[min_pivot, nonfinite, first_bad]`` over band and corner (a corner
-    breakdown reports ``first_bad = ndt``)."""
+    Returns ``(Dr_L, R_L, C_L, status)``, ``status`` the (..., 3) float32
+    word ``[min_pivot, nonfinite, first_bad]`` over band and corner (a
+    corner breakdown reports ``first_bad = ndt``)."""
     nat = grid.n_arrow_tiles
     if plan is not None and plan.n_tiles != grid.n_diag_tiles:
         raise ValueError(
             f"partition plan covers {plan.n_tiles} diagonal tiles but the grid has "
             f"{grid.n_diag_tiles}; rebuild the plan for this grid")
-    if plan is not None and plan.n_partitions > 1:
-        panels, R_out, schur, status = ops.band_cholesky_partitioned_sweep(
+    mode = sweep
+    if mode == "auto":
+        if plan is not None and plan.n_partitions > 1:
+            mode = "partitioned"
+        else:
+            mode = "fused" if ops.resolve_impl(impl, Dr) == "cuda" else "ring"
+    if mode == "window":
+        Dr_out, R_out = _band_arrow_sweep(Dr, R, grid, impl)
+        # the window sweep carries no status: fold the same word from the
+        # emitted factor (the row layout keeps the diagonal at [:, 0], all
+        # that sweep_status reads of it besides finiteness), as the
+        # reference does
+        status = ref.sweep_status(Dr_out, R_out)
+        schur = lambda: _corner_schur(R_out, tree_chunks, impl)
+    elif mode == "partitioned":
+        panels, R_out, leaves, status = ops.band_cholesky_partitioned_sweep(
             band_row_to_col(Dr), R, plan.boundaries, impl=impl)
+        Dr_out = band_col_to_row(panels)
         # one Schur leaf per partition: the Alg. 3 binary tree combines them
         # before the shared corner
-        combine = lambda leaves: tree_combine(leaves, impl=impl)
+        schur = lambda: tree_combine(leaves.movedim(-5, 0).contiguous(), impl=impl)
     else:
         nchunks = max(1, min(tree_chunks or 1, grid.n_diag_tiles or 1))
-        panels, R_out, schur, status = ops.band_cholesky_sweep(
-            band_row_to_col(Dr), R, nchunks=nchunks, impl=impl)
+        panels, R_out, leaves, status = ops.band_cholesky_sweep(
+            band_row_to_col(Dr), R, nchunks=nchunks, impl="cuda" if mode == "fused" else "ref")
+        Dr_out = band_col_to_row(panels)
         # the chunks are the tree-reduction leaves; summing them is the
         # root combine of the paper's Alg. 3 chain
-        combine = lambda leaves: leaves.sum(dim=0)
-    Dr_out = band_col_to_row(panels)
-    C_out = _corner_dense_cholesky(C - combine(schur), impl) if nat else C
+        schur = lambda: leaves.sum(dim=-5)
+    C_out = _corner_dense_cholesky(C - schur(), impl) if nat else C
     return Dr_out, R_out, C_out, fold_corner_status(
         status, C_out, grid.n_diag_tiles, nat)
 
@@ -252,12 +331,57 @@ def factorize_window(m: BandedCTSF, tree_chunks: int = 8,
     On the card the whole band + arrow block factorizes in one CUDA kernel
     launch and the corner with ``nat`` ``potrf`` and ``nat`` ``trsm``
     launches.  ``options`` (:class:`~repro_torch.core.options.SolverOptions`)
-    can force the plain versions (``impl="ref"``) and pass a partition plan
-    (``partition_plan``): with more than one partition the sweep is the
+    can force the plain versions (``impl="ref"``), pass a partition plan
+    (``partition_plan``: with more than one partition the sweep is the
     partitioned kernel, one block a partition, and the corner adds
-    ``ceil(log2 P)`` ``geadd`` launches.  A
-    breakdown does not raise: the factor's ``status`` word reports it."""
+    ``ceil(log2 P)`` ``geadd`` launches) and choose the sweep (``sweep``:
+    ``"window"`` is the legacy panel loop, a ``band_update``, a ``potrf``
+    and one or two ``trsm`` launches a column, and a corner Schur sum
+    through the geadd tree).  A breakdown does not raise: the factor's
+    ``status`` word reports it."""
     opts = options if options is not None else SolverOptions()
     Dr, R, C, status = _factorize_window_impl(
-        m.Dr, m.R, m.C, m.grid, opts.impl, tree_chunks, opts.partition_plan)
+        m.Dr, m.R, m.C, m.grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
     return CholeskyFactor(BandedCTSF(m.grid, Dr, R, C), status)
+
+
+def factorize_window_batched(batch, tree_chunks: int = 8, bucket: bool = True,
+                             options: Optional[SolverOptions] = None) -> CholeskyFactor:
+    """Factorize a batch of same-grid matrices in one dispatch: the INLA
+    θ-sweep primitive, B hyperparameter candidates of one sparsity pattern.
+
+    ``batch`` is a list of :class:`BandedCTSF` on one grid, or one whose
+    arrays carry a leading batch axis (``Dr (B, ndt, bt+1, t, t)``, ``R (B,
+    ndt, nat, t, t)``, ``C (B, nat, nat, t, t)``).  Every route of
+    :func:`factorize_window` (``options`` as there) takes the whole batch
+    at once: on the card the fused or partitioned sweep is one launch for
+    all B (a row of blocks each, element i bit for bit what an unbatched
+    launch gives it), the window route one ``band_update`` launch a column,
+    and the corner one ``potrf`` and one ``trsm`` launch a column.  Returns
+    one :class:`CholeskyFactor` with ``(B, ...)`` arrays and a ``(B, 3)``
+    status word; its ``logdet`` is ``(B,)``.
+
+    ``bucket`` is the reference's: it pads the batch to a power of two so
+    that XLA compiles once per bucket.  PyTorch compiles nothing per batch
+    size and padding changes no element's result, so the port accepts it
+    and does not pad.  The reference's ``policy=`` (the canonical-grid
+    embedding), ``regularize=`` and ``start_tile=`` come with ROADMAP A7
+    and A8."""
+    if isinstance(batch, (list, tuple)):
+        if not batch:
+            raise ValueError("batched factorization needs at least one matrix")
+        grid = batch[0].grid
+        if any(m.grid != grid for m in batch):
+            raise ValueError("batched factorization needs equal structure: every matrix "
+                             "of the batch on one grid")
+        Dr, R, C = (torch.stack(x) for x in zip(*(m.arrays() for m in batch)))
+    else:
+        grid = batch.grid
+        Dr, R, C = batch.arrays()
+        if Dr.dim() != 5:
+            raise ValueError(f"batched CTSF needs a leading batch axis, got Dr.dim()="
+                             f"{Dr.dim()}")
+    opts = options if options is not None else SolverOptions()
+    Dr, R, C, status = _factorize_window_impl(
+        Dr, R, C, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
+    return CholeskyFactor(BandedCTSF(grid, Dr, R, C), status)

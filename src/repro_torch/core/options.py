@@ -1,11 +1,11 @@
 """Solver options for the port's entry points.
 
 The JAX package's ``SolverOptions`` also carries the bucketing policy
-(``policy``), the regularization ladder (``regularize``) and the sweep
-schedule (``sweep``); the first two come with the slices that port them.
-The sweep schedule has no field: ``impl`` picks the backend's sweep (the
-one-launch CUDA kernel, or the plain column loop), and a
-``partition_plan`` of more than one partition picks the partitioned sweep.
+(``policy``) and the regularization ladder (``regularize``); both come
+with the slices that port them.  ``sweep`` picks how ``factorize_window``
+walks the band, as the reference's does: ``"auto"`` dispatches by the
+plan and the backend, the other four force one route
+(``core.cholesky._factorize_window_impl``).
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from typing import Optional
 
 from .ordering import PartitionPlan
 
-__all__ = ["SolverOptions"]
+__all__ = ["SolverOptions", "SWEEPS"]
+
+SWEEPS = ("auto", "fused", "ring", "window", "partitioned")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,19 +28,31 @@ class SolverOptions:
         sweep in one launch), ``"ref"`` (the plain PyTorch versions, the
         sweeps as column loops) or None: the kernels for tensors on the
         card, the plain versions for tensors on the CPU.
+      sweep: the factorization's band sweep — ``"auto"`` (the partitioned
+        sweep when ``partition_plan`` has more than one partition, else
+        the fused kernel on the CUDA backend and the ring column loop on
+        the plain one), ``"fused"`` (the one-launch CUDA sweep),
+        ``"ring"`` (the plain column loop), ``"window"`` (the legacy
+        panel loop, one ``band_update``, ``potrf`` and ``trsm`` launch a
+        column) or ``"partitioned"`` (the partition-parallel sweep; needs
+        a plan).
       partition_plan: a :class:`~repro_torch.core.ordering.PartitionPlan`
         of the band's independent partitions (``detect_partition_plan``
-        finds them); with more than one, ``factorize_window`` runs the
-        partitioned sweep, one block a partition.  See
-        ``core.cholesky._factorize_window_impl``.
+        finds them); with more than one, ``sweep="auto"`` runs the
+        partitioned sweep, one block a partition.
       method: how ``marginal_variances`` computes the variances —
         ``"selinv"`` (the Takahashi recurrence; also what None means) or
         ``"panels"`` (one forward sweep of unit vectors).
 
-    Frozen and hashable, as the reference's.
+    Refused as the reference refuses them: an unknown value, ``"ring"``
+    with ``impl="cuda"`` and ``"fused"`` with ``impl="ref"`` (the ring
+    sweep is the plain loop and the fused sweep is the kernel, so either
+    would run another backend than asked), and ``"partitioned"`` without a
+    plan.  Frozen and hashable, as the reference's.
     """
 
     impl: Optional[str] = None
+    sweep: str = "auto"
     partition_plan: Optional[PartitionPlan] = None
     method: Optional[str] = None
 
@@ -46,10 +60,21 @@ class SolverOptions:
         if self.impl not in (None, "ref", "cuda"):
             raise ValueError(f"unknown impl {self.impl!r} (want 'cuda', "
                              "'ref' or None)")
+        if self.sweep not in SWEEPS:
+            raise ValueError(f"unknown sweep {self.sweep!r} (want one of {SWEEPS})")
+        if (self.sweep, self.impl) in (("ring", "cuda"), ("fused", "ref")):
+            raise ValueError(
+                f"sweep={self.sweep!r} contradicts impl={self.impl!r}: the ring sweep "
+                "is the plain column loop and the fused sweep is the CUDA kernel; use "
+                "sweep='auto' to dispatch by impl")
         if self.partition_plan is not None and not isinstance(self.partition_plan,
                                                               PartitionPlan):
             raise TypeError(f"partition_plan must be a PartitionPlan, got "
                             f"{type(self.partition_plan).__name__}")
+        if self.sweep == "partitioned" and self.partition_plan is None:
+            raise ValueError("sweep='partitioned' needs a partition plan: pass "
+                             "SolverOptions(partition_plan=...) (see "
+                             "core.ordering.detect_partition_plan)")
         if self.method not in (None, "selinv", "panels"):
             raise ValueError(f"unknown method {self.method!r} (want 'selinv', "
                              "'panels' or None)")

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("potrf", "trsm", "band_cholesky", "solve_panel", "band_solve", "selinv", "gemm")
+SOURCES = ("potrf", "trsm", "band_cholesky", "solve_panel", "band_solve", "selinv", "gemm",
+           "band_update", "selinv_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,9 +35,10 @@ _SIGNATURES = {
     "potrf": {"stiles_potrf_f32": [_P, _P, _I, _I, _P]},
     "trsm": {"stiles_trsm_f32": [_P, _P, _P, _I, _I, _I, _P]},
     "band_cholesky": {
-        "stiles_band_cholesky_sweep_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "stiles_band_cholesky_sweep_f32":
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "stiles_band_cholesky_partitioned_sweep_f32":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
     "band_solve": {
         "stiles_band_forward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -45,6 +47,8 @@ _SIGNATURES = {
                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
              "stiles_geadd_f32": [_P, _P, _P, _L, _L, _L, _L, _P]},
+    "band_update": {"stiles_band_update_f32": [_P, _P, _I, _I, _I, _L, _P]},
+    "selinv_step": {"stiles_selinv_step_f32": [_P, _P, _P, _I, _I, _I, _P]},
 }
 
 _loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

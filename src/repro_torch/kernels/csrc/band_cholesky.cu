@@ -34,6 +34,12 @@
 // csz columns long, the partitioned sweep's one partition long.  The
 // critical path falls from ndt columns to the widest partition's.
 //
+// Both take a leading batch axis in the same launch, blockIdx.y the batch
+// element (the INLA theta-sweep: B hyperparameter candidates of one
+// sparsity pattern): every pointer and the status word are offset by the
+// element's stride and nothing else changes, so element i of a batch is
+// written bit for bit as the unbatched launch writes it.
+//
 // The TPU kernel keeps a ring of the last bt panels in VMEM.  Here the last
 // bt columns are simply the outputs already written to device memory; at
 // bt = nat = 4, T = 64 they are about 0.6 MB and stay in the 50 MB L2, so
@@ -97,8 +103,8 @@ template <int T>
 __global__ void __launch_bounds__(kThreads, 1)
 band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_in,
                      float* panels, float* r_out, float* schur, float* status,
-                     const __grid_constant__ Bounds bounds, int bt, int nat, int csz,
-                     int start) {
+                     const __grid_constant__ Bounds bounds, int ndt, int bt, int nat,
+                     int csz, int nleaves, int start) {
     extern __shared__ __align__(16) float smem[];
     float* Lt = smem;
     float* dinv = Lt + T * T;
@@ -108,6 +114,15 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
 
     constexpr size_t TT = static_cast<size_t>(T) * T;
     const int b1 = bt + 1;
+    // this block's batch element: ndt columns, nleaves Schur leaves and one
+    // status word a partition each
+    const size_t el = blockIdx.y;
+    ac += el * ndt * b1 * TT;
+    panels += el * ndt * b1 * TT;
+    r_in += el * ndt * nat * TT;
+    r_out += el * ndt * nat * TT;
+    schur += el * nleaves * nat * nat * TT;
+    status += el * 3 * gridDim.x;
     // panels and r_out are written and read back by this block, so they are
     // read with plain (coherent) loads, never through the read-only path
     auto P = [&](int k, int e) { return panels + (static_cast<size_t>(k) * b1 + e) * TT; };
@@ -229,21 +244,22 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
 
 template <int T>
 int launch_sweep(const float* ac, const float* r, float* panels, float* r_out, float* schur,
-                 float* status, const Bounds& bounds, int nparts, int bt, int nat, int csz,
-                 int start, cudaStream_t s) {
+                 float* status, const Bounds& bounds, int nparts, int batch, int ndt, int bt,
+                 int nat, int csz, int nleaves, int start, cudaStream_t s) {
     constexpr size_t smem = sweep_smem_bytes<T>();
     cudaError_t err = cudaFuncSetAttribute(band_cholesky_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    band_cholesky_kernel<T><<<nparts, kThreads, smem, s>>>(ac, r, panels, r_out, schur, status,
-                                                           bounds, bt, nat, csz, start);
+    band_cholesky_kernel<T><<<dim3(nparts, batch), kThreads, smem, s>>>(
+        ac, r, panels, r_out, schur, status, bounds, ndt, bt, nat, csz, nleaves, start);
     return static_cast<int>(cudaGetLastError());
 }
 
 int sweep(const void* ac, const void* r, void* panels, void* r_out, void* schur, void* status,
-          const Bounds& bounds, int nparts, int bt, int nat, int t, int csz, int start,
-          void* stream) {
+          const Bounds& bounds, int nparts, int batch, int ndt, int bt, int nat, int t, int csz,
+          int nleaves, int start, void* stream) {
+    if (batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const auto* pac = static_cast<const float*>(ac);
     const auto* pr = static_cast<const float*>(r);
     auto* pp = static_cast<float*>(panels);
@@ -252,10 +268,14 @@ int sweep(const void* ac, const void* r, void* panels, void* r_out, void* schur,
     auto* pst = static_cast<float*>(status);
     auto s = static_cast<cudaStream_t>(stream);
     switch (t) {
-        case 8: return launch_sweep<8>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
-        case 16: return launch_sweep<16>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
-        case 32: return launch_sweep<32>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
-        case 64: return launch_sweep<64>(pac, pr, pp, pro, ps, pst, bounds, nparts, bt, nat, csz, start, s);
+        case 8: return launch_sweep<8>(pac, pr, pp, pro, ps, pst, bounds, nparts, batch, ndt, bt, nat,
+                                            csz, nleaves, start, s);
+        case 16: return launch_sweep<16>(pac, pr, pp, pro, ps, pst, bounds, nparts, batch, ndt, bt, nat,
+                                            csz, nleaves, start, s);
+        case 32: return launch_sweep<32>(pac, pr, pp, pro, ps, pst, bounds, nparts, batch, ndt, bt, nat,
+                                            csz, nleaves, start, s);
+        case 64: return launch_sweep<64>(pac, pr, pp, pro, ps, pst, bounds, nparts, batch, ndt, bt, nat,
+                                            csz, nleaves, start, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -263,30 +283,34 @@ int sweep(const void* ac, const void* r, void* panels, void* r_out, void* schur,
 }  // namespace stiles
 
 // The fused sweep: one block over columns 0..ndt-1, Schur chunks of csz
-// columns, status (3,).
+// columns, status (3,); a batch of `batch` such problems, contiguous one
+// after another, in the same launch (one block each).
 extern "C" int stiles_band_cholesky_sweep_f32(const void* ac, const void* r, void* panels,
                                               void* r_out, void* schur, void* status,
                                               int ndt, int bt, int nat, int t, int csz,
-                                              int start, void* stream) {
+                                              int start, int batch, void* stream) {
     stiles::Bounds bounds{};
     bounds.b[1] = ndt;
-    return stiles::sweep(ac, r, panels, r_out, schur, status, bounds, 1, bt, nat, t, csz,
-                         start, stream);
+    return stiles::sweep(ac, r, panels, r_out, schur, status, bounds, 1, batch, ndt, bt, nat, t,
+                         csz, (ndt + csz - 1) / csz, start, stream);
 }
 
 // The partitioned sweep: nparts blocks, block p over columns
 // [bounds[p], bounds[p+1]) (bounds: nparts + 1 ints in host memory, rising
-// from 0 to ndt), one Schur leaf schur[p] and one status word status[p] each.
+// from 0 to ndt), one Schur leaf schur[p] and one status word status[p] each;
+// for each of `batch` problems in the same launch.
 extern "C" int stiles_band_cholesky_partitioned_sweep_f32(
         const void* ac, const void* r, void* panels, void* r_out, void* schur, void* status,
-        const void* bounds, int nparts, int bt, int nat, int t, int start, void* stream) {
+        const void* bounds, int nparts, int bt, int nat, int t, int start, int batch,
+        void* stream) {
     if (nparts < 1 || nparts > stiles::kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
     stiles::Bounds b{};
     const int* hb = static_cast<const int*>(bounds);
     for (int p = 0; p <= nparts; ++p) b.b[p] = hb[p];
     // a chunk as long as the band: one leaf per partition
-    return stiles::sweep(ac, r, panels, r_out, schur, status, b, nparts, bt, nat, t,
-                         hb[nparts] > 0 ? hb[nparts] : 1, start, stream);
+    const int ndt = hb[nparts];
+    return stiles::sweep(ac, r, panels, r_out, schur, status, b, nparts, batch, ndt, bt, nat, t,
+                         ndt > 0 ? ndt : 1, nparts, start, stream);
 }
 
 #ifdef STILES_SWEEP_PHASES

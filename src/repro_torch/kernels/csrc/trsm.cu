@@ -1,5 +1,7 @@
 // Off-diagonal tile solve for a batch of tiles: out[b] = a[b] L^{-T}, with
-// one L for the whole batch or one L per tile.
+// one L for the whole batch, one L per tile, or one L per group of
+// consecutive tiles (a batch of factorizations, each its own L over its
+// panel).
 //
 // Replaces the TPU kernel src/repro/kernels/trsm.py::trsm_pallas (body
 // _trsm_kernel -> substitute_right).
@@ -20,10 +22,10 @@ namespace stiles {
 
 template <int T>
 __global__ void __launch_bounds__(kThreads)
-trsm_kernel(const float* __restrict__ l, const float* a, float* out, int l_stride) {
+trsm_kernel(const float* __restrict__ l, const float* a, float* out, int l_group) {
     __shared__ float Lt[T * T];
     __shared__ float dinv[T];
-    const float* lb = l + static_cast<size_t>(blockIdx.x) * l_stride;
+    const float* lb = l + (l_group ? static_cast<size_t>(blockIdx.x / l_group) * T * T : 0);
     for (int idx = threadIdx.x; idx < T * T; idx += kThreads) {
         const int i = idx / T, m = idx % T;
         Lt[m * T + i] = lb[idx];
@@ -38,20 +40,20 @@ trsm_kernel(const float* __restrict__ l, const float* a, float* out, int l_strid
 
 }  // namespace stiles
 
-// l_batched = 0: l is one (t, t) tile for every a[b]; 1: l is (nb, t, t).
+// l_group = 0: l is one (t, t) tile for every a[b]; g >= 1: a[b] is solved
+// against l[b / g], l being (nb / g, t, t) (g = 1: one L per tile).
 extern "C" int stiles_trsm_f32(const void* l, const void* a, void* out, int nb, int t,
-                               int l_batched, void* stream) {
+                               int l_group, void* stream) {
     using namespace stiles;
     const auto* pl = static_cast<const float*>(l);
     const auto* pa = static_cast<const float*>(a);
     auto* po = static_cast<float*>(out);
     auto s = static_cast<cudaStream_t>(stream);
-    const int ls = l_batched ? t * t : 0;
     switch (t) {
-        case 8: trsm_kernel<8><<<nb, kThreads, 0, s>>>(pl, pa, po, ls); break;
-        case 16: trsm_kernel<16><<<nb, kThreads, 0, s>>>(pl, pa, po, ls); break;
-        case 32: trsm_kernel<32><<<nb, kThreads, 0, s>>>(pl, pa, po, ls); break;
-        case 64: trsm_kernel<64><<<nb, kThreads, 0, s>>>(pl, pa, po, ls); break;
+        case 8: trsm_kernel<8><<<nb, kThreads, 0, s>>>(pl, pa, po, l_group); break;
+        case 16: trsm_kernel<16><<<nb, kThreads, 0, s>>>(pl, pa, po, l_group); break;
+        case 32: trsm_kernel<32><<<nb, kThreads, 0, s>>>(pl, pa, po, l_group); break;
+        case 64: trsm_kernel<64><<<nb, kThreads, 0, s>>>(pl, pa, po, l_group); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());

@@ -19,13 +19,14 @@ import torch
 from . import ref
 from .band_cholesky import band_cholesky_partitioned_sweep_cuda, band_cholesky_sweep_cuda
 from .band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from .band_update import band_update_cuda
 from .gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from .potrf import potrf_cuda
-from .selinv import selinv_sweep_cuda
+from .selinv import selinv_step_cuda, selinv_sweep_cuda
 from .trsm import solve_panel_cuda, trsm_cuda
 
-__all__ = ["potrf", "trsm", "syrk", "gemm", "geadd", "solve_panel",
-           "band_forward_sweep", "band_backward_sweep", "band_cholesky_sweep",
+__all__ = ["potrf", "trsm", "syrk", "gemm", "geadd", "solve_panel", "selinv_step",
+           "band_update", "band_forward_sweep", "band_backward_sweep", "band_cholesky_sweep",
            "band_cholesky_partitioned_sweep", "selinv_sweep", "resolve_impl", "IMPLS"]
 
 IMPLS = ("ref", "cuda")
@@ -59,7 +60,8 @@ def potrf(a: torch.Tensor, impl: Optional[str] = None,
 
 def trsm(l_kk: torch.Tensor, a_mk: torch.Tensor, impl: Optional[str] = None,
          out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``X = A L^{-T}`` for a (..., t, t) batch of A against one L."""
+    """``X = A L^{-T}`` for a (..., t, t) batch of A against one L, one L per
+    tile, or one L per group: L (..., 1, t, t) against A (..., n, t, t)."""
     if resolve_impl(impl, a_mk) == "cuda":
         return trsm_cuda(l_kk, a_mk, out=out)
     return _into(out, ref.trsm_ref(l_kk, a_mk))
@@ -97,6 +99,30 @@ def solve_panel(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False,
     return ref.solve_panel_ref(l_kk, b_panel, trans=trans)
 
 
+def selinv_step(s_row: torch.Tensor, g_col: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """One Takahashi tile step: ``u[e] = sum_j s_row[e, j] @ g_col[j]`` for
+    ``s_row (e_n, j_n, t, t)`` and ``g_col (j_n, t, t)`` -> ``(e_n, t, t)``,
+    zeros when ``e_n`` or ``j_n`` is 0."""
+    if resolve_impl(impl, s_row) == "cuda":
+        return selinv_step_cuda(s_row, g_col)
+    return ref.selinv_step_ref(s_row, g_col)
+
+
+def band_update(w: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+    """The window sweep's band-panel update: ``u[e] = sum_{j=1..b-e}
+    w[e, e+j] @ w[0, j]^T`` for a ``(..., b+1, b+1, t, t)`` window ->
+    ``(..., b+1, t, t)``; ``"cuda"`` is one launch for a window or a
+    batch of them.  The plain backend sums only the nonzero pairs, one
+    after another, for ``b + 1 <= 6``, and takes the masked einsum for
+    wider bands, as the reference's dispatch does."""
+    if resolve_impl(impl, w) == "cuda":
+        return band_update_cuda(w)
+    if w.shape[-4] <= 6:
+        return ref.band_update_unrolled_ref(w)
+    return ref.band_update_ref(w)
+
+
 def band_forward_sweep(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
                        start_tile: int = 0, impl: Optional[str] = None):
     """Forward band sweep ``L Y = B`` plus the arrow sums ``acc_a[i] =
@@ -124,7 +150,8 @@ def band_cholesky_sweep(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1,
     -> ``(panels, R_out, schur, status)``: column panels of L, factored
     arrow rows, per-chunk corner-Schur partial sums and the (3,) float32
     status word ``[min_pivot, nonfinite, first_bad]``.  ``"cuda"`` is one
-    kernel launch; ``"ref"`` the column loop of ``ref.py``."""
+    kernel launch; ``"ref"`` the column loop of ``ref.py``.  A leading
+    batch axis on ``Ac`` and ``R`` is one launch for the whole batch."""
     if resolve_impl(impl, Ac) == "cuda":
         return band_cholesky_sweep_cuda(Ac, R, nchunks=nchunks,
                                         start_tile=start_tile)
@@ -138,8 +165,9 @@ def band_cholesky_partitioned_sweep(Ac: torch.Tensor, R: torch.Tensor, boundarie
     partitions ``[boundaries[p], boundaries[p+1])`` of a block-separable
     band -> ``(panels, R_out, schur, status)`` with ``schur (P, nat, nat,
     t, t)``, one corner-Schur leaf per partition, and ``first_bad`` global.
-    ``"cuda"`` is one kernel launch, a block per partition; ``"ref"`` the
-    column loop of ``ref.py`` on each partition."""
+    ``"cuda"`` is one kernel launch, a block per partition (and per batch
+    element, with a leading batch axis); ``"ref"`` the column loop of
+    ``ref.py`` on each partition."""
     if resolve_impl(impl, Ac) == "cuda":
         return band_cholesky_partitioned_sweep_cuda(Ac, R, boundaries, start_tile=start_tile)
     return ref.band_cholesky_partitioned_sweep_ref(Ac, R, boundaries, start_tile=start_tile)

@@ -14,7 +14,8 @@ import torch
 from .ring import chunk_layout, identity_prefix_panel
 
 __all__ = ["potrf_ref", "trsm_ref", "syrk_ref", "gemm_ref", "geadd_ref",
-           "solve_panel_ref", "selinv_step_ref", "band_forward_sweep_ref",
+           "solve_panel_ref", "selinv_step_ref", "band_update_ref",
+           "band_update_unrolled_ref", "band_forward_sweep_ref",
            "band_backward_sweep_ref", "band_cholesky_sweep_ref",
            "band_cholesky_partitioned_sweep_ref", "selinv_sweep_ref",
            "sweep_status", "combine_sweep_status", "empty_sweep_status",
@@ -29,8 +30,8 @@ def empty_sweep_status(device=None) -> torch.Tensor:
 
 def sweep_status(panels: torch.Tensor, R_out: torch.Tensor) -> torch.Tensor:
     """Per-sweep breakdown status word ``[min_pivot, nonfinite, first_bad]``
-    derived from the emitted factor (``panels (ndt, b1, t, t)``,
-    ``R_out (ndt, nat, t, t)``):
+    derived from the emitted factor (``panels (..., ndt, b1, t, t)``,
+    ``R_out (..., ndt, nat, t, t)``; one word per leading index):
 
     * ``min_pivot`` — min over columns of ``min(diag(L_kk)^2)``, over
       columns whose diagonal is finite (+inf if none are);
@@ -38,21 +39,29 @@ def sweep_status(panels: torch.Tensor, R_out: torch.Tensor) -> torch.Tensor:
     * ``first_bad`` — first column whose output is non-finite or whose
       pivot is <= 0 (-1.0 when the sweep is clean).
     """
-    ndt = panels.shape[0]
+    ndt = panels.shape[-4]
     if ndt == 0:
-        return empty_sweep_status(panels.device)
-    diag = torch.diagonal(panels[:, 0], dim1=-2, dim2=-1)          # (ndt, t)
+        return empty_sweep_status(panels.device).expand(panels.shape[:-4] + (3,)).clone()
+    diag = torch.diagonal(panels[..., 0, :, :], dim1=-2, dim2=-1)  # (..., ndt, t)
     fin_diag = torch.isfinite(diag).all(dim=-1)
     piv = (diag * diag).amin(dim=-1)
     piv = torch.where(fin_diag, piv, torch.full_like(piv, float("inf")))
-    fin = (torch.isfinite(panels).reshape(ndt, -1).all(dim=1)
-           & torch.isfinite(R_out).reshape(ndt, -1).all(dim=1))
+    fin = (torch.isfinite(panels).flatten(-3).all(dim=-1)
+           & torch.isfinite(R_out).flatten(-3).all(dim=-1))
     bad = ~fin | (piv <= 0.0)
     idx = torch.arange(ndt, device=panels.device)
-    first = torch.where(bad, idx, torch.full_like(idx, ndt)).amin()
+    first = torch.where(bad, idx, torch.full_like(idx, ndt)).amin(dim=-1)
     first = torch.where(first == ndt, torch.full_like(first, -1), first)
-    return torch.stack([piv.amin(), (~fin).to(torch.float32).amax(),
-                        first.to(torch.float32)])
+    return torch.stack([piv.amin(dim=-1), (~fin).to(torch.float32).amax(dim=-1),
+                        first.to(torch.float32)], dim=-1)
+
+
+def _over_batch(fn, *arrays, **kwargs):
+    """``fn`` on each element of the arrays' leading batch axis, its
+    outputs stacked: a batched sweep's plain version, element for element
+    the unbatched one."""
+    outs = [fn(*(x[i] for x in arrays), **kwargs) for i in range(arrays[0].shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 def potrf_ref(a: torch.Tensor) -> torch.Tensor:
@@ -107,6 +116,44 @@ def selinv_step_ref(s_row: torch.Tensor, g_col: torch.Tensor) -> torch.Tensor:
     ``s_row (e_n, j_n, t, t)`` already-computed Σ tiles and ``g_col (j_n,
     t, t)`` the normalized factor column ``G[k_j] = L[k_j, j] L[j, j]^{-1}``."""
     return torch.einsum("ejab,jbc->eac", s_row, g_col)
+
+
+def band_update_unrolled_ref(w: torch.Tensor) -> torch.Tensor:
+    """The band update of :func:`band_update_ref` over the structurally
+    nonzero pairs only, ``b (b+1) / 2`` tile products summed one after
+    another, ``j = 1..b-e`` in order; what ``ops.band_update`` runs on the
+    plain backend for ``b + 1 <= 6``, as the reference's dispatch does."""
+    b1 = w.shape[-4]
+    outs = []
+    for e in range(b1):
+        acc = torch.zeros_like(w[..., 0, 0, :, :])
+        for j in range(1, b1 - e):
+            acc = acc + w[..., e, e + j, :, :] @ w[..., 0, j, :, :].mT
+        outs.append(acc)
+    return torch.stack(outs, dim=-3)
+
+
+def band_update_ref(w: torch.Tensor) -> torch.Tensor:
+    """Fused left-looking band-panel update (the ``window`` sweep's hot spot).
+
+    Input:  w (..., b+1, b+1, t, t) — band-window rows k..k+b of the
+            row-band storage: w[e, d] = L_tile[k+e, k+e-d] (zero where out
+            of band).
+    Output: u (..., b+1, t, t) with
+
+        u[e] = sum_{j=1..b-e}  w[e, e+j] @ w[0, j]^T
+
+    every SYRK (e = 0) and GEMM (e > 0) accumulation feeding panel k, as
+    one masked contraction over the shifted gather ``w[e, e+j]``."""
+    b1 = w.shape[-4]
+    idx = torch.arange(b1, device=w.device)
+    e_idx, j_idx = idx[:, None], idx[None, :]
+    mask = ((e_idx + j_idx) < b1) & (j_idx >= 1)
+    wsh = w[..., e_idx, (e_idx + j_idx).clamp(max=b1 - 1), :, :]
+    wsh = torch.where(mask[:, :, None, None], wsh, torch.zeros_like(wsh))
+    rhs = w[..., 0, :, :, :]
+    rhs = torch.where((idx >= 1)[:, None, None], rhs, torch.zeros_like(rhs))
+    return torch.einsum("...ejab,...jcb->...eac", wsh, rhs)
 
 
 def band_forward_sweep_ref(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
@@ -186,7 +233,13 @@ def band_cholesky_sweep_ref(Ac: torch.Tensor, R: torch.Tensor,
     Columns ``k < start_tile`` are an identity-embedding prefix: their
     input is replaced by the identity column, whose factor is an identity
     panel with a zero arrow row.
+
+    A leading batch axis on ``Ac`` and ``R`` (``(B, ndt, ...)``) gives every
+    output one too, each element the unbatched sweep's of its inputs.
     """
+    if Ac.dim() == 5:
+        return _over_batch(band_cholesky_sweep_ref, Ac, R, nchunks=nchunks,
+                           start_tile=start_tile)
     ndt, b1, t, _ = Ac.shape
     bt = b1 - 1
     nat = R.shape[1]
@@ -219,17 +272,18 @@ def band_cholesky_sweep_ref(Ac: torch.Tensor, R: torch.Tensor,
 
 
 def combine_sweep_status(words: torch.Tensor) -> torch.Tensor:
-    """Fold per-partition status words ``(P, 3)``, ``first_bad`` already in
-    global column indices, into one word: the least pivot, the largest
-    nonfinite flag and the smallest non-negative ``first_bad`` (-1 when
-    every partition is clean).  An empty stack folds to
+    """Fold per-partition status words ``(..., P, 3)``, ``first_bad``
+    already in global column indices, into one word each: the least pivot,
+    the largest nonfinite flag and the smallest non-negative ``first_bad``
+    (-1 when every partition is clean).  An empty stack folds to
     :func:`empty_sweep_status`."""
-    if words.shape[0] == 0:
-        return empty_sweep_status(words.device)
-    first = words[:, 2]
-    best = torch.where(first >= 0, first, torch.full_like(first, float("inf"))).amin()
-    return torch.stack([words[:, 0].amin(), words[:, 1].amax(),
-                        torch.where(torch.isfinite(best), best, torch.full_like(best, -1.0))])
+    if words.shape[-2] == 0:
+        return empty_sweep_status(words.device).expand(words.shape[:-2] + (3,)).clone()
+    first = words[..., 2]
+    best = torch.where(first >= 0, first, torch.full_like(first, float("inf"))).amin(dim=-1)
+    return torch.stack([words[..., 0].amin(dim=-1), words[..., 1].amax(dim=-1),
+                        torch.where(torch.isfinite(best), best, torch.full_like(best, -1.0))],
+                       dim=-1)
 
 
 def check_boundaries(boundaries, ndt: int) -> tuple:
@@ -263,7 +317,11 @@ def band_cholesky_partitioned_sweep_ref(Ac: torch.Tensor, R: torch.Tensor, bound
 
     Columns ``k < start_tile`` (global) are the identity prefix, so
     partition ``p`` skips its first ``max(0, start_tile - boundaries[p])``.
+    A leading batch axis is taken as :func:`band_cholesky_sweep_ref` takes it.
     """
+    if Ac.dim() == 5:
+        return _over_batch(band_cholesky_partitioned_sweep_ref, Ac, R,
+                           boundaries=boundaries, start_tile=start_tile)
     bounds = check_boundaries(boundaries, Ac.shape[0])
     panels, r_out, schurs, words = [], [], [], []
     for s0, s1 in zip(bounds, bounds[1:]):

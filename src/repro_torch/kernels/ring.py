@@ -43,26 +43,26 @@ def identity_prefix_panel(bt: int, t: int, dtype=torch.float32,
 def band_row_to_col(Dr: torch.Tensor) -> torch.Tensor:
     """Row-band storage -> column-band panels.
 
-    Input ``Dr (ndt, bt+1, t, t)`` with ``Dr[m, d] = T[m, m-d]``; output
-    ``P (ndt, bt+1, t, t)`` with ``P[k, e] = T[k+e, k]`` (zero for
-    ``k+e >= ndt``)."""
-    ndt, b1 = Dr.shape[:2]
+    Input ``Dr (..., ndt, bt+1, t, t)`` with ``Dr[m, d] = T[m, m-d]``;
+    output ``P (..., ndt, bt+1, t, t)`` with ``P[k, e] = T[k+e, k]`` (zero
+    for ``k+e >= ndt``)."""
+    ndt, b1 = Dr.shape[-4:-2]
     out = torch.zeros_like(Dr)
     for e in range(b1):
         if e < ndt:
-            out[:ndt - e, e] = Dr[e:, e]
+            out[..., :ndt - e, e, :, :] = Dr[..., e:, e, :, :]
     return out
 
 
 def band_col_to_row(panels: torch.Tensor) -> torch.Tensor:
     """Column-band panels -> row-band storage (inverse of
     :func:`band_row_to_col`): ``Dr[m, d] = P[m-d, d]``, zero where
-    ``m - d < 0``."""
-    ndt, b1 = panels.shape[:2]
+    ``m - d < 0``; leading batch dims pass through."""
+    ndt, b1 = panels.shape[-4:-2]
     out = torch.zeros_like(panels)
     for d in range(b1):
         if d < ndt:
-            out[d:, d] = panels[:ndt - d, d]
+            out[..., d:, d, :, :] = panels[..., :ndt - d, d, :, :]
     return out
 
 

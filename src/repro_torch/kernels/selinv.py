@@ -1,14 +1,18 @@
-"""CUDA kernel: the whole backward Takahashi recurrence in one launch,
-``csrc/selinv.cu``.
+"""CUDA kernels of the selected inversion: the whole backward Takahashi
+recurrence in one launch, ``csrc/selinv.cu``, and its one-column tile step,
+``csrc/selinv_step.cu``.
 
-Port of the TPU kernel ``repro/kernels/selinv.py::selinv_sweep_pallas``.
+:func:`selinv_sweep_cuda` ports the TPU kernel
+``repro/kernels/selinv.py::selinv_sweep_pallas``.
 One block walks the columns j = ndt-1..0, seeds ``L_jj^{-1}`` in the kernel
 (``csrc/tile.cuh::substitute_panel`` against the identity) and reads the
 last ``band_tiles`` Σ columns back from its own outputs (they stay in L2)
 instead of a VMEM ring.  Outputs and semantics match
 ``ref.selinv_sweep_ref``, the ``start_tile`` identity prefix included.
-``selinv_step_pallas`` is not ported yet: only its plain version is, as
-the plain sweep's step.
+
+:func:`selinv_step_cuda` ports ``selinv_step_pallas``, the standalone tile
+primitive ``ops.selinv_step``: ``u[e] = sum_j s_row[e, j] g_col[j]``, one
+block per output tile, as ``ref.selinv_step_ref`` defines it.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 from . import _build
 from .potrf import check_tiles
 
-__all__ = ["selinv_sweep_cuda"]
+__all__ = ["selinv_sweep_cuda", "selinv_step_cuda"]
 
 
 def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
@@ -51,3 +55,28 @@ def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor
 
 
 selinv_sweep_cuda.launches = 0
+
+
+def selinv_step_cuda(s_row: torch.Tensor, g_col: torch.Tensor) -> torch.Tensor:
+    """``s_row (e_n, j_n, t, t)`` Σ tiles and ``g_col (j_n, t, t)`` the
+    normalized factor column -> ``u (e_n, t, t)``, ``u[e] = sum_j s_row[e,
+    j] @ g_col[j]``, on the card; zeros without a launch when ``e_n`` or
+    ``j_n`` is 0, as the reference's kernel returns them."""
+    t = check_tiles("selinv_step", s_row, g_col)
+    if s_row.dim() != 4 or g_col.dim() != 3 or s_row.shape[1] != g_col.shape[0]:
+        raise ValueError(f"selinv_step: want s_row (e_n, j_n, t, t) and g_col (j_n, t, t), "
+                         f"got {tuple(s_row.shape)} and {tuple(g_col.shape)}")
+    e_n, j_n = s_row.shape[:2]
+    if e_n == 0 or j_n == 0:
+        return s_row.new_zeros((e_n, t, t))
+    u = s_row.new_empty((e_n, t, t))
+    lib = _build.load("selinv_step")
+    stream = torch.cuda.current_stream(s_row.device).cuda_stream
+    _build.check(lib, lib.stiles_selinv_step_f32(s_row.data_ptr(), g_col.data_ptr(),
+                                                 u.data_ptr(), e_n, j_n, t, stream),
+                 "selinv_step")
+    selinv_step_cuda.launches += 1
+    return u
+
+
+selinv_step_cuda.launches = 0

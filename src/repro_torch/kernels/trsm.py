@@ -2,11 +2,11 @@
 ``csrc/solve_panel.cu``.
 
 :func:`trsm_cuda` ports the TPU kernel ``repro/kernels/trsm.py::
-trsm_pallas``: ``X = A L^{-T}`` for a batch of tiles, one L for all of them
-or one per tile.  Each warp solves eight rows of ``X L^T = A`` together,
-its lanes owning the columns and each solved entry broadcast by shuffle
-(``csrc/tile.cuh::substitute_right_rows``, shared with the band-Cholesky
-sweep).
+trsm_pallas``: ``X = A L^{-T}`` for a batch of tiles, one L for all of them,
+one per tile or one per group of tiles.  Each warp solves eight rows of
+``X L^T = A`` together, its lanes owning the columns and each solved entry
+broadcast by shuffle (``csrc/tile.cuh::substitute_right_rows``, shared
+with the band-Cholesky sweep).
 
 :func:`solve_panel_cuda` ports ``solve_panel_pallas``: ``L X = B`` or
 ``L^T X = B`` for (..., t, k) panels of any width k, one thread per
@@ -32,14 +32,23 @@ __all__ = ["trsm_cuda", "solve_panel_cuda"]
 def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``X = A L^{-T}`` on the card.  ``l_kk`` is one (t, t) tile for the
-    whole (..., t, t) batch ``a_mk``, or has the batch's shape.  ``out``
-    takes the result in place of a new tensor and may be ``a_mk`` itself
-    (each row is read and then written by one warp); it must not overlap L."""
+    whole (..., t, t) batch ``a_mk``, has the batch's shape, or is
+    (..., 1, t, t) against a (..., n, t, t) batch: one L for each group of n
+    tiles, as a batch of factorizations solves each panel against its own
+    diagonal tile.  ``out`` takes the result in place of a new tensor and
+    may be ``a_mk`` itself (each row is read and then written by one warp);
+    it must not overlap L."""
     t = check_tiles("trsm", l_kk, a_mk)
-    batched = l_kk.dim() > 2
-    if batched and l_kk.shape != a_mk.shape:
-        raise ValueError(f"trsm: L {tuple(l_kk.shape)} is neither one tile "
-                         f"nor the shape of A {tuple(a_mk.shape)}")
+    if l_kk.numel() == t * t:
+        group = 0
+    elif l_kk.shape == a_mk.shape:
+        group = 1
+    elif (l_kk.dim() == a_mk.dim() >= 3 and l_kk.shape[-3] == 1
+          and l_kk.shape[:-3] == a_mk.shape[:-3]):
+        group = a_mk.shape[-3]
+    else:
+        raise ValueError(f"trsm: L {tuple(l_kk.shape)} is neither one tile, the shape "
+                         f"of A {tuple(a_mk.shape)}, nor one tile per group of A's tiles")
     out = check_out("trsm", a_mk, out)
     nb = a_mk.numel() // (t * t)
     if nb == 0:
@@ -47,8 +56,7 @@ def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
     lib = _build.load("trsm")
     stream = torch.cuda.current_stream(a_mk.device).cuda_stream
     _build.check(lib, lib.stiles_trsm_f32(l_kk.data_ptr(), a_mk.data_ptr(),
-                                          out.data_ptr(), nb, t, int(batched),
-                                          stream), "trsm")
+                                          out.data_ptr(), nb, t, group, stream), "trsm")
     trsm_cuda.launches += 1
     return out
 

@@ -158,8 +158,12 @@ def test_options_dispatch_on_the_cpu():
         factorize_window(tm, options=SolverOptions(impl="cuda"))
     with pytest.raises(ValueError, match="unknown"):
         SolverOptions(impl="pallas")
-    with pytest.raises(TypeError):
-        SolverOptions(sweep="fused")
+    # the fused sweep is the kernel: refused with the plain versions, and on
+    # CPU tensors it raises rather than falling back
+    with pytest.raises(ValueError, match="contradicts"):
+        SolverOptions(sweep="fused", impl="ref")
+    with pytest.raises(ValueError, match="CUDA"):
+        factorize_window(tm, options=SolverOptions(sweep="fused"))
 
 
 @pytest.mark.parametrize("where,first_bad", [("band", 3.0), ("corner", None)])
@@ -201,6 +205,7 @@ def test_port_never_loads_jax():
         "import repro_torch.core.solve, repro_torch.core.selinv\n"
         "import repro_torch.kernels.band_solve, repro_torch.kernels.selinv\n"
         "import repro_torch.kernels.gemm, repro_torch.core.tree_reduction\n"
+        "import repro_torch.kernels.band_update\n"
         "import repro_torch.data.synthetic, repro_torch.quickstart\n"
         "from repro_torch.core import (SolverOptions, TileMatrix, detect_partition_plan,\n"
         "                              factorize_tasklist)\n"
@@ -217,6 +222,11 @@ def test_port_never_loads_jax():
         "fp = factorize_window(BandedCTSF.from_sparse(B, TileGrid(bs, t=8), device='cpu'),\n"
         "                      options=SolverOptions(partition_plan=plan))\n"
         "assert float(logdet(fp)) > 0\n"
+        "from repro_torch.core import factorize_window_batched\n"
+        "m = BandedCTSF.from_sparse(A, TileGrid(st, t=16), device='cpu')\n"
+        "fw = factorize_window(m, options=SolverOptions(sweep='window'))\n"
+        "assert factorize_window_batched([m, m], options=SolverOptions(sweep='window'))"
+        ".logdet().shape == (2,)\n"
         "x = solve_many(f, torch.ones(f.ctsf.grid.padded_n, 2))\n"
         "assert float(selected_inverse(f).diagonal().min()) > 0\n"
         "assert float(marginal_variances(f, [0, 199]).min()) > 0\n"

@@ -1,9 +1,10 @@
 """The port on the card: each CUDA kernel against its plain version, and
-``factorize_window`` (fused and partitioned), ``factorize_tasklist``, the
-solves and the selected inverse on the card against the CPU path, at
-rtol = atol = 2e-4 (float32 on both sides, different summation orders).
-The partitioned sweep is also held bit for bit to the fused one on
-block-separable input.
+``factorize_window`` (fused, partitioned and window routes),
+``factorize_window_batched``, ``factorize_tasklist``, the solves and the
+selected inverse on the card against the CPU path, at rtol = atol = 2e-4
+(float32 on both sides, different summation orders).  The partitioned
+sweep is also held bit for bit to the fused one on block-separable input,
+and each element of a batched sweep to the unbatched launch.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of jax or of the JAX package, so it runs where only
@@ -13,20 +14,23 @@ PyTorch is installed:
 """
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from repro_torch.core import (BandedCTSF, PartitionPlan, SolverOptions, TileGrid, TileMatrix,
-                              factorize_tasklist, factorize_window, logdet, marginal_variances,
-                              sample_gmrf_many, selected_inverse, solve_many)
+                              factorize_tasklist, factorize_window, factorize_window_batched,
+                              logdet, marginal_variances, sample_gmrf_many, selected_inverse,
+                              solve_many)
 from repro_torch.data import block_separable_arrowhead, make_arrowhead
 from repro_torch.kernels import ref
 from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
                                                band_cholesky_sweep_cuda)
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from repro_torch.kernels.band_update import band_update_cuda
 from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.ring import band_row_to_col
-from repro_torch.kernels.selinv import selinv_sweep_cuda
+from repro_torch.kernels.selinv import selinv_step_cuda, selinv_sweep_cuda
 from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
 
 pytestmark = pytest.mark.gpu
@@ -382,3 +386,119 @@ def test_partitioned_factorize_window_on_the_card(cuda):
                           options=SolverOptions(partition_plan=plan))
     for g, w in zip(f.ctsf.arrays(), fc.ctsf.arrays()):
         torch.testing.assert_close(g.cpu(), w, **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("b1", [1, 2, 5, 9])
+def test_band_update_kernel(cuda, t, b1):
+    """One window, and a batch of windows sliced out of padded band rows
+    (strided along the batch, read in place), against both plain versions."""
+    rng = np.random.default_rng(10 * t + b1)
+    w = torch.from_numpy(rng.standard_normal((b1, b1, t, t)).astype(np.float32)).to(cuda)
+    got = band_update_cuda(w)
+    torch.testing.assert_close(got, ref.band_update_unrolled_ref(w), **TOL)
+    torch.testing.assert_close(got, ref.band_update_ref(w), **TOL)
+    rows = torch.from_numpy(rng.standard_normal((3, 7 + b1, b1, t, t)).astype(np.float32))
+    win = rows.to(cuda)[:, 4:4 + b1]
+    assert not win.is_contiguous()
+    torch.testing.assert_close(band_update_cuda(win), ref.band_update_unrolled_ref(win), **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_selinv_step_kernel(cuda, t):
+    rng = np.random.default_rng(t)
+    for e_n, j_n in ((1, 1), (3, 5), (8, 8), (2, 17)):
+        s_row = torch.from_numpy(rng.standard_normal((e_n, j_n, t, t)).astype(np.float32)).to(cuda)
+        g_col = torch.from_numpy(rng.standard_normal((j_n, t, t)).astype(np.float32)).to(cuda)
+        torch.testing.assert_close(selinv_step_cuda(s_row, g_col),
+                                   ref.selinv_step_ref(s_row, g_col), **TOL)
+    before = selinv_step_cuda.launches
+    empty = selinv_step_cuda(torch.zeros((0, 3, t, t), device=cuda), torch.zeros((3, t, t),
+                                                                                device=cuda))
+    zero = selinv_step_cuda(torch.zeros((2, 0, t, t), device=cuda), torch.zeros((0, t, t),
+                                                                               device=cuda))
+    assert empty.shape == (0, t, t) and zero.shape == (2, t, t) and not zero.any()
+    assert selinv_step_cuda.launches == before
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_trsm_kernel_one_l_per_group(cuda, t):
+    rng = np.random.default_rng(t)
+    x = rng.standard_normal((4, t, t))
+    a = torch.from_numpy((x @ x.transpose(0, 2, 1) + t * np.eye(t)).astype(np.float32)).to(cuda)
+    l = ref.potrf_ref(a)[:, None]
+    b = torch.from_numpy(rng.standard_normal((4, 3, t, t)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(trsm_cuda(l, b), ref.trsm_ref(l, b), **TOL)
+    with pytest.raises(ValueError, match="group"):
+        trsm_cuda(l[:2], b)
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_batched_sweep_kernels_bit_identical_per_element(cuda, t):
+    """The fused and partitioned sweeps on a batch of three: one launch
+    each, every element's outputs bit for bit the unbatched launch's, and
+    the plain versions' to fp32 tolerance."""
+    bounds = (0, 2, 5, 7)
+    els = [_separable_band(t, 7, 2, 2, bounds, seed=s) for s in range(3)]
+    Ac = torch.stack([e[0] for e in els]).to(cuda)
+    R = torch.stack([e[1] for e in els]).to(cuda)
+    for sweep, args in ((band_cholesky_sweep_cuda, dict(nchunks=3, start_tile=1)),
+                        (band_cholesky_partitioned_sweep_cuda, dict(boundaries=bounds,
+                                                                    start_tile=1))):
+        before = sweep.launches
+        got = sweep(Ac, R, **args)
+        assert sweep.launches == before + 1 and got[3].shape == (3, 3)
+        plain = (ref.band_cholesky_sweep_ref if sweep is band_cholesky_sweep_cuda
+                 else ref.band_cholesky_partitioned_sweep_ref)(Ac, R, **args)
+        for i in range(3):
+            one = sweep(Ac[i], R[i], **args)
+            for g, w in zip(got, one):
+                assert torch.equal(g[i], w)
+        for g, w in zip(got, plain):
+            torch.testing.assert_close(g, w, **TOL)
+
+
+def test_window_route_on_the_card(cuda):
+    """sweep="window" on the card: a band_update, a potrf and two trsm
+    launches a column, the corner's nat potrf and nat trsm and the Schur
+    tree's three geadd levels; the CPU path's factor and the fused route's."""
+    A, st = make_arrowhead(320, 24, 16, rho=0.7, seed=5)
+    m = BandedCTSF.from_sparse(A, TileGrid(st, t=16), device=cuda)
+    ndt, nat = m.grid.n_diag_tiles, m.grid.n_arrow_tiles
+    kern = (band_update_cuda, potrf_cuda, trsm_cuda, geadd_cuda, band_cholesky_sweep_cuda)
+    before = [k.launches for k in kern]
+    f = factorize_window(m, options=SolverOptions(sweep="window"))
+    assert [k.launches - b for k, b in zip(kern, before)] == [ndt, ndt + nat, 2 * ndt + nat, 3, 0]
+    fc = factorize_window(BandedCTSF(m.grid, m.Dr.cpu(), m.R.cpu(), m.C.cpu()),
+                          options=SolverOptions(sweep="window"))
+    for g, w in zip(f.ctsf.arrays(), fc.ctsf.arrays()):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
+    for g, w in zip(f.ctsf.arrays(), factorize_window(m).ctsf.arrays()):
+        torch.testing.assert_close(g, w, **TOL)
+    assert f.status[1:].tolist() == [0.0, -1.0]
+
+
+@pytest.mark.parametrize("sweep", ["fused", "window"])
+def test_factorize_window_batched_on_the_card(cuda, sweep):
+    """Three θ-candidates ``τ A + δ I``: the fused route is one sweep launch
+    whose band and status are each element's unbatched factor bit for bit;
+    the window route is one band_update launch a column; both agree with
+    each element's unbatched factor."""
+    A, st = make_arrowhead(240, 24, 16, rho=0.7, seed=0)
+    grid = TileGrid(st, t=16)
+    mats = [BandedCTSF.from_sparse((tau * A + delta * sp.identity(A.shape[0])).tocsr(), grid, device=cuda)
+            for tau, delta in ((1.0, 0.0), (0.5, 0.25), (2.0, 0.1))]
+    kern = band_cholesky_sweep_cuda if sweep == "fused" else band_update_cuda
+    before = kern.launches
+    f = factorize_window_batched(mats, options=SolverOptions(sweep=sweep))
+    assert kern.launches - before == (1 if sweep == "fused" else grid.n_diag_tiles)
+    assert f.status.shape == (3, 3) and logdet(f).shape == (3,)
+    for i, m in enumerate(mats):
+        one = factorize_window(m, options=SolverOptions(sweep=sweep))
+        for name in ("Dr", "R", "C"):
+            got, want = getattr(f.ctsf, name)[i], getattr(one.ctsf, name)
+            if sweep == "fused" and name != "C":
+                assert torch.equal(got, want), name
+            torch.testing.assert_close(got, want, **TOL)
+        if sweep == "fused":
+            assert torch.equal(f.status[i], one.status)

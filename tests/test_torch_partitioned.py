@@ -118,12 +118,11 @@ def test_trivial_plan_stays_on_the_fused_route():
 
 def test_sweep_options_refuse_what_the_reference_refuses():
     """A plan of the wrong type or for another grid is refused, as the
-    reference refuses them; the sweep has no option of its own (``impl``
-    and the plan choose it), so the legacy ``sweep="window"`` is not a
-    keyword."""
+    reference refuses them, and so is the partitioned sweep without a
+    plan."""
     _, m, _, bounds = _split(2)
-    with pytest.raises(TypeError):
-        SolverOptions(sweep="window")
+    with pytest.raises(ValueError, match="partition plan"):
+        SolverOptions(sweep="partitioned")
     with pytest.raises(TypeError):
         SolverOptions(partition_plan=bounds)
     with pytest.raises(ValueError, match="diagonal tiles"):
