@@ -20,12 +20,12 @@ Phases, each of which raises on a failed check:
    start_tile in {0, 2}; gemm, syrk and geadd with batched, broadcast,
    in-place and strided operands; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
-   bit against the fused kernel; band_update for b+1 in {1, 2, 5, 9}
-   against both plain versions, also on a strided batch of windows;
-   selinv_step for (e_n, j_n) in {(1, 1), (3, 5), (8, 8), (2, 17)} and
-   the empty shapes; trsm with one L a group of tiles; the fused and
-   partitioned sweeps on a batch of three, each element also bit for bit
-   against its unbatched launch;
+   bit against the fused kernel; band_update for b+1 in {1, 2, 3, 5, 6,
+   9} against both plain versions, also on a strided batch of windows;
+   selinv_step for (e_n, j_n) in {(1, 1), (1, 2), (4, 3), (3, 5), (8, 8),
+   (2, 17), (1, 17)} and the empty shapes; trsm with one L a group of
+   tiles; the fused and partitioned sweeps on a batch of three, each
+   element also bit for bit against its unbatched launch;
 3. main paths at full size, each with the launch counts set to 0 just
    before it and read just after:
    - Table II matrices 5 (n=10,200, bandwidth 200, arrow 200) and 2
@@ -57,8 +57,9 @@ Phases, each of which raises on a failed check:
      sweep bit for bit on the fused and partitioned routes) and its logdet
      against the candidate's float64 oracle; then the batched kernels
      against their plain versions on those batches: both sweeps,
-     band_update on the window route's strided windows, and the grouped
-     trsm of a window panel and of the corner;
+     band_update on the window route's strided windows (each element also
+     bit for bit against its unbatched launch), and the grouped trsm of a
+     window panel and of the corner;
    - ops.selinv_step on the Takahashi operands of an interior column of
      matrix 5's selected inverse, against that column's Σ tiles;
    - python -m repro_torch.quickstart's main, its task-list agreement;
@@ -74,7 +75,11 @@ Phases, each of which raises on a failed check:
    device time) and the partitioned factorize_window end to end; the
    window route end to end beside the fused route; the batched routes
    end to end against one candidate alone, and the batched sweep and
-   band_update kernels against one element's launch.
+   band_update kernels against one element's launch (band_update also
+   beside one einsum over the batch's gathered operands); for the
+   tile-sum kernels band_update and selinv_step, their launch plans, two
+   launches on the main path's operands bit for bit, and the plans of
+   cluster caps 1 (no contraction split), 2, 4 and 8 timed side by side.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -440,7 +445,7 @@ def phase_window_kernels(torch, device, kern, ref):
     for t in TILES:
         g = torch.Generator().manual_seed(1000 + t)
         x = lambda *shape: torch.randn(shape, generator=g).to(device)
-        for b1 in (1, 2, 5, 9):
+        for b1 in (1, 2, 3, 5, 6, 9):
             w = x(b1, b1, t, t)
             got = kern["band_update"](w)
             assert_close(torch, got, ref.band_update_unrolled_ref(w), f"band_update t={t} b+1={b1}")
@@ -450,7 +455,7 @@ def phase_window_kernels(torch, device, kern, ref):
             assert_close(torch, kern["band_update"](win), ref.band_update_unrolled_ref(win),
                          f"band_update t={t} b+1={b1} strided batch")
             nchecks += 3
-        for e_n, j_n in ((1, 1), (3, 5), (8, 8), (2, 17)):
+        for e_n, j_n in ((1, 1), (1, 2), (4, 3), (3, 5), (8, 8), (2, 17), (1, 17)):
             s_row, g_col = x(e_n, j_n, t, t), x(j_n, t, t)
             assert_close(torch, kern["selinv_step"](s_row, g_col), ref.selinv_step_ref(s_row, g_col),
                          f"selinv_step t={t} e_n={e_n} j_n={j_n}")
@@ -1078,6 +1083,11 @@ def check_batched_kernels(torch, ref, mb5, mb4, plan4, fb_window):
     errs["band_update"] = assert_close(torch, got, want, "batched band_update")
     errs["band_update_rel"] = assert_update(got, want, want.abs().max().item(),
                                             "batched band_update")
+    for i in range(nb):
+        if not torch.equal(got[i], band_update_cuda(w[i])):
+            raise AssertionError(f"batched band_update: element {i} not bit-identical to its "
+                                 "unbatched launch")
+    errs["band_update_bit_identical_per_element"] = True
     diag = torch.arange(1, b1, device=w.device)
     aw = Drp_a[:, kwin:kwin + b1]
     lw = ref.potrf_ref((aw[:, 0, 0] - want[:, 0]).contiguous())[:, None].contiguous()
@@ -1088,6 +1098,62 @@ def check_batched_kernels(torch, ref, mb5, mb4, plan4, fb_window):
     errs["band_update_window"] = dict(shape=list(w.shape), panel=kwin,
                                       batch_stride=w.stride(0))
     return errs, w
+
+
+def band_update_gathered(torch, w):
+    """The operands of band_update's library yardstick for windows ``w
+    (..., b+1, b+1, t, t)``, gathered beforehand as ``band_update_ref``
+    gathers them: ``(wsh, rhs)``, ``wsh[..., e, j] = w[..., e, e+j]`` where
+    ``e + j <= b`` and ``j >= 1`` (else zero) and ``rhs[..., j] = w[..., 0,
+    j]`` where ``j >= 1``, so that one ``torch.einsum("...ejab,...jcb->...eac",
+    wsh, rhs)`` is the update."""
+    b1 = w.shape[-4]
+    idx = torch.arange(b1, device=w.device)
+    wsh = w[..., idx[:, None], (idx[:, None] + idx[None, :]).clamp(max=b1 - 1), :, :]
+    wsh = wsh * ((idx[:, None] + idx[None, :] < b1) & (idx[None, :] >= 1))[..., None, None]
+    rhs = w[..., 0, :, :, :] * (idx >= 1)[:, None, None]
+    return wsh.contiguous(), rhs.contiguous()
+
+
+def deterministic(torch, fn, what):
+    """Two launches of ``fn`` on the same inputs give the same bits."""
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{what}: two launches on the same input differ")
+    return True
+
+
+def capped_launch(torch, name, max_cluster, *tensors):
+    """``name`` ("selinv_step" or "band_update", one window) launched on the
+    plan ``tile_sum_plan(max_cluster=max_cluster)``, for the timing beside
+    the wrapper's plan: 1 is the plan without the contraction split, one
+    block a sub-tile over its whole chain.  Calls the C entry point
+    directly, so it counts no launch.  Returns ``(fn, plan)``; ``fn()``
+    returns the result."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tile_sum import tile_sum_plan
+    lib = _build.load(name)
+    a = tensors[0]
+    t = a.shape[-1]
+    if name == "selinv_step":
+        e_n, j_n = a.shape[:2]
+        plan = tile_sum_plan(t, [j_n] * e_n, max_cluster=max_cluster)
+        u = a.new_empty((e_n, t, t))
+        call = lambda s: lib.stiles_selinv_step_f32(
+            a.data_ptr(), tensors[1].data_ptr(), u.data_ptr(), e_n, j_n, t, plan.sub,
+            plan.cluster, plan.per_rank, s)
+    else:
+        b1 = a.shape[0]
+        plan = tile_sum_plan(t, [b1 - 1 - e for e in range(b1)], 1, max_cluster=max_cluster)
+        u = a.new_empty((b1, t, t))
+        call = lambda s: lib.stiles_band_update_f32(
+            a.data_ptr(), u.data_ptr(), 1, b1, t, a.numel(), plan.sub, plan.cluster,
+            plan.per_rank, s)
+
+    def fn():
+        _build.check(lib, call(torch.cuda.current_stream().cuda_stream),
+                     f"{name}, clusters of at most {max_cluster}")
+        return u
+    return fn, plan
 
 
 def takahashi_column(torch, f, sigma, j):
@@ -1487,12 +1553,8 @@ def main() -> int:
     w9 = torch.randn((9, 9, t, t), generator=torch.Generator().manual_seed(9)).to(dev)
     w9_err = assert_close(torch, band_update_cuda(w9), ref.band_update_ref(w9),
                           "band_update b+1=9")
-    # the library yardstick: one einsum over the operands gathered beforehand,
-    # as band_update_ref gathers them
-    idx = torch.arange(b1, device=dev)
-    wsh = w5[idx[:, None], (idx[:, None] + idx[None, :]).clamp(max=bt)]
-    wsh = wsh * ((idx[:, None] + idx[None, :] <= bt) & (idx[None, :] >= 1))[..., None, None]
-    rhs = w5[0] * (idx >= 1)[:, None, None]
+    # the library yardstick: one einsum over the operands gathered beforehand
+    wsh, rhs = band_update_gathered(torch, w5)
     pairs = bt * b1 // 2
     # selinv_step on the Takahashi column's own operands
     got, want = selinv_step_cuda(srow, gcat), ref.selinv_step_ref(srow, gcat)
@@ -1611,6 +1673,32 @@ def main() -> int:
             f"plain device {fmt(on_device.get('plain'))} ms, call {fmt(call['plain'])} ms; library "
             f"device {fmt(on_device.get('library'))} ms, call {fmt(call['library'])} ms; bound "
             f"{b_ms:.5f} ms by {b_by}")
+
+    # the tile-sum kernels (tile_sum.cuh): their plans, two launches on the
+    # main path's operands bit for bit, and the same operands on the plans
+    # of other cluster caps beside the wrapper's (cap 1: no contraction
+    # split, one block a sub-tile over its whole chain)
+    from repro_torch.kernels.tile_sum import MAX_CLUSTER, tile_sum_plan
+    for name, fk, args, pair_counts in (
+            ("band_update", lambda: band_update_cuda(w5), (w5,), [bt - e for e in range(b1)]),
+            ("selinv_step", lambda: selinv_step_cuda(srow, gcat), (srow, gcat), [j_n] * e_n)):
+        entry = next(k for k in kernels if k["name"] == name)
+        plan = tile_sum_plan(t, pair_counts)
+        caps = []
+        for cap in (1, 2, MAX_CLUSTER, 8):
+            cap_fn, cap_plan = capped_launch(torch, name, cap, *args)
+            if cap != 1 and cap_plan.cluster == caps[-1]["cluster"]:
+                continue      # the same plan as a smaller cap's
+            assert_close(torch, cap_fn(), fk(), f"main-path {name}, clusters of at most {cap}")
+            caps.append(dict(max_cluster=cap, cluster=cap_plan.cluster, blocks=cap_plan.blocks,
+                             per_rank=cap_plan.per_rank, ms=device_ms(torch, cap_fn, calls=20)))
+        entry.update(
+            blocks=plan.blocks, cluster=plan.cluster, sub=plan.sub, per_rank=plan.per_rank,
+            blocks_with_pairs=plan.subtiles * sum(
+                1 for n in pair_counts for r in range(plan.cluster) if plan.pairs(r, n)),
+            deterministic=deterministic(torch, fk, f"main-path {name}"), cluster_caps=caps)
+        log(f"time {name}: plan {plan}, {entry['blocks_with_pairs']} blocks with pairs; two "
+            f"launches bit-identical; by cluster cap: " + json.dumps(caps))
 
     # the band sweeps at k = 1 (a single solve), beside their bound
     work1 = solve_work(g, 1)
@@ -1749,6 +1837,9 @@ def main() -> int:
         log(f"factorize_window_batched+logdet, {route} route, B = {BATCH}: "
             + json.dumps(batched[route]["e2e"]) + f" (medians of 5), card {card}")
     Ac5b, Ac4b = band_row_to_col(mb5.Dr), band_row_to_col(mb4.Dr)
+    wsh_b, rhs_b = band_update_gathered(torch, w5b)
+    assert_close(torch, torch.einsum("...ejab,...jcb->...eac", wsh_b, rhs_b),
+                 band_update_cuda(w5b), "batched band_update's yardstick")
     for name, fk, f1 in (
             ("band_cholesky_sweep", lambda: band_cholesky_sweep_cuda(Ac5b, mb5.R, nchunks=nchunks),
              lambda: band_cholesky_sweep_cuda(Ac5b[0], mb5.R[0], nchunks=nchunks)),
@@ -1760,10 +1851,18 @@ def main() -> int:
         calls = 20 if name == "band_update" else 1
         entry["batched"] = dict(batch=BATCH, max_abs_err=batched_errs[name],
                                 **({"update_rel_err": batched_errs["band_update_rel"],
+                                    "bit_identical_per_element":
+                                        batched_errs["band_update_bit_identical_per_element"],
                                     **batched_errs["band_update_window"]}
                                    if name == "band_update" else {}),
                                 ms=device_ms(torch, fk, calls=calls),
                                 single_ms=device_ms(torch, f1, calls=calls))
+        if name == "band_update":
+            # one einsum over the batch's gathered operands, the yardstick
+            entry["batched"].update(
+                blocks=tile_sum_plan(t, [bt - e for e in range(b1)], BATCH).blocks,
+                library_ms=device_ms(torch, lambda: torch.einsum(
+                    "...ejab,...jcb->...eac", wsh_b, rhs_b), calls=calls))
         log(f"time {name}, a batch of {BATCH} in one launch: " + json.dumps(entry["batched"]))
     entry = next(k for k in kernels if k["name"] == "trsm")
     entry["batched"] = {k: v for k, v in batched_errs.items() if k.startswith("trsm")}

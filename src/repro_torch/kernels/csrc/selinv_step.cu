@@ -9,52 +9,64 @@
 // (body _selinv_step_kernel), the standalone tile primitive of
 // ops.selinv_step; the whole recurrence is selinv.cu.
 //
-// Grid e_n: block e accumulates u[e] in plain FP32 FMAs (no TF32) through
-// tile.cuh's gemm_sum, the pairs q = 0..j_n-1 in order.  It is an NN
-// product: s_row[e, q] is staged transposed and g_col[q] as it is (the
-// per-operand transpose flag of gemm_sum), so neither operand is copied.
+// Grid (CL * NS^2, e_n) in clusters of CL along x (tile_sum.cuh, the plan
+// from kernels/tile_sum.py): block (x, e) computes sub-tile x / CL (S x S,
+// S = min(T, 32), NS = T / S per edge) of u[e] over cluster rank x % CL's
+// contiguous run of `per` pairs q; rank 0 adds the ranks' partials in rank
+// order through distributed shared memory and stores.  An NN product in
+// plain FP32 FMAs (no TF32): s_row[e, q] and g_col[q] are staged as they
+// are.  CL = min(j_n, 4).
 //
 // Bound on this card: operations.  At e_n = j_n = 8, T = 64 (the Table II
 // matrix 5 column: bt + nat = 8 rows) the step is 64 general products,
 // 2 T^3 each: 33.6 Mflop, 0.50 us at the fp32 rate, against 80 tiles read
-// and written, 1.3 MB, 0.39 us at the memory rate.  e_n blocks of j_n
-// dependent products on 132 SMs stay far from either.
-#include "tile.cuh"
+// and written, 1.3 MB, 0.39 us at the memory rate.  The plan spreads it
+// over 8 x 4 x 4 = 128 blocks, each 32 x 32 x 128 (two pairs), where the
+// first design ran 8 blocks of eight chained 64 x 64 x 64 products.
+#include "tile_sum.cuh"
 
 namespace stiles {
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSumThreads)
 selinv_step_kernel(const float* __restrict__ s_row, const float* __restrict__ g_col,
-                   float* __restrict__ u, int j_n) {
-    __shared__ __align__(16) float As[T * Tile<T>::LDK];
-    __shared__ __align__(16) float Bs[T * Tile<T>::LDK];
+                   float* __restrict__ u, int j_n, int per) {
     constexpr size_t TT = static_cast<size_t>(T) * T;
-    const size_t e = blockIdx.x;
-    Acc<T> acc;
-    zero_acc<T>(acc);
-    gemm_sum<T>(acc, j_n, [&](int q) { return Op{s_row + (e * j_n + q) * TT, false}; },
-                [&](int q) { return Op{g_col + static_cast<size_t>(q) * TT, false}; }, As, Bs);
-    store_tile<T>(u + e * TT, acc);
+    const size_t e = blockIdx.y;
+    cluster_tile_sum<T, false>([&](int q) { return s_row + (e * j_n + q) * TT; },
+                               [&](int q) { return g_col + static_cast<size_t>(q) * TT; },
+                               j_n, per, u + e * TT);
+}
+
+template <int T>
+cudaError_t launch_selinv_step(const float* s, const float* g, float* u, int e_n, int j_n,
+                               int cl, int per, cudaStream_t stream) {
+    constexpr int NS = SumShape<T>::NS;
+    return launch_cluster(selinv_step_kernel<T>, dim3(cl * NS * NS, e_n), cl, stream, s, g, u,
+                          j_n, per);
 }
 
 }  // namespace stiles
 
-// u[e] = sum_q s_row[e, q] g_col[q] for e < e_n (both e_n, j_n >= 1).
+// u[e] = sum_q s_row[e, q] g_col[q] for e < e_n (both e_n, j_n >= 1), on
+// the plan (sub, cluster, per) of kernels/tile_sum.py::tile_sum_plan.
 extern "C" int stiles_selinv_step_f32(const void* s_row, const void* g_col, void* u, int e_n,
-                                      int j_n, int t, void* stream) {
+                                      int j_n, int t, int sub, int cluster, int per,
+                                      void* stream) {
     using namespace stiles;
-    if (e_n < 1 || j_n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (e_n < 1 || e_n > 65535 || j_n < 1 || !plan_ok(t, sub, cluster, per, j_n))
+        return static_cast<int>(cudaErrorInvalidValue);
     const auto* ps = static_cast<const float*>(s_row);
     const auto* pg = static_cast<const float*>(g_col);
     auto* pu = static_cast<float*>(u);
     auto s = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
     switch (t) {
-        case 8: selinv_step_kernel<8><<<e_n, kThreads, 0, s>>>(ps, pg, pu, j_n); break;
-        case 16: selinv_step_kernel<16><<<e_n, kThreads, 0, s>>>(ps, pg, pu, j_n); break;
-        case 32: selinv_step_kernel<32><<<e_n, kThreads, 0, s>>>(ps, pg, pu, j_n); break;
-        case 64: selinv_step_kernel<64><<<e_n, kThreads, 0, s>>>(ps, pg, pu, j_n); break;
+        case 8: err = launch_selinv_step<8>(ps, pg, pu, e_n, j_n, cluster, per, s); break;
+        case 16: err = launch_selinv_step<16>(ps, pg, pu, e_n, j_n, cluster, per, s); break;
+        case 32: err = launch_selinv_step<32>(ps, pg, pu, e_n, j_n, cluster, per, s); break;
+        case 64: err = launch_selinv_step<64>(ps, pg, pu, e_n, j_n, cluster, per, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -389,29 +389,56 @@ def test_partitioned_factorize_window_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("t", TILES)
-@pytest.mark.parametrize("b1", [1, 2, 5, 9])
+@pytest.mark.parametrize("b1", [1, 2, 3, 5, 6, 9])
 def test_band_update_kernel(cuda, t, b1):
     """One window, and a batch of windows sliced out of padded band rows
-    (strided along the batch, read in place), against both plain versions."""
+    (strided along the batch, read in place), against both plain versions;
+    b + 1 = 1 has no pairs, 2 one pair a target, 3 fewer pairs than the
+    cluster's four ranks, 6 a count that is not a multiple of them.  Each
+    call is one launch."""
     rng = np.random.default_rng(10 * t + b1)
     w = torch.from_numpy(rng.standard_normal((b1, b1, t, t)).astype(np.float32)).to(cuda)
+    before = band_update_cuda.launches
     got = band_update_cuda(w)
+    assert band_update_cuda.launches == before + 1
     torch.testing.assert_close(got, ref.band_update_unrolled_ref(w), **TOL)
     torch.testing.assert_close(got, ref.band_update_ref(w), **TOL)
     rows = torch.from_numpy(rng.standard_normal((3, 7 + b1, b1, t, t)).astype(np.float32))
     win = rows.to(cuda)[:, 4:4 + b1]
     assert not win.is_contiguous()
     torch.testing.assert_close(band_update_cuda(win), ref.band_update_unrolled_ref(win), **TOL)
+    assert band_update_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("b1", [2, 5, 9])
+def test_band_update_kernel_is_deterministic(cuda, t, b1):
+    """Two launches on the same windows give the same bits, and each
+    element of a strided batch the bits of its unbatched launch: the
+    cluster's partials are added in a fixed order and only pointers differ
+    between the elements."""
+    rng = np.random.default_rng(20 * t + b1)
+    rows = torch.from_numpy(rng.standard_normal((4, 6 + b1, b1, t, t)).astype(np.float32))
+    win = rows.to(cuda)[:, 3:3 + b1]
+    got = band_update_cuda(win)
+    assert torch.equal(got, band_update_cuda(win))
+    for i in range(win.shape[0]):
+        assert torch.equal(got[i], band_update_cuda(win[i]))
 
 
 @pytest.mark.parametrize("t", TILES)
 def test_selinv_step_kernel(cuda, t):
+    """j_n below the cluster's four ranks (1, 2, 3), not a multiple of them
+    (5, 17), one row (e_n = 1), and the empty shapes, which launch
+    nothing; every other call is one launch."""
     rng = np.random.default_rng(t)
-    for e_n, j_n in ((1, 1), (3, 5), (8, 8), (2, 17)):
+    for e_n, j_n in ((1, 1), (1, 2), (4, 3), (3, 5), (8, 8), (2, 17), (1, 17)):
         s_row = torch.from_numpy(rng.standard_normal((e_n, j_n, t, t)).astype(np.float32)).to(cuda)
         g_col = torch.from_numpy(rng.standard_normal((j_n, t, t)).astype(np.float32)).to(cuda)
-        torch.testing.assert_close(selinv_step_cuda(s_row, g_col),
-                                   ref.selinv_step_ref(s_row, g_col), **TOL)
+        before = selinv_step_cuda.launches
+        got = selinv_step_cuda(s_row, g_col)
+        assert selinv_step_cuda.launches == before + 1
+        torch.testing.assert_close(got, ref.selinv_step_ref(s_row, g_col), **TOL)
     before = selinv_step_cuda.launches
     empty = selinv_step_cuda(torch.zeros((0, 3, t, t), device=cuda), torch.zeros((3, t, t),
                                                                                 device=cuda))
@@ -419,6 +446,16 @@ def test_selinv_step_kernel(cuda, t):
                                                                                device=cuda))
     assert empty.shape == (0, t, t) and zero.shape == (2, t, t) and not zero.any()
     assert selinv_step_cuda.launches == before
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("e_n,j_n", [(8, 8), (2, 17)])
+def test_selinv_step_kernel_is_deterministic(cuda, t, e_n, j_n):
+    """Two launches on the same operands give the same bits."""
+    rng = np.random.default_rng(30 * t + j_n)
+    s_row = torch.from_numpy(rng.standard_normal((e_n, j_n, t, t)).astype(np.float32)).to(cuda)
+    g_col = torch.from_numpy(rng.standard_normal((j_n, t, t)).astype(np.float32)).to(cuda)
+    assert torch.equal(selinv_step_cuda(s_row, g_col), selinv_step_cuda(s_row, g_col))
 
 
 @pytest.mark.parametrize("t", TILES)

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.band_update import band_update_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.selinv import selinv_step_cuda
+from repro_torch.kernels.tile_sum import MAX_CLUSTER, tile_sum_plan
 from repro_torch.kernels.trsm import trsm_cuda
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -230,3 +231,79 @@ def test_chip_smoke_takahashi_column_is_the_sweeps_step():
     bt, nat = m.grid.band_tiles, m.grid.n_arrow_tiles
     assert srow.shape == (bt + nat, bt + nat, 16, 16) and gcat.shape == (bt + nat, 16, 16)
     torch.testing.assert_close(-ops.selinv_step(srow, gcat), want, rtol=1e-5, atol=1e-6)
+
+
+def _band_pairs(b1):
+    """band_update's pair count of each target of a (b+1)-tile window."""
+    return [b1 - 1 - e for e in range(b1)]
+
+
+# (t, pair counts of the targets, batch): selinv_step's (e_n, j_n) shapes
+# of the card tests, band_update's b + 1 in {1, 2, 3, 5, 6, 9} on a batch
+# of three, and the θ-batch's (8, 5, 5, 64, 64) windows
+PLAN_CASES = ([(t, [j_n] * e_n, 0) for t in (16, 64)
+               for e_n, j_n in ((1, 1), (1, 2), (4, 3), (3, 5), (8, 8), (2, 17), (1, 17))]
+              + [(t, _band_pairs(b1), 3) for t in (8, 64) for b1 in (1, 2, 3, 5, 6, 9)]
+              + [(64, _band_pairs(5), 8)])
+
+
+@pytest.mark.parametrize("t,pairs,batch", PLAN_CASES)
+def test_tile_sum_plan_covers_every_pair_once(t, pairs, batch):
+    """The launch plan of the tile-sum kernels: its sub-tiles partition the
+    target, and over the grid's (sub-tile, rank) blocks every (target,
+    sub-tile, pair) is summed exactly once, each rank's run contiguous, in
+    order, and starting where the rank before it stopped."""
+    plan = tile_sum_plan(t, pairs, batch)
+    assert plan.sub == min(t, 32) and 1 <= plan.cluster <= MAX_CLUSTER
+    assert plan.cluster * plan.per_rank >= max(pairs)
+    assert plan.grid == (plan.cluster * plan.subtiles, len(pairs)) + ((batch,) if batch else ())
+    ns = t // plan.sub
+    origins = {(s // ns * plan.sub, s % ns * plan.sub) for s in range(plan.subtiles)}
+    assert origins == {(r, c) for r in range(0, t, plan.sub) for c in range(0, t, plan.sub)}
+    seen = {}
+    for x in range(plan.grid[0]):
+        sub, rank = divmod(x, plan.cluster)
+        for e, n in enumerate(pairs):
+            run = plan.pairs(rank, n)
+            assert run.step == 1 and 0 <= run.start and run.stop <= n
+            assert run.start == (plan.pairs(rank - 1, n).stop if rank else 0)
+            for q in run:
+                seen[e, sub, q] = seen.get((e, sub, q), 0) + 1
+    want = {(e, sub, q) for e, n in enumerate(pairs) for sub in range(plan.subtiles)
+            for q in range(n)}
+    assert set(seen) == want and set(seen.values()) <= {1}
+
+
+def test_tile_sum_plan_at_table2_shapes():
+    """The block counts the kernels' notes state for Table II #5: selinv_step
+    at (8, 8, 64, 64) 128 blocks in clusters of 4, two pairs a rank;
+    band_update at (5, 5, 64, 64) 80 blocks, 40 of them with one pair, and
+    640 for the θ-batch's 8 windows; without the contraction split
+    (max_cluster=1) 32 and 20 blocks over whole chains."""
+    step = tile_sum_plan(64, [8] * 8)
+    assert (step.blocks, step.cluster, step.per_rank, step.grid) == (128, 4, 2, (16, 8))
+    upd = tile_sum_plan(64, _band_pairs(5), 1)
+    assert (upd.blocks, upd.cluster, upd.per_rank, upd.grid) == (80, 4, 1, (16, 5, 1))
+    with_pairs = upd.subtiles * sum(1 for n in _band_pairs(5) for r in range(upd.cluster)
+                                    if upd.pairs(r, n))
+    assert with_pairs == 40
+    assert tile_sum_plan(64, _band_pairs(5), 8).blocks == 640
+    assert tile_sum_plan(64, [8] * 8, max_cluster=1).blocks == 32
+    assert tile_sum_plan(64, _band_pairs(5), 1, max_cluster=1).blocks == 20
+    assert tile_sum_plan(16, _band_pairs(1), 1).grid == (1, 1, 1)
+    with pytest.raises(ValueError):
+        tile_sum_plan(64, [])
+
+
+@pytest.mark.parametrize("b1", [1, 2, 5, 9])
+def test_chip_smoke_band_update_yardstick_is_the_update(b1):
+    """chip_smoke.py's library yardstick of band_update, one einsum over the
+    operands gathered beforehand, computes the update, for one window and
+    for a strided batch of windows."""
+    rng = np.random.default_rng(40 + b1)
+    rows = torch.from_numpy(rng.standard_normal((3, 4 + b1, b1, 8, 8)).astype(np.float32))
+    smoke = _chip_smoke()
+    for w in (rows[0, 2:2 + b1], rows[:, 2:2 + b1]):
+        wsh, rhs = smoke.band_update_gathered(torch, w)
+        torch.testing.assert_close(torch.einsum("...ejab,...jcb->...eac", wsh, rhs),
+                                   ref.band_update_unrolled_ref(w), **TOL)
