@@ -10,14 +10,17 @@ Phases, each of which raises on a failed check:
    source, all started together) and print what ptxas reports (registers,
    shared memory, spills);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at rtol = atol = 2e-4: potrf and trsm for t in {8, 16, 32, 64}; the
+   at rtol = atol = 2e-4: potrf (a batch, one tile, in place) and trsm
+   for t in {8, 16, 32, 64}; the
    band-Cholesky sweep for bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile
    in {0, 2}, nchunks in {1, 3}, plus a breakdown input whose status word
    must match exactly; solve_panel for both trans and k in {1, 7, 32, 64};
    both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
    (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}; the selinv
-   sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1, 4},
-   start_tile in {0, 2}; gemm, syrk and geadd with batched, broadcast,
+   pre-pass and sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1,
+   4}, start_tile in {0, 2}, plus one column and fewer columns than band
+   tiles, the recurrence in clusters of the default size (16), 4 and 8; gemm,
+   syrk and geadd with batched, broadcast,
    in-place and strided operands; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
    bit against the fused kernel; band_update for b+1 in {1, 2, 3, 5, 6,
@@ -79,7 +82,11 @@ Phases, each of which raises on a failed check:
    beside one einsum over the batch's gathered operands); for the
    tile-sum kernels band_update and selinv_step, their launch plans, two
    launches on the main path's operands bit for bit, and the plans of
-   cluster caps 1 (no contraction split), 2, 4 and 8 timed side by side.
+   cluster caps 1 (no contraction split), 2, 4 and 8 timed side by side;
+   the selinv sweep on matrices 5 and 2 beside its plain version, its
+   pre-pass and recurrence apart, the recurrence at clusters of 4, 8 and
+   16, two launches bit for bit; potrf on the θ-batch's 8 corner tiles in
+   one launch beside cholesky_ex.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -121,6 +128,9 @@ AGREEMENT_LIMIT = 5e-4
 # bandwidth 100, arrow 10)
 PARTITIONED_IDS = (4, 1)
 SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
+# (ndt, bt, nat) of the selinv sweep's checks beside its ndt = 6 grid: one
+# column, and fewer columns than band tiles
+SELINV_EDGES = ((1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0))
 # θ-candidates of the batched factorization (factorize_window_batched)
 BATCH = 8
 
@@ -308,6 +318,10 @@ def phase_kernels(torch, device, kern, ref):
     for t in TILES:
         a = random_spd(torch, 3, t, t, device)
         assert_close(torch, kern["potrf"](a), ref.potrf_ref(a), f"potrf t={t}")
+        assert_close(torch, kern["potrf"](a[1]), ref.potrf_ref(a[1]), f"potrf t={t} one tile")
+        inplace = a.clone()
+        kern["potrf"](inplace, out=inplace)
+        assert_close(torch, inplace, ref.potrf_ref(a), f"potrf t={t} in place")
         l = ref.potrf_ref(a)
         b = torch.randn((3, t, t), generator=torch.Generator().manual_seed(t)).to(device)
         assert_close(torch, kern["trsm"](l[0], b), ref.trsm_ref(l[0], b), f"trsm t={t}")
@@ -423,15 +437,21 @@ def phase_solve_kernels(torch, device, kern, ref):
                                  f"band_backward_sweep {what}")
                     nchecks += 2
     for t in (16, 64):
-        for bt in (0, 1, 4):
-            for nat in (0, 1, 4):
-                lcol, R, sc = selinv_inputs(torch, 6, bt, nat, t, 1000 + 10 * bt + nat, device)
-                for start in (0, 2):
-                    what = f"selinv_sweep t={t} bt={bt} nat={nat} start={start}"
-                    got = kern["selinv_sweep"](lcol, R, sc, start)
-                    want = ref.selinv_sweep_ref(lcol, R, sc, start)
+        # the grid at ndt = 6, then one column and fewer columns than band tiles
+        shapes = [(6, bt, nat) for bt in (0, 1, 4) for nat in (0, 1, 4)] + list(SELINV_EDGES)
+        for ndt, bt, nat in shapes:
+            lcol, R, sc = selinv_inputs(torch, ndt, bt, nat, t, 1000 + 10 * bt + nat, device)
+            for start in (0, 2):
+                what = f"selinv_sweep t={t} ndt={ndt} bt={bt} nat={nat} start={start}"
+                assert_close(torch, kern["selinv_prepass"](lcol, R, sc, start),
+                             ref.selinv_prepass_ref(lcol, R, sc, start), f"{what} pre-pass")
+                want = ref.selinv_sweep_ref(lcol, R, sc, start)
+                # the wrapper's cluster, and the other sizes the plan allows
+                for cap in (None, 4, 8):
+                    got = (kern["selinv_sweep"](lcol, R, sc, start) if cap is None else
+                           kern["selinv_sweep"](lcol, R, sc, start, max_cluster=cap))
                     for a, w, part in zip(got, want, ("panels", "acols")):
-                        assert_close(torch, a, w, f"{what} {part}")
+                        assert_close(torch, a, w, f"{what} clusters of {cap or 'default'} {part}")
                     nchecks += 1
     return nchecks
 
@@ -648,7 +668,7 @@ def run_solves(torch, matrix_id, m, f, kern_counts):
 
     # posterior draws: x = L^{-T} z, z drawn again from the same seed
     Xs, launches["sample_gmrf_many"] = launch_delta(
-        kern_counts, lambda: sample_gmrf_many(f, 32, generator=torch.Generator(
+        kern_counts, lambda: sample_gmrf_many(f, num=32, generator=torch.Generator(
             device=dev).manual_seed(7)),
         {"band_backward_sweep": 1, "solve_panel": nat}, f"matrix {matrix_id} sample_gmrf_many")
     z = torch.randn((g.padded_n, 32), generator=torch.Generator(device=dev).manual_seed(7),
@@ -662,7 +682,7 @@ def run_solves(torch, matrix_id, m, f, kern_counts):
     # every stored entry of the selected inverse against the float64 inverse
     inv = torch.cholesky_inverse(Ld)
     sigma, launches["selected_inverse"] = launch_delta(
-        kern_counts, lambda: selected_inverse(f), {"selinv_sweep": 1},
+        kern_counts, lambda: selected_inverse(f), {"selinv_sweep": 1, "selinv_prepass": 1},
         f"matrix {matrix_id} selected_inverse")
     from repro_torch.core import BandedCTSF
     Sd = dense_from_ctsf(torch, BandedCTSF(g, *sigma.arrays()), torch.float64, symmetric=True)
@@ -678,7 +698,7 @@ def run_solves(torch, matrix_id, m, f, kern_counts):
     idx = [0, n // 2, n - g.structure.arrow, n - 1]
     want = torch.diagonal(inv)[torch.as_tensor([g.padded_index(i) for i in idx], device=dev)]
     got = {}
-    for method, expect in (("selinv", {"selinv_sweep": 1}),
+    for method, expect in (("selinv", {"selinv_sweep": 1, "selinv_prepass": 1}),
                            ("panels", {"band_forward_sweep": 1, "solve_panel": nat})):
         got[method], launches[f"marginal_variances_{method}"] = launch_delta(
             kern_counts, lambda: marginal_variances(f, idx, options=SolverOptions(method=method)),
@@ -1278,10 +1298,17 @@ def solve_work(grid, k):
     sweep_bytes = 4 * ((band + ndt) * tt + ndt * nat * tt + 2 * ndt * tk + nat * tk)
     sel_ops = float(t) ** 3 * sum(2 * (d + nat) ** 2 + 2 * (d + nat) + 2 / 3.0 for d in below)
     sel_bytes = 4 * (2 * (band + ndt) * tt + 2 * ndt * nat * tt + nat * nat * tt)
+    # the selinv pre-pass alone: W and W^T W (t^3 / 3 each), the d + nat
+    # products by the triangular W (t^3), the nat^2 corner products (2 t^3);
+    # reads the factor's band and arrow tiles and the corner seed, writes
+    # bt + 2 nat + 2 work tiles a column
+    pre_ops = float(t) ** 3 * sum(2 / 3.0 + d + nat + 2 * nat * nat for d in below)
+    pre_bytes = 4 * tt * ((band + ndt) + ndt * nat + nat * nat + ndt * (bt + 2 * nat + 2))
     return {"solve_panel": (float(tt * k), 4 * (tt + 2 * tk)),
             "band_forward_sweep": (float(fwd_ops), sweep_bytes),
             "band_backward_sweep": (float(fwd_ops), sweep_bytes),
-            "selinv_sweep": (sel_ops, sel_bytes)}
+            "selinv_sweep": (sel_ops, sel_bytes),
+            "selinv_prepass": (pre_ops, pre_bytes)}
 
 
 def main() -> int:
@@ -1301,7 +1328,8 @@ def main() -> int:
     from repro_torch.kernels.band_update import band_update_cuda
     from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
     from repro_torch.kernels.potrf import potrf_cuda
-    from repro_torch.kernels.selinv import selinv_step_cuda, selinv_sweep_cuda
+    from repro_torch.kernels.selinv import (selinv_prepass_cuda, selinv_step_cuda,
+                                            selinv_sweep_cuda)
     from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
     from repro_torch.kernels.ring import band_row_to_col, chunk_layout
 
@@ -1313,7 +1341,8 @@ def main() -> int:
             "band_backward_sweep": band_backward_sweep_cuda, "selinv_sweep": selinv_sweep_cuda,
             "gemm": gemm_cuda, "syrk": syrk_cuda, "geadd": geadd_cuda,
             "band_cholesky_partitioned_sweep": band_cholesky_partitioned_sweep_cuda,
-            "band_update": band_update_cuda, "selinv_step": selinv_step_cuda}
+            "band_update": band_update_cuda, "selinv_step": selinv_step_cuda,
+            "selinv_prepass": selinv_prepass_cuda}
 
     def counts():
         return {k: f.launches for k, f in kern.items()}
@@ -1484,6 +1513,9 @@ def main() -> int:
         got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
         errs[name] = max(assert_close(torch, a, b, f"main-path {name}") for a, b in zip(got, want))
     work = solve_work(g, 32)
+    prepass_k = lambda: selinv_prepass_cuda(lcol, fc.R, sc)
+    prepass_p = lambda: ref.selinv_prepass_ref(lcol, fc.R, sc)
+    errs["selinv_prepass"] = assert_close(torch, prepass_k(), prepass_p(), "main-path selinv_prepass")
 
     # the task list's tiles of matrix 5 as its band GEMM and SYRK tasks with
     # the largest products meet them: C from the matrix, A and B factored.
@@ -1585,7 +1617,7 @@ def main() -> int:
 
     kernels = []
     sweeps = ("band_cholesky_sweep", "band_forward_sweep", "band_backward_sweep", "selinv_sweep",
-              "band_cholesky_partitioned_sweep")
+              "band_cholesky_partitioned_sweep", "selinv_prepass")
     for name, src, replaces, fk, fp, flib, inner, flops, nbytes, err in (
             ("potrf", "src/repro_torch/kernels/csrc/potrf.cu", "src/repro/kernels/potrf.py:70",
              lambda: potrf_cuda(a_kk), lambda: ref.potrf_ref(a_kk),
@@ -1639,7 +1671,10 @@ def main() -> int:
              lambda: ref.selinv_step_ref(srow, gcat),
              lambda: torch.einsum("ejab,jbc->eac", srow, gcat), 20,
              2.0 * t ** 3 * e_n * j_n, 4 * t * t * (e_n * j_n + j_n + e_n),
-             errs["selinv_step"])):
+             errs["selinv_step"]),
+            ("selinv_prepass", "src/repro_torch/kernels/csrc/selinv.cu",
+             "src/repro/kernels/selinv.py:213", prepass_k, prepass_p, None, 1,
+             *work["selinv_prepass"], errs["selinv_prepass"])):
         # call time: CUDA events around `inner` calls, host overhead included;
         # device time: the calls replayed from a CUDA graph (device_ms)
         call = dict(kernel=time_ms(torch, fk, inner=inner),
@@ -1699,6 +1734,40 @@ def main() -> int:
             deterministic=deterministic(torch, fk, f"main-path {name}"), cluster_caps=caps)
         log(f"time {name}: plan {plan}, {entry['blocks_with_pairs']} blocks with pairs; two "
             f"launches bit-identical; by cluster cap: " + json.dumps(caps))
+
+    # the selinv sweep on both matrices: its pre-pass and recurrence apart,
+    # the recurrence on the plan of each cluster size the card allows (the
+    # pre-pass's result reused), two launches bit for bit, the plain version
+    from repro_torch.kernels.selinv import MAX_SELINV_CLUSTER, SELINV_CLUSTER, selinv_plan
+    entry = next(k for k in kernels if k["name"] == "selinv_sweep")
+    entry["by_matrix"] = {}
+    for rec in records:
+        mm, ff = mats[rec["matrix"]]
+        gg = mm.grid
+        lc, rr, ss = band_row_to_col(ff.ctsf.Dr), ff.ctsf.R, corner_sigma(ff.ctsf.C)
+        wk = selinv_prepass_cuda(lc, rr, ss)
+        want = ref.selinv_sweep_ref(lc, rr, ss)
+        clusters = []
+        for cap in (4, 8, MAX_SELINV_CLUSTER):
+            plan = selinv_plan(gg.t, gg.band_tiles, gg.n_arrow_tiles, cap)
+            rec_fn = lambda: selinv_sweep_cuda(lc, rr, ss, max_cluster=cap, work=wk)
+            err = max(assert_close(torch, a, b, f"matrix {rec['matrix']} selinv recurrence, "
+                                   f"clusters of {plan.cluster}") for a, b in zip(rec_fn(), want))
+            clusters.append(dict(max_cluster=cap, cluster=plan.cluster,
+                                 diag_split=plan.diag_split, max_abs_err=err,
+                                 recurrence_ms=device_ms(torch, rec_fn)))
+        whole = lambda: selinv_sweep_cuda(lc, rr, ss)
+        flat = lambda: torch.cat([x.flatten() for x in whole()])
+        entry["by_matrix"][str(rec["matrix"])] = dict(
+            ndt=gg.n_diag_tiles, bt=gg.band_tiles, nat=gg.n_arrow_tiles,
+            ms=device_ms(torch, whole), plain_ms=device_ms(torch, lambda: ref.selinv_sweep_ref(
+                lc, rr, ss)), prepass_ms=device_ms(torch, lambda: selinv_prepass_cuda(lc, rr, ss)),
+            recurrence_ms=next(c["recurrence_ms"] for c in clusters
+                               if c["max_cluster"] == SELINV_CLUSTER),
+            bound_ms=bound(*solve_work(gg, 32)["selinv_sweep"])[0], clusters=clusters,
+            deterministic=deterministic(torch, flat, f"matrix {rec['matrix']} selinv sweep"))
+        log(f"time selinv_sweep, Table II matrix {rec['matrix']}: "
+            + json.dumps(entry["by_matrix"][str(rec["matrix"])]) + f", card {card}")
 
     # the band sweeps at k = 1 (a single solve), beside their bound
     work1 = solve_work(g, 1)
@@ -1866,6 +1935,20 @@ def main() -> int:
         log(f"time {name}, a batch of {BATCH} in one launch: " + json.dumps(entry["batched"]))
     entry = next(k for k in kernels if k["name"] == "trsm")
     entry["batched"] = {k: v for k, v in batched_errs.items() if k.startswith("trsm")}
+    # potrf on the θ-batch's first corner tiles, one launch for the batch
+    # (what the batched fused route's corner gives it)
+    entry = next(k for k in kernels if k["name"] == "potrf")
+    schur_b = band_cholesky_sweep_cuda(Ac5b, mb5.R, nchunks=nchunks)[2]
+    akk_b = (mb5.C - schur_b.sum(dim=1))[:, 0, 0].contiguous()
+    entry["theta_batch"] = dict(
+        batch=BATCH, shape=list(akk_b.shape),
+        max_abs_err=assert_close(torch, potrf_cuda(akk_b), ref.potrf_ref(akk_b),
+                                 "θ-batch corner potrf"),
+        ms=device_ms(torch, lambda: potrf_cuda(akk_b), calls=20),
+        plain_ms=device_ms(torch, lambda: ref.potrf_ref(akk_b), calls=20),
+        library_ms=device_ms(torch, lambda: torch.linalg.cholesky_ex(akk_b).L, calls=20))
+    log(f"time potrf, the θ-batch's {BATCH} corner tiles in one launch: "
+        + json.dumps(entry["theta_batch"]) + f", card {card}")
     entry = next(k for k in kernels if k["name"] == "selinv_step")
     entry["takahashi_column"] = takahashi
 

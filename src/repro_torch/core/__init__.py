@@ -2,7 +2,12 @@
 factorizations of banded-arrowhead SPD matrices (with the Alg. 3 tree
 reduction, the partition plan of the partitioned sweep, the legacy window
 sweep and the batched θ-sweep factorization), and the solves,
-sampling, marginal variances and selected inverse read off the factor."""
+sampling, marginal variances and selected inverse read off the factor.
+
+Every entry point takes its data positionally and its options by keyword
+only (``factorize_window(m, options=...)``, ``sample_gmrf_many(f, num=8,
+generator=g)``): a call written with the JAX package's positional ``impl``
+or ``method`` raises ``TypeError``."""
 from .structure import (ArrowheadStructure, TileGrid, measure_arrowhead,
                         tile_pattern_from_coo, banded_arrowhead_tile_pattern)
 from .symbolic import SymbolicFactorization, Task, TaskType, symbolic_factorize

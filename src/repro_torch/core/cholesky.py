@@ -117,7 +117,7 @@ def _tree_update(tiles: torch.Tensor, dst: int, chain, workers: int, impl) -> No
     tiles[dst] -= chunked_tree_sum(terms, workers, impl=impl)
 
 
-def factorize_tasklist(tm: TileMatrix, tree_reduction: bool = False, tree_workers: int = 8,
+def factorize_tasklist(tm: TileMatrix, *, tree_reduction: bool = False, tree_workers: int = 8,
                        options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Run Algorithm 1 over the general CTSF: returns the factor's tile
     buffer, ``(n_alloc, t, t)`` with ``tm``'s slot map (``tm.tiles`` is left
@@ -324,7 +324,7 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
         status, C_out, grid.n_diag_tiles, nat)
 
 
-def factorize_window(m: BandedCTSF, tree_chunks: int = 8,
+def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
                      options: Optional[SolverOptions] = None) -> CholeskyFactor:
     """Banded-arrowhead factorization on the device of ``m``.
 
@@ -345,7 +345,7 @@ def factorize_window(m: BandedCTSF, tree_chunks: int = 8,
     return CholeskyFactor(BandedCTSF(m.grid, Dr, R, C), status)
 
 
-def factorize_window_batched(batch, tree_chunks: int = 8, bucket: bool = True,
+def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True,
                              options: Optional[SolverOptions] = None) -> CholeskyFactor:
     """Factorize a batch of same-grid matrices in one dispatch: the INLA
     θ-sweep primitive, B hyperparameter candidates of one sparsity pattern.

@@ -9,8 +9,8 @@ With ``A = L L^T``, ``Σ = A^{-1}`` and the normalized factor column
 
 so column j of Σ needs only trailing columns, and for the banded-arrowhead
 pattern the sums stay on the factor's own pattern: one backward sweep over
-the band columns (``kernels.ops.selinv_sweep``, one CUDA launch on the
-card) computes every Σ entry of the band and the arrow exactly, seeded by
+the band columns (``kernels.ops.selinv_sweep``, a pre-pass and a
+recurrence launch on the card) computes every Σ entry of the band and the arrow exactly, seeded by
 the corner ``Σ_cc = L_c^{-T} L_c^{-1}`` (one small dense triangular solve).
 
 Port of the JAX package's ``core/selinv.py`` (``SelectedInverse``,
@@ -146,12 +146,13 @@ def _selinv_impl(Dr, R, C, grid: TileGrid, impl=None, start_tile: int = 0):
     return band_col_to_row(panels), sr, _tril_tiles(sc_full)
 
 
-def selected_inverse(factor: CholeskyFactor,
+def selected_inverse(factor: CholeskyFactor, *,
                      options: Optional[SolverOptions] = None) -> SelectedInverse:
     """Band + arrow block of Σ = A^{-1} from a banded-arrowhead factor, by
     the blocked Takahashi recurrence: one backward tile sweep, whatever
-    the number of entries wanted.  On the card the sweep is one CUDA
-    launch; ``options.impl`` forces a backend."""
+    the number of entries wanted.  On the card the sweep is two CUDA
+    launches, a pre-pass and the recurrence; ``options.impl`` forces a
+    backend."""
     opts = options if options is not None else SolverOptions()
     c = factor.ctsf
     sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)

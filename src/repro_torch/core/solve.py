@@ -112,7 +112,7 @@ def _impl(options: Optional[SolverOptions]):
     return (options if options is not None else SolverOptions()).impl
 
 
-def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, start_tile: int = 0,
+def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, *, start_tile: int = 0,
                        options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Solve ``L Y = B`` for a panel of right-hand sides in one blocked sweep.
 
@@ -131,7 +131,7 @@ def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, start_tile: int 
     return _merge_panels(yd, ya)
 
 
-def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor,
+def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor, *,
                         options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Solve ``L^T X = Y`` for a ``(padded_n, k)`` panel in one blocked sweep."""
     c = factor.ctsf
@@ -140,7 +140,7 @@ def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor,
     return _merge_panels(xd, xa)
 
 
-def solve_many(factor: CholeskyFactor, B: torch.Tensor,
+def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
                options: Optional[SolverOptions] = None) -> torch.Tensor:
     """``A X = B`` for a ``(padded_n, k)`` panel of right-hand sides via
     ``L L^T``: one forward and one backward sweep for all k columns, each
@@ -153,19 +153,19 @@ def solve_many(factor: CholeskyFactor, B: torch.Tensor,
     return _merge_panels(xd, xa)
 
 
-def forward_solve(factor: CholeskyFactor, b: torch.Tensor,
+def forward_solve(factor: CholeskyFactor, b: torch.Tensor, *,
                   options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Solve ``L y = b`` (k = 1 case of the panel sweep)."""
     return forward_solve_many(factor, b.reshape(-1, 1), options=options)[:, 0]
 
 
-def backward_solve(factor: CholeskyFactor, y: torch.Tensor,
+def backward_solve(factor: CholeskyFactor, y: torch.Tensor, *,
                    options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Solve ``L^T x = y`` (k = 1 case of the panel sweep)."""
     return backward_solve_many(factor, y.reshape(-1, 1), options=options)[:, 0]
 
 
-def solve(factor: CholeskyFactor, b: torch.Tensor,
+def solve(factor: CholeskyFactor, b: torch.Tensor, *,
           options: Optional[SolverOptions] = None) -> torch.Tensor:
     """``A x = b`` via ``L L^T``."""
     return solve_many(factor, b.reshape(-1, 1), options=options)[:, 0]
@@ -181,7 +181,7 @@ def _normal(factor: CholeskyFactor, shape, generator: Optional[torch.Generator])
                        device=factor.ctsf.device)
 
 
-def sample_gmrf(factor: CholeskyFactor, generator: Optional[torch.Generator] = None,
+def sample_gmrf(factor: CholeskyFactor, *, generator: Optional[torch.Generator] = None,
                 z: Optional[torch.Tensor] = None,
                 options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Draw ``x ~ N(0, A^{-1})`` as ``x = L^{-T} z``, ``z`` standard normal
@@ -192,7 +192,7 @@ def sample_gmrf(factor: CholeskyFactor, generator: Optional[torch.Generator] = N
     return backward_solve(factor, z, options=options)
 
 
-def sample_gmrf_many(factor: CholeskyFactor, num: int,
+def sample_gmrf_many(factor: CholeskyFactor, *, num: int,
                      generator: Optional[torch.Generator] = None,
                      z: Optional[torch.Tensor] = None,
                      options: Optional[SolverOptions] = None) -> torch.Tensor:
@@ -201,6 +201,8 @@ def sample_gmrf_many(factor: CholeskyFactor, num: int,
     ``(padded_n, num)``."""
     if z is None:
         z = _normal(factor, (factor.ctsf.grid.padded_n, num), generator)
+    elif z.dim() != 2 or z.shape[1] != num:
+        raise ValueError(f"sample_gmrf_many: z {tuple(z.shape)} is not (padded_n, {num})")
     return backward_solve_many(factor, z, options=options)
 
 
@@ -218,7 +220,7 @@ def _validate_indices(grid, indices) -> np.ndarray:
     return grid.padded_indices(idx)
 
 
-def marginal_variances(factor: CholeskyFactor, indices,
+def marginal_variances(factor: CholeskyFactor, indices, *,
                        options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Selected diagonal of ``A^{-1}``, INLA's posterior marginal variances.
 

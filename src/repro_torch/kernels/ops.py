@@ -178,7 +178,8 @@ def selinv_sweep(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
     """Whole backward Takahashi recurrence: ``lcol (ndt, bt+1, t, t)``
     column view of the factor, ``R (ndt, nat, t, t)`` and the full corner
     ``sc_full (nat, nat, t, t)`` -> ``(panels, acols)`` of Σ.  ``"cuda"``
-    is one kernel launch; ``"ref"`` the column loop of ``ref.py``."""
+    is two kernel launches, a pre-pass and the recurrence; ``"ref"`` the
+    column loop of ``ref.py``."""
     if resolve_impl(impl, lcol) == "cuda":
         return selinv_sweep_cuda(lcol, R, sc_full, start_tile=start_tile)
     return ref.selinv_sweep_ref(lcol, R, sc_full, start_tile=start_tile)

@@ -17,7 +17,7 @@ __all__ = ["potrf_ref", "trsm_ref", "syrk_ref", "gemm_ref", "geadd_ref",
            "solve_panel_ref", "selinv_step_ref", "band_update_ref",
            "band_update_unrolled_ref", "band_forward_sweep_ref",
            "band_backward_sweep_ref", "band_cholesky_sweep_ref",
-           "band_cholesky_partitioned_sweep_ref", "selinv_sweep_ref",
+           "band_cholesky_partitioned_sweep_ref", "selinv_sweep_ref", "selinv_prepass_ref",
            "sweep_status", "combine_sweep_status", "empty_sweep_status",
            "check_boundaries"]
 
@@ -390,3 +390,36 @@ def selinv_sweep_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
         panels[j, 1:] = off[:bt]
         acols[j] = off[bt:]
     return panels[:ndt], acols[:ndt]
+
+
+def selinv_prepass_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
+                       start_tile: int = 0) -> torch.Tensor:
+    """What each column of :func:`selinv_sweep_ref` needs of the factor and
+    the corner seed alone, not of Σ: ``work (ndt, bt + 2 nat + 2, t, t)``,
+    per column j the tiles
+
+    * ``[0, bt)``: ``G_d = L[j+d, j] W``, d = 1..bt (zero past ndt),
+    * ``[bt, bt+nat)``: ``Ga_i = R[j, i] W``,
+    * ``[bt+nat, bt+2 nat)``: the corner part of the arrow targets,
+      ``sum_i' sc[i, i'] Ga_i'``,
+    * ``bt+2 nat``: ``s0 = W^T W``, and ``bt+2 nat+1``: ``W = L_jj^{-1}``;
+
+    an identity-prefix column (``j < start_tile``) has ``W = s0 = I`` and
+    zeros elsewhere.  The CUDA sweep computes these for all columns at once
+    before its recurrence."""
+    ndt, b1, t, _ = lcol.shape
+    bt, nat = b1 - 1, R.shape[1]
+    eye = torch.eye(t, dtype=lcol.dtype, device=lcol.device)
+    work = lcol.new_zeros((ndt, bt + 2 * nat + 2, t, t))
+    for j in range(ndt):
+        if j < start_tile:
+            work[j, -2:] = eye
+            continue
+        winv = solve_panel_ref(lcol[j, 0], eye)
+        work[j, :bt] = lcol[j, 1:] @ winv
+        work[j, bt:bt + nat] = R[j] @ winv
+        work[j, bt + nat:bt + 2 * nat] = torch.einsum("iqab,qbc->iac", sc_full,
+                                                      work[j, bt:bt + nat])
+        work[j, -2] = winv.mT @ winv
+        work[j, -1] = winv
+    return work

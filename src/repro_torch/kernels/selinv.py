@@ -1,14 +1,21 @@
 """CUDA kernels of the selected inversion: the whole backward Takahashi
-recurrence in one launch, ``csrc/selinv.cu``, and its one-column tile step,
+recurrence, ``csrc/selinv.cu``, and its one-column tile step,
 ``csrc/selinv_step.cu``.
 
 :func:`selinv_sweep_cuda` ports the TPU kernel
-``repro/kernels/selinv.py::selinv_sweep_pallas``.
-One block walks the columns j = ndt-1..0, seeds ``L_jj^{-1}`` in the kernel
-(``csrc/tile.cuh::substitute_panel`` against the identity) and reads the
-last ``band_tiles`` Σ columns back from its own outputs (they stay in L2)
-instead of a VMEM ring.  Outputs and semantics match
-``ref.selinv_sweep_ref``, the ``start_tile`` identity prefix included.
+``repro/kernels/selinv.py::selinv_sweep_pallas`` as two launches:
+
+- the pre-pass, :func:`selinv_prepass_cuda`, a block a column on the whole
+  card, computes what a column needs of the factor and the corner seed
+  alone (``ref.selinv_prepass_ref``: ``W = L_jj^{-1}``, the normalized
+  column ``G``/``Ga``, ``W^T W`` and the corner part of the arrow targets);
+- the recurrence, one thread-block cluster walking the columns j =
+  ndt-1..0 on the plan of :func:`selinv_plan`, two or three cluster
+  barriers a column: the column's band and arrow targets (independent of
+  one another given G) spread over the ranks, then its diagonal.
+
+Outputs and semantics match ``ref.selinv_sweep_ref``, the ``start_tile``
+identity prefix included.
 
 :func:`selinv_step_cuda` ports ``selinv_step_pallas``, the standalone tile
 primitive ``ops.selinv_step``: ``u[e] = sum_j s_row[e, j] g_col[j]``, as
@@ -17,41 +24,163 @@ primitive ``ops.selinv_step``: ``u[e] = sum_j s_row[e, j] g_col[j]``, as
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
 
 from . import _build
 from .potrf import check_tiles
-from .tile_sum import tile_sum_plan
+from .tile_sum import SUB, tile_sum_plan
 
-__all__ = ["selinv_sweep_cuda", "selinv_step_cuda"]
+__all__ = ["selinv_sweep_cuda", "selinv_prepass_cuda", "selinv_step_cuda", "SelinvPlan",
+           "selinv_plan", "SELINV_CLUSTER", "MAX_SELINV_CLUSTER"]
+
+SELINV_CLUSTER = 16         # the recurrence's cluster: the largest the card allows
+MAX_SELINV_CLUSTER = 16     # (non-portable; 8 is the portable size)
+
+
+@dataclass(frozen=True)
+class SelinvPlan:
+    """How the recurrence spreads one column over a cluster of ``cluster``
+    blocks.  Every target tile (``bt`` band tiles, then ``nat`` arrow
+    tiles) is split into ``sub x sub`` sub-tiles, the *units*; rank r
+    computes units r, r + cluster, ... whole, each over its pairs in order.
+    The diagonal is summed over its lower sub-tiles (the upper ones are
+    their transposes): sub-tile s goes to ranks ``s * diag_split ..
+    (s + 1) * diag_split - 1``, which take contiguous, ordered runs of its
+    pairs; the first of them adds the others' partials in rank order."""
+    t: int
+    bt: int
+    nat: int
+    sub: int
+    cluster: int
+    diag_split: int
+
+    @property
+    def ns(self) -> int:
+        """Sub-tiles per edge."""
+        return self.t // self.sub
+
+    @property
+    def units(self) -> int:
+        """Target sub-tiles of a column."""
+        return (self.bt + self.nat) * self.ns ** 2
+
+    @property
+    def diag_subtiles(self) -> int:
+        """Lower sub-tiles of the diagonal tile (row-major: (0, 0), (1, 0),
+        (1, 1), ...)."""
+        return self.ns * (self.ns + 1) // 2
+
+    def target_units(self, rank: int) -> range:
+        """The units rank ``rank`` computes, in order."""
+        return range(rank, self.units, self.cluster)
+
+    def target_pairs(self, dmax: int, target: int) -> range:
+        """The pairs of one target of a column with ``dmax`` band tiles below
+        it, in order: a band target ``e = target + 1 <= dmax`` sums ``dmax``
+        band pairs and ``nat`` arrow pairs, an arrow target ``dmax`` band
+        pairs after its corner part, a band target past the matrix none."""
+        if target < self.bt:
+            return range(dmax + self.nat) if target + 1 <= dmax else range(0)
+        return range(dmax)
+
+    def diag_share(self, rank: int, dmax: int) -> Tuple[Optional[int], range]:
+        """``(lower sub-tile, run of its pairs)`` rank ``rank`` sums for the
+        diagonal of a column with ``dmax`` band tiles below it: the pairs
+        are ``dmax`` band then ``nat`` arrow pairs, cut into runs of
+        ``ceil(n / diag_split)``.  ``(None, range(0))`` for a rank with no
+        share."""
+        s, k = divmod(rank, self.diag_split)
+        if s >= self.diag_subtiles:
+            return None, range(0)
+        n = dmax + self.nat
+        per = -(-n // self.diag_split)
+        lo = min(k * per, n)
+        return s, range(lo, min(lo + per, n))
+
+
+def selinv_plan(t: int, bt: int, nat: int, max_cluster: int = SELINV_CLUSTER) -> SelinvPlan:
+    """The recurrence's plan: a cluster of ``min(max_cluster, units)``
+    blocks, but at least one a lower sub-tile of the diagonal, and the
+    diagonal's pairs split ``cluster // diag_subtiles`` ways."""
+    if not 1 <= max_cluster <= MAX_SELINV_CLUSTER or bt < 0 or nat < 0:
+        raise ValueError(f"selinv_plan: want 1 <= max_cluster <= {MAX_SELINV_CLUSTER} and "
+                         f"bt, nat >= 0, got {max_cluster}, {bt}, {nat}")
+    sub = min(t, SUB)
+    ns = t // sub
+    diag = ns * (ns + 1) // 2
+    cluster = max(diag, min(max_cluster, (bt + nat) * ns * ns))
+    return SelinvPlan(t=t, bt=bt, nat=nat, sub=sub, cluster=cluster,
+                      diag_split=cluster // diag)
+
+
+def _check_sweep_inputs(name: str, lcol: torch.Tensor, R: torch.Tensor,
+                        sc_full: torch.Tensor) -> int:
+    t = check_tiles(name, lcol, R, sc_full)
+    if (lcol.dim() != 4 or R.dim() != 4 or sc_full.dim() != 4
+            or R.shape[0] != lcol.shape[0] or sc_full.shape[:2] != (R.shape[1], R.shape[1])):
+        raise ValueError(f"{name}: want lcol (ndt, bt+1, t, t), R (ndt, nat, t, t) "
+                         f"and sc_full (nat, nat, t, t), got {tuple(lcol.shape)}, "
+                         f"{tuple(R.shape)} and {tuple(sc_full.shape)}")
+    return t
+
+
+def selinv_prepass_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
+                        start_tile: int = 0) -> torch.Tensor:
+    """The sweep's pre-pass on the card: ``work (ndt, bt + 2 nat + 2, t,
+    t)`` as ``ref.selinv_prepass_ref`` defines it, one launch of a block a
+    column (``ndt >= 1``)."""
+    t = _check_sweep_inputs("selinv_prepass", lcol, R, sc_full)
+    ndt, b1 = lcol.shape[:2]
+    nat = R.shape[1]
+    if ndt == 0:
+        raise ValueError("selinv_prepass: want ndt >= 1")
+    work = lcol.new_empty((ndt, b1 + 2 * nat + 1, t, t))
+    lib = _build.load("selinv")
+    stream = torch.cuda.current_stream(lcol.device).cuda_stream
+    _build.check(lib, lib.stiles_selinv_prepass_f32(
+        lcol.data_ptr(), R.data_ptr(), sc_full.data_ptr(), work.data_ptr(), ndt, b1 - 1, nat,
+        t, int(start_tile), stream), "selinv_prepass")
+    selinv_prepass_cuda.launches += 1
+    return work
+
+
+selinv_prepass_cuda.launches = 0
 
 
 def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
-                      start_tile: int = 0):
+                      start_tile: int = 0, *, max_cluster: int = SELINV_CLUSTER,
+                      work: Optional[torch.Tensor] = None):
     """``lcol (ndt, bt+1, t, t)`` column view of the factor, ``R (ndt, nat,
     t, t)`` arrow rows and ``sc_full (nat, nat, t, t)`` the full corner Σ
     -> ``(panels (ndt, bt+1, t, t), acols (ndt, nat, t, t))`` on the card,
-    ``panels[j, e] = Σ[j+e, j]`` and ``acols[j, i] = Σ[ndt+i, j]``."""
-    t = check_tiles("selinv_sweep", lcol, R, sc_full)
-    if (lcol.dim() != 4 or R.dim() != 4 or sc_full.dim() != 4
-            or R.shape[0] != lcol.shape[0] or sc_full.shape[:2] != (R.shape[1], R.shape[1])):
-        raise ValueError(f"selinv_sweep: want lcol (ndt, bt+1, t, t), R (ndt, nat, t, t) "
-                         f"and sc_full (nat, nat, t, t), got {tuple(lcol.shape)}, "
-                         f"{tuple(R.shape)} and {tuple(sc_full.shape)}")
+    ``panels[j, e] = Σ[j+e, j]`` and ``acols[j, i] = Σ[ndt+i, j]``.
+
+    Two launches: :func:`selinv_prepass_cuda`, then the recurrence, one
+    cluster on the plan ``selinv_plan(t, bt, nat, max_cluster)``; a
+    cluster the card refuses raises.  ``work`` is a pre-pass result to
+    start from (the recurrence alone, one launch)."""
+    t = _check_sweep_inputs("selinv_sweep", lcol, R, sc_full)
     ndt, b1 = lcol.shape[:2]
     nat = R.shape[1]
     panels = torch.empty_like(lcol)
     acols = torch.empty_like(R)
     if ndt == 0:
         return panels, acols
-    # scratch: L_jj^{-1}, then G_1..G_bt, then Ga_0..Ga_{nat-1}
-    work = lcol.new_empty((b1 + nat, t, t))
+    if work is None:
+        work = selinv_prepass_cuda(lcol, R, sc_full, start_tile)
+    elif work.shape != (ndt, b1 + 2 * nat + 1, t, t):
+        raise ValueError(f"selinv_sweep: work {tuple(work.shape)} is not the pre-pass of "
+                         f"these inputs")
+    check_tiles("selinv_sweep", work)
+    plan = selinv_plan(t, b1 - 1, nat, max_cluster)
     lib = _build.load("selinv")
     stream = torch.cuda.current_stream(lcol.device).cuda_stream
     _build.check(lib, lib.stiles_selinv_sweep_f32(
-        lcol.data_ptr(), R.data_ptr(), sc_full.data_ptr(), work.data_ptr(),
-        panels.data_ptr(), acols.data_ptr(), ndt, b1 - 1, nat, t, int(start_tile),
-        stream), "selinv_sweep")
+        work.data_ptr(), panels.data_ptr(), acols.data_ptr(), ndt, b1 - 1, nat, t,
+        plan.cluster, plan.diag_split, stream), "selinv_sweep")
     selinv_sweep_cuda.launches += 1
     return panels, acols
 

@@ -30,7 +30,8 @@ from repro_torch.kernels.band_update import band_update_cuda
 from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.ring import band_row_to_col
-from repro_torch.kernels.selinv import selinv_step_cuda, selinv_sweep_cuda
+from repro_torch.kernels.selinv import (MAX_SELINV_CLUSTER, selinv_plan, selinv_prepass_cuda,
+                                        selinv_step_cuda, selinv_sweep_cuda)
 from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
 
 pytestmark = pytest.mark.gpu
@@ -229,7 +230,7 @@ def test_selinv_sweep_kernel(cuda, t, bt, nat):
 
 def _scounts():
     return (band_forward_sweep_cuda.launches, band_backward_sweep_cuda.launches,
-            solve_panel_cuda.launches, selinv_sweep_cuda.launches)
+            solve_panel_cuda.launches, selinv_sweep_cuda.launches, selinv_prepass_cuda.launches)
 
 
 @pytest.mark.parametrize("t", TILES)
@@ -248,14 +249,14 @@ def test_solves_and_selected_inverse_on_the_card(cuda, t):
     B = torch.from_numpy(rng.standard_normal((g.padded_n, 5)).astype(np.float32))
     before = _scounts()
     X = solve_many(f, B.to(cuda))
-    assert tuple(a - b for a, b in zip(_scounts(), before)) == (1, 1, 2 * nat, 0)
+    assert tuple(a - b for a, b in zip(_scounts(), before)) == (1, 1, 2 * nat, 0, 0)
     torch.testing.assert_close(X.cpu(), solve_many(fc, B), **TOL)
     z = torch.from_numpy(rng.standard_normal((g.padded_n, 3)).astype(np.float32))
-    torch.testing.assert_close(sample_gmrf_many(f, 3, z=z.to(cuda)).cpu(),
-                               sample_gmrf_many(fc, 3, z=z), **TOL)
+    torch.testing.assert_close(sample_gmrf_many(f, num=3, z=z.to(cuda)).cpu(),
+                               sample_gmrf_many(fc, num=3, z=z), **TOL)
     before = _scounts()
     s = selected_inverse(f)
-    assert tuple(a - b for a, b in zip(_scounts(), before)) == (0, 0, 0, 1)
+    assert tuple(a - b for a, b in zip(_scounts(), before)) == (0, 0, 0, 1, 1)
     for a, b in zip(s.arrays(), selected_inverse(fc).arrays()):
         torch.testing.assert_close(a.cpu(), b, **TOL)
     n = g.structure.n
@@ -539,3 +540,111 @@ def test_factorize_window_batched_on_the_card(cuda, sweep):
             torch.testing.assert_close(got, want, **TOL)
         if sweep == "fused":
             assert torch.equal(f.status[i], one.status)
+
+
+def _spd(rng, nb, t):
+    x = rng.standard_normal((nb, t, t)).astype(np.float32)
+    return x @ x.transpose(0, 2, 1) + t * np.eye(t, dtype=np.float32)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_potrf_kernel_single_batch_and_in_place(cuda, t):
+    """The blocked potrf on one tile, on a batch, and in place (out=a),
+    one launch each, against the plain version; L lower, zeros above."""
+    a = torch.from_numpy(_spd(np.random.default_rng(100 + t), 5, t)).to(cuda)
+    want = ref.potrf_ref(a)
+    before = potrf_cuda.launches
+    one = potrf_cuda(a[2])
+    torch.testing.assert_close(one, want[2], **TOL)
+    got = potrf_cuda(a)
+    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, got.tril())
+    b = a.clone()
+    assert potrf_cuda(b, out=b).data_ptr() == b.data_ptr()
+    torch.testing.assert_close(b, want, **TOL)
+    assert potrf_cuda.launches == before + 3
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_potrf_kernel_breakdown(cuda, t):
+    """A non-positive pivot at column c leaves columns before c finite and
+    every entry of the lower triangle from column c on non-finite."""
+    a = torch.from_numpy(_spd(np.random.default_rng(t), 1, t)[0]).to(cuda)
+    c = t // 2 + 1
+    a[c, c] = -1.0
+    got = potrf_cuda(a)
+    lower = torch.ones((t - c, t - c), dtype=torch.bool, device=cuda).tril()
+    assert torch.isfinite(got[:, :c]).all()
+    assert not torch.isfinite(got[c:, c:])[lower].any()
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_factorize_window_indefinite_corner_status(cuda, t):
+    """An indefinite corner tile: the factor's status word on the card is
+    the one impl="ref" gives on the same card."""
+    m = _matrix(t, cuda)
+    C = m.C.clone()
+    # twice the largest diagonal entry off the diagonal: indefinite
+    C[0, 0] -= 2 * C[0, 0].diagonal().abs().max() * torch.eye(t, device=cuda)
+    bad = BandedCTSF(m.grid, m.Dr, m.R, C)
+    got = factorize_window(bad).status.tolist()
+    want = factorize_window(bad, options=SolverOptions(impl="ref")).status.tolist()
+    assert got[1:] == want[1:] == [1.0, float(m.grid.n_diag_tiles)]
+    assert got[0] == pytest.approx(want[0], rel=2e-4)
+
+
+# (ndt, bt, nat) beyond test_selinv_sweep_kernel's grid: one column, fewer
+# columns than band tiles, and chip_smoke.py's grid at ndt = 6
+SELINV_EDGES = [(1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0)]
+
+
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("ndt,bt,nat", SELINV_EDGES + [(6, bt, nat) for bt in (0, 1, 4)
+                                                       for nat in (0, 1, 4)])
+@pytest.mark.parametrize("max_cluster", [4, 8, MAX_SELINV_CLUSTER])
+def test_selinv_sweep_kernel_clusters(cuda, t, ndt, bt, nat, max_cluster):
+    """The pre-pass and the cluster recurrence against the plain versions
+    at every cluster size the plan allows, start_tile 0 and 2."""
+    lcol, R, sc = _selinv_inputs(t, bt, nat, ndt, cuda, seed=ndt + bt + nat)
+    for start in (0, 2):
+        work = selinv_prepass_cuda(lcol, R, sc, start)
+        torch.testing.assert_close(work, ref.selinv_prepass_ref(lcol, R, sc, start), **TOL)
+        got = selinv_sweep_cuda(lcol, R, sc, start, max_cluster=max_cluster)
+        want = ref.selinv_sweep_ref(lcol, R, sc, start)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_selinv_sweep_kernel_deterministic_and_counted(cuda, t):
+    """Two launches give the same bits; a sweep is one pre-pass and one
+    recurrence launch, the recurrence alone (work=) one."""
+    lcol, R, sc = _selinv_inputs(t, 4, 4, 8, cuda, seed=3)
+    before = (selinv_sweep_cuda.launches, selinv_prepass_cuda.launches)
+    a, b = selinv_sweep_cuda(lcol, R, sc), selinv_sweep_cuda(lcol, R, sc)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (selinv_sweep_cuda.launches, selinv_prepass_cuda.launches) == \
+        (before[0] + 2, before[1] + 2)
+    work = selinv_prepass_cuda(lcol, R, sc)
+    c = selinv_sweep_cuda(lcol, R, sc, work=work)
+    assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1])
+    assert (selinv_sweep_cuda.launches, selinv_prepass_cuda.launches) == \
+        (before[0] + 3, before[1] + 3)
+
+
+def test_selinv_sweep_kernel_refuses_a_bad_plan(cuda):
+    """The C entry point checks the plan again and returns an error, which
+    the wrapper's check raises: no quiet fallback."""
+    from repro_torch.kernels import _build
+    lcol, R, sc = _selinv_inputs(64, 4, 4, 4, cuda)
+    work = selinv_prepass_cuda(lcol, R, sc)
+    panels, acols = torch.empty_like(lcol), torch.empty_like(R)
+    lib = _build.load("selinv")
+    plan = selinv_plan(64, 4, 4)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cluster, split in ((MAX_SELINV_CLUSTER + 1, plan.diag_split), (0, 1),
+                           (plan.cluster, plan.diag_split + 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, lib.stiles_selinv_sweep_f32(
+                work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 4, 4, 4, 64, cluster,
+                split, stream), "selinv_sweep")

@@ -102,10 +102,10 @@ def test_sampling_matches_reference(n, bw, ar, t):
     np.testing.assert_allclose(sample_gmrf(tf, z=torch.from_numpy(z1)).numpy(),
                                np.asarray(J.sample_gmrf(jf, key, options=JREF)), **TOL)
     zk = np.array(jax.random.normal(key, (grid.padded_n, 6), dtype=jnp.float32))
-    np.testing.assert_allclose(sample_gmrf_many(tf, 6, z=torch.from_numpy(zk)).numpy(),
+    np.testing.assert_allclose(sample_gmrf_many(tf, num=6, z=torch.from_numpy(zk)).numpy(),
                                np.asarray(J.sample_gmrf_many(jf, key, 6, options=JREF)), **TOL)
-    x1 = sample_gmrf_many(tf, 3, generator=torch.Generator().manual_seed(0))
-    x2 = sample_gmrf_many(tf, 3, generator=torch.Generator().manual_seed(0))
+    x1 = sample_gmrf_many(tf, num=3, generator=torch.Generator().manual_seed(0))
+    x2 = sample_gmrf_many(tf, num=3, generator=torch.Generator().manual_seed(0))
     assert x1.shape == (grid.padded_n, 3) and torch.equal(x1, x2)
     assert sample_gmrf(tf, generator=torch.Generator().manual_seed(1)).shape == (grid.padded_n,)
 
@@ -141,7 +141,7 @@ def test_solve_chain_matches_dense(n, bw, ar, t):
                                **TOL)
     # a sample solves L^T x = z with the float64 factor
     z = np.random.default_rng(4).standard_normal((g.padded_n, 2)).astype(np.float32)
-    x = sample_gmrf_many(f, 2, z=torch.from_numpy(z)).numpy()
+    x = sample_gmrf_many(f, num=2, z=torch.from_numpy(z)).numpy()
     L = np.linalg.cholesky(dense)
     np.testing.assert_allclose(L.T @ x, z, rtol=2e-3, atol=2e-3)
     idx = np.array([0, n // 2, n - 1])

@@ -201,6 +201,11 @@ def test_chip_smoke_counts_solve_work(ndt, bt, nat):
     assert work["selinv_sweep"][0] == pytest.approx(
         t ** 3 * (2 * gemms + trmms + syrks + 2 * ndt / 3))
     assert work["selinv_sweep"][1] == 4 * t * t * (2 * tiles + nat * nat)
+    # the pre-pass: W, W^T W, d + nat products by W, nat^2 corner products
+    assert work["selinv_prepass"][0] == pytest.approx(
+        t ** 3 * sum(2 / 3 + d + nat + 2 * nat * nat for d in cols))
+    assert work["selinv_prepass"][1] == 4 * t * t * (tiles + nat * nat
+                                                     + ndt * (bt + 2 * nat + 2))
 
 
 @pytest.mark.parametrize("sizes,bt,nat", [((25, 25, 7), 1, 4), ((3, 3, 4), 2, 1), ((5, 5), 3, 0)])
