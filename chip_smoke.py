@@ -11,10 +11,11 @@ Phases, each of which raises on a failed check:
    shared memory, spills);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at rtol = atol = 2e-4: potrf (a batch, one tile, in place) and trsm
-   for t in {8, 16, 32, 64}; the
+   (one L, one L a tile, each also in place) for t in {8, 16, 32, 64}; the
    band-Cholesky sweep for bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile
-   in {0, 2}, nchunks in {1, 3}, plus a breakdown input whose status word
-   must match exactly; solve_panel for both trans and k in {1, 7, 32, 64};
+   in {0, 2}, nchunks in {1, 3}, at clusters of at most 1, 2, 4, 8 and 16
+   blocks, every cap bit for bit the same, plus a breakdown input whose
+   status word must match exactly at every cap; solve_panel for both trans and k in {1, 7, 32, 64};
    both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
    (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}; the selinv
    pre-pass and sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1,
@@ -23,11 +24,11 @@ Phases, each of which raises on a failed check:
    syrk and geadd with batched, broadcast,
    in-place and strided operands; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
-   bit against the fused kernel; band_update for b+1 in {1, 2, 3, 5, 6,
+   bit against the fused kernel, at every cluster cap; band_update for b+1 in {1, 2, 3, 5, 6,
    9} against both plain versions, also on a strided batch of windows;
    selinv_step for (e_n, j_n) in {(1, 1), (1, 2), (4, 3), (3, 5), (8, 8),
    (2, 17), (1, 17)} and the empty shapes; trsm with one L a group of
-   tiles; the fused and partitioned sweeps on a batch of three, each
+   tiles, also in place; the fused and partitioned sweeps on a batch of three, each
    element also bit for bit against its unbatched launch;
 3. main paths at full size, each with the launch counts set to 0 just
    before it and read just after:
@@ -46,7 +47,8 @@ Phases, each of which raises on a failed check:
    - Table II matrices 4 (n=10,200, bandwidth 100, arrow 200) and 1
      (n=10,010, bandwidth 100, arrow 10), block-diagonal, with the plan
      detect_partition_plan finds (7 partitions): the partitioned sweep bit
-     for bit against the fused kernel, then factorize_window with the plan
+     for bit against the fused kernel at every cluster cap, then
+     factorize_window with the plan
      (one partitioned launch, a geadd per tree level, the corner against
      the fused route's, factor residual, logdet);
    - the window route, factorize_window(sweep="window"), on matrices 5
@@ -70,16 +72,22 @@ Phases, each of which raises on a failed check:
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
    time from CUDA events around the calls themselves), beside the
-   kernel's bound; the partitioned sweep beside the fused kernel on the
-   same matrix and on its widest partition alone;
-   where the factorization sweep's cycles go, from a phase-marked build
-   of its kernel; factorize_window, solve_many, selected_inverse and
+   kernel's bound; the band-Cholesky sweep on matrices 5 and 2 at every
+   cluster cap (each against the plain version and bit for bit against
+   clusters of 1, two launches bit for bit, how many clusters of that size
+   the card holds at once), the partitioned sweep on matrix 4 at every
+   cap, and beside the fused kernel on the same matrix and on its widest
+   partition alone; where the factorization sweep's cycles go on ranks 0
+   and 1 of its cluster, from a phase-marked build of its kernel;
+   factorize_window, solve_many, selected_inverse and
    marginal_variances end to end; factorize_tasklist (call time against
    device time) and the partitioned factorize_window end to end; the
    window route end to end beside the fused route; the batched routes
    end to end against one candidate alone, and the batched sweep and
-   band_update kernels against one element's launch (band_update also
-   beside one einsum over the batch's gathered operands); for the
+   band_update kernels against one element's launch (the sweeps also at
+   clusters of 4, 8 and 16 beside how many the card holds at once;
+   band_update beside one einsum over the batch's gathered operands); for
+   the
    tile-sum kernels band_update and selinv_step, their launch plans, two
    launches on the main path's operands bit for bit, and the plans of
    cluster caps 1 (no contraction split), 2, 4 and 8 timed side by side;
@@ -133,6 +141,15 @@ SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
 SELINV_EDGES = ((1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0))
 # θ-candidates of the batched factorization (factorize_window_batched)
 BATCH = 8
+# the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
+SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
+# the fused sweep's times before this cluster design (one block a matrix),
+# for the kernel line: where they were measured
+SWEEP_FIRST_DESIGN = ("one block a matrix; its times are PERF.md section 6's 'first design' "
+                      "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
+TRSM_FIRST_DESIGN = ("a warp per 8 rows through a T-step shuffle loop; its time is PERF.md "
+                     "section 6's 'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, "
+                     "700 W)")
 
 
 def log(msg: str) -> None:
@@ -324,9 +341,13 @@ def phase_kernels(torch, device, kern, ref):
         assert_close(torch, inplace, ref.potrf_ref(a), f"potrf t={t} in place")
         l = ref.potrf_ref(a)
         b = torch.randn((3, t, t), generator=torch.Generator().manual_seed(t)).to(device)
-        assert_close(torch, kern["trsm"](l[0], b), ref.trsm_ref(l[0], b), f"trsm t={t}")
-        assert_close(torch, kern["trsm"](l, b), ref.trsm_ref(l, b), f"trsm batched-L t={t}")
-        nchecks += 3
+        for lk, mode in ((l[0], "one L"), (l, "one L a tile")):
+            want = ref.trsm_ref(lk, b)
+            assert_close(torch, kern["trsm"](lk, b), want, f"trsm t={t} {mode}")
+            inplace = b.clone()
+            kern["trsm"](lk, inplace, out=inplace)
+            assert_close(torch, inplace, want, f"trsm t={t} {mode} in place")
+        nchecks += 5
         for bt in (0, 1, 3):
             for nat in (0, 1, 3):
                 ndt = 5
@@ -335,22 +356,34 @@ def phase_kernels(torch, device, kern, ref):
                 for start in (0, 2):
                     for nch in (1, 3):
                         what = f"sweep t={t} bt={bt} nat={nat} start={start} nchunks={nch}"
-                        got = kern["band_cholesky_sweep"](Ac, R, nchunks=nch, start_tile=start)
                         want = ref.band_cholesky_sweep_ref(Ac, R, nchunks=nch, start_tile=start)
-                        for g, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
-                            assert_close(torch, g, w, f"{what} {part}")
-                        check_status(got[3], want[3], what)
-                        nchecks += 1
+                        # every cluster cap, each against the plain version
+                        # and bit for bit against the first
+                        first = None
+                        for cap in SWEEP_CLUSTERS:
+                            got = kern["band_cholesky_sweep"](Ac, R, nchunks=nch,
+                                                              start_tile=start, max_cluster=cap)
+                            for g, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
+                                assert_close(torch, g, w, f"{what} clusters of {cap} {part}")
+                            check_status(got[3], want[3], f"{what} clusters of {cap}")
+                            if first is None:
+                                first = got
+                            if not all(torch.equal(g, f) for g, f in zip(got, first)):
+                                raise AssertionError(f"{what}: clusters of {cap} not "
+                                                     "bit-identical to clusters of 1")
+                            nchecks += 1
         # breakdown: a negative diagonal entry in band tile 2
         Ac, R = random_band_arrow(torch, 5, 1, 1, t, seed=7, device=device, bad_tile=2)
-        got = kern["band_cholesky_sweep"](Ac, R, nchunks=3)
         want = ref.band_cholesky_sweep_ref(Ac, R, nchunks=3)
-        check_status(got[3], want[3], f"breakdown t={t}")
         if want[3][2].item() != 2.0 or want[3][1].item() != 1.0:
             raise AssertionError(f"breakdown t={t}: plain status {want[3].tolist()} does "
                                  "not flag tile 2")
-        assert_close(torch, got[0][:2], want[0][:2], f"breakdown t={t} clean panels")
-        nchecks += 1
+        for cap in SWEEP_CLUSTERS:
+            got = kern["band_cholesky_sweep"](Ac, R, nchunks=3, max_cluster=cap)
+            check_status(got[3], want[3], f"breakdown t={t} clusters of {cap}")
+            assert_close(torch, got[0][:2], want[0][:2],
+                         f"breakdown t={t} clusters of {cap} clean panels")
+            nchecks += 1
     return nchecks
 
 
@@ -391,16 +424,20 @@ def phase_tasklist_kernels(torch, device, kern, ref):
                                       bounds=bounds)
             for start in (0, 3):
                 what = f"partitioned sweep t={t} bt={bt} nat={nat} P={len(bounds) - 1} start={start}"
-                got = kern["band_cholesky_partitioned_sweep"](Ac, R, bounds, start_tile=start)
                 want = ref.band_cholesky_partitioned_sweep_ref(Ac, R, bounds, start_tile=start)
-                for gg, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
-                    assert_close(torch, gg, w, f"{what} {part}")
-                check_status(got[3], want[3], what)
-                fused = kern["band_cholesky_sweep"](Ac, R, nchunks=1, start_tile=start)
-                if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
-                        and got[3].tolist() == fused[3].tolist()):
-                    raise AssertionError(f"{what}: not bit-identical to the fused kernel")
-                nchecks += 2
+                for cap in SWEEP_CLUSTERS:
+                    got = kern["band_cholesky_partitioned_sweep"](Ac, R, bounds, start_tile=start,
+                                                                  max_cluster=cap)
+                    for gg, w, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")):
+                        assert_close(torch, gg, w, f"{what} clusters of {cap} {part}")
+                    check_status(got[3], want[3], f"{what} clusters of {cap}")
+                    fused = kern["band_cholesky_sweep"](Ac, R, nchunks=1, start_tile=start,
+                                                        max_cluster=cap)
+                    if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+                            and got[3].tolist() == fused[3].tolist()):
+                        raise AssertionError(f"{what} clusters of {cap}: not bit-identical to "
+                                             "the fused kernel")
+                    nchecks += 2
     return nchecks
 
 
@@ -487,8 +524,12 @@ def phase_window_kernels(torch, device, kern, ref):
             nchecks += 1
         l = ref.potrf_ref(random_spd(torch, 4, t, t, device))[:, None]
         b = x(4, 3, t, t)
-        assert_close(torch, kern["trsm"](l, b), ref.trsm_ref(l, b), f"trsm t={t} one L a group")
-        nchecks += 1
+        want = ref.trsm_ref(l, b)
+        assert_close(torch, kern["trsm"](l, b), want, f"trsm t={t} one L a group")
+        inplace = b.clone()
+        kern["trsm"](l, inplace, out=inplace)
+        assert_close(torch, inplace, want, f"trsm t={t} one L a group in place")
+        nchecks += 2
         for bt, nat in ((0, 2), (2, 0), (3, 3)):
             bounds = (0, 3, 6, 9)
             els = [random_band_arrow(torch, 9, bt, nat, t, seed=50 * t + 5 * bt + nat + i,
@@ -560,6 +601,15 @@ def needed_flops(grid, boundaries=None):
         else:
             corner += cost[task.type]
     return sweep, corner
+
+
+def band_sweep_bytes(grid, nleaves, nwords=1):
+    """Bytes the fused or partitioned sweep moves at ``grid``'s shapes with
+    ``nleaves`` Schur leaves and ``nwords`` status words: its band and arrow
+    inputs read once, the panels, arrow rows, leaves and words written
+    once."""
+    t, ndt, bt, nat = grid.t, grid.n_diag_tiles, grid.band_tiles, grid.n_arrow_tiles
+    return 4 * t * t * (2 * ndt * (bt + 1) + 2 * ndt * nat + nleaves * nat * nat) + 12 * nwords
 
 
 def run_matrix(torch, matrix_id, device=None, scale=1.0, kern_counts=None):
@@ -832,20 +882,23 @@ def run_partitioned(torch, matrix_id, m, plan, kern_counts):
 
 def check_partitioned(torch, matrix_id, m, plan, f, launches, host_s):
     """The partitioned route's checks on one matrix: the partitioned sweep
-    bit for bit against the fused kernel (panels, arrow rows, status), the
-    factor ``f`` against the fused route's (band bit for bit, the corner
-    within 1e-4 relative), its residual and logdet; returns the record."""
+    bit for bit against the fused kernel (panels, arrow rows, status) at
+    every cluster cap, the factor ``f`` against the fused route's (band bit
+    for bit, the corner within 1e-4 relative), its residual and logdet;
+    returns the record."""
     from repro_torch.core import factorize_window, logdet
     from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
                                                    band_cholesky_sweep_cuda)
     from repro_torch.kernels.ring import band_row_to_col
     what = f"matrix {matrix_id} partitioned"
     Ac = band_row_to_col(m.Dr)
-    got = band_cholesky_partitioned_sweep_cuda(Ac, m.R, plan.boundaries)
-    fused = band_cholesky_sweep_cuda(Ac, m.R, nchunks=1)
-    if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
-            and got[3].tolist() == fused[3].tolist()):
-        raise AssertionError(f"{what}: sweep not bit-identical to the fused kernel")
+    for cap in SWEEP_CLUSTERS:
+        got = band_cholesky_partitioned_sweep_cuda(Ac, m.R, plan.boundaries, max_cluster=cap)
+        fused = band_cholesky_sweep_cuda(Ac, m.R, nchunks=1, max_cluster=cap)
+        if not (torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+                and got[3].tolist() == fused[3].tolist()):
+            raise AssertionError(f"{what}: sweep at clusters of {cap} not bit-identical to "
+                                 "the fused kernel")
     ff = factorize_window(m)
     corner = ((f.ctsf.C - ff.ctsf.C).abs().max() / ff.ctsf.C.abs().max()).item()
     ld = logdet(f).item()
@@ -867,6 +920,7 @@ def check_partitioned(torch, matrix_id, m, plan, f, launches, host_s):
                 arrow=g.structure.arrow, t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles,
                 nat=g.n_arrow_tiles, boundaries=list(plan.boundaries),
                 partitions=plan.n_partitions, max_tiles=plan.max_tiles,
+                sweep_bit_identical_to_fused_at_clusters=list(SWEEP_CLUSTERS),
                 host_setup_s=round(host_s, 3), residual=resid, corner_rel_to_fused=corner,
                 logdet=ld, logdet_oracle=oracle, logdet_rel_err=ld_rel, status=status,
                 launches=launches)
@@ -1488,7 +1542,6 @@ def main() -> int:
                             "main-path trsm")
 
     csz, nch = chunk_layout(ndt, nchunks)
-    sweep_bytes = 4 * t * t * (2 * ndt * (bt + 1) + 2 * ndt * nat + nch * nat * nat) + 12
     # the solve half's inputs at the same shapes: the factor, a k = 32 panel
     from repro_torch.core.selinv import corner_sigma
     from repro_torch.core.solve import _split_rhs
@@ -1595,9 +1648,7 @@ def main() -> int:
                                             "main-path selinv_step")
     e_n, j_n = srow.shape[:2]
     P4 = plan4.n_partitions
-    part_bytes = 4 * g4.t ** 2 * (2 * g4.n_diag_tiles * (g4.band_tiles + 1)
-                                  + 2 * g4.n_diag_tiles * g4.n_arrow_tiles
-                                  + P4 * g4.n_arrow_tiles ** 2) + 12 * P4
+    part_bytes = band_sweep_bytes(g4, P4, P4)
     tt4 = 4 * t * t
     timed = {"band_cholesky_partitioned_sweep": dict(
         matrix=pid, ndt=g4.n_diag_tiles, bt=g4.band_tiles, nat=g4.n_arrow_tiles, t=g4.t,
@@ -1629,7 +1680,7 @@ def main() -> int:
              20, nat * float(t) ** 3, 4 * t * t * (1 + 2 * nat), trsm_err),
             ("band_cholesky_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
              "src/repro/kernels/band_cholesky.py:168", sweep_k, sweep_p, None, 1,
-             sweep_ops, sweep_bytes, sweep_err),
+             sweep_ops, band_sweep_bytes(g, nch), sweep_err),
             ("solve_panel", "src/repro_torch/kernels/csrc/solve_panel.cu",
              "src/repro/kernels/trsm.py:111", solve_k["solve_panel"], solve_p["solve_panel"],
              lambda: torch.linalg.solve_triangular(l_c, b_c, upper=False), 20,
@@ -1769,6 +1820,66 @@ def main() -> int:
         log(f"time selinv_sweep, Table II matrix {rec['matrix']}: "
             + json.dumps(entry["by_matrix"][str(rec["matrix"])]) + f", card {card}")
 
+    # the band-Cholesky sweep on both matrices at every cluster cap: each
+    # against the plain version and bit for bit against clusters of 1, two
+    # launches bit for bit, timed beside its plain version and bound; how
+    # many clusters of each size the card holds at once
+    from repro_torch.kernels.band_cholesky import sweep_max_active_clusters, sweep_plan
+    entry = next(k for k in kernels if k["name"] == "band_cholesky_sweep")
+    entry["first_design"] = SWEEP_FIRST_DESIGN
+    entry["by_matrix"] = {}
+    for rec in records:
+        mm, _ = mats[rec["matrix"]]
+        gg = mm.grid
+        ac = band_row_to_col(mm.Dr)
+        want = ref.band_cholesky_sweep_ref(ac, mm.R, nchunks=nchunks)
+        clusters, first = [], None
+        for cap in SWEEP_CLUSTERS:
+            plan = sweep_plan(gg.t, gg.band_tiles, gg.n_arrow_tiles, cap)
+            fn = lambda: band_cholesky_sweep_cuda(ac, mm.R, nchunks=nchunks, max_cluster=cap)
+            what = f"matrix {rec['matrix']} sweep, clusters of {plan.cluster}"
+            got = fn()
+            err = max(assert_close(torch, a, b, f"{what} {part}")
+                      for a, b, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")))
+            check_status(got[3], want[3], what)
+            first = got if first is None else first
+            if not all(torch.equal(a, b) for a, b in zip(got, first)):
+                raise AssertionError(f"{what}: not bit-identical to clusters of 1")
+            clusters.append(dict(max_cluster=cap, cluster=plan.cluster, max_abs_err=err,
+                                 ms=device_ms(torch, fn),
+                                 max_active_clusters=sweep_max_active_clusters(gg.t, plan.cluster)))
+        flat = lambda: torch.cat([x.flatten() for x in band_cholesky_sweep_cuda(
+            ac, mm.R, nchunks=nchunks)])
+        entry["by_matrix"][str(rec["matrix"])] = dict(
+            ndt=gg.n_diag_tiles, bt=gg.band_tiles, nat=gg.n_arrow_tiles, clusters=clusters,
+            bit_identical_across_clusters=True,
+            deterministic=deterministic(torch, flat, f"matrix {rec['matrix']} sweep"),
+            plain_ms=device_ms(torch, lambda: ref.band_cholesky_sweep_ref(ac, mm.R,
+                                                                          nchunks=nchunks)),
+            bound_ms=bound(needed_flops(gg)[0], band_sweep_bytes(gg, chunk_layout(
+                gg.n_diag_tiles, nchunks)[1]))[0])
+        log(f"time band_cholesky_sweep, Table II matrix {rec['matrix']}: "
+            + json.dumps(entry["by_matrix"][str(rec["matrix"])]) + f", card {card}")
+    # the partitioned sweep on matrix 4 at every cluster cap
+    entry = next(k for k in kernels if k["name"] == "band_cholesky_partitioned_sweep")
+    entry["first_design"] = SWEEP_FIRST_DESIGN
+    entry["clusters"] = []
+    want = ref.band_cholesky_partitioned_sweep_ref(Ac4, m4.R, plan4.boundaries)
+    for cap in SWEEP_CLUSTERS:
+        plan = sweep_plan(g4.t, g4.band_tiles, g4.n_arrow_tiles, cap)
+        fn = lambda: band_cholesky_partitioned_sweep_cuda(Ac4, m4.R, plan4.boundaries,
+                                                          max_cluster=cap)
+        got = fn()
+        err = max(assert_close(torch, a, b, f"matrix {pid} partitioned sweep, clusters of "
+                               f"{plan.cluster} {part}")
+                  for a, b, part in zip(got[:3], want[:3], ("panels", "R_out", "schur")))
+        entry["clusters"].append(dict(max_cluster=cap, cluster=plan.cluster, max_abs_err=err,
+                                      ms=device_ms(torch, fn)))
+    log("time band_cholesky_partitioned_sweep by cluster cap: " + json.dumps(entry["clusters"])
+        + f", card {card}")
+    entry = next(k for k in kernels if k["name"] == "trsm")
+    entry["first_design"] = TRSM_FIRST_DESIGN
+
     # the band sweeps at k = 1 (a single solve), beside their bound
     work1 = solve_work(g, 1)
     for entry, fk in ((kernels[4], lambda: band_forward_sweep_cuda(fc.Dr, fc.R, bd1)),
@@ -1793,15 +1904,19 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by)
     log("time geadd, partitioned leaves: " + json.dumps(entry["partitioned_leaves"]))
 
-    # where the sweep's time goes, from the phase-marked build of the kernel
+    # where the sweep's time goes, from the phase-marked build of the kernel:
+    # rank 0 (it factors L_kk) and rank 1 (it adds the Schur products then)
     from repro_torch.kernels.band_cholesky import sweep_phase_cycles
     for rec in records:
         mm, _ = mats[rec["matrix"]]
-        cyc = sweep_phase_cycles(band_row_to_col(mm.Dr), mm.R, nchunks=nchunks)
-        total = sum(cyc.values())
-        rec["sweep_phase_cycles"] = cyc
-        log(f"sweep phases: Table II matrix {rec['matrix']}: {total / 1e6:.2f} M cycles: " +
-            ", ".join(f"{k} {v / 1e6:.2f} M ({100 * v / total:.0f}%)" for k, v in cyc.items()))
+        rec["sweep_phase_cycles"] = {}
+        for rank in (0, 1):
+            cyc = sweep_phase_cycles(band_row_to_col(mm.Dr), mm.R, nchunks=nchunks, rank=rank)
+            total = sum(cyc.values())
+            rec["sweep_phase_cycles"][f"rank {rank}"] = cyc
+            log(f"sweep phases: Table II matrix {rec['matrix']}, rank {rank}: "
+                f"{total / 1e6:.2f} M cycles: " + ", ".join(
+                    f"{k} {v / 1e6:.2f} M ({100 * v / total:.0f}%)" for k, v in cyc.items()))
     kernels[2]["phase_cycles"] = records[0]["sweep_phase_cycles"]
 
     # factorize_window end to end, and its peak memory, per matrix
@@ -1926,6 +2041,25 @@ def main() -> int:
                                    if name == "band_update" else {}),
                                 ms=device_ms(torch, fk, calls=calls),
                                 single_ms=device_ms(torch, f1, calls=calls))
+        if name != "band_update":
+            # the batch at smaller clusters, and whether the card holds the
+            # batch's clusters at once
+            mb, ac = (mb5, Ac5b) if name == "band_cholesky_sweep" else (mb4, Ac4b)
+            gb = mb.grid
+            entry["batched"]["clusters"] = []
+            for cap in (4, 8, 16):
+                plan = sweep_plan(gb.t, gb.band_tiles, gb.n_arrow_tiles, cap)
+                fn = ((lambda: band_cholesky_sweep_cuda(ac, mb.R, nchunks=nchunks,
+                                                        max_cluster=cap))
+                      if name == "band_cholesky_sweep" else
+                      (lambda: band_cholesky_partitioned_sweep_cuda(
+                          ac, mb.R, pplan4.boundaries, max_cluster=cap)))
+                entry["batched"]["clusters"].append(dict(
+                    max_cluster=cap, cluster=plan.cluster,
+                    clusters_launched=BATCH * (1 if name == "band_cholesky_sweep"
+                                               else pplan4.n_partitions),
+                    max_active_clusters=sweep_max_active_clusters(gb.t, plan.cluster),
+                    ms=device_ms(torch, fn)))
         if name == "band_update":
             # one einsum over the batch's gathered operands, the yardstick
             entry["batched"].update(

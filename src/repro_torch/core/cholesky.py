@@ -14,9 +14,10 @@ Two backends, the second also batched:
   as partial sums (the leaves of the Alg. 3 tree), then the dense corner,
   ``C - sum(leaves)``, column by column with the ``potrf`` and ``trsm``
   tile kernels.  On the card the sweep is one CUDA kernel launch: the
-  fused sweep walks every band column in one block; with a partition plan
-  of more than one partition, the partitioned sweep walks each independent
-  partition in a block of its own, and its leaves (one a partition) are
+  fused sweep walks every band column on one thread-block cluster; with a
+  partition plan of more than one partition, the partitioned sweep walks
+  each independent partition on a cluster of its own, and its leaves (one a
+  partition) are
   combined by the GEADD tree.  The plain version is a column loop.
   ``SolverOptions(sweep="window")`` takes the legacy window sweep instead:
   a ``band_update``, ``potrf`` and ``trsm`` launch per panel, and the
@@ -333,7 +334,7 @@ def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
     launches.  ``options`` (:class:`~repro_torch.core.options.SolverOptions`)
     can force the plain versions (``impl="ref"``), pass a partition plan
     (``partition_plan``: with more than one partition the sweep is the
-    partitioned kernel, one block a partition, and the corner adds
+    partitioned kernel, one cluster a partition, and the corner adds
     ``ceil(log2 P)`` ``geadd`` launches) and choose the sweep (``sweep``:
     ``"window"`` is the legacy panel loop, a ``band_update``, a ``potrf``
     and one or two ``trsm`` launches a column, and a corner Schur sum

@@ -39,7 +39,7 @@ class SolverOptions:
       partition_plan: a :class:`~repro_torch.core.ordering.PartitionPlan`
         of the band's independent partitions (``detect_partition_plan``
         finds them); with more than one, ``sweep="auto"`` runs the
-        partitioned sweep, one block a partition.
+        partitioned sweep, one thread-block cluster a partition.
       method: how ``marginal_variances`` computes the variances —
         ``"selinv"`` (the Takahashi recurrence; also what None means) or
         ``"panels"`` (one forward sweep of unit vectors).

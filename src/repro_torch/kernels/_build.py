@@ -36,9 +36,10 @@ _SIGNATURES = {
     "trsm": {"stiles_trsm_f32": [_P, _P, _P, _I, _I, _I, _P]},
     "band_cholesky": {
         "stiles_band_cholesky_sweep_f32":
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         "stiles_band_cholesky_partitioned_sweep_f32":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+            [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+        "stiles_sweep_max_active_clusters": [_I, _I, _P]},
     "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _P]},
     "band_solve": {
         "stiles_band_forward_sweep_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -52,7 +52,7 @@ template <int T>
 cudaError_t launch_band_update(const float* w, float* u, int batch, int b1,
                                long long batch_stride, int cl, int per, cudaStream_t stream) {
     constexpr int NS = SumShape<T>::NS;
-    return launch_cluster(band_update_kernel<T>, dim3(cl * NS * NS, b1, batch), cl, stream, w,
+    return launch_cluster(band_update_kernel<T>, dim3(cl * NS * NS, b1, batch), cl, 0, stream, w,
                           u, b1, batch_stride, per);
 }
 

@@ -412,7 +412,7 @@ cudaError_t launch_recurrence(const float* work, float* panels, float* acols, in
             selinv_recurrence_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (err != cudaSuccess) return err;
     }
-    return launch_cluster(selinv_recurrence_kernel<T>, dim3(cl), cl, s, work, panels, acols,
+    return launch_cluster(selinv_recurrence_kernel<T>, dim3(cl), cl, 0, s, work, panels, acols,
                           ndt, bt, nat, split);
 }
 

@@ -42,7 +42,7 @@ template <int T>
 cudaError_t launch_selinv_step(const float* s, const float* g, float* u, int e_n, int j_n,
                                int cl, int per, cudaStream_t stream) {
     constexpr int NS = SumShape<T>::NS;
-    return launch_cluster(selinv_step_kernel<T>, dim3(cl * NS * NS, e_n), cl, stream, s, g, u,
+    return launch_cluster(selinv_step_kernel<T>, dim3(cl * NS * NS, e_n), cl, 0, stream, s, g, u,
                           j_n, per);
 }
 

@@ -1,14 +1,16 @@
 // Device functions shared by the potrf, trsm, band-Cholesky, solve-panel,
 // band-solve and selected-inversion kernels.
 //
-// Every kernel here runs kThreads threads per block over float32 T x T
-// tiles, T in {8, 16, 32, 64}.  A tile held in registers is spread over the
-// block in the "owner layout": thread (ty, tx) = (tid / NT, tid % NT) holds
-// the M x M block of elements (ty*M + r, tx*M + s), r, s < M, so each
+// The owner-layout routines run kThreads threads per block over float32
+// T x T tiles, T in {8, 16, 32, 64}.  A tile held in registers is spread over
+// the block in the "owner layout": thread (ty, tx) = (tid / NT, tid % NT)
+// holds the M x M block of elements (ty*M + r, tx*M + s), r, s < M, so each
 // thread reads and writes M contiguous floats of a row at once.  A tile
 // product C += A B^T stages A and B in shared memory transposed
 // (contraction index major), where every owner reads its M rows of A and M
-// columns of B as one vector per contraction step.
+// columns of B as one vector per contraction step.  The blocked one-tile
+// routines (factorize_smem, substitute_right) take the block's thread count
+// as a template parameter and work on tiles in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -188,24 +190,6 @@ __device__ __forceinline__ void gemm_nt_sum(Acc<T>& acc, int n, FA A, FB B, floa
                 [&](int q) { return Op{B(q), true}; }, As, Bs);
 }
 
-// Owner-layout tile from a row-major T x T tile, minus acc.
-template <int T>
-__device__ __forceinline__ void load_minus(Acc<T>& out, const float* src, const Acc<T>& acc) {
-    constexpr int M = Tile<T>::M;
-#pragma unroll
-    for (int r = 0; r < M; ++r) {
-        float v[M];
-        if (owns_tile<T>()) {
-            ld_vec<M>(v, src + owner_row<T>(r) * T + owner_col<T>(0));
-        } else {
-#pragma unroll
-            for (int s = 0; s < M; ++s) v[s] = acc[r][s];
-        }
-#pragma unroll
-        for (int s = 0; s < M; ++s) out[r][s] = v[s] - acc[r][s];
-    }
-}
-
 // dst = src - acc, row-major T x T tiles.
 template <int T>
 __device__ __forceinline__ void store_minus(float* dst, const float* src, const Acc<T>& acc) {
@@ -222,34 +206,6 @@ __device__ __forceinline__ void store_minus(float* dst, const float* src, const 
     }
 }
 
-// dst += acc, or dst^T += acc, row-major T x T tile.
-template <int T>
-__device__ __forceinline__ void store_add(float* dst, const Acc<T>& acc, bool transposed) {
-    constexpr int M = Tile<T>::M;
-    if (!owns_tile<T>()) return;
-    if (!transposed) {
-#pragma unroll
-        for (int r = 0; r < M; ++r) {
-            const int o = owner_row<T>(r) * T + owner_col<T>(0);
-            float v[M];
-            ld_vec<M>(v, dst + o);
-#pragma unroll
-            for (int s = 0; s < M; ++s) v[s] += acc[r][s];
-            st_vec<M>(dst + o, v);
-        }
-    } else {
-#pragma unroll
-        for (int s = 0; s < M; ++s) {
-            const int o = owner_col<T>(s) * T + owner_row<T>(0);
-            float v[M];
-            ld_vec<M>(v, dst + o);
-#pragma unroll
-            for (int r = 0; r < M; ++r) v[r] += acc[r][s];
-            st_vec<M>(dst + o, v);
-        }
-    }
-}
-
 // Store an owner-layout tile row-major (leading dimension T).
 template <int T>
 __device__ __forceinline__ void store_tile(float* dst, const Acc<T>& a) {
@@ -259,152 +215,274 @@ __device__ __forceinline__ void store_tile(float* dst, const Acc<T>& a) {
     for (int r = 0; r < M; ++r) st_vec<M>(dst + owner_row<T>(r) * T + owner_col<T>(0), a[r]);
 }
 
+// ---------------------------------------------------------------------------
+// Blocked one-tile routines on shared memory: the Cholesky factorization of
+// potrf.cu and the band-Cholesky sweep, and the right-substitution of trsm.cu
+// and the sweep.  A tile sits in shared memory with rows padded to T + 1
+// floats (LD), and is walked in panels of NB = min(T, 16) columns, so the
+// block barriers a tile needs do not grow with T: 8 at T = 64 for either.
+// NT is the block's thread count; every thread of the block calls them.
+// ---------------------------------------------------------------------------
+
 template <int T>
-__device__ __forceinline__ bool any_nonfinite(const Acc<T>& a) {
+struct Panel {
+    static constexpr int NB = T < 16 ? T : 16;   // panel width
+    static constexpr int LD = T + 1;             // padded row in shared memory
+};
+
+// A row-major T x T tile of device memory into S (row stride LD), read
+// through L2 (ld.global.cg): another block of a cluster may have written it
+// during the launch, and the SM's L1 could hold an older copy.  Every load
+// is in flight before the first store to S.  Does not synchronise.
+template <int T, int NT>
+__device__ __forceinline__ void stage_padded(float* S, const float* src) {
+    constexpr int LD = Panel<T>::LD, kVec = T * T / 4, kPer = (kVec + NT - 1) / NT;
+    float4 x[kPer];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int v = threadIdx.x + p * NT;
+        if (v < kVec) x[p] = __ldcg(reinterpret_cast<const float4*>(src) + v);
+    }
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+        const int v = threadIdx.x + p * NT;
+        if (v < kVec) {
+            float* row = S + (4 * v / T) * LD + 4 * v % T;
+            row[0] = x[p].x; row[1] = x[p].y; row[2] = x[p].z; row[3] = x[p].w;
+        }
+    }
+}
+
+// The lower triangle of S (row stride LD) to dst row-major, zeros above the
+// diagonal; true if this thread's share is not finite.  Does not
+// synchronise.
+template <int T, int NT>
+__device__ __forceinline__ bool store_lower(float* dst, const float* S) {
+    constexpr int LD = Panel<T>::LD;
     bool bad = false;
-#pragma unroll
-    for (int r = 0; r < Tile<T>::M; ++r)
-#pragma unroll
-        for (int s = 0; s < Tile<T>::M; ++s) bad |= !isfinite(a[r][s]);
+    for (int v = threadIdx.x; v < T * T; v += NT) {
+        const int r = v / T, c = v % T;
+        const float x = c <= r ? S[r * LD + c] : 0.f;
+        dst[v] = x;
+        bad |= !isfinite(x);
+    }
     return bad;
 }
 
-// Cholesky of the owner-layout tile `a` in place: a right-looking column
-// loop that reads the lower triangle and leaves L with zeros above the
-// diagonal.  A non-positive pivot gives NaN (1/sqrt of a negative number),
-// which then fills the rest of the tile, as the TPU kernel's rsqrt does.
-// colv is T + 1 floats of shared memory.  Every thread of the block must
-// call it: it synchronises the block twice per column.
-template <int T>
-__device__ void factorize_tile(Acc<T>& a, float* colv) {
-    constexpr int NT = Tile<T>::NT, M = Tile<T>::M;
-    const bool own = owns_tile<T>();
-    const int ty = threadIdx.x / NT, tx = threadIdx.x % NT;
-    // element updates are selects, not branches: divergent branches around
-    // register updates cost a warp reconvergence each
-    for (int j = 0; j < T; ++j) {
-        const int jb = j / M, jr = j % M;  // owner block and slot of row/column j
-        // the owner of (j, j) publishes the pivot
-        float pv = a[0][0];
+// Cholesky of the SPD tile in S (row stride LD), in place: the lower
+// triangle becomes L; above the diagonal S is left as scratch, never read.
+// Only the lower triangle of the input is read.  For each panel of NB
+// columns:
+//   (a) the NB x NB diagonal block is factored by a warp, lane i holding row
+//       i in registers, the pivot and each scaled column entry broadcast by
+//       __shfl_sync: no block barrier inside;
+//   (b) the rows below it (X L11^T = A21) ride along in the same loop:
+//       lanes 16..31 of warp w hold rows 16 w .. 16 w + 15 below the block,
+//       and every warp factors the block alike to have its broadcasts, so
+//       the panel is one pass of NB steps;
+//   (c) the block updates the trailing lower triangle, A22 -= L21 L21^T, a
+//       thread a 4 x 4 micro-tile of it;
+// with one barrier after (a, b) and one after (c).  Plain fp32 FMA (no
+// TF32), the pivot's reciprocal square root by rsqrtf, as the TPU kernel's
+// rsqrt.  A non-positive pivot gives NaN (rsqrt of a negative number, or
+// 0 * inf), which then reaches every later column through the updates.
+// Returns after a block barrier.
+template <int T, int NT>
+__device__ void factorize_smem(float* S) {
+    constexpr int NB = Panel<T>::NB, LD = Panel<T>::LD;
+    static_assert((T - NB + 15) / 16 <= NT / 32, "too few warps for the rows below a panel");
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll 1
+    for (int k0 = 0; k0 < T; k0 += NB) {
+        const int k1 = k0 + NB;
+        // (a, b) the panel: warp w's lanes 0..NB-1 hold the diagonal block's
+        // rows and lanes 16..31 rows k1 + 16 w + 0..15 below it; every warp
+        // factors the diagonal block alike and solves its own rows with it
+        const int below = lane - 16 + 16 * warp;           // row k1 + below
+        const bool diag_row = lane < NB;
+        const bool below_row = lane >= 16 && k1 + below < T;
+        if (warp == 0 || 16 * warp < T - k1) {
+            const int row = diag_row ? k0 + lane : k1 + below;
+            float r[NB];
 #pragma unroll
-        for (int r = 1; r < M; ++r) pv = jr == r ? a[r][r] : pv;
-        if (own && ty == jb && tx == jb) colv[T] = pv;
-        __syncthreads();
-        const float dinv = 1.f / sqrtf(colv[T]);
-        // the owners of column j publish it scaled, zero above the diagonal
-        if (own && tx == jb) {
+            for (int c = 0; c < NB; ++c)
+                r[c] = diag_row || below_row ? S[row * LD + k0 + c] : 0.f;
+            const int i = diag_row ? lane : NB;            // the row's place in the panel
+            float pv = r[0];   // the next pivot, on its own lane
 #pragma unroll
-            for (int r = 0; r < M; ++r) {
-                float v = a[r][0];
+            for (int k = 0; k < NB; ++k) {
+                const float dinv = rsqrtf(__shfl_sync(0xffffffffu, pv, k));
+                const float lk = r[k] * dinv;              // L[row, k] for i >= k
+                r[k] = i >= k ? lk : r[k];
+                // lane k + 1 updates its pivot with its own lk, the value
+                // the update below gives its r[k + 1], so the chain from one
+                // pivot to the next does not wait for the shuffle of lk
+                if (k + 1 < NB) pv = fmaf(-lk, lk, r[k + 1]);
 #pragma unroll
-                for (int s = 1; s < M; ++s) v = jr == s ? a[r][s] : v;
-                const int i = owner_row<T>(r);
-                colv[i] = i >= j ? v * dinv : 0.f;
+                for (int m = k + 1; m < NB; ++m) {
+                    const float lmk = __shfl_sync(0xffffffffu, lk, m);
+                    // selects, not branches: divergent branches around
+                    // register updates cost a warp reconvergence each
+                    r[m] = i >= m ? fmaf(-lk, lmk, r[m]) : r[m];
+                }
+            }
+            if ((diag_row && warp == 0) || below_row) {
+#pragma unroll
+                for (int c = 0; c < NB; ++c)
+                    if (c <= i) S[row * LD + k0 + c] = r[c];
             }
         }
         __syncthreads();
-        // write column j and update the trailing block
-        if (own) {
-            float ci[M], cm[M];
+        if (k1 == T) break;
+        // (c) the trailing lower triangle: A22 -= L21 L21^T, 4 x 4 micro-tiles
+        const int nmb = (T - k1) / 4;
+        for (int idx = tid; idx < nmb * (nmb + 1) / 2; idx += NT) {
+            int bi = static_cast<int>(0.5f * (sqrtf(8.f * idx + 1.f) - 1.f));   // row-major
+            bi += (bi + 1) * (bi + 2) / 2 <= idx;                               // lower tile
+            bi -= bi * (bi + 1) / 2 > idx;
+            const int bm = idx - bi * (bi + 1) / 2;
+            const int i0 = k1 + 4 * bi, m0 = k1 + 4 * bm;
+            float acc[4][4];
 #pragma unroll
-            for (int r = 0; r < M; ++r) ci[r] = colv[owner_row<T>(r)];
+            for (int p = 0; p < 4; ++p)
 #pragma unroll
-            for (int s = 0; s < M; ++s) cm[s] = colv[owner_col<T>(s)];
+                for (int q = 0; q < 4; ++q) acc[p][q] = S[(i0 + p) * LD + m0 + q];
 #pragma unroll
-            for (int r = 0; r < M; ++r)
+            for (int c = 0; c < NB; ++c) {
+                float li[4], lm[4];
 #pragma unroll
-                for (int s = 0; s < M; ++s) {
-                    const int i = owner_row<T>(r), m = owner_col<T>(s);
-                    const float upd = fmaf(-ci[r], cm[s], a[r][s]);
-                    a[r][s] = m == j ? ci[r] : (i > j && m > j ? upd : a[r][s]);
+                for (int p = 0; p < 4; ++p) {
+                    li[p] = S[(i0 + p) * LD + k0 + c];
+                    lm[p] = S[(m0 + p) * LD + k0 + c];
                 }
+#pragma unroll
+                for (int p = 0; p < 4; ++p)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(-li[p], lm[q], acc[p][q]);
+            }
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) S[(i0 + p) * LD + m0 + q] = acc[p][q];
         }
+        __syncthreads();
     }
-#pragma unroll
-    for (int r = 0; r < M; ++r)
-#pragma unroll
-        for (int s = 0; s < M; ++s)
-            if (owner_col<T>(s) > owner_row<T>(r)) a[r][s] = 0.f;
 }
 
-// Store the owner-layout L transposed (Lt[m * T + i] = L[i, m]) and the
-// reciprocals of its diagonal, the operands of substitute_right_rows.
-template <int T>
-__device__ __forceinline__ void store_substitution_operands(float* Lt, float* dinv,
-                                                            const Acc<T>& l) {
-    if (!owns_tile<T>()) return;
+// The reciprocals of the factored tile's diagonal, dinv[j] = 1 / L[j, j],
+// the pivots of substitute_right.  Does not synchronise.
+template <int T, int NT>
+__device__ __forceinline__ void store_pivots(float* dinv, const float* L) {
+    for (int j = threadIdx.x; j < T; j += NT) dinv[j] = 1.f / L[j * (Panel<T>::LD + 1)];
+}
+
+// Solve X L^T = A, row by row, for up to kSubChunk rows held in X (row
+// stride LD; rows nrows .. nrows rounded up to 4 are zero): L lower
+// triangular at row stride LD, only its strict lower triangle read, and
+// dinv its pivots' reciprocals.  Per panel of NB columns:
+//   (a) the panel: a thread a row, x_c = a_c / L[c, c] and then every later
+//       entry of the panel updated, each L entry read as a broadcast (every
+//       thread reads the same word), so there is no shuffle chain;
+//   (b) the trailing update X[:, j1:] -= X[:, panel] L[j1:, panel]^T over
+//       the whole block, a thread a 4 x 4 micro-tile;
+// with one barrier after each.  Returns after a block barrier.
+constexpr int kSubChunk = 64;
+
+template <int T, int NT>
+__device__ void solve_rows_smem(float* X, int nrows, const float* L, const float* dinv) {
+    constexpr int NB = Panel<T>::NB, LD = Panel<T>::LD;
+    const int tid = threadIdx.x;
+    const int nmr = (nrows + 3) / 4;
+#pragma unroll 1
+    for (int j0 = 0; j0 < T; j0 += NB) {
+        const int j1 = j0 + NB;
+        for (int r = tid; r < nrows; r += NT) {
+            float x[NB];
 #pragma unroll
-    for (int r = 0; r < Tile<T>::M; ++r)
+            for (int c = 0; c < NB; ++c) x[c] = X[r * LD + j0 + c];
 #pragma unroll
-        for (int s = 0; s < Tile<T>::M; ++s) {
-            const int i = owner_row<T>(r), m = owner_col<T>(s);
-            Lt[m * T + i] = l[r][s];
-            if (i == m) dinv[i] = 1.f / l[r][s];
+            for (int c = 0; c < NB; ++c) {
+                x[c] *= dinv[j0 + c];
+#pragma unroll
+                for (int m = c + 1; m < NB; ++m)
+                    x[m] = fmaf(-x[c], L[(j0 + m) * LD + j0 + c], x[m]);
+            }
+#pragma unroll
+            for (int c = 0; c < NB; ++c) X[r * LD + j0 + c] = x[c];
         }
+        __syncthreads();
+        if (j1 == T) break;
+        const int nmc = (T - j1) / 4;
+        for (int idx = tid; idx < nmr * nmc; idx += NT) {
+            const int i0 = 4 * (idx / nmc), m0 = j1 + 4 * (idx % nmc);
+            float acc[4][4];
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[p][q] = X[(i0 + p) * LD + m0 + q];
+#pragma unroll
+            for (int c = 0; c < NB; ++c) {
+                float xi[4], lm[4];
+#pragma unroll
+                for (int p = 0; p < 4; ++p) {
+                    xi[p] = X[(i0 + p) * LD + j0 + c];
+                    lm[p] = L[(m0 + p) * LD + j0 + c];
+                }
+#pragma unroll
+                for (int p = 0; p < 4; ++p)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(-xi[p], lm[q], acc[p][q]);
+            }
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) X[(i0 + p) * LD + m0 + q] = acc[p][q];
+        }
+        __syncthreads();
+    }
 }
 
-// Solve X L^T = A for nrows independent rows: row r is read from src(r)
-// and written to dst(r) (T floats each; they may alias).  Each warp solves
-// kSubRows rows together, its lanes owning the columns c = lane + 32 q; a
-// right-looking column loop (x_j = a_j / L[j, j], then a_c -= x_j L[c, j]
-// for c > j) broadcasts x_j by shuffle and reads row j of Lt, so
-// neighbouring lanes read neighbouring words.  Every thread of the block
-// must call it; it does not synchronise.  Returns true if this thread's
-// share of the solution is not finite.
-constexpr int kSubRows = 8;
-
-template <int T, typename Src, typename Dst>
-__device__ bool substitute_right_rows(const float* Lt, const float* dinv, int nrows,
-                                      Src src, Dst dst) {
-    constexpr int Q = (T + 31) / 32;     // column blocks of 32
-    constexpr int W = T < 32 ? T : 32;   // columns in a block
-    constexpr int kWarps = kThreads / 32;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+// Solve X L^T = A for nrows independent rows of T floats: row r is read from
+// src(r) (through L2, as stage_padded reads) and written to dst(r); they may
+// alias, since a chunk of kSubChunk rows is read whole into the shared buffer
+// X (kSubChunk * LD floats) before any of it is written.  L and dinv as
+// solve_rows_smem takes them.  Returns true if this thread's share of the
+// solution is not finite.  Every thread of the block calls it; X is still in
+// use when it returns, so the caller synchronises before reusing it.
+template <int T, int NT, typename Src, typename Dst>
+__device__ bool substitute_right(float* X, const float* L, const float* dinv, int nrows,
+                                 Src src, Dst dst) {
+    constexpr int LD = Panel<T>::LD, V = T / 4;
     bool bad = false;
-    for (int r0 = warp * kSubRows; r0 < nrows; r0 += kWarps * kSubRows) {
-        float x[kSubRows][Q];
+#pragma unroll 1
+    for (int r0 = 0; r0 < nrows; r0 += kSubChunk) {
+        if (r0 > 0) __syncthreads();   // the chunk before is stored
+        const int n = min(kSubChunk, nrows - r0), n4 = (n + 3) / 4 * 4;
+        constexpr int kPer = (kSubChunk * V + NT - 1) / NT;
+        float4 x[kPer];   // every load in flight before the first store
 #pragma unroll
-        for (int r = 0; r < kSubRows; ++r)
-#pragma unroll
-            for (int q = 0; q < Q; ++q) {
-                const int c = lane + 32 * q;
-                x[r][q] = (r0 + r < nrows && c < T) ? src(r0 + r)[c] : 0.f;
-            }
-#pragma unroll
-        for (int qj = 0; qj < Q; ++qj) {
-#pragma unroll 2
-            for (int jj = 0; jj < W; ++jj) {
-                const int j = 32 * qj + jj;
-                const float dj = dinv[j];
-                float lt[Q];
-#pragma unroll
-                for (int q = qj; q < Q; ++q) {
-                    const int c = lane + 32 * q;
-                    lt[q] = c < T ? Lt[j * T + c] : 0.f;
-                }
-                // selects, not branches (see factorize_tile)
-                const bool is_j = lane == jj, after = lane > jj;
-#pragma unroll
-                for (int r = 0; r < kSubRows; ++r) {
-                    const float xj = __shfl_sync(0xffffffffu, x[r][qj], jj) * dj;
-                    const float upd = fmaf(-xj, lt[qj], x[r][qj]);
-                    x[r][qj] = is_j ? xj : (after ? upd : x[r][qj]);
-#pragma unroll
-                    for (int q = qj + 1; q < Q; ++q) x[r][q] = fmaf(-xj, lt[q], x[r][q]);
-                }
-            }
+        for (int p = 0; p < kPer; ++p) {
+            const int v = threadIdx.x + p * NT, r = v / V, c = 4 * (v % V);
+            x[p] = r < n ? __ldcg(reinterpret_cast<const float4*>(src(r0 + r) + c))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
-        for (int r = 0; r < kSubRows; ++r)
-#pragma unroll
-            for (int q = 0; q < Q; ++q) {
-                const int c = lane + 32 * q;
-                if (r0 + r < nrows && c < T) {
-                    dst(r0 + r)[c] = x[r][q];
-                    bad |= !isfinite(x[r][q]);
-                }
+        for (int p = 0; p < kPer; ++p) {
+            const int v = threadIdx.x + p * NT;
+            if (v < n4 * V) {
+                float* row = X + v / V * LD + 4 * (v % V);
+                row[0] = x[p].x; row[1] = x[p].y; row[2] = x[p].z; row[3] = x[p].w;
             }
+        }
+        __syncthreads();
+        solve_rows_smem<T, NT>(X, n, L, dinv);
+        for (int v = threadIdx.x; v < n * V; v += NT) {
+            const int r = v / V, c = 4 * (v % V);
+            const float* row = X + r * LD + c;
+            const float4 x = make_float4(row[0], row[1], row[2], row[3]);
+            *reinterpret_cast<float4*>(dst(r0 + r) + c) = x;
+            bad |= !(isfinite(x.x) && isfinite(x.y) && isfinite(x.z) && isfinite(x.w));
+        }
     }
     return bad;
 }

@@ -115,6 +115,47 @@ __device__ __forceinline__ void mma_sub(float (&acc)[SumShape<T>::MR][SumShape<T
     }
 }
 
+// acc += sum_{q = lo .. lo + len - 1} A(q) op(B(q)) over the S x S sub-tile
+// at (r0, c0), the pairs in order, a pair's copies in flight while the pair
+// before it is multiplied.  As and Bs are two stages each, of S * LDK floats
+// (A) and S * LDK (NT) or T * LDN (NN) floats (B).  Every thread of the
+// block calls it with the same lo and len.  It does not synchronise after
+// the last pair: the caller does before it stages into the buffers again.
+template <int T, bool NT, typename FA, typename FB>
+__device__ __forceinline__ void sum_pairs(float (&acc)[SumShape<T>::MR][SumShape<T>::MC], FA A,
+                                          FB B, int lo, int len, int r0, int c0, float* As,
+                                          float* Bs) {
+    using Sh = SumShape<T>;
+    constexpr int S = Sh::S, LDK = Sh::LDK, LDN = Sh::LDN;
+    constexpr int A_STAGE = S * LDK, B_STAGE = NT ? S * LDK : T * LDN;
+    const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+    const bool active = threadIdx.x < Sh::ACTIVE;
+    auto stage = [&](int q, int buf) {
+        stage_rows<S, T, LDK, T>(As + buf * A_STAGE, A(q) + static_cast<size_t>(r0) * T);
+        if constexpr (NT) {
+            stage_rows<S, T, LDK, T>(Bs + buf * B_STAGE, B(q) + static_cast<size_t>(c0) * T);
+        } else {
+            stage_rows<T, S, LDN, T>(Bs + buf * B_STAGE, B(q) + c0);
+        }
+        cp_async_commit();
+    };
+    if (len > 0) stage(lo, 0);
+    if (len > 1) stage(lo + 1, 1);
+    for (int p = 0; p < len; ++p) {
+        if (p + 1 < len) {
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();  // every thread's copies of pair p have landed
+        if (active) mma_sub<T, NT>(acc, As + (p & 1) * A_STAGE, Bs + (p & 1) * B_STAGE, ty, tx);
+        if (p + 2 < len) {
+            __syncthreads();  // buffer p & 1 is free again
+            stage(lo + p + 2, p & 1);
+        }
+    }
+}
+
 // u = sum_{q < n} A(q) op(B(q)) for the target tile at u, this block's
 // sub-tile blockIdx.x / CL and cluster rank blockIdx.x % CL, pairs in runs
 // of `per` a rank (the plan: CL * per >= n).  A and B map q to a tile
@@ -123,8 +164,8 @@ template <int T, bool NT, typename FA, typename FB>
 __device__ __forceinline__ void cluster_tile_sum(FA A, FB B, int n, int per, float* u) {
     using Sh = SumShape<T>;
     constexpr int S = Sh::S, MR = Sh::MR, MC = Sh::MC, LDK = Sh::LDK, LDN = Sh::LDN;
-    __shared__ __align__(16) float As[2][S * LDK];
-    __shared__ __align__(16) float Bs[2][NT ? S * LDK : T * LDN];
+    __shared__ __align__(16) float As[2 * S * LDK];
+    __shared__ __align__(16) float Bs[2 * (NT ? S * LDK : T * LDN)];
     __shared__ __align__(16) float part[kSumThreads * MR * MC];
     namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
@@ -136,36 +177,12 @@ __device__ __forceinline__ void cluster_tile_sum(FA A, FB B, int n, int per, flo
     const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
     const bool active = threadIdx.x < Sh::ACTIVE;
 
-    auto stage = [&](int q, int buf) {
-        stage_rows<S, T, LDK, T>(As[buf], A(q) + static_cast<size_t>(r0) * T);
-        if constexpr (NT) {
-            stage_rows<S, T, LDK, T>(Bs[buf], B(q) + static_cast<size_t>(c0) * T);
-        } else {
-            stage_rows<T, S, LDN, T>(Bs[buf], B(q) + c0);
-        }
-        cp_async_commit();
-    };
-
     float acc[MR][MC];
 #pragma unroll
     for (int i = 0; i < MR; ++i)
 #pragma unroll
         for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
-    if (len > 0) stage(lo, 0);
-    if (len > 1) stage(lo + 1, 1);
-    for (int p = 0; p < len; ++p) {
-        if (p + 1 < len) {
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();  // every thread's copies of pair p have landed
-        if (active) mma_sub<T, NT>(acc, As[p & 1], Bs[p & 1], ty, tx);
-        if (p + 2 < len) {
-            __syncthreads();  // buffer p & 1 is free again
-            stage(lo + p + 2, p & 1);
-        }
-    }
+    sum_pairs<T, NT>(acc, A, B, lo, len, r0, c0, As, Bs);
 
     // the cluster's partials, each thread's MR x MC outputs contiguous in
     // `part` at its own slot: rank 0's thread reads the slot its twin wrote
@@ -200,15 +217,15 @@ __device__ __forceinline__ void cluster_tile_sum(FA A, FB B, int n, int per, flo
     cluster.sync();  // rank 0 has read every rank's partial
 }
 
-// Launch `kernel` on grid, kSumThreads threads a block, in clusters of `cl`
-// blocks along x.
+// Launch `kernel` on grid, kSumThreads threads a block and `smem` bytes of
+// dynamic shared memory, in clusters of `cl` blocks along x.
 template <typename... P, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(P...), dim3 grid, int cl, cudaStream_t stream,
-                           Args... args) {
+cudaError_t launch_cluster(void (*kernel)(P...), dim3 grid, int cl, size_t smem,
+                           cudaStream_t stream, Args... args) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = grid;
     cfg.blockDim = dim3(kSumThreads);
-    cfg.dynamicSmemBytes = 0;
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;

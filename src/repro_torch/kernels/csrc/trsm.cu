@@ -9,13 +9,16 @@
 // Bound on this card: a tile is 3 T^2 floats moved (L, A, X) for T^3
 // operations, so the bytes bound it; as for potrf, one tile is far too
 // little work to reach either bound, and the T-long dependency chain of the
-// substitution is what its time is made of.  The design gives each block
-// one tile with L (transposed) in shared memory; the rows of X L^T = A are
-// independent, so each warp solves kSubRows (8) rows at once with its lanes owning
-// columns, broadcasting each solved entry by shuffle: no block barrier
-// inside the substitution.  out may be a itself (an in-place solve): a
-// warp reads its rows before it writes them, and no other warp touches
-// them; out must not overlap l.
+// substitution is what its time is made of.  The first design solved the
+// rows a warp at a time through a T-step column loop of shuffle broadcasts.
+// This one is blocked, tile.cuh's substitute_right (shared with the
+// band-Cholesky sweep): each block stages its L (row stride T + 1) and the
+// reciprocals of its diagonal in shared memory and the tile after them,
+// then walks 16-column panels, each a row-independent solve of the diagonal
+// block (a thread a row, L read as broadcasts) and one trailing update over
+// the whole block: 8 block barriers at T = 64.  out may be a itself (an
+// in-place solve): the tile is read whole into shared memory before any of
+// it is written; out must not overlap l.
 #include "tile.cuh"
 
 namespace stiles {
@@ -23,19 +26,18 @@ namespace stiles {
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 trsm_kernel(const float* __restrict__ l, const float* a, float* out, int l_group) {
-    __shared__ float Lt[T * T];
+    constexpr int LD = Panel<T>::LD;
+    __shared__ float L[T * LD];
     __shared__ float dinv[T];
+    __shared__ float X[(T < kSubChunk ? T : kSubChunk) * LD];
     const float* lb = l + (l_group ? static_cast<size_t>(blockIdx.x / l_group) * T * T : 0);
-    for (int idx = threadIdx.x; idx < T * T; idx += kThreads) {
-        const int i = idx / T, m = idx % T;
-        Lt[m * T + i] = lb[idx];
-        if (i == m) dinv[i] = 1.f / lb[idx];
-    }
+    stage_padded<T, kThreads>(L, lb);
     __syncthreads();
+    store_pivots<T, kThreads>(dinv, L);
     const float* ab = a + static_cast<size_t>(blockIdx.x) * T * T;
     float* ob = out + static_cast<size_t>(blockIdx.x) * T * T;
-    substitute_right_rows<T>(
-        Lt, dinv, T, [&](int r) { return ab + r * T; }, [&](int r) { return ob + r * T; });
+    substitute_right<T, kThreads>(X, L, dinv, T, [&](int r) { return ab + r * T; },
+                                  [&](int r) { return ob + r * T; });
 }
 
 }  // namespace stiles

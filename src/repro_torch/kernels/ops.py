@@ -165,7 +165,7 @@ def band_cholesky_partitioned_sweep(Ac: torch.Tensor, R: torch.Tensor, boundarie
     partitions ``[boundaries[p], boundaries[p+1])`` of a block-separable
     band -> ``(panels, R_out, schur, status)`` with ``schur (P, nat, nat,
     t, t)``, one corner-Schur leaf per partition, and ``first_bad`` global.
-    ``"cuda"`` is one kernel launch, a block per partition (and per batch
+    ``"cuda"`` is one kernel launch, a cluster per partition (and per batch
     element, with a leading batch axis); ``"ref"`` the column loop of
     ``ref.py`` on each partition."""
     if resolve_impl(impl, Ac) == "cuda":

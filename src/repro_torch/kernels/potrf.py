@@ -1,8 +1,8 @@
 """CUDA kernel: Cholesky of SPD tiles (POTRF), ``csrc/potrf.cu``.
 
 Port of the TPU kernel ``repro/kernels/potrf.py::potrf_pallas``.  The tile
-stays in registers across its right-looking column loop
-(``csrc/tile.cuh::factorize_tile``, shared with the band-Cholesky sweep);
+sits in shared memory and is factored in panels of 16 columns
+(``csrc/tile.cuh::factorize_smem``, shared with the band-Cholesky sweep);
 one block per tile of the batch.  The plain version is
 ``ref.potrf_ref``; ``ops.potrf`` chooses between them by device.
 """

@@ -3,10 +3,11 @@
 
 :func:`trsm_cuda` ports the TPU kernel ``repro/kernels/trsm.py::
 trsm_pallas``: ``X = A L^{-T}`` for a batch of tiles, one L for all of them,
-one per tile or one per group of tiles.  Each warp solves eight rows of
-``X L^T = A`` together, its lanes owning the columns and each solved entry
-broadcast by shuffle (``csrc/tile.cuh::substitute_right_rows``, shared
-with the band-Cholesky sweep).
+one per tile or one per group of tiles.  Each block solves one tile of
+``X L^T = A`` in panels of 16 columns, a thread a row with ``L`` read as
+broadcasts, then one trailing update over the block
+(``csrc/tile.cuh::substitute_right``, shared with the band-Cholesky
+sweep).
 
 :func:`solve_panel_cuda` ports ``solve_panel_pallas``: ``L X = B`` or
 ``L^T X = B`` for (..., t, k) panels of any width k, one thread per
@@ -36,8 +37,8 @@ def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
     (..., 1, t, t) against a (..., n, t, t) batch: one L for each group of n
     tiles, as a batch of factorizations solves each panel against its own
     diagonal tile.  ``out`` takes the result in place of a new tensor and
-    may be ``a_mk`` itself (each row is read and then written by one warp);
-    it must not overlap L."""
+    may be ``a_mk`` itself (the tile is read whole into shared memory
+    before any of it is written); it must not overlap L."""
     t = check_tiles("trsm", l_kk, a_mk)
     if l_kk.numel() == t * t:
         group = 0

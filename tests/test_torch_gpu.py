@@ -23,8 +23,9 @@ from repro_torch.core import (BandedCTSF, PartitionPlan, SolverOptions, TileGrid
                               solve_many)
 from repro_torch.data import block_separable_arrowhead, make_arrowhead
 from repro_torch.kernels import ref
-from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
-                                               band_cholesky_sweep_cuda)
+from repro_torch.kernels.band_cholesky import (MAX_SWEEP_CLUSTER,
+                                               band_cholesky_partitioned_sweep_cuda,
+                                               band_cholesky_sweep_cuda, sweep_plan)
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
 from repro_torch.kernels.band_update import band_update_cuda
 from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
@@ -37,6 +38,7 @@ from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
 pytestmark = pytest.mark.gpu
 
 TILES = [8, 16, 32, 64]
+SWEEP_CLUSTERS = [1, 2, 4, 8, 16]
 TOL = dict(rtol=2e-4, atol=2e-4)
 # (n, bandwidth, arrow) per tile size: a deep band of small tiles, a thick
 # arrow and wide band, and nat = 2 at t = 32 and 64
@@ -71,30 +73,73 @@ def test_potrf_and_trsm_kernels(cuda, t):
     b = torch.from_numpy(rng.standard_normal((3, t, t)).astype(np.float32)).to(cuda)
     torch.testing.assert_close(trsm_cuda(l[0], b), ref.trsm_ref(l[0], b), **TOL)
     torch.testing.assert_close(trsm_cuda(l, b), ref.trsm_ref(l, b), **TOL)
+    # in place, with one L and with one L a tile: the tile is read whole
+    # before any of it is written
+    for lk in (l[0], l):
+        x = b.clone()
+        assert trsm_cuda(lk, x, out=x) is x
+        torch.testing.assert_close(x, ref.trsm_ref(lk, b), **TOL)
 
 
 @pytest.mark.parametrize("t", TILES)
 @pytest.mark.parametrize("start_tile", [0, 2])
-def test_sweep_kernel(cuda, t, start_tile):
+@pytest.mark.parametrize("max_cluster", SWEEP_CLUSTERS)
+def test_sweep_kernel(cuda, t, start_tile, max_cluster):
+    """The cluster sweep at every cluster size against its plain version;
+    two launches, and every cluster size, give the same bits (no sum is
+    split across ranks)."""
     m = _matrix(t, cuda)
     Ac = band_row_to_col(m.Dr)
-    got = band_cholesky_sweep_cuda(Ac, m.R, nchunks=3, start_tile=start_tile)
+    got = band_cholesky_sweep_cuda(Ac, m.R, nchunks=3, start_tile=start_tile,
+                                   max_cluster=max_cluster)
     want = ref.band_cholesky_sweep_ref(Ac, m.R, nchunks=3, start_tile=start_tile)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+    again = band_cholesky_sweep_cuda(Ac, m.R, nchunks=3, start_tile=start_tile,
+                                     max_cluster=max_cluster)
+    one = band_cholesky_sweep_cuda(Ac, m.R, nchunks=3, start_tile=start_tile, max_cluster=1)
+    for g, a, o in zip(got, again, one):
+        assert torch.equal(g, a) and torch.equal(g, o)
 
 
-def test_sweep_kernel_breakdown_status(cuda):
+@pytest.mark.parametrize("max_cluster", SWEEP_CLUSTERS)
+def test_sweep_kernel_breakdown_status(cuda, max_cluster):
     """An indefinite diagonal tile gives the plain version's status word:
     the same nonfinite bit and first failing column."""
     m = _matrix(16, cuda)
     Dr = m.Dr.clone()
     Dr[3, 0] -= 1e3 * torch.eye(16, device=cuda)
     Ac = band_row_to_col(Dr)
-    got = band_cholesky_sweep_cuda(Ac, m.R)[3].tolist()
+    got = band_cholesky_sweep_cuda(Ac, m.R, max_cluster=max_cluster)[3].tolist()
     want = ref.band_cholesky_sweep_ref(Ac, m.R)[3].tolist()
     assert got[1:] == want[1:] == [1.0, 3.0]
     assert got[0] == pytest.approx(want[0], rel=2e-4)
+
+
+def test_sweep_kernel_refuses_a_bad_cluster(cuda):
+    """A cluster outside 1..16 is refused by the plan, and by the C entry
+    point, whose error the wrapper's check raises: no quiet fallback."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.band_cholesky import _plan_table
+    m = _matrix(64, cuda)
+    Ac = band_row_to_col(m.Dr)
+    for bad in (0, MAX_SWEEP_CLUSTER + 1):
+        with pytest.raises(ValueError, match="max_cluster"):
+            band_cholesky_sweep_cuda(Ac, m.R, max_cluster=bad)
+        with pytest.raises(ValueError, match="max_cluster"):
+            band_cholesky_partitioned_sweep_cuda(Ac, m.R, (0, Ac.shape[0]), max_cluster=bad)
+    ndt, b1 = Ac.shape[:2]
+    nat = m.R.shape[1]
+    table = _plan_table(sweep_plan(64, b1 - 1, nat), Ac.device)
+    outs = (torch.empty_like(Ac), torch.empty_like(m.R),
+            torch.empty((1, nat, nat, 64, 64), device=cuda), torch.empty(3, device=cuda))
+    lib = _build.load("band_cholesky")
+    for cluster in (0, MAX_SWEEP_CLUSTER + 1):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, lib.stiles_band_cholesky_sweep_f32(
+                Ac.data_ptr(), m.R.data_ptr(), *(x.data_ptr() for x in outs),
+                table.data_ptr(), cluster, ndt, b1 - 1, nat, 64, ndt, 0, 1,
+                torch.cuda.current_stream().cuda_stream), "band_cholesky_sweep")
 
 
 @pytest.mark.parametrize("t", TILES)
@@ -325,17 +370,21 @@ PARTITIONS = [(5, 2, 1, (0, 5)), (6, 0, 2, (0, 2, 4, 6)), (8, 2, 0, (0, 4, 8)),
 
 @pytest.mark.parametrize("t", TILES)
 @pytest.mark.parametrize("ndt,bt,nat,bounds", PARTITIONS)
-def test_partitioned_sweep_kernel(cuda, t, ndt, bt, nat, bounds):
+@pytest.mark.parametrize("max_cluster", [1, 4, 16])
+def test_partitioned_sweep_kernel(cuda, t, ndt, bt, nat, bounds, max_cluster):
     """The partitioned kernel against its plain version, and bit for bit
-    against the fused kernel in panels, arrow rows and status."""
+    against the fused kernel in panels, arrow rows and status, both on the
+    plan of clusters of at most ``max_cluster``."""
     Ac, R = (x.to(cuda) for x in _separable_band(t, ndt, bt, nat, bounds, seed=ndt + t))
     for start in (0, 3):
-        got = band_cholesky_partitioned_sweep_cuda(Ac, R, bounds, start_tile=start)
+        got = band_cholesky_partitioned_sweep_cuda(Ac, R, bounds, start_tile=start,
+                                                   max_cluster=max_cluster)
         want = ref.band_cholesky_partitioned_sweep_ref(Ac, R, bounds, start_tile=start)
         assert got[2].shape == (len(bounds) - 1, nat, nat, t, t)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, **TOL)
-        fused = band_cholesky_sweep_cuda(Ac, R, nchunks=1, start_tile=start)
+        fused = band_cholesky_sweep_cuda(Ac, R, nchunks=1, start_tile=start,
+                                         max_cluster=max_cluster)
         for g, w in zip(got[:2], fused[:2]):
             assert torch.equal(g, w)
         assert got[3].tolist() == fused[3].tolist()
@@ -467,12 +516,16 @@ def test_trsm_kernel_one_l_per_group(cuda, t):
     l = ref.potrf_ref(a)[:, None]
     b = torch.from_numpy(rng.standard_normal((4, 3, t, t)).astype(np.float32)).to(cuda)
     torch.testing.assert_close(trsm_cuda(l, b), ref.trsm_ref(l, b), **TOL)
+    x = b.clone()
+    trsm_cuda(l, x, out=x)
+    torch.testing.assert_close(x, ref.trsm_ref(l, b), **TOL)
     with pytest.raises(ValueError, match="group"):
         trsm_cuda(l[:2], b)
 
 
 @pytest.mark.parametrize("t", [16, 64])
-def test_batched_sweep_kernels_bit_identical_per_element(cuda, t):
+@pytest.mark.parametrize("max_cluster", [2, 16])
+def test_batched_sweep_kernels_bit_identical_per_element(cuda, t, max_cluster):
     """The fused and partitioned sweeps on a batch of three: one launch
     each, every element's outputs bit for bit the unbatched launch's, and
     the plain versions' to fp32 tolerance."""
@@ -484,12 +537,12 @@ def test_batched_sweep_kernels_bit_identical_per_element(cuda, t):
                         (band_cholesky_partitioned_sweep_cuda, dict(boundaries=bounds,
                                                                     start_tile=1))):
         before = sweep.launches
-        got = sweep(Ac, R, **args)
+        got = sweep(Ac, R, **args, max_cluster=max_cluster)
         assert sweep.launches == before + 1 and got[3].shape == (3, 3)
         plain = (ref.band_cholesky_sweep_ref if sweep is band_cholesky_sweep_cuda
                  else ref.band_cholesky_partitioned_sweep_ref)(Ac, R, **args)
         for i in range(3):
-            one = sweep(Ac[i], R[i], **args)
+            one = sweep(Ac[i], R[i], **args, max_cluster=max_cluster)
             for g, w in zip(got, one):
                 assert torch.equal(g[i], w)
         for g, w in zip(got, plain):
