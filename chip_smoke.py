@@ -17,7 +17,9 @@ Phases, each of which raises on a failed check:
    blocks, every cap bit for bit the same, plus a breakdown input whose
    status word must match exactly at every cap; solve_panel for both trans and k in {1, 7, 32, 64};
    both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
-   (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}; the selinv
+   (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}, at clusters of
+   at most 1, 2, 4, 8 and 16 blocks, every cap bit for bit the same and as a
+   second launch; the selinv
    pre-pass and sweep for t in {16, 64}, bt in {0, 1, 4}, nat in {0, 1,
    4}, start_tile in {0, 2}, plus one column and fewer columns than band
    tiles, the recurrence in clusters of the default size (16), 4 and 8; gemm,
@@ -91,6 +93,12 @@ Phases, each of which raises on a failed check:
    tile-sum kernels band_update and selinv_step, their launch plans, two
    launches on the main path's operands bit for bit, and the plans of
    cluster caps 1 (no contraction split), 2, 4 and 8 timed side by side;
+   the band-solve sweeps on matrices 5 and 2 at k = 1 and 32 and every
+   cluster cap (each against the plain version, bit for bit against
+   clusters of 1) beside the plain version, and on matrix 5 beside their
+   one-call yardstick, torch.linalg.solve_triangular on the band block
+   assembled as one dense lower-triangular matrix beforehand (the backward
+   call's Y - R^T Xa formed beforehand too);
    the selinv sweep on matrices 5 and 2 beside its plain version, its
    pre-pass and recurrence apart, the recurrence at clusters of 4, 8 and
    16, two launches bit for bit; potrf on the θ-batch's 8 corner tiles in
@@ -147,6 +155,9 @@ SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
 # for the kernel line: where they were measured
 SWEEP_FIRST_DESIGN = ("one block a matrix; its times are PERF.md section 6's 'first design' "
                       "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
+SOLVE_FIRST_DESIGN = ("one block a 32-column chunk walking every row, all its products and a "
+                      "one-warp substitution on the chain; its times are PERF.md section 6's "
+                      "'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
 TRSM_FIRST_DESIGN = ("a warp per 8 rows through a T-step shuffle loop; its time is PERF.md "
                      "section 6's 'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, "
                      "700 W)")
@@ -465,14 +476,26 @@ def phase_solve_kernels(torch, device, kern, ref):
                     b0 = bd.clone()
                     b0[:start] = 0.0
                     what = f"t={t} ndt={ndt} bt={bt} nat={nat} k={k} start={start}"
-                    got = kern["band_forward_sweep"](Dr, R, b0, start)
-                    want = ref.band_forward_sweep_ref(Dr, R, b0, start)
-                    for a, w, part in zip(got, want, ("yd", "acc_a")):
-                        assert_close(torch, a, w, f"band_forward_sweep {what} {part}")
-                    assert_close(torch, kern["band_backward_sweep"](Dr, R, b0, xa, start),
-                                 ref.band_backward_sweep_ref(Dr, R, b0, xa, start),
-                                 f"band_backward_sweep {what}")
-                    nchecks += 2
+                    want = ref.band_forward_sweep_ref(Dr, R, b0, start) + (
+                        ref.band_backward_sweep_ref(Dr, R, b0, xa, start),)
+                    # every cluster cap against the plain version, bit for
+                    # bit the same as clusters of 1 and as a second launch
+                    first = None
+                    for cap in SWEEP_CLUSTERS:
+                        run = lambda: kern["band_forward_sweep"](Dr, R, b0, start, max_cluster=cap) \
+                            + (kern["band_backward_sweep"](Dr, R, b0, xa, start, max_cluster=cap),)
+                        got = run()
+                        for a, w, part in zip(got, want, ("forward yd", "forward acc_a",
+                                                          "backward xd")):
+                            assert_close(torch, a, w, f"band sweeps {what} clusters of at most "
+                                         f"{cap}: {part}")
+                        first = got if first is None else first
+                        if not all(torch.equal(a, b) for a, b in zip(got, first)) or not all(
+                                torch.equal(a, b) for a, b in zip(got, run())):
+                            raise AssertionError(f"band sweeps {what}: clusters of at most {cap} "
+                                                 f"not bit-identical to clusters of 1 and to a "
+                                                 f"second launch")
+                        nchecks += 2
     for t in (16, 64):
         # the grid at ndt = 6, then one column and fewer columns than band tiles
         shapes = [(6, bt, nat) for bt in (0, 1, 4) for nat in (0, 1, 4)] + list(SELINV_EDGES)
@@ -573,6 +596,18 @@ def dense_from_ctsf(torch, m, dtype, symmetric):
     if symmetric:
         out = torch.tril(out) + torch.tril(out, -1).mT
     return out
+
+
+def band_block_dense(torch, Dr):
+    """The factor's band block as one dense lower-triangular (ndt t, ndt t)
+    matrix: what the band sweeps' one-call library yardstick,
+    ``torch.linalg.solve_triangular``, solves with."""
+    ndt, b1, t, _ = Dr.shape
+    Lb = Dr.new_zeros((ndt * t, ndt * t))
+    for m in range(ndt):
+        for j in range(min(b1 - 1, m) + 1):
+            Lb[m * t:(m + 1) * t, (m - j) * t:(m - j + 1) * t] = Dr[m, j]
+    return torch.tril(Lb)
 
 
 def needed_flops(grid, boundaries=None):
@@ -1565,6 +1600,28 @@ def main() -> int:
         got, want = solve_k[name](), solve_p[name]()
         got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
         errs[name] = max(assert_close(torch, a, b, f"main-path {name}") for a, b in zip(got, want))
+    # the band sweeps' library yardstick: one torch.linalg.solve_triangular
+    # on the band block assembled as a dense lower-triangular matrix (once,
+    # here); the backward call's right-hand side Y - R^T Xa is formed here
+    # too.  It covers the band solve, not the forward sweep's arrow sums
+    Lb = band_block_dense(torch, fc.Dr)
+    yb = {kk: (b - torch.einsum("miab,iak->mbk", fc.R, x)).reshape(ndt * t, kk)
+          for kk, b, x in ((32, bd32, xa32), (1, bd1, xa1))}
+    lib_fwd = {kk: (lambda b=b: torch.linalg.solve_triangular(Lb, b.reshape(ndt * t, -1),
+                                                               upper=False))
+               for kk, b in ((32, bd32), (1, bd1))}
+    lib_bwd = {kk: (lambda y=y: torch.linalg.solve_triangular(Lb.mT, y, upper=True))
+               for kk, y in yb.items()}
+    for kk, bd_k, xa_k in ((32, bd32, xa32), (1, bd1, xa1)):
+        for name, got, want in (
+                ("forward", lib_fwd[kk]().reshape(ndt, t, kk),
+                 ref.band_forward_sweep_ref(fc.Dr, fc.R, bd_k)[0]),
+                ("backward", lib_bwd[kk]().reshape(ndt, t, kk),
+                 ref.band_backward_sweep_ref(fc.Dr, fc.R, bd_k, xa_k))):
+            diff = rel_diff(torch, (got,), (want,))
+            if not diff <= 1e-4:
+                raise AssertionError(f"the {name} sweep's yardstick at k = {kk}: "
+                                     f"{diff:.3e} from the plain version, relative to its max")
     work = solve_work(g, 32)
     prepass_k = lambda: selinv_prepass_cuda(lcol, fc.R, sc)
     prepass_p = lambda: ref.selinv_prepass_ref(lcol, fc.R, sc)
@@ -1662,6 +1719,11 @@ def main() -> int:
                             operands="the window route's factor, padded band rows "
                                      f"{kwin}..{kwin + bt}",
                             b9_random_max_abs_err_against_einsum=w9_err),
+        **{name: dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t, k=32,
+                      library="torch.linalg.solve_triangular on the band block as one dense "
+                              f"({ndt * t}, {ndt * t}) lower-triangular matrix, assembled "
+                              "beforehand; it covers the band solve, not the arrow sums")
+           for name in ("band_forward_sweep", "band_backward_sweep")},
         "selinv_step": dict(matrix=TABLE2_IDS[0], t=t, s_row=list(srow.shape), column=jcol,
                             library="the plain version is itself one torch.einsum; the "
                                     "library time is that call")}
@@ -1687,11 +1749,11 @@ def main() -> int:
              *work["solve_panel"], errs["solve_panel"]),
             ("band_forward_sweep", "src/repro_torch/kernels/csrc/band_solve.cu",
              "src/repro/kernels/band_solve.py:106", solve_k["band_forward_sweep"],
-             solve_p["band_forward_sweep"], None, 1, *work["band_forward_sweep"],
+             solve_p["band_forward_sweep"], lib_fwd[32], 1, *work["band_forward_sweep"],
              errs["band_forward_sweep"]),
             ("band_backward_sweep", "src/repro_torch/kernels/csrc/band_solve.cu",
              "src/repro/kernels/band_solve.py:202", solve_k["band_backward_sweep"],
-             solve_p["band_backward_sweep"], None, 1, *work["band_backward_sweep"],
+             solve_p["band_backward_sweep"], lib_bwd[32], 1, *work["band_backward_sweep"],
              errs["band_backward_sweep"]),
             ("selinv_sweep", "src/repro_torch/kernels/csrc/selinv.cu",
              "src/repro/kernels/selinv.py:213", solve_k["selinv_sweep"], solve_p["selinv_sweep"],
@@ -1880,6 +1942,57 @@ def main() -> int:
     entry = next(k for k in kernels if k["name"] == "trsm")
     entry["first_design"] = TRSM_FIRST_DESIGN
 
+    # the band-solve sweeps on both matrices at k = 1 and 32 and every
+    # cluster cap: each against the plain version and bit for bit against
+    # clusters of 1, timed beside the plain version and the bound
+    from repro_torch.kernels.band_solve import card_solve_plan, solve_max_active_clusters
+    for name in ("band_forward_sweep", "band_backward_sweep"):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["first_design"] = SOLVE_FIRST_DESIGN
+        entry["by_matrix"] = {}
+    # what the plans' chunk width rests on: clusters of each size that the
+    # card holds at once, one block an SM
+    at_once = {cl: solve_max_active_clusters(t, cl, dev) for cl in range(1, 17)}
+    log(f"band sweeps: clusters the card holds at once, one block an SM, by size: "
+        f"{json.dumps(at_once)}, card {card}")
+    for rec in records:
+        mm, ff = mats[rec["matrix"]]
+        gg, fcc = mm.grid, ff.ctsf
+        bdm, xam = _split_rhs(gg, torch.randn((gg.padded_n, 32), device=dev,
+                                              generator=torch.Generator(device=dev).manual_seed(11)))
+        for kk in (1, 32):
+            bdk, xak = bdm[..., :kk].contiguous(), xam[..., :kk].contiguous()
+            for name, kfn, pfn in (
+                    ("band_forward_sweep",
+                     lambda cap: band_forward_sweep_cuda(fcc.Dr, fcc.R, bdk, max_cluster=cap),
+                     lambda: ref.band_forward_sweep_ref(fcc.Dr, fcc.R, bdk)),
+                    ("band_backward_sweep",
+                     lambda cap: (band_backward_sweep_cuda(fcc.Dr, fcc.R, bdk, xak, max_cluster=cap),),
+                     lambda: (ref.band_backward_sweep_ref(fcc.Dr, fcc.R, bdk, xak),))):
+                want, first, caps = pfn(), None, []
+                for cap in SWEEP_CLUSTERS:
+                    plan = card_solve_plan(gg.t, gg.band_tiles, gg.n_arrow_tiles, kk, cap, dev)
+                    what = f"matrix {rec['matrix']} {name} k={kk}, clusters of {plan.cluster}"
+                    got = kfn(cap)
+                    err = max(assert_close(torch, a, b, what) for a, b in zip(got, want))
+                    first = got if first is None else first
+                    if not all(torch.equal(a, b) for a, b in zip(got, first)):
+                        raise AssertionError(f"{what}: not bit-identical to clusters of 1")
+                    caps.append(dict(max_cluster=cap, cluster=plan.cluster, max_abs_err=err,
+                                     ms=device_ms(torch, lambda: kfn(cap))))
+                entry = next(k for k in kernels if k["name"] == name)
+                entry["by_matrix"].setdefault(str(rec["matrix"]), {})[f"k{kk}"] = dict(
+                    ndt=gg.n_diag_tiles, bt=gg.band_tiles, nat=gg.n_arrow_tiles,
+                    width=plan.width, chunks=plan.chunks,
+                    max_active_clusters=at_once[plan.cluster], clusters=caps,
+                    bit_identical_across_clusters=True,
+                    deterministic=deterministic(torch, lambda: torch.cat(
+                        [x.flatten() for x in kfn(SWEEP_CLUSTERS[-1])]), f"{what} launches"),
+                    plain_ms=device_ms(torch, pfn),
+                    bound_ms=bound(*solve_work(gg, kk)[name])[0])
+                log(f"time {name}, Table II matrix {rec['matrix']}, k = {kk}: " + json.dumps(
+                    entry["by_matrix"][str(rec["matrix"])][f"k{kk}"]) + f", card {card}")
+
     # the band sweeps at k = 1 (a single solve), beside their bound
     work1 = solve_work(g, 1)
     for entry, fk in ((kernels[4], lambda: band_forward_sweep_cuda(fc.Dr, fc.R, bd1)),
@@ -1888,9 +2001,11 @@ def main() -> int:
         fp = ((lambda: ref.band_forward_sweep_ref(fc.Dr, fc.R, bd1))
               if entry["name"] == "band_forward_sweep"
               else (lambda: ref.band_backward_sweep_ref(fc.Dr, fc.R, bd1, xa1)))
+        flib = lib_fwd[1] if entry["name"] == "band_forward_sweep" else lib_bwd[1]
         entry["k1"] = dict(ms=device_ms(torch, fk), call_ms=time_ms(torch, fk), bound_ms=b_ms,
                            bound_by=b_by, plain_ms=device_ms(torch, fp),
-                           plain_call_ms=time_ms(torch, fp, reps=3, warmup=1))
+                           plain_call_ms=time_ms(torch, fp, reps=3, warmup=1),
+                           library_ms=device_ms(torch, flib), library_call_ms=time_ms(torch, flib))
         log(f"time {entry['name']} k=1: " + json.dumps(entry["k1"]))
 
     # geadd on the partitioned route's leaves (matrix 4), beside its bound

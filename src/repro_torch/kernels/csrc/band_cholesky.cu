@@ -141,8 +141,6 @@ __device__ unsigned long long g_phase_cycles[16 * kPhases];
 
 namespace stiles {
 
-constexpr int kMaxSweepCluster = 16;   // non-portable above kMaxCluster (8)
-
 // The partitions' column boundaries, passed by value so that a launch
 // needs no device copy of them (and can be captured in a CUDA graph); a
 // __grid_constant__ parameter is read in place, without a local copy.
@@ -160,17 +158,6 @@ constexpr int kArrowUnit = 1;
 
 __device__ __forceinline__ bool is_diag(int code) {
     return (code & 0xffff) == kBandUnit;   // the band tile e = 0
-}
-
-// The two halves of a cluster barrier (cluster.sync() is both at once): a
-// thread's writes before its arrive are visible to every thread of the
-// cluster after its wait.  Every thread arrives and then waits, in turn.
-__device__ __forceinline__ void cluster_arrive() {
-    asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 template <int T>
@@ -548,7 +535,7 @@ cudaError_t max_active_clusters(int cl, int* out) {
 int sweep(const void* ac, const void* r, void* panels, void* r_out, void* schur, void* status,
           const void* plan, int cl, const Bounds& bounds, int nparts, int batch, int ndt, int bt,
           int nat, int t, int csz, int nleaves, int start, void* stream) {
-    if (batch < 1 || batch > 65535 || cl < 1 || cl > kMaxSweepCluster || plan == nullptr ||
+    if (batch < 1 || batch > 65535 || cl < 1 || cl > kMaxClusterNonPortable || plan == nullptr ||
         bt < 0 || bt > 255 || nat < 0 || nat > 255)
         return static_cast<int>(cudaErrorInvalidValue);
     const auto* pac = static_cast<const float*>(ac);
@@ -613,7 +600,8 @@ extern "C" int stiles_band_cholesky_partitioned_sweep_f32(
 // holds at once (cudaOccupancyMaxActiveClusters), into *out.
 extern "C" int stiles_sweep_max_active_clusters(int t, int cluster, void* out) {
     using namespace stiles;
-    if (cluster < 1 || cluster > kMaxSweepCluster) return static_cast<int>(cudaErrorInvalidValue);
+    if (cluster < 1 || cluster > kMaxClusterNonPortable)
+        return static_cast<int>(cudaErrorInvalidValue);
     int* o = static_cast<int*>(out);
     switch (t) {
         case 8: return static_cast<int>(max_active_clusters<8>(cluster, o));

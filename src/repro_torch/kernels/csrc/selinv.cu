@@ -63,8 +63,6 @@
 
 namespace stiles {
 
-constexpr int kMaxSelinvCluster = 16;   // non-portable: needs the attribute
-
 // ---------------------------------------------------------------------------
 // pre-pass: a block a column
 // ---------------------------------------------------------------------------
@@ -444,7 +442,7 @@ extern "C" int stiles_selinv_prepass_f32(const void* lcol, const void* r, const 
 // work (ndt, bt + 2 nat + 2, t, t) from the pre-pass -> panels (ndt, bt+1,
 // t, t), acols (ndt, nat, t, t), one cluster of `cluster` blocks on the
 // plan of kernels/selinv.py::selinv_plan, checked here again: at most
-// kMaxSelinvCluster blocks, at least one a lower sub-tile of the diagonal
+// kMaxClusterNonPortable blocks, at least one a lower sub-tile of the diagonal
 // and otherwise no more than the column's target sub-tiles, the diagonal
 // split cluster / (lower sub-tiles) ways.
 extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* acols, int ndt,
@@ -453,7 +451,7 @@ extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* aco
     using namespace stiles;
     const int ns = t < 32 ? 1 : t / 32, diag = ns * (ns + 1) / 2;
     const int units = (bt + nat) * ns * ns;
-    if (ndt < 1 || bt < 0 || nat < 0 || cluster < diag || cluster > kMaxSelinvCluster ||
+    if (ndt < 1 || bt < 0 || nat < 0 || cluster < diag || cluster > kMaxClusterNonPortable ||
         cluster > (units > diag ? units : diag) || split != cluster / diag)
         return static_cast<int>(cudaErrorInvalidValue);
     const auto* pw = static_cast<const float*>(work);

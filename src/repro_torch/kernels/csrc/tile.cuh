@@ -487,6 +487,92 @@ __device__ bool substitute_right(float* X, const float* L, const float* dinv, in
     return bad;
 }
 
+// Solve X L^T = A (BACK false) or X L = A (BACK true) in place for R <= 8
+// rows held in X (row stride ldx): the few-rows form of solve_rows_smem, for
+// the band-solve sweeps, where a row of X is one right-hand-side column of
+// L y = b (BACK false) or of L^T y = b (BACK true).  L lower triangular at
+// row stride ldl, only its strict lower triangle read, and dinv its pivots'
+// reciprocals; ldx and ldl are multiples of 4 and X, L 16-byte aligned.
+// BACK false walks the panels of NB columns left to right,
+// x_c = (a_c - sum_{l < c} x_l L[c, l]) / L[c, c]; BACK true right to left,
+// x_c = (a_c - sum_{l > c} x_l L[l, c]) / L[c, c].  Per panel:
+//   (a) the panel: a thread a row, L read as broadcasts;
+//   (b) the update of the columns the panel feeds, an element (BACK false:
+//       right of the panel, L's row segment read as float4) or four
+//       neighbouring elements (BACK true: left of it, L's rows read as
+//       float4) a thread, the panel's NB products in order: R rows are too
+//       few for solve_rows_smem's 4 x 4 micro-tiles to keep the block busy;
+// with one barrier after each, 7 at T = 64.  Every thread of the block calls
+// it; returns after a block barrier.
+template <int T, int NT, int R, bool BACK>
+__device__ void solve_few_rows(float* X, int ldx, const float* L, int ldl, const float* dinv) {
+    constexpr int NB = Panel<T>::NB;
+    static_assert(R <= NT && NB % 4 == 0, "a thread a row, float4 panels");
+    const int tid = threadIdx.x;
+#pragma unroll 1
+    for (int s = 0; s < T; s += NB) {
+        const int j0 = BACK ? T - NB - s : s;
+        if (tid < R) {
+            float* row = X + tid * ldx + j0;
+            float x[NB];
+#pragma unroll
+            for (int c = 0; c < NB; ++c) x[c] = row[c];
+#pragma unroll
+            for (int u = 0; u < NB; ++u) {
+                const int c = BACK ? NB - 1 - u : u;
+                x[c] *= dinv[j0 + c];
+#pragma unroll
+                for (int m = 0; m < NB; ++m) {
+                    if (BACK ? m < c : m > c)
+                        x[m] = fmaf(-x[c], BACK ? L[(j0 + c) * ldl + j0 + m]
+                                                : L[(j0 + m) * ldl + j0 + c], x[m]);
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < NB; ++c) row[c] = x[c];
+        }
+        __syncthreads();
+        const int n = BACK ? j0 : T - j0 - NB;   // columns the panel feeds
+        if (n == 0) break;
+        if constexpr (!BACK) {
+            for (int idx = tid; idx < R * n; idx += NT) {
+                const int r = idx % R, i = j0 + NB + idx / R;
+                const float* xr = X + r * ldx + j0;
+                const float* li = L + i * ldl + j0;
+                float acc = X[r * ldx + i];
+#pragma unroll
+                for (int c = 0; c < NB; c += 4) {
+                    const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+                    const float4 lv = *reinterpret_cast<const float4*>(li + c);
+                    acc = fmaf(-xv.x, lv.x, acc);
+                    acc = fmaf(-xv.y, lv.y, acc);
+                    acc = fmaf(-xv.z, lv.z, acc);
+                    acc = fmaf(-xv.w, lv.w, acc);
+                }
+                X[r * ldx + i] = acc;
+            }
+        } else {
+            for (int idx = tid; idx < R * n / 4; idx += NT) {
+                const int r = idx % R, i = 4 * (idx / R);
+                const float* xr = X + r * ldx + j0;
+                float4* dst = reinterpret_cast<float4*>(X + r * ldx + i);
+                float4 acc = *dst;
+#pragma unroll
+                for (int c = 0; c < NB; ++c) {
+                    const float xc = xr[c];
+                    const float4 lv = *reinterpret_cast<const float4*>(L + (j0 + c) * ldl + i);
+                    acc.x = fmaf(-xc, lv.x, acc.x);
+                    acc.y = fmaf(-xc, lv.y, acc.y);
+                    acc.z = fmaf(-xc, lv.z, acc.z);
+                    acc.w = fmaf(-xc, lv.w, acc.w);
+                }
+                *dst = acc;
+            }
+        }
+        __syncthreads();
+    }
+}
+
 // One row-major T x T tile of device memory into shared memory with row
 // stride Tile<T>::LDK, as it is or transposed (dst[c * LDK + r] = src[r, c]).
 // Every thread of the block calls it; it does not synchronise.

@@ -40,6 +40,7 @@ namespace stiles {
 
 constexpr int kSumThreads = 128;
 constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kMaxClusterNonPortable = 16;   // the largest, with the attribute
 
 template <int T>
 struct SumShape {
@@ -59,6 +60,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// 4 bytes, through L1 (cp.async.cg takes 16 only): for rows whose stride
+// or offset is not a multiple of 16 bytes.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -66,6 +74,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The two halves of a cluster barrier (cluster.sync() is both at once): a
+// thread's writes before its arrive, to global or to distributed shared
+// memory, are visible to every thread of the cluster after its wait (the
+// arrive releases, the wait acquires).  Every thread arrives and then
+// waits, in turn.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // ROWS x COLS floats from src (row stride LDS) to dst (row stride LDD), 16

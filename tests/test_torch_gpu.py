@@ -213,24 +213,49 @@ def test_solve_panel_kernel(cuda, t, trans, k):
 
 # (ndt, bt, nat): one tile (bt = 0), no arrow, a wider band, a deep band
 SWEEP_GRIDS = [(1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1)]
+# the band sweeps' grids add Table II matrix 5's band and arrow (clusters
+# of 8 blocks, the widest chunks at k = 64)
+SOLVE_GRIDS = SWEEP_GRIDS + [(6, 4, 4)]
 
 
 @pytest.mark.parametrize("t", TILES)
-@pytest.mark.parametrize("ndt,bt,nat", SWEEP_GRIDS)
-@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("ndt,bt,nat", SOLVE_GRIDS)
+@pytest.mark.parametrize("k", [1, 7, 32, 33, 64])
 @pytest.mark.parametrize("start_tile", [0, 2])
-def test_band_sweep_kernels(cuda, t, ndt, bt, nat, k, start_tile):
+@pytest.mark.parametrize("max_cluster", SWEEP_CLUSTERS)
+def test_band_sweep_kernels(cuda, t, ndt, bt, nat, k, start_tile, max_cluster):
+    """Both band sweeps on the plan of each cluster cap against their plain
+    versions, bit for bit the same as the default cap's and as a second
+    launch; one launch a call."""
     start_tile = min(start_tile, ndt - 1)
     rng = np.random.default_rng(ndt * 100 + k)
     Dr, R = _band_factor(rng, ndt, bt, nat, t, cuda)
     bd = torch.from_numpy(rng.standard_normal((ndt, t, k)).astype(np.float32)).to(cuda)
     bd[:start_tile] = 0.0
-    for g, w in zip(band_forward_sweep_cuda(Dr, R, bd, start_tile),
-                    ref.band_forward_sweep_ref(Dr, R, bd, start_tile)):
-        torch.testing.assert_close(g, w, **TOL)
     xa = torch.from_numpy(rng.standard_normal((nat, t, k)).astype(np.float32)).to(cuda)
-    torch.testing.assert_close(band_backward_sweep_cuda(Dr, R, bd, xa, start_tile),
-                               ref.band_backward_sweep_ref(Dr, R, bd, xa, start_tile), **TOL)
+    fwd = lambda cap: band_forward_sweep_cuda(Dr, R, bd, start_tile, max_cluster=cap)
+    bwd = lambda cap: band_backward_sweep_cuda(Dr, R, bd, xa, start_tile, max_cluster=cap)
+    launches = (band_forward_sweep_cuda.launches, band_backward_sweep_cuda.launches)
+    got = fwd(max_cluster) + (bwd(max_cluster),)
+    assert (band_forward_sweep_cuda.launches, band_backward_sweep_cuda.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    want = ref.band_forward_sweep_ref(Dr, R, bd, start_tile) + (
+        ref.band_backward_sweep_ref(Dr, R, bd, xa, start_tile),)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    for again in (fwd(max_cluster) + (bwd(max_cluster),), fwd(16) + (bwd(16),)):
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_band_sweep_kernels_refuse_a_bad_cluster(cuda):
+    rng = np.random.default_rng(3)
+    Dr, R = _band_factor(rng, 4, 2, 1, 16, cuda)
+    bd = torch.zeros((4, 16, 3), device=cuda)
+    for cap in (0, 17):
+        with pytest.raises(ValueError, match="max_cluster"):
+            band_forward_sweep_cuda(Dr, R, bd, max_cluster=cap)
+        with pytest.raises(ValueError, match="max_cluster"):
+            band_backward_sweep_cuda(Dr, R, bd, bd[:1], max_cluster=cap)
 
 
 def _selinv_inputs(t, bt, nat, ndt, device, seed=0):
