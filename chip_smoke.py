@@ -24,7 +24,8 @@ Phases, each of which raises on a failed check:
    4}, start_tile in {0, 2}, plus one column and fewer columns than band
    tiles, the recurrence in clusters of the default size (16), 4 and 8; gemm,
    syrk and geadd with batched, broadcast,
-   in-place and strided operands; the partitioned sweep for P in {1, 2,
+   in-place and strided operands, gemm and syrk also at every split (1, 4,
+   16 or 64 blocks a tile), every split bit for bit the same; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
    bit against the fused kernel, at every cluster cap; band_update for b+1 in {1, 2, 3, 5, 6,
    9} against both plain versions, also on a strided batch of windows;
@@ -33,7 +34,9 @@ Phases, each of which raises on a failed check:
    tiles, also in place; the fused and partitioned sweeps on a batch of three, each
    element also bit for bit against its unbatched launch;
 3. main paths at full size, each with the launch counts set to 0 just
-   before it and read just after:
+   before it and read just after (a count is of launches on the card: the
+   wrapper's count of its calls, less the calls a capture of the task list
+   recorded into its graph, plus the launches its replays made):
    - Table II matrices 5 (n=10,200, bandwidth 200, arrow 200) and 2
      (n=10,010, bandwidth 200, arrow 10), seed 0, t=64:
      measure_arrowhead -> TileGrid -> BandedCTSF.from_sparse ->
@@ -43,9 +46,17 @@ Phases, each of which raises on a failed check:
      card against float64 oracles (factor residual, logdet, solve residual
      and forward error, L^T x = z, every stored entry of Σ, the variances);
    - the same two matrices through TileMatrix.from_sparse ->
-     factorize_tasklist, tree reduction off and on (8 workers): launch
-     counts derived from the symbolic task list, factor residual,
-     agreement with the window factor, logdet from the tiles;
+     factorize_tasklist, tree reduction off and on (8 workers), whose first
+     call warms up one launch of each tile kernel (and one tree update),
+     captures the pattern's CUDA graph and replays it: launch counts
+     derived from the symbolic task list and the warm-up, one capture,
+     factor residual,
+     agreement with the window factor, logdet from the tiles; then (not
+     counted in the path) a second call, a call with impl="cuda" and a new
+     TileMatrix of the same pattern (τ A + δ I) replay it with no capture
+     (one call's launches each), the later calls bit for bit the first, the θ step's factor its
+     own (residual against its matrix), and both bit for bit the eager
+     loop's with the tree off (tree on: equal or rtol = atol = 2e-4);
    - Table II matrices 4 (n=10,200, bandwidth 100, arrow 200) and 1
      (n=10,010, bandwidth 100, arrow 10), block-diagonal, with the plan
      detect_partition_plan finds (7 partitions): the partitioned sweep bit
@@ -82,8 +93,15 @@ Phases, each of which raises on a failed check:
    partition alone; where the factorization sweep's cycles go on ranks 0
    and 1 of its cluster, from a phase-marked build of its kernel;
    factorize_window, solve_many, selected_inverse and
-   marginal_variances end to end; factorize_tasklist (call time against
-   device time) and the partitioned factorize_window end to end; the
+   marginal_variances end to end; factorize_tasklist: the first call
+   (capture included) and the memory its graph keeps, the call time against
+   its kernels' device time and the graph's replay alone, a θ step of the
+   same pattern, and the eager loop's call and device time; gemm and syrk
+   at every split on the main path's task and on a batch of five tasks,
+   beside torch.baddbmm; the one-call yardsticks of the band-Cholesky
+   sweeps (torch.linalg.cholesky_ex on the band block) and of the selinv
+   sweep (torch.cholesky_inverse of the dense factor); the partitioned
+   factorize_window end to end; the
    window route end to end beside the fused route; the batched routes
    end to end against one candidate alone, and the batched sweep and
    band_update kernels against one element's launch (the sweeps also at
@@ -149,6 +167,8 @@ SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
 SELINV_EDGES = ((1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0))
 # θ-candidates of the batched factorization (factorize_window_batched)
 BATCH = 8
+# (τ, δ) of the task list's second matrix of one pattern, τ A + δ I
+THETA_STEP = (1.5, 0.25)
 # the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
 SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
 # the fused sweep's times before this cluster design (one block a matrix),
@@ -158,6 +178,9 @@ SWEEP_FIRST_DESIGN = ("one block a matrix; its times are PERF.md section 6's 'fi
 SOLVE_FIRST_DESIGN = ("one block a 32-column chunk walking every row, all its products and a "
                       "one-warp substitution on the chain; its times are PERF.md section 6's "
                       "'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
+GEMM_FIRST_DESIGN = ("one block of 256 threads a tile, A and B staged through registers into "
+                     "transposed shared memory; its time is PERF.md section 6's 'first design' "
+                     "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
 TRSM_FIRST_DESIGN = ("a warp per 8 rows through a T-step shuffle loop; its time is PERF.md "
                      "section 6's 'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, "
                      "700 W)")
@@ -294,19 +317,25 @@ def assert_update(got, want, scale, what):
     return err
 
 
-def largest_band_task(torch, tm, L, task_type):
-    """The GEMM or SYRK task of ``tm``'s task list in the band (every index
-    below ndt) whose product ``L[row, n] L[k, n]^T`` is largest, from the
-    factor's tile buffer ``L``: many band tiles of a Table II factor are
-    zero or tiny, and a kernel's check on those could not tell a skipped
-    product."""
+def largest_band_tasks(torch, tm, L, task_type, n=1):
+    """The ``n`` GEMM or SYRK tasks of ``tm``'s task list in the band (every
+    index below ndt) whose products ``L[row, n] L[k, n]^T`` are largest,
+    largest first, from the factor's tile buffer ``L``: many band tiles of a
+    Table II factor are zero or tiny, and a kernel's check on those could
+    not tell a skipped product."""
     from repro_torch.core import TaskType
     ndt = tm.grid.n_diag_tiles
     row = (lambda x: x.m) if task_type == TaskType.GEMM else (lambda x: x.k)
     tasks = [x for x in tm.symbolic.tasks if x.type == task_type and row(x) < ndt]
     prods = torch.einsum("nab,ncb->nac", L[[tm.slot[(row(x), x.n)] for x in tasks]],
                          L[[tm.slot[(x.k, x.n)] for x in tasks]])
-    return tasks[int(prods.abs().amax(dim=(1, 2)).argmax())]
+    order = torch.argsort(prods.abs().amax(dim=(1, 2)), descending=True, stable=True)
+    return [tasks[int(i)] for i in order[:n]]
+
+
+def largest_band_task(torch, tm, L, task_type):
+    """The band task of :func:`largest_band_tasks` with the largest product."""
+    return largest_band_tasks(torch, tm, L, task_type)[0]
 
 
 def first_tree_operands(torch, tm, L, workers):
@@ -404,6 +433,33 @@ PARTITIONED_CASES = ((6, 2, 1, (0, 6)), (8, 0, 2, (0, 4, 8)), (9, 2, 0, (0, 3, 5
                      (15, 3, 2, (0, 2, 4, 6, 8, 10, 12, 15)), (10, 1, 3, (0, 3, 6, 9, 10)))
 
 
+def check_gemm_splits(torch, t, kern, ref, x):
+    """gemm and syrk at every split of ``GEMM_SPLITS[t]`` (blocks a tile):
+    batched, A or B one tile broadcast, one tile, each also in place, each
+    against its plain version and bit for bit against the first split;
+    returns the number of comparisons."""
+    from repro_torch.kernels.gemm import GEMM_SPLITS
+    c, a, b = x(5, t, t), x(5, t, t), x(5, t, t)
+    cases = (("gemm batched", "gemm", (c, a, b)), ("gemm broadcast A", "gemm", (c, a[0], b)),
+             ("gemm broadcast B", "gemm", (c, a, b[1])), ("gemm one tile", "gemm", (c[2], a[0], b[1])),
+             ("syrk batched", "syrk", (c, a)), ("syrk one tile", "syrk", (c[1], a[3])))
+    plain = {what: getattr(ref, f"{name}_ref")(*args) for what, name, args in cases}
+    first, n = {}, 0
+    for split in GEMM_SPLITS[t]:
+        for what, name, args in cases:
+            got = kern[name](*args, split=split)
+            inplace = args[0].clone()
+            kern[name](inplace, *args[1:], out=inplace, split=split)
+            for g, mode in ((got, ""), (inplace, " in place")):
+                label = f"{what}{mode} t={t} split={split}"
+                assert_close(torch, g, plain[what], label)
+                if not torch.equal(g, first.setdefault(what, g)):
+                    raise AssertionError(f"{label}: not bit-identical to split "
+                                         f"{GEMM_SPLITS[t][0]}")
+                n += 1
+    return n
+
+
 def phase_tasklist_kernels(torch, device, kern, ref):
     """The task list's tile kernels (gemm, syrk, geadd) and the partitioned
     sweep against their plain versions; the partitioned sweep also bit for
@@ -425,6 +481,7 @@ def phase_tasklist_kernels(torch, device, kern, ref):
         want = ref.gemm_ref(c[0], a[1], b[2])
         kern["gemm"](c[0], a[1], b[2], out=c[0])
         assert_close(torch, c[0], want, f"gemm t={t} in place")
+        nchecks += check_gemm_splits(torch, t, kern, ref, x)
         leaves = x(7, 2, 2, t, t)
         assert_close(torch, kern["geadd"](leaves[0:6:2], leaves[1:6:2]),
                      ref.geadd_ref(leaves[0:6:2], leaves[1:6:2]), f"geadd t={t} strided")
@@ -837,6 +894,25 @@ def tasklist_launches(tm, workers):
     return want
 
 
+def tasklist_warmup_launches(want, workers):
+    """The launches the first call of a pattern makes before its capture:
+    one of each tile kernel and, where ``want`` (one call's launches) has a
+    tree, one tree update (its chains all have at least ``2 * workers``
+    products, so a geadd per level over ``workers`` partials)."""
+    return dict(potrf=1, trsm=1, syrk=1, gemm=1,
+                geadd=tree_levels(workers) if want["geadd"] else 0)
+
+
+def device_counts(kern):
+    """Launches on the card by kernel name (``kern``: name -> wrapper): each
+    wrapper's count of its calls, less the launches the task list's
+    captures recorded into their CUDA graphs (calls of the wrappers that
+    ran nothing), plus those the graphs' replays made."""
+    from repro_torch.core.cholesky import tasklist_graphs as g
+    return {k: f.launches - g.recorded[f.__name__] + g.replayed[f.__name__]
+            for k, f in kern.items()}
+
+
 def dense_from_tiles(torch, tm, tiles, dtype):
     """The padded dense lower factor of a TileMatrix's tile buffer, on its
     device."""
@@ -849,11 +925,13 @@ def dense_from_tiles(torch, tm, tiles, dtype):
 
 def run_tasklist(torch, matrix_id, m, f, rec, kern_counts):
     """The paper's task list on one factored Table II matrix, tree
-    reduction off and on (8 workers): launch counts against the symbolic
-    task list, the factor residual, the agreement with the window factor
-    ``f`` and the logdet from the tiles; returns the records and the
-    TileMatrix."""
+    reduction off and on (8 workers): the first call of each, which captures
+    the pattern's CUDA graph once and replays it, with its launch counts
+    against the symbolic task list and the warm-up, the factor residual, the agreement with
+    the window factor ``f`` and the logdet from the tiles; returns the
+    records, the TileMatrix and the factors (by tree setting)."""
     from repro_torch.core import TileMatrix, factorize_tasklist
+    from repro_torch.core.cholesky import tasklist_graphs
     from repro_torch.data import table2_matrix
     t0 = time.perf_counter()
     A, _ = table2_matrix(matrix_id, seed=0)
@@ -861,14 +939,20 @@ def run_tasklist(torch, matrix_id, m, f, rec, kern_counts):
     host_s = time.perf_counter() - t0
     Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
     Lw = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
-    out = {}
+    out, factors = {}, {}
     for tree in (False, True):
         workers = 8 if tree else 0
         what = f"matrix {matrix_id} factorize_tasklist tree={tree}"
         want = tasklist_launches(tm, workers)
+        warm = tasklist_warmup_launches(want, workers)
+        want = {k: want[k] + warm[k] for k in want}
+        captures = tasklist_graphs.captures
         tiles, launches = launch_delta(
             kern_counts, lambda: factorize_tasklist(tm, tree_reduction=tree, tree_workers=8),
             want, what)
+        if tasklist_graphs.captures != captures + 1:
+            raise AssertionError(f"{what}: {tasklist_graphs.captures - captures} captures, "
+                                 "want 1 for the pattern's first call")
         Lt = dense_from_tiles(torch, tm, tiles, torch.float64)
         resid = ((Lt @ Lt.mT - Ad).abs().max() / Ad.abs().max()).item()
         agree = ((Lt - Lw).abs().max() / Lw.abs().max()).item()
@@ -879,12 +963,89 @@ def run_tasklist(torch, matrix_id, m, f, rec, kern_counts):
             raise AssertionError(f"{what}: residual {resid:.3e} (limit {RESIDUAL_LIMIT}), "
                                  f"agreement with factorize_window {agree:.3e} (limit "
                                  f"{AGREEMENT_LIMIT}), logdet rel {ld_rel:.3e} (limit 1e-4)")
-        out[f"tree_{'on' if tree else 'off'}"] = dict(
-            residual=resid, agreement=agree, logdet=ld, logdet_rel_err=ld_rel,
-            launches=launches)
+        key = f"tree_{'on' if tree else 'off'}"
+        out[key] = dict(residual=resid, agreement=agree, logdet=ld, logdet_rel_err=ld_rel,
+                        launches=launches)
+        factors[key] = tiles
     del Ad, Lw
     return dict(n_tasks=len(tm.symbolic.tasks), n_alloc=tm.n_alloc, nbytes=tm.nbytes(),
-                host_setup_s=round(host_s, 3), **out), tm
+                host_setup_s=round(host_s, 3), **out), tm, factors
+
+
+def eager_tasklist(tm, workers):
+    """The task list launched task by task from the host on the card, as
+    every call did before the CUDA graph: the graph's yardstick."""
+    from repro_torch.core.cholesky import _run_tasklist, _schedule
+    return _run_tasklist(tm.tiles.clone(), _schedule(tm, workers), workers, None)
+
+
+def same_pattern_matrix(torch, matrix_id, tm):
+    """A TileMatrix of ``THETA_STEP[0] A + THETA_STEP[1] I``: another INLA θ
+    step of one Table II matrix, the same sparsity pattern as ``tm``."""
+    import scipy.sparse as sp
+    from repro_torch.core import TileMatrix
+    from repro_torch.data import table2_matrix
+    A, _ = table2_matrix(matrix_id, seed=0)
+    tau, delta = THETA_STEP
+    return TileMatrix.from_sparse((tau * A + delta * sp.identity(A.shape[0])).tocsr(), tm.grid)
+
+
+def check_tasklist_graph(torch, matrix_id, tm, factors, kern_counts):
+    """The task list's CUDA graph on one matrix, tree off and on: a second
+    call replays without a capture and gives the first call's bits, with
+    one call's launches; a new TileMatrix of the same pattern (another θ)
+    replays the same graph and gets its own factor (its residual against
+    its own matrix); the graph's factors against the eager loop's, bit for
+    bit with the tree off.  With the tree on, the chains' batched product is
+    one cuBLAS call, which may take another algorithm inside a capture than
+    outside it: equal, or within the kernels' tolerance.  Returns the
+    record and the new TileMatrix."""
+    from repro_torch.core import SolverOptions, factorize_tasklist
+    from repro_torch.core.cholesky import tasklist_graph_key, tasklist_graphs
+    tm2 = same_pattern_matrix(torch, matrix_id, tm)
+    if tasklist_graph_key(tm2, 0) != tasklist_graph_key(tm, 0):
+        raise AssertionError(f"matrix {matrix_id}: the θ step's pattern key differs")
+    A2 = dense_from_tiles(torch, tm2, tm2.tiles, torch.float64)
+    A2 = A2 + torch.tril(A2, -1).mT
+    out = {}
+    for tree in (False, True):
+        workers = 8 if tree else 0
+        key = f"tree_{'on' if tree else 'off'}"
+        what = f"matrix {matrix_id} factorize_tasklist tree={tree}"
+        want = tasklist_launches(tm, workers)
+        call = lambda x: factorize_tasklist(x, tree_reduction=tree, tree_workers=8)
+        captures = tasklist_graphs.captures
+        again, l2 = launch_delta(kern_counts, lambda: call(tm), want, f"{what}, second call")
+        f2, l3 = launch_delta(kern_counts, lambda: call(tm2), want, f"{what}, θ step")
+        as_cuda = factorize_tasklist(tm, tree_reduction=tree, tree_workers=8,
+                                     options=SolverOptions(impl="cuda"))
+        if tasklist_graphs.captures != captures:
+            raise AssertionError(f"{what}: a replay of a kept pattern (impl None or 'cuda') "
+                                 "captured again")
+        first = factors[key]
+        if not (torch.equal(again, first) and torch.equal(as_cuda, first)):
+            raise AssertionError(f"{what}: a later call differs from the first")
+        if torch.equal(f2, first):
+            raise AssertionError(f"{what}: the θ step returned the first matrix's factor")
+        L2 = dense_from_tiles(torch, tm2, f2, torch.float64)
+        resid2 = ((L2 @ L2.mT - A2).abs().max() / A2.abs().max()).item()
+        del L2
+        if not resid2 <= RESIDUAL_LIMIT:
+            raise AssertionError(f"{what}, θ step: residual {resid2:.3e} (limit "
+                                 f"{RESIDUAL_LIMIT})")
+        rec = dict(second_call_launches=l2, theta_step_launches=l3, theta_step_residual=resid2)
+        for name, got, x in (("graph", first, tm), ("theta_step", f2, tm2)):
+            eager = eager_tasklist(x, workers)
+            same = torch.equal(got, eager)
+            if not same and not tree:
+                raise AssertionError(f"{what} ({name}): the graph's factor is not the eager "
+                                     "loop's bit for bit")
+            rec[f"{name}_equal_to_eager"] = same
+            rec[f"{name}_max_abs_diff_to_eager"] = assert_close(
+                torch, got, eager, f"{what} ({name}) against the eager loop")
+        out[key] = rec
+    del A2
+    return out, tm2
 
 
 def partitioned_matrix(torch, matrix_id):
@@ -1352,8 +1513,8 @@ def launches_per_call(records, precords, extra, name):
     out = {}
     for r in records:
         calls = [("factorize_window", r["launches"])] + list(r["solves"]["launches"].items())
-        calls += [(f"factorize_tasklist_{k}", v["launches"]) for k, v in r["tasklist"].items()
-                  if isinstance(v, dict) and "launches" in v]
+        calls += [(f"factorize_tasklist_{k} first call", v["launches"])
+                  for k, v in r["tasklist"].items() if isinstance(v, dict) and "launches" in v]
         out[str(r["matrix"])] = {c: n[name] for c, n in calls if n.get(name)}
     for r in precords:
         if r["launches"].get(name):
@@ -1433,8 +1594,10 @@ def main() -> int:
             "band_update": band_update_cuda, "selinv_step": selinv_step_cuda,
             "selinv_prepass": selinv_prepass_cuda}
 
+    from repro_torch.core.cholesky import tasklist_graphs
+
     def counts():
-        return {k: f.launches for k, f in kern.items()}
+        return device_counts(kern)
 
     path_launches = {}
 
@@ -1443,6 +1606,8 @@ def main() -> int:
         read just after."""
         for k in kern.values():
             k.launches = 0
+        tasklist_graphs.recorded.clear()
+        tasklist_graphs.replayed.clear()
         out = fn()
         torch.cuda.synchronize()
         path_launches[name] = {k: v for k, v in counts().items() if v}
@@ -1487,15 +1652,24 @@ def main() -> int:
     run_path("factorize_window and solves", window_path)
     tms = {}
 
+    tfactors, tm2s = {}, {}
+
     def tasklist_path():
         for rec in records:
             m, f = mats[rec["matrix"]]
-            rec["tasklist"], tms[rec["matrix"]] = run_tasklist(torch, rec["matrix"], m, f, rec,
-                                                               counts)
+            rec["tasklist"], tms[rec["matrix"]], tfactors[rec["matrix"]] = run_tasklist(
+                torch, rec["matrix"], m, f, rec, counts)
             log(f"main path, task list: Table II matrix {rec['matrix']}: "
                 + json.dumps(rec["tasklist"]))
 
     run_path("factorize_tasklist", tasklist_path)
+    # the graph's later calls, a θ step of the same pattern, the eager loop
+    for rec in records:
+        mid = rec["matrix"]
+        rec["tasklist"]["graph"], tm2s[mid] = check_tasklist_graph(
+            torch, mid, tms[mid], tfactors.pop(mid), counts)
+        log(f"main path, task list's CUDA graph: Table II matrix {mid}: "
+            + json.dumps(rec["tasklist"]["graph"]))
     pmats = {mid: partitioned_matrix(torch, mid) for mid in PARTITIONED_IDS}
     pfs = run_path("partitioned factorize_window", lambda: {
         mid: run_partitioned(torch, mid, m, plan, counts) for mid, (m, plan, _) in pmats.items()})
@@ -1703,13 +1877,44 @@ def main() -> int:
     errs["selinv_step"] = assert_close(torch, got, want, "main-path selinv_step")
     rel_errs["selinv_step"] = assert_update(got, want, want.abs().max().item(),
                                             "main-path selinv_step")
+    # the one-call yardsticks of the band-Cholesky sweeps and the selinv
+    # sweep: torch.linalg.cholesky_ex on the matrix's band block as one
+    # dense matrix (the band factor only, not the arrow rows or the Schur
+    # sums), assembled beforehand, held to the factor's band block; and
+    # torch.cholesky_inverse of the dense factor (the whole inverse, a
+    # superset of the selected one), held to Σ's diagonal tiles
+    from repro_torch.core import factorize_window as _fw
+    Ab5, Ab4 = band_block_dense(torch, m.Dr), band_block_dense(torch, m4.Dr)
+    for what, Ab, Lf in (("#5", Ab5, fc.Dr), ("#4", Ab4, _fw(m4).ctsf.Dr)):
+        diff = rel_diff(torch, (torch.linalg.cholesky_ex(Ab).L,), (band_block_dense(torch, Lf),))
+        if not diff <= 1e-4:
+            raise AssertionError(f"the band sweep's yardstick on {what}: {diff:.3e} from the "
+                                 "factor's band block, relative to its max")
+    Lf32 = dense_from_ctsf(torch, fc, torch.float32, symmetric=False)
+    lib_inv = lambda: torch.cholesky_inverse(Lf32)
+    sig_diag = torch.diagonal(selected_inverse(f).Dr[:, 0], dim1=-2, dim2=-1).reshape(-1)
+    diff = ((torch.diagonal(lib_inv())[:ndt * t] - sig_diag).abs().max()
+            / sig_diag.abs().max()).item()
+    if not diff <= 1e-3:
+        raise AssertionError(f"the selinv sweep's yardstick: its diagonal {diff:.3e} from Σ's, "
+                             "relative to its max")
     e_n, j_n = srow.shape[:2]
     P4 = plan4.n_partitions
     part_bytes = band_sweep_bytes(g4, P4, P4)
     tt4 = 4 * t * t
+    chol_lib = ("torch.linalg.cholesky_ex on the matrix's band block as one dense "
+                "({n}, {n}) matrix, assembled beforehand: the band factor only, not the arrow "
+                "rows or the corner-Schur sums")
     timed = {"band_cholesky_partitioned_sweep": dict(
         matrix=pid, ndt=g4.n_diag_tiles, bt=g4.band_tiles, nat=g4.n_arrow_tiles, t=g4.t,
-        partitions=P4, max_tiles=plan4.max_tiles),
+        partitions=P4, max_tiles=plan4.max_tiles,
+        library=chol_lib.format(n=g4.n_diag_tiles * g4.t)),
+        "band_cholesky_sweep": dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t,
+                                    library=chol_lib.format(n=ndt * t)),
+        "selinv_sweep": dict(matrix=TABLE2_IDS[0], ndt=ndt, bt=bt, nat=nat, t=t,
+                             library=f"torch.cholesky_inverse of the dense ({g.padded_n}, "
+                                     f"{g.padded_n}) factor, assembled beforehand: the whole "
+                                     "inverse, a superset of the selected one"),
         "gemm": dict(matrix=TABLE2_IDS[0], t=t, tiles=1, task=[int(gt.m), gt.k, int(gt.n)]),
         "syrk": dict(matrix=TABLE2_IDS[0], t=t, tiles=1, task=[st_.k, int(st_.n)]),
         "geadd": dict(matrix=TABLE2_IDS[0], t=t, shape=list(ga.shape),
@@ -1741,7 +1946,8 @@ def main() -> int:
              lambda: torch.linalg.solve_triangular(l_kk, col.mT, upper=False),
              20, nat * float(t) ** 3, 4 * t * t * (1 + 2 * nat), trsm_err),
             ("band_cholesky_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
-             "src/repro/kernels/band_cholesky.py:168", sweep_k, sweep_p, None, 1,
+             "src/repro/kernels/band_cholesky.py:168", sweep_k, sweep_p,
+             lambda: torch.linalg.cholesky_ex(Ab5).L, 1,
              sweep_ops, band_sweep_bytes(g, nch), sweep_err),
             ("solve_panel", "src/repro_torch/kernels/csrc/solve_panel.cu",
              "src/repro/kernels/trsm.py:111", solve_k["solve_panel"], solve_p["solve_panel"],
@@ -1757,7 +1963,7 @@ def main() -> int:
              errs["band_backward_sweep"]),
             ("selinv_sweep", "src/repro_torch/kernels/csrc/selinv.cu",
              "src/repro/kernels/selinv.py:213", solve_k["selinv_sweep"], solve_p["selinv_sweep"],
-             None, 1, *work["selinv_sweep"], errs["selinv_sweep"]),
+             lib_inv, 1, *work["selinv_sweep"], errs["selinv_sweep"]),
             ("gemm", "src/repro_torch/kernels/csrc/gemm.cu", "src/repro/kernels/gemm.py:40",
              tl_k["gemm"], tl_p["gemm"],
              lambda: torch.baddbmm(cg[None], ag[None], bg.mT[None], alpha=-1.0), 20,
@@ -1770,7 +1976,8 @@ def main() -> int:
              tl_k["geadd"], tl_p["geadd"], lambda: torch.add(ga, gb), 20, float(ga.numel()),
              3 * 4 * ga.numel(), errs["geadd"]),
             ("band_cholesky_partitioned_sweep", "src/repro_torch/kernels/csrc/band_cholesky.cu",
-             "src/repro/kernels/band_cholesky.py:341", part_k, part_p, None, 1,
+             "src/repro/kernels/band_cholesky.py:341", part_k, part_p,
+             lambda: torch.linalg.cholesky_ex(Ab4).L, 1,
              needed_flops(g4, plan4.boundaries)[0], part_bytes,
              errs["band_cholesky_partitioned_sweep"]),
             ("band_update", "src/repro_torch/kernels/csrc/band_update.cu",
@@ -1821,6 +2028,49 @@ def main() -> int:
             f"plain device {fmt(on_device.get('plain'))} ms, call {fmt(call['plain'])} ms; library "
             f"device {fmt(on_device.get('library'))} ms, call {fmt(call['library'])} ms; bound "
             f"{b_ms:.5f} ms by {b_by}")
+
+    # gemm and syrk at every split (blocks a tile): the main path's task (one
+    # tile) and a batch of the five band tasks with the largest products,
+    # each against its plain version and bit for bit across splits, beside
+    # the plain version and torch.baddbmm
+    from repro_torch.kernels.gemm import GEMM_SPLITS, gemm_split
+    gb5, sb5 = (largest_band_tasks(torch, tm5, L5, ty, 5) for ty in (TaskType.GEMM, TaskType.SYRK))
+    stack = lambda f, tasks: torch.stack([f(*ij) for ij in tasks])
+    cases = {"gemm": {"one_tile": (cg, ag, bg),
+                      "batch_5": (stack(a_tile, [(x.m, x.k) for x in gb5]),
+                                  stack(l_tile, [(x.m, x.n) for x in gb5]),
+                                  stack(l_tile, [(x.k, x.n) for x in gb5]))},
+             "syrk": {"one_tile": (cs, as_),
+                      "batch_5": (stack(a_tile, [(x.k, x.k) for x in sb5]),
+                                  stack(l_tile, [(x.k, x.n) for x in sb5]))}}
+    for name, kfn, plainf, per_tile in (("gemm", gemm_cuda, ref.gemm_ref, (2.0 * t ** 3, 4 * tt4)),
+                                        ("syrk", syrk_cuda, ref.syrk_ref, (float(t) ** 3, 3 * tt4))):
+        entry = next(k for k in kernels if k["name"] == name)
+        entry["first_design"] = GEMM_FIRST_DESIGN
+        entry["by_split"] = {}
+        for shape, args in cases[name].items():
+            nb = args[0].numel() // (t * t)
+            cb, ab_, bb = (x.reshape(-1, t, t) for x in (args + args[1:])[:3])
+            want, first, splits = plainf(*args), None, []
+            for split in GEMM_SPLITS[t]:
+                fn = lambda: kfn(*args, split=split)
+                got = fn()
+                what = f"main-path {name} {shape} split={split}"
+                err = assert_close(torch, got, want, what)
+                first = got if first is None else first
+                if not torch.equal(got, first):
+                    raise AssertionError(f"{what}: not bit-identical to split 1")
+                splits.append(dict(split=split, sub=gemm_split(t, split)[1],
+                                   blocks=nb * split, max_abs_err=err,
+                                   ms=device_ms(torch, fn, calls=20)))
+            entry["by_split"][shape] = dict(
+                tiles=nb, default_split=gemm_split(t)[0], splits=splits,
+                plain_ms=device_ms(torch, lambda: plainf(*args), calls=20),
+                library_ms=device_ms(torch, lambda: torch.baddbmm(cb, ab_, bb.mT, alpha=-1.0),
+                                     calls=20),
+                bound_ms=bound(per_tile[0] * nb, per_tile[1] * nb)[0])
+            log(f"time {name}, {shape}, by split: " + json.dumps(entry["by_split"][shape])
+                + f", card {card}")
 
     # the tile-sum kernels (tile_sum.cuh): their plans, two launches on the
     # main path's operands bit for bit, and the same operands on the plans
@@ -2085,17 +2335,49 @@ def main() -> int:
         f"{entry['fused_ms']:.4f} ms, fused kernel on the widest partition alone "
         f"({b[w + 1] - b[w]} of {g4.n_diag_tiles} columns) {entry['widest_partition_ms']:.4f} ms")
 
-    # the task list end to end: call time (the host's launch loop included)
-    # against device time (the same launches replayed from a CUDA graph)
+    # the task list end to end, tree off and on: the first call of the
+    # pattern (warm-up, capture and replay) and what its graph keeps; the
+    # call time (a replay: the input copied in, the factor copied out)
+    # against the device time of its kernels (device_ms, the eager loop's
+    # launches captured in its own graph) and against the graph's replay
+    # alone; a θ step of the same pattern; the eager loop launched task by
+    # task from the host, call and device time
+    from repro_torch.core.cholesky import tasklist_graphs
     for rec in records:
-        tm = tms[rec["matrix"]]
+        tm, tm2 = tms[rec["matrix"]], tm2s[rec["matrix"]]
         for tree in (False, True):
-            fn = lambda: factorize_tasklist(tm, tree_reduction=tree, tree_workers=8)
+            workers = 8 if tree else 0
+            fn = lambda x=tm: factorize_tasklist(x, tree_reduction=tree, tree_workers=8)
+            tasklist_graphs.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            first = fn()
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            kept = torch.cuda.memory_allocated() - base - first.numel() * first.element_size()
+            e = dict(first_call_ms=first_ms, graph_allocated_mib=kept / 2 ** 20,
+                     graph_reserved_mib=(torch.cuda.memory_reserved() - reserved) / 2 ** 20,
+                     first_call_peak_mib=(torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+            del first
+            captures = tasklist_graphs.captures
+            graph = tasklist_graphs.get(tm, workers).graph
+            e.update(call_ms=time_ms(torch, fn, reps=7, warmup=2),
+                     device_ms=device_ms(torch, fn),
+                     graph_replay_ms=time_ms(torch, graph.replay, reps=7, warmup=2),
+                     theta_step_call_ms=time_ms(torch, lambda: fn(tm2), reps=7, warmup=1),
+                     eager_call_ms=time_ms(torch, lambda: eager_tasklist(tm, workers), reps=3,
+                                           warmup=1),
+                     eager_device_ms=device_ms(torch, lambda: eager_tasklist(tm, workers)))
+            if tasklist_graphs.captures != captures:
+                raise AssertionError(f"matrix {rec['matrix']}: the timed calls captured again")
+            e["call_over_device"] = e["call_ms"] / e["device_ms"]
             key = f"tree_{'on' if tree else 'off'}"
-            rec["tasklist"][key]["e2e"] = e = dict(
-                call_ms=time_ms(torch, fn, reps=5, warmup=1), device_ms=device_ms(torch, fn))
-            log(f"factorize_tasklist {key}: Table II matrix {rec['matrix']}: call {e['call_ms']:.3f} "
-                f"ms, device {e['device_ms']:.3f} ms (median of 5), card {card}")
+            rec["tasklist"][key]["e2e"] = e
+            log(f"factorize_tasklist {key}: Table II matrix {rec['matrix']}: "
+                + json.dumps(e) + f" (medians of 7; eager call of 3), card {card}")
     # the partitioned route end to end, beside the fused route on the same matrix
     for rec in precords:
         mm, plan, _ = pmats[rec["matrix"]]

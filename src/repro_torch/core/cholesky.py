@@ -8,6 +8,9 @@ Two backends, the second also batched:
   kernel launch per POTRF / SYRK / TRSM / GEMM task, touching only nonzero
   and fill tiles.  With ``tree_reduction=True`` each long accumulation
   chain is summed by Algorithm 3 (chunked partials and the GEADD tree).
+  On the card the launches are captured once per sparsity pattern into a
+  CUDA graph and replayed, the counterpart of the reference's ``jax.jit``
+  keyed on its static task list.
 * :func:`factorize_window` — the regular banded-arrowhead layout
   (:class:`~repro_torch.core.ctsf.BandedCTSF`) in two phases: the band +
   arrow rows in one sweep, which also returns the corner-Schur complement
@@ -34,11 +37,16 @@ policy and regularization come with later slices.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+from collections import Counter, OrderedDict
 from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
+from repro_torch.kernels.potrf import potrf_cuda
+from repro_torch.kernels.trsm import trsm_cuda
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
@@ -118,25 +126,10 @@ def _tree_update(tiles: torch.Tensor, dst: int, chain, workers: int, impl) -> No
     tiles[dst] -= chunked_tree_sum(terms, workers, impl=impl)
 
 
-def factorize_tasklist(tm: TileMatrix, *, tree_reduction: bool = False, tree_workers: int = 8,
-                       options: Optional[SolverOptions] = None) -> torch.Tensor:
-    """Run Algorithm 1 over the general CTSF: returns the factor's tile
-    buffer, ``(n_alloc, t, t)`` with ``tm``'s slot map (``tm.tiles`` is left
-    as it is).
-
-    Per column k in order: the SYRK chain into the diagonal tile, its
-    ``potrf``, then per row m below it (sorted) the GEMM chain into tile
-    (m, k) and its ``trsm``.  Every task is one kernel launch on the card,
-    writing into the tile's slot of the buffer (``out=``; a task's output
-    tile is never one of its inputs).  With ``tree_reduction`` a chain of at
-    least ``2 * tree_workers`` products is one batched product instead,
-    summed by Algorithm 3 (``tree_workers`` chunk partials and
-    ``ceil(log2 tree_workers)`` ``geadd`` launches).  ``options.impl``
-    chooses the backend as everywhere else."""
-    impl = (options or SolverOptions()).impl
-    workers = tree_workers if tree_reduction else 0
-    tiles = tm.tiles.clone()
-    for kk, syrk, panel in _schedule(tm, workers):
+def _run_tasklist(tiles: torch.Tensor, steps, workers: int, impl) -> torch.Tensor:
+    """Every task of the schedule ``steps`` on ``tiles``, in place: one
+    kernel launch a task, or a tree update a long chain."""
+    for kk, syrk, panel in steps:
         if syrk[0] == "tree":
             _tree_update(tiles, kk, syrk, workers, impl)
         else:
@@ -152,6 +145,153 @@ def factorize_tasklist(tm: TileMatrix, *, tree_reduction: bool = False, tree_wor
             if trsm:
                 ops.trsm(tiles[kk], tiles[mk], impl=impl, out=tiles[mk])
     return tiles
+
+
+# the kernels a factorization on the card launches
+_TASKLIST_KERNELS = (potrf_cuda, trsm_cuda, syrk_cuda, gemm_cuda, geadd_cuda)
+# captured factorizations kept at once; each holds its own input and output
+# tile buffers (23 MB each on Table II matrix 5) and its memory pool
+TASKLIST_GRAPH_CACHE = 4
+
+
+def tasklist_graph_key(tm: TileMatrix, workers: int) -> tuple:
+    """What a captured factorization of ``tm`` is cached on: the digest of
+    its sparsity pattern (slot map and column-grouped task list, as the
+    reference's ``_StaticSpec``, computed once a TileMatrix), ``t``,
+    ``n_alloc``, the device and the tree workers (0: no tree); not the
+    values, so a new TileMatrix of the same pattern replays the graph."""
+    if tm.pattern_key is None:
+        cols = _group_tasks_by_column(tm.symbolic.tasks)
+        spec = (sorted(tm.slot.items()),
+                [(k, c["syrk"], [(m, e["gemm"], e["trsm"])
+                                 for m, e in sorted(c["panel"].items())])
+                 for k, c in sorted(cols.items())])
+        tm.pattern_key = hashlib.sha256(repr(spec).encode()).hexdigest()
+    return (tm.pattern_key, tm.grid.t, tm.n_alloc, str(tm.device), workers)
+
+
+@dataclasses.dataclass
+class _TasklistGraph:
+    graph: "torch.cuda.CUDAGraph"
+    tiles_in: torch.Tensor          # copied from each call's tiles before a replay
+    tiles_out: torch.Tensor         # the factor, written by a replay
+    steps: list                     # the schedule whose index tensors the graph reads
+    launches: Counter               # the graph's launches by kernel wrapper name
+
+
+class TasklistGraphs:
+    """The captured factorizations, least recently used first out, at most
+    ``max_entries``.  ``captures`` counts the captures made; ``recorded``
+    counts, by kernel wrapper name, the launches the captures recorded into
+    their graphs (the wrappers count these calls as their own), and
+    ``replayed`` those that the replays made on the card."""
+
+    def __init__(self, max_entries: int):
+        self.max_entries = max_entries
+        self.captures = 0
+        self.recorded: Counter = Counter()
+        self.replayed: Counter = Counter()
+        self._graphs: "OrderedDict[tuple, _TasklistGraph]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def clear(self) -> None:
+        self._graphs.clear()
+
+    def get(self, tm: TileMatrix, workers: int) -> _TasklistGraph:
+        """The graph of ``tm``'s pattern, captured now if it is not kept."""
+        key = tasklist_graph_key(tm, workers)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = _capture_tasklist(tm, workers)
+            self.captures += 1
+            self.recorded.update(entry.launches)
+            self._graphs[key] = entry
+            while len(self._graphs) > self.max_entries:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        return entry
+
+    def replay(self, entry: _TasklistGraph) -> None:
+        entry.graph.replay()
+        self.replayed.update(entry.launches)
+
+
+tasklist_graphs = TasklistGraphs(TASKLIST_GRAPH_CACHE)
+
+
+def _warm_up(tiles: torch.Tensor, steps, workers: int) -> None:
+    """What a capture of ``steps`` needs done first, on scratch tiles: one
+    launch of each tile kernel (the kernels are loaded) and, where a chain
+    is summed by Alg. 3, one tree update (cuBLAS makes its handle)."""
+    w = torch.eye(tiles.shape[-1], dtype=tiles.dtype, device=tiles.device).repeat(3, 1, 1)
+    ops.syrk(w[0], w[1], impl="cuda", out=w[0])
+    ops.gemm(w[0], w[1], w[2], impl="cuda", out=w[0])
+    ops.potrf(w[2], impl="cuda", out=w[2])
+    ops.trsm(w[2], w[0], impl="cuda", out=w[0])
+    tree = next((c for _, syrk, panel in steps for c in (syrk, *(g for _, g, _ in panel))
+                 if c[0] == "tree"), None)
+    if tree is not None:
+        _tree_update(tiles.clone(), 0, tree, workers, "cuda")
+
+
+def _capture_tasklist(tm: TileMatrix, workers: int) -> _TasklistGraph:
+    """Capture the factorization of ``tm``'s pattern: the warm-up on a side
+    stream, then the whole schedule into a CUDA graph that clones its
+    static input buffer and factors the clone in place.  The wrappers'
+    counts grow by the warm-up's launches and by those the capture records;
+    the latter are the graph's.  A failed capture raises."""
+    steps = _schedule(tm, workers)
+    tiles_in = tm.tiles.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _warm_up(tiles_in, steps, workers)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS})
+    with torch.cuda.graph(graph):
+        tiles_out = _run_tasklist(tiles_in.clone(), steps, workers, "cuda")
+    launches = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS}) - before
+    return _TasklistGraph(graph, tiles_in, tiles_out, steps, launches)
+
+
+def factorize_tasklist(tm: TileMatrix, *, tree_reduction: bool = False, tree_workers: int = 8,
+                       options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """Run Algorithm 1 over the general CTSF: returns the factor's tile
+    buffer, ``(n_alloc, t, t)`` with ``tm``'s slot map (``tm.tiles`` is left
+    as it is).
+
+    Per column k in order: the SYRK chain into the diagonal tile, its
+    ``potrf``, then per row m below it (sorted) the GEMM chain into tile
+    (m, k) and its ``trsm``.  Every task is one kernel, writing into the
+    tile's slot of the buffer (``out=``; a task's output tile is never one
+    of its inputs).  With ``tree_reduction`` a chain of at least ``2 *
+    tree_workers`` products is one batched product instead, summed by
+    Algorithm 3 (``tree_workers`` chunk partials and ``ceil(log2
+    tree_workers)`` ``geadd`` launches).  ``options.impl`` chooses the
+    backend as everywhere else.
+
+    On the CPU, and with ``impl="ref"``, the tasks run one after another
+    from the host.  On the card the first call for a sparsity pattern (see
+    :func:`tasklist_graph_key`) warms up one launch of each kernel and
+    captures all of the pattern's kernels into a CUDA graph, kept in
+    :data:`tasklist_graphs` (at most :data:`TASKLIST_GRAPH_CACHE`); every
+    call copies ``tm.tiles`` into the graph's input buffer, replays it and
+    returns a copy of its output, so no two calls share memory.  Inside a
+    stream capture of the caller's own, the tasks are launched into that
+    capture instead."""
+    impl = (options or SolverOptions()).impl
+    workers = tree_workers if tree_reduction else 0
+    if (tm.device.type != "cuda" or ops.resolve_impl(impl, tm.tiles) != "cuda"
+            or torch.cuda.is_current_stream_capturing()):
+        return _run_tasklist(tm.tiles.clone(), _schedule(tm, workers), workers, impl)
+    with torch.cuda.device(tm.device):
+        entry = tasklist_graphs.get(tm, workers)
+        entry.tiles_in.copy_(tm.tiles)
+        tasklist_graphs.replay(entry)
+        return entry.tiles_out.clone()
 
 
 # ---------------------------------------------------------------------------

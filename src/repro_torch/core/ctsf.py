@@ -73,6 +73,9 @@ class TileMatrix:
     tiles: torch.Tensor                    # (n_alloc, t, t) float32
     # the task list's schedule on a device, built once (core.cholesky)
     schedules: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+    # the digest of the sparsity pattern, computed once (core.cholesky's
+    # tasklist_graph_key): what the task list's CUDA graphs are cached on
+    pattern_key: Optional[str] = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -47,7 +47,7 @@ _SIGNATURES = {
         "stiles_solve_max_active_clusters": [_I, _I, _P]},
     "selinv": {"stiles_selinv_prepass_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                "stiles_selinv_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
-    "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _P],
+    "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _P],
              "stiles_geadd_f32": [_P, _P, _P, _L, _L, _L, _L, _P]},
     "band_update": {"stiles_band_update_f32": [_P, _P, _I, _I, _I, _L, _I, _I, _I, _P]},
     "selinv_step": {"stiles_selinv_step_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},

@@ -181,31 +181,6 @@ __device__ void gemm_sum(Acc<T>& acc, int n, FA A, FB B, float* As, float* Bs) {
     }
 }
 
-// acc += sum_{q < n} A(q) B(q)^T for row-major T x T tiles in device memory
-// (A and B map q to a tile address): gemm_sum with B transposed.
-template <int T, typename FA, typename FB>
-__device__ __forceinline__ void gemm_nt_sum(Acc<T>& acc, int n, FA A, FB B, float* As,
-                                            float* Bs) {
-    gemm_sum<T>(acc, n, [&](int q) { return Op{A(q), false}; },
-                [&](int q) { return Op{B(q), true}; }, As, Bs);
-}
-
-// dst = src - acc, row-major T x T tiles.
-template <int T>
-__device__ __forceinline__ void store_minus(float* dst, const float* src, const Acc<T>& acc) {
-    constexpr int M = Tile<T>::M;
-    if (!owns_tile<T>()) return;
-#pragma unroll
-    for (int r = 0; r < M; ++r) {
-        const int o = owner_row<T>(r) * T + owner_col<T>(0);
-        float v[M];
-        ld_vec<M>(v, src + o);
-#pragma unroll
-        for (int s = 0; s < M; ++s) v[s] -= acc[r][s];
-        st_vec<M>(dst + o, v);
-    }
-}
-
 // Store an owner-layout tile row-major (leading dimension T).
 template <int T>
 __device__ __forceinline__ void store_tile(float* dst, const Acc<T>& a) {

@@ -3,22 +3,44 @@
 Ports of the TPU kernels ``repro/kernels/gemm.py``: :func:`gemm_cuda`
 (``gemm_pallas``, ``C - A B^T``), :func:`syrk_cuda` (``syrk_pallas``,
 ``C - A A^T`` over the full tile) and :func:`geadd_cuda` (``geadd_pallas``,
-``A + B``, the Alg. 3 tree-reduction combine).  GEMM and SYRK run one block
-per tile of the batch with the product in plain FP32 FMAs
-(``csrc/tile.cuh::gemm_nt_sum``); GEADD is a vectorised elementwise add.
-The plain versions are ``ref.gemm_ref``, ``ref.syrk_ref`` and
-``ref.geadd_ref``; ``ops`` chooses by device.
+``A + B``, the Alg. 3 tree-reduction combine).  GEMM and SYRK spread each
+output tile over several blocks, a ``sub x sub`` piece each (see
+:func:`gemm_split`), the product in plain FP32 FMAs; GEADD is a vectorised
+elementwise add.  The plain versions are ``ref.gemm_ref``,
+``ref.syrk_ref`` and ``ref.geadd_ref``; ``ops`` chooses by device.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 from .potrf import TILE_SIZES, check_cuda, check_out, check_tiles
 
-__all__ = ["gemm_cuda", "syrk_cuda", "geadd_cuda"]
+__all__ = ["gemm_cuda", "syrk_cuda", "geadd_cuda", "gemm_split", "GEMM_SPLITS"]
+
+# blocks a tile: pieces of sub x sub, sub = t / sqrt(split) >= 8
+GEMM_SPLITS: Dict[int, Tuple[int, ...]] = {t: tuple(4 ** i for i in range(4) if t >> i >= 8)
+                                           for t in TILE_SIZES}
+
+
+def gemm_split(t: int, split: Optional[int] = None) -> Tuple[int, int]:
+    """``(split, sub)`` of ``csrc/gemm.cu``'s product on tiles of ``t x t``:
+    ``split`` blocks a tile (one of ``GEMM_SPLITS[t]``), each the ``sub x
+    sub`` piece of blockIdx.y in row-major order.  The default is the
+    largest split, pieces of 8 x 8, whatever the batch: it was the fastest
+    on the task list's one tile and on a batch of five (PERF.md).  Every
+    split gives the same bits."""
+    if t not in GEMM_SPLITS:
+        raise ValueError(f"gemm: tile size {t} not supported (want one of {TILE_SIZES})")
+    if split is None:
+        split = GEMM_SPLITS[t][-1]
+    elif split not in GEMM_SPLITS[t]:
+        raise ValueError(f"gemm: split {split} not supported at t = {t} "
+                         f"(want one of {GEMM_SPLITS[t]})")
+    return split, t // math.isqrt(split)
 
 
 def _tile_batch(x: torch.Tensor, batch_shape, t: int) -> Tuple[torch.Tensor, int]:
@@ -43,7 +65,7 @@ def _broadcasts(x: torch.Tensor, c: torch.Tensor) -> bool:
         return False
 
 
-def _launch(name: str, c, a, b, out) -> torch.Tensor:
+def _launch(name: str, c, a, b, out, split) -> torch.Tensor:
     if not (_broadcasts(a, c) and _broadcasts(b, c)):
         raise ValueError(f"{name}: A {tuple(a.shape)} and B {tuple(b.shape)} must "
                          f"broadcast against C {tuple(c.shape)}")
@@ -53,21 +75,26 @@ def _launch(name: str, c, a, b, out) -> torch.Tensor:
     nb = c.numel() // (t * t)
     if nb == 0:
         return out
+    _, sub = gemm_split(t, split)
+    if nb > 2 ** 31 - 1:
+        raise ValueError(f"{name}: at most 2^31 - 1 tiles, got {nb}")
     (a, sa), (b, sb) = _tile_batch(a, batch, t), _tile_batch(b, batch, t)
     lib = _build.load("gemm")
     stream = torch.cuda.current_stream(c.device).cuda_stream
     _build.check(lib, lib.stiles_gemm_f32(c.data_ptr(), a.data_ptr(), b.data_ptr(),
-                                          out.data_ptr(), nb, sa, sb, t, stream), name)
+                                          out.data_ptr(), nb, sa, sb, t, sub, stream), name)
     return out
 
 
 def gemm_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None, *, split: Optional[int] = None) -> torch.Tensor:
     """``C - A B^T`` on the card for a (..., t, t) batch C, with A and B
     each one tile or a batch broadcast against C.  ``out`` (C's shape) takes
     the result in place of a new tensor and may be C itself; it must not
-    overlap A or B."""
-    out = _launch("gemm", c, a, b, out)
+    overlap A or B.  One launch; ``split`` (blocks a tile, see
+    :func:`gemm_split`) is for measurement: every split gives the same
+    bits."""
+    out = _launch("gemm", c, a, b, out, split)
     gemm_cuda.launches += 1
     return out
 
@@ -76,10 +103,11 @@ gemm_cuda.launches = 0
 
 
 def syrk_cuda(c: torch.Tensor, a: torch.Tensor,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None, *, split: Optional[int] = None) -> torch.Tensor:
     """``C - A A^T`` on the card over the full tile, as ``syrk_pallas``
-    computes it; ``out`` as in :func:`gemm_cuda`."""
-    out = _launch("syrk", c, a, a, out)
+    computes it: the kernel of :func:`gemm_cuda` with B = A; ``out`` and
+    ``split`` as there."""
+    out = _launch("syrk", c, a, a, out, split)
     syrk_cuda.launches += 1
     return out
 

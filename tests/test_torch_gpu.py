@@ -12,6 +12,9 @@ PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -28,7 +31,7 @@ from repro_torch.kernels.band_cholesky import (MAX_SWEEP_CLUSTER,
                                                band_cholesky_sweep_cuda, sweep_plan)
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
 from repro_torch.kernels.band_update import band_update_cuda
-from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
+from repro_torch.kernels.gemm import GEMM_SPLITS, geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.ring import band_row_to_col
 from repro_torch.kernels.selinv import (MAX_SELINV_CLUSTER, selinv_plan, selinv_prepass_cuda,
@@ -418,18 +421,29 @@ def test_partitioned_sweep_kernel(cuda, t, ndt, bt, nat, bounds, max_cluster):
 
 def test_tasklist_on_the_card(cuda):
     """factorize_tasklist on the card: one kernel launch per task (or per
-    tree level), and the CPU path's factor."""
+    tree level) a call, launches on the card as chip_smoke.py counts them
+    (the first call also makes the warm-up's), and the CPU path's factor."""
+    from repro_torch.core.cholesky import tasklist_graphs
+    smoke = _chip_smoke()
     A, st = make_arrowhead(200, 24, 16, rho=0.6, seed=0)
     grid = TileGrid(st, t=16)
     tm, tc = (TileMatrix.from_sparse(A, grid, device=d) for d in (cuda, "cpu"))
     kinds = {}
     for task in tm.symbolic.tasks:
         kinds[task.type.name] = kinds.get(task.type.name, 0) + 1
-    kern = (potrf_cuda, trsm_cuda, syrk_cuda, gemm_cuda, geadd_cuda)
+    names = ("potrf", "trsm", "syrk", "gemm", "geadd")
+    kern = dict(zip(names, (potrf_cuda, trsm_cuda, syrk_cuda, gemm_cuda, geadd_cuda)))
+    tasklist_graphs.clear()
     for tree in (False, True):
-        before = [k.launches for k in kern]
-        got = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
-        launches = [k.launches - b for k, b in zip(kern, before)]
+        calls = []
+        for _ in range(2):
+            before = smoke.device_counts(kern)
+            got = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+            after = smoke.device_counts(kern)
+            calls.append([after[k] - before[k] for k in names])
+        first, launches = calls
+        warm = smoke.tasklist_warmup_launches(dict(geadd=launches[4]), 4 if tree else 0)
+        assert first == [n + warm[k] for k, n in zip(names, launches)]
         torch.testing.assert_close(got.cpu(), factorize_tasklist(tc, tree_reduction=tree,
                                                                  tree_workers=4), **TOL)
         assert launches[:2] == [kinds["POTRF"], kinds["TRSM"]]
@@ -726,3 +740,172 @@ def test_selinv_sweep_kernel_refuses_a_bad_plan(cuda):
             _build.check(lib, lib.stiles_selinv_sweep_f32(
                 work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 4, 4, 4, 64, cluster,
                 split, stream), "selinv_sweep")
+
+
+# (t, split) for every split of csrc/gemm.cu at every tile size
+GEMM_CASES = [(t, s) for t in TILES for s in GEMM_SPLITS[t]]
+
+
+@pytest.mark.parametrize("t,split", GEMM_CASES)
+def test_gemm_syrk_kernels_every_split(cuda, t, split):
+    """C - A B^T and C - A A^T on the plan of ``split`` blocks a tile:
+    batched, A or B one tile broadcast, one tile, a two-level batch against
+    broadcast operands, and in place into C."""
+    rng = np.random.default_rng(10 * t + split)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    c, a, b = x(5, t, t), x(5, t, t), x(5, t, t)
+    for args in ((c, a, b), (c, a[0], b), (c, a, b[1]), (c[2], a[0], b[1])):
+        torch.testing.assert_close(gemm_cuda(*args, split=split), ref.gemm_ref(*args), **TOL)
+    c4, a4 = x(2, 3, t, t), x(2, 1, t, t)
+    torch.testing.assert_close(gemm_cuda(c4, a4, c4[1, 2].clone(), split=split),
+                               ref.gemm_ref(c4, a4, c4[1, 2]), **TOL)
+    torch.testing.assert_close(syrk_cuda(c, a, split=split), ref.syrk_ref(c, a), **TOL)
+    torch.testing.assert_close(syrk_cuda(c[1], a[3], split=split), ref.syrk_ref(c[1], a[3]),
+                               **TOL)
+    for kern, args, want in ((gemm_cuda, (a[0], b[2]), ref.gemm_ref(c[1], a[0], b[2])),
+                             (syrk_cuda, (a[4],), ref.syrk_ref(c[1], a[4]))):
+        inplace = c[1].clone()
+        assert kern(inplace, *args, out=inplace, split=split).data_ptr() == inplace.data_ptr()
+        torch.testing.assert_close(inplace, want, **TOL)
+
+
+@pytest.mark.parametrize("t", TILES)
+def test_gemm_splits_bit_identical(cuda, t):
+    """Every output element is summed over k in the same order in one thread
+    whatever the split: every split, the default and a second launch give
+    the same bits, and a launch is counted once."""
+    rng = np.random.default_rng(t)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    c, a, b = x(5, t, t), x(5, t, t), x(t, t)
+    for kern, args in ((gemm_cuda, (c, a, b)), (syrk_cuda, (c, a)), (gemm_cuda, (c[0], a[1], b))):
+        first = kern(*args)
+        before = kern.launches
+        for split in GEMM_SPLITS[t]:
+            assert torch.equal(kern(*args, split=split), first), (kern.__name__, split)
+        assert kern.launches - before == len(GEMM_SPLITS[t])
+
+
+def test_gemm_refuses_a_bad_split(cuda):
+    """A split the kernel is not built for is refused, by the wrapper and by
+    the C entry point (a piece size it has no instance of)."""
+    from repro_torch.kernels import _build
+    c = torch.zeros((64, 64), device=cuda)
+    for t, split in ((64, 2), (32, 64), (8, 4)):
+        with pytest.raises(ValueError, match="split"):
+            gemm_cuda(c[:t, :t].contiguous(), c[:t, :t].contiguous(), c[:t, :t].contiguous(),
+                      split=split)
+    lib = _build.load("gemm")
+    stream = torch.cuda.current_stream().cuda_stream
+    for t, sub in ((64, 12), (64, 128), (32, 64), (8, 4), (12, 8)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, lib.stiles_gemm_f32(c.data_ptr(), c.data_ptr(), c.data_ptr(),
+                                                  c.data_ptr(), 1, 0, 0, t, sub, stream), "gemm")
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tasklist_matrix(device, scale=1.0, shift=0.0, n=200, bw=24, ar=16, t=16):
+    A, st = make_arrowhead(n, bw, ar, rho=0.6, seed=0)
+    A = (scale * A + shift * sp.identity(A.shape[0])).tocsr()
+    return TileMatrix.from_sparse(A, TileGrid(st, t=t), device=device)
+
+
+def _eager(tm, workers):
+    """The task list launched task by task from the host, on the card."""
+    from repro_torch.core.cholesky import _run_tasklist, _schedule
+    return _run_tasklist(tm.tiles.clone(), _schedule(tm, workers), workers, None)
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_tasklist_graph_replay_matches_the_eager_loop(cuda, tree):
+    """The replayed graph's factor is the eager loop's bit for bit with the
+    tree off; with it on, the batched product goes through cuBLAS, which may
+    take another algorithm inside a capture, so within the kernels'
+    tolerance.  Two calls return buffers of their own."""
+    tm = _tasklist_matrix(cuda)
+    workers = 4 if tree else 0
+    first = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+    second = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+    eager = _eager(tm, workers)
+    assert torch.equal(first, second) and first.data_ptr() != second.data_ptr()
+    if tree:
+        torch.testing.assert_close(first, eager, **TOL)
+    else:
+        assert torch.equal(first, eager)
+    first.zero_()
+    assert torch.equal(factorize_tasklist(tm, tree_reduction=tree, tree_workers=4), second)
+
+
+def test_tasklist_graph_serves_a_new_matrix_of_the_same_pattern(cuda):
+    """A new TileMatrix of the same pattern and other values (an INLA θ
+    step) replays the cached graph without a new capture and gets its own
+    factor, not the first matrix's."""
+    from repro_torch.core.cholesky import tasklist_graphs
+    tm1 = _tasklist_matrix(cuda)
+    tm2 = _tasklist_matrix(cuda, scale=1.5, shift=0.25)
+    f1 = factorize_tasklist(tm1)
+    captures = tasklist_graphs.captures
+    f2 = factorize_tasklist(tm2)
+    assert tasklist_graphs.captures == captures
+    assert torch.equal(f2, _eager(tm2, 0))
+    assert not torch.equal(f1, f2)
+    assert torch.equal(factorize_tasklist(tm1), f1)
+
+
+def test_tasklist_graph_shared_by_impl_none_and_cuda(cuda):
+    """impl=None and impl="cuda" run the same kernels on the card: the second
+    replays the first one's graph."""
+    from repro_torch.core.cholesky import tasklist_graphs
+    tm = _tasklist_matrix(cuda, n=190)
+    f1 = factorize_tasklist(tm)
+    captures = tasklist_graphs.captures
+    f2 = factorize_tasklist(tm, options=SolverOptions(impl="cuda"))
+    assert tasklist_graphs.captures == captures and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("tree", [False, True])
+def test_tasklist_graph_counts_each_call_once(cuda, tree):
+    """Launches on the card, as chip_smoke.py counts them: the first call
+    makes the warm-up's and one call's (those chip_smoke.py derives from the
+    symbolic task list), every later call one call's.  The wrappers count
+    their own calls: the warm-up and the capture, not the replays."""
+    from repro_torch.core.cholesky import tasklist_graphs
+    smoke = _chip_smoke()
+    tasklist_graphs.clear()
+    tm = _tasklist_matrix(cuda, n=180, bw=20, ar=12)
+    workers = 4 if tree else 0
+    want = smoke.tasklist_launches(tm, workers)
+    warm = smoke.tasklist_warmup_launches(want, workers)
+    kern = dict(potrf=potrf_cuda, trsm=trsm_cuda, syrk=syrk_cuda, gemm=gemm_cuda,
+                geadd=geadd_cuda)
+    for call in range(3):
+        before, own = smoke.device_counts(kern), {k: f.launches for k, f in kern.items()}
+        factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+        after = smoke.device_counts(kern)
+        first = {k: want[k] + warm[k] for k in kern}
+        assert {k: after[k] - before[k] for k in kern} == (want if call else first)
+        assert {k: f.launches - own[k] for k, f in kern.items()} == (
+            dict.fromkeys(kern, 0) if call else first)
+
+
+def test_tasklist_graph_cache_is_bounded(cuda):
+    """More patterns than the cache holds: the least recently used goes, and
+    calling it again captures it anew."""
+    from repro_torch.core.cholesky import TASKLIST_GRAPH_CACHE, tasklist_graphs
+    tasklist_graphs.clear()
+    tm = _tasklist_matrix(cuda)
+    captures = tasklist_graphs.captures
+    for workers in range(2, 3 + TASKLIST_GRAPH_CACHE):
+        factorize_tasklist(tm, tree_reduction=True, tree_workers=workers)
+    assert len(tasklist_graphs) == TASKLIST_GRAPH_CACHE
+    assert tasklist_graphs.captures == captures + TASKLIST_GRAPH_CACHE + 1
+    factorize_tasklist(tm, tree_reduction=True, tree_workers=3 + TASKLIST_GRAPH_CACHE - 1)
+    assert tasklist_graphs.captures == captures + TASKLIST_GRAPH_CACHE + 1
+    factorize_tasklist(tm, tree_reduction=True, tree_workers=2)
+    assert tasklist_graphs.captures == captures + TASKLIST_GRAPH_CACHE + 2

@@ -22,6 +22,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import (BandedCTSF, SolverOptions, TileGrid, TileMatrix,
                               chunked_tree_sum, factorize_tasklist, factorize_window,
                               should_use_tree, tree_combine)
+from repro_torch.core.cholesky import tasklist_graphs
 from repro_torch.data import make_arrowhead
 from repro_torch.kernels import ops
 
@@ -103,7 +104,10 @@ def test_tree_reduction_matches_reference(monkeypatch):
 @pytest.mark.parametrize("tree", [False, True])
 def test_factorize_tasklist_matches_reference(n, bw, ar, t, rho, tree):
     jtm, tm, _ = _pair(n, bw, ar, t, rho)
+    captures, kept = tasklist_graphs.captures, len(tasklist_graphs)
     got = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
+    # on the CPU the tasks run from the host: no CUDA graph is captured
+    assert (tasklist_graphs.captures, len(tasklist_graphs)) == (captures, kept)
     want = jfactorize_tasklist(jtm, impl="ref", tree_reduction=tree, tree_workers=4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_array_equal(tm.tiles.numpy(), np.asarray(jtm.tiles))   # input kept
