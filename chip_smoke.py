@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --partitioned-call [SRC]   # one timing: see partitioned_call
 
 Phases, each of which raises on a failed check:
 
@@ -15,7 +16,9 @@ Phases, each of which raises on a failed check:
    band-Cholesky sweep for bt in {0, 1, 3}, nat in {0, 1, 3}, start_tile
    in {0, 2}, nchunks in {1, 3}, at clusters of at most 1, 2, 4, 8 and 16
    blocks, every cap bit for bit the same, plus a breakdown input whose
-   status word must match exactly at every cap; solve_panel for both trans and k in {1, 7, 32, 64};
+   status word must match exactly at every cap; solve_panel for both trans
+   and k in {1, 7, 8, 9, 32, 33, 64} at every chunk width (1, 2, 4 or 8
+   columns a block), every chunk and a second launch bit for bit the same;
    both band-solve sweeps on (ndt, bt, nat) in {(1,0,0), (5,1,0),
    (6,2,2), (9,4,1)}, k in {1, 33}, start_tile in {0, 2}, at clusters of
    at most 1, 2, 4, 8 and 16 blocks, every cap bit for bit the same and as a
@@ -24,7 +27,8 @@ Phases, each of which raises on a failed check:
    4}, start_tile in {0, 2}, plus one column and fewer columns than band
    tiles, the recurrence in clusters of the default size (16), 4 and 8; gemm,
    syrk and geadd with batched, broadcast,
-   in-place and strided operands, gemm and syrk also at every split (1, 4,
+   in-place and strided operands (geadd bit for bit the plain version, its
+   programmatic dependent launch on and off), gemm and syrk also at every split (1, 4,
    16 or 64 blocks a tile), every split bit for bit the same; the partitioned sweep for P in {1, 2,
    4, 7} with bt = 0, nat = 0 and ragged last partitions, also bit for
    bit against the fused kernel, at every cluster cap; band_update for b+1 in {1, 2, 3, 5, 6,
@@ -36,7 +40,8 @@ Phases, each of which raises on a failed check:
 3. main paths at full size, each with the launch counts set to 0 just
    before it and read just after (a count is of launches on the card: the
    wrapper's count of its calls, less the calls a capture of the task list
-   recorded into its graph, plus the launches its replays made):
+   or of the solves' corner recorded into its graph, plus the launches its
+   replays made):
    - Table II matrices 5 (n=10,200, bandwidth 200, arrow 200) and 2
      (n=10,010, bandwidth 200, arrow 10), seed 0, t=64:
      measure_arrowhead -> TileGrid -> BandedCTSF.from_sparse ->
@@ -45,6 +50,12 @@ Phases, each of which raises on a failed check:
      with both methods, each with its launch counts and checked on the
      card against float64 oracles (factor residual, logdet, solve residual
      and forward error, L^T x = z, every stored entry of Σ, the variances);
+     a path a matrix; the solves' corner runs from CUDA graphs: the first
+     pass captures one a (k, direction) key, then (not counted in the path)
+     a second pass and a θ step 1.5 A + 0.25 I of the same grid pass every
+     solve gate again with one call's launches and capture nothing, and
+     the graphs' solves match the eager corner bit for bit or within rtol =
+     atol = 2e-4;
    - the same two matrices through TileMatrix.from_sparse ->
      factorize_tasklist, tree reduction off and on (8 workers), whose first
      call warms up one launch of each tile kernel (and one tree update),
@@ -120,7 +131,15 @@ Phases, each of which raises on a failed check:
    the selinv sweep on matrices 5 and 2 beside its plain version, its
    pre-pass and recurrence apart, the recurrence at clusters of 4, 8 and
    16, two launches bit for bit; potrf on the θ-batch's 8 corner tiles in
-   one launch beside cholesky_ex.
+   one launch beside cholesky_ex; solve_panel on matrix 5's corner tile at
+   k = 1 and 32, both directions, beside torch.linalg.solve_triangular on
+   the same panel, and at k = 32, 256 and 1024 at every chunk width; geadd on the tree's
+   first level and on matrix 4's partitioned leaves beside an empty kernel
+   on its grid, and the tree's three levels as one chain, each with the
+   programmatic launch on and off (the CUDA runtime's and driver's
+   versions beside); solve_many (k = 1 and 32) and sample_gmrf_many on
+   matrices 5 and 2, call time against device time with the corner's graph
+   and eagerly, split into the two sweeps, the corner and the host.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -162,6 +181,11 @@ AGREEMENT_LIMIT = 5e-4
 # bandwidth 100, arrow 10)
 PARTITIONED_IDS = (4, 1)
 SOLVE_SWEEPS = ((1, 0, 0), (5, 1, 0), (6, 2, 2), (9, 4, 1))   # (ndt, bt, nat)
+# solve_panel's widths: one column, ragged chunks of every width, float4
+# and scalar loads
+PANEL_KS = (1, 7, 8, 9, 32, 33, 64)
+# solve_panel's wide timings: the default chunk is 2 columns at 256, 8 at 1024
+PANEL_WIDE_KS = (256, 1024)
 # (ndt, bt, nat) of the selinv sweep's checks beside its ndt = 6 grid: one
 # column, and fewer columns than band tiles
 SELINV_EDGES = ((1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0))
@@ -181,6 +205,9 @@ SOLVE_FIRST_DESIGN = ("one block a 32-column chunk walking every row, all its pr
 GEMM_FIRST_DESIGN = ("one block of 256 threads a tile, A and B staged through registers into "
                      "transposed shared memory; its time is PERF.md section 6's 'first design' "
                      "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W)")
+PANEL_FIRST_DESIGN = ("a block of 64 threads a panel and 64 columns, a thread walking one "
+                      "column through every row in registers; its time is PERF.md section 6's "
+                      "'first design'")
 TRSM_FIRST_DESIGN = ("a warp per 8 rows through a T-step shuffle loop; its time is PERF.md "
                      "section 6's 'first design' (chip_smoke.py on an NVIDIA H100 80GB HBM3, "
                      "700 W)")
@@ -483,10 +510,15 @@ def phase_tasklist_kernels(torch, device, kern, ref):
         assert_close(torch, c[0], want, f"gemm t={t} in place")
         nchecks += check_gemm_splits(torch, t, kern, ref, x)
         leaves = x(7, 2, 2, t, t)
-        assert_close(torch, kern["geadd"](leaves[0:6:2], leaves[1:6:2]),
-                     ref.geadd_ref(leaves[0:6:2], leaves[1:6:2]), f"geadd t={t} strided")
-        assert_close(torch, kern["geadd"](a, b), ref.geadd_ref(a, b), f"geadd t={t}")
-        nchecks += 9
+        # geadd bit for bit the plain version, programmatic launch on and off
+        for pdl in (False, True):
+            for what, p, q in (("strided", leaves[0:6:2], leaves[1:6:2]), ("batched", a, b),
+                               ("one tile", a[1], b[3])):
+                if not torch.equal(kern["geadd"](p, q, pdl=pdl), ref.geadd_ref(p, q)):
+                    raise AssertionError(f"geadd t={t} {what} pdl={pdl}: not bit-identical to "
+                                         "the plain version")
+                nchecks += 1
+        nchecks += 7
         for ndt, bt, nat, bounds in PARTITIONED_CASES:
             Ac, R = random_band_arrow(torch, ndt, bt, nat, t, seed=7 * ndt + t, device=device,
                                       bounds=bounds)
@@ -513,14 +545,26 @@ def phase_solve_kernels(torch, device, kern, ref):
     """The solve and selected-inversion kernels against their plain
     versions; returns the number of comparisons."""
     nchecks = 0
+    from repro_torch.kernels.trsm import PANEL_CHUNKS
     for t in TILES:
         l = random_lower(torch, 3, t, t, device)
-        for k in (1, 7, 32, 64):
+        for k in PANEL_KS:
             b = torch.randn((3, t, k), generator=torch.Generator().manual_seed(k)).to(device)
             for trans in (False, True):
                 what = f"solve_panel t={t} k={k} trans={trans}"
-                assert_close(torch, kern["solve_panel"](l[0], b, trans=trans),
-                             ref.solve_panel_ref(l[0], b, trans=trans), what)
+                want = ref.solve_panel_ref(l[0], b, trans=trans)
+                first = kern["solve_panel"](l[0], b, trans=trans)
+                assert_close(torch, first, want, what)
+                # every chunk width the same bits as the default, and as a
+                # second launch
+                for chunk in PANEL_CHUNKS:
+                    got = kern["solve_panel"](l[0], b, trans=trans, chunk=chunk)
+                    assert_close(torch, got, want, f"{what} chunk={chunk}")
+                    if not torch.equal(got, first):
+                        raise AssertionError(f"{what}: chunk {chunk} not bit-identical to the "
+                                             "default chunk")
+                    nchecks += 1
+                deterministic(torch, lambda: kern["solve_panel"](l[0], b, trans=trans), what)
                 nchecks += 1
         for ndt, bt, nat in SOLVE_SWEEPS:
             Dr, R = random_band_factor(torch, ndt, bt, nat, t, 10 * ndt + bt, device)
@@ -862,6 +906,88 @@ def run_solves(torch, matrix_id, m, f, kern_counts):
     return rec
 
 
+def eager_solve_many(f, B, backward_only=False):
+    """solve_many (or with ``backward_only``, backward_solve_many) with the
+    corner launched eagerly, a tile at a time from the host, as every call
+    did before the corner's CUDA graph: the graph's yardstick.  The two
+    sweeps and the corner's two loops, called directly."""
+    from repro_torch.core.solve import (_backward_corner, _forward_corner, _merge_panels,
+                                        _split_rhs)
+    from repro_torch.kernels import ops
+    c = f.ctsf
+    yd, ya = _split_rhs(c.grid, B)
+    if not backward_only:
+        yd, acc_a = ops.band_forward_sweep(c.Dr, c.R, yd)
+        ya = _forward_corner(c.C, ya, acc_a, None)
+    xa = _backward_corner(c.C, ya, None)
+    return _merge_panels(ops.band_backward_sweep(c.Dr, c.R, yd, xa.contiguous()), xa)
+
+
+def theta_step(torch, m):
+    """``THETA_STEP[0] A + THETA_STEP[1] I`` of a BandedCTSF, another INLA θ
+    step of the same grid (the padding diagonal scaled too: it stays SPD
+    and decoupled)."""
+    from repro_torch.core import BandedCTSF
+    tau, delta = THETA_STEP
+    eye = delta * torch.eye(m.grid.t, device=m.device)
+    Dr, C = tau * m.Dr, tau * m.C
+    Dr[:, 0] += eye
+    for i in range(C.shape[0]):
+        C[i, i] += eye
+    return BandedCTSF(m.grid, Dr, tau * m.R, C)
+
+
+def check_solve_graph(torch, matrix_id, m, f, kern_counts, first_captures):
+    """The solves' corner from its CUDA graphs on one factored matrix: the
+    first pass of run_solves captured one graph a key; a second pass (every
+    call a replay) and a θ step of the same grid pass every solve, sample
+    and variance gate with one call's launches and capture nothing; each
+    replay against the eager corner, bit for bit or within rtol = atol =
+    2e-4 (cuBLAS may take another algorithm for the corner's products inside
+    a capture).  Returns the record."""
+    from repro_torch.core import factorize_window, sample_gmrf_many, solve_many
+    from repro_torch.core.solve import corner_graphs
+    g = m.grid
+    # run_solves' keys: solve (k = 1) and solve_many (k = 32) both ways
+    # (sample_gmrf_many's backward k = 32 is solve_many's), and the panels
+    # method's forward solve of the four variance indices
+    want = 5 if g.n_arrow_tiles else 0
+    if first_captures != want:
+        raise AssertionError(f"matrix {matrix_id}: the solves' first pass captured "
+                             f"{first_captures} corner graphs, want one a key, {want}")
+    captures = corner_graphs.captures
+    again = run_solves(torch, matrix_id, m, f, kern_counts)
+    m2 = theta_step(torch, m)
+    f2 = factorize_window(m2)
+    theta = run_solves(torch, matrix_id, m2, f2, kern_counts)
+    if corner_graphs.captures != captures:
+        raise AssertionError(f"matrix {matrix_id}: a second pass of the solves or a θ step "
+                             f"captured {corner_graphs.captures - captures} corner graphs")
+    dev = m.device
+    B = torch.randn((g.padded_n, 32), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    agree = {}
+    for what, ff in (("factor", f), ("theta_step", f2)):
+        for name, graph_fn, eager_fn in (
+                ("solve_many_k1", lambda: solve_many(ff, B[:, :1]),
+                 lambda: eager_solve_many(ff, B[:, :1])),
+                ("solve_many_k32", lambda: solve_many(ff, B), lambda: eager_solve_many(ff, B)),
+                ("sample_gmrf_many", lambda: sample_gmrf_many(ff, num=32, z=B),
+                 lambda: eager_solve_many(ff, B, backward_only=True))):
+            got, ref_ = graph_fn(), eager_fn()
+            agree[f"{what} {name}"] = dict(bit_identical=torch.equal(got, ref_),
+                                          max_abs_diff=assert_close(
+                                              torch, got, ref_, f"matrix {matrix_id} {what} "
+                                              f"{name}: the corner's graph against the eager "
+                                              "corner"))
+    if corner_graphs.captures != captures:
+        raise AssertionError(f"matrix {matrix_id}: the graph's checks captured again")
+    keep = ("solve_residual", "solve_many_residual", "sample_residual",
+            "variance_rel_error_panels", "launches")
+    return dict(captures=first_captures, second_pass={k: again[k] for k in keep},
+                theta_step={k: theta[k] for k in keep}, graph_vs_eager=agree)
+
+
 def tree_levels(n_partials):
     """geadd launches of a tree over ``n_partials`` leaves: one a level."""
     levels = 0
@@ -903,13 +1029,21 @@ def tasklist_warmup_launches(want, workers):
                 geadd=tree_levels(workers) if want["geadd"] else 0)
 
 
+def graph_caches():
+    """The port's CUDA graph caches: the task list's and the solves' corner's."""
+    from repro_torch.core.cholesky import tasklist_graphs
+    from repro_torch.core.solve import corner_graphs
+    return (tasklist_graphs, corner_graphs)
+
+
 def device_counts(kern):
     """Launches on the card by kernel name (``kern``: name -> wrapper): each
-    wrapper's count of its calls, less the launches the task list's
-    captures recorded into their CUDA graphs (calls of the wrappers that
-    ran nothing), plus those the graphs' replays made."""
-    from repro_torch.core.cholesky import tasklist_graphs as g
-    return {k: f.launches - g.recorded[f.__name__] + g.replayed[f.__name__]
+    wrapper's count of its calls, less the launches the captures of the
+    task list and of the solves' corner recorded into their CUDA graphs
+    (calls of the wrappers that ran nothing), plus those the graphs'
+    replays made."""
+    caches = graph_caches()
+    return {k: f.launches + sum(g.replayed[f.__name__] - g.recorded[f.__name__] for g in caches)
             for k, f in kern.items()}
 
 
@@ -1606,8 +1740,9 @@ def main() -> int:
         read just after."""
         for k in kern.values():
             k.launches = 0
-        tasklist_graphs.recorded.clear()
-        tasklist_graphs.replayed.clear()
+        for cache in graph_caches():
+            cache.recorded.clear()
+            cache.replayed.clear()
         out = fn()
         torch.cuda.synchronize()
         path_launches[name] = {k: v for k, v in counts().items() if v}
@@ -1640,16 +1775,28 @@ def main() -> int:
     #    task list, the partitioned route, the quickstart
     records, mats = [], {}
 
-    def window_path():
-        for mid in TABLE2_IDS:
-            rec, m, f = run_matrix(torch, mid, kern_counts=counts)
-            records.append(rec)
-            mats[mid] = (m, f)
-            log(f"main path: Table II matrix {mid}: " + json.dumps(rec))
-            rec["solves"] = run_solves(torch, mid, m, f, counts)
-            log(f"main path, solves: Table II matrix {mid}: " + json.dumps(rec["solves"]))
+    from repro_torch.core.solve import corner_graphs
 
-    run_path("factorize_window and solves", window_path)
+    def window_path(mid):
+        rec, m, f = run_matrix(torch, mid, kern_counts=counts)
+        records.append(rec)
+        mats[mid] = (m, f)
+        log(f"main path: Table II matrix {mid}: " + json.dumps(rec))
+        captures = corner_graphs.captures
+        rec["solves"] = run_solves(torch, mid, m, f, counts)
+        log(f"main path, solves: Table II matrix {mid}: " + json.dumps(rec["solves"]))
+        return rec, corner_graphs.captures - captures
+
+    # a path a matrix, each followed (outside the counted path, as the task
+    # list's graph checks below) by the corner's graphs replayed: a second
+    # pass of the solves, a θ step, the graph against the eager corner; the
+    # next matrix's keys would push this one's out of the cache
+    for mid in TABLE2_IDS:
+        rec, first_captures = run_path(f"factorize_window and solves, matrix {mid}",
+                                       lambda: window_path(mid))
+        rec["solve_graph"] = check_solve_graph(torch, mid, *mats[mid], counts, first_captures)
+        log(f"main path, the solves' corner graphs: Table II matrix {mid}: "
+            + json.dumps(rec["solve_graph"]))
     tms = {}
 
     tfactors, tm2s = {}, {}
@@ -2269,6 +2416,94 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by)
     log("time geadd, partitioned leaves: " + json.dumps(entry["partitioned_leaves"]))
 
+    # solve_panel on matrix 5's first corner tile at k = 1 and 32, both
+    # directions, beside its plain version and torch.linalg.solve_triangular
+    # on the same panel; at k = 32 every chunk width (columns a block)
+    from repro_torch.kernels.trsm import PANEL_CHUNKS, solve_panel_chunk
+    entry = next(k for k in kernels if k["name"] == "solve_panel")
+    entry["first_design"] = PANEL_FIRST_DESIGN
+    entry["by_k"] = {}
+    for kk in (1, 32):
+        bk = b_c[:, :kk].contiguous()
+        for trans in (False, True):
+            fk = lambda: solve_panel_cuda(l_c, bk, trans=trans)
+            flib = ((lambda: torch.linalg.solve_triangular(l_c.mT, bk, upper=True)) if trans
+                    else (lambda: torch.linalg.solve_triangular(l_c, bk, upper=False)))
+            fp = lambda: ref.solve_panel_ref(l_c, bk, trans=trans)
+            err = assert_close(torch, fk(), fp(), f"main-path solve_panel k={kk} trans={trans}")
+            b_ms, b_by = bound(*solve_work(g, kk)["solve_panel"])
+            chunk, chunks = solve_panel_chunk(1, kk, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            row = dict(chunk=chunk, blocks=chunks, max_abs_err=err,
+                       ms=device_ms(torch, fk, calls=20), call_ms=time_ms(torch, fk, inner=20),
+                       plain_ms=device_ms(torch, fp, calls=20),
+                       library_ms=device_ms(torch, flib, calls=20), bound_ms=b_ms, bound_by=b_by)
+            if kk == 32:
+                row["by_chunk"] = {str(c): device_ms(
+                    torch, lambda: solve_panel_cuda(l_c, bk, trans=trans, chunk=c), calls=20)
+                    for c in PANEL_CHUNKS}
+            entry["by_k"][f"k{kk}_{'trans' if trans else 'forward'}"] = row
+            log(f"time solve_panel, k = {kk}, trans = {trans}: " + json.dumps(row)
+                + f", card {card}")
+    # wide panels on the same tile, every chunk width beside the default:
+    # sample_gmrf_many(num=256) gives the corner k = 256, the first width
+    # whose default is wider than one column
+    entry["wide"] = {}
+    for kk in PANEL_WIDE_KS:
+        bk = torch.randn((t, kk), generator=torch.Generator(device=dev).manual_seed(kk),
+                         device=dev)
+        for trans in (False, True):
+            chunk, _ = solve_panel_chunk(1, kk, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            row = dict(default_chunk=chunk, max_abs_err=assert_close(
+                torch, solve_panel_cuda(l_c, bk, trans=trans),
+                ref.solve_panel_ref(l_c, bk, trans=trans),
+                f"solve_panel k={kk} trans={trans}"), by_chunk={str(c): device_ms(
+                    torch, lambda: solve_panel_cuda(l_c, bk, trans=trans, chunk=c), calls=20)
+                    for c in PANEL_CHUNKS})
+            entry["wide"][f"k{kk}_{'trans' if trans else 'forward'}"] = row
+            log(f"time solve_panel, k = {kk}, trans = {trans}, by chunk: " + json.dumps(row)
+                + f", card {card}")
+
+    # geadd against the empty kernel on its grid (the floor of a one-tile
+    # launch), programmatic launch on and off: on the tree's first level and
+    # on matrix 4's partitioned leaves, and the tree's three levels over
+    # the first chain's 8 partials as one chain, 20 chains in one graph
+    from repro_torch.kernels.gemm import cuda_versions, geadd_floor_cuda
+    entry = next(k for k in kernels if k["name"] == "geadd")
+    runtime, driver = cuda_versions()
+    partials = torch.stack([ga, gb], dim=1).reshape(-1, t, t)
+
+    def geadd_chain(pdl, kernel=geadd_cuda):
+        x = partials
+        while x.shape[0] > 1:
+            y = kernel(x[0::2], x[1::2], pdl=pdl)
+            x = x[0::2] if y is None else y
+        return x[0]
+
+    chain_want = partials
+    while chain_want.shape[0] > 1:
+        chain_want = ref.geadd_ref(chain_want[0::2], chain_want[1::2])
+    chain_want = chain_want[0]
+    entry["pdl"] = dict(cuda_runtime=runtime, cuda_driver=driver, default=geadd_cuda.__kwdefaults__["pdl"])
+    for pdl in (False, True):
+        if not torch.equal(geadd_chain(pdl), chain_want):
+            raise AssertionError(f"the geadd chain, pdl={pdl}: not bit-identical to the plain "
+                                 "version")
+        key = "on" if pdl else "off"
+        entry["pdl"][key] = dict(
+            first_level_ms=device_ms(torch, lambda: geadd_cuda(ga, gb, pdl=pdl), calls=20),
+            first_level_empty_ms=device_ms(torch, lambda: geadd_floor_cuda(ga, gb, pdl=pdl),
+                                           calls=20),
+            leaves_ms=device_ms(torch, lambda: geadd_cuda(la, lb, pdl=pdl), calls=20),
+            leaves_empty_ms=device_ms(torch, lambda: geadd_floor_cuda(la, lb, pdl=pdl),
+                                      calls=20),
+            chain_ms=device_ms(torch, lambda: geadd_chain(pdl), calls=20),
+            chain_empty_ms=device_ms(torch, lambda: geadd_chain(pdl, geadd_floor_cuda),
+                                     calls=20))
+    log(f"time geadd, programmatic launch off and on, CUDA runtime {runtime}, driver {driver}: "
+        + json.dumps(entry["pdl"]) + f", card {card}")
+
     # where the sweep's time goes, from the phase-marked build of the kernel:
     # rank 0 (it factors L_kk) and rank 1 (it adds the Schur products then)
     from repro_torch.kernels.band_cholesky import sweep_phase_cycles
@@ -2321,6 +2556,56 @@ def main() -> int:
         rec["e2e_ms"] = {k: time_ms(torch, fn, reps=7, warmup=2) for k, fn in e2e.items()}
         log(f"solves end to end: Table II matrix {rec['matrix']}: " + ", ".join(
             f"{k} {v:.3f} ms" for k, v in rec["e2e_ms"].items()) + f" (median of 7), card {card}")
+
+    # solve_many (k = 1 and 32) and sample_gmrf_many (32 draws), per matrix:
+    # call time with the corner's graph and with the eager corner, against
+    # the device time of the same kernels (device_ms: the calls' launches
+    # captured in one graph of their own); split into the two sweeps, the
+    # corner (its kernels' device time) and the host (call less device);
+    # the two corner graphs' replay alone
+    from repro_torch.core import sample_gmrf_many
+    from repro_torch.core.solve import _backward_corner, _forward_corner
+    for rec in records:
+        mm, ff = mats[rec["matrix"]]
+        gg, fcc = mm.grid, ff.ctsf
+        B32 = torch.randn((gg.padded_n, 32), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(5))
+        rec["solve_split"] = {}
+        for name, kk in (("solve_many_k1", 1), ("solve_many_k32", 32),
+                         ("sample_gmrf_many", 32)):
+            Bk = B32[:, :kk].contiguous()
+            bdk, bak = _split_rhs(gg, Bk)
+            sample = name == "sample_gmrf_many"
+            call = ((lambda: sample_gmrf_many(ff, num=32, z=Bk)) if sample
+                    else (lambda: solve_many(ff, Bk)))
+            eager = lambda: eager_solve_many(ff, Bk, backward_only=sample)
+            acc = torch.zeros_like(bak)
+            sweeps = ((lambda: band_backward_sweep_cuda(fcc.Dr, fcc.R, bdk, bak)) if sample else
+                      (lambda: (band_forward_sweep_cuda(fcc.Dr, fcc.R, bdk),
+                                band_backward_sweep_cuda(fcc.Dr, fcc.R, bdk, bak))))
+            corner = ((lambda: _backward_corner(fcc.C, bak, None)) if sample else
+                      (lambda: _backward_corner(fcc.C, _forward_corner(fcc.C, bak, acc, None),
+                                                None)))
+            e = dict(call_ms=time_ms(torch, call, reps=7, warmup=2),
+                     eager_call_ms=time_ms(torch, eager, reps=7, warmup=2),
+                     device_ms=device_ms(torch, call), eager_device_ms=device_ms(torch, eager),
+                     sweeps_device_ms=device_ms(torch, sweeps),
+                     corner_device_ms=device_ms(torch, corner) if gg.n_arrow_tiles else 0.0)
+            keys = [(kk, True)] + ([] if sample else [(kk, False)])
+            entries = [corner_graphs.find((gg.t, gg.n_arrow_tiles, kk, bw, str(fcc.C.device)))
+                       for kk, bw in keys] if gg.n_arrow_tiles else []
+            if any(x is None for x in entries):
+                raise AssertionError(f"matrix {rec['matrix']} {name}: no corner graph kept")
+            if entries:
+                e["corner_replay_call_ms"] = time_ms(
+                    torch, lambda: [x.graph.replay() for x in entries], reps=7, warmup=2)
+            e["call_over_device"] = e["call_ms"] / e["device_ms"]
+            e["eager_call_over_device"] = e["eager_call_ms"] / e["eager_device_ms"]
+            e["host_ms"] = e["call_ms"] - e["device_ms"]
+            e["eager_host_ms"] = e["eager_call_ms"] - e["eager_device_ms"]
+            rec["solve_split"][name] = e
+            log(f"{name}: Table II matrix {rec['matrix']}: " + json.dumps(e)
+                + f" (call medians of 7, device medians of 5), card {card}")
 
     # beside the partitioned sweep: the fused kernel on the same matrix, and
     # the fused kernel on the widest partition alone (one block's share)
@@ -2492,5 +2777,92 @@ def main() -> int:
     return 0
 
 
+def partitioned_call(src: Path, rounds: int = 9) -> int:
+    """``python3 chip_smoke.py --partitioned-call [SRC]``: the partitioned
+    route's call time on Table II matrix 4, ``logdet(factorize_window(m,
+    options=SolverOptions(partition_plan=plan)))``, with the ``repro_torch``
+    under SRC (default: this checkout's ``src``), so that two trees can be
+    timed in one session on the card, parent and change in turn.  Each of
+    ``rounds`` rounds takes the median of 21 calls (CUDA events around each
+    call) in every mode: the geadd kernel as the route calls it (where
+    ``geadd_cuda`` takes ``pdl=``, with the programmatic launch on and
+    then off), and ``torch.add`` in its place (so a tree's own geadd can be
+    told from the rest of the call).  Beside them the call's device time
+    and the host time of one geadd call on (3, 4, 4, 64, 64) strided
+    halves, as the route's first tree level has (the mean of 200 calls,
+    issued without a synchronisation between), and a profile of the host's
+    time over 21 calls (cProfile: calls a call, the 15 functions with the
+    most time of their own).  Prints one JSON line."""
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke.py: no repro_torch under {src}", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this script runs on an H100", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.core import SolverOptions, factorize_window, logdet
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gemm import geadd_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mid = PARTITIONED_IDS[0]
+    m, plan, _ = partitioned_matrix(torch, mid)
+    opts = SolverOptions(partition_plan=plan)
+    fn = lambda: logdet(factorize_window(m, options=opts))
+    defaults = geadd_cuda.__kwdefaults__ or {}
+    modes = ("pdl_on", "pdl_off", "torch_add") if "pdl" in defaults else ("default",
+                                                                           "torch_add")
+    leaves = torch.randn((2 * 3, 4, 4, 64, 64), generator=torch.Generator(
+        device="cuda").manual_seed(mid), device="cuda")
+    la, lb = leaves[0::2], leaves[1::2]
+    out = dict(src=str(src), matrix=mid, partitions=plan.n_partitions,
+               device_ms=device_ms(torch, fn), call_ms={}, geadd_host_ms={})
+    try:
+        for _ in range(rounds):
+            for mode in modes:
+                ops.geadd_cuda = torch.add if mode == "torch_add" else geadd_cuda
+                if "pdl" in defaults:
+                    defaults["pdl"] = mode != "pdl_off"
+                out["call_ms"].setdefault(mode, []).append(time_ms(torch, fn, reps=21))
+                if mode == "torch_add":
+                    continue
+                geadd_cuda(la, lb)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    geadd_cuda(la, lb)
+                out["geadd_host_ms"].setdefault(mode, []).append(
+                    (time.perf_counter() - t0) / 200 * 1e3)
+                torch.cuda.synchronize()
+    finally:
+        ops.geadd_cuda = geadd_cuda
+        if "pdl" in defaults:
+            defaults["pdl"] = True
+    for key in ("call_ms", "geadd_host_ms"):
+        out[f"median_{key}"] = {k: statistics.median(v) for k, v in out[key].items()}
+    # where the host's time goes: a profile of 21 calls, the 15 functions
+    # that take the most time of their own, per call
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(21):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    out["profile"] = dict(calls_per_call=stats.total_calls / 21,
+                          seconds_per_call_ms=stats.total_tt / 21 * 1e3)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    out["profile"]["top"] = [
+        dict(fn=f"{Path(f).name}:{line}:{name}", calls=nc / 21, own_ms=tt / 21 * 1e3,
+             cum_ms=ct / 21 * 1e3) for (f, line, name), (_, nc, tt, ct, _) in top]
+    print(f"partitioned call (medians of 21 calls a round), card {card_line()}: "
+          + json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--partitioned-call"]:
+        sys.exit(partitioned_call(Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else SRC))
     sys.exit(main())

@@ -179,11 +179,12 @@ class _TasklistGraph:
     launches: Counter               # the graph's launches by kernel wrapper name
 
 
-class TasklistGraphs:
-    """The captured factorizations, least recently used first out, at most
-    ``max_entries``.  ``captures`` counts the captures made; ``recorded``
-    counts, by kernel wrapper name, the launches the captures recorded into
-    their graphs (the wrappers count these calls as their own), and
+class GraphCache:
+    """Captured CUDA graphs by key, least recently used first out, at most
+    ``max_entries``; an entry has the ``graph`` and the ``launches`` its
+    capture recorded, by kernel wrapper name.  ``captures`` counts the
+    captures made; ``recorded`` counts the launches the captures recorded
+    into their graphs (the wrappers count these calls as their own), and
     ``replayed`` those that the replays made on the card."""
 
     def __init__(self, max_entries: int):
@@ -191,7 +192,7 @@ class TasklistGraphs:
         self.captures = 0
         self.recorded: Counter = Counter()
         self.replayed: Counter = Counter()
-        self._graphs: "OrderedDict[tuple, _TasklistGraph]" = OrderedDict()
+        self._graphs: OrderedDict = OrderedDict()
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -199,23 +200,36 @@ class TasklistGraphs:
     def clear(self) -> None:
         self._graphs.clear()
 
+    def find(self, key):
+        """The entry kept under ``key``, now the most recently used, or None."""
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._graphs.move_to_end(key)
+        return entry
+
+    def add(self, key, entry):
+        """Keep a new capture's ``entry`` under ``key``; the least recently
+        used entries go past ``max_entries``."""
+        self.captures += 1
+        self.recorded.update(entry.launches)
+        self._graphs[key] = entry
+        while len(self._graphs) > self.max_entries:
+            self._graphs.popitem(last=False)
+        return entry
+
+    def replay(self, entry) -> None:
+        entry.graph.replay()
+        self.replayed.update(entry.launches)
+
+
+class TasklistGraphs(GraphCache):
+    """The captured factorizations, keyed by :func:`tasklist_graph_key`."""
+
     def get(self, tm: TileMatrix, workers: int) -> _TasklistGraph:
         """The graph of ``tm``'s pattern, captured now if it is not kept."""
         key = tasklist_graph_key(tm, workers)
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = _capture_tasklist(tm, workers)
-            self.captures += 1
-            self.recorded.update(entry.launches)
-            self._graphs[key] = entry
-            while len(self._graphs) > self.max_entries:
-                self._graphs.popitem(last=False)
-        self._graphs.move_to_end(key)
-        return entry
-
-    def replay(self, entry: _TasklistGraph) -> None:
-        entry.graph.replay()
-        self.replayed.update(entry.launches)
+        entry = self.find(key)
+        return entry if entry is not None else self.add(key, _capture_tasklist(tm, workers))
 
 
 tasklist_graphs = TasklistGraphs(TASKLIST_GRAPH_CACHE)

@@ -7,7 +7,10 @@ of ``A^{-1}`` (posterior variances).  Every solve here is a multi-RHS panel
 sweep over ``(padded_n, k)`` right-hand sides; the single-RHS entry points
 are its k = 1 case.  On the card each band sweep is one CUDA kernel launch
 (``kernels.ops.band_forward_sweep`` / ``band_backward_sweep``) and each
-corner tile one ``solve_panel`` launch; on the CPU the plain versions run.
+corner tile one ``solve_panel`` launch; the corner's loop of small launches
+is captured once a shape into a CUDA graph and replayed (see
+:func:`corner_graph_key`), as the reference compiles it once a grid with
+``jax.jit``.  On the CPU the plain versions run, eagerly.
 
 Port of the JAX package's ``core/solve.py``.  The canonical-grid
 embedding (``policy=``) and the iterative refinement of jitter-recovered
@@ -17,13 +20,16 @@ own grid; ``solve_many_batched`` waits for the batched factorization.
 """
 from __future__ import annotations
 
+import dataclasses
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from .cholesky import CholeskyFactor
+from repro_torch.kernels.trsm import solve_panel_cuda
+from .cholesky import CholeskyFactor, GraphCache
 from .options import SolverOptions
 
 __all__ = ["forward_solve", "backward_solve", "solve", "logdet",
@@ -51,14 +57,104 @@ def _merge_panels(xd: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
                       xa.reshape(xa.shape[0] * xa.shape[1], k)])
 
 
+def _forward_corner(C, ba, acc_a, impl):
+    """The arrow rows of ``L Y = B``: ``Y_a = Lc^{-1} (B_a - acc_a)`` by block
+    forward substitution, one ``solve_panel`` a corner tile."""
+    rhs0 = ba - acc_a
+    ya = torch.zeros_like(rhs0)
+    for i in range(C.shape[0]):
+        # rhs_i = rhs0_i - sum_{j<i} C[i, j] Y_j
+        contrib = torch.einsum("jab,jbk->ak", C[i, :i], ya[:i])
+        ya[i] = ops.solve_panel(C[i, i], (rhs0[i] - contrib).contiguous(), impl=impl)
+    return ya
+
+
+def _backward_corner(C, ya, impl):
+    """The arrow rows of ``L^T X = Y``: ``Lc^T X_a = Y_a`` by block backward
+    substitution, one ``solve_panel`` a corner tile."""
+    xa = torch.zeros_like(ya)
+    for i in range(C.shape[0] - 1, -1, -1):
+        # rhs_i = Y_i - sum_{j>i} C[j, i]^T X_j
+        contrib = torch.einsum("jba,jbk->ak", C[i + 1:, i], xa[i + 1:])
+        xa[i] = ops.solve_panel(C[i, i], (ya[i] - contrib).contiguous(), trans=True,
+                                impl=impl)
+    return xa
+
+
+# captured corners kept at once: a matrix's solves use five shapes (k = 1
+# and the panel width, both directions, and marginal_variances' panels)
+CORNER_GRAPH_CACHE = 8
+
+
+def corner_graph_key(C: torch.Tensor, panel: torch.Tensor, backward: bool) -> tuple:
+    """What a captured corner is cached on: ``(t, nat, k, backward,
+    device)`` of the corner ``C (nat, nat, t, t)`` and an arrow panel
+    ``(nat, t, k)``; not the values, the factor or ``impl``, so every
+    factor of a grid (every θ step of an INLA fit) replays one graph."""
+    return (C.shape[-1], C.shape[0], panel.shape[-1], bool(backward), str(C.device))
+
+
+@dataclasses.dataclass
+class _CornerGraph:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple                   # C and the panels, copied in before a replay
+    out: torch.Tensor               # the solved arrow panel, written by a replay
+    launches: Counter               # the graph's launches by kernel wrapper name
+
+
+corner_graphs = GraphCache(CORNER_GRAPH_CACHE)
+
+
+def _corner_on_graph(C: torch.Tensor, panel: torch.Tensor, impl) -> bool:
+    """Whether the corner runs from a CUDA graph: on the card with the CUDA
+    kernels, outside a capture of the caller's own (whose capture takes the
+    launches instead), with columns to solve."""
+    return (C.device.type == "cuda" and ops.resolve_impl(impl, C) == "cuda"
+            and panel.shape[-1] > 0 and not torch.cuda.is_current_stream_capturing())
+
+
+def _capture_corner(body, C, panels) -> _CornerGraph:
+    """Capture ``body`` on static copies of ``C`` and the panels into a CUDA
+    graph whose output stays in the graph's pool.  A failed capture raises."""
+    inputs = tuple(x.clone() for x in (C,) + tuple(panels))
+    graph = torch.cuda.CUDAGraph()
+    before = solve_panel_cuda.launches
+    with torch.cuda.graph(graph):
+        out = body(*inputs, "cuda")
+    return _CornerGraph(graph, inputs, out,
+                        Counter(solve_panel_cuda=solve_panel_cuda.launches - before))
+
+
+def _corner(body, backward: bool, C, panels, impl):
+    """``body(C, *panels, impl)``, the corner's loop.  On the card with the
+    CUDA kernels from the graph of its :func:`corner_graph_key`: the first
+    call of a key runs the loop eagerly (it loads the kernels and makes
+    cuBLAS's handle; its result is the call's) and then captures it; every
+    later call copies ``C`` and the panels into the graph's inputs, replays
+    it and returns a copy of its output.  Elsewhere the loop runs eagerly."""
+    if not _corner_on_graph(C, panels[0], impl):
+        return body(C, *panels, impl)
+    key = corner_graph_key(C, panels[0], backward)
+    with torch.cuda.device(C.device):
+        entry = corner_graphs.find(key)
+        if entry is None:
+            out = body(C, *panels, "cuda")
+            corner_graphs.add(key, _capture_corner(body, C, panels))
+            return out
+        for static, x in zip(entry.inputs, (C,) + tuple(panels)):
+            static.copy_(x)
+        corner_graphs.replay(entry)
+        return entry.out.clone()
+
+
 def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
     """Solve ``L Y = B`` for an RHS panel: bd (ndt, t, k), ba (nat, t, k).
 
     The band part is one :func:`repro_torch.kernels.ops.band_forward_sweep`
     (the arrow-RHS sums ride it); the corner is a block forward
-    substitution with one ``solve_panel`` per corner tile.  ``start_tile``
-    exploits RHS sparsity: when the panel is zero above band tile
-    ``start_tile``, Y is zero there too and the sweep starts at it."""
+    substitution with one ``solve_panel`` per corner tile (:func:`_corner`).
+    ``start_tile`` exploits RHS sparsity: when the panel is zero above band
+    tile ``start_tile``, Y is zero there too and the sweep starts at it."""
     t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
     k = bd.shape[-1]
     if ndt:
@@ -67,33 +163,19 @@ def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
         yd, acc_a = bd.new_zeros((0, t, k)), bd.new_zeros((nat, t, k))
     if not nat:
         return yd, ba
-    # arrow rows: Y_a = Lc^{-1} (B_a - sum_n R[n] Y_n), block forward
-    rhs0 = ba - acc_a
-    ya = torch.zeros_like(rhs0)
-    for i in range(nat):
-        # rhs_i = rhs0_i - sum_{j<i} C[i, j] Y_j
-        contrib = torch.einsum("jab,jbk->ak", C[i, :i], ya[:i])
-        ya[i] = ops.solve_panel(C[i, i], (rhs0[i] - contrib).contiguous(), impl=impl)
-    return yd, ya
+    return yd, _corner(_forward_corner, False, C, (ba, acc_a), impl)
 
 
 def _backward_impl(Dr, R, C, yd, ya, grid, impl=None, start_tile: int = 0):
     """Solve ``L^T X = Y`` for an RHS panel: yd (ndt, t, k), ya (nat, t, k).
 
-    Corner first (the arrow panel seeds the band rows), then the band part
-    as one :func:`repro_torch.kernels.ops.band_backward_sweep`.  Rows
-    below ``start_tile`` (an identity prefix with zero RHS) stay zero."""
+    Corner first (the arrow panel seeds the band rows; :func:`_corner`),
+    then the band part as one
+    :func:`repro_torch.kernels.ops.band_backward_sweep`.  Rows below
+    ``start_tile`` (an identity prefix with zero RHS) stay zero."""
     t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
     k = yd.shape[-1]
-    if nat:
-        xa = torch.zeros_like(ya)
-        for i in range(nat - 1, -1, -1):
-            # rhs_i = Y_i - sum_{j>i} C[j, i]^T X_j
-            contrib = torch.einsum("jba,jbk->ak", C[i + 1:, i], xa[i + 1:])
-            xa[i] = ops.solve_panel(C[i, i], (ya[i] - contrib).contiguous(), trans=True,
-                                    impl=impl)
-    else:
-        xa = ya
+    xa = _corner(_backward_corner, True, C, (ya,), impl) if nat else ya
     if ndt:
         xd = ops.band_backward_sweep(Dr, R, yd, xa.contiguous(), start_tile=start_tile,
                                      impl=impl)
@@ -146,7 +228,7 @@ def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
     ``L L^T``: one forward and one backward sweep for all k columns, each
     band step a ``(t, t) @ (t, k)`` product.  On the card that is one
     forward-sweep launch, one backward-sweep launch and ``2 nat``
-    ``solve_panel`` launches."""
+    ``solve_panel`` launches, the corner's replayed from two CUDA graphs."""
     c = factor.ctsf
     bd, ba = _split_rhs(c.grid, B)
     xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, c.grid, _impl(options))

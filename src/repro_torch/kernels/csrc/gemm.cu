@@ -52,6 +52,22 @@
 // every element of C is read and then written by the same thread.  A and
 // B must not overlap out: another block may write its piece of out while
 // this one still copies its rows.
+//
+// GEADD.  What an add of a few tiles costs is a launch and one round trip
+// to memory; the first design (a grid-stride loop of one float4 a thread,
+// up to 4,096 blocks) paid that and nothing else.  The grid is sized to the
+// card: at most one block an SM, each thread with kAddInFlight float4 loads
+// of each operand in flight before its first store.  The launch is a
+// programmatic dependent launch (cudaLaunchKernelEx with programmatic
+// stream serialization): the kernel may start while the one before it in
+// the stream or graph is still finishing, so its launch overlaps that
+// kernel's tail, and it waits at griddepcontrol.wait (what
+// cudaGridDependencySynchronize compiles to) before its first load of A or
+// B.  It lets the kernel after it launch at once (griddepcontrol.
+// launch_dependents), which waits for this grid's end the same way.  The
+// tree's levels (Alg. 3: 3 levels over 8 partials) are such a chain.  The
+// kernel is the same with and without the attribute, so both give the same
+// bits.
 #include "tile_sum.cuh"
 
 namespace stiles {
@@ -179,18 +195,90 @@ int launch_gemm_t(int sub, const float* c, const float* a, const float* b, float
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out[i, j] = a[i, j] + b[i, j] over n4 float4s, an operand of the batch
-// being `inner4` contiguous float4s at stride a_stride4 / b_stride4 (in
-// float4s) from the one before; out is contiguous.
+// griddepcontrol: wait for the kernel before this one in the stream to end
+// (its writes visible), and let the kernel after this one launch now.  Both
+// do nothing for a launch without the programmatic attribute.
+__device__ __forceinline__ void grid_dependency_wait() {
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+constexpr int kAddInFlight = 4;   // float4 loads of each operand a thread issues at once
+
+// out[i, j] = a[i, j] + b[i, j] for `outer` operands i of `inner4`
+// contiguous float4s j, operand i at a + i * a_stride4 (b likewise, in
+// float4s); out is contiguous.  blockIdx.y walks the operands, blockIdx.x
+// and the thread the float4s: no index is divided.
 __global__ void __launch_bounds__(kThreads)
-geadd_kernel(const float4* a, const float4* b, float4* out, long long n4, long long inner4,
-             long long a_stride4, long long b_stride4) {
-    for (long long v = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; v < n4;
-         v += static_cast<long long>(gridDim.x) * kThreads) {
-        const long long i = v / inner4, j = v % inner4;
-        const float4 x = a[i * a_stride4 + j], y = b[i * b_stride4 + j];
-        out[v] = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+geadd_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
+             float4* __restrict__ out, long long outer, long long inner4, long long a_stride4,
+             long long b_stride4) {
+    launch_dependents();
+    grid_dependency_wait();
+    const long long step = static_cast<long long>(gridDim.x) * kThreads;
+    for (long long i = blockIdx.y; i < outer; i += gridDim.y) {
+        const float4* ai = a + i * a_stride4;
+        const float4* bi = b + i * b_stride4;
+        float4* oi = out + i * inner4;
+        for (long long j0 = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+             j0 < inner4; j0 += kAddInFlight * step) {
+            float4 x[kAddInFlight], y[kAddInFlight];
+#pragma unroll
+            for (int p = 0; p < kAddInFlight; ++p) {
+                const long long j = j0 + p * step;
+                if (j < inner4) {
+                    x[p] = ai[j];
+                    y[p] = bi[j];
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < kAddInFlight; ++p) {
+                const long long j = j0 + p * step;
+                if (j < inner4)
+                    oi[j] = make_float4(x[p].x + y[p].x, x[p].y + y[p].y, x[p].z + y[p].z,
+                                        x[p].w + y[p].w);
+            }
+        }
     }
+}
+
+// A kernel that does nothing, launched with geadd's grid: the floor of a
+// one-tile launch, for measurement.
+__global__ void __launch_bounds__(kThreads) empty_kernel() {
+    launch_dependents();
+    grid_dependency_wait();
+}
+
+// geadd's grid for `outer` operands of inner4 float4s on a card of `sms`
+// SMs: at most one block an SM, the operands on y, each thread
+// kAddInFlight float4s of an operand on x.
+inline dim3 geadd_grid(long long outer, long long inner4, int sms) {
+    const long long gy = outer < sms ? outer : sms;
+    const long long want = (inner4 + kThreads * kAddInFlight - 1) / (kThreads * kAddInFlight);
+    const long long room = sms / gy > 0 ? sms / gy : 1;
+    return dim3(static_cast<unsigned>(want < room ? want : room), static_cast<unsigned>(gy));
+}
+
+// Launch `kernel` on `grid`, as a programmatic dependent launch where pdl
+// is set.
+template <typename... Args, typename... Act>
+int launch_ex(void (*kernel)(Args...), dim3 grid, int pdl, cudaStream_t s, Act... args) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+    const cudaError_t code = cudaLaunchKernelEx(&cfg, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(code != cudaSuccess ? code : last);
 }
 
 }  // namespace stiles
@@ -218,17 +306,32 @@ extern "C" int stiles_gemm_f32(const void* c, const void* a, const void* b, void
 }
 
 // outer operands of `inner` floats each (a multiple of 4), at strides
-// a_stride and b_stride floats (multiples of 4); out is contiguous.
+// a_stride and b_stride floats (multiples of 4); out is contiguous.  `sms`
+// is the card's SM count; pdl makes it a programmatic dependent launch.
 extern "C" int stiles_geadd_f32(const void* a, const void* b, void* out, long long outer,
                                 long long inner, long long a_stride, long long b_stride,
-                                void* stream) {
+                                int sms, int pdl, void* stream) {
     using namespace stiles;
-    const long long n4 = outer * inner / 4;
-    if (n4 == 0) return 0;
-    const long long want = (n4 + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    geadd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(a), static_cast<const float4*>(b), static_cast<float4*>(out),
-        n4, inner / 4, a_stride / 4, b_stride / 4);
-    return static_cast<int>(cudaGetLastError());
+    if (outer * inner == 0) return 0;
+    return launch_ex(geadd_kernel, geadd_grid(outer, inner / 4, sms), pdl,
+                     static_cast<cudaStream_t>(stream), static_cast<const float4*>(a),
+                     static_cast<const float4*>(b), static_cast<float4*>(out), outer, inner / 4,
+                     a_stride / 4, b_stride / 4);
+}
+
+// The empty kernel on the grid geadd takes for the same operands.
+extern "C" int stiles_geadd_empty_f32(long long outer, long long inner, int sms, int pdl,
+                                      void* stream) {
+    using namespace stiles;
+    if (outer * inner == 0) return 0;
+    return launch_ex(empty_kernel, geadd_grid(outer, inner / 4, sms), pdl,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The CUDA runtime's version (the toolkit this library was built with) and
+// the driver's, as CUDA numbers them (12030 is 12.3).
+extern "C" int stiles_cuda_versions(void* runtime, void* driver) {
+    const cudaError_t code = cudaRuntimeGetVersion(static_cast<int*>(runtime));
+    return static_cast<int>(code != cudaSuccess ? code
+                                                : cudaDriverGetVersion(static_cast<int*>(driver)));
 }

@@ -6,20 +6,25 @@ Ports of the TPU kernels ``repro/kernels/gemm.py``: :func:`gemm_cuda`
 ``A + B``, the Alg. 3 tree-reduction combine).  GEMM and SYRK spread each
 output tile over several blocks, a ``sub x sub`` piece each (see
 :func:`gemm_split`), the product in plain FP32 FMAs; GEADD is a vectorised
-elementwise add.  The plain versions are ``ref.gemm_ref``,
-``ref.syrk_ref`` and ``ref.geadd_ref``; ``ops`` chooses by device.
+elementwise add on at most one block an SM, launched as a programmatic
+dependent launch, so that its launch overlaps the tail of the kernel
+before it (the tree's levels are a chain of geadd).  The
+plain versions are ``ref.gemm_ref``, ``ref.syrk_ref`` and
+``ref.geadd_ref``; ``ops`` chooses by device.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
-from .potrf import TILE_SIZES, check_cuda, check_out, check_tiles
+from .potrf import TILE_SIZES, check_cuda, check_out, check_tiles, sm_count
 
-__all__ = ["gemm_cuda", "syrk_cuda", "geadd_cuda", "gemm_split", "GEMM_SPLITS"]
+__all__ = ["gemm_cuda", "syrk_cuda", "geadd_cuda", "geadd_floor_cuda", "gemm_split",
+           "GEMM_SPLITS", "cuda_versions"]
 
 # blocks a tile: pieces of sub x sub, sub = t / sqrt(split) >= 8
 GEMM_SPLITS: Dict[int, Tuple[int, ...]] = {t: tuple(4 ** i for i in range(4) if t >> i >= 8)
@@ -129,10 +134,7 @@ def _operands(x: torch.Tensor) -> Tuple[torch.Tensor, int, int, int]:
     return x, x.stride(0), x.shape[0], inner
 
 
-def geadd_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``A + B`` on the card for two (..., t, t) batches of one shape; each
-    may be a strided view along its first dim (the tree's even and odd
-    partials)."""
+def _geadd_operands(a: torch.Tensor, b: torch.Tensor):
     if a.shape != b.shape:
         raise ValueError(f"geadd: shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
     if a.dim() < 2 or a.shape[-1] != a.shape[-2] or a.shape[-1] not in TILE_SIZES:
@@ -140,15 +142,55 @@ def geadd_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"{tuple(a.shape)}")
     (a, sa, outer, inner), (b, sb, _, _) = _operands(a), _operands(b)
     check_cuda("geadd", a, b, contiguous=False)
+    if sa == sb == inner:      # both contiguous: one operand of every float
+        outer, inner, sa, sb = 1, outer * inner, outer * inner, outer * inner
+    return a, b, sa, sb, outer, inner
+
+
+def geadd_cuda(a: torch.Tensor, b: torch.Tensor, *, pdl: bool = True) -> torch.Tensor:
+    """``A + B`` on the card for two (..., t, t) batches of one shape; each
+    may be a strided view along its first dim (the tree's even and odd
+    partials).  ``pdl`` makes the launch a programmatic dependent one; it
+    is for measurement, and both give the same bits.  On by default: the
+    tree's three levels over 8 partials in one CUDA graph took 4.12-4.16 us
+    with it and 5.28-5.36 without (PERF.md, H100)."""
+    a, b, sa, sb, outer, inner = _geadd_operands(a, b)
     out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
     lib = _build.load("gemm")
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _build.check(lib, lib.stiles_geadd_f32(a.data_ptr(), b.data_ptr(), out.data_ptr(), outer,
-                                           inner, sa, sb, stream), "geadd")
+                                           inner, sa, sb, sm_count(a.device), int(pdl),
+                                           stream),
+                 "geadd")
     geadd_cuda.launches += 1
     return out
 
 
 geadd_cuda.launches = 0
+
+
+def geadd_floor_cuda(a: torch.Tensor, b: torch.Tensor, *, pdl: bool = True) -> None:
+    """A kernel that does nothing, launched on the grid :func:`geadd_cuda`
+    takes for ``a`` and ``b``: the floor of a one-tile launch, for
+    measurement only (nothing calls it)."""
+    a, _, _, _, outer, inner = _geadd_operands(a, b)
+    if outer * inner == 0:
+        return
+    lib = _build.load("gemm")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _build.check(lib, lib.stiles_geadd_empty_f32(outer, inner, sm_count(a.device), int(pdl),
+                                                 stream), "geadd_floor")
+
+
+def cuda_versions() -> Tuple[int, int]:
+    """``(runtime, driver)``: the CUDA runtime the kernels were built with
+    and the card's driver, as CUDA numbers them (12030 is 12.3); a stream
+    capture of a programmatic dependent launch needs both at 12.3 or
+    later."""
+    lib = _build.load("gemm")
+    runtime, driver = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.stiles_cuda_versions(ctypes.addressof(runtime),
+                                               ctypes.addressof(driver)), "cuda_versions")
+    return runtime.value, driver.value

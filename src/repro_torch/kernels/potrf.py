@@ -8,13 +8,14 @@ one block per tile of the batch.  The plain version is
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["potrf_cuda", "check_cuda", "check_tiles", "check_out", "TILE_SIZES"]
+__all__ = ["potrf_cuda", "check_cuda", "check_tiles", "check_out", "sm_count", "TILE_SIZES"]
 
 TILE_SIZES = (8, 16, 32, 64)
 
@@ -34,6 +35,17 @@ def check_cuda(name: str, *tensors: torch.Tensor, aligned: bool = True,
             raise ValueError(f"{name}: inputs must be contiguous")
         if aligned and x.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of the card ``device``, asked once a card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
 
 
 def check_tiles(name: str, *tensors: torch.Tensor) -> int:

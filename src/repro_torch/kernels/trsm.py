@@ -10,24 +10,26 @@ broadcasts, then one trailing update over the block
 sweep).
 
 :func:`solve_panel_cuda` ports ``solve_panel_pallas``: ``L X = B`` or
-``L^T X = B`` for (..., t, k) panels of any width k, one thread per
-right-hand-side column with L staged in shared memory
-(``csrc/tile.cuh::substitute_panel``, shared with the band-solve and
-selected-inversion sweeps).
+``L^T X = B`` for (..., t, k) panels of any width k, a block for each
+panel and each chunk of columns (:func:`solve_panel_chunk`), the chunk
+transposed in shared memory and solved by the blocked substitution the
+band-solve sweeps use (``csrc/tile.cuh::solve_few_rows``).
 
 The plain versions are ``ref.trsm_ref`` and ``ref.solve_panel_ref``;
 ``ops.trsm`` and ``ops.solve_panel`` choose between them by device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from .potrf import check_cuda, check_out, check_tiles
+from .potrf import check_cuda, check_out, check_tiles, sm_count
 
-__all__ = ["trsm_cuda", "solve_panel_cuda"]
+__all__ = ["trsm_cuda", "solve_panel_cuda", "solve_panel_chunk", "PANEL_CHUNKS"]
+
+PANEL_CHUNKS = (1, 2, 4, 8)   # the chunk widths csrc/solve_panel.cu is built for
 
 
 def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
@@ -65,10 +67,31 @@ def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
 trsm_cuda.launches = 0
 
 
-def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor,
-                     trans: bool = False) -> torch.Tensor:
+def solve_panel_chunk(nb: int, k: int, at_once: int,
+                      chunk: Optional[int] = None) -> Tuple[int, int]:
+    """``(chunk, chunks)``: how ``csrc/solve_panel.cu`` splits ``nb`` panels
+    of ``k`` columns, a block for each panel and each ``chunk`` columns
+    (``chunks`` a panel, the last one padded with zero columns).  By
+    default one column a block while the ``nb * k`` blocks all fit on the
+    card at once (``at_once``: its SMs, one block each), and past that the
+    widest chunk: on the H100 one panel took 3.6-4.1 us at k = 32 at every
+    width, and past one wave fewer blocks win (k = 256: 4.35 us at 8
+    columns, 5.04 at 2, 6.24 at 1; k = 1024: 5.19 at 8, 13.54 at 1;
+    PERF.md).  Every chunk gives the same bits."""
+    if chunk is None:
+        chunk = 1 if nb * k <= at_once else PANEL_CHUNKS[-1]
+    elif chunk not in PANEL_CHUNKS:
+        raise ValueError(f"solve_panel: chunk {chunk} not supported (want one of "
+                         f"{PANEL_CHUNKS})")
+    return chunk, -(-k // chunk)
+
+
+def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False, *,
+                     chunk: Optional[int] = None) -> torch.Tensor:
     """``L X = B`` (or ``L^T X = B``) on the card for a (..., t, k) batch of
-    panels; ``l_kk`` is one (t, t) tile for the whole batch."""
+    panels; ``l_kk`` is one (t, t) tile for the whole batch.  One launch;
+    ``chunk`` (columns a block, see :func:`solve_panel_chunk`) is for
+    measurement: every chunk gives the same bits."""
     t = check_tiles("solve_panel", l_kk)
     check_cuda("solve_panel", b_panel, aligned=False)
     if l_kk.dim() != 2:
@@ -79,13 +102,17 @@ def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor,
     k = b_panel.shape[-1]
     out = torch.empty_like(b_panel)
     nb = b_panel.numel() // (t * k) if k else 0
+    chunk, chunks = solve_panel_chunk(nb, k, sm_count(b_panel.device), chunk)
     if nb == 0:
         return out
+    if nb * chunks > 2 ** 31 - 1:
+        raise ValueError(f"solve_panel: at most 2^31 - 1 blocks, got {nb * chunks}")
+    vec = k % 4 == 0 and b_panel.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load("solve_panel")
     stream = torch.cuda.current_stream(b_panel.device).cuda_stream
     _build.check(lib, lib.stiles_solve_panel_f32(l_kk.data_ptr(), b_panel.data_ptr(),
-                                                 out.data_ptr(), nb, t, k, int(trans),
-                                                 stream), "solve_panel")
+                                                 out.data_ptr(), nb, t, k, chunk, int(trans),
+                                                 int(vec), stream), "solve_panel")
     solve_panel_cuda.launches += 1
     return out
 

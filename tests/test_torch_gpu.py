@@ -25,18 +25,19 @@ from repro_torch.core import (BandedCTSF, PartitionPlan, SolverOptions, TileGrid
                               logdet, marginal_variances, sample_gmrf_many, selected_inverse,
                               solve_many)
 from repro_torch.data import block_separable_arrowhead, make_arrowhead
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.band_cholesky import (MAX_SWEEP_CLUSTER,
                                                band_cholesky_partitioned_sweep_cuda,
                                                band_cholesky_sweep_cuda, sweep_plan)
 from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
 from repro_torch.kernels.band_update import band_update_cuda
-from repro_torch.kernels.gemm import GEMM_SPLITS, geadd_cuda, gemm_cuda, syrk_cuda
+from repro_torch.kernels.gemm import (GEMM_SPLITS, geadd_cuda, geadd_floor_cuda, gemm_cuda,
+                                      syrk_cuda)
 from repro_torch.kernels.potrf import potrf_cuda
 from repro_torch.kernels.ring import band_row_to_col
 from repro_torch.kernels.selinv import (MAX_SELINV_CLUSTER, selinv_plan, selinv_prepass_cuda,
                                         selinv_step_cuda, selinv_sweep_cuda)
-from repro_torch.kernels.trsm import solve_panel_cuda, trsm_cuda
+from repro_torch.kernels.trsm import PANEL_CHUNKS, solve_panel_cuda, trsm_cuda
 
 pytestmark = pytest.mark.gpu
 
@@ -320,9 +321,17 @@ def test_solves_and_selected_inverse_on_the_card(cuda, t):
     fc = factorize_window(_matrix(t, "cpu"))
     rng = np.random.default_rng(t)
     B = torch.from_numpy(rng.standard_normal((g.padded_n, 5)).astype(np.float32))
-    before = _scounts()
+    # launches on the card, as chip_smoke.py counts them: the corner's first
+    # call of a shape runs eagerly and captures its graph, which records
+    # its launches without running them
+    kern = dict(band_forward_sweep=band_forward_sweep_cuda,
+                band_backward_sweep=band_backward_sweep_cuda, solve_panel=solve_panel_cuda)
+    before = _chip_smoke().device_counts(kern)
     X = solve_many(f, B.to(cuda))
-    assert tuple(a - b for a, b in zip(_scounts(), before)) == (1, 1, 2 * nat, 0, 0)
+    after = _chip_smoke().device_counts(kern)
+    assert {k: after[k] - before[k] for k in kern} == dict(
+        band_forward_sweep=1, band_backward_sweep=1, solve_panel=2 * nat)
+    before = _scounts()
     torch.testing.assert_close(X.cpu(), solve_many(fc, B), **TOL)
     z = torch.from_numpy(rng.standard_normal((g.padded_n, 3)).astype(np.float32))
     torch.testing.assert_close(sample_gmrf_many(f, num=3, z=z.to(cuda)).cpu(),
@@ -909,3 +918,146 @@ def test_tasklist_graph_cache_is_bounded(cuda):
     assert tasklist_graphs.captures == captures + TASKLIST_GRAPH_CACHE + 1
     factorize_tasklist(tm, tree_reduction=True, tree_workers=2)
     assert tasklist_graphs.captures == captures + TASKLIST_GRAPH_CACHE + 2
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 32, 33, 64])
+def test_solve_panel_kernel_every_chunk(cuda, t, trans, k):
+    """Every chunk width against the plain version, bit for bit the same as
+    the default and as a second launch, on a batch of three panels (float4
+    loads where k % 4 == 0) and on panels at an offset of one float (scalar
+    loads); each launch counted once."""
+    rng = np.random.default_rng(100 * t + k)
+    l = torch.from_numpy(_lower(rng, 1, t)[0]).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((3, t, k)).astype(np.float32)).to(cuda)
+    shifted = torch.empty(3 * t * k + 1, device=cuda)[1:].view(3, t, k)
+    shifted.copy_(b)
+    want = ref.solve_panel_ref(l, b, trans=trans)
+    first = solve_panel_cuda(l, b, trans=trans)
+    before = solve_panel_cuda.launches
+    for chunk in PANEL_CHUNKS:
+        for panels in (b, shifted):
+            got = solve_panel_cuda(l, panels, trans=trans, chunk=chunk)
+            torch.testing.assert_close(got, want, **TOL)
+            assert torch.equal(got, first), chunk
+    assert solve_panel_cuda.launches - before == 2 * len(PANEL_CHUNKS)
+    assert torch.equal(solve_panel_cuda(l, b, trans=trans), first)
+
+
+def test_solve_panel_refuses_a_bad_chunk(cuda):
+    """A chunk width the kernel is not built for is refused, by the wrapper
+    and by the C entry point."""
+    from repro_torch.kernels import _build
+    l = torch.eye(16, device=cuda)
+    b = torch.ones((16, 5), device=cuda)
+    for chunk in (0, 3, 16):
+        with pytest.raises(ValueError, match="chunk"):
+            solve_panel_cuda(l, b, chunk=chunk)
+    lib = _build.load("solve_panel")
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, lib.stiles_solve_panel_f32(l.data_ptr(), b.data_ptr(), b.data_ptr(),
+                                                     1, 16, 5, 16, 0, 0, stream), "solve_panel")
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("pdl", [False, True])
+def test_geadd_kernel_with_and_without_pdl(cuda, t, pdl):
+    """A + B bit for bit the plain version with the programmatic launch on
+    and off: strided halves of a stack, a batch, and one more than a wave
+    of the grid's loads (the grid-stride loop); the empty kernel launches
+    on the same grid."""
+    rng = np.random.default_rng(t)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    leaves, a, b = x(7, 2, 2, t, t), x(5, t, t), x(5, t, t)
+    big = 132 * 256 * 4 * 4 // (t * t) + 3
+    ba, bb = x(big, t, t), x(big, t, t)
+    for p, q in ((leaves[0:6:2], leaves[1:6:2]), (a, b), (a[1], b[3]), (ba, bb)):
+        assert torch.equal(geadd_cuda(p, q, pdl=pdl), ref.geadd_ref(p, q))
+        geadd_floor_cuda(p, q, pdl=pdl)
+    torch.cuda.synchronize()
+
+
+def test_geadd_chain_in_a_graph(cuda):
+    """The tree's levels as a chain of programmatic launches captured in a
+    CUDA graph, bit for bit the eager tree."""
+    from repro_torch.core import tree_combine
+    partials = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 64, 64)).astype(np.float32)).to(cuda)
+    want = tree_combine(partials)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tree_combine(partials)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tree_combine(partials)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    level = partials
+    while level.shape[0] > 1:
+        level = ref.geadd_ref(level[0::2], level[1::2])
+    assert torch.equal(want, level[0])
+
+
+def _eager_solve_many(f, B):
+    """solve_many with the corner launched eagerly, as before its graph:
+    the two sweeps and the corner's two loops, called directly."""
+    from repro_torch.core.solve import (_backward_corner, _forward_corner, _merge_panels,
+                                        _split_rhs)
+    c = f.ctsf
+    bd, ba = _split_rhs(c.grid, B)
+    yd, acc_a = ops.band_forward_sweep(c.Dr, c.R, bd)
+    xa = _backward_corner(c.C, _forward_corner(c.C, ba, acc_a, None), None)
+    return _merge_panels(ops.band_backward_sweep(c.Dr, c.R, yd, xa.contiguous()), xa)
+
+
+@pytest.mark.parametrize("t", [32, 64])
+def test_solve_graph_matches_the_eager_corner(cuda, t):
+    """solve_many's corner from its CUDA graph: one capture a direction on
+    the first call (its result the eager loop's), none on a second call, an
+    impl="cuda" call or a new factor of the same grid; each replay within
+    the kernels' tolerance of the eager corner (cuBLAS may take another
+    algorithm inside a capture), and outputs of their own."""
+    from repro_torch.core.solve import corner_graphs
+    corner_graphs.clear()
+    m = _matrix(t, cuda)
+    f = factorize_window(m)
+    B = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (m.grid.padded_n, 6)).astype(np.float32)).to(cuda)
+    captures = corner_graphs.captures
+    first = solve_many(f, B)
+    assert corner_graphs.captures == captures + 2
+    eager = _eager_solve_many(f, B)
+    assert torch.equal(first, eager)
+    second = solve_many(f, B)
+    third = solve_many(f, B, options=SolverOptions(impl="cuda"))
+    torch.testing.assert_close(second, eager, **TOL)
+    assert torch.equal(second, third) and second.data_ptr() != third.data_ptr()
+    # a θ step 1.5 A + 0.25 I of the same grid
+    eye = 0.25 * torch.eye(t, device=cuda)
+    Dr, C = 1.5 * m.Dr, 1.5 * m.C
+    Dr[:, 0] += eye
+    for i in range(C.shape[0]):
+        C[i, i] += eye
+    m2 = BandedCTSF(m.grid, Dr, 1.5 * m.R, C)
+    f2 = factorize_window(m2)
+    x2 = solve_many(f2, B)
+    assert corner_graphs.captures == captures + 2
+    torch.testing.assert_close(x2, _eager_solve_many(f2, B), **TOL)
+    assert not torch.allclose(x2, second)
+    assert torch.equal(solve_many(f, B), second)
+
+
+def test_solve_graph_ref_captures_nothing(cuda):
+    """impl="ref" on the card runs the corner eagerly, as the CPU does."""
+    from repro_torch.core.solve import corner_graphs
+    m = _matrix(16, cuda)
+    f = factorize_window(m)
+    B = torch.ones((m.grid.padded_n, 3), device=cuda)
+    captures = corner_graphs.captures
+    solve_many(f, B, options=SolverOptions(impl="ref"))
+    assert corner_graphs.captures == captures
