@@ -36,7 +36,13 @@ Phases, each of which raises on a failed check:
    selinv_step for (e_n, j_n) in {(1, 1), (1, 2), (4, 3), (3, 5), (8, 8),
    (2, 17), (1, 17)} and the empty shapes; trsm with one L a group of
    tiles, also in place; the fused and partitioned sweeps on a batch of three, each
-   element also bit for bit against its unbatched launch;
+   element also bit for bit against its unbatched launch; the θ-batch
+   read-out's kernel forms on batches of 1 and 3, one launch each, each
+   element bit for bit its unbatched launch: solve_panel with one L a panel
+   (every t and k above, both directions), both band-solve sweeps on the
+   shapes above at every cluster cap (the unbatched launch at the batch's
+   chunk width), the selinv pre-pass and recurrence on the shapes above
+   (default cluster, 4 and 8);
 3. main paths at full size, each with the launch counts set to 0 just
    before it and read just after (a count is of launches on the card: the
    wrapper's count of its calls, less the calls a capture of the task list
@@ -91,6 +97,25 @@ Phases, each of which raises on a failed check:
      window panel and of the corner;
    - ops.selinv_step on the Takahashi operands of an interior column of
      matrix 5's selected inverse, against that column's Σ tiles;
+   - "θ-batch solves and selected inverse, matrix 5": solve_many_batched
+     at k = 1 and 32 on seeded panels and selinv_batched on the fused
+     batched factor of matrix 5's 8 θ-candidates, each the launches of one
+     call (forward 1, backward 1, solve_panel 2·nat; pre-pass 1, recurrence
+     1); each element against the unbatched call on it, bit for bit where
+     the band sweeps' chunk width (solves) or the corner seed (selinv) is
+     the unbatched call's, else within rtol = atol = 2e-4 (a failed
+     bit-identity fails the run after the timings); the float64 gates on
+     elements 0 and 7 (solve residual and forward error, Σ error);
+   - "breakdown recovery, matrix 5": the same θ-batch with element 2
+     indefinite (a band diagonal tile dropped by 10 x its mean |diagonal|)
+     and element 5 given a NaN: factorize_window_batched with
+     regularize=True (statuses, tau, first bad tile, the healthy elements
+     bit for bit the unregularized call, element 2's residual against its
+     jittered matrix), solve_many_batched at k = 32 on it (one refinement
+     pass; clean elements bit for bit an unrefined call's, element 2's
+     residual per column at most the unrefined one's) and solve_many with
+     a hand-built FactorInfo on matrix 5 (tau = 1e-2 diag_scale), the same
+     column rule;
    - python -m repro_torch.quickstart's main, its task-list agreement;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
@@ -139,7 +164,13 @@ Phases, each of which raises on a failed check:
    programmatic launch on and off (the CUDA runtime's and driver's
    versions beside); solve_many (k = 1 and 32) and sample_gmrf_many on
    matrices 5 and 2, call time against device time with the corner's graph
-   and eagerly, split into the two sweeps, the corner and the host.
+   and eagerly, split into the two sweeps, the corner and the host; the
+   θ-batch's read-out kernels on its own inputs (one launch for 8 against
+   one element's and eight launches, each element bit for bit its launch
+   alone), solve_many_batched (k = 1 and 32) and selinv_batched call and
+   device time against one candidate's call and a loop of 8; and
+   factorize_window_batched with regularize=True against the call without
+   it on the clean θ-batch, in turns (at most 1.25 times).
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -191,6 +222,12 @@ PANEL_WIDE_KS = (256, 1024)
 SELINV_EDGES = ((1, 4, 4), (1, 0, 0), (3, 4, 1), (2, 4, 0))
 # θ-candidates of the batched factorization (factorize_window_batched)
 BATCH = 8
+# the batch sizes of the batched read-out kernels' checks (phase 2)
+READ_BATCHES = (1, 3)
+# the θ-batch's faults (breakdown recovery): an indefinite element and a NaN one
+INDEFINITE, NAN_ELEMENT = 2, 5
+# regularize=True on a clean θ-batch: its call against the call without it
+CLEAN_OVERHEAD_LIMIT = 1.25
 # (τ, δ) of the task list's second matrix of one pattern, τ A + δ I
 THETA_STEP = (1.5, 0.25)
 # the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
@@ -614,6 +651,116 @@ def phase_solve_kernels(torch, device, kern, ref):
                     for a, w, part in zip(got, want, ("panels", "acols")):
                         assert_close(torch, a, w, f"{what} clusters of {cap or 'default'} {part}")
                     nchecks += 1
+    return nchecks
+
+
+def phase_batched_read_kernels(torch, device, kern, ref):
+    """The θ-batch read-out's kernel forms against their plain versions, a
+    batch of B in {1, 3}: solve_panel with one L a panel (t in {8, 16, 32,
+    64}, every k of PANEL_KS, both directions); both band-solve sweeps on
+    the phase's shapes (SOLVE_SWEEPS, k in {1, 33}, start_tile in {0, 2})
+    at every cluster cap; the selinv pre-pass and recurrence on the
+    phase's selinv shapes, at the default cluster and at 4 and 8.  Each is
+    one launch for the batch, and each element bit for bit its unbatched
+    launch (the band sweeps at the batch's chunk width).  Returns the
+    number of comparisons."""
+    from repro_torch.kernels.band_solve import card_solve_plan
+    nchecks = 0
+    for t in TILES:
+        for nb in READ_BATCHES:
+            l = random_lower(torch, nb, t, 10 * t + nb, device)
+            for k in PANEL_KS:
+                b = torch.randn((nb, t, k), generator=torch.Generator().manual_seed(k + nb)).to(
+                    device)
+                for trans in (False, True):
+                    what = f"solve_panel one L a panel t={t} B={nb} k={k} trans={trans}"
+                    before = kern["solve_panel"].launches
+                    got = kern["solve_panel"](l, b, trans=trans)
+                    if kern["solve_panel"].launches != before + 1:
+                        raise AssertionError(f"{what}: not one launch")
+                    assert_close(torch, got, ref.solve_panel_ref(l, b, trans=trans), what)
+                    for i in range(nb):
+                        if not torch.equal(got[i], kern["solve_panel"](l[i], b[i], trans=trans)):
+                            raise AssertionError(f"{what}: element {i} not bit-identical to its "
+                                                 "unbatched launch")
+                    nchecks += 1
+        for ndt, bt, nat in SOLVE_SWEEPS:
+            for nb in READ_BATCHES:
+                els = [random_band_factor(torch, ndt, bt, nat, t, 10 * ndt + bt + 7 * i, device)
+                       for i in range(nb)]
+                Dr, R = torch.stack([e[0] for e in els]), torch.stack([e[1] for e in els])
+                for k in (1, 33):
+                    g = torch.Generator().manual_seed(k + 100 * nb)
+                    bd = torch.randn((nb, ndt, t, k), generator=g).to(device)
+                    xa = torch.randn((nb, nat, t, k), generator=g).to(device)
+                    for start in (0, 2):
+                        start = min(start, ndt - 1)
+                        b0 = bd.clone()
+                        b0[:, :start] = 0.0
+                        what = (f"batched band sweeps t={t} ndt={ndt} bt={bt} nat={nat} B={nb} "
+                                f"k={k} start={start}")
+                        want = ref.band_forward_sweep_ref(Dr, R, b0, start) + (
+                            ref.band_backward_sweep_ref(Dr, R, b0, xa, start),)
+                        for cap in SWEEP_CLUSTERS:
+                            before = (kern["band_forward_sweep"].launches,
+                                      kern["band_backward_sweep"].launches)
+                            got = kern["band_forward_sweep"](Dr, R, b0, start, max_cluster=cap) \
+                                + (kern["band_backward_sweep"](Dr, R, b0, xa, start,
+                                                               max_cluster=cap),)
+                            if (kern["band_forward_sweep"].launches,
+                                    kern["band_backward_sweep"].launches) != (before[0] + 1,
+                                                                              before[1] + 1):
+                                raise AssertionError(f"{what}: not one launch a sweep")
+                            for a, w, part in zip(got, want, ("forward yd", "forward acc_a",
+                                                              "backward xd")):
+                                assert_close(torch, a, w, f"{what} clusters of at most {cap}: "
+                                             f"{part}")
+                            width = card_solve_plan(t, bt, nat, k, cap, device, batch=nb).width
+                            for i in range(nb):
+                                one = kern["band_forward_sweep"](
+                                    Dr[i], R[i], b0[i], start, max_cluster=cap, width=width) + (
+                                    kern["band_backward_sweep"](Dr[i], R[i], b0[i], xa[i], start,
+                                                                max_cluster=cap, width=width),)
+                                if not all(torch.equal(a[i], o) for a, o in zip(got, one)):
+                                    raise AssertionError(
+                                        f"{what} clusters of at most {cap}: element {i} not "
+                                        f"bit-identical to its unbatched launch at width {width}")
+                            nchecks += 2
+    for t in (16, 64):
+        shapes = [(6, bt, nat) for bt in (0, 1, 4) for nat in (0, 1, 4)] + list(SELINV_EDGES)
+        for ndt, bt, nat in shapes:
+            for nb in READ_BATCHES:
+                els = [selinv_inputs(torch, ndt, bt, nat, t, 1000 + 10 * bt + nat + 3 * i, device)
+                       for i in range(nb)]
+                lcol, R, sc = (torch.stack([e[q] for e in els]) for q in range(3))
+                for start in (0, 2):
+                    what = (f"batched selinv t={t} ndt={ndt} bt={bt} nat={nat} B={nb} "
+                            f"start={start}")
+                    before = kern["selinv_prepass"].launches
+                    work = kern["selinv_prepass"](lcol, R, sc, start)
+                    if kern["selinv_prepass"].launches != before + 1:
+                        raise AssertionError(f"{what}: the pre-pass is not one launch")
+                    assert_close(torch, work, ref.selinv_prepass_ref(lcol, R, sc, start),
+                                 f"{what} pre-pass")
+                    want = ref.selinv_sweep_ref(lcol, R, sc, start)
+                    for cap in (None, 4, 8):
+                        caps = {} if cap is None else {"max_cluster": cap}
+                        got = kern["selinv_sweep"](lcol, R, sc, start, work=work, **caps)
+                        for a, w, part in zip(got, want, ("panels", "acols")):
+                            assert_close(torch, a, w, f"{what} clusters of {cap or 'default'} "
+                                         f"{part}")
+                        for i in range(nb):
+                            one = kern["selinv_sweep"](lcol[i], R[i], sc[i], start, **caps)
+                            if not all(torch.equal(a[i], o) for a, o in zip(got, one)):
+                                raise AssertionError(f"{what} clusters of {cap or 'default'}: "
+                                                     f"element {i} not bit-identical to its "
+                                                     "unbatched launch")
+                        nchecks += 1
+                    for i in range(nb):
+                        if not torch.equal(work[i], kern["selinv_prepass"](lcol[i], R[i], sc[i],
+                                                                           start)):
+                            raise AssertionError(f"{what}: pre-pass element {i} not "
+                                                 "bit-identical to its unbatched launch")
     return nchecks
 
 
@@ -1504,6 +1651,299 @@ def check_batched_kernels(torch, ref, mb5, mb4, plan4, fb_window):
     return errs, w
 
 
+def theta_rhs(torch, g, nb, k, seed, device):
+    """Seeded ``(nb, padded_n, k)`` right-hand sides, zero on the padding
+    rows, as run_solves makes them."""
+    B = torch.randn((nb, g.padded_n, k), generator=torch.Generator(device=device).manual_seed(
+        seed), device=device)
+    real = torch.zeros(g.padded_n, dtype=torch.bool, device=device)
+    real[:g.structure.n_diag] = True
+    real[g.n_diag_tiles * g.t:g.n_diag_tiles * g.t + g.structure.arrow] = True
+    B[:, ~real] = 0.0
+    return B
+
+
+def element_factor(fb, i, info=False):
+    """Element ``i`` of a batched factor as a factor of its own (its
+    status word, and with ``info`` its FactorInfo with the kept matrix's
+    element)."""
+    from repro_torch.core import BandedCTSF, CholeskyFactor, FactorInfo
+    c = fb.ctsf
+    fi = None
+    if info and fb.info is not None:
+        m = fb.info.matrix
+        fi = FactorInfo(*(getattr(fb.info, k)[i] for k in (
+            "status", "attempts", "tau", "min_pivot", "first_bad_tile")),
+            matrix=None if m is None else element(m, i))
+    return CholeskyFactor(BandedCTSF(c.grid, *(x[i] for x in c.arrays())), fb.status[i], fi)
+
+
+def run_theta_read(torch, fb, B32, kern_counts):
+    """The θ-batch's read-out on its batched factor ``fb``:
+    solve_many_batched at k = 1 and 32 (forward 1, backward 1, solve_panel
+    2·nat launches each) and selinv_batched (pre-pass 1, recurrence 1).
+    Returns the results and the launches."""
+    from repro_torch.core import selinv_batched, solve_many_batched
+    nat = fb.ctsf.grid.n_arrow_tiles
+    per_solve = {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2 * nat}
+    out, launches = {}, {}
+    for kk in (1, 32):
+        Bk = B32[..., :kk].contiguous()
+        out[f"k{kk}"], launches[f"solve_many_batched_k{kk}"] = launch_delta(
+            kern_counts, lambda: solve_many_batched(fb, Bk), per_solve,
+            f"solve_many_batched k={kk}")
+    out["sigma"], launches["selinv_batched"] = launch_delta(
+        kern_counts, lambda: selinv_batched(fb), {"selinv_sweep": 1, "selinv_prepass": 1},
+        "selinv_batched")
+    return out, launches
+
+
+def float64_solve_gates(torch, m, f, X, Bk, what):
+    """run_solves' float64 gates of one solve: the residual ``max|A X - B|
+    / (max|A| max|X|)`` against ``m`` and the forward error against
+    ``torch.cholesky_solve`` with the float64 factor of ``f``."""
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    X64, B64 = X.double(), Bk.double()
+    resid = ((Ad @ X64 - B64).abs().max() / (Ad.abs().max() * X64.abs().max())).item()
+    exact = torch.cholesky_solve(B64, Ld)
+    fwd = ((X64 - exact).abs().max() / exact.abs().max()).item()
+    if not (resid <= RESIDUAL_LIMIT and fwd <= SOLVE_RTOL):
+        raise AssertionError(f"{what}: residual {resid:.3e} (limit {RESIDUAL_LIMIT}), forward "
+                             f"error {fwd:.3e} (limit {SOLVE_RTOL})")
+    return resid, fwd
+
+
+def sigma_error(torch, f, sigma_arrays):
+    """Σ's largest error over its stored band + arrow entries against the
+    float64 inverse of the factor ``f``, relative to max|inv| (run_solves'
+    gate)."""
+    from repro_torch.core import BandedCTSF
+    g = f.ctsf.grid
+    Ld = dense_from_ctsf(torch, f.ctsf, torch.float64, symmetric=False)
+    inv = torch.cholesky_inverse(Ld)
+    Sd = dense_from_ctsf(torch, BandedCTSF(g, *sigma_arrays), torch.float64, symmetric=True)
+    ones = BandedCTSF(g, *(torch.ones_like(a) for a in sigma_arrays))
+    stored = dense_from_ctsf(torch, ones, torch.float64, symmetric=True) > 0
+    return ((Sd - inv).abs()[stored].max() / inv.abs().max()).item()
+
+
+def check_theta_read(torch, mb, fb, B32, out, deferred):
+    """The θ-batch's read-out against the port's unbatched calls on each
+    element: solve_many on the element's factor and panel, bit for bit
+    where the batch's chunk width is the unbatched call's (rtol = atol =
+    2e-4 where it is not), selected_inverse on the element's factor; the
+    float64 gates on elements 0 and B - 1.  A bit-identity that fails is
+    put on ``deferred`` (the run fails at its end, after its timings), a
+    tolerance that fails raises.  Returns the record."""
+    from repro_torch.core import selected_inverse, solve_many
+    from repro_torch.kernels.band_solve import card_solve_plan
+    g = mb.grid
+    nb = mb.Dr.shape[0]
+    rec = {}
+    for kk in (1, 32):
+        X = out[f"k{kk}"]
+        widths = [card_solve_plan(g.t, g.band_tiles, g.n_arrow_tiles, kk, device=X.device,
+                                  batch=b).width for b in (nb, 1)]
+        same, worst = [], 0.0
+        for i in range(nb):
+            one = solve_many(element_factor(fb, i), B32[i, :, :kk].contiguous())
+            worst = max(worst, assert_close(torch, X[i], one, f"solve_many_batched k={kk}, "
+                                            f"element {i} against its unbatched call"))
+            same.append(torch.equal(X[i], one))
+        rec[f"solve_k{kk}"] = dict(width_batched=widths[0], width_alone=widths[1],
+                                   bit_identical=same, max_abs_diff=worst)
+        if widths[0] == widths[1] and not all(same):
+            off = [i for i, s in enumerate(same) if not s]
+            deferred.append(f"solve_many_batched k={kk}: elements {off} not bit-identical to "
+                            f"their unbatched calls at the same width {widths[0]}")
+        for i in (0, nb - 1):
+            rec[f"solve_k{kk}"][f"element_{i}_residual"], rec[f"solve_k{kk}"][
+                f"element_{i}_forward_error"] = float64_solve_gates(
+                torch, element(mb, i), element_factor(fb, i), X[i], B32[i, :, :kk],
+                f"solve_many_batched k={kk} element {i}")
+    # selinv_batched: bit for bit the unbatched call wherever the corner
+    # seed is (torch.linalg.solve_triangular and a product: cuBLAS's batched
+    # forms may add in another order); its two kernels are held to their
+    # unbatched launches on the same seed whatever it is
+    from repro_torch.core.selinv import corner_sigma
+    from repro_torch.kernels.ring import band_row_to_col
+    from repro_torch.kernels.selinv import selinv_sweep_cuda
+    sig = out["sigma"]
+    c = fb.ctsf
+    seeds = corner_sigma(c.C)
+    lcol = band_row_to_col(c.Dr)
+    swept = selinv_sweep_cuda(lcol, c.R, seeds)
+    same, seed_same, worst = [], [], 0.0
+    for i in range(nb):
+        one = selected_inverse(element_factor(fb, i))
+        for a, b, part in zip(sig.arrays(), one.arrays(), ("Dr", "R", "C")):
+            worst = max(worst, assert_close(torch, a[i], b, f"selinv_batched element {i} {part} "
+                                            "against its unbatched call"))
+        same.append(all(torch.equal(a[i], b) for a, b in zip(sig.arrays(), one.arrays())))
+        seed_same.append(torch.equal(seeds[i], corner_sigma(c.C[i])))
+        alone = selinv_sweep_cuda(lcol[i], c.R[i], seeds[i])
+        if not all(torch.equal(a[i], b) for a, b in zip(swept, alone)):
+            raise AssertionError(f"selinv_batched element {i}: the batched sweep on the batch's "
+                                 "corner seed is not bit-identical to its unbatched launch")
+    rec["selinv"] = dict(bit_identical=same, corner_seed_bit_identical=seed_same,
+                         sweep_bit_identical_on_the_same_seed=True, max_abs_diff=worst)
+    off = [i for i in range(nb) if seed_same[i] and not same[i]]
+    if off:
+        deferred.append(f"selinv_batched: elements {off} not bit-identical to their unbatched "
+                        "calls with the same corner seed")
+    for i in (0, nb - 1):
+        err = sigma_error(torch, element_factor(fb, i), [x[i] for x in sig.arrays()])
+        rec["selinv"][f"element_{i}_sigma_error"] = err
+        if not err <= SIGMA_LIMIT:
+            raise AssertionError(f"selinv_batched element {i}: Σ error {err:.3e} of max|Σ| "
+                                 f"(limit {SIGMA_LIMIT})")
+    diag = sig.diagonal()
+    if diag.shape != (nb, g.structure.n) or sig.covariance(0, 1).shape != (nb,):
+        raise AssertionError(f"selinv_batched: diagonal {tuple(diag.shape)} and covariance "
+                             "do not broadcast over the batch")
+    return rec
+
+
+def faulted_theta_batch(torch, mb):
+    """The θ-batch with element INDEFINITE made indefinite (one band
+    diagonal tile dropped by 10 x the element's mean |band diagonal|, as
+    tests/test_robustness.py::_corrupt_diag) and element NAN_ELEMENT given
+    a NaN on one structural nonzero of an arrow row (its largest entry; the
+    arrow rows hold both halves of the symmetric matrix).  Returns the
+    stacked BandedCTSF and the corrupted band tile."""
+    from repro_torch.core import BandedCTSF
+    Dr, R, C = (x.clone() for x in mb.arrays())
+    g = mb.grid
+    tile = g.n_diag_tiles // 2
+    d = torch.diagonal(Dr[INDEFINITE, :, 0], dim1=-2, dim2=-1)
+    Dr[INDEFINITE, tile, 0] -= 10.0 * d.abs().mean() * torch.eye(g.t, device=Dr.device)
+    flat = R[NAN_ELEMENT].reshape(-1)
+    flat[flat.abs().argmax()] = float("nan")
+    return BandedCTSF(g, Dr, R, C), tile
+
+
+def run_recovery(torch, mbf, m5, B32, kern_counts):
+    """Breakdown recovery on matrix 5's θ-batch with its two faults:
+    factorize_window_batched(regularize=True), then solve_many_batched at
+    k = 32 on the recovered batch (the refinement pass: one more forward
+    and backward sweep, 2·nat more solve_panel), then solve_many on
+    matrix 5's factor of ``A + tau I`` (tau = 1e-2 diag_scale) with a
+    hand-built FactorInfo keeping A (one refinement step alike).  Returns
+    the results and the launches."""
+    from repro_torch.core import (STATUS_RECOVERED, BandedCTSF, CholeskyFactor, FactorInfo,
+                                  SolverOptions, factorize_window, factorize_window_batched,
+                                  solve_many, solve_many_batched)
+    from repro_torch.core.robustness import add_diagonal_jitter, diag_scale
+    g = mbf.grid
+    nat = g.n_arrow_tiles
+    launches = {}
+    # the ladder's attempts are known after the call: one launch sequence
+    # (sweep, nat potrf, nat trsm) for the whole batch an attempt
+    before = kern_counts()
+    frec = factorize_window_batched(mbf, options=SolverOptions(regularize=True))
+    after = kern_counts()
+    rounds = int(frec.info.attempts.max())
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = {"band_cholesky_sweep": rounds, "potrf": rounds * nat, "trsm": rounds * nat}
+    if got != want:
+        raise AssertionError(f"regularized factorize_window_batched: launches {got} != {want} "
+                             f"({rounds} attempts)")
+    launches["factorize_window_batched_regularized"] = got
+    refined = {"band_forward_sweep": 2, "band_backward_sweep": 2, "solve_panel": 4 * nat}
+    X, launches["solve_many_batched_recovered"] = launch_delta(
+        kern_counts, lambda: solve_many_batched(frec, B32), refined,
+        "solve_many_batched on the recovered batch")
+    tau = 1e-2 * diag_scale(m5.Dr, m5.C, g)
+    DrJ, CJ = add_diagonal_jitter(m5.Dr, m5.C, g, tau)
+    fJ = factorize_window(BandedCTSF(g, DrJ, m5.R, CJ))
+    info = FactorInfo(status=torch.tensor(STATUS_RECOVERED, dtype=torch.int32, device=tau.device),
+                      attempts=torch.tensor(2, dtype=torch.int32, device=tau.device), tau=tau,
+                      min_pivot=fJ.status[0], first_bad_tile=torch.tensor(
+                          0, dtype=torch.int32, device=tau.device), matrix=m5)
+    B0 = B32[0]
+    X1, launches["solve_many_refined"] = launch_delta(
+        kern_counts, lambda: solve_many(CholeskyFactor(fJ.ctsf, fJ.status, info), B0), refined,
+        "solve_many with a hand-built FactorInfo")
+    return dict(factor=frec, X=X, fJ=fJ, X1=X1, tau=tau.item()), launches
+
+
+def column_residuals(torch, m, X, Bk):
+    """Each column's 2-norm residual ``|A x - b|`` against the matrix ``m``,
+    in float64."""
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    return torch.linalg.vector_norm(Ad @ X.double() - Bk.double(), dim=0)
+
+
+def check_recovery(torch, mb, mbf, tile, m5, B32, res):
+    """The recovery path's gates: statuses OK but RECOVERED at INDEFINITE
+    and FAILED at NAN_ELEMENT, tau > 0 there, first_bad_tile -1 on the
+    clean elements; healthy elements bit for bit the unregularized batched
+    call; the recovered factor's residual against its jittered matrix ≤
+    1e-4; the refined batched solve's clean elements bit for bit an
+    unrefined call's and the recovered element's residual against its
+    original matrix at most the unrefined one in every column; the same
+    column rule for the unbatched refinement.  Returns the record."""
+    from repro_torch.core import (STATUS_FAILED, STATUS_OK, STATUS_RECOVERED, BandedCTSF,
+                                  CholeskyFactor, factorize_window_batched, solve_many,
+                                  solve_many_batched)
+    from repro_torch.core.robustness import add_diagonal_jitter
+    frec = res["factor"]
+    info = frec.info
+    nb = mbf.Dr.shape[0]
+    want = [STATUS_OK] * nb
+    want[INDEFINITE], want[NAN_ELEMENT] = STATUS_RECOVERED, STATUS_FAILED
+    clean = [i for i in range(nb) if want[i] == STATUS_OK]
+    status = info.status.tolist()
+    first_bad = info.first_bad_tile.tolist()
+    tau = info.tau.tolist()
+    if status != want or not tau[INDEFINITE] > 0 or any(first_bad[i] != -1 for i in clean):
+        raise AssertionError(f"recovery: status {status} (want {want}), tau {tau}, "
+                             f"first_bad_tile {first_bad}")
+    plain = factorize_window_batched(mbf)
+    if not all(torch.equal(a[clean], b[clean]) for a, b in zip(frec.ctsf.arrays(),
+                                                                plain.ctsf.arrays())):
+        raise AssertionError("recovery: a healthy element is not bit-identical to the "
+                             "unregularized batched call")
+    # the recovered factor against its jittered matrix A + tau I
+    e = element(mbf, INDEFINITE)
+    DrJ, CJ = add_diagonal_jitter(e.Dr, e.C, e.grid, info.tau[INDEFINITE])
+    Ad = dense_from_ctsf(torch, BandedCTSF(e.grid, DrJ, e.R, CJ), torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, element_factor(frec, INDEFINITE).ctsf, torch.float64,
+                         symmetric=False)
+    resid = ((Ld @ Ld.mT - Ad).abs().max() / Ad.abs().max()).item()
+    del Ad, Ld
+    if not resid <= RESIDUAL_LIMIT:
+        raise AssertionError(f"recovery: element {INDEFINITE}'s factor residual {resid:.3e} "
+                             f"against A + tau I (limit {RESIDUAL_LIMIT})")
+    # the refined batched solve against an unrefined one
+    X = res["X"]
+    unrefined = solve_many_batched(CholeskyFactor(frec.ctsf, frec.status), B32)
+    if not all(torch.equal(X[i], unrefined[i]) for i in clean):
+        raise AssertionError("recovery: a clean element of the refined solve is not "
+                             "bit-identical to the unrefined call")
+    r_ref = column_residuals(torch, e, X[INDEFINITE], B32[INDEFINITE])
+    r_plain = column_residuals(torch, e, unrefined[INDEFINITE], B32[INDEFINITE])
+    if not bool((r_ref <= r_plain).all()):
+        raise AssertionError(f"recovery: the refined residual exceeds the unrefined one in "
+                             f"columns {torch.nonzero(r_ref > r_plain).flatten().tolist()}")
+    # the unbatched refinement, hand-built FactorInfo on matrix 5
+    B0 = B32[0]
+    u_ref = column_residuals(torch, m5, res["X1"], B0)
+    u_plain = column_residuals(torch, m5, solve_many(res["fJ"], B0), B0)
+    if not bool((u_ref <= u_plain).all()):
+        raise AssertionError(f"unbatched refinement: the refined residual exceeds the "
+                             f"unrefined one in columns "
+                             f"{torch.nonzero(u_ref > u_plain).flatten().tolist()}")
+    return dict(status=status, attempts=info.attempts.tolist(), tau=tau,
+                first_bad_tile=first_bad, corrupted_tile=tile, recovered_factor_residual=resid,
+                refined_columns_taken=int((r_ref < r_plain).sum()),
+                refined_residual_max=r_ref.max().item(), unrefined_residual_max=r_plain.max().item(),
+                unbatched_tau=res["tau"], unbatched_refined_residual_max=u_ref.max().item(),
+                unbatched_unrefined_residual_max=u_plain.max().item(),
+                unbatched_columns_improved=int((u_ref < u_plain).sum()))
+
+
 def band_update_gathered(torch, w):
     """The operands of band_update's library yardstick for windows ``w
     (..., b+1, b+1, t, t)``, gathered beforehand as ``band_update_ref``
@@ -1734,6 +2174,8 @@ def main() -> int:
         return device_counts(kern)
 
     path_launches = {}
+    # bit-identity gates whose failure is reported after the timings
+    deferred = []
 
     def run_path(name, fn):
         """One path of the main run: every count set to 0 just before it and
@@ -1764,6 +2206,7 @@ def main() -> int:
     t0 = time.perf_counter()
     n = phase_kernels(torch, dev, kern, ref)
     n += phase_solve_kernels(torch, dev, kern, ref)
+    n += phase_batched_read_kernels(torch, dev, kern, ref)
     n += phase_tasklist_kernels(torch, dev, kern, ref)
     n += phase_window_kernels(torch, dev, kern, ref)
     torch.cuda.synchronize()
@@ -1850,6 +2293,27 @@ def main() -> int:
     # the batched kernels against their plain versions on the θ-batches
     batched_errs, w5b = check_batched_kernels(torch, ref, mb5, mb4, pplan4, fbs["window"][0])
     log("main path, batched kernels against their plain versions: " + json.dumps(batched_errs))
+    # the θ-batch's read-out on its fused batched factor: solve_many_batched
+    # (k = 1 and 32) and selinv_batched, each element against the unbatched
+    # call on it
+    fb5 = fbs["fused"][0]
+    B32b = theta_rhs(torch, m5.grid, BATCH, 32, seed=TABLE2_IDS[0], device=dev)
+    theta_out, theta_launches = run_path("θ-batch solves and selected inverse, matrix 5",
+                                         lambda: run_theta_read(torch, fb5, B32b, counts))
+    theta_read = check_theta_read(torch, mb5, fb5, B32b, theta_out, deferred)
+    theta_read["launches"] = theta_launches
+    for call, got in theta_launches.items():
+        extra_calls.append((TABLE2_IDS[0], call, got))
+    log("main path, θ-batch solves and selected inverse: " + json.dumps(theta_read))
+    # breakdown recovery on the same batch with an indefinite and a NaN element
+    mbf, ftile = faulted_theta_batch(torch, mb5)
+    rec_out, rec_launches = run_path("breakdown recovery, matrix 5", lambda: run_recovery(
+        torch, mbf, m5, B32b, counts))
+    recovery = check_recovery(torch, mb5, mbf, ftile, m5, B32b, rec_out)
+    recovery["launches"] = rec_launches
+    for call, got in rec_launches.items():
+        extra_calls.append((TABLE2_IDS[0], call, got))
+    log("main path, breakdown recovery: " + json.dumps(recovery))
     # selinv_step on the Takahashi column of an interior column of matrix 5
     from repro_torch.core import selected_inverse
     from repro_torch.kernels import ops
@@ -2767,6 +3231,108 @@ def main() -> int:
         + json.dumps(entry["theta_batch"]) + f", card {card}")
     entry = next(k for k in kernels if k["name"] == "selinv_step")
     entry["takahashi_column"] = takahashi
+
+    # the θ-batch's read-out kernels on its own inputs (the fused batched
+    # factor of matrix 5, its seeded panels): one launch for the batch
+    # against one element's launch, each element bit for bit its unbatched
+    # launch (the band sweeps at the batch's chunk width), the batch
+    # against the batched plain version
+    from repro_torch.kernels.band_solve import card_solve_plan
+    fbc = fb5.ctsf
+    bdb = B32b[:, :ndt * t].reshape(BATCH, ndt, t, 32).contiguous()
+    xab = B32b[:, ndt * t:].reshape(BATCH, nat, t, 32).contiguous()
+    lcb, scb = band_row_to_col(fbc.Dr), corner_sigma(fbc.C)
+    lpb = fbc.C[:, 0, 0].contiguous()
+    read_cases = []
+    for kk in (1, 32):
+        bdk, xak = bdb[..., :kk].contiguous(), xab[..., :kk].contiguous()
+        xpk = xak[:, 0].contiguous()          # each element's first arrow panel
+        width = card_solve_plan(t, bt, nat, kk, device=dev, batch=BATCH).width
+        read_cases += [
+            ("band_forward_sweep", f"k{kk}",
+             lambda bdk=bdk: band_forward_sweep_cuda(fbc.Dr, fbc.R, bdk),
+             lambda n=BATCH, bdk=bdk, w=width: [band_forward_sweep_cuda(
+                 fbc.Dr[i], fbc.R[i], bdk[i], width=w) for i in range(n)],
+             lambda bdk=bdk: ref.band_forward_sweep_ref(fbc.Dr, fbc.R, bdk), width),
+            ("band_backward_sweep", f"k{kk}",
+             lambda bdk=bdk, xak=xak: (band_backward_sweep_cuda(fbc.Dr, fbc.R, bdk, xak),),
+             lambda n=BATCH, bdk=bdk, xak=xak, w=width: [(band_backward_sweep_cuda(
+                 fbc.Dr[i], fbc.R[i], bdk[i], xak[i], width=w),) for i in range(n)],
+             lambda bdk=bdk, xak=xak: (ref.band_backward_sweep_ref(fbc.Dr, fbc.R, bdk, xak),),
+             width),
+            ("solve_panel", f"k{kk}", lambda xpk=xpk: (solve_panel_cuda(lpb, xpk),),
+             lambda n=BATCH, xpk=xpk: [(solve_panel_cuda(lpb[i], xpk[i]),) for i in range(n)],
+             lambda xpk=xpk: (ref.solve_panel_ref(lpb, xpk),), None)]
+    read_cases += [
+        ("selinv_sweep", "sweep", lambda: selinv_sweep_cuda(lcb, fbc.R, scb),
+         lambda n=BATCH: [selinv_sweep_cuda(lcb[i], fbc.R[i], scb[i]) for i in range(n)],
+         lambda: ref.selinv_sweep_ref(lcb, fbc.R, scb), None),
+        ("selinv_prepass", "prepass", lambda: (selinv_prepass_cuda(lcb, fbc.R, scb),),
+         lambda n=BATCH: [(selinv_prepass_cuda(lcb[i], fbc.R[i], scb[i]),) for i in range(n)],
+         lambda: (ref.selinv_prepass_ref(lcb, fbc.R, scb),), None)]
+    for name, case, fk, f_each, fp, width in read_cases:
+        got, each = fk(), f_each()
+        err = max(assert_close(torch, a, b, f"θ-batch {name} {case}") for a, b in zip(got, fp()))
+        same = [all(torch.equal(a[i], o) for a, o in zip(got, each[i])) for i in range(BATCH)]
+        if not all(same):
+            raise AssertionError(f"θ-batch {name} {case}: elements "
+                                 f"{[i for i, s_ in enumerate(same) if not s_]} not "
+                                 "bit-identical to their unbatched launches")
+        e = dict(batch=BATCH, max_abs_err=err, bit_identical_per_element=True,
+                 ms=device_ms(torch, fk), single_ms=device_ms(torch, lambda: f_each(n=1)),
+                 elements_one_by_one_ms=device_ms(torch, f_each))
+        if width is not None:
+            e["width"] = width
+        entry = next(k for k in kernels if k["name"] == name)
+        entry.setdefault("theta_batch", {})[case] = e
+        log(f"time {name}, the θ-batch of {BATCH} ({case}) in one launch: " + json.dumps(e)
+            + f", card {card}")
+
+    # the θ-batch's read-out end to end: solve_many_batched (k = 1 and 32)
+    # and selinv_batched against one candidate's call and a loop of B
+    # unbatched calls; regularize=True against the call without it on the
+    # clean θ-batch (the ladder's clean path: one readback), in turns
+    from repro_torch.core import selinv_batched, solve_many_batched
+    els = [element_factor(fb5, i) for i in range(BATCH)]
+    e2e_read = {}
+    for name, fb_, f1, floop in (
+            ("solve_many_batched_k1", lambda: solve_many_batched(fb5, B32b[..., :1].contiguous()),
+             lambda: solve_many(els[0], B32b[0, :, :1].contiguous()),
+             lambda: [solve_many(els[i], B32b[i, :, :1].contiguous()) for i in range(BATCH)]),
+            ("solve_many_batched_k32", lambda: solve_many_batched(fb5, B32b),
+             lambda: solve_many(els[0], B32b[0]),
+             lambda: [solve_many(els[i], B32b[i]) for i in range(BATCH)]),
+            ("selinv_batched", lambda: selinv_batched(fb5), lambda: selected_inverse(els[0]),
+             lambda: [selected_inverse(x) for x in els])):
+        e2e_read[name] = dict(
+            batched_call_ms=time_ms(torch, fb_, reps=7, warmup=2),
+            batched_device_ms=device_ms(torch, fb_),
+            single_call_ms=time_ms(torch, f1, reps=7, warmup=2),
+            single_device_ms=device_ms(torch, f1),
+            loop_call_ms=time_ms(torch, floop, reps=5, warmup=1),
+            loop_device_ms=device_ms(torch, floop))
+        log(f"{name}, B = {BATCH}: " + json.dumps(e2e_read[name])
+            + f" (call medians of 7, loop of 5; device medians of 5), card {card}")
+    theta_read["e2e"] = e2e_read
+    reg = SolverOptions(regularize=True)
+    turns = {"plain": [], "regularize": []}
+    for _ in range(5):
+        for key, opts in (("plain", None), ("regularize", reg), ("regularize", reg),
+                          ("plain", None)):
+            turns[key].append(time_ms(torch, lambda: factorize_window_batched(
+                mb5, options=opts), reps=5, warmup=1))
+    overhead = dict(plain_call_ms=statistics.median(turns["plain"]),
+                    regularize_call_ms=statistics.median(turns["regularize"]),
+                    plain_runs=turns["plain"], regularize_runs=turns["regularize"])
+    overhead["ratio"] = overhead["regularize_call_ms"] / overhead["plain_call_ms"]
+    recovery["clean_overhead"] = overhead
+    log(f"factorize_window_batched, B = {BATCH}, clean θ-batch, regularize=True against "
+        f"without (medians of 10 turns of 5 calls): " + json.dumps(overhead) + f", card {card}")
+    if not overhead["ratio"] <= CLEAN_OVERHEAD_LIMIT:
+        raise AssertionError(f"regularize=True on a clean θ-batch: {overhead['ratio']:.3f} "
+                             f"times the call without it (limit {CLEAN_OVERHEAD_LIMIT})")
+    if deferred:
+        raise AssertionError("; ".join(deferred))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,9 @@
 """sTiles core on PyTorch: structure, tile storage, the task-list and window
 factorizations of banded-arrowhead SPD matrices (with the Alg. 3 tree
 reduction, the partition plan of the partitioned sweep, the legacy window
-sweep and the batched θ-sweep factorization), and the solves,
-sampling, marginal variances and selected inverse read off the factor.
+sweep, the batched θ-sweep factorization and breakdown recovery by
+diagonal jitter), and the solves, sampling, marginal variances and
+selected inverse read off the factor, one factor or a θ-batch of them.
 
 Every entry point takes its data positionally and its options by keyword
 only (``factorize_window(m, options=...)``, ``sample_gmrf_many(f, num=8,
@@ -13,14 +14,16 @@ from .structure import (ArrowheadStructure, TileGrid, measure_arrowhead,
 from .symbolic import SymbolicFactorization, Task, TaskType, symbolic_factorize
 from .ordering import PartitionPlan, detect_partition_plan
 from .ctsf import BandedCTSF, TileMatrix
+from .robustness import (STATUS_FAILED, STATUS_OK, STATUS_RECOVERED, STATUS_SHED, FactorInfo,
+                         RegularizePolicy)
 from .options import SolverOptions
 from .tree_reduction import chunked_tree_sum, should_use_tree, tree_combine
 from .cholesky import (CholeskyFactor, factorize_tasklist, factorize_window,
                        factorize_window_batched)
 from .solve import (backward_solve, backward_solve_many, forward_solve,
                     forward_solve_many, logdet, marginal_variances, sample_gmrf,
-                    sample_gmrf_many, solve, solve_many)
-from .selinv import SelectedInverse, selected_inverse
+                    sample_gmrf_many, solve, solve_many, solve_many_batched)
+from .selinv import SelectedInverse, selected_inverse, selinv_batched
 
 __all__ = [
     "ArrowheadStructure", "TileGrid", "measure_arrowhead",
@@ -28,10 +31,12 @@ __all__ = [
     "SymbolicFactorization", "Task", "TaskType", "symbolic_factorize",
     "PartitionPlan", "detect_partition_plan",
     "BandedCTSF", "TileMatrix", "SolverOptions",
+    "STATUS_OK", "STATUS_RECOVERED", "STATUS_FAILED", "STATUS_SHED",
+    "RegularizePolicy", "FactorInfo",
     "should_use_tree", "tree_combine", "chunked_tree_sum",
     "CholeskyFactor", "factorize_tasklist", "factorize_window", "factorize_window_batched",
     "logdet",
     "forward_solve", "forward_solve_many", "backward_solve", "backward_solve_many",
-    "solve", "solve_many", "sample_gmrf", "sample_gmrf_many", "marginal_variances",
-    "SelectedInverse", "selected_inverse",
+    "solve", "solve_many", "solve_many_batched", "sample_gmrf", "sample_gmrf_many",
+    "marginal_variances", "SelectedInverse", "selected_inverse", "selinv_batched",
 ]

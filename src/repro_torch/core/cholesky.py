@@ -31,8 +31,9 @@ Two backends, the second also batched:
 Port of the JAX package's ``core/cholesky.py`` (``factorize_tasklist``,
 ``_factorize_window_impl`` with its five sweep modes,
 ``_band_arrow_sweep``, ``_corner_schur``, ``_corner_dense_cholesky``,
-``factorize_window_batched`` and ``CholeskyFactor``).  The bucketing
-policy and regularization come with later slices.
+``factorize_window_batched`` and ``CholeskyFactor``), with the
+reference's ``regularize=`` breakdown recovery (``core/robustness.py``).
+The bucketing policy comes with a later slice.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ from repro_torch.kernels.trsm import trsm_cuda
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
-from .robustness import fold_corner_status
+from .robustness import FactorInfo, RegularizePolicy, fold_corner_status, run_ladder
 from .structure import TileGrid
 from .symbolic import Task, TaskType
 from .tree_reduction import chunked_tree_sum, should_use_tree, tree_combine
@@ -324,10 +325,20 @@ class CholeskyFactor:
     for the corner) and -1 when the factorization is clean.  A breakdown
     is reported here, not raised: the factor then holds NaN from that
     column on, as the reference's does.
+
+    ``info`` is attached when the factorization ran with ``regularize=``:
+    per-element status (OK / RECOVERED with diagonal jitter / FAILED),
+    attempts, applied jitter and minimum pivot, as the reference's
+    (:class:`~repro_torch.core.robustness.FactorInfo`).  Both read the
+    same: ``info.min_pivot`` is ``status[..., 0]`` of the final factor and
+    ``info.first_bad_tile`` is ``status[..., 2]`` of the clean attempt, as
+    int32.  A FAILED element's factor is unusable but never touches its
+    batch siblings.
     """
 
     ctsf: BandedCTSF
     status: Optional[torch.Tensor] = None
+    info: Optional[FactorInfo] = None
 
     @classmethod
     def from_arrays(cls, grid, Dr, R, C, device=None) -> "CholeskyFactor":
@@ -479,6 +490,37 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
         status, C_out, grid.n_diag_tiles, nat)
 
 
+def _factorize(Dr, R, C, grid: TileGrid, opts: SolverOptions,
+               tree_chunks: int) -> CholeskyFactor:
+    """:func:`_factorize_window_impl` on arrays with or without a batch
+    axis, through the jitter ladder when ``opts.regularize`` asks for it:
+    the factor, its status word and, with the ladder, its ``FactorInfo``.
+    With the ladder, an element's ``[min_pivot, nonfinite]`` are those of
+    the attempt its factor came from (attempt ``info.attempts``: a retried
+    element is retried until it is healthy or the ladder ends) and its
+    ``first_bad`` the clean attempt's, so ``status`` and ``info`` read the
+    same."""
+    call = lambda dr, r, c: _factorize_window_impl(
+        dr, r, c, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
+    policy = RegularizePolicy.resolve(opts.regularize)
+    if policy is None:
+        Dr_L, R_L, C_L, status = call(Dr, R, C)
+        return CholeskyFactor(BandedCTSF(grid, Dr_L, R_L, C_L), status)
+    words = []
+
+    def kept(dr, r, c):
+        out = call(dr, r, c)
+        words.append(out[3])
+        return out
+
+    Dr_L, R_L, C_L, info = run_ladder(Dr, R, C, grid, kept, policy)
+    final = words[0]
+    for n, word in enumerate(words[1:], start=2):
+        final = torch.where((info.attempts == n)[..., None], word, final)
+    status = torch.cat([final[..., :2], words[0][..., 2:]], dim=-1)
+    return CholeskyFactor(BandedCTSF(grid, Dr_L, R_L, C_L), status, info)
+
+
 def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
                      options: Optional[SolverOptions] = None) -> CholeskyFactor:
     """Banded-arrowhead factorization on the device of ``m``.
@@ -493,11 +535,15 @@ def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
     ``"window"`` is the legacy panel loop, a ``band_update``, a ``potrf``
     and one or two ``trsm`` launches a column, and a corner Schur sum
     through the geadd tree).  A breakdown does not raise: the factor's
-    ``status`` word reports it."""
+    ``status`` word reports it.
+
+    ``options.regularize`` (True or a
+    :class:`~repro_torch.core.robustness.RegularizePolicy`) runs the
+    escalating-jitter ladder on breakdown and attaches a ``FactorInfo``
+    (``factor.info``); an SPD input factorizes on the first attempt and
+    its factor is bit-identical to the call without it."""
     opts = options if options is not None else SolverOptions()
-    Dr, R, C, status = _factorize_window_impl(
-        m.Dr, m.R, m.C, m.grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
-    return CholeskyFactor(BandedCTSF(m.grid, Dr, R, C), status)
+    return _factorize(m.Dr, m.R, m.C, m.grid, opts, tree_chunks)
 
 
 def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True,
@@ -516,12 +562,18 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
     one :class:`CholeskyFactor` with ``(B, ...)`` arrays and a ``(B, 3)``
     status word; its ``logdet`` is ``(B,)``.
 
+    ``options.regularize`` runs the jitter ladder on every element at once:
+    a retry refactorizes the whole batch with only the failed elements'
+    diagonals jittered, healthy elements keep their first attempt's factor
+    bit for bit, and ``factor.info`` carries ``(B,)`` status, attempts and
+    tau, so one poisoned θ-candidate is a flagged element, not a failed
+    sweep.
+
     ``bucket`` is the reference's: it pads the batch to a power of two so
     that XLA compiles once per bucket.  PyTorch compiles nothing per batch
     size and padding changes no element's result, so the port accepts it
     and does not pad.  The reference's ``policy=`` (the canonical-grid
-    embedding), ``regularize=`` and ``start_tile=`` come with ROADMAP A7
-    and A8."""
+    embedding) and ``start_tile=`` come with ROADMAP A3."""
     if isinstance(batch, (list, tuple)):
         if not batch:
             raise ValueError("batched factorization needs at least one matrix")
@@ -537,6 +589,4 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
             raise ValueError(f"batched CTSF needs a leading batch axis, got Dr.dim()="
                              f"{Dr.dim()}")
     opts = options if options is not None else SolverOptions()
-    Dr, R, C, status = _factorize_window_impl(
-        Dr, R, C, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
-    return CholeskyFactor(BandedCTSF(grid, Dr, R, C), status)
+    return _factorize(Dr, R, C, grid, opts, tree_chunks)

@@ -1,8 +1,8 @@
 """Solver options for the port's entry points.
 
 The JAX package's ``SolverOptions`` also carries the bucketing policy
-(``policy``) and the regularization ladder (``regularize``); both come
-with the slices that port them.  ``sweep`` picks how ``factorize_window``
+(``policy``), with ``compile_key`` and ``resolve_options``; those come
+with the slice that ports the policy.  ``sweep`` picks how ``factorize_window``
 walks the band, as the reference's does: ``"auto"`` dispatches by the
 plan and the backend, the other four force one route
 (``core.cholesky._factorize_window_impl``).
@@ -10,9 +10,10 @@ plan and the backend, the other four force one route
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 from .ordering import PartitionPlan
+from .robustness import RegularizePolicy
 
 __all__ = ["SolverOptions", "SWEEPS"]
 
@@ -43,6 +44,11 @@ class SolverOptions:
       method: how ``marginal_variances`` computes the variances —
         ``"selinv"`` (the Takahashi recurrence; also what None means) or
         ``"panels"`` (one forward sweep of unit vectors).
+      regularize: breakdown recovery for ``factorize_window`` and
+        ``factorize_window_batched`` — None or False (off), True (the
+        default :class:`~repro_torch.core.robustness.RegularizePolicy`) or
+        a policy: the escalating-jitter ladder, and a ``FactorInfo`` on the
+        factor.  Checked by ``RegularizePolicy.resolve``.
 
     Refused as the reference refuses them: an unknown value, ``"ring"``
     with ``impl="cuda"`` and ``"fused"`` with ``impl="ref"`` (the ring
@@ -55,6 +61,7 @@ class SolverOptions:
     sweep: str = "auto"
     partition_plan: Optional[PartitionPlan] = None
     method: Optional[str] = None
+    regularize: Union[None, bool, RegularizePolicy] = None
 
     def __post_init__(self):
         if self.impl not in (None, "ref", "cuda"):
@@ -78,3 +85,4 @@ class SolverOptions:
         if self.method not in (None, "selinv", "panels"):
             raise ValueError(f"unknown method {self.method!r} (want 'selinv', "
                              "'panels' or None)")
+        RegularizePolicy.resolve(self.regularize)

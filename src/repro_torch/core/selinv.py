@@ -14,9 +14,11 @@ recurrence launch on the card) computes every Σ entry of the band and the arrow
 the corner ``Σ_cc = L_c^{-T} L_c^{-1}`` (one small dense triangular solve).
 
 Port of the JAX package's ``core/selinv.py`` (``SelectedInverse``,
-``_selinv_impl``, ``selected_inverse``).  The canonical-grid embedding
-(``policy=``) comes with the bucketing policy, and ``selinv_batched``
-with the batched factorization.
+``_selinv_impl``, ``selected_inverse``, ``selinv_batched``).
+:func:`selinv_batched` takes the θ-batch of ``factorize_window_batched``
+in the same two launches as one factor: the pre-pass a block for each
+column of each element, the recurrence a cluster an element.  The
+canonical-grid embedding (``policy=``) comes with the bucketing policy.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from .ctsf import BandedCTSF
 from .options import SolverOptions
 from .structure import TileGrid
 
-__all__ = ["SelectedInverse", "selected_inverse"]
+__all__ = ["SelectedInverse", "selected_inverse", "selinv_batched"]
 
 
 @dataclasses.dataclass
@@ -43,6 +45,9 @@ class SelectedInverse:
     Dr: (ndt, bt+1, t, t)  band rows   — Dr[m, d] = Σ_tile[m, m-d]
     R:  (ndt, nat, t, t)   arrow rows  — R[k, i]  = Σ_tile[ndt+i, k]
     C:  (nat, nat, t, t)   corner      — C[i, j]  = Σ_tile[ndt+i, ndt+j] (lower)
+
+    Leading batch axes (from :func:`selinv_batched`) are carried by
+    :meth:`diagonal` and :meth:`covariance`, which index from the right.
     """
 
     grid: TileGrid
@@ -60,22 +65,25 @@ class SelectedInverse:
 
     def diagonal(self, padded: bool = False) -> torch.Tensor:
         """diag(Σ), INLA's posterior marginal variances of every latent at
-        once: the unpadded (n,) diagonal unless ``padded``."""
+        once: the unpadded (..., n) diagonal unless ``padded``, one row a
+        batch element."""
         g = self.grid
-        full = torch.diagonal(self.Dr[:, 0], dim1=-2, dim2=-1).reshape(-1)
+        db = torch.diagonal(self.Dr[..., 0, :, :], dim1=-2, dim2=-1)   # (..., ndt, t)
+        full = db.reshape(db.shape[:-2] + (-1,))
         if g.n_arrow_tiles:
             ar = torch.arange(g.n_arrow_tiles, device=self.C.device)
-            dc = torch.diagonal(self.C[ar, ar], dim1=-2, dim2=-1).reshape(-1)
-            full = torch.cat([full, dc])
+            dc = torch.diagonal(self.C[..., ar, ar, :, :], dim1=-2, dim2=-1)
+            full = torch.cat([full, dc.reshape(dc.shape[:-2] + (-1,))], dim=-1)
         if padded:
             return full
         idx = g.padded_indices(np.arange(g.structure.n))
-        return full[torch.as_tensor(idx, device=full.device)]
+        return full[..., torch.as_tensor(idx, device=full.device)]
 
     def covariance(self, i: int, j: int) -> torch.Tensor:
         """Σ_ij for element indices of the original matrix, wherever the
         entry lies on the stored pattern: |i-j| within the tile band, or
-        at least one index in the arrow block."""
+        at least one index in the arrow block; ``(...)``, one value a batch
+        element."""
         g = self.grid
         s = g.structure
         for v in (i, j):
@@ -92,10 +100,10 @@ class SelectedInverse:
             if d > g.band_tiles:
                 raise ValueError(f"covariance({i}, {j}) lies outside the stored band "
                                  f"(tile offset {d} > {g.band_tiles})")
-            return self.Dr[bi, d, ri, rj]
+            return self.Dr[..., bi, d, ri, rj]
         if bj < ndt:                                     # arrow row x band col
-            return self.R[bj, bi - ndt, ri, rj]
-        return self.C[bi - ndt, bj - ndt, ri, rj]        # corner (lower stored)
+            return self.R[..., bj, bi - ndt, ri, rj]
+        return self.C[..., bi - ndt, bj - ndt, ri, rj]   # corner (lower stored)
 
     def to_dense_band(self, lower_only: bool = False) -> np.ndarray:
         """The stored band + arrow entries as a dense (padded_n, padded_n)
@@ -111,35 +119,38 @@ class SelectedInverse:
 
 
 def _tril_tiles(sc_full: torch.Tensor) -> torch.Tensor:
-    """The lower tile triangle of the (nat, nat, t, t) corner block (the
-    storage convention shared with BandedCTSF)."""
-    nat = sc_full.shape[0]
+    """The lower tile triangle of the (..., nat, nat, t, t) corner block
+    (the storage convention shared with BandedCTSF)."""
+    nat = sc_full.shape[-4]
     keep = torch.ones((nat, nat), dtype=torch.bool, device=sc_full.device).tril()
     return torch.where(keep[:, :, None, None], sc_full, torch.zeros_like(sc_full))
 
 
 def corner_sigma(C: torch.Tensor) -> torch.Tensor:
     """The seed of the recurrence: the full (symmetric) corner block
-    ``Σ_cc = L_c^{-T} L_c^{-1}`` of the factor's (nat, nat, t, t) corner,
-    by one dense triangular solve (nat t square) and one product."""
-    nat, t = C.shape[0], C.shape[-1]
+    ``Σ_cc = L_c^{-T} L_c^{-1}`` of the factor's (..., nat, nat, t, t)
+    corner, by one dense triangular solve (nat t square) and one product,
+    each batched over the leading axes."""
+    lead, nat, t = tuple(C.shape[:-4]), C.shape[-4], C.shape[-1]
     if not nat:
-        return C.new_zeros((0, 0, t, t))
+        return C.new_zeros(lead + (0, 0, t, t))
     nc = nat * t
-    cd = C.permute(0, 2, 1, 3).reshape(nc, nc)
+    cd = C.transpose(-3, -2).reshape(lead + (nc, nc))
     eye = torch.eye(nc, dtype=C.dtype, device=C.device)
     winv = torch.linalg.solve_triangular(cd, eye, upper=False)
-    return (winv.mT @ winv).reshape(nat, t, nat, t).permute(0, 2, 1, 3).contiguous()
+    return (winv.mT @ winv).reshape(lead + (nat, t, nat, t)).transpose(-3, -2).contiguous()
 
 
 def _selinv_impl(Dr, R, C, grid: TileGrid, impl=None, start_tile: int = 0):
-    """Blocked Takahashi sweep over one factor: ``(Sd, Sr, Sc)`` in the
-    row-band / arrow-row / lower-corner layout of :class:`SelectedInverse`.
+    """Blocked Takahashi sweep over one factor, or a batch of them (a
+    leading axis on every array): ``(Sd, Sr, Sc)`` in the row-band /
+    arrow-row / lower-corner layout of :class:`SelectedInverse`.
     ``start_tile`` declares the first columns an identity-embedding prefix."""
     t, ndt, nat, bt = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles, grid.band_tiles
+    lead = tuple(Dr.shape[:-4])
     sc_full = corner_sigma(C)
     if ndt == 0:
-        return (Dr.new_zeros((0, bt + 1, t, t)), R.new_zeros((0, nat, t, t)),
+        return (Dr.new_zeros(lead + (0, bt + 1, t, t)), R.new_zeros(lead + (0, nat, t, t)),
                 _tril_tiles(sc_full))
     panels, sr = ops.selinv_sweep(band_row_to_col(Dr), R, sc_full, start_tile, impl=impl)
     # panels[j, e] = Σ_{j+e, j} -> Sd[m, d] = Σ_{m, m-d}
@@ -155,5 +166,24 @@ def selected_inverse(factor: CholeskyFactor, *,
     backend."""
     opts = options if options is not None else SolverOptions()
     c = factor.ctsf
+    sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)
+    return SelectedInverse(c.grid, sd, sr, sc)
+
+
+def selinv_batched(factor: CholeskyFactor, *, bucket: bool = True,
+                   options: Optional[SolverOptions] = None) -> SelectedInverse:
+    """Selected inversion of a batch of same-grid factors (a leading batch
+    axis on the CTSF arrays, as ``factorize_window_batched`` returns them):
+    a :class:`SelectedInverse` whose arrays carry the batch axis, and
+    whose ``diagonal()`` and ``covariance(i, j)`` broadcast over it.  On
+    the card the whole batch is one pre-pass launch (a block for each
+    column of each element) and one recurrence launch (a cluster an
+    element); each element is bit for bit the unbatched sweep's on its
+    factor.  ``bucket`` is accepted and pads nothing, as in
+    ``factorize_window_batched``."""
+    opts = options if options is not None else SolverOptions()
+    c = factor.ctsf
+    if c.Dr.dim() != 5:
+        raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim={c.Dr.dim()}")
     sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)
     return SelectedInverse(c.grid, sd, sr, sc)

@@ -12,11 +12,20 @@ is captured once a shape into a CUDA graph and replayed (see
 :func:`corner_graph_key`), as the reference compiles it once a grid with
 ``jax.jit``.  On the CPU the plain versions run, eagerly.
 
+:func:`solve_many_batched` solves a batched factor (the θ-batch of
+``factorize_window_batched``) against per-element panels with the same
+launches as one solve: each sweep one launch for the batch, the corner one
+``solve_panel`` a tile, each element against its own corner tile.  A
+jitter-recovered factor (``factor.info`` with a retained original matrix
+and ``tau > 0``, from ``regularize=``) gets one residual-checked
+refinement step against the original matrix (:func:`_refine_panels`);
+in a batch it is masked to the recovered elements, so clean siblings come
+back bit for bit as an unrefined call gives them.
+
 Port of the JAX package's ``core/solve.py``.  The canonical-grid
-embedding (``policy=``) and the iterative refinement of jitter-recovered
-factors are not ported yet (they come with the bucketing policy and with
-``FactorInfo``), so every factor here is solved as a clean factor on its
-own grid; ``solve_many_batched`` waits for the batched factorization.
+embedding (``policy=``) and ``start_tile=`` of ``solve_many_batched`` are
+not ported yet (they come with the bucketing policy), so every factor here
+is solved on its own grid.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ from .options import SolverOptions
 
 __all__ = ["forward_solve", "backward_solve", "solve", "logdet",
            "forward_solve_many", "backward_solve_many", "solve_many",
-           "sample_gmrf", "sample_gmrf_many", "marginal_variances"]
+           "solve_many_batched", "sample_gmrf", "sample_gmrf_many", "marginal_variances"]
 
 
 def _split_rhs(g, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,39 +68,49 @@ def _merge_panels(xd: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
 
 def _forward_corner(C, ba, acc_a, impl):
     """The arrow rows of ``L Y = B``: ``Y_a = Lc^{-1} (B_a - acc_a)`` by block
-    forward substitution, one ``solve_panel`` a corner tile."""
+    forward substitution, one ``solve_panel`` a corner tile (for a batch,
+    one for every element's tile ``i``, each against its own)."""
     rhs0 = ba - acc_a
     ya = torch.zeros_like(rhs0)
-    for i in range(C.shape[0]):
+    for i in range(C.shape[-4]):
         # rhs_i = rhs0_i - sum_{j<i} C[i, j] Y_j
-        contrib = torch.einsum("jab,jbk->ak", C[i, :i], ya[:i])
-        ya[i] = ops.solve_panel(C[i, i], (rhs0[i] - contrib).contiguous(), impl=impl)
+        contrib = torch.einsum("...jab,...jbk->...ak", C[..., i, :i, :, :], ya[..., :i, :, :])
+        ya[..., i, :, :] = ops.solve_panel(C[..., i, i, :, :].contiguous(),
+                                           (rhs0[..., i, :, :] - contrib).contiguous(),
+                                           impl=impl)
     return ya
 
 
 def _backward_corner(C, ya, impl):
     """The arrow rows of ``L^T X = Y``: ``Lc^T X_a = Y_a`` by block backward
-    substitution, one ``solve_panel`` a corner tile."""
+    substitution, one ``solve_panel`` a corner tile (batched as in
+    :func:`_forward_corner`)."""
     xa = torch.zeros_like(ya)
-    for i in range(C.shape[0] - 1, -1, -1):
+    for i in range(C.shape[-4] - 1, -1, -1):
         # rhs_i = Y_i - sum_{j>i} C[j, i]^T X_j
-        contrib = torch.einsum("jba,jbk->ak", C[i + 1:, i], xa[i + 1:])
-        xa[i] = ops.solve_panel(C[i, i], (ya[i] - contrib).contiguous(), trans=True,
-                                impl=impl)
+        contrib = torch.einsum("...jba,...jbk->...ak", C[..., i + 1:, i, :, :],
+                               xa[..., i + 1:, :, :])
+        xa[..., i, :, :] = ops.solve_panel(C[..., i, i, :, :].contiguous(),
+                                           (ya[..., i, :, :] - contrib).contiguous(),
+                                           trans=True, impl=impl)
     return xa
 
 
 # captured corners kept at once: a matrix's solves use five shapes (k = 1
-# and the panel width, both directions, and marginal_variances' panels)
-CORNER_GRAPH_CACHE = 8
+# and the panel width, both directions, and marginal_variances' panels),
+# and its θ-batch's solves four more (a batched corner is a key of its own)
+CORNER_GRAPH_CACHE = 16
 
 
 def corner_graph_key(C: torch.Tensor, panel: torch.Tensor, backward: bool) -> tuple:
     """What a captured corner is cached on: ``(t, nat, k, backward,
-    device)`` of the corner ``C (nat, nat, t, t)`` and an arrow panel
-    ``(nat, t, k)``; not the values, the factor or ``impl``, so every
-    factor of a grid (every θ step of an INLA fit) replays one graph."""
-    return (C.shape[-1], C.shape[0], panel.shape[-1], bool(backward), str(C.device))
+    device)`` of the corner ``C (..., nat, nat, t, t)`` and an arrow panel
+    ``(..., nat, t, k)``, then the leading batch shape, if any (a batched
+    factor's corner is another graph a batch size); not the values, the
+    factor or ``impl``, so every factor of a grid (every θ step of an INLA
+    fit) replays one graph."""
+    return ((C.shape[-1], C.shape[-4], panel.shape[-1], bool(backward), str(C.device))
+            + tuple(C.shape[:-4]))
 
 
 @dataclasses.dataclass
@@ -156,11 +175,11 @@ def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
     ``start_tile`` exploits RHS sparsity: when the panel is zero above band
     tile ``start_tile``, Y is zero there too and the sweep starts at it."""
     t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
-    k = bd.shape[-1]
+    lead, k = tuple(bd.shape[:-3]), bd.shape[-1]
     if ndt:
         yd, acc_a = ops.band_forward_sweep(Dr, R, bd, start_tile=start_tile, impl=impl)
     else:
-        yd, acc_a = bd.new_zeros((0, t, k)), bd.new_zeros((nat, t, k))
+        yd, acc_a = bd.new_zeros(lead + (0, t, k)), bd.new_zeros(lead + (nat, t, k))
     if not nat:
         return yd, ba
     return yd, _corner(_forward_corner, False, C, (ba, acc_a), impl)
@@ -174,20 +193,64 @@ def _backward_impl(Dr, R, C, yd, ya, grid, impl=None, start_tile: int = 0):
     :func:`repro_torch.kernels.ops.band_backward_sweep`.  Rows below
     ``start_tile`` (an identity prefix with zero RHS) stay zero."""
     t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
-    k = yd.shape[-1]
+    lead, k = tuple(yd.shape[:-3]), yd.shape[-1]
     xa = _corner(_backward_corner, True, C, (ya,), impl) if nat else ya
     if ndt:
         xd = ops.band_backward_sweep(Dr, R, yd, xa.contiguous(), start_tile=start_tile,
                                      impl=impl)
     else:
-        xd = yd.new_zeros((0, t, k))
+        xd = yd.new_zeros(lead + (0, t, k))
     return xd, xa
 
 
 def _solve_panels(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
-    """Full ``A X = B`` on split panels: forward then backward sweep."""
+    """Full ``A X = B`` on split panels: forward then backward sweep.  A
+    leading batch axis on every input solves each element against its own
+    factor, each sweep one launch for the batch."""
     yd, ya = _forward_impl(Dr, R, C, bd, ba, grid, impl, start_tile)
     return _backward_impl(Dr, R, C, yd, ya, grid, impl, start_tile)
+
+
+def _sq_norms(xd: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
+    """Squared 2-norm of each column of split panels ``(..., rows, t,
+    k)``: ``(..., k)``."""
+    return (xd * xd).sum(dim=(-3, -2)) + (xa * xa).sum(dim=(-3, -2))
+
+
+def _refine_panels(fDr, fR, fC, mDr, mR, mC, bd, ba, xd, xa, grid, impl=None,
+                   start_tile: int = 0):
+    """One residual-checked iterative-refinement step for jitter-recovered
+    factors: the perturbed factor L (of ``A + tau I``) acts as a
+    preconditioner for the *original* A (``mDr``, ``mR``, ``mC``).  ``r =
+    B - A X``; ``dX = (L L^T)^{-1} r``; the correction is taken per
+    right-hand-side column only where it does not increase the residual's
+    norm, so refinement can only help.  Leading batch axes are elements,
+    each with its own factor, matrix and columns."""
+    from .robustness import ctsf_matvec
+    Axd, Axa = ctsf_matvec(mDr, mR, mC, xd, xa, grid)
+    rd, ra = bd - Axd, ba - Axa
+    n0 = _sq_norms(rd, ra)
+    dd, da = _solve_panels(fDr, fR, fC, rd, ra, grid, impl, start_tile)
+    xd1, xa1 = xd + dd, xa + da
+    A1d, A1a = ctsf_matvec(mDr, mR, mC, xd1, xa1, grid)
+    n1 = _sq_norms(bd - A1d, ba - A1a)
+    take = (n1 <= n0)[..., None, None, :]
+    return torch.where(take, xd1, xd), torch.where(take, xa1, xa)
+
+
+def _refined_matrix(factor: CholeskyFactor, batch: Optional[int]):
+    """The retained original matrix of a jitter-recovered factor when the
+    refinement step applies, else None: ``factor.info`` with a matrix on
+    the factor's grid and ``tau > 0`` (any element of a batch of
+    ``batch``; an element whose ladder ended at a NaN shift has NaN, which
+    is not > 0, and is not refined)."""
+    info = factor.info
+    if info is None or info.matrix is None or info.matrix.grid != factor.ctsf.grid:
+        return None
+    want = () if batch is None else (batch,)
+    if tuple(info.tau.shape) != want or not bool((info.tau > 0).any()):
+        return None
+    return info.matrix
 
 
 def _impl(options: Optional[SolverOptions]):
@@ -228,11 +291,65 @@ def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
     ``L L^T``: one forward and one backward sweep for all k columns, each
     band step a ``(t, t) @ (t, k)`` product.  On the card that is one
     forward-sweep launch, one backward-sweep launch and ``2 nat``
-    ``solve_panel`` launches, the corner's replayed from two CUDA graphs."""
+    ``solve_panel`` launches, the corner's replayed from two CUDA graphs.
+
+    A jitter-recovered factor (``factor.info`` with a retained original
+    matrix on the same grid and ``tau > 0``, from ``regularize=``) gets
+    one residual-checked refinement step against the original matrix
+    (:func:`_refine_panels`: one more solve), correcting most of the
+    ``O(tau)`` bias of the diagonal shift; clean factors skip it."""
     c = factor.ctsf
+    impl = _impl(options)
     bd, ba = _split_rhs(c.grid, B)
-    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, c.grid, _impl(options))
+    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, c.grid, impl)
+    m = _refined_matrix(factor, None)
+    if m is not None:
+        xd, xa = _refine_panels(c.Dr, c.R, c.C, m.Dr, m.R, m.C, bd, ba, xd, xa, c.grid, impl)
     return _merge_panels(xd, xa)
+
+
+def solve_many_batched(factor: CholeskyFactor, B: torch.Tensor, *, bucket: bool = True,
+                       options: Optional[SolverOptions] = None) -> torch.Tensor:
+    """``A_i X_i = B_i`` for a batched factor (a leading batch axis on the
+    CTSF arrays, as ``factorize_window_batched`` returns it) with each
+    element's own ``(padded_n, k)`` panel: ``B (batch, padded_n, k)`` ->
+    ``(batch, padded_n, k)``, each element in the padded layout of
+    ``factor.ctsf.grid``.
+
+    On the card that is the launches of one :func:`solve_many` for the
+    whole batch: one forward-sweep and one backward-sweep launch, and
+    ``2 nat`` ``solve_panel`` launches, each element against its own
+    corner tile, the corner replayed from a CUDA graph of its batch
+    shape.  A jitter-recovered batch (``factor.info`` with ``tau > 0`` on
+    some element and the original matrices kept) gets one residual-checked
+    refinement pass, one more solve of the batch, whose correction is
+    taken only on the elements with ``tau > 0``: their clean siblings come
+    back bit for bit as an unrefined call gives them.
+
+    ``bucket`` is the reference's pow2 padding of the batch; PyTorch
+    compiles nothing per batch size, so it is accepted and pads nothing,
+    as in ``factorize_window_batched``."""
+    c = factor.ctsf
+    g = c.grid
+    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+    if c.Dr.dim() != 5:
+        raise ValueError("solve_many_batched needs a batched factor (leading batch axis), "
+                         f"got Dr.ndim={c.Dr.dim()}")
+    nb = c.Dr.shape[0]
+    if B.dim() != 3 or B.shape[0] != nb or B.shape[1] != g.padded_n:
+        raise ValueError(f"rhs panels must be (batch={nb}, padded_n={g.padded_n}, k), "
+                         f"got {tuple(B.shape)}")
+    impl = _impl(options)
+    k = B.shape[2]
+    bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
+    ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
+    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, g, impl)
+    m = _refined_matrix(factor, nb)
+    if m is not None:
+        xd1, xa1 = _refine_panels(c.Dr, c.R, c.C, m.Dr, m.R, m.C, bd, ba, xd, xa, g, impl)
+        use = (factor.info.tau > 0)[:, None, None, None]
+        xd, xa = torch.where(use, xd1, xd), torch.where(use, xa1, xa)
+    return torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)], dim=1)
 
 
 def forward_solve(factor: CholeskyFactor, b: torch.Tensor, *,

@@ -40,13 +40,13 @@ _SIGNATURES = {
         "stiles_band_cholesky_partitioned_sweep_f32":
             [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
         "stiles_sweep_max_active_clusters": [_I, _I, _P]},
-    "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "solve_panel": {"stiles_solve_panel_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "band_solve": {
-        "stiles_band_forward_sweep_f32": [_P] * 6 + [_I] * 9 + [_P],
-        "stiles_band_backward_sweep_f32": [_P] * 6 + [_I] * 9 + [_P],
+        "stiles_band_forward_sweep_f32": [_P] * 6 + [_I] * 10 + [_P],
+        "stiles_band_backward_sweep_f32": [_P] * 6 + [_I] * 10 + [_P],
         "stiles_solve_max_active_clusters": [_I, _I, _P]},
-    "selinv": {"stiles_selinv_prepass_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-               "stiles_selinv_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "selinv": {"stiles_selinv_prepass_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+               "stiles_selinv_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _P],
              "stiles_geadd_f32": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
              "stiles_geadd_empty_f32": [_L, _L, _I, _I, _P],

@@ -12,18 +12,32 @@ operand row is published.  Outputs and semantics match
 ``ref.band_forward_sweep_ref`` and ``ref.band_backward_sweep_ref``,
 ``start_tile`` included.  No sum is split across ranks, so the cluster
 size changes no bit.
+
+A leading batch axis (``Dr (B, ndt, bt+1, t, t)`` and every other input
+alike: the θ-batch's factors, each with its own right-hand sides) is one
+launch, the batch a second grid dimension whose only effect on a cluster
+is its element's pointer offsets: element i is bit for bit its unbatched
+launch on the same plan.  The chunk width does change bits: a product's
+contraction is split over ``256 / (t / 4 * width)`` lanes (at most ``t /
+4``), summed by shuffles, so two widths add in two orders.  The width rule
+counts the batch's clusters, so an element of a batch may run at a
+narrower width than it would alone (rtol = atol = 2e-4 then; ``width=``
+forces one plan for both).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from . import _build
-from .band_cholesky import MAX_PLAN_TILES, MAX_SWEEP_CLUSTER as MAX_SOLVE_CLUSTER, _plan_table
+from .band_cholesky import (MAX_BATCH, MAX_PLAN_TILES, MAX_SWEEP_CLUSTER as MAX_SOLVE_CLUSTER,
+                            _plan_table)
 from .potrf import TILE_SIZES, check_cuda, check_tiles
 
 __all__ = ["band_forward_sweep_cuda", "band_backward_sweep_cuda", "solve_max_active_clusters",
@@ -105,32 +119,33 @@ class SolvePlan:
 
 @functools.lru_cache(maxsize=None)
 def solve_plan(t: int, bt: int, nat: int, k: int, max_cluster: int = SOLVE_CLUSTER, *,
-               at_once: int) -> SolvePlan:
+               at_once: int, batch: int = 1) -> SolvePlan:
     """The band sweeps' plan for ``t x t`` tiles, ``bt`` band tiles, ``nat``
-    arrow tiles and ``k`` right-hand sides.  The units, the look-ahead
-    products with band tiles 2..bt and then the arrow tiles, go one per
-    rank to ranks 1, 2, .. in turn, so the cluster is ``min(max_cluster, 1
-    + units)`` blocks and rank 0 keeps only the chain (all of it at one
-    block).  The columns go in chunks of ``width``, a power of two up to 8,
-    the narrowest whose chunks all run at once: ``at_once`` is how many
+    arrow tiles and ``k`` right-hand sides, for each of ``batch`` problems
+    in one launch.  The units, the look-ahead products with band tiles
+    2..bt and then the arrow tiles, go one per rank to ranks 1, 2, .. in
+    turn, so the cluster is ``min(max_cluster, 1 + units)`` blocks and rank
+    0 keeps only the chain (all of it at one block).  The columns go in
+    chunks of ``width``, a power of two up to 8, the narrowest whose
+    ``batch x chunks`` clusters all run at once: ``at_once`` is how many
     clusters of the uncapped size (``1 + units`` blocks, at most 16) the
     card holds with one block an SM (:func:`solve_max_active_clusters`),
-    since rank 0's chain slows down on an SM it shares.  A narrower chunk
-    is a shorter product and substitution on the chain.  The plan depends
-    on its arguments only, and the width not on the cap; the cap changes
-    which rank computes a product, never how, so not a bit of the
-    result."""
+    since rank 0's chain slows down on an SM it shares; 8 when none does.
+    A narrower chunk is a shorter product and substitution on the chain.
+    The plan depends on its arguments only, and the width not on the cap;
+    the cap changes which rank computes a product, never how, so not a bit
+    of the result.  ``batch = 1`` is the unbatched plan."""
     if not 1 <= max_cluster <= MAX_SOLVE_CLUSTER:
         raise ValueError(f"solve_plan: want 1 <= max_cluster <= {MAX_SOLVE_CLUSTER}, "
                          f"got {max_cluster}")
     if t not in TILE_SIZES or not (0 <= bt <= MAX_PLAN_TILES and 0 <= nat <= MAX_PLAN_TILES) \
-            or k < 1 or at_once < 1:
+            or k < 1 or at_once < 1 or batch < 1:
         raise ValueError(f"solve_plan: want t in {TILE_SIZES}, 0 <= bt, nat <= "
-                         f"{MAX_PLAN_TILES}, k >= 1 and at_once >= 1, got {t}, {bt}, {nat}, "
-                         f"{k}, {at_once}")
+                         f"{MAX_PLAN_TILES}, k >= 1, at_once >= 1 and batch >= 1, got {t}, {bt}, "
+                         f"{nat}, {k}, {at_once}, {batch}")
     units = ([SolveUnit("band", j) for j in range(2, bt + 1)]
              + [SolveUnit("arrow", i) for i in range(nat)])
-    width = next((w for w in WIDTHS if -(-k // w) <= at_once), WIDTHS[-1])
+    width = next((w for w in WIDTHS if batch * -(-k // w) <= at_once), WIDTHS[-1])
     cluster = min(max_cluster, 1 + len(units))
     per_rank: List[List[SolveUnit]] = [[] for _ in range(cluster)]
     for n, u in enumerate(units):
@@ -166,25 +181,46 @@ def solve_max_active_clusters(t: int, cluster: int, device=None) -> int:
 
 
 def card_solve_plan(t: int, bt: int, nat: int, k: int, max_cluster: int = SOLVE_CLUSTER,
-                    device=None) -> SolvePlan:
-    """The plan the wrappers launch on ``device``: :func:`solve_plan` with
-    ``at_once`` asked of that card for the uncapped cluster."""
+                    device=None, batch: int = 1) -> SolvePlan:
+    """The plan the wrappers launch on ``device`` for ``batch`` problems:
+    :func:`solve_plan` with ``at_once`` asked of that card for the uncapped
+    cluster."""
     uncapped = min(MAX_SOLVE_CLUSTER, 1 + max(bt - 1, 0) + nat)
     return solve_plan(t, bt, nat, k, max_cluster,
-                      at_once=max(1, solve_max_active_clusters(t, uncapped, device)))
+                      at_once=max(1, solve_max_active_clusters(t, uncapped, device)),
+                      batch=batch)
 
 
 def _check_band(name: str, Dr: torch.Tensor, R: torch.Tensor, *panels: torch.Tensor) -> int:
+    """``Dr ([B,] ndt, bt+1, t, t)``, ``R ([B,] ndt, nat, t, t)`` and
+    ``([B,] rows, t, k)`` panels, one batch for all; returns t."""
     t = check_tiles(name, Dr, R)
     check_cuda(name, *panels, aligned=False)
-    if Dr.dim() != 4 or R.dim() != 4 or R.shape[0] != Dr.shape[0]:
-        raise ValueError(f"{name}: want Dr (ndt, bt+1, t, t) and R (ndt, nat, t, t), "
+    lead = Dr.shape[:-4]
+    if Dr.dim() not in (4, 5) or R.dim() != Dr.dim() or R.shape[:-3] != Dr.shape[:-3]:
+        raise ValueError(f"{name}: want Dr ([B,] ndt, bt+1, t, t) and R ([B,] ndt, nat, t, t), "
                          f"got {tuple(Dr.shape)} and {tuple(R.shape)}")
+    if lead and not 1 <= lead[0] <= MAX_BATCH:
+        raise ValueError(f"{name}: a batch of {lead[0]}, the kernel takes 1 to {MAX_BATCH}")
     k = panels[0].shape[-1]
     for p in panels:
-        if p.dim() != 3 or p.shape[1] != t or p.shape[2] != k:
-            raise ValueError(f"{name}: want (rows, {t}, {k}) panels, got {tuple(p.shape)}")
+        if p.dim() != 3 + len(lead) or p.shape[:-3] != lead or p.shape[-2:] != (t, k):
+            raise ValueError(f"{name}: want ({'B, ' if lead else ''}rows, {t}, {k}) panels, "
+                             f"got {tuple(p.shape)}")
     return t
+
+
+def _plan(Dr, nat: int, k: int, max_cluster: int, width: Optional[int]) -> SolvePlan:
+    """The card's plan for the inputs, at chunks of ``width`` columns where
+    one is forced."""
+    t, b1 = Dr.shape[-1], Dr.shape[-3]
+    plan = card_solve_plan(t, b1 - 1, nat, k, max_cluster, Dr.device,
+                           batch=math.prod(Dr.shape[:-4]))
+    if width is None or width == plan.width:
+        return plan
+    if width not in WIDTHS:
+        raise ValueError(f"band sweeps: width {width} not built (want one of {WIDTHS})")
+    return dataclasses.replace(plan, width=width, chunks=-(-k // width))
 
 
 def _launch(name: str, plan: SolvePlan, backward: bool, Dr, R, rhs, xa, out, acca,
@@ -192,35 +228,38 @@ def _launch(name: str, plan: SolvePlan, backward: bool, Dr, R, rhs, xa, out, acc
     lib = _build.load("band_solve")
     fn = lib.stiles_band_backward_sweep_f32 if backward else lib.stiles_band_forward_sweep_f32
     ptr = lambda x: None if x is None else x.data_ptr()
-    ndt, b1, t = Dr.shape[:3]
+    ndt, b1, t = Dr.shape[-4:-1]
     code = fn(Dr.data_ptr(), R.data_ptr(), rhs.data_ptr(),
               *((ptr(xa), out.data_ptr()) if backward else (out.data_ptr(), ptr(acca))),
-              _plan_table(plan, Dr.device).data_ptr(), plan.cluster, plan.width, ndt, b1 - 1,
-              R.shape[1], t, plan.k, int(start_tile), plan.lead(backward),
-              torch.cuda.current_stream(Dr.device).cuda_stream)
+              _plan_table(plan, Dr.device).data_ptr(), plan.cluster, plan.width,
+              math.prod(Dr.shape[:-4]), ndt, b1 - 1, R.shape[-3], t, plan.k, int(start_tile),
+              plan.lead(backward), torch.cuda.current_stream(Dr.device).cuda_stream)
     _build.check(lib, code, name)
 
 
 def band_forward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
-                            start_tile: int = 0, *, max_cluster: int = SOLVE_CLUSTER):
+                            start_tile: int = 0, *, max_cluster: int = SOLVE_CLUSTER,
+                            width: Optional[int] = None):
     """``L Y = B`` over the band on the card: ``Dr (ndt, bt+1, t, t)``,
     ``R (ndt, nat, t, t)``, ``bd (ndt, t, k)`` -> ``(yd (ndt, t, k),
     acc_a (nat, t, k))`` with ``acc_a[i] = sum_m R[m, i] @ Y_m``.  Rows
     ``m < start_tile`` come out zero.  One launch on the plan
-    ``card_solve_plan(t, bt, nat, k, max_cluster)``; a cluster the card
-    refuses raises."""
+    ``card_solve_plan(t, bt, nat, k, max_cluster, batch=B)``; a cluster the
+    card refuses raises.  A leading batch axis ``(B, ...)`` on every input
+    is one launch for the batch, and both outputs gain it.  ``width``
+    forces the chunk width (for comparing a batch with its unbatched
+    launches on one plan)."""
     t = _check_band("band_forward_sweep", Dr, R, bd)
-    ndt, b1 = Dr.shape[:2]
-    nat = R.shape[1]
-    k = bd.shape[-1]
-    if bd.shape[0] != ndt:
-        raise ValueError(f"band_forward_sweep: bd has {bd.shape[0]} rows, Dr {ndt}")
+    lead = tuple(Dr.shape[:-4])
+    ndt, nat, k = Dr.shape[-4], R.shape[-3], bd.shape[-1]
+    if bd.shape[-3] != ndt:
+        raise ValueError(f"band_forward_sweep: bd has {bd.shape[-3]} rows, Dr {ndt}")
     if ndt == 0 or k == 0:
-        return torch.zeros_like(bd), bd.new_zeros((nat, t, k))
-    plan = card_solve_plan(t, b1 - 1, nat, k, max_cluster, Dr.device)
+        return torch.zeros_like(bd), bd.new_zeros(lead + (nat, t, k))
+    plan = _plan(Dr, nat, k, max_cluster, width)
     # the kernel writes every output element, so nothing is zeroed here
     yd = torch.empty_like(bd)
-    acca = bd.new_empty((nat, t, k))
+    acca = bd.new_empty(lead + (nat, t, k))
     _launch("band_forward_sweep", plan, False, Dr, R, bd, None, yd, acca, start_tile)
     band_forward_sweep_cuda.launches += 1
     return yd, acca
@@ -228,22 +267,22 @@ def band_forward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
 
 def band_backward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
                              xa: torch.Tensor, start_tile: int = 0, *,
-                             max_cluster: int = SOLVE_CLUSTER) -> torch.Tensor:
+                             max_cluster: int = SOLVE_CLUSTER,
+                             width: Optional[int] = None) -> torch.Tensor:
     """``L^T X = Y - R^T Xa`` over the band on the card, rows in reverse:
     ``Dr``, ``R`` as in the forward sweep, ``yd (ndt, t, k)`` and the
     solved arrow panel ``xa (nat, t, k)`` -> ``xd (ndt, t, k)``.  Rows
     ``m < start_tile`` come out zero.  The kernel reads ``L[m+j, m]`` in
-    place as ``Dr[m+j, j]``; the plan is the forward sweep's."""
+    place as ``Dr[m+j, j]``; the plan is the forward sweep's, and so are
+    the batch axis and ``width``."""
     t = _check_band("band_backward_sweep", Dr, R, yd, xa)
-    ndt, b1 = Dr.shape[:2]
-    nat = R.shape[1]
-    k = yd.shape[-1]
-    if yd.shape[0] != ndt or xa.shape[0] != nat:
-        raise ValueError(f"band_backward_sweep: yd has {yd.shape[0]} rows and xa "
-                         f"{xa.shape[0]}, want {ndt} and {nat}")
+    ndt, nat, k = Dr.shape[-4], R.shape[-3], yd.shape[-1]
+    if yd.shape[-3] != ndt or xa.shape[-3] != nat:
+        raise ValueError(f"band_backward_sweep: yd has {yd.shape[-3]} rows and xa "
+                         f"{xa.shape[-3]}, want {ndt} and {nat}")
     if ndt == 0 or k == 0:
         return torch.zeros_like(yd)
-    plan = card_solve_plan(t, b1 - 1, nat, k, max_cluster, Dr.device)
+    plan = _plan(Dr, nat, k, max_cluster, width)
     xd = torch.empty_like(yd)
     _launch("band_backward_sweep", plan, True, Dr, R, yd, xa, xd, None, start_tile)
     band_backward_sweep_cuda.launches += 1

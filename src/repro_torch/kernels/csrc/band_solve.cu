@@ -15,6 +15,11 @@
 // Rows m < start (an identity prefix with zero right-hand side) are written
 // as zeros and skipped.
 //
+// A batch of such problems, each element's dr, r, right-hand side (and xa)
+// contiguous after the one before, is the same launch with blockIdx.y the
+// element: the element's pointer offsets are the only change, so element i
+// is written bit for bit as the unbatched launch on the same plan writes it.
+//
 // The columns of the right-hand side are independent, so the grid is one
 // thread-block cluster for each chunk of W of them (W = 1, 2, 4 or 8: the
 // narrowest whose clusters the card holds at once, one block an SM), on
@@ -57,7 +62,8 @@
 //     barrier's latency hides behind the product.
 //   - the columns: a chunk is at most W wide whatever k, so k = 1 pays a
 //     product of a vector, not of a 32-column panel, and k = 32 spreads over
-//     8 clusters of 8 blocks (Table II matrix 5) or 16 of 5 (matrix 2).  A
+//     8 clusters of 8 blocks (Table II matrix 5) or 16 of 5 (matrix 2); a
+//     batch of B counts B times the clusters when the width is picked.  A
 //     product is spread over the block as (4-row quad, column) outputs, the
 //     contraction split over KS lanes and summed by shuffles.
 //   - bits: every product is computed by the same code whichever rank holds
@@ -192,6 +198,15 @@ band_sweep_kernel(const float* __restrict__ dr, const float* __restrict__ r_in,
     constexpr int NT = kSolveThreads, LDA = S::LDA, LDZ = S::LDZ, TILE = S::TILE;
     constexpr int PANEL = S::PANEL, UNIT = TILE + PANEL;
     constexpr size_t TT = static_cast<size_t>(T) * T;
+    {   // this cluster's batch element
+        const size_t el = blockIdx.y, rows = static_cast<size_t>(ndt) * T * k;
+        dr += el * ndt * (bt + 1) * TT;
+        r_in += el * ndt * nat * TT;
+        rhs += el * rows;
+        out += el * rows;
+        if (xa) xa += el * nat * T * k;
+        if (acca) acca += el * nat * T * k;
+    }
     extern __shared__ __align__(16) float smem[];
     float* c1 = smem;                        // the chain product's tile, by row parity
     float* lk = c1 + 2 * TILE;               // L_mm, by row parity
@@ -392,8 +407,8 @@ band_sweep_kernel(const float* __restrict__ dr, const float* __restrict__ r_in,
 
 template <int T, int W, bool BACK>
 cudaError_t launch_sweep(const float* dr, const float* r, const float* rhs, const float* xa,
-                         float* out, float* acca, const int* plan, int cl, int ndt, int bt,
-                         int nat, int k, int start, int lead, cudaStream_t s) {
+                         float* out, float* acca, const int* plan, int cl, int batch, int ndt,
+                         int bt, int nat, int k, int start, int lead, cudaStream_t s) {
     using S = SolveShape<T, W>;
     auto kernel = band_sweep_kernel<T, W, BACK>;
     // more than the card allows a block is refused by cudaFuncSetAttribute
@@ -404,7 +419,7 @@ cudaError_t launch_sweep(const float* dr, const float* r, const float* rhs, cons
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((k + W - 1) / W * cl);
+    cfg.gridDim = dim3((k + W - 1) / W * cl, batch);
     cfg.blockDim = dim3(kSolveThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = s;
@@ -422,22 +437,23 @@ cudaError_t launch_sweep(const float* dr, const float* r, const float* rhs, cons
 template <int T, bool BACK>
 cudaError_t launch_width(int w, const float* dr, const float* r, const float* rhs,
                          const float* xa, float* out, float* acca, const int* plan, int cl,
-                         int ndt, int bt, int nat, int k, int start, int lead, cudaStream_t s) {
+                         int batch, int ndt, int bt, int nat, int k, int start, int lead,
+                         cudaStream_t s) {
     switch (w) {
-        case 1: return launch_sweep<T, 1, BACK>(dr, r, rhs, xa, out, acca, plan, cl, ndt, bt, nat, k, start, lead, s);
-        case 2: return launch_sweep<T, 2, BACK>(dr, r, rhs, xa, out, acca, plan, cl, ndt, bt, nat, k, start, lead, s);
-        case 4: return launch_sweep<T, 4, BACK>(dr, r, rhs, xa, out, acca, plan, cl, ndt, bt, nat, k, start, lead, s);
-        case 8: return launch_sweep<T, 8, BACK>(dr, r, rhs, xa, out, acca, plan, cl, ndt, bt, nat, k, start, lead, s);
+        case 1: return launch_sweep<T, 1, BACK>(dr, r, rhs, xa, out, acca, plan, cl, batch, ndt, bt, nat, k, start, lead, s);
+        case 2: return launch_sweep<T, 2, BACK>(dr, r, rhs, xa, out, acca, plan, cl, batch, ndt, bt, nat, k, start, lead, s);
+        case 4: return launch_sweep<T, 4, BACK>(dr, r, rhs, xa, out, acca, plan, cl, batch, ndt, bt, nat, k, start, lead, s);
+        case 8: return launch_sweep<T, 8, BACK>(dr, r, rhs, xa, out, acca, plan, cl, batch, ndt, bt, nat, k, start, lead, s);
         default: return cudaErrorInvalidValue;
     }
 }
 
 template <bool BACK>
 int sweep(const void* dr, const void* r, const void* rhs, const void* xa, void* out, void* acca,
-          const void* plan, int cl, int w, int ndt, int bt, int nat, int t, int k, int start,
-          int lead, void* stream) {
-    if (cl < 1 || cl > kMaxClusterNonPortable || plan == nullptr || ndt < 1 || k < 1 || bt < 0 ||
-        nat < 0 || start < 0 || lead < 0)
+          const void* plan, int cl, int w, int batch, int ndt, int bt, int nat, int t, int k,
+          int start, int lead, void* stream) {
+    if (cl < 1 || cl > kMaxClusterNonPortable || plan == nullptr || batch < 1 || batch > 65535 ||
+        ndt < 1 || k < 1 || bt < 0 || nat < 0 || start < 0 || lead < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const auto* pd = static_cast<const float*>(dr);
     const auto* pr = static_cast<const float*>(r);
@@ -449,10 +465,10 @@ int sweep(const void* dr, const void* r, const void* rhs, const void* xa, void* 
     auto s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (t) {
-        case 8: err = launch_width<8, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, ndt, bt, nat, k, start, lead, s); break;
-        case 16: err = launch_width<16, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, ndt, bt, nat, k, start, lead, s); break;
-        case 32: err = launch_width<32, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, ndt, bt, nat, k, start, lead, s); break;
-        case 64: err = launch_width<64, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, ndt, bt, nat, k, start, lead, s); break;
+        case 8: err = launch_width<8, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, batch, ndt, bt, nat, k, start, lead, s); break;
+        case 16: err = launch_width<16, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, batch, ndt, bt, nat, k, start, lead, s); break;
+        case 32: err = launch_width<32, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, batch, ndt, bt, nat, k, start, lead, s); break;
+        case 64: err = launch_width<64, BACK>(w, pd, pr, pb, px, po, pa, pl, cl, batch, ndt, bt, nat, k, start, lead, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
@@ -507,20 +523,23 @@ extern "C" int stiles_solve_max_active_clusters(int t, int cluster, void* out) {
 
 // dr (ndt, bt+1, t, t), r (ndt, nat, t, t), bd (ndt, t, k) -> yd (ndt, t, k),
 // acca (nat, t, k); ceil(k / width) clusters of `cluster` blocks on the plan
-// table `plan` (device memory), slots for lead + 1 rows.
+// table `plan` (device memory), slots for lead + 1 rows; for each of `batch`
+// such problems, contiguous one after another, in the same launch.
 extern "C" int stiles_band_forward_sweep_f32(const void* dr, const void* r, const void* bd,
                                              void* yd, void* acca, const void* plan,
-                                             int cluster, int width, int ndt, int bt, int nat,
-                                             int t, int k, int start, int lead, void* stream) {
-    return stiles::sweep<false>(dr, r, bd, nullptr, yd, acca, plan, cluster, width, ndt, bt, nat,
-                                t, k, start, lead, stream);
+                                             int cluster, int width, int batch, int ndt, int bt,
+                                             int nat, int t, int k, int start, int lead,
+                                             void* stream) {
+    return stiles::sweep<false>(dr, r, bd, nullptr, yd, acca, plan, cluster, width, batch, ndt,
+                                bt, nat, t, k, start, lead, stream);
 }
 
-// dr, r as above, yd (ndt, t, k), xa (nat, t, k) -> xd (ndt, t, k).
+// dr, r as above, yd (ndt, t, k), xa (nat, t, k) -> xd (ndt, t, k), batched alike.
 extern "C" int stiles_band_backward_sweep_f32(const void* dr, const void* r, const void* yd,
                                               const void* xa, void* xd, const void* plan,
-                                              int cluster, int width, int ndt, int bt, int nat,
-                                              int t, int k, int start, int lead, void* stream) {
-    return stiles::sweep<true>(dr, r, yd, xa, xd, nullptr, plan, cluster, width, ndt, bt, nat, t,
-                               k, start, lead, stream);
+                                              int cluster, int width, int batch, int ndt, int bt,
+                                              int nat, int t, int k, int start, int lead,
+                                              void* stream) {
+    return stiles::sweep<true>(dr, r, yd, xa, xd, nullptr, plan, cluster, width, batch, ndt, bt,
+                               nat, t, k, start, lead, stream);
 }

@@ -18,6 +18,13 @@
 // Terms reaching past column ndt-1 are zero and skipped.  Columns j < start
 // are an identity-embedding prefix: an identity panel and zero arrow row.
 //
+// A batch of such factors, each element's inputs and outputs contiguous after
+// the one before, is the same two launches with blockIdx.y the element: the
+// pre-pass a block for each column of each element, the recurrence a cluster
+// for each element on the same plan.  The element's pointer offsets are the
+// only change, so element i is written bit for bit as its unbatched launch
+// writes it.
+//
 // Much of a column depends on the factor and the corner seed alone: W, G,
 // Ga, W^T W and the corner part sum_i' sc[i, i'] Ga_i'.  The pre-pass
 // (selinv_prepass_kernel) computes them for every column at once, a block of
@@ -77,6 +84,13 @@ selinv_prepass_kernel(const float* __restrict__ lcol, const float* __restrict__ 
     __shared__ __align__(16) float As[T * LDK];
     __shared__ __align__(16) float Bs[T * LDK];
     const int j = blockIdx.x, b1 = bt + 1, nq = bt + nat, nw = bt + 2 * nat + 2;
+    {   // this block's batch element
+        const size_t el = blockIdx.y;
+        lcol += el * ndt * b1 * TT;
+        r_in += el * ndt * nat * TT;
+        sc += el * nat * nat * TT;
+        work += el * ndt * nw * TT;
+    }
     auto LC = [&](int d) { return lcol + (static_cast<size_t>(j) * b1 + d) * TT; };
     auto RI = [&](int i) { return r_in + (static_cast<size_t>(j) * nat + i) * TT; };
     auto SC = [&](int i, int q) { return sc + (static_cast<size_t>(i) * nat + q) * TT; };
@@ -242,6 +256,12 @@ selinv_recurrence_kernel(const float* __restrict__ work, float* panels, float* a
     const int cl = static_cast<int>(cluster.num_blocks());
     const int rank = static_cast<int>(cluster.block_rank());
     const int b1 = bt + 1, nq = bt + nat, nw = bt + 2 * nat + 2;
+    {   // this cluster's batch element
+        const size_t el = blockIdx.y;
+        work += el * ndt * nw * TT;
+        panels += el * ndt * b1 * TT;
+        acols += el * ndt * nat * TT;
+    }
     // panels and acols are written and read back by the cluster: no
     // __restrict__, no read-only loads
     auto P = [&](int j, int e) { return panels + (static_cast<size_t>(j) * b1 + e) * TT; };
@@ -397,32 +417,35 @@ selinv_recurrence_kernel(const float* __restrict__ work, float* panels, float* a
 
 template <int T>
 cudaError_t launch_prepass(const float* lcol, const float* r, const float* sc, float* work,
-                           int ndt, int bt, int nat, int start, cudaStream_t s) {
-    selinv_prepass_kernel<T><<<ndt, kThreads, 0, s>>>(lcol, r, sc, work, ndt, bt, nat, start);
+                           int batch, int ndt, int bt, int nat, int start, cudaStream_t s) {
+    selinv_prepass_kernel<T><<<dim3(ndt, batch), kThreads, 0, s>>>(lcol, r, sc, work, ndt, bt,
+                                                                    nat, start);
     return cudaGetLastError();
 }
 
 template <int T>
-cudaError_t launch_recurrence(const float* work, float* panels, float* acols, int ndt, int bt,
-                              int nat, int cl, int split, cudaStream_t s) {
+cudaError_t launch_recurrence(const float* work, float* panels, float* acols, int batch,
+                              int ndt, int bt, int nat, int cl, int split, cudaStream_t s) {
     if (cl > kMaxCluster) {
         const cudaError_t err = cudaFuncSetAttribute(
             selinv_recurrence_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (err != cudaSuccess) return err;
     }
-    return launch_cluster(selinv_recurrence_kernel<T>, dim3(cl), cl, 0, s, work, panels, acols,
-                          ndt, bt, nat, split);
+    return launch_cluster(selinv_recurrence_kernel<T>, dim3(cl, batch), cl, 0, s, work, panels,
+                          acols, ndt, bt, nat, split);
 }
 
 }  // namespace stiles
 
 // lcol (ndt, bt+1, t, t), r (ndt, nat, t, t), sc (nat, nat, t, t) -> work
-// (ndt, bt + 2 nat + 2, t, t); ndt >= 1.
+// (ndt, bt + 2 nat + 2, t, t); ndt >= 1; for each of `batch` such factors,
+// contiguous one after another, in the same launch.
 extern "C" int stiles_selinv_prepass_f32(const void* lcol, const void* r, const void* sc,
-                                         void* work, int ndt, int bt, int nat, int t, int start,
-                                         void* stream) {
+                                         void* work, int batch, int ndt, int bt, int nat, int t,
+                                         int start, void* stream) {
     using namespace stiles;
-    if (ndt < 1 || bt < 0 || nat < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (batch < 1 || batch > 65535 || ndt < 1 || bt < 0 || nat < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
     const auto* pl = static_cast<const float*>(lcol);
     const auto* pr = static_cast<const float*>(r);
     const auto* psc = static_cast<const float*>(sc);
@@ -430,10 +453,10 @@ extern "C" int stiles_selinv_prepass_f32(const void* lcol, const void* r, const 
     auto s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (t) {
-        case 8: err = launch_prepass<8>(pl, pr, psc, pw, ndt, bt, nat, start, s); break;
-        case 16: err = launch_prepass<16>(pl, pr, psc, pw, ndt, bt, nat, start, s); break;
-        case 32: err = launch_prepass<32>(pl, pr, psc, pw, ndt, bt, nat, start, s); break;
-        case 64: err = launch_prepass<64>(pl, pr, psc, pw, ndt, bt, nat, start, s); break;
+        case 8: err = launch_prepass<8>(pl, pr, psc, pw, batch, ndt, bt, nat, start, s); break;
+        case 16: err = launch_prepass<16>(pl, pr, psc, pw, batch, ndt, bt, nat, start, s); break;
+        case 32: err = launch_prepass<32>(pl, pr, psc, pw, batch, ndt, bt, nat, start, s); break;
+        case 64: err = launch_prepass<64>(pl, pr, psc, pw, batch, ndt, bt, nat, start, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err);
@@ -444,14 +467,16 @@ extern "C" int stiles_selinv_prepass_f32(const void* lcol, const void* r, const 
 // plan of kernels/selinv.py::selinv_plan, checked here again: at most
 // kMaxClusterNonPortable blocks, at least one a lower sub-tile of the diagonal
 // and otherwise no more than the column's target sub-tiles, the diagonal
-// split cluster / (lower sub-tiles) ways.
-extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* acols, int ndt,
-                                       int bt, int nat, int t, int cluster, int split,
+// split cluster / (lower sub-tiles) ways; a cluster for each of `batch`
+// factors, contiguous one after another, in the same launch.
+extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* acols, int batch,
+                                       int ndt, int bt, int nat, int t, int cluster, int split,
                                        void* stream) {
     using namespace stiles;
     const int ns = t < 32 ? 1 : t / 32, diag = ns * (ns + 1) / 2;
     const int units = (bt + nat) * ns * ns;
-    if (ndt < 1 || bt < 0 || nat < 0 || cluster < diag || cluster > kMaxClusterNonPortable ||
+    if (batch < 1 || batch > 65535 || ndt < 1 || bt < 0 || nat < 0 || cluster < diag ||
+        cluster > kMaxClusterNonPortable ||
         cluster > (units > diag ? units : diag) || split != cluster / diag)
         return static_cast<int>(cudaErrorInvalidValue);
     const auto* pw = static_cast<const float*>(work);
@@ -460,10 +485,10 @@ extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* aco
     auto s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (t) {
-        case 8: err = launch_recurrence<8>(pw, pp, pa, ndt, bt, nat, cluster, split, s); break;
-        case 16: err = launch_recurrence<16>(pw, pp, pa, ndt, bt, nat, cluster, split, s); break;
-        case 32: err = launch_recurrence<32>(pw, pp, pa, ndt, bt, nat, cluster, split, s); break;
-        case 64: err = launch_recurrence<64>(pw, pp, pa, ndt, bt, nat, cluster, split, s); break;
+        case 8: err = launch_recurrence<8>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
+        case 16: err = launch_recurrence<16>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
+        case 32: err = launch_recurrence<32>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
+        case 64: err = launch_recurrence<64>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());

@@ -1,6 +1,11 @@
 // Multi-RHS triangular panel solve for a batch of panels: out[b] = L^{-1} B[b]
 // (trans = 0) or L^{-T} B[b] (trans = 1), B[b] a row-major (T, k) panel,
-// with one L for the whole batch.
+// with one L for the whole batch or one L for each panel (L[b], the batched
+// corner of the θ-batch's solves: each candidate its own corner tile).  A
+// panel's L is L[b / per_l], per_l the panels that share one (nb, or 1), so
+// the L is the only thing that differs between the two forms: panel b of a
+// launch with one L a panel is written bit for bit as a launch of that panel
+// alone against its L.
 //
 // Replaces the TPU kernel src/repro/kernels/trsm.py::solve_panel_pallas
 // (body _solve_panel_kernel -> substitute_panel).
@@ -92,18 +97,21 @@ __device__ __forceinline__ void store_columns(float* dst, const float* X, int c0
     }
 }
 
-// Block x solves chunk x % chunks of panel x / chunks.
+// Block x solves chunk x % chunks of panel x / chunks, against L number
+// (x / chunks) / per_l.
 template <int T, int R, bool BACK>
 __global__ void __launch_bounds__(kPanelThreads)
 solve_panel_kernel(const float* __restrict__ l, const float* __restrict__ b,
-                   float* __restrict__ out, int k, int chunks, int vec) {
+                   float* __restrict__ out, int k, int chunks, int per_l, int vec) {
     constexpr int LD = T + 4, C4 = T / 4;
     __shared__ __align__(16) float L[T * LD];
     __shared__ __align__(16) float X[R * LD];
     __shared__ float dinv[T];
+    const unsigned panel = blockIdx.x / chunks;
+    l += static_cast<size_t>(panel / per_l) * T * T;
     for (int v = threadIdx.x; v < T * C4; v += kPanelThreads)
         cp_async16(L + (v / C4) * LD + 4 * (v % C4), l + 4 * v);
-    const size_t off = static_cast<size_t>(blockIdx.x / chunks) * T * k;
+    const size_t off = static_cast<size_t>(panel) * T * k;
     const int c0 = static_cast<int>(blockIdx.x % chunks) * R;
     stage_columns<T, R>(X, b + off, c0, k, vec);
     cp_async_commit();
@@ -116,48 +124,53 @@ solve_panel_kernel(const float* __restrict__ l, const float* __restrict__ b,
 }
 
 template <int T, int R>
-int launch_solve_panel(const float* l, const float* b, float* out, int nb, int k, int trans,
-                       int vec, cudaStream_t s) {
+int launch_solve_panel(const float* l, const float* b, float* out, int nb, int k, int per_l,
+                       int trans, int vec, cudaStream_t s) {
     const int chunks = (k + R - 1) / R;
     const long long blocks = static_cast<long long>(nb) * chunks;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>(blocks));
     if (trans)
-        solve_panel_kernel<T, R, true><<<grid, kPanelThreads, 0, s>>>(l, b, out, k, chunks, vec);
+        solve_panel_kernel<T, R, true><<<grid, kPanelThreads, 0, s>>>(l, b, out, k, chunks, per_l,
+                                                                      vec);
     else
-        solve_panel_kernel<T, R, false><<<grid, kPanelThreads, 0, s>>>(l, b, out, k, chunks, vec);
+        solve_panel_kernel<T, R, false><<<grid, kPanelThreads, 0, s>>>(l, b, out, k, chunks, per_l,
+                                                                       vec);
     return static_cast<int>(cudaGetLastError());
 }
 
 template <int T>
 int launch_solve_panel_t(const float* l, const float* b, float* out, int nb, int k, int chunk,
-                         int trans, int vec, cudaStream_t s) {
+                         int per_l, int trans, int vec, cudaStream_t s) {
     switch (chunk) {
-        case 1: return launch_solve_panel<T, 1>(l, b, out, nb, k, trans, vec, s);
-        case 2: return launch_solve_panel<T, 2>(l, b, out, nb, k, trans, vec, s);
-        case 4: return launch_solve_panel<T, 4>(l, b, out, nb, k, trans, vec, s);
-        case 8: return launch_solve_panel<T, 8>(l, b, out, nb, k, trans, vec, s);
+        case 1: return launch_solve_panel<T, 1>(l, b, out, nb, k, per_l, trans, vec, s);
+        case 2: return launch_solve_panel<T, 2>(l, b, out, nb, k, per_l, trans, vec, s);
+        case 4: return launch_solve_panel<T, 4>(l, b, out, nb, k, per_l, trans, vec, s);
+        case 8: return launch_solve_panel<T, 8>(l, b, out, nb, k, per_l, trans, vec, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 }  // namespace stiles
 
-// l is one 16-byte aligned (t, t) tile for every panel; b and out are
+// l is 16-byte aligned (nb / per_l, t, t) tiles, one for every per_l panels
+// (per_l = nb: one L for every panel; 1: one L a panel); b and out are
 // (nb, t, k), k >= 1, solved in chunks of `chunk` columns (1, 2, 4 or 8);
 // vec: k % 4 == 0 and b, out 16-byte aligned.
 extern "C" int stiles_solve_panel_f32(const void* l, const void* b, void* out, int nb, int t,
-                                      int k, int chunk, int trans, int vec, void* stream) {
+                                      int k, int chunk, int per_l, int trans, int vec,
+                                      void* stream) {
     using namespace stiles;
+    if (per_l < 1 || nb % per_l) return static_cast<int>(cudaErrorInvalidValue);
     const auto* pl = static_cast<const float*>(l);
     const auto* pb = static_cast<const float*>(b);
     auto* po = static_cast<float*>(out);
     auto s = static_cast<cudaStream_t>(stream);
     switch (t) {
-        case 8: return launch_solve_panel_t<8>(pl, pb, po, nb, k, chunk, trans, vec, s);
-        case 16: return launch_solve_panel_t<16>(pl, pb, po, nb, k, chunk, trans, vec, s);
-        case 32: return launch_solve_panel_t<32>(pl, pb, po, nb, k, chunk, trans, vec, s);
-        case 64: return launch_solve_panel_t<64>(pl, pb, po, nb, k, chunk, trans, vec, s);
+        case 8: return launch_solve_panel_t<8>(pl, pb, po, nb, k, chunk, per_l, trans, vec, s);
+        case 16: return launch_solve_panel_t<16>(pl, pb, po, nb, k, chunk, per_l, trans, vec, s);
+        case 32: return launch_solve_panel_t<32>(pl, pb, po, nb, k, chunk, per_l, trans, vec, s);
+        case 64: return launch_solve_panel_t<64>(pl, pb, po, nb, k, chunk, per_l, trans, vec, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -93,7 +93,8 @@ def geadd(a: torch.Tensor, b: torch.Tensor, impl: Optional[str] = None) -> torch
 def solve_panel(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False,
                 impl: Optional[str] = None) -> torch.Tensor:
     """``L X = B`` (or ``L^T X = B``) for a (..., t, k) batch of panels
-    against one (t, t) L."""
+    against one (t, t) L, or against one L a panel, ``l_kk (..., t, t)``
+    (the batched solves' corner)."""
     if resolve_impl(impl, b_panel) == "cuda":
         return solve_panel_cuda(l_kk, b_panel, trans=trans)
     return ref.solve_panel_ref(l_kk, b_panel, trans=trans)
@@ -127,7 +128,8 @@ def band_forward_sweep(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
                        start_tile: int = 0, impl: Optional[str] = None):
     """Forward band sweep ``L Y = B`` plus the arrow sums ``acc_a[i] =
     sum_m R[m, i] @ Y_m``: ``(yd (ndt, t, k), acc_a (nat, t, k))``.
-    ``"cuda"`` is one kernel launch; ``"ref"`` a loop of ``solve_panel``."""
+    ``"cuda"`` is one kernel launch; ``"ref"`` a loop of ``solve_panel``.
+    A leading batch axis on every input is one launch for the batch."""
     if resolve_impl(impl, bd) == "cuda":
         return band_forward_sweep_cuda(Dr, R, bd, start_tile=start_tile)
     return ref.band_forward_sweep_ref(Dr, R, bd, start_tile=start_tile)
@@ -137,7 +139,7 @@ def band_backward_sweep(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
                         xa: torch.Tensor, start_tile: int = 0,
                         impl: Optional[str] = None) -> torch.Tensor:
     """Backward band sweep ``L^T X = Y - R^T Xa``: ``xd (ndt, t, k)``, with
-    the same backend split as :func:`band_forward_sweep`."""
+    the same backend split and batch axis as :func:`band_forward_sweep`."""
     if resolve_impl(impl, yd) == "cuda":
         return band_backward_sweep_cuda(Dr, R, yd, xa, start_tile=start_tile)
     return ref.band_backward_sweep_ref(Dr, R, yd, xa, start_tile=start_tile)
@@ -179,7 +181,8 @@ def selinv_sweep(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
     column view of the factor, ``R (ndt, nat, t, t)`` and the full corner
     ``sc_full (nat, nat, t, t)`` -> ``(panels, acols)`` of Σ.  ``"cuda"``
     is two kernel launches, a pre-pass and the recurrence; ``"ref"`` the
-    column loop of ``ref.py``."""
+    column loop of ``ref.py``.  A leading batch axis on every input is the
+    same two launches for the batch."""
     if resolve_impl(impl, lcol) == "cuda":
         return selinv_sweep_cuda(lcol, R, sc_full, start_tile=start_tile)
     return ref.selinv_sweep_ref(lcol, R, sc_full, start_tile=start_tile)

@@ -105,7 +105,14 @@ def solve_panel_ref(l_kk: torch.Tensor, b_panel: torch.Tensor,
                     trans: bool = False) -> torch.Tensor:
     """Multi-RHS triangular panel solve: ``L X = B`` (or ``L^T X = B``) for
     a (..., t, k) panel of k right-hand sides, one L (t, t) for the
-    panels' whole batch."""
+    panels' whole batch, or one L for each panel, ``l_kk (..., t, t)``
+    (each panel then solved alone, so the batch is a loop of unbatched
+    calls bit for bit)."""
+    if l_kk.dim() > 2:
+        t, k = b_panel.shape[-2:]
+        outs = [solve_panel_ref(l, b, trans) for l, b in
+                zip(l_kk.reshape(-1, t, t), b_panel.reshape(-1, t, k))]
+        return torch.stack(outs).reshape(b_panel.shape) if outs else torch.empty_like(b_panel)
     if trans:
         return torch.linalg.solve_triangular(l_kk.mT, b_panel, upper=True)
     return torch.linalg.solve_triangular(l_kk, b_panel, upper=False)
@@ -168,8 +175,11 @@ def band_forward_sweep_ref(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
             acc_a (nat, t, k)    = sum_m R[m, i] @ Y_m  (arrow-RHS correction)
 
     Rows ``m < start_tile`` are never visited and stay zero (the caller
-    guarantees the RHS is zero there).
+    guarantees the RHS is zero there).  A leading batch axis on every input
+    gives the outputs one too, each element the unbatched sweep's.
     """
+    if Dr.dim() == 5:
+        return _over_batch(band_forward_sweep_ref, Dr, R, bd, start_tile=start_tile)
     ndt, b1 = Dr.shape[:2]
     bt = b1 - 1
     yd = torch.zeros_like(bd)
@@ -196,8 +206,12 @@ def band_backward_sweep_ref(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
             X_m = Lmm^{-T}(Y_m - sum_j L[m+j,m]^T X_{m+j} - sum_i R[m,i]^T Xa_i)
 
     The walk stops before ``start_tile``: rows ``m < start_tile`` (an
-    identity-diagonal prefix with zero RHS) are left zero.
+    identity-diagonal prefix with zero RHS) are left zero.  A leading batch
+    axis is taken as :func:`band_forward_sweep_ref` takes it.
     """
+    if Dr.dim() == 5:
+        return _over_batch(lambda *a, **kw: (band_backward_sweep_ref(*a, **kw),),
+                           Dr, R, yd, xa, start_tile=start_tile)[0]
     ndt, b1 = Dr.shape[:2]
     bt = b1 - 1
     nat = R.shape[1]
@@ -352,8 +366,12 @@ def selinv_sweep_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
     columns j = ndt-1..0 and reading the last bt computed Σ columns (zero
     past ndt).  Columns ``j < start_tile`` are an identity-embedding
     prefix: the identity column is fed through the step, which emits an
-    identity Σ panel and a zero arrow row.
+    identity Σ panel and a zero arrow row.  A leading batch axis on every
+    input (``sc_full`` too) is taken as :func:`band_forward_sweep_ref`
+    takes it.
     """
+    if lcol.dim() == 5:
+        return _over_batch(selinv_sweep_ref, lcol, R, sc_full, start_tile=start_tile)
     ndt, b1, t, _ = lcol.shape
     bt = b1 - 1
     nat = R.shape[1]
@@ -406,7 +424,11 @@ def selinv_prepass_ref(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tenso
 
     an identity-prefix column (``j < start_tile``) has ``W = s0 = I`` and
     zeros elsewhere.  The CUDA sweep computes these for all columns at once
-    before its recurrence."""
+    before its recurrence.  A leading batch axis as in
+    :func:`selinv_sweep_ref`."""
+    if lcol.dim() == 5:
+        return _over_batch(lambda *a, **kw: (selinv_prepass_ref(*a, **kw),),
+                           lcol, R, sc_full, start_tile=start_tile)[0]
     ndt, b1, t, _ = lcol.shape
     bt, nat = b1 - 1, R.shape[1]
     eye = torch.eye(t, dtype=lcol.dtype, device=lcol.device)

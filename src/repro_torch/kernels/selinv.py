@@ -15,7 +15,11 @@ recurrence, ``csrc/selinv.cu``, and its one-column tile step,
   one another given G) spread over the ranks, then its diagonal.
 
 Outputs and semantics match ``ref.selinv_sweep_ref``, the ``start_tile``
-identity prefix included.
+identity prefix included.  A leading batch axis (the θ-batch's factors) is
+the same two launches: the pre-pass a block for each column of each
+element, the recurrence a cluster for each element on the same plan, the
+element's pointer offsets the only change, so element i is bit for bit its
+unbatched launch.
 
 :func:`selinv_step_cuda` ports ``selinv_step_pallas``, the standalone tile
 primitive ``ops.selinv_step``: ``u[e] = sum_j s_row[e, j] g_col[j]``, as
@@ -27,9 +31,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import math
+
 import torch
 
 from . import _build
+from .band_cholesky import MAX_BATCH
 from .potrf import check_tiles
 from .tile_sum import SUB, tile_sum_plan
 
@@ -118,12 +125,18 @@ def selinv_plan(t: int, bt: int, nat: int, max_cluster: int = SELINV_CLUSTER) ->
 
 def _check_sweep_inputs(name: str, lcol: torch.Tensor, R: torch.Tensor,
                         sc_full: torch.Tensor) -> int:
+    """``lcol ([B,] ndt, bt+1, t, t)``, ``R ([B,] ndt, nat, t, t)`` and
+    ``sc_full ([B,] nat, nat, t, t)``, one batch for all; returns t."""
     t = check_tiles(name, lcol, R, sc_full)
-    if (lcol.dim() != 4 or R.dim() != 4 or sc_full.dim() != 4
-            or R.shape[0] != lcol.shape[0] or sc_full.shape[:2] != (R.shape[1], R.shape[1])):
-        raise ValueError(f"{name}: want lcol (ndt, bt+1, t, t), R (ndt, nat, t, t) "
-                         f"and sc_full (nat, nat, t, t), got {tuple(lcol.shape)}, "
+    lead = lcol.shape[:-4]
+    if (lcol.dim() not in (4, 5) or R.dim() != lcol.dim() or sc_full.dim() != lcol.dim()
+            or R.shape[:-3] != lcol.shape[:-3]
+            or sc_full.shape[:-2] != lead + (R.shape[-3], R.shape[-3])):
+        raise ValueError(f"{name}: want lcol ([B,] ndt, bt+1, t, t), R ([B,] ndt, nat, t, t) "
+                         f"and sc_full ([B,] nat, nat, t, t), got {tuple(lcol.shape)}, "
                          f"{tuple(R.shape)} and {tuple(sc_full.shape)}")
+    if lead and not 1 <= lead[0] <= MAX_BATCH:
+        raise ValueError(f"{name}: a batch of {lead[0]}, the kernel takes 1 to {MAX_BATCH}")
     return t
 
 
@@ -131,18 +144,20 @@ def selinv_prepass_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tens
                         start_tile: int = 0) -> torch.Tensor:
     """The sweep's pre-pass on the card: ``work (ndt, bt + 2 nat + 2, t,
     t)`` as ``ref.selinv_prepass_ref`` defines it, one launch of a block a
-    column (``ndt >= 1``)."""
+    column (``ndt >= 1``); with a leading batch axis, of a block for each
+    column of each element."""
     t = _check_sweep_inputs("selinv_prepass", lcol, R, sc_full)
-    ndt, b1 = lcol.shape[:2]
-    nat = R.shape[1]
+    lead = tuple(lcol.shape[:-4])
+    ndt, b1 = lcol.shape[-4:-2]
+    nat = R.shape[-3]
     if ndt == 0:
         raise ValueError("selinv_prepass: want ndt >= 1")
-    work = lcol.new_empty((ndt, b1 + 2 * nat + 1, t, t))
+    work = lcol.new_empty(lead + (ndt, b1 + 2 * nat + 1, t, t))
     lib = _build.load("selinv")
     stream = torch.cuda.current_stream(lcol.device).cuda_stream
     _build.check(lib, lib.stiles_selinv_prepass_f32(
-        lcol.data_ptr(), R.data_ptr(), sc_full.data_ptr(), work.data_ptr(), ndt, b1 - 1, nat,
-        t, int(start_tile), stream), "selinv_prepass")
+        lcol.data_ptr(), R.data_ptr(), sc_full.data_ptr(), work.data_ptr(), math.prod(lead),
+        ndt, b1 - 1, nat, t, int(start_tile), stream), "selinv_prepass")
     selinv_prepass_cuda.launches += 1
     return work
 
@@ -161,17 +176,20 @@ def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor
     Two launches: :func:`selinv_prepass_cuda`, then the recurrence, one
     cluster on the plan ``selinv_plan(t, bt, nat, max_cluster)``; a
     cluster the card refuses raises.  ``work`` is a pre-pass result to
-    start from (the recurrence alone, one launch)."""
+    start from (the recurrence alone, one launch).  A leading batch axis
+    ``(B, ...)`` on the inputs is the same two launches, a cluster an
+    element, and the outputs gain it."""
     t = _check_sweep_inputs("selinv_sweep", lcol, R, sc_full)
-    ndt, b1 = lcol.shape[:2]
-    nat = R.shape[1]
+    lead = tuple(lcol.shape[:-4])
+    ndt, b1 = lcol.shape[-4:-2]
+    nat = R.shape[-3]
     panels = torch.empty_like(lcol)
     acols = torch.empty_like(R)
     if ndt == 0:
         return panels, acols
     if work is None:
         work = selinv_prepass_cuda(lcol, R, sc_full, start_tile)
-    elif work.shape != (ndt, b1 + 2 * nat + 1, t, t):
+    elif work.shape != lead + (ndt, b1 + 2 * nat + 1, t, t):
         raise ValueError(f"selinv_sweep: work {tuple(work.shape)} is not the pre-pass of "
                          f"these inputs")
     check_tiles("selinv_sweep", work)
@@ -179,8 +197,8 @@ def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor
     lib = _build.load("selinv")
     stream = torch.cuda.current_stream(lcol.device).cuda_stream
     _build.check(lib, lib.stiles_selinv_sweep_f32(
-        work.data_ptr(), panels.data_ptr(), acols.data_ptr(), ndt, b1 - 1, nat, t,
-        plan.cluster, plan.diag_split, stream), "selinv_sweep")
+        work.data_ptr(), panels.data_ptr(), acols.data_ptr(), math.prod(lead), ndt, b1 - 1,
+        nat, t, plan.cluster, plan.diag_split, stream), "selinv_sweep")
     selinv_sweep_cuda.launches += 1
     return panels, acols
 

@@ -10,10 +10,11 @@ broadcasts, then one trailing update over the block
 sweep).
 
 :func:`solve_panel_cuda` ports ``solve_panel_pallas``: ``L X = B`` or
-``L^T X = B`` for (..., t, k) panels of any width k, a block for each
-panel and each chunk of columns (:func:`solve_panel_chunk`), the chunk
-transposed in shared memory and solved by the blocked substitution the
-band-solve sweeps use (``csrc/tile.cuh::solve_few_rows``).
+``L^T X = B`` for (..., t, k) panels of any width k, against one L or
+one L a panel (the batched solves' corner), a block for each panel and
+each chunk of columns (:func:`solve_panel_chunk`), the chunk transposed in
+shared memory and solved by the blocked substitution the band-solve sweeps
+use (``csrc/tile.cuh::solve_few_rows``).
 
 The plain versions are ``ref.trsm_ref`` and ``ref.solve_panel_ref``;
 ``ops.trsm`` and ``ops.solve_panel`` choose between them by device.
@@ -89,16 +90,19 @@ def solve_panel_chunk(nb: int, k: int, at_once: int,
 def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False, *,
                      chunk: Optional[int] = None) -> torch.Tensor:
     """``L X = B`` (or ``L^T X = B``) on the card for a (..., t, k) batch of
-    panels; ``l_kk`` is one (t, t) tile for the whole batch.  One launch;
-    ``chunk`` (columns a block, see :func:`solve_panel_chunk`) is for
-    measurement: every chunk gives the same bits."""
+    panels; ``l_kk`` is one (t, t) tile for the whole batch, or (..., t,
+    t), one L for each panel (panel i is then bit for bit its launch alone
+    against its L).  One launch; ``chunk`` (columns a block, see
+    :func:`solve_panel_chunk`) is for measurement: every chunk gives the
+    same bits."""
     t = check_tiles("solve_panel", l_kk)
     check_cuda("solve_panel", b_panel, aligned=False)
-    if l_kk.dim() != 2:
-        raise ValueError(f"solve_panel: want one ({t}, {t}) L, got {tuple(l_kk.shape)}")
     if b_panel.dim() < 2 or b_panel.shape[-2] != t:
         raise ValueError(f"solve_panel: want (..., {t}, k) panels, got "
                          f"{tuple(b_panel.shape)}")
+    if l_kk.dim() != 2 and l_kk.shape[:-2] != b_panel.shape[:-2]:
+        raise ValueError(f"solve_panel: want one ({t}, {t}) L or one a panel, got L "
+                         f"{tuple(l_kk.shape)} for panels {tuple(b_panel.shape)}")
     k = b_panel.shape[-1]
     out = torch.empty_like(b_panel)
     nb = b_panel.numel() // (t * k) if k else 0
@@ -108,11 +112,12 @@ def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = Fa
     if nb * chunks > 2 ** 31 - 1:
         raise ValueError(f"solve_panel: at most 2^31 - 1 blocks, got {nb * chunks}")
     vec = k % 4 == 0 and b_panel.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    per_l = nb if l_kk.dim() == 2 else 1
     lib = _build.load("solve_panel")
     stream = torch.cuda.current_stream(b_panel.device).cuda_stream
     _build.check(lib, lib.stiles_solve_panel_f32(l_kk.data_ptr(), b_panel.data_ptr(),
-                                                 out.data_ptr(), nb, t, k, chunk, int(trans),
-                                                 int(vec), stream), "solve_panel")
+                                                 out.data_ptr(), nb, t, k, chunk, per_l,
+                                                 int(trans), int(vec), stream), "solve_panel")
     solve_panel_cuda.launches += 1
     return out
 

@@ -1,10 +1,13 @@
 """The port on the card: each CUDA kernel against its plain version, and
 ``factorize_window`` (fused, partitioned and window routes),
-``factorize_window_batched``, ``factorize_tasklist``, the solves and the
-selected inverse on the card against the CPU path, at rtol = atol = 2e-4
-(float32 on both sides, different summation orders).  The partitioned
-sweep is also held bit for bit to the fused one on block-separable input,
-and each element of a batched sweep to the unbatched launch.
+``factorize_window_batched`` (with and without ``regularize=``),
+``factorize_tasklist``, the solves, ``solve_many_batched``, the selected
+inverse and ``selinv_batched`` on the card against the CPU path, at rtol =
+atol = 2e-4 (float32 on both sides, different summation orders).  The
+partitioned sweep is also held bit for bit to the fused one on
+block-separable input, and each element of a batched kernel launch (the
+sweeps, the band solves, ``solve_panel`` with one L a panel, the selinv
+pre-pass and recurrence) to its unbatched launch.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of jax or of the JAX package, so it runs where only
@@ -20,16 +23,18 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from repro_torch.core import (BandedCTSF, PartitionPlan, SolverOptions, TileGrid, TileMatrix,
+from repro_torch.core import (STATUS_FAILED, STATUS_OK, STATUS_RECOVERED, BandedCTSF,
+                              PartitionPlan, SolverOptions, TileGrid, TileMatrix,
                               factorize_tasklist, factorize_window, factorize_window_batched,
                               logdet, marginal_variances, sample_gmrf_many, selected_inverse,
-                              solve_many)
+                              selinv_batched, solve_many, solve_many_batched)
 from repro_torch.data import block_separable_arrowhead, make_arrowhead
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.band_cholesky import (MAX_SWEEP_CLUSTER,
                                                band_cholesky_partitioned_sweep_cuda,
                                                band_cholesky_sweep_cuda, sweep_plan)
-from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda
+from repro_torch.kernels.band_solve import (band_backward_sweep_cuda, band_forward_sweep_cuda,
+                                           card_solve_plan)
 from repro_torch.kernels.band_update import band_update_cuda
 from repro_torch.kernels.gemm import (GEMM_SPLITS, geadd_cuda, geadd_floor_cuda, gemm_cuda,
                                       syrk_cuda)
@@ -210,8 +215,10 @@ def test_solve_panel_kernel(cuda, t, trans, k):
     b = torch.from_numpy(rng.standard_normal((3, t, k)).astype(np.float32)).to(cuda)
     torch.testing.assert_close(solve_panel_cuda(l[0], b, trans=trans),
                                ref.solve_panel_ref(l[0], b, trans=trans), **TOL)
+    # one L a panel is taken (test_solve_panel_kernel_one_l_per_panel);
+    # any other stack of Ls is refused
     with pytest.raises(ValueError, match="one"):
-        solve_panel_cuda(l, b, trans=trans)
+        solve_panel_cuda(l[:2], b, trans=trans)
     assert solve_panel_cuda(l[0], b[..., :0], trans=trans).shape == (3, t, 0)
 
 
@@ -747,7 +754,7 @@ def test_selinv_sweep_kernel_refuses_a_bad_plan(cuda):
                            (plan.cluster, plan.diag_split + 1)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(lib, lib.stiles_selinv_sweep_f32(
-                work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 4, 4, 4, 64, cluster,
+                work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 1, 4, 4, 4, 64, cluster,
                 split, stream), "selinv_sweep")
 
 
@@ -958,7 +965,8 @@ def test_solve_panel_refuses_a_bad_chunk(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(lib, lib.stiles_solve_panel_f32(l.data_ptr(), b.data_ptr(), b.data_ptr(),
-                                                     1, 16, 5, 16, 0, 0, stream), "solve_panel")
+                                                     1, 16, 5, 16, 1, 0, 0, stream),
+                     "solve_panel")
 
 
 @pytest.mark.parametrize("t", TILES)
@@ -1061,3 +1069,176 @@ def test_solve_graph_ref_captures_nothing(cuda):
     captures = corner_graphs.captures
     solve_many(f, B, options=SolverOptions(impl="ref"))
     assert corner_graphs.captures == captures
+
+
+# ---------------------------------------------------------------------------
+# the θ-batch's read-out: the batched band solves, solve_panel with one L a
+# panel, the batched selinv sweep, and breakdown recovery
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 33])
+def test_solve_panel_kernel_one_l_per_panel(cuda, t, trans, k):
+    """One L a panel (the batched corner): one launch, against the plain
+    loop, and each panel bit for bit its launch alone against its L."""
+    rng = np.random.default_rng(7 * t + k)
+    l = torch.from_numpy(_lower(rng, 3, t)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((3, t, k)).astype(np.float32)).to(cuda)
+    before = solve_panel_cuda.launches
+    got = solve_panel_cuda(l, b, trans=trans)
+    assert solve_panel_cuda.launches == before + 1
+    torch.testing.assert_close(got, ref.solve_panel_ref(l, b, trans=trans), **TOL)
+    for i in range(3):
+        assert torch.equal(got[i], solve_panel_cuda(l[i], b[i].contiguous(), trans=trans))
+
+
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("ndt,bt,nat", [(5, 1, 0), (6, 4, 4), (9, 4, 1)])
+@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("start_tile", [0, 2])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_batched_band_sweep_kernels(cuda, t, ndt, bt, nat, k, start_tile, batch):
+    """Both band sweeps on a batch: one launch each, against the plain
+    versions, and each element bit for bit its unbatched launch at the
+    batch's chunk width; the batch-1 plan is the unbatched plan."""
+    rng = np.random.default_rng(1000 * batch + 10 * ndt + k)
+    els = [_band_factor(rng, ndt, bt, nat, t, cuda) for _ in range(batch)]
+    Dr, R = torch.stack([e[0] for e in els]), torch.stack([e[1] for e in els])
+    bd = torch.from_numpy(rng.standard_normal((batch, ndt, t, k)).astype(np.float32)).to(cuda)
+    bd[:, :start_tile] = 0.0
+    xa = torch.from_numpy(rng.standard_normal((batch, nat, t, k)).astype(np.float32)).to(cuda)
+    before = (band_forward_sweep_cuda.launches, band_backward_sweep_cuda.launches)
+    yd, acca = band_forward_sweep_cuda(Dr, R, bd, start_tile)
+    xd = band_backward_sweep_cuda(Dr, R, bd, xa, start_tile)
+    assert (band_forward_sweep_cuda.launches, band_backward_sweep_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ref.band_forward_sweep_ref(Dr, R, bd, start_tile) + (
+        ref.band_backward_sweep_ref(Dr, R, bd, xa, start_tile),)
+    for g, w in zip((yd, acca, xd), want):
+        torch.testing.assert_close(g, w, **TOL)
+    width = card_solve_plan(t, bt, nat, k, device=cuda, batch=batch).width
+    if batch == 1:
+        assert width == card_solve_plan(t, bt, nat, k, device=cuda).width
+    for i in range(batch):
+        one = band_forward_sweep_cuda(Dr[i], R[i], bd[i], start_tile, width=width) + (
+            band_backward_sweep_cuda(Dr[i], R[i], bd[i], xa[i], start_tile, width=width),)
+        assert all(torch.equal(g[i], o) for g, o in zip((yd, acca, xd), one))
+
+
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("bt,nat", [(0, 1), (1, 0), (4, 4)])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_batched_selinv_sweep_kernel(cuda, t, bt, nat, batch):
+    """The selinv pre-pass and recurrence on a batch: one launch each,
+    against the plain versions, each element bit for bit its unbatched
+    launch."""
+    els = [_selinv_inputs(t, bt, nat, 6, cuda, seed=s) for s in range(batch)]
+    lcol, R, sc = (torch.stack([e[q] for e in els]) for q in range(3))
+    for start in (0, 2):
+        before = (selinv_prepass_cuda.launches, selinv_sweep_cuda.launches)
+        work = selinv_prepass_cuda(lcol, R, sc, start)
+        got = selinv_sweep_cuda(lcol, R, sc, start, work=work)
+        assert (selinv_prepass_cuda.launches, selinv_sweep_cuda.launches) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(work, ref.selinv_prepass_ref(lcol, R, sc, start), **TOL)
+        for g, w in zip(got, ref.selinv_sweep_ref(lcol, R, sc, start)):
+            torch.testing.assert_close(g, w, **TOL)
+        for i in range(batch):
+            assert torch.equal(work[i], selinv_prepass_cuda(lcol[i], R[i], sc[i], start))
+            one = selinv_sweep_cuda(lcol[i], R[i], sc[i], start)
+            assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+def _card_scounts():
+    """:func:`_scounts` as launches on the card: ``solve_panel``'s count less
+    the launches the corner graphs' captures recorded, plus those their
+    replays made (a first call of a key both runs the corner and captures
+    it)."""
+    from repro_torch.core.solve import corner_graphs
+    fwd, bwd, panel, sweep, pre = _scounts()
+    name = solve_panel_cuda.__name__
+    return (fwd, bwd, panel - corner_graphs.recorded[name] + corner_graphs.replayed[name],
+            sweep, pre)
+
+
+def _theta_batch_on(device, faults=False, seed=0):
+    """Four θ-candidates ``τ A + δ I`` of one grid (t = 16, nat = 1) on
+    ``device``; with ``faults`` element 1 made indefinite (a band diagonal
+    tile dropped by 10 x its mean |diagonal|) and element 2 given a NaN on
+    a structural nonzero, placed symmetrically."""
+    A, st = make_arrowhead(240, 24, 16, rho=0.7, seed=seed)
+    grid = TileGrid(st, t=16)
+    mats = [BandedCTSF.from_sparse((tau * A + delta * sp.identity(A.shape[0])).tocsr(), grid,
+                                   device="cpu")
+            for tau, delta in ((1.0, 0.0), (0.5, 0.25), (2.0, 0.1), (1.5, 0.3))]
+    Dr, R, C = (torch.stack(x) for x in zip(*(m.arrays() for m in mats)))
+    if faults:
+        d = torch.diagonal(Dr[1, :, 0], dim1=-2, dim2=-1)
+        Dr[1, 3, 0] -= 10.0 * d.abs().mean() * torch.eye(16)
+        R[2, 1, 0, 2, 5] = float("nan")
+    return BandedCTSF(grid, Dr.to(device), R.to(device), C.to(device))
+
+
+def test_regularized_batch_on_the_card(cuda):
+    """factorize_window_batched(regularize=True) on the card: the statuses
+    the CPU ladder gives (OK, RECOVERED, FAILED, OK), healthy elements bit
+    for bit the unregularized call, the recovered factor the CPU path's;
+    the clean batch bit for bit the call without regularize=."""
+    mb = _theta_batch_on(cuda, faults=True)
+    f = factorize_window_batched(mb, options=SolverOptions(regularize=True))
+    plain = factorize_window_batched(mb)
+    cpu = factorize_window_batched(_theta_batch_on("cpu", faults=True),
+                                   options=SolverOptions(regularize=True))
+    assert f.info.status.tolist() == cpu.info.status.tolist() == [
+        STATUS_OK, STATUS_RECOVERED, STATUS_FAILED, STATUS_OK]
+    assert f.info.attempts.tolist() == cpu.info.attempts.tolist()
+    assert f.info.first_bad_tile.tolist() == cpu.info.first_bad_tile.tolist()
+    torch.testing.assert_close(f.info.tau.cpu(), cpu.info.tau, rtol=1e-6, atol=0.0,
+                               equal_nan=True)
+    for i in (0, 3):
+        assert all(torch.equal(a[i], b[i]) for a, b in zip(f.ctsf.arrays(), plain.ctsf.arrays()))
+    for a, b in zip(f.ctsf.arrays(), cpu.ctsf.arrays()):
+        torch.testing.assert_close(a[1].cpu(), b[1], **TOL)
+    clean = _theta_batch_on(cuda)
+    g0 = factorize_window_batched(clean)
+    g1 = factorize_window_batched(clean, options=SolverOptions(regularize=True))
+    assert g1.info.status.tolist() == [STATUS_OK] * 4
+    assert all(torch.equal(a, b) for a, b in zip(g0.ctsf.arrays(), g1.ctsf.arrays()))
+
+
+def test_batched_read_out_on_the_card(cuda):
+    """solve_many_batched and selinv_batched on the card against the CPU
+    path; a clean batch is one forward, one backward and 2 nat solve_panel
+    launches, a recovered one twice that (the refinement pass), and the
+    clean elements of the recovered batch bit for bit the clean batch's;
+    selinv_batched one pre-pass and one recurrence launch."""
+    grid = _theta_batch_on("cpu").grid
+    nat = grid.n_arrow_tiles
+    B = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, grid.padded_n, 5)).astype(np.float32))
+    outs = {}
+    for faults in (False, True):
+        mb = _theta_batch_on(cuda, faults)
+        f = factorize_window_batched(mb, options=SolverOptions(regularize=True))
+        fc = factorize_window_batched(_theta_batch_on("cpu", faults),
+                                      options=SolverOptions(regularize=True))
+        before = _card_scounts()
+        X = solve_many_batched(f, B.to(cuda))
+        rounds = 2 if faults else 1
+        assert [a - b for a, b in zip(_card_scounts(), before)] == [
+            rounds, rounds, 2 * nat * rounds, 0, 0]
+        want = solve_many_batched(fc, B)
+        keep = [0, 1, 3] if faults else [0, 1, 2, 3]
+        torch.testing.assert_close(X[keep].cpu(), want[keep], **TOL)
+        outs[faults] = X
+        if not faults:
+            before = _scounts()
+            sig = selinv_batched(f)
+            assert [a - b for a, b in zip(_scounts(), before)] == [0, 0, 0, 1, 1]
+            sc = selinv_batched(fc)
+            for a, b in zip(sig.arrays(), sc.arrays()):
+                torch.testing.assert_close(a.cpu(), b, **TOL)
+            torch.testing.assert_close(sig.diagonal().cpu(), sc.diagonal(), **TOL)
+    for i in (0, 3):
+        assert torch.equal(outs[True][i], outs[False][i])

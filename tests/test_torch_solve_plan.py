@@ -18,6 +18,7 @@ inputs at rtol = atol = 2e-4: ``repro``'s Pallas sweeps in interpret mode
 and both packages' plain sweeps.  The emulation is for these tests only;
 the kernels' plain versions stay ``ref.band_forward_sweep_ref`` and
 ``ref.band_backward_sweep_ref``."""
+import dataclasses
 import functools
 import importlib.util
 import inspect
@@ -251,12 +252,14 @@ def test_solve_schedule_respects_the_barriers(ndt, bt, nat, start, backward):
 
 
 def test_solve_plan_depends_on_its_arguments_only():
-    """The plan is a function of (t, bt, nat, k, max_cluster, at_once)
-    alone; the default cap is 16; Table II #5's shape takes 8 blocks (7
-    units), #2's 5.  The chunk width is the narrowest whose chunks number
-    at most ``at_once`` (8 if none), never a function of the cap."""
+    """The plan is a function of (t, bt, nat, k, max_cluster, at_once,
+    batch) alone; the default cap is 16; Table II #5's shape takes 8
+    blocks (7 units), #2's 5.  The chunk width is the narrowest whose
+    chunks number at most ``at_once`` (8 if none), never a function of the
+    cap."""
     assert list(inspect.signature(solve_plan).parameters) == ["t", "bt", "nat", "k",
-                                                              "max_cluster", "at_once"]
+                                                              "max_cluster", "at_once",
+                                                              "batch"]
     assert solve_plan(64, 4, 4, 32, at_once=14) == solve_plan(64, 4, 4, 32, SOLVE_CLUSTER,
                                                                 at_once=14)
     assert SOLVE_CLUSTER == 16
@@ -273,6 +276,30 @@ def test_solve_plan_depends_on_its_arguments_only():
                 plan = solve_plan(64, bt, nat, k, cap, at_once=at_once)
                 assert (plan.width, plan.chunks) == (width, chunks)
                 assert plan.chunks <= at_once or width == 8
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_solve_plan_width_counts_the_batch(batch):
+    """With a batch, the width is the narrowest whose ``batch x chunks``
+    clusters all run at once, else 8: at Table II #5's shape (the card
+    holds 14 clusters of 8) a batch of 8 at k = 32 takes chunks of 8 (32
+    clusters, more than fit) and at k = 1 one column (8 clusters).  The
+    batch changes the width alone, and a batch of 1 is the unbatched plan
+    at every k, cap and at_once."""
+    for k, width in ((1, 1), (2, 1 if batch == 1 else 2), (32, 4 if batch == 1 else 8),
+                     (33, 4 if batch == 1 else 8), (200, 8)):
+        plan = solve_plan(64, 4, 4, k, at_once=14, batch=batch)
+        assert plan.width == width and plan.chunks == -(-k // width)
+        assert batch * plan.chunks <= 14 or width == 8
+        assert plan == dataclasses.replace(solve_plan(64, 4, 4, k, at_once=14),
+                                           width=width, chunks=-(-k // width))
+    for k in KS + [32, 64]:
+        for cap in CLUSTERS:
+            for at_once in (1, 4, 14, 132):
+                assert solve_plan(64, 4, 1, k, cap, at_once=at_once, batch=1) == solve_plan(
+                    64, 4, 1, k, cap, at_once=at_once)
+    with pytest.raises(ValueError, match="batch"):
+        solve_plan(64, 4, 4, 32, at_once=14, batch=0)
 
 
 def test_solve_plan_refusals():
