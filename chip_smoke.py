@@ -117,6 +117,28 @@ Phases, each of which raises on a failed check:
      a hand-built FactorInfo on matrix 5 (tau = 1e-2 diag_scale), the same
      column rule;
    - python -m repro_torch.quickstart's main, its task-list agreement;
+   - "bucketing" (canonical-grid bucketing, GridBucketPolicy(), t = 64):
+     matrix 5 embedded on its (256, 4, 4) rung, prefix 99:
+     factorize_window -> logdet -> solve -> solve_many (k = 32) ->
+     sample_gmrf_many (32 draws) -> selected_inverse -> marginal_variances
+     (both methods), each with the plain path's launches and held in the
+     source layout to the same call on the plain factor (rtol = atol =
+     2e-4, logdet 1e-5 relative; the draws bit for bit or within 2e-4,
+     recorded); matrix 4's partitioned route with its plan shifted past the
+     prefix and matrix 5's window route, each restricted factor against its
+     plain route's; a mixed stream (make_arrowhead at n = 10,200, 9,000 and
+     8,456 with #5's bandwidth and arrow, all on one rung), each a θ-batch
+     of 8 through factorize_window_batched(policy), solve_many_batched (k =
+     32) and selinv_batched: one entry a cache (batched_window,
+     batched_solve, batched_selinv) over the stream, the corner's graphs
+     (cleared first) captured for the first grid only, each element against
+     the unbucketed calls; stack_ctsf([#5, #4, #2], policy) through the
+     concurrent entry points, one launch a sweep for the three, each
+     element restricted against its own plain factor and read-out; a
+     θ-batch of 5 with bucket=True: one sweep launch of 8, bit for bit
+     bucket=False (factor, k = 32 solves, Σ; a failure is reported after
+     the timings), and solves of 5, 6, 7 and 8 capturing the corner's
+     graphs once;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -170,7 +192,12 @@ Phases, each of which raises on a failed check:
    alone), solve_many_batched (k = 1 and 32) and selinv_batched call and
    device time against one candidate's call and a loop of 8; and
    factorize_window_batched with regularize=True against the call without
-   it on the clean θ-batch, in turns (at most 1.25 times).
+   it on the clean θ-batch, in turns (at most 1.25 times); bucketing on
+   matrix 5, canonical grid against source grid (call and device time,
+   medians of 7): factorize_window + logdet, the sweep alone (and the
+   canonical sweep with no prefix skipped), solve_many (k = 32),
+   selected_inverse; the stream's padded flop overheads; a batch of 5 run
+   as 8 against unpadded.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -228,6 +255,11 @@ READ_BATCHES = (1, 3)
 INDEFINITE, NAN_ELEMENT = 2, 5
 # regularize=True on a clean θ-batch: its call against the call without it
 CLEAN_OVERHEAD_LIMIT = 1.25
+# canonical-grid bucketing: a logdet across the embedding against the plain
+# path's, relative; the mixed stream's sizes, make_arrowhead with #5's
+# bandwidth and arrow (ndt 157, 138 and 129: all on the (256, 4, 4) rung)
+LOGDET_RTOL = 1e-5
+STREAM_NS = (10200, 9000, 8456)
 # (τ, δ) of the task list's second matrix of one pattern, τ A + δ I
 THETA_STEP = (1.5, 0.25)
 # the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
@@ -2026,6 +2058,427 @@ def takahashi_column(torch, f, sigma, j):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, bucketing: canonical-grid bucketing at full width
+# ---------------------------------------------------------------------------
+
+def close_all(torch, got, want, what, tol=TOL):
+    """``assert_close`` over matching sequences of tensors; the largest
+    difference."""
+    return max(assert_close(torch, a, b, f"{what} [{i}]", tol=tol)
+               for i, (a, b) in enumerate(zip(got, want)))
+
+
+def logdet_gate(got, want, what):
+    """The logdets' relative difference, at most LOGDET_RTOL."""
+    rel = ((got - want).abs() / want.abs()).max().item()
+    if not rel <= LOGDET_RTOL:
+        raise AssertionError(f"{what}: logdet relative difference {rel:.3e} "
+                             f"(limit {LOGDET_RTOL})")
+    return rel
+
+
+def run_bucketed_main(torch, m, kern_counts):
+    """Table II matrix 5 under ``GridBucketPolicy()``: factorize_window ->
+    logdet -> solve (k = 1) -> solve_many (k = 32) -> sample_gmrf_many (32
+    draws) -> selected_inverse -> marginal_variances (both methods), each
+    with the launches of the plain path's call.  Returns the embedded
+    factor, the results and the launches."""
+    from repro_torch.core import (GridBucketPolicy, SolverOptions, factorize_window, logdet,
+                                  marginal_variances, sample_gmrf_many, selected_inverse,
+                                  solve, solve_many)
+    pol = SolverOptions(policy=GridBucketPolicy())
+    g = m.grid
+    nat, n, dev = g.n_arrow_tiles, g.structure.n, m.device
+    per_solve = {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2 * nat}
+    launches, out = {}, {}
+    fp, launches["factorize_window"] = launch_delta(
+        kern_counts, lambda: factorize_window(m, options=pol),
+        {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}, "bucketed factorize_window")
+    out["logdet"] = logdet(fp)
+    out["B"] = B = theta_rhs(torch, g, 1, 32, seed=21, device=dev)[0]
+    out["solve"], launches["solve"] = launch_delta(
+        kern_counts, lambda: solve(fp, B[:, 0]), per_solve, "bucketed solve")
+    out["solve_many"], launches["solve_many"] = launch_delta(
+        kern_counts, lambda: solve_many(fp, B), per_solve, "bucketed solve_many")
+    out["draws"], launches["sample_gmrf_many"] = launch_delta(
+        kern_counts, lambda: sample_gmrf_many(fp, num=32, generator=torch.Generator(
+            device=dev).manual_seed(7)),
+        {"band_backward_sweep": 1, "solve_panel": nat}, "bucketed sample_gmrf_many")
+    out["sigma"], launches["selected_inverse"] = launch_delta(
+        kern_counts, lambda: selected_inverse(fp), {"selinv_sweep": 1, "selinv_prepass": 1},
+        "bucketed selected_inverse")
+    out["idx"] = idx = [0, n // 2, n - g.structure.arrow, n - 1]
+    for method, expect in (("selinv", {"selinv_sweep": 1, "selinv_prepass": 1}),
+                           ("panels", {"band_forward_sweep": 1, "solve_panel": nat})):
+        opts = SolverOptions(policy=GridBucketPolicy(), method=method)
+        out[method], launches[f"marginal_variances_{method}"] = launch_delta(
+            kern_counts, lambda: marginal_variances(fp, idx, options=opts), expect,
+            f"bucketed marginal_variances {method}")
+    return fp, out, launches
+
+
+def check_bucketed_main(torch, m, f, fp, out):
+    """Every result of :func:`run_bucketed_main`, in the source layout,
+    against the same call on the plain factor ``f`` of phase 3 (whose
+    float64 gates it passed), at rtol = atol = TOL, logdet to LOGDET_RTOL
+    relative; the draws bit for bit or at TOL (recorded).  Returns the
+    record."""
+    from repro_torch.core import (SolverOptions, logdet, marginal_variances, sample_gmrf_many,
+                                  selected_inverse, solve, solve_many)
+    g, cg = m.grid, fp.ctsf.grid
+    rec = dict(source=[g.n_diag_tiles, g.band_tiles, g.n_arrow_tiles],
+               canonical=[cg.n_diag_tiles, cg.band_tiles, cg.n_arrow_tiles],
+               pad=cg.n_diag_tiles - g.n_diag_tiles, status=fp.status.tolist())
+    if fp.source_grid != g or rec["status"][1:] != [0.0, -1.0]:
+        raise AssertionError(f"bucketed factorize_window: source grid or status wrong: {rec}")
+    rec["factor_max_abs_diff"] = close_all(torch, fp.restrict().ctsf.arrays(), f.ctsf.arrays(),
+                                           "bucketed factor against the plain factor")
+    rec["logdet_rel_diff"] = logdet_gate(out["logdet"], logdet(f), "bucketed factorize_window")
+    B = out["B"]
+    rec["solve_max_abs_diff"] = assert_close(torch, out["solve"], solve(f, B[:, 0]),
+                                             "bucketed solve")
+    rec["solve_many_max_abs_diff"] = assert_close(torch, out["solve_many"], solve_many(f, B),
+                                                  "bucketed solve_many")
+    draws = sample_gmrf_many(f, num=32, generator=torch.Generator(
+        device=m.device).manual_seed(7))
+    rec["draws_bit_identical"] = torch.equal(out["draws"], draws)
+    rec["draws_max_abs_diff"] = assert_close(torch, out["draws"], draws,
+                                             "bucketed sample_gmrf_many")
+    if out["sigma"].grid != g:
+        raise AssertionError("bucketed selected_inverse: Σ not on the source grid")
+    rec["sigma_max_abs_diff"] = close_all(torch, out["sigma"].arrays(),
+                                          selected_inverse(f).arrays(),
+                                          "bucketed selected_inverse")
+    for method in ("selinv", "panels"):
+        rec[f"variances_{method}_max_abs_diff"] = assert_close(
+            torch, out[method], marginal_variances(f, out["idx"], options=SolverOptions(
+                method=method)), f"bucketed marginal_variances {method}")
+    return rec
+
+
+def run_bucketed_routes(torch, m5, wf5, m4, plan4, pf4, kern_counts):
+    """The other routes under the policy: Table II #4's partitioned route
+    with its plan shifted past the prefix (one partitioned sweep, a geadd a
+    tree level) and #5's window route (the source grid's launches: the
+    prefix columns launch nothing); each factor restricted against its
+    plain route's factor, at TOL.  Returns the record."""
+    from repro_torch.core import GridBucketPolicy, SolverOptions, factorize_window
+    pol = GridBucketPolicy()
+    nat4 = m4.grid.n_arrow_tiles
+    f4, l4 = launch_delta(
+        kern_counts, lambda: factorize_window(m4, options=SolverOptions(
+            partition_plan=plan4, policy=pol)),
+        {"band_cholesky_partitioned_sweep": 1, "geadd": tree_levels(plan4.n_partitions),
+         "potrf": nat4, "trsm": nat4}, "bucketed partitioned factorize_window")
+    pad4 = f4.ctsf.grid.n_diag_tiles - m4.grid.n_diag_tiles
+    w5, l5 = launch_delta(
+        kern_counts, lambda: factorize_window(m5, options=SolverOptions(sweep="window",
+                                                                        policy=pol)),
+        window_launches(m5.grid), "bucketed window route")
+    cg4 = f4.ctsf.grid
+    return dict(
+        partitioned=dict(matrix=PARTITIONED_IDS[0], launches=l4,
+                         canonical=[cg4.n_diag_tiles, cg4.band_tiles, cg4.n_arrow_tiles],
+                         shifted_boundaries=list(plan4.shifted(pad4).boundaries),
+                         max_abs_diff=close_all(torch, f4.restrict().ctsf.arrays(),
+                                                pf4.ctsf.arrays(), "bucketed partitioned")),
+        window=dict(matrix=TABLE2_IDS[0], launches=l5,
+                    max_abs_diff=close_all(torch, w5.restrict().ctsf.arrays(),
+                                           wf5.ctsf.arrays(), "bucketed window route")))
+
+
+def stream_matrices(torch):
+    """The mixed stream on one rung: ``make_arrowhead`` with Table II #5's
+    bandwidth and arrow (200, 200) at each of STREAM_NS, t = 64, seed 0, on
+    the card; each with its θ-batch of BATCH and seeded panels (k = 32)."""
+    from repro_torch.core import BandedCTSF, TileGrid
+    from repro_torch.data import make_arrowhead
+    out = []
+    for i, n in enumerate(STREAM_NS):
+        A, st = make_arrowhead(n, 200, 200, seed=0)
+        m = BandedCTSF.from_sparse(A, TileGrid(st, t=64))
+        mb, _ = theta_batch(torch, m, BATCH, seed=100 + i)
+        out.append((m, mb, theta_rhs(torch, m.grid, BATCH, 32, seed=200 + i, device=m.device)))
+    return out
+
+
+def batched_caches():
+    from repro_torch.core.cholesky import _BATCHED_WINDOW_CACHE
+    from repro_torch.core.selinv import _BATCHED_SELINV_CACHE
+    from repro_torch.core.solve import _BATCHED_SOLVE_CACHE
+    return {"batched_window": _BATCHED_WINDOW_CACHE, "batched_solve": _BATCHED_SOLVE_CACHE,
+            "batched_selinv": _BATCHED_SELINV_CACHE}
+
+
+def run_stream(torch, stream, kern_counts):
+    """Each grid of the stream as a θ-batch through
+    factorize_window_batched(policy) -> solve_many_batched (k = 32) ->
+    selinv_batched, with one call's launches each; the three caches gain one
+    entry each over the stream, and the corner's graphs (cleared first) are
+    captured for the first grid only.  Returns the results and the
+    record."""
+    from repro_torch.core import (GridBucketPolicy, SolverOptions, factorize_window_batched,
+                                  selinv_batched, solve_many_batched)
+    from repro_torch.core.solve import corner_graphs
+    pol = SolverOptions(policy=GridBucketPolicy())
+    caches = batched_caches()
+    before = {k: set(c.keys()) for k, c in caches.items()}
+    corner_graphs.clear()
+    outs, captures, rec = [], [], []
+    for m, mb, B in stream:
+        nat = m.grid.n_arrow_tiles
+        c0 = corner_graphs.captures
+        fb, lf = launch_delta(kern_counts, lambda: factorize_window_batched(mb, options=pol),
+                              {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat},
+                              "stream factorize_window_batched")
+        X, ls = launch_delta(kern_counts, lambda: solve_many_batched(fb, B),
+                             {"band_forward_sweep": 1, "band_backward_sweep": 1,
+                              "solve_panel": 2 * nat}, "stream solve_many_batched")
+        S, lsel = launch_delta(kern_counts, lambda: selinv_batched(fb),
+                               {"selinv_sweep": 1, "selinv_prepass": 1}, "stream selinv_batched")
+        captures.append(corner_graphs.captures - c0)
+        g, cg = m.grid, fb.ctsf.grid
+        rec.append(dict(n=g.structure.n, source=[g.n_diag_tiles, g.band_tiles, nat],
+                        canonical=[cg.n_diag_tiles, cg.band_tiles, cg.n_arrow_tiles],
+                        pad=cg.n_diag_tiles - g.n_diag_tiles, corner_captures=captures[-1],
+                        launches=dict(factorize_window_batched=lf, solve_many_batched=ls,
+                                      selinv_batched=lsel)))
+        outs.append((fb, X, S))
+    added = {k: len(set(c.keys()) - before[k]) for k, c in caches.items()}
+    if any(v != 1 for v in added.values()):
+        raise AssertionError(f"the stream added {added} cache entries, want one each")
+    if captures[0] != 2 or any(captures[1:]):
+        raise AssertionError(f"the stream's corner graphs were captured {captures} times a "
+                             "grid, want 2 (k = 32 both ways) for the first and none after")
+    if len({tuple(r["canonical"]) for r in rec}) != 1:
+        raise AssertionError(f"the stream is not on one rung: {rec}")
+    return outs, dict(grids=rec, cache_entries_added=added,
+                      cache_stats={k: c.stats() for k, c in caches.items()})
+
+
+def check_stream(torch, stream, outs):
+    """Each element of the stream's bucketed results against the
+    unbucketed calls on its θ-batch, at TOL."""
+    from repro_torch.core import factorize_window_batched, selinv_batched, solve_many_batched
+    errs = []
+    for (m, mb, B), (fb, X, S) in zip(stream, outs):
+        f0 = factorize_window_batched(mb)
+        what = f"stream n={m.grid.structure.n}"
+        errs.append(dict(
+            n=m.grid.structure.n,
+            factor=close_all(torch, fb.restrict().ctsf.arrays(), f0.ctsf.arrays(),
+                             f"{what} factor"),
+            logdet_rel=logdet_gate(fb.logdet(), f0.logdet(), what),
+            solve=assert_close(torch, X, solve_many_batched(f0, B), f"{what} solve"),
+            sigma=close_all(torch, S.arrays(), selinv_batched(f0).arrays(), f"{what} Σ")))
+    return errs
+
+
+def run_stacked(torch, mats, kern_counts):
+    """``stack_ctsf([#5, #4, #2], policy)`` on their join and the concurrent
+    entry points on it, each one call's launches for the three (the
+    concurrent solve one sweep launch each way for all three, with B
+    shared).  Returns the results and the launches."""
+    from repro_torch.core import GridBucketPolicy, SolverOptions
+    from repro_torch.core.concurrent import (concurrent_factorize, concurrent_logdet,
+                                             concurrent_quadratic_forms, concurrent_selinv,
+                                             concurrent_solve, stack_ctsf)
+    pol = GridBucketPolicy()
+    stacked = stack_ctsf([m for m, _ in mats], policy=pol)
+    cg = stacked.grid
+    nat = cg.n_arrow_tiles
+    B = torch.randn((cg.padded_n, 32), generator=torch.Generator(
+        device=stacked.device).manual_seed(31), device=stacked.device)
+    launches = {}
+    f, launches["concurrent_factorize"] = launch_delta(
+        kern_counts, lambda: concurrent_factorize(stacked, options=SolverOptions(policy=pol)),
+        {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}, "concurrent_factorize")
+    ld = concurrent_logdet(f)
+    X, launches["concurrent_solve"] = launch_delta(
+        kern_counts, lambda: concurrent_solve(f, B),
+        {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2 * nat},
+        "concurrent_solve")
+    q, launches["concurrent_quadratic_forms"] = launch_delta(
+        kern_counts, lambda: concurrent_quadratic_forms(f, B[:, 0]),
+        {"band_forward_sweep": 1, "solve_panel": nat}, "concurrent_quadratic_forms")
+    S, launches["concurrent_selinv"] = launch_delta(
+        kern_counts, lambda: concurrent_selinv(f), {"selinv_sweep": 1, "selinv_prepass": 1},
+        "concurrent_selinv")
+    return (stacked, f, ld, B, X, q, S), launches
+
+
+def check_stacked(torch, mats, out):
+    """Each element of the stacked batch, restricted to its own source
+    grid, against its own plain factor and read-out at TOL (logdet to
+    LOGDET_RTOL); the quadratic form against ``r^T A^{-1} r`` plus the
+    identity rows' ``|y|^2``."""
+    from repro_torch.core import (logdet, restrict_rhs, restrict_selinv, selected_inverse,
+                                  solve_many)
+    from repro_torch.core.gridpolicy import restrict_factor
+    stacked, f, ld, B, X, q, S = out
+    cg = stacked.grid
+    errs = []
+    for i, (m, f0) in enumerate(mats):
+        g = m.grid
+        what = f"stacked element {i}"
+        fi = restrict_factor(element_factor(f, i), g)
+        r = restrict_rhs(B, g, cg)
+        x0 = solve_many(f0, r)
+        y, ry = B[:, 0], r[:, 0]
+        want_q = (ry * x0[:, 0]).sum() + (y * y).sum() - (ry * ry).sum()
+        errs.append(dict(
+            source=[g.n_diag_tiles, g.band_tiles, g.n_arrow_tiles],
+            factor=close_all(torch, fi.ctsf.arrays(), f0.ctsf.arrays(), f"{what} factor"),
+            logdet_rel=logdet_gate(ld[i], logdet(f0), what),
+            solve=assert_close(torch, restrict_rhs(X[i], g, cg), x0, f"{what} solve"),
+            quadratic_form_rel=abs((q[i] - want_q) / want_q).item(),
+            sigma=close_all(torch, restrict_selinv(
+                type(S)(cg, *(a[i] for a in S.arrays())), g).arrays(),
+                selected_inverse(f0).arrays(), f"{what} Σ")))
+        if not errs[-1]["quadratic_form_rel"] <= TOL:
+            raise AssertionError(f"{what}: quadratic form {errs[-1]['quadratic_form_rel']:.3e} "
+                                 f"from r^T A^-1 r (limit {TOL})")
+    return dict(canonical=[cg.n_diag_tiles, cg.band_tiles, cg.n_arrow_tiles], elements=errs)
+
+
+class SweepBatches:
+    """Records the batch of every band-Cholesky sweep launched through
+    ``kernels.ops`` while it is entered (the wrapper's own count is kept)."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.real = ops.band_cholesky_sweep_cuda
+
+        def spy(Ac, *a, **k):
+            self.seen.append(Ac.shape[0] if Ac.dim() == 5 else None)
+            return self.real(Ac, *a, **k)
+
+        ops.band_cholesky_sweep_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.band_cholesky_sweep_cuda = self.real
+
+
+def run_bucket(torch, mb5, B32, kern_counts):
+    """``bucket=True`` on a θ-batch of 5 of #5: one sweep launch of 8, then
+    solve_many_batched and selinv_batched on its factor; then
+    solve_many_batched on batches of 5, 6, 7 and 8 of it with bucket=True,
+    the corner's graphs (cleared first) captured once for all four.
+    Returns the results and the record."""
+    from repro_torch.core import (BandedCTSF, factorize_window_batched, selinv_batched,
+                                  solve_many_batched)
+    from repro_torch.core.solve import corner_graphs
+    nat = mb5.grid.n_arrow_tiles
+    five = BandedCTSF(mb5.grid, *(x[:5] for x in mb5.arrays()))
+    with SweepBatches() as spy:
+        fb, lf = launch_delta(kern_counts, lambda: factorize_window_batched(five, bucket=True),
+                              {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat},
+                              "bucket=True factorize_window_batched")
+    if spy.seen != [BATCH]:
+        raise AssertionError(f"bucket=True on a batch of 5: sweeps of {spy.seen}, want one of "
+                             f"{BATCH}")
+    per_solve = {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2 * nat}
+    corner_graphs.clear()
+    captures = []
+    X = {}
+    for nb in (5, 6, 7, 8):
+        c0 = corner_graphs.captures
+        fbn = fb if nb == 5 else factorize_window_batched(
+            BandedCTSF(mb5.grid, *(x[:nb] for x in mb5.arrays())))
+        X[nb], _ = launch_delta(kern_counts, lambda: solve_many_batched(
+            fbn, B32[:nb], bucket=True), per_solve, f"bucket=True solve_many_batched, {nb}")
+        captures.append(corner_graphs.captures - c0)
+    if captures != [2, 0, 0, 0]:
+        raise AssertionError(f"bucket=True solves of 5, 6, 7 and 8 captured {captures} corner "
+                             "graphs, want 2 (k = 32 both ways) for 5 and none after")
+    S, ls = launch_delta(kern_counts, lambda: selinv_batched(fb, bucket=True),
+                         {"selinv_sweep": 1, "selinv_prepass": 1}, "bucket=True selinv_batched")
+    return (five, fb, X[5], S), dict(sweep_batches=spy.seen, corner_captures=captures,
+                                     launches=dict(factorize_window_batched=lf,
+                                                   selinv_batched=ls))
+
+
+def check_bucket(torch, out, B32, deferred):
+    """The batch of 5 with bucket=True against bucket=False: the factor,
+    its status and logdet, the k = 32 solves and Σ, each bit for bit (a
+    failure is deferred to after the timings, as phase 3's bit-identity
+    gates are) and at TOL."""
+    from repro_torch.core import factorize_window_batched, selinv_batched, solve_many_batched
+    five, fb, X, S = out
+    f0 = factorize_window_batched(five, bucket=False)
+    X0 = solve_many_batched(f0, B32[:5], bucket=False)
+    S0 = selinv_batched(f0, bucket=False)
+    rec = {}
+    for name, got, want in (("factor", fb.ctsf.arrays() + (fb.status, fb.logdet()),
+                             f0.ctsf.arrays() + (f0.status, f0.logdet())),
+                            ("solve_many_batched_k32", (X,), (X0,)),
+                            ("selinv_batched", S.arrays(), S0.arrays())):
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        rec[name] = dict(bit_identical=same,
+                         max_abs_diff=close_all(torch, got, want, f"bucket=True {name}"))
+        if not same:
+            deferred.append(f"bucket=True {name}: not bit-identical to bucket=False "
+                            f"(max diff {rec[name]['max_abs_diff']:.3e})")
+    return rec
+
+
+def time_bucketing(torch, m, f, fp, stream, mb5, card):
+    """Canonical grid against source grid on Table II #5, call time (CUDA
+    events around the calls) and device time (around a CUDA graph's
+    replay), medians of 7: factorize_window + logdet, the sweep alone (and
+    the canonical sweep with no prefix skipped), solve_many at k = 32 and
+    selected_inverse; the padded flop overhead of each grid of the stream;
+    factorize_window_batched on a batch of 5 with bucket=True (run as 8)
+    against bucket=False."""
+    from repro_torch.core import (BandedCTSF, GridBucketPolicy, SolverOptions, embed_ctsf,
+                                  factorize_window, factorize_window_batched, logdet,
+                                  padded_flop_overhead, selected_inverse, solve_many)
+    from repro_torch.kernels.band_cholesky import band_cholesky_sweep_cuda
+    from repro_torch.kernels.ring import band_row_to_col
+    pol = GridBucketPolicy()
+    opts = SolverOptions(policy=pol)
+    g = m.grid
+    emb = embed_ctsf(m, fp.ctsf.grid)
+    pad = emb.grid.n_diag_tiles - g.n_diag_tiles
+    ac, ace = band_row_to_col(m.Dr), band_row_to_col(emb.Dr)
+    nchunks = max(1, min(8, g.n_diag_tiles))
+    B = theta_rhs(torch, g, 1, 32, seed=22, device=m.device)[0]
+    five = BandedCTSF(mb5.grid, *(x[:5] for x in mb5.arrays()))
+    pairs = {
+        "factorize_window_logdet": (lambda: logdet(factorize_window(m, options=opts)),
+                                    lambda: logdet(factorize_window(m))),
+        "sweep": (lambda: band_cholesky_sweep_cuda(ace, emb.R, nchunks=8, start_tile=pad),
+                  lambda: band_cholesky_sweep_cuda(ac, m.R, nchunks=nchunks)),
+        "solve_many_k32": (lambda: solve_many(fp, B), lambda: solve_many(f, B)),
+        "selected_inverse": (lambda: selected_inverse(fp), lambda: selected_inverse(f)),
+        "batch_of_5": (lambda: factorize_window_batched(five, bucket=True),
+                       lambda: factorize_window_batched(five, bucket=False))}
+    out = {}
+    for name, (canon, source) in pairs.items():
+        side = ("bucket_8", "unpadded_5") if name == "batch_of_5" else ("canonical", "source")
+        out[name] = {}
+        for label, fn in zip(side, (canon, source)):
+            out[name][label] = dict(call_ms=time_ms(torch, fn, reps=7, warmup=2),
+                                    device_ms=device_ms(torch, fn, reps=7))
+        a, b = (out[name][s]["device_ms"] for s in side)
+        out[name]["device_ratio"] = a / b if a and b else None
+    no_skip = lambda: band_cholesky_sweep_cuda(ace, emb.R, nchunks=8)
+    out["sweep"]["canonical_no_skip"] = dict(call_ms=time_ms(torch, no_skip, reps=7, warmup=2),
+                                             device_ms=device_ms(torch, no_skip, reps=7))
+    out["padded_flop_overhead"] = {str(mm.grid.structure.n): padded_flop_overhead(
+        mm.grid, pol.canonicalize(mm.grid)) for mm, _, _ in stream}
+    out["pad"], out["canonical_ndt"] = pad, emb.grid.n_diag_tiles
+    log("bucketing times, Table II #5 canonical against source (medians of 7): "
+        + json.dumps(out) + f", card {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -2334,6 +2787,44 @@ def main() -> int:
             and all(math.isfinite(v) for v in (qs["solve_residual"], qs["logdet"]))):
         raise AssertionError(f"quickstart: task-list agreement {qs['tasklist_agreement']:.3e} "
                              f"(limit {AGREEMENT_LIMIT}), {qs}")
+    # canonical-grid bucketing at full width (GridBucketPolicy(), t = 64):
+    # #5's main path on its (256, 4, 4) rung; the partitioned and window
+    # routes; a mixed stream on one rung; a stacked mixed batch through the
+    # concurrent entry points; bucket= on a θ-batch of 5
+    bucketing = {}
+    fp5, main_out, main_launches5 = run_path("bucketing: factorize_window and solves, matrix 5",
+                                             lambda: run_bucketed_main(torch, m5, counts))
+    bucketing["main"] = check_bucketed_main(torch, m5, f5, fp5, main_out)
+    bucketing["main"]["launches"] = main_launches5
+    del main_out
+    for call, got in main_launches5.items():
+        extra_calls.append((TABLE2_IDS[0], f"{call}, bucketed", got))
+    log("main path, bucketing, matrix 5: " + json.dumps(bucketing["main"]))
+    bucketing["routes"] = run_path("bucketing: partitioned and window routes",
+                                   lambda: run_bucketed_routes(
+                                       torch, m5, wfs[TABLE2_IDS[0]][0], mp4, pplan4,
+                                       pfs[PARTITIONED_IDS[0]][0], counts))
+    log("main path, bucketing, partitioned and window routes: "
+        + json.dumps(bucketing["routes"]))
+    stream = stream_matrices(torch)
+    stream_out, bucketing["stream"] = run_path("bucketing: mixed stream on one rung",
+                                               lambda: run_stream(torch, stream, counts))
+    bucketing["stream"]["elements"] = check_stream(torch, stream, stream_out)
+    del stream_out
+    log("main path, bucketing, mixed stream: " + json.dumps(bucketing["stream"]))
+    stacked_mats = [mats[TABLE2_IDS[0]], (mp4, pfs[PARTITIONED_IDS[0]][0]), mats[TABLE2_IDS[1]]]
+    stacked_out, stacked_launches = run_path(
+        "bucketing: stacked batch, concurrent entry points",
+        lambda: run_stacked(torch, stacked_mats, counts))
+    bucketing["stacked"] = check_stacked(torch, stacked_mats, stacked_out)
+    bucketing["stacked"]["launches"] = stacked_launches
+    del stacked_out
+    log("main path, bucketing, stacked batch: " + json.dumps(bucketing["stacked"]))
+    bucket_out, bucketing["bucket"] = run_path("bucketing: bucket=True",
+                                               lambda: run_bucket(torch, mb5, B32b, counts))
+    bucketing["bucket"]["against_unpadded"] = check_bucket(torch, bucket_out, B32b, deferred)
+    del bucket_out
+    log("main path, bucketing, bucket=True: " + json.dumps(bucketing["bucket"]))
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:
@@ -3331,6 +3822,8 @@ def main() -> int:
     if not overhead["ratio"] <= CLEAN_OVERHEAD_LIMIT:
         raise AssertionError(f"regularize=True on a clean θ-batch: {overhead['ratio']:.3f} "
                              f"times the call without it (limit {CLEAN_OVERHEAD_LIMIT})")
+    # canonical-grid bucketing: canonical against source grid on #5
+    bucketing["times"] = time_bucketing(torch, m5, f5, fp5, stream, mb5, card)
     if deferred:
         raise AssertionError("; ".join(deferred))
 

@@ -32,23 +32,29 @@ Port of the JAX package's ``core/cholesky.py`` (``factorize_tasklist``,
 ``_factorize_window_impl`` with its five sweep modes,
 ``_band_arrow_sweep``, ``_corner_schur``, ``_corner_dense_cholesky``,
 ``factorize_window_batched`` and ``CholeskyFactor``), with the
-reference's ``regularize=`` breakdown recovery (``core/robustness.py``).
-The bucketing policy comes with a later slice.
+reference's ``regularize=`` breakdown recovery (``core/robustness.py``)
+and canonical-grid bucketing (``SolverOptions(policy=)``,
+``core/gridpolicy.py``): the matrix is embedded on its canonical grid,
+every route skips the identity prefix through ``start_tile``, and the
+factor carries ``source_grid``.  The batched factorization keeps what it
+builds a key in the LRU cache ``batched_window`` (``core/batching.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from collections import Counter, OrderedDict
-from typing import Dict, List, Optional
+from collections import Counter
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.band_cholesky import MAX_PLAN_TILES, sweep_plan
 from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
-from repro_torch.kernels.potrf import potrf_cuda
+from repro_torch.kernels.potrf import TILE_SIZES, potrf_cuda
 from repro_torch.kernels.trsm import trsm_cuda
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
+from .batching import LRUCache, bucketed_batched_call
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
 from .robustness import FactorInfo, RegularizePolicy, fold_corner_status, run_ladder
@@ -180,42 +186,36 @@ class _TasklistGraph:
     launches: Counter               # the graph's launches by kernel wrapper name
 
 
-class GraphCache:
-    """Captured CUDA graphs by key, least recently used first out, at most
-    ``max_entries``; an entry has the ``graph`` and the ``launches`` its
-    capture recorded, by kernel wrapper name.  ``captures`` counts the
-    captures made; ``recorded`` counts the launches the captures recorded
-    into their graphs (the wrappers count these calls as their own), and
-    ``replayed`` those that the replays made on the card."""
+class GraphCache(LRUCache):
+    """Captured CUDA graphs by key: an :class:`~repro_torch.core.batching.
+    LRUCache` of at most ``max_entries``, least recently used first out,
+    whose ``stats()`` count hits, misses and evictions; an entry has the
+    ``graph`` and the ``launches`` its capture recorded, by kernel wrapper
+    name.  ``captures`` counts the captures made; ``recorded`` counts the
+    launches the captures recorded into their graphs (the wrappers count
+    these calls as their own), and ``replayed`` those that the replays made
+    on the card."""
 
-    def __init__(self, max_entries: int):
-        self.max_entries = max_entries
+    def __init__(self, max_entries: int, name: Optional[str] = None):
+        super().__init__(max_entries, name)
         self.captures = 0
         self.recorded: Counter = Counter()
         self.replayed: Counter = Counter()
-        self._graphs: OrderedDict = OrderedDict()
 
-    def __len__(self) -> int:
-        return len(self._graphs)
-
-    def clear(self) -> None:
-        self._graphs.clear()
+    @property
+    def max_entries(self) -> int:
+        return self.maxsize
 
     def find(self, key):
         """The entry kept under ``key``, now the most recently used, or None."""
-        entry = self._graphs.get(key)
-        if entry is not None:
-            self._graphs.move_to_end(key)
-        return entry
+        return LRUCache.get(self, key)
 
     def add(self, key, entry):
         """Keep a new capture's ``entry`` under ``key``; the least recently
         used entries go past ``max_entries``."""
         self.captures += 1
         self.recorded.update(entry.launches)
-        self._graphs[key] = entry
-        while len(self._graphs) > self.max_entries:
-            self._graphs.popitem(last=False)
+        LRUCache.put(self, key, entry)
         return entry
 
     def replay(self, entry) -> None:
@@ -233,7 +233,7 @@ class TasklistGraphs(GraphCache):
         return entry if entry is not None else self.add(key, _capture_tasklist(tm, workers))
 
 
-tasklist_graphs = TasklistGraphs(TASKLIST_GRAPH_CACHE)
+tasklist_graphs = TasklistGraphs(TASKLIST_GRAPH_CACHE, name="tasklist_graphs")
 
 
 def _warm_up(tiles: torch.Tensor, steps, workers: int) -> None:
@@ -334,11 +334,28 @@ class CholeskyFactor:
     ``info.first_bad_tile`` is ``status[..., 2]`` of the clean attempt, as
     int32.  A FAILED element's factor is unusable but never touches its
     batch siblings.
+
+    ``source_grid`` is set when the factor lives on a canonical grid
+    (``SolverOptions(policy=)``, ``core/gridpolicy.py``) but stands for a
+    problem on ``source_grid``: the arrays then hold ``blockdiag(I_prefix,
+    L)``, and the solve and selected-inverse entry points lift right-hand
+    sides in and restrict results back on their own.  :meth:`restrict`
+    strips the embedding; ``status``'s ``first_bad`` counts canonical
+    columns.
     """
 
     ctsf: BandedCTSF
     status: Optional[torch.Tensor] = None
     info: Optional[FactorInfo] = None
+    source_grid: Optional[TileGrid] = None
+
+    def restrict(self) -> "CholeskyFactor":
+        """The factor sliced back onto its source grid (the factor itself
+        when it was never embedded)."""
+        if self.source_grid is None:
+            return self
+        from .gridpolicy import restrict_factor
+        return restrict_factor(self, self.source_grid)
 
     @classmethod
     def from_arrays(cls, grid, Dr, R, C, device=None) -> "CholeskyFactor":
@@ -348,8 +365,10 @@ class CholeskyFactor:
         return cls(BandedCTSF.from_arrays(grid, Dr, R, C, device=device))
 
     def logdet(self) -> torch.Tensor:
-        """log det A = 2 * sum log diag(L); padded diagonal entries are 1.
-        A batched factor gives one value per element."""
+        """log det A = 2 * sum log diag(L); padded diagonal entries are 1,
+        the identity prefix of a canonical-grid embedding too, so an
+        embedded factor gives its source problem's.  A batched factor gives
+        one value per element."""
         g = self.ctsf.grid
         db = torch.diagonal(self.ctsf.Dr[..., 0, :, :], dim1=-2, dim2=-1)
         total = torch.log(torch.abs(db)).sum(dim=(-2, -1))
@@ -430,8 +449,11 @@ def _corner_schur(R_L: torch.Tensor, tree_chunks: int, impl: Optional[str]) -> t
     return terms.sum(dim=0)
 
 
+
+
 def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
-                           tree_chunks: int, sweep: str = "auto", plan=None):
+                           tree_chunks: int, sweep: str = "auto", plan=None,
+                           start_tile: int = 0):
     """Window factorization: the band sweep, then the dense corner, on
     arrays with or without a leading batch axis.
 
@@ -448,14 +470,20 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
     panel loop of :func:`_band_arrow_sweep`, with the corner Schur
     complement summed by :func:`_corner_schur`.
 
+    ``start_tile`` declares the first band columns an identity-embedding
+    prefix (``core/gridpolicy.py``): every route leaves them an identity
+    panel and a zero arrow row and does no work there.
+
     Returns ``(Dr_L, R_L, C_L, status)``, ``status`` the (..., 3) float32
     word ``[min_pivot, nonfinite, first_bad]`` over band and corner (a
     corner breakdown reports ``first_bad = ndt``)."""
     nat = grid.n_arrow_tiles
+    start_tile = int(start_tile)
     if plan is not None and plan.n_tiles != grid.n_diag_tiles:
         raise ValueError(
             f"partition plan covers {plan.n_tiles} diagonal tiles but the grid has "
-            f"{grid.n_diag_tiles}; rebuild the plan for this grid")
+            f"{grid.n_diag_tiles}; rebuild the plan for this grid (PartitionPlan.shifted "
+            "embeds a plan into a canonical grid)")
     mode = sweep
     if mode == "auto":
         if plan is not None and plan.n_partitions > 1:
@@ -463,7 +491,7 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
         else:
             mode = "fused" if ops.resolve_impl(impl, Dr) == "cuda" else "ring"
     if mode == "window":
-        Dr_out, R_out = _band_arrow_sweep(Dr, R, grid, impl)
+        Dr_out, R_out = _band_arrow_sweep(Dr, R, grid, impl, start_tile)
         # the window sweep carries no status: fold the same word from the
         # emitted factor (the row layout keeps the diagonal at [:, 0], all
         # that sweep_status reads of it besides finiteness), as the
@@ -472,7 +500,7 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
         schur = lambda: _corner_schur(R_out, tree_chunks, impl)
     elif mode == "partitioned":
         panels, R_out, leaves, status = ops.band_cholesky_partitioned_sweep(
-            band_row_to_col(Dr), R, plan.boundaries, impl=impl)
+            band_row_to_col(Dr), R, plan.boundaries, start_tile=start_tile, impl=impl)
         Dr_out = band_col_to_row(panels)
         # one Schur leaf per partition: the Alg. 3 binary tree combines them
         # before the shared corner
@@ -480,7 +508,8 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
     else:
         nchunks = max(1, min(tree_chunks or 1, grid.n_diag_tiles or 1))
         panels, R_out, leaves, status = ops.band_cholesky_sweep(
-            band_row_to_col(Dr), R, nchunks=nchunks, impl="cuda" if mode == "fused" else "ref")
+            band_row_to_col(Dr), R, nchunks=nchunks, start_tile=start_tile,
+            impl="cuda" if mode == "fused" else "ref")
         Dr_out = band_col_to_row(panels)
         # the chunks are the tree-reduction leaves; summing them is the
         # root combine of the paper's Alg. 3 chain
@@ -490,19 +519,41 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
         status, C_out, grid.n_diag_tiles, nat)
 
 
-def _factorize(Dr, R, C, grid: TileGrid, opts: SolverOptions,
-               tree_chunks: int) -> CholeskyFactor:
-    """:func:`_factorize_window_impl` on arrays with or without a batch
-    axis, through the jitter ladder when ``opts.regularize`` asks for it:
-    the factor, its status word and, with the ladder, its ``FactorInfo``.
-    With the ladder, an element's ``[min_pivot, nonfinite]`` are those of
-    the attempt its factor came from (attempt ``info.attempts``: a retried
-    element is retried until it is healthy or the ladder ends) and its
-    ``first_bad`` the clean attempt's, so ``status`` and ``info`` read the
-    same."""
-    call = lambda dr, r, c: _factorize_window_impl(
-        dr, r, c, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan)
-    policy = RegularizePolicy.resolve(opts.regularize)
+def _embed_matrix(m: BandedCTSF, policy):
+    """The canonical-grid embedding of a matrix (or a batch of them) for
+    the factorizations, the matrix-side twin of ``solve._resolve_embedding``:
+    ``(embedded, source_grid, start_tile)``, ``start_tile`` the identity
+    prefix's depth."""
+    from .gridpolicy import embed_ctsf
+    cgrid = policy.canonicalize(m.grid)
+    return embed_ctsf(m, cgrid), m.grid, cgrid.n_diag_tiles - m.grid.n_diag_tiles
+
+
+def _shift_plan(opts: SolverOptions, pad: int) -> SolverOptions:
+    """``opts`` with its partition plan shifted past an identity prefix of
+    ``pad`` tiles, which joins partition 0."""
+    if opts.partition_plan is None or not pad:
+        return opts
+    return opts.replace(partition_plan=opts.partition_plan.shifted(pad))
+
+
+def _window_call(grid: TileGrid, opts: SolverOptions, tree_chunks: int,
+                 start_tile: int = 0) -> Callable:
+    """``(Dr, R, C) -> (Dr_L, R_L, C_L, status)`` on ``grid`` with the
+    options' backend, sweep and plan."""
+    return lambda dr, r, c: _factorize_window_impl(
+        dr, r, c, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan, start_tile)
+
+
+def _factorize(Dr, R, C, grid: TileGrid, call: Callable, regularize) -> CholeskyFactor:
+    """``call`` on arrays with or without a batch axis, through the jitter
+    ladder when ``regularize`` asks for it: the factor, its status word
+    and, with the ladder, its ``FactorInfo``.  With the ladder, an
+    element's ``[min_pivot, nonfinite]`` are those of the attempt its factor
+    came from (attempt ``info.attempts``: a retried element is retried
+    until it is healthy or the ladder ends) and its ``first_bad`` the clean
+    attempt's, so ``status`` and ``info`` read the same."""
+    policy = RegularizePolicy.resolve(regularize)
     if policy is None:
         Dr_L, R_L, C_L, status = call(Dr, R, C)
         return CholeskyFactor(BandedCTSF(grid, Dr_L, R_L, C_L), status)
@@ -537,16 +588,85 @@ def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
     through the geadd tree).  A breakdown does not raise: the factor's
     ``status`` word reports it.
 
+    ``options.policy`` (a :class:`~repro_torch.core.gridpolicy.
+    GridBucketPolicy`) embeds the matrix on its canonical grid first; the
+    sweep skips the identity prefix through ``start_tile`` (the same
+    launches as the source grid's), a partition plan is shifted past it,
+    and the factor lives on the canonical grid with ``source_grid`` set:
+    the solve and selected-inverse entry points take it as it is, and
+    :meth:`CholeskyFactor.restrict` strips the embedding.
+
     ``options.regularize`` (True or a
     :class:`~repro_torch.core.robustness.RegularizePolicy`) runs the
     escalating-jitter ladder on breakdown and attaches a ``FactorInfo``
     (``factor.info``); an SPD input factorizes on the first attempt and
     its factor is bit-identical to the call without it."""
     opts = options if options is not None else SolverOptions()
-    return _factorize(m.Dr, m.R, m.C, m.grid, opts, tree_chunks)
+    source, start = None, 0
+    if opts.policy is not None:
+        m, source, start = _embed_matrix(m, opts.policy)
+        opts = _shift_plan(opts, start)
+    f = _factorize(m.Dr, m.R, m.C, m.grid, _window_call(m.grid, opts, tree_chunks, start),
+                   opts.regularize)
+    f.source_grid = source
+    return f
+
+
+# ---------------------------------------------------------------------------
+# Batched window factorization (the INLA θ-sweep)
+# ---------------------------------------------------------------------------
+
+# what the batched entry points build once a key; bounded so a process
+# cycling through many distinct grids cannot grow them without limit
+BATCHED_CACHE = 64
+_BATCHED_WINDOW_CACHE = LRUCache(maxsize=BATCHED_CACHE, name="batched_window")
+
+
+@dataclasses.dataclass
+class BatchedEntry:
+    """What a batched entry point builds once a cache key: the bound
+    callable of the key's grid and options, and the launch plans of its
+    kernels (the band-Cholesky sweep's ``sweep_plan`` and the selinv
+    recurrence's ``selinv_plan``, made when the entry is built; the
+    band-solve sweeps' ``solve_plan``, which depends on the panel width and
+    the card, once a width on the card's first call of it)."""
+
+    call: Callable
+    plans: dict
+
+
+def _plannable(grid: TileGrid) -> bool:
+    """Whether the sweep kernels take ``grid``'s tiles (else only the plain
+    versions can run it, and there is no launch plan to make)."""
+    return (grid.t in TILE_SIZES and grid.band_tiles <= MAX_PLAN_TILES
+            and grid.n_arrow_tiles <= MAX_PLAN_TILES)
+
+
+def _batched_window_fn(grid: TileGrid, opts: SolverOptions, tree_chunks: int,
+                       use_start: bool = False) -> BatchedEntry:
+    """The batched factorization's entry for ``grid``, kept in the cache
+    ``batched_window`` under ``(grid, opts.compile_key(), tree_chunks,
+    use_start)``, the reference's key: every source grid embedding into
+    ``grid``, whatever its prefix depth, shares one entry.  Its ``call``
+    takes ``(Dr, R, C, start_tile)``."""
+    key = (grid, opts.compile_key(), tree_chunks, use_start)
+
+    def build() -> BatchedEntry:
+        plans = ({"sweep": sweep_plan(grid.t, grid.band_tiles, grid.n_arrow_tiles)}
+                 if _plannable(grid) else {})
+        return BatchedEntry(call=lambda dr, r, c, s: _window_call(grid, opts, tree_chunks, s)(
+            dr, r, c), plans=plans)
+
+    return _BATCHED_WINDOW_CACHE.get_or_create(key, build)
+
+
+def _info_arrays(info: Optional[FactorInfo]) -> tuple:
+    return () if info is None else (info.status, info.attempts, info.tau, info.min_pivot,
+                                    info.first_bad_tile)
 
 
 def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True,
+                             start_tile: Optional[int] = None,
                              options: Optional[SolverOptions] = None) -> CholeskyFactor:
     """Factorize a batch of same-grid matrices in one dispatch: the INLA
     θ-sweep primitive, B hyperparameter candidates of one sparsity pattern.
@@ -562,25 +682,39 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
     one :class:`CholeskyFactor` with ``(B, ...)`` arrays and a ``(B, 3)``
     status word; its ``logdet`` is ``(B,)``.
 
-    ``options.regularize`` runs the jitter ladder on every element at once:
-    a retry refactorizes the whole batch with only the failed elements'
-    diagonals jittered, healthy elements keep their first attempt's factor
-    bit for bit, and ``factor.info`` carries ``(B,)`` status, attempts and
-    tau, so one poisoned θ-candidate is a flagged element, not a failed
-    sweep.
+    ``bucket`` (the reference's) pads the batch to the next power of two
+    by repeating its last matrix, factorizes the padded batch and strips
+    the padding's results, so a batch of 5 runs as 8; the elements' results
+    are those of the unpadded call.  The callable and launch plans are kept
+    a ``(grid, options.compile_key(), tree_chunks, use_start)`` in the LRU
+    cache ``batched_window``.
 
-    ``bucket`` is the reference's: it pads the batch to a power of two so
-    that XLA compiles once per bucket.  PyTorch compiles nothing per batch
-    size and padding changes no element's result, so the port accepts it
-    and does not pad.  The reference's ``policy=`` (the canonical-grid
-    embedding) and ``start_tile=`` come with ROADMAP A3."""
+    ``options.policy`` embeds the batch on its canonical grid, keys the
+    cache on that grid (a stream of grids on one rung shares one entry)
+    and skips the identity prefix; the factor carries ``source_grid``.
+    ``start_tile`` is for a batch the caller embedded itself
+    (``gridpolicy.assemble_rung_batch``): the shared prefix depth, skipped
+    as under a policy; the factor's ``source_grid`` stays None.  The two
+    are exclusive.
+
+    ``options.regularize`` runs the jitter ladder on every element at once
+    (the padding included, then stripped): a retry refactorizes the whole
+    batch with only the failed elements' diagonals jittered, healthy
+    elements keep their first attempt's factor bit for bit, and
+    ``factor.info`` carries ``(B,)`` status, attempts and tau, so one
+    poisoned θ-candidate is a flagged element, not a failed sweep."""
+    opts = options if options is not None else SolverOptions()
+    if start_tile is not None and opts.policy is not None:
+        raise ValueError("start_tile= is for pre-embedded batches and the bucketing policy "
+                         "embeds itself; pass one or the other")
     if isinstance(batch, (list, tuple)):
         if not batch:
             raise ValueError("batched factorization needs at least one matrix")
         grid = batch[0].grid
         if any(m.grid != grid for m in batch):
             raise ValueError("batched factorization needs equal structure: every matrix "
-                             "of the batch on one grid")
+                             "of the batch on one grid; use concurrent.stack_ctsf(policy=...) "
+                             "to embed mixed grids onto a shared canonical rung first")
         Dr, R, C = (torch.stack(x) for x in zip(*(m.arrays() for m in batch)))
     else:
         grid = batch.grid
@@ -588,5 +722,25 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
         if Dr.dim() != 5:
             raise ValueError(f"batched CTSF needs a leading batch axis, got Dr.dim()="
                              f"{Dr.dim()}")
-    opts = options if options is not None else SolverOptions()
-    return _factorize(Dr, R, C, grid, opts, tree_chunks)
+    source, start = None, int(start_tile or 0)
+    if opts.policy is not None:
+        emb, source, start = _embed_matrix(BandedCTSF(grid, Dr, R, C), opts.policy)
+        Dr, R, C, grid = emb.Dr, emb.R, emb.C, emb.grid
+        opts = _shift_plan(opts, start)
+    entry = _batched_window_fn(grid, opts, tree_chunks,
+                               use_start=source is not None or start_tile is not None)
+    call = lambda dr, r, c: entry.call(dr, r, c, start)
+    infos = []
+
+    def run(dr, r, c):
+        f = _factorize(dr, r, c, grid, call, opts.regularize)
+        infos.append(f.info)
+        return f.ctsf.arrays() + (f.status,) + _info_arrays(f.info)
+
+    out = bucketed_batched_call(run, (Dr, R, C), bucket)
+    info = None
+    if infos[-1] is not None:
+        # the unpadded batch is the original kept for the refinement
+        info = FactorInfo(*out[4:], matrix=None if infos[-1].matrix is None
+                          else BandedCTSF(grid, Dr, R, C))
+    return CholeskyFactor(BandedCTSF(grid, *out[:3]), out[3], info, source_grid=source)

@@ -17,8 +17,12 @@ Port of the JAX package's ``core/selinv.py`` (``SelectedInverse``,
 ``_selinv_impl``, ``selected_inverse``, ``selinv_batched``).
 :func:`selinv_batched` takes the θ-batch of ``factorize_window_batched``
 in the same two launches as one factor: the pre-pass a block for each
-column of each element, the recurrence a cluster an element.  The
-canonical-grid embedding (``policy=``) comes with the bucketing policy.
+column of each element, the recurrence a cluster an element.  An
+embedded factor (``factor.source_grid``, or ``SolverOptions(policy=)``)
+runs the recurrence on its canonical grid with the identity prefix
+skipped through ``start_tile`` and is restricted back to the source grid
+(``gridpolicy.restrict_selinv``); ``selinv_batched`` keeps what it builds
+a key in the LRU cache ``batched_selinv``.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
-from .cholesky import CholeskyFactor
+from repro_torch.kernels.selinv import selinv_plan
+from .batching import LRUCache, bucketed_batched_call
+from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, _plannable
 from .ctsf import BandedCTSF
 from .options import SolverOptions
 from .structure import TileGrid
@@ -163,11 +169,40 @@ def selected_inverse(factor: CholeskyFactor, *,
     the blocked Takahashi recurrence: one backward tile sweep, whatever
     the number of entries wanted.  On the card the sweep is two CUDA
     launches, a pre-pass and the recurrence; ``options.impl`` forces a
-    backend."""
+    backend.  An embedded factor (``factor.source_grid``, or
+    ``options.policy``) runs it on the canonical grid, the identity prefix
+    skipped, and returns Σ on the source grid: every entry an exact entry
+    of the source problem's inverse."""
+    from .solve import _resolve_embedding
     opts = options if options is not None else SolverOptions()
-    c = factor.ctsf
-    sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)
-    return SelectedInverse(c.grid, sd, sr, sc)
+    c, src, pad = _resolve_embedding(factor, opts.policy)
+    out = SelectedInverse(c.grid, *_selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl, pad))
+    if src is None:
+        return out
+    from .gridpolicy import restrict_selinv
+    return restrict_selinv(out, src)
+
+
+# what selinv_batched builds a key (core/batching.py), as the batched
+# factorization's cache
+_BATCHED_SELINV_CACHE = LRUCache(maxsize=BATCHED_CACHE, name="batched_selinv")
+
+
+def _batched_selinv_fn(grid: TileGrid, opts: SolverOptions, use_start: bool = False
+                       ) -> BatchedEntry:
+    """The batched recurrence's entry for ``grid`` under ``(grid,
+    opts.compile_key(), use_start)`` in the cache ``batched_selinv``: its
+    ``call`` takes ``(Dr, R, C, start_tile)``, its plan is the
+    recurrence's ``selinv_plan``."""
+    key = (grid, opts.compile_key(), use_start)
+
+    def build() -> BatchedEntry:
+        plans = ({"selinv": selinv_plan(grid.t, grid.band_tiles, grid.n_arrow_tiles)}
+                 if _plannable(grid) else {})
+        return BatchedEntry(call=lambda dr, r, c, s: _selinv_impl(dr, r, c, grid, opts.impl, s),
+                            plans=plans)
+
+    return _BATCHED_SELINV_CACHE.get_or_create(key, build)
 
 
 def selinv_batched(factor: CholeskyFactor, *, bucket: bool = True,
@@ -178,12 +213,23 @@ def selinv_batched(factor: CholeskyFactor, *, bucket: bool = True,
     whose ``diagonal()`` and ``covariance(i, j)`` broadcast over it.  On
     the card the whole batch is one pre-pass launch (a block for each
     column of each element) and one recurrence launch (a cluster an
-    element); each element is bit for bit the unbatched sweep's on its
-    factor.  ``bucket`` is accepted and pads nothing, as in
-    ``factorize_window_batched``."""
+    element); each element's sweep is bit for bit the unbatched sweep's on
+    its factor.  ``bucket`` pads the batch to the next power of two
+    (repeating its last factor) and strips the padding's results.  An
+    embedded factor (``factor.source_grid``, or ``options.policy``) runs
+    on the canonical grid, the identity prefix skipped, and is restricted
+    back to the source grid; the cache ``batched_selinv`` keys on the
+    canonical grid, so a stream of grids on one rung shares one entry."""
+    from .solve import _resolve_embedding
     opts = options if options is not None else SolverOptions()
-    c = factor.ctsf
+    c, src, pad = _resolve_embedding(factor, opts.policy)
     if c.Dr.dim() != 5:
         raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim={c.Dr.dim()}")
-    sd, sr, sc = _selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl)
-    return SelectedInverse(c.grid, sd, sr, sc)
+    entry = _batched_selinv_fn(c.grid, opts, use_start=src is not None)
+    sd, sr, sc = bucketed_batched_call(lambda dr, r, cc: entry.call(dr, r, cc, pad),
+                                       (c.Dr, c.R, c.C), bucket)
+    out = SelectedInverse(c.grid, sd, sr, sc)
+    if src is None:
+        return out
+    from .gridpolicy import restrict_selinv
+    return restrict_selinv(out, src)

@@ -22,10 +22,14 @@ refinement step against the original matrix (:func:`_refine_panels`);
 in a batch it is masked to the recovered elements, so clean siblings come
 back bit for bit as an unrefined call gives them.
 
-Port of the JAX package's ``core/solve.py``.  The canonical-grid
-embedding (``policy=``) and ``start_tile=`` of ``solve_many_batched`` are
-not ported yet (they come with the bucketing policy), so every factor here
-is solved on its own grid.
+Canonical-grid embedded factors (``factor.source_grid`` set by the
+policy-aware factorizations, or ``SolverOptions(policy=)`` given with a
+plain factor, which is then embedded on the fly) take and return panels in
+the source grid's padded layout: the panels are lifted onto the canonical
+grid, both sweeps skip the identity prefix through ``start_tile``, and
+the results are restricted back (:func:`_embedded_panels`).
+
+Port of the JAX package's ``core/solve.py``.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.band_solve import card_solve_plan
 from repro_torch.kernels.trsm import solve_panel_cuda
-from .cholesky import CholeskyFactor, GraphCache
+from .batching import LRUCache, bucketed_batched_call
+from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, GraphCache, _plannable
 from .options import SolverOptions
 
 __all__ = ["forward_solve", "backward_solve", "solve", "logdet",
@@ -121,7 +127,7 @@ class _CornerGraph:
     launches: Counter               # the graph's launches by kernel wrapper name
 
 
-corner_graphs = GraphCache(CORNER_GRAPH_CACHE)
+corner_graphs = GraphCache(CORNER_GRAPH_CACHE, name="corner_graphs")
 
 
 def _corner_on_graph(C: torch.Tensor, panel: torch.Tensor, impl) -> bool:
@@ -211,6 +217,39 @@ def _solve_panels(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
     return _backward_impl(Dr, R, C, yd, ya, grid, impl, start_tile)
 
 
+def _resolve_embedding(factor: CholeskyFactor, policy=None):
+    """The canonical-grid embedding of a factor for the solve-side entry
+    points: ``(ctsf, source_grid, pad)``.  A plain factor without a policy
+    is ``(factor.ctsf, None, 0)``; a factor already on a canonical grid
+    (``source_grid`` set) is taken as it is; a plain factor with a
+    ``policy`` is embedded now (the factor of ``blockdiag(I, A)`` is
+    ``blockdiag(I, L)``, so padding a factor is exact), which pads fresh
+    arrays every call: a loop reusing one factor should pass the policy to
+    the factorization instead."""
+    ctsf, src = factor.ctsf, factor.source_grid
+    if src is None and policy is not None:
+        from .gridpolicy import embed_ctsf
+        src, ctsf = ctsf.grid, embed_ctsf(ctsf, policy.canonicalize(ctsf.grid))
+    if src is None:
+        return ctsf, None, 0
+    return ctsf, src, ctsf.grid.n_diag_tiles - src.n_diag_tiles
+
+
+def _embedded_panels(factor: CholeskyFactor, policy, B: torch.Tensor):
+    """The front half of every policy-aware right-hand-side entry point:
+    the factor's embedding, the panel ``(..., padded_n, k)`` lifted onto
+    its canonical layout, and the restriction that maps a result home.
+    Returns ``(ctsf, source_grid, grid, panel, start_tile, restrict)``; for
+    a plain factor without a policy the panel passes through, ``start_tile``
+    is 0 and ``restrict`` the identity."""
+    ctsf, src, pad = _resolve_embedding(factor, policy)
+    g = ctsf.grid
+    if src is None:
+        return ctsf, None, g, B, 0, lambda X: X
+    from .gridpolicy import embed_rhs, restrict_rhs
+    return ctsf, src, g, embed_rhs(B, src, g), pad, lambda X: restrict_rhs(X, src, g)
+
+
 def _sq_norms(xd: torch.Tensor, xa: torch.Tensor) -> torch.Tensor:
     """Squared 2-norm of each column of split panels ``(..., rows, t,
     k)``: ``(..., k)``."""
@@ -253,8 +292,8 @@ def _refined_matrix(factor: CholeskyFactor, batch: Optional[int]):
     return info.matrix
 
 
-def _impl(options: Optional[SolverOptions]):
-    return (options if options is not None else SolverOptions()).impl
+def _opts(options: Optional[SolverOptions]) -> SolverOptions:
+    return options if options is not None else SolverOptions()
 
 
 def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, *, start_tile: int = 0,
@@ -268,21 +307,33 @@ def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, *, start_tile: i
     nonzero: the caller guarantees the rows above ``start_tile * t`` are
     zero, and Y is zero there.  ``options.impl`` forces a backend.
 
+    An embedded factor (``factor.source_grid``, or ``options.policy``)
+    takes and returns the source grid's layout, and ``start_tile`` keeps
+    its source meaning: the sweep starts past the identity prefix and that
+    many tiles more.
+
     Returns the ``(padded_n, k)`` panel Y."""
-    c = factor.ctsf
-    bd, ba = _split_rhs(c.grid, B)
-    yd, ya = _forward_impl(c.Dr, c.R, c.C, bd, ba, c.grid, _impl(options),
-                           int(start_tile))
-    return _merge_panels(yd, ya)
+    opts = _opts(options)
+    ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+    if src is not None:
+        start += min(int(start_tile), src.n_diag_tiles)
+    else:
+        start = int(start_tile)
+    bd, ba = _split_rhs(g, B)
+    yd, ya = _forward_impl(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
+    return restrict(_merge_panels(yd, ya))
 
 
 def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor, *,
                         options: Optional[SolverOptions] = None) -> torch.Tensor:
-    """Solve ``L^T X = Y`` for a ``(padded_n, k)`` panel in one blocked sweep."""
-    c = factor.ctsf
-    yd, ya = _split_rhs(c.grid, Y)
-    xd, xa = _backward_impl(c.Dr, c.R, c.C, yd, ya, c.grid, _impl(options))
-    return _merge_panels(xd, xa)
+    """Solve ``L^T X = Y`` for a ``(padded_n, k)`` panel in one blocked
+    sweep; an embedded factor takes and returns the source layout, as in
+    :func:`forward_solve_many`."""
+    opts = _opts(options)
+    ctsf, _, g, Y, start, restrict = _embedded_panels(factor, opts.policy, Y)
+    yd, ya = _split_rhs(g, Y)
+    xd, xa = _backward_impl(ctsf.Dr, ctsf.R, ctsf.C, yd, ya, g, opts.impl, start)
+    return restrict(_merge_panels(xd, xa))
 
 
 def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
@@ -293,63 +344,147 @@ def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
     forward-sweep launch, one backward-sweep launch and ``2 nat``
     ``solve_panel`` launches, the corner's replayed from two CUDA graphs.
 
+    An embedded factor (``factor.source_grid``, or ``options.policy``)
+    takes and returns the source grid's layout; both sweeps skip the
+    identity prefix, so it costs the launches of the source grid's solve.
+
     A jitter-recovered factor (``factor.info`` with a retained original
     matrix on the same grid and ``tau > 0``, from ``regularize=``) gets
     one residual-checked refinement step against the original matrix
     (:func:`_refine_panels`: one more solve), correcting most of the
     ``O(tau)`` bias of the diagonal shift; clean factors skip it."""
-    c = factor.ctsf
-    impl = _impl(options)
-    bd, ba = _split_rhs(c.grid, B)
-    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, c.grid, impl)
+    opts = _opts(options)
+    ctsf, _, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+    bd, ba = _split_rhs(g, B)
+    xd, xa = _solve_panels(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
     m = _refined_matrix(factor, None)
-    if m is not None:
-        xd, xa = _refine_panels(c.Dr, c.R, c.C, m.Dr, m.R, m.C, bd, ba, xd, xa, c.grid, impl)
-    return _merge_panels(xd, xa)
+    if m is not None and m.grid == g:
+        xd, xa = _refine_panels(ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, g,
+                                opts.impl, start)
+    return restrict(_merge_panels(xd, xa))
 
 
-def solve_many_batched(factor: CholeskyFactor, B: torch.Tensor, *, bucket: bool = True,
+# what the batched solve builds a key (core/batching.py): keyed on the
+# grid, the options' compile key and whether a start is shared, not on the
+# panel width or the batch, so a stream of shapes on one rung is one entry
+_BATCHED_SOLVE_CACHE = LRUCache(maxsize=BATCHED_CACHE, name="batched_solve")
+
+
+def _card_plans(plans: dict, Dr: torch.Tensor, nat: int, k: int, impl) -> None:
+    """Keep the band sweeps' plan of a panel width and batch in ``plans``
+    the first time the card runs them (``card_solve_plan``, what the
+    wrappers launch)."""
+    if Dr.device.type == "cuda" and ops.resolve_impl(impl, Dr) == "cuda" and k:
+        t, bt, nb = Dr.shape[-1], Dr.shape[-3] - 1, Dr.shape[0]
+        if (k, nb) not in plans:
+            plans[(k, nb)] = card_solve_plan(t, bt, nat, k, device=Dr.device, batch=nb)
+
+
+def _batched_solve_fn(grid, opts: SolverOptions, use_start: bool) -> BatchedEntry:
+    """The batched solve's entry for ``grid`` under ``(grid,
+    opts.compile_key(), use_start)`` in the cache ``batched_solve``: each
+    element solves its own panel.  Its ``call`` takes ``(Dr, R, C, bd, ba,
+    start_tile)``."""
+    key = (grid, opts.compile_key(), use_start)
+
+    def build() -> BatchedEntry:
+        plans: dict = {}
+
+        def call(dr, r, c, bd, ba, s):
+            if _plannable(grid):
+                _card_plans(plans, dr, grid.n_arrow_tiles, bd.shape[-1], opts.impl)
+            return _solve_panels(dr, r, c, bd, ba, grid, opts.impl, s)
+
+        return BatchedEntry(call=call, plans=plans)
+
+    return _BATCHED_SOLVE_CACHE.get_or_create(key, build)
+
+
+def _batched_refine_fn(grid, opts: SolverOptions, use_start: bool) -> BatchedEntry:
+    """The refinement pass of a jitter-recovered batch, a separate entry
+    (``use_start``, ``"refine"``) so clean batches never run it: each
+    element refines against its own original matrix, and the correction is
+    taken only where that element's ``tau > 0``, so a clean element inside
+    a recovered batch is bit for bit an unrefined call's.  Its ``call``
+    takes the factor, the matrix, the panels, the solution, ``tau`` and
+    ``start_tile``."""
+    key = (grid, opts.compile_key(), use_start, "refine")
+
+    def build() -> BatchedEntry:
+        def call(fdr, fr, fc, mdr, mr, mc, bd, ba, xd, xa, tau, s):
+            xd1, xa1 = _refine_panels(fdr, fr, fc, mdr, mr, mc, bd, ba, xd, xa, grid,
+                                      opts.impl, s)
+            use = (tau > 0)[:, None, None, None]
+            return torch.where(use, xd1, xd), torch.where(use, xa1, xa)
+
+        return BatchedEntry(call=call, plans={})
+
+    return _BATCHED_SOLVE_CACHE.get_or_create(key, build)
+
+
+def solve_many_batched(factor: CholeskyFactor, B: torch.Tensor, *,
+                       start_tile: Optional[int] = None, bucket: bool = True,
                        options: Optional[SolverOptions] = None) -> torch.Tensor:
     """``A_i X_i = B_i`` for a batched factor (a leading batch axis on the
     CTSF arrays, as ``factorize_window_batched`` returns it) with each
     element's own ``(padded_n, k)`` panel: ``B (batch, padded_n, k)`` ->
-    ``(batch, padded_n, k)``, each element in the padded layout of
-    ``factor.ctsf.grid``.
+    ``(batch, padded_n, k)``.
 
     On the card that is the launches of one :func:`solve_many` for the
     whole batch: one forward-sweep and one backward-sweep launch, and
     ``2 nat`` ``solve_panel`` launches, each element against its own
     corner tile, the corner replayed from a CUDA graph of its batch
-    shape.  A jitter-recovered batch (``factor.info`` with ``tau > 0`` on
-    some element and the original matrices kept) gets one residual-checked
+    shape.  ``bucket`` pads the batch to the next power of two (repeating
+    its last element) and strips the padding's results: the corner's graph
+    is then captured once for batches of 5 to 8.  What is built once a
+    key is kept in the LRU cache ``batched_solve``.
+
+    The panels are in the padded layout of ``factor.ctsf.grid``, except
+    for an embedded factor (``factor.source_grid``, or ``options.policy``),
+    which takes and returns the source grid's layout, as
+    :func:`solve_many` does (the reference takes the canonical layout
+    there and has no ``policy``).  ``start_tile`` is the shared
+    identity-prefix depth of a batch the caller embedded itself
+    (``gridpolicy.assemble_rung_batch``, ``factorize_window_batched(...,
+    start_tile=)``), whose panels are in the canonical layout; it is
+    refused with an embedded factor, which knows its own.
+
+    A jitter-recovered batch (``factor.info`` with ``tau > 0`` on some
+    element and the original matrices kept) gets one residual-checked
     refinement pass, one more solve of the batch, whose correction is
     taken only on the elements with ``tau > 0``: their clean siblings come
-    back bit for bit as an unrefined call gives them.
-
-    ``bucket`` is the reference's pow2 padding of the batch; PyTorch
-    compiles nothing per batch size, so it is accepted and pads nothing,
-    as in ``factorize_window_batched``."""
-    c = factor.ctsf
-    g = c.grid
-    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
-    if c.Dr.dim() != 5:
+    back bit for bit as an unrefined call gives them."""
+    opts = _opts(options)
+    if factor.ctsf.Dr.dim() != 5:
         raise ValueError("solve_many_batched needs a batched factor (leading batch axis), "
-                         f"got Dr.ndim={c.Dr.dim()}")
-    nb = c.Dr.shape[0]
-    if B.dim() != 3 or B.shape[0] != nb or B.shape[1] != g.padded_n:
-        raise ValueError(f"rhs panels must be (batch={nb}, padded_n={g.padded_n}, k), "
+                         f"got Dr.ndim={factor.ctsf.Dr.dim()}")
+    nb = factor.ctsf.Dr.shape[0]
+    rows = (factor.source_grid or factor.ctsf.grid).padded_n
+    if B.dim() != 3 or B.shape[0] != nb or B.shape[1] != rows:
+        raise ValueError(f"rhs panels must be (batch={nb}, padded_n={rows}, k), "
                          f"got {tuple(B.shape)}")
-    impl = _impl(options)
+    ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+    if start_tile is not None:
+        if src is not None:
+            raise ValueError("start_tile= is for a batch embedded by its caller; an "
+                             "embedded factor skips its own identity prefix")
+        start = int(start_tile)
+    use_start = src is not None or start_tile is not None
+    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
     k = B.shape[2]
     bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
     ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
-    xd, xa = _solve_panels(c.Dr, c.R, c.C, bd, ba, g, impl)
+    entry = _batched_solve_fn(g, opts, use_start)
+    xd, xa = bucketed_batched_call(
+        lambda dr, r, c, pd, pa: entry.call(dr, r, c, pd, pa, start),
+        (ctsf.Dr, ctsf.R, ctsf.C, bd, ba), bucket)
     m = _refined_matrix(factor, nb)
-    if m is not None:
-        xd1, xa1 = _refine_panels(c.Dr, c.R, c.C, m.Dr, m.R, m.C, bd, ba, xd, xa, g, impl)
-        use = (factor.info.tau > 0)[:, None, None, None]
-        xd, xa = torch.where(use, xd1, xd), torch.where(use, xa1, xa)
-    return torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)], dim=1)
+    if m is not None and m.grid == g:
+        rentry = _batched_refine_fn(g, opts, use_start)
+        xd, xa = bucketed_batched_call(
+            lambda *a: rentry.call(*a, start),
+            (ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, factor.info.tau), bucket)
+    return restrict(torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)], dim=1))
 
 
 def forward_solve(factor: CholeskyFactor, b: torch.Tensor, *,
@@ -375,6 +510,12 @@ def logdet(factor: CholeskyFactor) -> torch.Tensor:
     return factor.logdet()
 
 
+def _rhs_grid(factor: CholeskyFactor):
+    """The grid whose padded layout right-hand sides use: the source grid
+    of an embedded factor, else the factor's own."""
+    return factor.source_grid or factor.ctsf.grid
+
+
 def _normal(factor: CholeskyFactor, shape, generator: Optional[torch.Generator]):
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=factor.ctsf.device)
@@ -385,9 +526,10 @@ def sample_gmrf(factor: CholeskyFactor, *, generator: Optional[torch.Generator] 
                 options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Draw ``x ~ N(0, A^{-1})`` as ``x = L^{-T} z``, ``z`` standard normal
     of length ``padded_n``: drawn from ``generator`` (a ``torch.Generator``
-    on the factor's device) unless given."""
+    on the factor's device) unless given, in the source layout of an
+    embedded factor."""
     if z is None:
-        z = _normal(factor, (factor.ctsf.grid.padded_n,), generator)
+        z = _normal(factor, (_rhs_grid(factor).padded_n,), generator)
     return backward_solve(factor, z, options=options)
 
 
@@ -397,9 +539,11 @@ def sample_gmrf_many(factor: CholeskyFactor, *, num: int,
                      options: Optional[SolverOptions] = None) -> torch.Tensor:
     """Draw ``num`` samples ``x ~ N(0, A^{-1})`` as one ``(padded_n, num)``
     panel sharing a single backward sweep; ``z`` as in :func:`sample_gmrf`,
-    ``(padded_n, num)``."""
+    ``(padded_n, num)``.  For an embedded factor ``z`` is drawn in the
+    source layout, so a bucketed factor gives the unbucketed draws for the
+    same generator state."""
     if z is None:
-        z = _normal(factor, (factor.ctsf.grid.padded_n, num), generator)
+        z = _normal(factor, (_rhs_grid(factor).padded_n, num), generator)
     elif z.dim() != 2 or z.shape[1] != num:
         raise ValueError(f"sample_gmrf_many: z {tuple(z.shape)} is not (padded_n, {num})")
     return backward_solve_many(factor, z, options=options)
@@ -432,10 +576,11 @@ def marginal_variances(factor: CholeskyFactor, indices, *,
       vectors in one forward sweep, started at the first nonzero tile.
 
     ``indices`` are element indices of the original matrix (a 1-D host
-    array); out-of-range values raise.  Returns the ``(k,)`` variances in
-    the order of ``indices``, on the factor's device."""
-    opts = options if options is not None else SolverOptions()
-    g = factor.ctsf.grid
+    array), the source problem's for an embedded factor (or under
+    ``options.policy``); out-of-range values raise.  Returns the ``(k,)``
+    variances in the order of ``indices``, on the factor's device."""
+    opts = _opts(options)
+    g = _rhs_grid(factor)
     padded = _validate_indices(g, indices)
     dev = factor.ctsf.device
     if (opts.method or "selinv") == "selinv":

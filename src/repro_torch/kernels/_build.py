@@ -46,7 +46,7 @@ _SIGNATURES = {
         "stiles_band_backward_sweep_f32": [_P] * 6 + [_I] * 10 + [_P],
         "stiles_solve_max_active_clusters": [_I, _I, _P]},
     "selinv": {"stiles_selinv_prepass_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-               "stiles_selinv_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
+               "stiles_selinv_sweep_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "gemm": {"stiles_gemm_f32": [_P, _P, _P, _P, _I, _L, _L, _I, _I, _P],
              "stiles_geadd_f32": [_P, _P, _P, _L, _L, _L, _L, _I, _I, _P],
              "stiles_geadd_empty_f32": [_L, _L, _I, _I, _P],

@@ -18,7 +18,8 @@
 //   schur[k / csz] += L_a L_a^T, the chunk's partial sum
 //   the status fold of the TPU kernel
 // Columns k < start are an identity-embedding prefix: they emit an identity
-// panel and a zero arrow row and do no arithmetic.
+// panel and a zero arrow row and do no arithmetic, with one cluster barrier
+// after the last of them.
 //
 // One thread-block cluster of CL blocks (128 threads each) walks the columns
 // of one matrix in order, on the plan of kernels/band_cholesky.py::
@@ -390,7 +391,9 @@ band_cholesky_kernel(const float* __restrict__ ac, const float* __restrict__ r_i
             if (kl % csz == 0)
                 for (int u = u0; u < u1; ++u) schur_unit(plan[u], k, true);
             if (rank == 0 && threadIdx.x == 0) min_piv = fminf(min_piv, 1.f);
-            cluster.sync();
+            // no prefix column reads another: one barrier after the last,
+            // before the first real column reads their panels
+            if (k + 1 == start || k + 1 == s1) cluster.sync();
             continue;
         }
         PHASE(6);  // column start

@@ -16,7 +16,9 @@
 //   acol_i = -(sum_i' sc[i, i'] Ga_i' + sum_d acols[j+d, i] G_d)
 //   S_jj   = W^T W - sum_e off_e^T G_e - sum_i acol_i^T Ga_i, then 0.5 (S + S^T)
 // Terms reaching past column ndt-1 are zero and skipped.  Columns j < start
-// are an identity-embedding prefix: an identity panel and zero arrow row.
+// are an identity-embedding prefix: an identity panel and zero arrow row,
+// which the recurrence writes without computing (no later column reads a
+// prefix column, so its walk stops at start).
 //
 // A batch of such factors, each element's inputs and outputs contiguous after
 // the one before, is the same two launches with blockIdx.y the element: the
@@ -240,10 +242,28 @@ __device__ void pair_sum(float (&acc)[RecShape<T>::MR][RecShape<T>::MC], int n, 
     __syncthreads();
 }
 
+// Sigma of the identity prefix's columns j < start: an identity panel and a
+// zero arrow row, thread `first` of `stride` writing every stride-th value.
+// Out of line, so that it leaves the recurrence's registers alone.
+template <int T>
+__device__ __noinline__ void fill_prefix(float* panels, float* acols, int b1, int nat, int start,
+                                         int first, int stride) {
+    constexpr int TT = T * T;
+    const int n_pan = start * b1 * TT, n_all = n_pan + start * nat * TT;
+    for (int idx = first; idx < n_all; idx += stride) {
+        if (idx < n_pan) {
+            const int in = idx % (b1 * TT);
+            panels[idx] = (in < TT && in / T == in % T) ? 1.f : 0.f;
+        } else {
+            acols[idx - n_pan] = 0.f;
+        }
+    }
+}
+
 template <int T>
 __global__ void __launch_bounds__(kSumThreads)
 selinv_recurrence_kernel(const float* __restrict__ work, float* panels, float* acols, int ndt,
-                         int bt, int nat, int split) {
+                         int bt, int nat, int split, int start) {
     using R = RecShape<T>;
     constexpr int S = R::S, NS = R::NS, MR = R::MR, MC = R::MC, NTY = SumShape<T>::NTY;
     constexpr size_t TT = static_cast<size_t>(T) * T;
@@ -278,7 +298,7 @@ selinv_recurrence_kernel(const float* __restrict__ work, float* panels, float* a
     const int dr0 = drow * S, dc0 = (ds - drow * (drow + 1) / 2) * S;
     float* slot = part + threadIdx.x * MR * MC;
 
-    for (int j = ndt - 1; j >= 0; --j) {
+    for (int j = ndt - 1; j >= start; --j) {
         const int dmax = min(bt, ndt - 1 - j);   // band tiles below column j
         // the targets: band tiles e = 1..bt, then the arrow tiles
         for (int u = rank; u < units; u += cl) {
@@ -413,6 +433,9 @@ selinv_recurrence_kernel(const float* __restrict__ work, float* panels, float* a
         }
         cluster.sync();   // column j is complete before column j - 1 reads it
     }
+    // no column reads a prefix column: their Sigma is written last
+    fill_prefix<T>(panels, acols, b1, nat, start, rank * kSumThreads + threadIdx.x,
+                   cl * kSumThreads);
 }
 
 template <int T>
@@ -425,14 +448,15 @@ cudaError_t launch_prepass(const float* lcol, const float* r, const float* sc, f
 
 template <int T>
 cudaError_t launch_recurrence(const float* work, float* panels, float* acols, int batch,
-                              int ndt, int bt, int nat, int cl, int split, cudaStream_t s) {
+                              int ndt, int bt, int nat, int cl, int split, int start,
+                              cudaStream_t s) {
     if (cl > kMaxCluster) {
         const cudaError_t err = cudaFuncSetAttribute(
             selinv_recurrence_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         if (err != cudaSuccess) return err;
     }
     return launch_cluster(selinv_recurrence_kernel<T>, dim3(cl, batch), cl, 0, s, work, panels,
-                          acols, ndt, bt, nat, split);
+                          acols, ndt, bt, nat, split, start);
 }
 
 }  // namespace stiles
@@ -468,27 +492,29 @@ extern "C" int stiles_selinv_prepass_f32(const void* lcol, const void* r, const 
 // kMaxClusterNonPortable blocks, at least one a lower sub-tile of the diagonal
 // and otherwise no more than the column's target sub-tiles, the diagonal
 // split cluster / (lower sub-tiles) ways; a cluster for each of `batch`
-// factors, contiguous one after another, in the same launch.
+// factors, contiguous one after another, in the same launch.  Columns
+// j < start (start >= 0) are the identity prefix.
 extern "C" int stiles_selinv_sweep_f32(const void* work, void* panels, void* acols, int batch,
                                        int ndt, int bt, int nat, int t, int cluster, int split,
-                                       void* stream) {
+                                       int start, void* stream) {
     using namespace stiles;
     const int ns = t < 32 ? 1 : t / 32, diag = ns * (ns + 1) / 2;
     const int units = (bt + nat) * ns * ns;
     if (batch < 1 || batch > 65535 || ndt < 1 || bt < 0 || nat < 0 || cluster < diag ||
         cluster > kMaxClusterNonPortable ||
-        cluster > (units > diag ? units : diag) || split != cluster / diag)
+        cluster > (units > diag ? units : diag) || split != cluster / diag || start < 0)
         return static_cast<int>(cudaErrorInvalidValue);
+    if (start > ndt) start = ndt;   // every column a prefix column
     const auto* pw = static_cast<const float*>(work);
     auto* pp = static_cast<float*>(panels);
     auto* pa = static_cast<float*>(acols);
     auto s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (t) {
-        case 8: err = launch_recurrence<8>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
-        case 16: err = launch_recurrence<16>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
-        case 32: err = launch_recurrence<32>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
-        case 64: err = launch_recurrence<64>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, s); break;
+        case 8: err = launch_recurrence<8>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, start, s); break;
+        case 16: err = launch_recurrence<16>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, start, s); break;
+        case 32: err = launch_recurrence<32>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, start, s); break;
+        case 64: err = launch_recurrence<64>(pw, pp, pa, batch, ndt, bt, nat, cluster, split, start, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());

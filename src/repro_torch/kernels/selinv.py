@@ -15,7 +15,9 @@ recurrence, ``csrc/selinv.cu``, and its one-column tile step,
   one another given G) spread over the ranks, then its diagonal.
 
 Outputs and semantics match ``ref.selinv_sweep_ref``, the ``start_tile``
-identity prefix included.  A leading batch axis (the θ-batch's factors) is
+identity prefix included: the pre-pass fills a prefix column's work tiles
+without computing, and the recurrence writes its identity panel and zero
+arrow row and walks only the columns from ``start_tile`` on.  A leading batch axis (the θ-batch's factors) is
 the same two launches: the pre-pass a block for each column of each
 element, the recurrence a cluster for each element on the same plan, the
 element's pointer offsets the only change, so element i is bit for bit its
@@ -198,7 +200,7 @@ def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor
     stream = torch.cuda.current_stream(lcol.device).cuda_stream
     _build.check(lib, lib.stiles_selinv_sweep_f32(
         work.data_ptr(), panels.data_ptr(), acols.data_ptr(), math.prod(lead), ndt, b1 - 1,
-        nat, t, plan.cluster, plan.diag_split, stream), "selinv_sweep")
+        nat, t, plan.cluster, plan.diag_split, int(start_tile), stream), "selinv_sweep")
     selinv_sweep_cuda.launches += 1
     return panels, acols
 

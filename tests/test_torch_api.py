@@ -7,7 +7,12 @@ another meaning in the port (``factorize_tasklist(tm, "ref")`` once turned
 the tree reduction on), so each case calls the port's entry point the
 reference's way and expects ``TypeError``, then calls it with keywords and
 holds the result to the reference's own positional call at rtol = atol =
-2e-4 (float32 on both sides, different summation orders)."""
+2e-4 (float32 on both sides, different summation orders).  The batched
+and concurrent entry points refuse the reference's positional call too.
+
+``SolverOptions`` is held to the reference's: its fields in the same order,
+``compile_key``, ``replace``, ``resolve_options``'s one warning a legacy
+field, and a ``policy`` of another type than ``GridBucketPolicy`` refused."""
 import functools
 
 import jax
@@ -22,7 +27,10 @@ from repro_torch.core import (BandedCTSF, CholeskyFactor, SolverOptions, TileGri
                               backward_solve, backward_solve_many, factorize_tasklist,
                               factorize_window, factorize_window_batched, forward_solve,
                               forward_solve_many, marginal_variances, sample_gmrf,
-                              sample_gmrf_many, selected_inverse, solve, solve_many)
+                              sample_gmrf_many, selected_inverse, selinv_batched, solve,
+                              solve_many, solve_many_batched)
+from repro_torch.core.concurrent import (concurrent_quadratic_forms, concurrent_selinv,
+                                         concurrent_solve)
 from repro_torch.data import make_arrowhead
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -137,3 +145,136 @@ def test_sample_gmrf_many_checks_z_against_num():
     d = _inputs()
     with pytest.raises(ValueError, match="num|4"):
         sample_gmrf_many(d["f"], num=3, z=_t(d["z4"]))
+
+
+# ---------------------------------------------------------------------------
+# SolverOptions against the reference's (field order, compile_key, the
+# policy's type, resolve_options) and the refusals of the batched calls
+# ---------------------------------------------------------------------------
+
+def test_solver_options_fields_in_the_reference_order():
+    """``SolverOptions(*args)`` means the same in both packages."""
+    import dataclasses
+    names = [f.name for f in dataclasses.fields(SolverOptions)]
+    assert names == [f.name for f in dataclasses.fields(J.SolverOptions)]
+    assert names == ["policy", "regularize", "impl", "sweep", "partition_plan", "method"]
+    from repro_torch.core import GridBucketPolicy
+    pol = GridBucketPolicy()
+    got = SolverOptions(pol, True, "ref", "window", None, "panels")
+    want = J.SolverOptions(J.GridBucketPolicy(), True, "ref", "window", None, "panels")
+    assert [getattr(got, n) == getattr(want, n) for n in names[1:]] == [True] * 5
+    assert got.policy == pol
+
+
+COMPILE_KEY_CASES = [
+    dict(),
+    dict(impl="ref", method="panels"),
+    dict(regularize=True, sweep="window"),
+    dict(policy="default", regularize=True, impl="ref", method="selinv"),
+    dict(policy="default", sweep="partitioned", plan=(0, 3, 6)),
+]
+
+
+@pytest.mark.parametrize("case", range(len(COMPILE_KEY_CASES)))
+def test_compile_key_matches_reference(case):
+    """``compile_key`` clears policy, regularize and method, as the
+    reference's; ``replace`` is ``dataclasses.replace``."""
+    import dataclasses
+    from repro_torch.core import GridBucketPolicy, PartitionPlan
+    kw = dict(COMPILE_KEY_CASES[case])
+    plan = kw.pop("plan", None)
+    pol = kw.pop("policy", None)
+    got = SolverOptions(policy=GridBucketPolicy() if pol else None,
+                        partition_plan=PartitionPlan(plan) if plan else None, **kw)
+    want = J.SolverOptions(policy=J.GridBucketPolicy() if pol else None,
+                           partition_plan=J.PartitionPlan(plan) if plan else None, **kw)
+    gk, wk = got.compile_key(), want.compile_key()
+    for f in dataclasses.fields(SolverOptions):
+        g, w = getattr(gk, f.name), getattr(wk, f.name)
+        assert (g.boundaries == w.boundaries) if f.name == "partition_plan" and g else g == w
+    assert gk.policy is None and gk.regularize is None and gk.method is None
+    assert hash(gk) == hash(SolverOptions(**{f.name: getattr(gk, f.name)
+                                              for f in dataclasses.fields(gk)}))
+    assert got.replace(impl="ref").impl == "ref" and got.replace().compile_key() == gk
+
+
+@pytest.mark.parametrize("policy", ["default", 3, object(), J.GridBucketPolicy()])
+def test_policy_must_be_a_grid_bucket_policy(policy):
+    with pytest.raises(TypeError, match="GridBucketPolicy"):
+        SolverOptions(policy=policy)
+
+
+def test_resolve_options_warns_once_per_legacy_field():
+    """Each legacy field passed warns once and overrides its field, as the
+    reference's; none passed is the options object as it is."""
+    import warnings
+    from repro_torch.core import GridBucketPolicy, resolve_options
+    from repro_torch.core.options import UNSET
+    base = SolverOptions(impl="ref")
+    assert resolve_options(base, impl=UNSET, policy=UNSET) is base
+    assert resolve_options() == SolverOptions()
+    for mod, opts, pol in ((None, base, GridBucketPolicy()),
+                           (J, J.SolverOptions(impl="ref"), J.GridBucketPolicy())):
+        resolve = resolve_options if mod is None else J.resolve_options
+        unset = UNSET if mod is None else J.options.UNSET
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = resolve(opts, _where="solve", impl=unset, policy=pol, method="panels",
+                          regularize=True)
+        assert len(caught) == 3 and all(w.category is DeprecationWarning for w in caught)
+        assert sorted(str(w.message).split("`")[1] for w in caught) == \
+            ["method=", "policy=", "regularize="]
+        assert (out.impl, out.method, out.regularize, out.policy) == ("ref", "panels", True, pol)
+    with pytest.raises(TypeError, match="SolverOptions"):
+        resolve_options("ref")
+    assert not UNSET and repr(UNSET) == "<UNSET>"
+
+
+def test_policy_and_start_tile_are_refused_together():
+    from repro_torch.core import GridBucketPolicy
+    d = _inputs()
+    with pytest.raises(ValueError, match="start_tile"):
+        factorize_window_batched([d["m"], d["m"]], start_tile=1,
+                                 options=SolverOptions(impl="ref", policy=GridBucketPolicy()))
+    with pytest.raises(ValueError, match="start_tile"):
+        J.factorize_window_batched([d["jm"], d["jm"]], start_tile=1,
+                                   options=J.SolverOptions(impl="ref",
+                                                           policy=J.GridBucketPolicy()))
+
+
+def _batched_factor():
+    d = _inputs()
+    return factorize_window_batched([d["m"], d["m"]], options=REF)
+
+
+# the batched and concurrent entry points: the reference's positional call
+# (impl, or mesh, after the data) written against the port, and the
+# keyword call
+BATCHED_CASES = {
+    "solve_many_batched": (
+        lambda f, B: solve_many_batched(f, B, "ref"),
+        lambda f, B: solve_many_batched(f, B, start_tile=None, bucket=True, options=REF)),
+    "selinv_batched": (
+        lambda f, B: selinv_batched(f, "ref"),
+        lambda f, B: selinv_batched(f, bucket=False, options=REF).Dr),
+    "concurrent_solve": (
+        lambda f, B: concurrent_solve(f, B[0], "ref"),
+        lambda f, B: concurrent_solve(f, B[0], options=REF)),
+    "concurrent_quadratic_forms": (
+        lambda f, B: concurrent_quadratic_forms(f, B[0, :, 0], "ref"),
+        lambda f, B: concurrent_quadratic_forms(f, B[0, :, 0], options=REF)),
+    "concurrent_selinv": (
+        lambda f, B: concurrent_selinv(f, None),
+        lambda f, B: concurrent_selinv(f, mesh=None, options=REF).R),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCHED_CASES))
+def test_batched_entry_points_are_keyword_only(name):
+    positional, keyword = BATCHED_CASES[name]
+    f = _batched_factor()
+    d = _inputs()
+    B = torch.from_numpy(np.stack([d["B"], d["B"]]))
+    with pytest.raises(TypeError):
+        positional(f, B)
+    assert torch.isfinite(keyword(f, B)).all()

@@ -755,7 +755,11 @@ def test_selinv_sweep_kernel_refuses_a_bad_plan(cuda):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.check(lib, lib.stiles_selinv_sweep_f32(
                 work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 1, 4, 4, 4, 64, cluster,
-                split, stream), "selinv_sweep")
+                split, 0, stream), "selinv_sweep")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, lib.stiles_selinv_sweep_f32(
+            work.data_ptr(), panels.data_ptr(), acols.data_ptr(), 1, 4, 4, 4, 64,
+            plan.cluster, plan.diag_split, -1, stream), "selinv_sweep")
 
 
 # (t, split) for every split of csrc/gemm.cu at every tile size
@@ -1242,3 +1246,188 @@ def test_batched_read_out_on_the_card(cuda):
             torch.testing.assert_close(sig.diagonal().cpu(), sc.diagonal(), **TOL)
     for i in (0, 3):
         assert torch.equal(outs[True][i], outs[False][i])
+
+
+# ---------------------------------------------------------------------------
+# Canonical-grid bucketing: the sweeps with an identity prefix of more than
+# half the grid, whole Schur chunks of prefix, and a shared start on a batch
+# ---------------------------------------------------------------------------
+
+# a policy whose diagonal floor puts more than half of each grid in the prefix
+DEEP = dict(min_diag_tiles=32)
+
+
+def _deep_embedding(t, device, seed=0):
+    """A GRIDS[t] matrix embedded on a canonical grid of 32 or more diagonal
+    tiles (prefix deeper than half) and its source grid: ``(emb, m, pad)``,
+    on ``device``."""
+    from repro_torch.core import GridBucketPolicy, embed_ctsf
+    m = _matrix(t, device, seed=seed)
+    cg = GridBucketPolicy(**DEEP).canonicalize(m.grid)
+    pad = cg.n_diag_tiles - m.grid.n_diag_tiles
+    assert 2 * pad > cg.n_diag_tiles
+    return embed_ctsf(m, cg), m, pad
+
+
+@pytest.mark.parametrize("t", TILES)
+@pytest.mark.parametrize("nchunks", [1, 8])
+@pytest.mark.parametrize("max_cluster", [1, 16])
+def test_sweep_kernel_skips_a_deep_prefix(cuda, t, nchunks, max_cluster):
+    """The fused sweep at start_tile = the prefix against its plain version;
+    chunks that are all prefix leave exactly zero Schur partials, the
+    prefix identity panels and zero arrow rows, and the rest is the source
+    grid's factor."""
+    emb, m, pad = _deep_embedding(t, cuda)
+    Ac = band_row_to_col(emb.Dr)
+    got = band_cholesky_sweep_cuda(Ac, emb.R, nchunks=nchunks, start_tile=pad,
+                                   max_cluster=max_cluster)
+    want = ref.band_cholesky_sweep_ref(Ac, emb.R, nchunks=nchunks, start_tile=pad)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    from repro_torch.kernels.ring import chunk_layout
+    csz, _ = chunk_layout(emb.grid.n_diag_tiles, nchunks)
+    for c in range(pad // csz):
+        assert not got[2][c].any()
+    eye = torch.eye(t, device=cuda)
+    assert torch.equal(got[0][:pad, 0], eye.expand(pad, t, t)) and not got[0][:pad, 1:].any()
+    assert not got[1][:pad].any()
+    src = band_cholesky_sweep_cuda(band_row_to_col(m.Dr), m.R, nchunks=1)
+    b1 = m.grid.band_tiles + 1
+    torch.testing.assert_close(got[0][pad:, :b1], src[0], **TOL)
+    torch.testing.assert_close(got[2].sum(0), src[2].sum(0), **TOL)
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_partitioned_sweep_kernel_skips_a_deep_prefix(cuda, t):
+    """The partitioned sweep with a plan shifted past a deep prefix: the
+    prefix joins partition 0, against the plain version and bit for bit
+    the fused kernel on block-separable input."""
+    A, st, bounds = block_separable_arrowhead(12 * t, 2 * t, t, t, n_parts=3, seed=1)
+    m = BandedCTSF.from_sparse(A, TileGrid(st, t), device=cuda)
+    from repro_torch.core import GridBucketPolicy, embed_ctsf
+    cg = GridBucketPolicy(**DEEP).canonicalize(m.grid)
+    pad = cg.n_diag_tiles - m.grid.n_diag_tiles
+    emb = embed_ctsf(m, cg)
+    plan = PartitionPlan(bounds).shifted(pad)
+    Ac = band_row_to_col(emb.Dr)
+    got = band_cholesky_partitioned_sweep_cuda(Ac, emb.R, plan.boundaries, start_tile=pad)
+    want = ref.band_cholesky_partitioned_sweep_ref(Ac, emb.R, plan.boundaries, start_tile=pad)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    fused = band_cholesky_sweep_cuda(Ac, emb.R, nchunks=1, start_tile=pad)
+    assert torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1])
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_batched_sweep_kernel_with_a_shared_start(cuda, t):
+    """assemble_rung_batch of two grids of one rung: one launch at the
+    shared (smaller) start, each element against the plain version and bit
+    for bit its unbatched launch at that start."""
+    from repro_torch.core import GridBucketPolicy, assemble_rung_batch
+    pol = GridBucketPolicy(**DEEP)
+    n, bw, ar = GRIDS[t]
+    pairs = [make_arrowhead(nn, bw, ar, rho=0.6, seed=s) for s, nn in enumerate((n, n - t))]
+    mats = [BandedCTSF.from_sparse(A, TileGrid(st, t), device=cuda) for A, st in pairs]
+    cg = pol.canonicalize(mats[0].grid)
+    assert pol.canonicalize(mats[1].grid) == cg
+    batch, start = assemble_rung_batch(mats, cg)
+    Ac = band_row_to_col(batch.Dr)
+    before = band_cholesky_sweep_cuda.launches
+    got = band_cholesky_sweep_cuda(Ac, batch.R, nchunks=8, start_tile=start)
+    assert band_cholesky_sweep_cuda.launches == before + 1
+    want = ref.band_cholesky_sweep_ref(Ac, batch.R, nchunks=8, start_tile=start)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    for i in range(2):
+        one = band_cholesky_sweep_cuda(Ac[i], batch.R[i], nchunks=8, start_tile=start)
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("k", [1, 33])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_band_sweep_kernels_skip_a_deep_prefix(cuda, t, k, batch):
+    """Both band sweeps on an embedded factor at start_tile = the prefix,
+    unbatched and on a batch with the start shared: against the plain
+    versions, the prefix rows zero, each element bit for bit its launch
+    alone at the batch's chunk width."""
+    from repro_torch.core import factorize_window
+    emb, _, pad = _deep_embedding(t, cuda)
+    f = factorize_window(emb, options=SolverOptions(impl="ref"))
+    g = emb.grid
+    nat = g.n_arrow_tiles
+    rng = np.random.default_rng(k)
+    Dr = f.ctsf.Dr.expand((batch,) + tuple(f.ctsf.Dr.shape)).contiguous()
+    R = f.ctsf.R.expand((batch,) + tuple(f.ctsf.R.shape)).contiguous()
+    bd = torch.from_numpy(rng.standard_normal((batch, g.n_diag_tiles, t, k)).astype(
+        np.float32)).to(cuda)
+    bd[:, :pad] = 0.0
+    xa = torch.from_numpy(rng.standard_normal((batch, nat, t, k)).astype(np.float32)).to(cuda)
+    yd, acca = band_forward_sweep_cuda(Dr, R, bd, pad)
+    xd = band_backward_sweep_cuda(Dr, R, bd, xa, pad)
+    want = ref.band_forward_sweep_ref(Dr, R, bd, pad) + (
+        ref.band_backward_sweep_ref(Dr, R, bd, xa, pad),)
+    for got, w in zip((yd, acca, xd), want):
+        torch.testing.assert_close(got, w, **TOL)
+    assert not yd[:, :pad].any() and not xd[:, :pad].any()
+    width = card_solve_plan(t, g.band_tiles, nat, k, device=cuda, batch=batch).width
+    for i in range(batch):
+        one = band_forward_sweep_cuda(Dr[i], R[i], bd[i], pad, width=width) + (
+            band_backward_sweep_cuda(Dr[i], R[i], bd[i], xa[i], pad, width=width),)
+        assert all(torch.equal(x[i], o) for x, o in zip((yd, acca, xd), one))
+
+
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_selinv_kernels_skip_a_deep_prefix(cuda, t, batch):
+    """The selinv pre-pass and recurrence on an embedded factor at
+    start_tile = the prefix: against the plain versions, identity Σ panels
+    over the prefix, a batch with the start shared bit for bit each
+    element's launch alone."""
+    from repro_torch.core import factorize_window
+    from repro_torch.core.selinv import corner_sigma
+    emb, _, pad = _deep_embedding(t, cuda)
+    f = factorize_window(emb, options=SolverOptions(impl="ref"))
+    lcol = band_row_to_col(f.ctsf.Dr)
+    sc = corner_sigma(f.ctsf.C)
+    lead = lambda x: x.expand((batch,) + tuple(x.shape)).contiguous()
+    lcol, R, sc = lead(lcol), lead(f.ctsf.R), lead(sc)
+    work = selinv_prepass_cuda(lcol, R, sc, pad)
+    torch.testing.assert_close(work, ref.selinv_prepass_ref(lcol, R, sc, pad), **TOL)
+    got = selinv_sweep_cuda(lcol, R, sc, pad, work=work)
+    for g, w in zip(got, ref.selinv_sweep_ref(lcol, R, sc, pad)):
+        torch.testing.assert_close(g, w, **TOL)
+    eye = torch.eye(t, device=cuda)
+    assert torch.equal(got[0][:, :pad, 0], eye.expand(batch, pad, t, t))
+    assert not got[0][:, :pad, 1:].any() and not got[1][:, :pad].any()
+    for i in range(batch):
+        one = selinv_sweep_cuda(lcol[i], R[i], sc[i], pad)
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+@pytest.mark.parametrize("t", [16, 64])
+def test_policy_entry_points_on_the_card(cuda, t):
+    """factorize_window, solve_many, selected_inverse and both
+    marginal_variances methods under the policy on the card against the
+    CPU's unbucketed calls, with the launches of the unbucketed calls."""
+    from repro_torch.core import GridBucketPolicy, factorize_window, solve_many
+    pol = SolverOptions(policy=GridBucketPolicy(**DEEP))
+    m = _matrix(t, cuda)
+    mc = _matrix(t, "cpu")
+    g = m.grid
+    before = _counts()
+    fp = factorize_window(m, options=pol)
+    assert [a - b for a, b in zip(_counts(), before)] == [g.n_arrow_tiles] * 2 + [1]
+    f0 = factorize_window(mc)
+    for a, b in zip(fp.restrict().ctsf.arrays(), f0.ctsf.arrays()):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+    torch.testing.assert_close(fp.logdet().cpu(), f0.logdet(), rtol=1e-5, atol=0)
+    B = torch.from_numpy(np.random.default_rng(t).standard_normal((g.padded_n, 5)).astype(
+        np.float32))
+    torch.testing.assert_close(solve_many(fp, B.to(cuda)).cpu(), solve_many(f0, B), **TOL)
+    torch.testing.assert_close(selected_inverse(fp).Dr.cpu(), selected_inverse(f0).Dr, **TOL)
+    idx = [0, g.structure.n // 2, g.structure.n - 1]
+    for method in ("selinv", "panels"):
+        o = SolverOptions(method=method)
+        torch.testing.assert_close(marginal_variances(fp, idx, options=o).cpu(),
+                                   marginal_variances(f0, idx, options=o), **TOL)
