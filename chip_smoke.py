@@ -139,6 +139,36 @@ Phases, each of which raises on a failed check:
      bucket=False (factor, k = 32 solves, Σ; a failure is reported after
      the timings), and solves of 5, 6, 7 and 8 capturing the corner's
      graphs once;
+   - "distributed, block-diagonal n = 13,000": make_arrowhead(13,000, 100,
+     200, rho = 0, seed 0), Table II #4's shape at a size whose 200
+     diagonal tiles split into 8 partitions of 25 (detect_partition_plan
+     must find them), partition_banded(m, 8); world 1 in this process, an
+     NCCL group of one on make_local_mesh(1, 1): distributed_factorize
+     (counted: one sweep for the 8 partitions, nat potrf and trsm, no
+     geadd) and assemble_factor, its panels and arrow rows bit for bit the
+     partitioned route's and the fused route's, the coupling tiles exact
+     zeros, the corner within 1e-4 of max|C|, residual and logdet, an NCCL
+     all-reduce of one rank; then (process groups destroyed) worlds of 2
+     and 4 gloo ranks sharing the card (launch/mesh.py::run_local, the
+     ranks load the kernels built here): a sweep and log2(world) geadd a
+     rank, the corner the same bits on every rank, panels bit for bit
+     world 1's; the sharded concurrent calls on the data axis, #5's θ-batch
+     of 8: one sweep launch a rank, each element's panels and R bit for bit
+     factorize_window_batched's (corner within 1e-5), the logdets the same
+     on every rank and within 1e-4 of float64 oracles, concurrent_selinv's
+     Σ bit for bit selinv_batched's (or within 2e-4), and at world 4 the
+     faulted θ-batch's FactorInfo (regularize=True) the unsharded call's on
+     every rank;
+   - "telemetry" (runtime/telemetry.py): with telemetry enabled, #5's main
+     path, the faulted θ-batch and the mixed stream: every span, counter
+     and label one the reference's code emits for those calls (the span
+     tree of the main path exactly; the ladder's counters its attempts
+     and outcomes; one rung hit and one cache hit a call in the stream),
+     the results bit for bit the disabled calls'; kernel_report(
+     factorize_window) on #5 equal to the device counts; the solves'
+     corner graphs captured with telemetry enabled; the disabled surface
+     of one request, times 3, under 5 % of a cached solve_many (k = 32)
+     call, and the enabled call beside the disabled one, in turns;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -197,7 +227,11 @@ Phases, each of which raises on a failed check:
    medians of 7): factorize_window + logdet, the sweep alone (and the
    canonical sweep with no prefix skipped), solve_many (k = 32),
    selected_inverse; the stream's padded flop overheads; a batch of 5 run
-   as 8 against unpadded.
+   as 8 against unpadded; world 1's distributed_factorize + logdet beside
+   the partitioned and fused routes on the n = 13,000 matrix (call and
+   device time), and the batched sweep of its 8 partitions beside the
+   partitioned and fused kernels (gloo worlds sharing a card are checked,
+   not timed: they say nothing of scaling).
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -262,6 +296,16 @@ LOGDET_RTOL = 1e-5
 STREAM_NS = (10200, 9000, 8456)
 # (τ, δ) of the task list's second matrix of one pattern, τ A + δ I
 THETA_STEP = (1.5, 0.25)
+# the distributed path's matrix: Table II #4's shape (bandwidth 100, arrow
+# 200, rho = 0, seed 0) at n = 12,800 + 200, whose 200 diagonal tiles split
+# into 8 partitions of 25 (#4 itself has 157, a prime, and cannot be split)
+DIST_N, DIST_PARTS = 13000, 8
+# the worlds that share the one card over gloo (NCCL refuses two ranks on
+# one device), each a spawned process a rank
+GLOO_WORLDS = (2, 4)
+# the disabled telemetry surface of one request, times 3, against a cached
+# solve_many (k = 32) call: the reference's gate (tests/test_telemetry.py)
+TELEMETRY_OVERHEAD_LIMIT = 0.05
 # the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
 SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
 # the fused sweep's times before this cluster design (one block a matrix),
@@ -1206,24 +1250,6 @@ def tasklist_warmup_launches(want, workers):
     products, so a geadd per level over ``workers`` partials)."""
     return dict(potrf=1, trsm=1, syrk=1, gemm=1,
                 geadd=tree_levels(workers) if want["geadd"] else 0)
-
-
-def graph_caches():
-    """The port's CUDA graph caches: the task list's and the solves' corner's."""
-    from repro_torch.core.cholesky import tasklist_graphs
-    from repro_torch.core.solve import corner_graphs
-    return (tasklist_graphs, corner_graphs)
-
-
-def device_counts(kern):
-    """Launches on the card by kernel name (``kern``: name -> wrapper): each
-    wrapper's count of its calls, less the launches the captures of the
-    task list and of the solves' corner recorded into their CUDA graphs
-    (calls of the wrappers that ran nothing), plus those the graphs'
-    replays made."""
-    caches = graph_caches()
-    return {k: f.launches + sum(g.replayed[f.__name__] - g.recorded[f.__name__] for g in caches)
-            for k, f in kern.items()}
 
 
 def dense_from_tiles(torch, tm, tiles, dtype):
@@ -2482,6 +2508,524 @@ def time_bucketing(torch, m, f, fp, stream, mb5, card):
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the distributed path (core/distributed.py, the sharded concurrent calls)
+# ---------------------------------------------------------------------------
+
+def distributed_matrix(torch):
+    """Table II #4's shape at n = DIST_N (bandwidth 100, arrow 200, rho =
+    0, seed 0) on the card: ``make_arrowhead`` -> ``measure_arrowhead`` ->
+    ``TileGrid`` (t = 64) -> ``BandedCTSF.from_sparse``, and the plan
+    ``detect_partition_plan`` finds, which must be DIST_PARTS partitions
+    of equal size (``partition_banded``'s split).  Returns ``(m, plan)``."""
+    from repro_torch.core import BandedCTSF, TileGrid, detect_partition_plan, measure_arrowhead
+    from repro_torch.data import make_arrowhead
+    A, st = make_arrowhead(DIST_N, 100, 200, rho=0.0, seed=0)
+    measured = measure_arrowhead(A, arrow_hint=st.arrow)
+    grid = TileGrid(measured, t=64)
+    m = BandedCTSF.from_sparse(A, grid)
+    plan = detect_partition_plan(A, measured, grid.t)
+    per = grid.n_diag_tiles // DIST_PARTS
+    if tuple(plan.boundaries) != tuple(range(0, grid.n_diag_tiles + 1, per)):
+        raise AssertionError(f"n = {DIST_N}: detect_partition_plan found {plan.boundaries}, "
+                             f"not {DIST_PARTS} partitions of {per}")
+    return m, plan
+
+
+def nccl_world_of_one(torch, store_path):
+    """This process as a world of one NCCL rank on card 0."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=600))
+
+
+def coupling_zero(torch, Dr, boundaries, bt):
+    """Whether every band tile that reaches across a partition boundary is
+    an exact zero (the partitioned route's gate on block independence)."""
+    for start in boundaries[1:-1]:
+        for r in range(start, min(start + bt, Dr.shape[0])):
+            for d in range(r - start + 1, bt + 1):
+                if bool(Dr[r, d].any()):
+                    return False
+    return True
+
+
+def check_distributed_world1(torch, m, plan, full, launches):
+    """World 1's assembled factor against the partitioned route's on the
+    same plan and the fused route's: panels and arrow rows bit for bit, the
+    coupling tiles exact zeros, the corner within 1e-4 of max|C|; its
+    residual and logdet against the float64 oracle.  Returns the record."""
+    from repro_torch.core import SolverOptions, factorize_window
+    what = f"distributed n = {DIST_N}, world 1"
+    pf = factorize_window(m, options=SolverOptions(partition_plan=plan))
+    ff = factorize_window(m)
+    same = {route: all(torch.equal(getattr(full.ctsf, x), getattr(f.ctsf, x)) for x in ("Dr", "R"))
+            for route, f in (("partitioned", pf), ("fused", ff))}
+    corner = {route: ((full.ctsf.C - f.ctsf.C).abs().max() / f.ctsf.C.abs().max()).item()
+              for route, f in (("partitioned", pf), ("fused", ff))}
+    zero = coupling_zero(torch, full.ctsf.Dr, plan.boundaries, m.grid.band_tiles)
+    Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, full.ctsf, torch.float64, symmetric=False)
+    resid = ((Ld @ Ld.mT - Ad).abs().max() / Ad.abs().max()).item()
+    oracle = (2.0 * torch.log(torch.diagonal(torch.linalg.cholesky(Ad)))).sum().item()
+    del Ad, Ld
+    ld = full.logdet().item()
+    ld_rel = abs(ld - oracle) / abs(oracle)
+    if not (all(same.values()) and zero and max(corner.values()) <= 1e-4
+            and resid <= RESIDUAL_LIMIT and ld_rel <= 1e-4):
+        raise AssertionError(f"{what}: panels and R bit-identical {same}, coupling zero {zero}, "
+                             f"corner {corner} (limit 1e-4), residual {resid:.3e}, logdet rel "
+                             f"{ld_rel:.3e}")
+    g = m.grid
+    return dict(n=g.structure.n, bandwidth=g.structure.bandwidth, arrow=g.structure.arrow,
+                t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles, nat=g.n_arrow_tiles,
+                partitions=DIST_PARTS, boundaries=list(plan.boundaries), launches=launches,
+                bit_identical=same, coupling_tiles_zero=zero, corner_rel=corner,
+                residual=resid, logdet=ld, logdet_oracle=oracle, logdet_rel_err=ld_rel)
+
+
+def gloo_rank(pm_host, grid, theta_host, faulted_host, device):
+    """One rank of a world that shares the card over gloo, its tensors on
+    ``device``: the distributed factorization over the ``model`` axis of a
+    ``(1, world)`` mesh and its assembly, then the sharded concurrent calls
+    on #5's θ-batch over the ``data`` axis of a ``(world, 1)`` mesh (and
+    ``regularize=True`` on the faulted batch when given), each with the
+    launches it made on the card.  Returns what the parent checks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import BandedCTSF, SolverOptions
+    from repro_torch.core.concurrent import (concurrent_factorize, concurrent_logdet,
+                                             concurrent_selinv)
+    from repro_torch.core.distributed import (PartitionedCTSF, assemble_factor,
+                                              distributed_factorize)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.telemetry import count_launches
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    world = dist.get_world_size()
+
+    def launched(fn):
+        got = []
+        launches = count_launches(lambda: got.append(fn()))
+        return got[0], launches
+
+    pm = PartitionedCTSF(pm_host.grid, pm_host.n_parts,
+                         *(x.to(dev) for x in (pm_host.Dr, pm_host.R, pm_host.C)))
+    model = make_local_mesh(1, world)
+    f, dlaunch = launched(lambda: distributed_factorize(pm, model, "model"))
+    full = assemble_factor(f, grid)
+    out = dict(first=f.first, launches=dlaunch, Dr=f.Dr, R=f.R, C=f.C,
+               full=full.ctsf.arrays())
+    data = make_local_mesh(world, 1)
+    batch = BandedCTSF(theta_host.grid, *(x.to(dev) for x in theta_host.arrays()))
+    fc, claunch = launched(lambda: concurrent_factorize(batch, mesh=data))
+    out["concurrent"] = dict(offset=fc.offset, launches=claunch, factor=fc.ctsf.arrays(),
+                             status=fc.status, logdet=concurrent_logdet(fc),
+                             sigma=concurrent_selinv(fc, mesh=data).arrays())
+    if faulted_host is not None:
+        bad = BandedCTSF(faulted_host.grid, *(x.to(dev) for x in faulted_host.arrays()))
+        ff = concurrent_factorize(bad, mesh=data, options=SolverOptions(regularize=True))
+        i = ff.info
+        out["faulted"] = dict(status=ff.status, info=(i.status, i.attempts, i.tau, i.min_pivot,
+                                                      i.first_bad_tile))
+    return out
+
+
+def same_bits(torch, a, b):
+    """Equal element for element, NaN where NaN."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def check_gloo_world(torch, world, outs, w1, fb5, sb5, oracles, ff5):
+    """A gloo world's ranks against world 1 and the unsharded calls: the
+    distributed factor's panels bit for bit world 1's and its corner the
+    same bits on every rank (within 1e-4 of world 1's), a sweep and
+    log2(world) geadd a rank; each θ-batch element's panels and R bit for
+    bit ``factorize_window_batched``'s (the corner within 1e-5), the
+    logdets the same on every rank and within 1e-4 of the oracles, Σ bit
+    for bit ``selinv_batched``'s or within 2e-4, one sweep launch a rank;
+    the faulted batch's FactorInfo the unsharded call's on every rank.
+    Returns the record."""
+    what = f"distributed, gloo world {world}"
+    per = DIST_PARTS // world
+    levels = world.bit_length() - 1
+    nat_d, nat = w1[2].shape[0], fb5.ctsf.grid.n_arrow_tiles
+    rec = dict(world=world, launches=outs[0]["launches"],
+               concurrent_launches=outs[0]["concurrent"]["launches"])
+    corner_same = all(torch.equal(o["C"], outs[0]["C"]) for o in outs)
+    corner_rel = max(((o["C"] - w1[2]).abs().max() / w1[2].abs().max()).item() for o in outs)
+    panels_same = all(
+        torch.equal(o["Dr"], w1[0].reshape(DIST_PARTS, -1, *w1[0].shape[1:])[r * per:(r + 1) * per])
+        and torch.equal(o["full"][0], w1[0]) and torch.equal(o["full"][1], w1[1])
+        for r, o in enumerate(outs))
+    want_d = {"band_cholesky_sweep": 1, "geadd": levels, "potrf": nat_d, "trsm": nat_d}
+    want_c = {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+    launches_ok = all(o["launches"] == want_d and o["concurrent"]["launches"] == want_c
+                      for o in outs)
+    rec.update(corner_same_on_every_rank=corner_same, corner_rel_to_world1=corner_rel,
+               panels_bit_identical_to_world1=panels_same)
+    if not (corner_same and corner_rel <= 1e-4 and panels_same and launches_ok):
+        raise AssertionError(f"{what}: {rec}, launches {[o['launches'] for o in outs]} "
+                             f"(want {want_d}), concurrent "
+                             f"{[o['concurrent']['launches'] for o in outs]} (want {want_c})")
+    nb = fb5.ctsf.Dr.shape[0]
+    el = nb // world
+    ref_arrays = [x.cpu() for x in fb5.ctsf.arrays()]
+    ref_sigma = [x.cpu() for x in sb5.arrays()]
+    ld_ref = outs[0]["concurrent"]["logdet"]
+    ok, corner_err, sigma_same, sigma_err = True, 0.0, True, 0.0
+    for r, o in enumerate(outs):
+        c = o["concurrent"]
+        lo = r * el
+        ok &= c["offset"] == lo and torch.equal(c["logdet"], ld_ref)
+        ok &= all(torch.equal(c["factor"][k], ref_arrays[k][lo:lo + el]) for k in (0, 1))
+        corner_err = max(corner_err, ((c["factor"][2] - ref_arrays[2][lo:lo + el]).abs().max()
+                                      / ref_arrays[2][lo:lo + el].abs().max()).item())
+        for a, b in zip(c["sigma"], ref_sigma):
+            same = torch.equal(a, b[lo:lo + el])
+            sigma_same &= same
+            if not same:
+                sigma_err = max(sigma_err, ((a - b[lo:lo + el]).abs().max()
+                                            / b[lo:lo + el].abs().max()).item())
+    ld_err = max(abs(float(ld_ref[i]) - oracles[i]) / abs(oracles[i]) for i in range(nb))
+    rec["concurrent"] = dict(elements_per_rank=el, panels_bit_identical=ok,
+                             corner_rel=corner_err, logdet_rel_err=ld_err,
+                             sigma_bit_identical=sigma_same, sigma_rel=sigma_err)
+    if not (ok and corner_err <= 1e-5 and ld_err <= 1e-4 and sigma_err <= TOL):
+        raise AssertionError(f"{what}, the sharded θ-batch: {rec['concurrent']}")
+    if ff5 is not None:
+        want = (ff5.info.status, ff5.info.attempts, ff5.info.tau, ff5.info.min_pivot,
+                ff5.info.first_bad_tile)
+        want = [x.cpu() for x in want]
+        exact = all(torch.equal(o["faulted"]["info"][k], want[k]) for o in outs for k in (0, 1, 4))
+        bits = all(same_bits(torch, o["faulted"]["info"][k], want[k]) for o in outs
+                   for k in (2, 3))
+        close = all(torch.allclose(o["faulted"]["info"][k], want[k], rtol=1e-5, atol=0.0,
+                                   equal_nan=True) for o in outs for k in (2, 3))
+        rec["faulted"] = dict(status=want[0].tolist(), attempts=want[1].tolist(),
+                              ints_equal=exact, tau_min_pivot_bit_identical=bits,
+                              tau_min_pivot_within_1e5=close)
+        if not (exact and close):
+            raise AssertionError(f"{what}, the faulted θ-batch's FactorInfo on every rank: "
+                                 f"{rec['faulted']}")
+    return rec
+
+
+def time_distributed(torch, m, plan, pm, mesh, card):
+    """World 1's call and device time of ``distributed_factorize`` +
+    ``assemble_factor`` + ``logdet`` beside the partitioned and fused
+    routes' ``factorize_window`` + ``logdet`` on the same matrix, and the
+    three sweeps alone: the batched sweep on the 8 partitions, the
+    partitioned kernel on the same plan, the fused kernel over every
+    column."""
+    from repro_torch.core import SolverOptions, factorize_window, logdet
+    from repro_torch.core.distributed import assemble_factor, distributed_factorize
+    from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
+                                                   band_cholesky_sweep_cuda)
+    from repro_torch.kernels.ring import band_row_to_col
+    popts = SolverOptions(partition_plan=plan)
+    calls = {
+        "distributed": lambda: logdet(assemble_factor(distributed_factorize(pm, mesh, "model"),
+                                                      m.grid)),
+        "partitioned": lambda: logdet(factorize_window(m, options=popts)),
+        "fused": lambda: logdet(factorize_window(m))}
+    out = {}
+    for name, fn in calls.items():
+        out[name] = dict(call_ms=time_ms(torch, fn, reps=7, warmup=2),
+                         device_ms=device_ms(torch, fn))
+    Acp, Ac = band_row_to_col(pm.Dr), band_row_to_col(m.Dr)
+    nch = max(1, min(8, pm.grid.n_diag_tiles))
+    sweeps = {"batched_partitions": lambda: band_cholesky_sweep_cuda(Acp, pm.R, nchunks=nch),
+              "partitioned_kernel": lambda: band_cholesky_partitioned_sweep_cuda(
+                  Ac, m.R, plan.boundaries),
+              "fused_kernel": lambda: band_cholesky_sweep_cuda(Ac, m.R, nchunks=8)}
+    out["sweeps_device_ms"] = {k: device_ms(torch, fn) for k, fn in sweeps.items()}
+    log(f"distributed n = {DIST_N}, world 1: call and device ms (medians of 7 and 5) "
+        + json.dumps(out) + f", card {card}")
+    return out
+
+
+def theta_oracles(torch, mb):
+    """The float64 logdet of each element of a θ-batch."""
+    out = []
+    for i in range(mb.Dr.shape[0]):
+        Ad = dense_from_ctsf(torch, element(mb, i), torch.float64, symmetric=True)
+        out.append((2.0 * torch.log(torch.diagonal(torch.linalg.cholesky(Ad)))).sum().item())
+        del Ad
+    return out
+
+
+def phase_distributed(torch, run_path, mb5, fb5, mbf, card):
+    """The phase "distributed, block-diagonal n = 13,000": world 1 in this
+    process (an NCCL group of one, its path counted), then the gloo worlds
+    of GLOO_WORLDS sharing the card in spawned ranks (their launches counted
+    in each rank); every process group destroyed before the next world.
+    Returns the record."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core import SolverOptions, factorize_window_batched, selinv_batched
+    from repro_torch.core.distributed import (PartitionedCTSF, assemble_factor,
+                                              distributed_factorize, partition_banded)
+    from repro_torch.launch.mesh import make_local_mesh, run_local
+    from repro_torch.sharding.collectives import quantized_allreduce
+    m, plan = distributed_matrix(torch)
+    pm = partition_banded(m, DIST_PARTS)
+    nat = m.grid.n_arrow_tiles
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        nccl_world_of_one(torch, Path(tmp) / "store")
+        try:
+            mesh = make_local_mesh(1, 1)
+            name = f"distributed, block-diagonal n = {DIST_N}: world 1 (NCCL)"
+            f = run_path(name, lambda: distributed_factorize(pm, mesh, "model"))
+            launches = run_path.launches[name]
+            want = {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches} != {want}")
+            full = assemble_factor(f, m.grid)
+            rec["world1"] = check_distributed_world1(torch, m, plan, full, launches)
+            # the NCCL transport in place (a world of one's all-reduce)
+            q = quantized_allreduce(full.ctsf.C, mesh.get_group("model"))
+            rec["world1"]["nccl_quantized_rel"] = (
+                (q - full.ctsf.C).abs().max() / full.ctsf.C.abs().max()).item()
+            if not rec["world1"]["nccl_quantized_rel"] <= 0.02:
+                raise AssertionError(f"{name}: the NCCL quantized all-reduce of one rank is "
+                                     f"{rec['world1']['nccl_quantized_rel']:.3e} off")
+            log(f"main path, {name}: " + json.dumps(rec["world1"]))
+            rec["world1"]["times"] = time_distributed(torch, m, plan, pm, mesh, card)
+        finally:
+            dist.destroy_process_group()
+    w1 = [x.cpu() for x in full.ctsf.arrays()]
+    pm_host = PartitionedCTSF(pm.grid, pm.n_parts, *(x.cpu() for x in (pm.Dr, pm.R, pm.C)))
+    sb5 = selinv_batched(fb5)
+    ff5 = factorize_window_batched(mbf, options=SolverOptions(regularize=True))
+    oracles = theta_oracles(torch, mb5)
+    theta_host = type(mb5)(mb5.grid, *(x.cpu() for x in mb5.arrays()))
+    faulted_host = type(mbf)(mbf.grid, *(x.cpu() for x in mbf.arrays()))
+    del f, full
+    for world in GLOO_WORLDS:
+        t0 = time.perf_counter()
+        outs = run_local(gloo_rank, pm_host, m.grid, theta_host,
+                         faulted_host if world == GLOO_WORLDS[-1] else None, str(m.device),
+                         world_size=world, backend="gloo", device_type=m.device.type,
+                         timeout=600)
+        rec[f"world{world}"] = check_gloo_world(torch, world, outs, w1, fb5, sb5, oracles,
+                                                ff5 if world == GLOO_WORLDS[-1] else None)
+        rec[f"world{world}"]["seconds"] = time.perf_counter() - t0
+        del outs
+        log(f"main path, distributed, gloo world {world} sharing the card: "
+            + json.dumps(rec[f"world{world}"]))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# telemetry (runtime/telemetry.py) on the main paths
+# ---------------------------------------------------------------------------
+
+# What the reference's code emits (src/repro/core/*.py, batching.py,
+# gridpolicy.py, robustness.py): each span's tags, and each counter's and
+# histogram's labels
+REFERENCE_SPAN_TAGS = {
+    "factorize.window": ({"grid"}, {"grid", "rung"}),
+    "factorize.window_batched": ({"b", "grid"}, {"b", "grid", "rung"}),
+    "solve.forward_many": ({"k", "grid"},), "solve.backward_many": ({"k", "grid"},),
+    "solve.solve_many": ({"k", "grid"},), "solve.solve_many_batched": ({"b", "k", "grid"},),
+    "solve.sample_gmrf_many": ({"num"},), "solve.marginal_variances": ({"method", "k", "grid"},),
+    "selinv.selected_inverse": ({"grid"},), "selinv.batched": ({"b", "grid"},)}
+REFERENCE_COUNTER_LABELS = {
+    "cache.hit": {"cache"}, "cache.miss": {"cache"}, "cache.eviction": {"cache"},
+    "cache.duplicate_trace": {"cache"}, "gridpolicy.rung_hit": {"rung"},
+    "robustness.attempts": set(), "robustness.status": {"outcome"}}
+REFERENCE_HISTOGRAM_LABELS = {"cache.trace_seconds": {"cache"},
+                              "gridpolicy.padded_flop_overhead": set()}
+
+
+def telemetry_record(snap, what):
+    """A snapshot's spans as ``(name, parent name)`` pairs with their tags,
+    its counters and histogram counts, after checking every name, tag and
+    label against the reference's; returns the record."""
+    names = {s["id"]: s["name"] for s in snap["spans"]}
+    for s in snap["spans"]:
+        if set(s["tags"]) not in [set(x) for x in REFERENCE_SPAN_TAGS.get(s["name"], ())]:
+            raise AssertionError(f"telemetry, {what}: span {s['name']} with tags "
+                                 f"{sorted(s['tags'])} is not one the reference emits")
+    for kind, allowed in (("counters", REFERENCE_COUNTER_LABELS),
+                          ("histograms", REFERENCE_HISTOGRAM_LABELS)):
+        for key in snap[kind]:
+            name, _, labels = key.partition("{")
+            keys = {kv.split("=")[0] for kv in labels.rstrip("}").split(",") if kv}
+            if name not in allowed or keys != allowed[name]:
+                raise AssertionError(f"telemetry, {what}: {kind[:-1]} {key} is not one the "
+                                     "reference emits")
+    return dict(spans=sorted(([s["name"], names.get(s["parent"]),
+                               {k: str(v) for k, v in sorted(s["tags"].items())}]
+                              for s in snap["spans"]), key=str),
+                counters=snap["counters"],
+                histograms={k: h["count"] for k, h in snap["histograms"].items()})
+
+
+def phase_telemetry(torch, run_path, m5, f5, mbf, stream, B32, card):
+    """The phase "telemetry": #5's main path, the faulted θ-batch with
+    regularize=True and the mixed stream's θ-batches with telemetry
+    enabled (their spans, counters and labels the reference's, the ladder's
+    counts its attempts and outcomes, the results bit for bit the disabled
+    calls'); kernel_report(factorize_window) on #5 against the device
+    counts; the solves' corner graphs captured with telemetry enabled; the
+    disabled surface of one request, times 3, against a cached solve_many
+    (k = 32) call (at most TELEMETRY_OVERHEAD_LIMIT), and the enabled call
+    beside the disabled one, in turns.  Returns the record."""
+    import numpy as np
+    from repro_torch.core import (GridBucketPolicy, SolverOptions, factorize_window,
+                                  factorize_window_batched, logdet, marginal_variances,
+                                  sample_gmrf_many, selected_inverse, selinv_batched, solve,
+                                  solve_many, solve_many_batched)
+    from repro_torch.core.solve import corner_graphs
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.telemetry import kernel_report
+    g = m5.grid
+    tag = telemetry.rung_tag(g)
+    idx = np.array([0, g.structure.n // 2, g.structure.n - g.structure.arrow, g.structure.n - 1])
+    B = B32[0].contiguous()
+    rec = {}
+
+    def captured(fn, what):
+        telemetry.reset()
+        telemetry.enable()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            telemetry.disable()
+        r = telemetry_record(telemetry.snapshot(), what)
+        telemetry.reset()
+        return out, r
+
+    def main_path():
+        f = factorize_window(m5)
+        gen = torch.Generator(device=m5.device).manual_seed(5)
+        return dict(f=f, ld=logdet(f), x=solve(f, B[:, 0].contiguous()), X=solve_many(f, B),
+                    Z=sample_gmrf_many(f, num=32, generator=gen), S=selected_inverse(f),
+                    v=marginal_variances(f, idx),
+                    vp=marginal_variances(f, idx, options=SolverOptions(method="panels")))
+
+    on, rec["main"] = captured(main_path, "#5's main path")
+    off = main_path()
+    same = all(torch.equal(a, b) for a, b in (
+        (on["f"].ctsf.Dr, off["f"].ctsf.Dr), (on["f"].ctsf.C, off["f"].ctsf.C),
+        (on["ld"], off["ld"]), (on["x"], off["x"]), (on["X"], off["X"]), (on["Z"], off["Z"]),
+        (on["S"].Dr, off["S"].Dr), (on["v"], off["v"]), (on["vp"], off["vp"])))
+    del on, off
+    k, n_idx = str(B.shape[1]), str(len(idx))
+    want = sorted([
+        ["factorize.window", None, {"grid": tag}],
+        ["solve.solve_many", None, {"grid": tag, "k": "1"}],
+        ["solve.solve_many", None, {"grid": tag, "k": k}],
+        ["solve.sample_gmrf_many", None, {"num": "32"}],
+        ["solve.backward_many", "solve.sample_gmrf_many", {"grid": tag, "k": "32"}],
+        ["selinv.selected_inverse", None, {"grid": tag}],
+        ["solve.marginal_variances", None, {"grid": tag, "k": n_idx, "method": "selinv"}],
+        ["selinv.selected_inverse", "solve.marginal_variances", {"grid": tag}],
+        ["solve.marginal_variances", None, {"grid": tag, "k": n_idx, "method": "panels"}],
+        ["solve.forward_many", "solve.marginal_variances", {"grid": tag, "k": n_idx}]],
+        key=str)
+    if not (same and sorted(rec["main"]["spans"], key=str) == want
+            and not rec["main"]["counters"] and not rec["main"]["histograms"]):
+        raise AssertionError(f"telemetry, #5's main path: results unchanged {same}, "
+                             f"{rec['main']} (want spans {want} and nothing else)")
+    # the faulted θ-batch: the ladder's counters are its attempts and outcomes
+    ff, rec["faulted"] = captured(lambda: factorize_window_batched(
+        mbf, options=SolverOptions(regularize=True)), "the faulted θ-batch")
+    st = ff.info.status.cpu()
+    want_c = {"robustness.attempts": float(ff.info.attempts.sum().item())}
+    for code, outcome in ((0, "ok"), (1, "recovered"), (2, "failed")):
+        if int((st == code).sum()):
+            want_c[f"robustness.status{{outcome={outcome}}}"] = float((st == code).sum())
+    got_c = {k: v for k, v in rec["faulted"]["counters"].items() if k.startswith("robustness")}
+    cache_c = {k: v for k, v in rec["faulted"]["counters"].items() if k.startswith("cache")}
+    if not (got_c == want_c and sum(cache_c.values()) == 1
+            and [s[:2] for s in rec["faulted"]["spans"]] == [["factorize.window_batched",
+                                                             None]]):
+        raise AssertionError(f"telemetry, the faulted θ-batch: {rec['faulted']} (want the "
+                             f"ladder's {want_c}, one batched_window lookup)")
+    del ff
+    # the mixed stream: the rung hits, one lookup a call in each batched cache
+    pol = SolverOptions(policy=GridBucketPolicy())
+
+    def stream_calls():
+        for m, mb, Bs in stream:
+            fb = factorize_window_batched(mb, options=pol)
+            solve_many_batched(fb, Bs)
+            selinv_batched(fb)
+
+    _, rec["stream"] = captured(stream_calls, "the mixed stream")
+    cg = GridBucketPolicy().canonicalize(stream[0][0].grid)
+    want_s = {f"gridpolicy.rung_hit{{rung={telemetry.rung_tag(cg)}}}": 3.0,
+              "cache.hit{cache=batched_window}": 3.0, "cache.hit{cache=batched_solve}": 3.0,
+              "cache.hit{cache=batched_selinv}": 3.0}
+    names = sorted(s[0] for s in rec["stream"]["spans"])
+    if not (rec["stream"]["counters"] == want_s
+            and rec["stream"]["histograms"] == {"gridpolicy.padded_flop_overhead": 3}
+            and names == sorted(["factorize.window_batched", "solve.solve_many_batched",
+                                 "selinv.batched"] * 3)):
+        raise AssertionError(f"telemetry, the mixed stream: {rec['stream']} (want counters "
+                             f"{want_s})")
+    # kernel_report against the path's device counts
+    name = "telemetry: kernel_report(factorize_window), matrix 5"
+    rep = run_path(name, lambda: kernel_report(factorize_window, m5, grid=g, sweep="cholesky"))
+    want_l = {"band_cholesky_sweep": 1, "potrf": g.n_arrow_tiles, "trsm": g.n_arrow_tiles}
+    rec["kernel_report"] = rep.asdict()
+    if not rep.launches == run_path.launches[name] == want_l:
+        raise AssertionError(f"{name}: {rep.launches}, device counts "
+                             f"{run_path.launches[name]}, want {want_l}")
+    # the solves' corner graphs still capture with telemetry enabled
+    corner_graphs.clear()
+    c0 = corner_graphs.captures
+    X, rec["corner_capture"] = captured(lambda: solve_many(f5, B), "a capturing solve_many")
+    rec["corner_capture"]["captures"] = corner_graphs.captures - c0
+    replay = solve_many(f5, B)
+    rec["corner_capture"]["bit_identical_to_replay"] = torch.equal(X, replay)
+    if not (rec["corner_capture"]["captures"] == 2
+            and torch.allclose(X, replay, rtol=TOL, atol=TOL)):
+        raise AssertionError(f"telemetry: the corner's capture with telemetry enabled: "
+                             f"{rec['corner_capture']} (want 2 captures, the replay's values)")
+    # the disabled surface against a cached solve_many (k = 32) call
+    call_ms = time_ms(torch, lambda: solve_many(f5, B), reps=21, warmup=3)
+    n = 5000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with telemetry.span("solve.solve_many", k=32) as sp:
+            sp.tag(grid=telemetry.rung_tag(g))
+        telemetry.inc("cache.hit", cache="batched_window")
+        telemetry.observe("lat", 1.0)
+    per_request_ms = (time.perf_counter() - t0) / n * 1e3
+    turns = {"disabled": [], "enabled": []}
+    for _ in range(5):
+        for key in ("disabled", "enabled", "enabled", "disabled"):
+            if key == "enabled":
+                telemetry.enable()
+            try:
+                turns[key].append(time_ms(torch, lambda: solve_many(f5, B), reps=5, warmup=1))
+            finally:
+                telemetry.disable()
+                telemetry.reset()
+    rec["overhead"] = dict(
+        solve_many_k32_call_ms=call_ms, disabled_request_ms=per_request_ms,
+        ratio=3 * per_request_ms / call_ms,
+        disabled_call_ms=statistics.median(turns["disabled"]),
+        enabled_call_ms=statistics.median(turns["enabled"]), turns=turns)
+    rec["overhead"]["enabled_ratio"] = (rec["overhead"]["enabled_call_ms"]
+                                        / rec["overhead"]["disabled_call_ms"])
+    log("telemetry, disabled surface and enabled call against solve_many (k = 32) on #5: "
+        + json.dumps(rec["overhead"]) + f", card {card}")
+    if not rec["overhead"]["ratio"] < TELEMETRY_OVERHEAD_LIMIT:
+        raise AssertionError(f"telemetry: the disabled surface of one request, times 3, is "
+                             f"{rec['overhead']['ratio']:.4f} of a cached solve_many call "
+                             f"(limit {TELEMETRY_OVERHEAD_LIMIT})")
+    return rec
+
+
 def time_ms(torch, fn, inner=1, reps=7, warmup=2):
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls a rep."""
     for _ in range(warmup):
@@ -2622,6 +3166,7 @@ def main() -> int:
             "selinv_prepass": selinv_prepass_cuda}
 
     from repro_torch.core.cholesky import tasklist_graphs
+    from repro_torch.runtime.telemetry import device_counts, graph_caches
 
     def counts():
         return device_counts(kern)
@@ -2643,6 +3188,8 @@ def main() -> int:
         path_launches[name] = {k: v for k, v in counts().items() if v}
         log(f"launches, {name}: {json.dumps(path_launches[name])}")
         return out
+
+    run_path.launches = path_launches
 
     # 1. card and build
     card = card_line()
@@ -2825,6 +3372,12 @@ def main() -> int:
     bucketing["bucket"]["against_unpadded"] = check_bucket(torch, bucket_out, B32b, deferred)
     del bucket_out
     log("main path, bucketing, bucket=True: " + json.dumps(bucketing["bucket"]))
+    # the distributed path: world 1 in this process over NCCL, the gloo
+    # worlds sharing the card; then telemetry on the main paths
+    distributed = phase_distributed(torch, run_path, mb5, fb5, mbf, card)
+    telemetry_rec = phase_telemetry(torch, run_path, m5, f5, mbf, stream, B32b, card)
+    for what, r in (("distributed", distributed), ("telemetry", telemetry_rec)):
+        log(f"phase {what}: " + json.dumps(r))
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:

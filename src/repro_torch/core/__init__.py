@@ -6,7 +6,8 @@ diagonal jitter), and the solves, sampling, marginal variances and
 selected inverse read off the factor, one factor or a θ-batch of them;
 canonical-grid bucketing of mixed problem sizes (``GridBucketPolicy``,
 ``SolverOptions(policy=)``) and the concurrent entry points of a stacked
-batch.
+batch, sharded over a mesh axis with ``mesh=``; ``core/distributed.py``
+factorizes one block-separable matrix across the ranks of a mesh axis.
 
 Every entry point takes its data positionally and its options by keyword
 only (``factorize_window(m, options=...)``, ``sample_gmrf_many(f, num=8,

@@ -17,17 +17,24 @@ per-grid bound callable with the same two tricks as the reference's:
   The cache is LRU-bounded so a long-running process cycling through many
   distinct grids cannot grow it without limit.
 
-Port of the JAX package's ``core/batching.py``.  The reference's named
-caches also report to its telemetry (``cache.*{cache=<name>}``); the port
-has no telemetry yet, so :meth:`LRUCache.stats` is the only report.
+A named cache reports to the telemetry registry
+(``runtime/telemetry.py``): hits, misses, evictions, duplicate builds and
+the build time of :meth:`LRUCache.get_or_create` under
+``cache.*{cache=<name>}``, as the reference's do.  :meth:`LRUCache.stats`
+has the same counts whether telemetry is enabled or not.
+
+Port of the JAX package's ``core/batching.py``.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, Optional, Tuple
 
 import torch
+
+from repro_torch.runtime import telemetry
 
 __all__ = ["LRUCache", "RungQueue", "RungQueueFull", "bucketed_batched_call",
            "next_pow2"]
@@ -55,9 +62,11 @@ class LRUCache:
     but stays correct (``put`` is last-writer-wins), and the wasted build
     is counted (``stats()["duplicate_traces"]``).
 
-    ``name`` names the cache (``batched_window``, ...); the reference emits
-    its counters to telemetry under it, which the port does not have yet,
-    so here it only labels the cache.  :meth:`stats` has the counters."""
+    A ``name`` (``batched_window``, ...) makes the cache visible to
+    telemetry: hits, misses, evictions, duplicate builds and the build
+    times of :meth:`get_or_create` are emitted under
+    ``cache.*{cache=<name>}``.  An anonymous cache keeps its local
+    :meth:`stats` only."""
 
     def __init__(self, maxsize: int = 64, name: Optional[str] = None):
         if maxsize <= 0:
@@ -71,33 +80,52 @@ class LRUCache:
         self._evictions = 0
         self._duplicate_traces = 0
 
+    def _emit(self, record: Callable, metric: str, value: float = 1.0) -> None:
+        """Report to telemetry (``record``: ``telemetry.inc`` or
+        ``telemetry.observe``) when the cache is named and telemetry on."""
+        if self.name is not None and telemetry.enabled():
+            record(metric, value, cache=self.name)
+
     def get(self, key: Hashable) -> Optional[Any]:
         with self._lock:
-            if key not in self._entries:
+            hit = key in self._entries
+            if hit:
+                self._entries.move_to_end(key)
+                self._hits += 1
+                value = self._entries[key]
+            else:
                 self._misses += 1
-                return None
-            self._entries.move_to_end(key)
-            self._hits += 1
-            return self._entries[key]
+        self._emit(telemetry.inc, "cache.hit" if hit else "cache.miss")
+        return value if hit else None
 
     def put(self, key: Hashable, value: Any) -> None:
         with self._lock:
-            if key in self._entries:
+            duplicate = key in self._entries
+            if duplicate:
                 # another thread raced through the same miss and built it
                 self._duplicate_traces += 1
             self._entries[key] = value
             self._entries.move_to_end(key)
+            evicted = 0
             while len(self._entries) > self.maxsize:
                 self._entries.popitem(last=False)
-                self._evictions += 1
+                evicted += 1
+            self._evictions += evicted
+        if duplicate:
+            self._emit(telemetry.inc, "cache.duplicate_trace")
+        if evicted:
+            self._emit(telemetry.inc, "cache.eviction", evicted)
 
     def get_or_create(self, key: Hashable, factory: Callable[[], Any]) -> Any:
-        """``get``, or build by ``factory`` and ``put``; the factory runs
-        outside the lock (see the class note on concurrent misses)."""
+        """``get``, or build by ``factory`` and ``put``, the build timed
+        into ``cache.trace_seconds``; the factory runs outside the lock
+        (see the class note on concurrent misses)."""
         value = LRUCache.get(self, key)
         if value is not None:
             return value
+        t0 = time.perf_counter()
         value = factory()
+        self._emit(telemetry.observe, "cache.trace_seconds", time.perf_counter() - t0)
         LRUCache.put(self, key, value)
         return value
 

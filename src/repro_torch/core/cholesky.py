@@ -44,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 from collections import Counter
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -54,6 +54,7 @@ from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
 from repro_torch.kernels.potrf import TILE_SIZES, potrf_cuda
 from repro_torch.kernels.trsm import trsm_cuda
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
+from repro_torch.runtime import telemetry
 from .batching import LRUCache, bucketed_batched_call
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
@@ -194,13 +195,17 @@ class GraphCache(LRUCache):
     name.  ``captures`` counts the captures made; ``recorded`` counts the
     launches the captures recorded into their graphs (the wrappers count
     these calls as their own), and ``replayed`` those that the replays made
-    on the card."""
+    on the card.  The graph caches are the port's own (the reference's
+    ``jax.jit`` caches report nothing), so they report to no telemetry."""
 
     def __init__(self, max_entries: int, name: Optional[str] = None):
         super().__init__(max_entries, name)
         self.captures = 0
         self.recorded: Counter = Counter()
         self.replayed: Counter = Counter()
+
+    def _emit(self, record, metric: str, value: float = 1.0) -> None:
+        pass
 
     @property
     def max_entries(self) -> int:
@@ -342,12 +347,22 @@ class CholeskyFactor:
     sides in and restrict results back on their own.  :meth:`restrict`
     strips the embedding; ``status``'s ``first_bad`` counts canonical
     columns.
+
+    ``mesh``, ``axis`` and ``offset`` are set on a rank's share of a batch
+    factorized with ``concurrent_factorize(mesh=)``: ``ctsf`` holds the
+    batch's elements ``offset`` onward that fall to this rank along the
+    mesh's ``axis``, while ``status`` and ``info`` hold the whole batch's
+    per-element values, the same on every rank (``info.matrix``, where it
+    is kept, holds the rank's elements).
     """
 
     ctsf: BandedCTSF
     status: Optional[torch.Tensor] = None
     info: Optional[FactorInfo] = None
     source_grid: Optional[TileGrid] = None
+    mesh: Optional[Any] = None
+    axis: Optional[str] = None
+    offset: int = 0
 
     def restrict(self) -> "CholeskyFactor":
         """The factor sliced back onto its source grid (the factor itself
@@ -545,14 +560,16 @@ def _window_call(grid: TileGrid, opts: SolverOptions, tree_chunks: int,
         dr, r, c, grid, opts.impl, tree_chunks, opts.sweep, opts.partition_plan, start_tile)
 
 
-def _factorize(Dr, R, C, grid: TileGrid, call: Callable, regularize) -> CholeskyFactor:
+def _factorize(Dr, R, C, grid: TileGrid, call: Callable, regularize,
+               gather: Optional[Callable] = None) -> CholeskyFactor:
     """``call`` on arrays with or without a batch axis, through the jitter
     ladder when ``regularize`` asks for it: the factor, its status word
     and, with the ladder, its ``FactorInfo``.  With the ladder, an
     element's ``[min_pivot, nonfinite]`` are those of the attempt its factor
     came from (attempt ``info.attempts``: a retried element is retried
     until it is healthy or the ladder ends) and its ``first_bad`` the clean
-    attempt's, so ``status`` and ``info`` read the same."""
+    attempt's, so ``status`` and ``info`` read the same.  ``gather`` is the
+    ladder's (a sharded batch's all-gather, ``run_ladder``)."""
     policy = RegularizePolicy.resolve(regularize)
     if policy is None:
         Dr_L, R_L, C_L, status = call(Dr, R, C)
@@ -564,7 +581,7 @@ def _factorize(Dr, R, C, grid: TileGrid, call: Callable, regularize) -> Cholesky
         words.append(out[3])
         return out
 
-    Dr_L, R_L, C_L, info = run_ladder(Dr, R, C, grid, kept, policy)
+    Dr_L, R_L, C_L, info = run_ladder(Dr, R, C, grid, kept, policy, gather)
     final = words[0]
     for n, word in enumerate(words[1:], start=2):
         final = torch.where((info.attempts == n)[..., None], word, final)
@@ -603,11 +620,13 @@ def factorize_window(m: BandedCTSF, *, tree_chunks: int = 8,
     its factor is bit-identical to the call without it."""
     opts = options if options is not None else SolverOptions()
     source, start = None, 0
-    if opts.policy is not None:
-        m, source, start = _embed_matrix(m, opts.policy)
-        opts = _shift_plan(opts, start)
-    f = _factorize(m.Dr, m.R, m.C, m.grid, _window_call(m.grid, opts, tree_chunks, start),
-                   opts.regularize)
+    with telemetry.span("factorize.window", grid=telemetry.rung_tag(m.grid)) as sp:
+        if opts.policy is not None:
+            m, source, start = _embed_matrix(m, opts.policy)
+            sp.tag(rung=telemetry.rung_tag(m.grid))
+            opts = _shift_plan(opts, start)
+        f = _factorize(m.Dr, m.R, m.C, m.grid, _window_call(m.grid, opts, tree_chunks, start),
+                       opts.regularize)
     f.source_grid = source
     return f
 
@@ -722,22 +741,25 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
         if Dr.dim() != 5:
             raise ValueError(f"batched CTSF needs a leading batch axis, got Dr.dim()="
                              f"{Dr.dim()}")
-    source, start = None, int(start_tile or 0)
-    if opts.policy is not None:
-        emb, source, start = _embed_matrix(BandedCTSF(grid, Dr, R, C), opts.policy)
-        Dr, R, C, grid = emb.Dr, emb.R, emb.C, emb.grid
-        opts = _shift_plan(opts, start)
-    entry = _batched_window_fn(grid, opts, tree_chunks,
-                               use_start=source is not None or start_tile is not None)
-    call = lambda dr, r, c: entry.call(dr, r, c, start)
-    infos = []
+    with telemetry.span("factorize.window_batched", b=Dr.shape[0],
+                        grid=telemetry.rung_tag(grid)) as sp:
+        source, start = None, int(start_tile or 0)
+        if opts.policy is not None:
+            emb, source, start = _embed_matrix(BandedCTSF(grid, Dr, R, C), opts.policy)
+            Dr, R, C, grid = emb.Dr, emb.R, emb.C, emb.grid
+            sp.tag(rung=telemetry.rung_tag(grid))
+            opts = _shift_plan(opts, start)
+        entry = _batched_window_fn(grid, opts, tree_chunks,
+                                   use_start=source is not None or start_tile is not None)
+        call = lambda dr, r, c: entry.call(dr, r, c, start)
+        infos = []
 
-    def run(dr, r, c):
-        f = _factorize(dr, r, c, grid, call, opts.regularize)
-        infos.append(f.info)
-        return f.ctsf.arrays() + (f.status,) + _info_arrays(f.info)
+        def run(dr, r, c):
+            f = _factorize(dr, r, c, grid, call, opts.regularize)
+            infos.append(f.info)
+            return f.ctsf.arrays() + (f.status,) + _info_arrays(f.info)
 
-    out = bucketed_batched_call(run, (Dr, R, C), bucket)
+        out = bucketed_batched_call(run, (Dr, R, C), bucket)
     info = None
     if infos[-1] is not None:
         # the unpadded batch is the original kept for the refinement

@@ -9,31 +9,51 @@ embeds unequal grids onto their shared canonical rung under a policy),
 factorized by ``factorize_window_batched`` and read out by the batched
 sweeps, each element on its own thread-block clusters.
 
-Port of the mesh-less half of the JAX package's ``core/concurrent.py``.
-The reference's ``mesh=`` shards the batch over devices; that path comes
-with the distributed slice (ROADMAP A4), and a ``mesh`` other than None
-raises ``NotImplementedError``.
+With a ``mesh`` (a :class:`torch.distributed.device_mesh.DeviceMesh`,
+``launch/mesh.py``) the batch is sharded over the mesh's ``axis``: each
+rank is passed the whole batch, as the reference's caller passes one
+global array, and factorizes its slice of it, one launch a sweep, so one
+factorization never spans devices (App. A's within-NUMA binding).  The
+small per-element outputs — the status words, ``FactorInfo``, the
+log-determinants — are all-gathered along the axis, so every rank holds
+the whole batch's, as the reference replicates its status words; the
+jitter ladder decides on the gathered statuses, so every rank runs the
+same attempts.
+
+Port of the JAX package's ``core/concurrent.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
-from .cholesky import CholeskyFactor, factorize_window_batched
+from repro_torch.sharding.collectives import all_gather
+from .cholesky import (CholeskyFactor, _embed_matrix, _factorize, _shift_plan, _window_call,
+                       factorize_window_batched)
 from .ctsf import BandedCTSF
+from .distributed import mesh_axis
 from .options import SolverOptions
-from .selinv import SelectedInverse, selinv_batched
+from .robustness import FactorInfo
+from .selinv import SelectedInverse, _selinv_impl, selinv_batched
 
 __all__ = ["stack_ctsf", "concurrent_factorize", "concurrent_logdet",
            "concurrent_quadratic_forms", "concurrent_selinv", "concurrent_solve"]
 
 
-def _no_mesh(mesh, where: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{where}: mesh= (the batch sharded over devices) is not ported yet; it comes "
-            "with the distributed slice (ROADMAP A4)")
+def _shard(mesh, axis: str, b: int):
+    """``(group, lo, hi)``: mesh dimension ``axis``'s group and this rank's
+    elements ``[lo, hi)`` of a batch of ``b``."""
+    group, me, size = mesh_axis(mesh, axis)
+    if b % size:
+        raise ValueError(f"a batch of {b} does not split over mesh axis {axis}={size}")
+    per = b // size
+    return group, me * per, (me + 1) * per
+
+
+def _local(m: BandedCTSF, lo: int, hi: int) -> BandedCTSF:
+    return BandedCTSF(m.grid, *(x[lo:hi] for x in m.arrays()))
 
 
 def stack_ctsf(mats: list, policy=None) -> BandedCTSF:
@@ -62,18 +82,43 @@ def stack_ctsf(mats: list, policy=None) -> BandedCTSF:
                               for x in ("Dr", "R", "C")))
 
 
-def concurrent_factorize(batch: BandedCTSF, *, mesh=None, tree_chunks: int = 8,
+def concurrent_factorize(batch: BandedCTSF, *, mesh=None, axis: str = "data",
+                         tree_chunks: int = 8,
                          options: Optional[SolverOptions] = None) -> CholeskyFactor:
-    """Factorize a batch of matrices concurrently: the batched
-    factorization (``factorize_window_batched`` with ``bucket=False``, as
-    the reference delegates), one sweep launch for the batch.  With
-    ``options.policy`` the batch is embedded on its canonical grid and the
+    """Factorize a batch of matrices concurrently.
+
+    Without ``mesh``: the batched factorization (``factorize_window_batched``
+    with ``bucket=False``, as the reference delegates), one sweep launch for
+    the batch.  With ``mesh``: this rank's slice of the batch along
+    ``axis`` (which must divide the batch), one sweep launch for the slice;
+    the factor holds the slice (``mesh``, ``axis`` and ``offset`` set) and
+    the whole batch's status words, the same on every rank.
+
+    ``options.policy`` embeds the batch on its canonical grid and the
     factor carries ``source_grid``; ``options.regularize`` flags each
-    element OK / RECOVERED / FAILED instead of one bad candidate failing
-    the batch."""
-    _no_mesh(mesh, "concurrent_factorize")
-    return factorize_window_batched(batch, tree_chunks=tree_chunks, bucket=False,
-                                    options=options)
+    element OK / RECOVERED / FAILED instead of one bad candidate failing the
+    batch (on a mesh, ``factor.info`` is the whole batch's, equal to the
+    unsharded call's on every rank)."""
+    if mesh is None:
+        return factorize_window_batched(batch, tree_chunks=tree_chunks, bucket=False,
+                                        options=options)
+    opts = options if options is not None else SolverOptions()
+    group, lo, hi = _shard(mesh, axis, batch.Dr.shape[0])
+    gather = lambda x: all_gather(x, group)
+    local, source, start = _local(batch, lo, hi), None, 0
+    if opts.policy is not None:
+        local, source, start = _embed_matrix(local, opts.policy)
+        opts = _shift_plan(opts, start)
+    f = _factorize(*local.arrays(), local.grid,
+                   _window_call(local.grid, opts, tree_chunks, start), opts.regularize,
+                   gather=gather)
+    info = f.info
+    if info is not None:
+        info = FactorInfo(*(gather(x) for x in (info.status, info.attempts, info.tau,
+                                                info.min_pivot, info.first_bad_tile)),
+                          matrix=info.matrix)
+    return CholeskyFactor(f.ctsf, gather(f.status), info, source_grid=source, mesh=mesh,
+                          axis=axis, offset=lo)
 
 
 def concurrent_solve(factor: CholeskyFactor, B: torch.Tensor, *,
@@ -95,13 +140,34 @@ def concurrent_solve(factor: CholeskyFactor, B: torch.Tensor, *,
     return out[..., 0] if B.dim() == 1 else out
 
 
-def concurrent_selinv(factor: CholeskyFactor, *, mesh=None,
+def concurrent_selinv(factor: CholeskyFactor, *, mesh=None, axis: str = "data",
                       options: Optional[SolverOptions] = None) -> SelectedInverse:
-    """Selected inversion of a batch of factors concurrently: the batched
-    recurrence (``selinv_batched`` with ``bucket=False``), two launches for
-    the batch; an embedded factor is restricted back to its source grid."""
-    _no_mesh(mesh, "concurrent_selinv")
-    return selinv_batched(factor, bucket=False, options=options)
+    """Selected inversion of a batch of factors concurrently.
+
+    Without ``mesh``: the batched recurrence (``selinv_batched`` with
+    ``bucket=False``), two launches for the batch.  With ``mesh``: the
+    recurrence on this rank's elements only (a factor from
+    ``concurrent_factorize(mesh=)`` on the same mesh and axis as it is, a
+    whole batched factor sliced as ``concurrent_factorize`` slices a
+    batch), two launches for them, so a θ-sweep's factors and their
+    marginals stay on the rank end to end; the result holds those
+    elements.  An embedded factor is restricted back to its source grid."""
+    if mesh is None:
+        return selinv_batched(factor, bucket=False, options=options)
+    opts = options if options is not None else SolverOptions()
+    if factor.mesh is None:
+        _, lo, hi = _shard(mesh, axis, factor.ctsf.Dr.shape[0])
+        factor = dataclasses.replace(factor, ctsf=_local(factor.ctsf, lo, hi))
+    elif factor.mesh is not mesh or factor.axis != axis:
+        raise ValueError(f"the factor is sharded over axis {factor.axis!r} of its own mesh; "
+                         "pass mesh=factor.mesh, axis=factor.axis")
+    from .solve import _resolve_embedding
+    c, src, pad = _resolve_embedding(factor, opts.policy)
+    out = SelectedInverse(c.grid, *_selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl, pad))
+    if src is None:
+        return out
+    from .gridpolicy import restrict_selinv
+    return restrict_selinv(out, src)
 
 
 def concurrent_quadratic_forms(factor: CholeskyFactor, y: torch.Tensor, *,
@@ -123,5 +189,9 @@ def concurrent_quadratic_forms(factor: CholeskyFactor, y: torch.Tensor, *,
 def concurrent_logdet(factor: CholeskyFactor) -> torch.Tensor:
     """The ``(batch,)`` log-determinants of a batched factor, INLA's
     quantity an evaluation (the identity prefix of an embedded factor adds
-    nothing)."""
-    return factor.logdet()
+    nothing); a rank's share of a sharded factor gathers the whole batch's
+    along its mesh axis, the same on every rank."""
+    if factor.mesh is None:
+        return factor.logdet()
+    group, _, _ = mesh_axis(factor.mesh, factor.axis)
+    return all_gather(factor.logdet(), group)

@@ -35,9 +35,7 @@ Embedding layout (source grid ``g`` -> canonical grid ``cg``)::
     C_c[i, j] = C[i, j]                 C_c[i >= nat, i] = I
 
 Port of the JAX package's ``core/gridpolicy.py``.  The arrays keep their
-device and leading batch axes.  The reference's ``canonicalize`` also
-reports the rung hit and the padded overhead to its telemetry, which the
-port does not have yet.
+device and leading batch axes.
 """
 from __future__ import annotations
 
@@ -46,6 +44,7 @@ from typing import Iterable, Sequence, Tuple
 
 import torch
 
+from repro_torch.runtime import telemetry
 from .batching import next_pow2
 from .ctsf import BandedCTSF
 from .structure import TileGrid
@@ -106,8 +105,19 @@ class GridBucketPolicy:
 
     def canonicalize(self, grid: TileGrid) -> TileGrid:
         """The canonical grid a problem on ``grid`` embeds into (same tile
-        size; only the tile counts are bucketed)."""
-        return TileGrid.from_tile_counts(grid.t, *self.rungs_for(grid))
+        size; only the tile counts are bucketed).
+
+        When telemetry is enabled each call counts a hit on the chosen
+        rung (``gridpolicy.rung_hit{rung=...}``) and observes the padded
+        flop overhead of the embedding (the
+        ``gridpolicy.padded_flop_overhead`` histogram): the two numbers
+        that say whether the policy's rung set fits the traffic."""
+        cgrid = TileGrid.from_tile_counts(grid.t, *self.rungs_for(grid))
+        if telemetry.enabled():
+            telemetry.inc("gridpolicy.rung_hit", rung=telemetry.rung_tag(cgrid))
+            telemetry.observe("gridpolicy.padded_flop_overhead",
+                              padded_flop_overhead(grid, cgrid))
+        return cgrid
 
     def join(self, grids: Iterable[TileGrid]) -> TileGrid:
         """The smallest canonical grid every grid of ``grids`` embeds into:

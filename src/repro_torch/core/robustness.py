@@ -26,8 +26,12 @@ pivot-perturbation ladder of the JAX package's ``core/robustness.py``:
 The ladder reads back one ``(B,)`` bool per attempt; the clean path pays
 exactly one readback and returns.  Everything here is a plain function on
 tensors; the reference's fused first-attempt evaluation is a few tensor
-ops.  The reference's telemetry counters come with the telemetry module's
-port (ROADMAP), so none are kept here.
+ops.  With telemetry enabled the ladder counts ``robustness.attempts`` and
+``robustness.status{outcome=ok|recovered|failed}``, as the reference's
+does: on the clean path off the readback it pays anyway, on the ladder
+path off one more readback of the statuses.  A sharded batch
+(``core/concurrent.py``'s ``mesh=``) passes ``gather``, so that every rank
+decides, counts and retries on the whole batch's statuses.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.runtime import telemetry
 from .ctsf import BandedCTSF
 
 __all__ = ["STATUS_OK", "STATUS_RECOVERED", "STATUS_FAILED", "STATUS_SHED",
@@ -271,7 +276,7 @@ def _merge(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Te
 
 
 def run_ladder(Dr: torch.Tensor, R: torch.Tensor, C: torch.Tensor, grid,
-               call: Callable, policy: RegularizePolicy):
+               call: Callable, policy: RegularizePolicy, gather: Optional[Callable] = None):
     """Drive ``call(Dr, R, C) -> (Dr_L, R_L, C_L, status_vec)`` through the
     escalating-jitter ladder.  ``call`` may be batched (a leading axis on
     the arrays and ``status_vec (B, 3)``): a retry runs the same call on
@@ -281,12 +286,24 @@ def run_ladder(Dr: torch.Tensor, R: torch.Tensor, C: torch.Tensor, grid,
 
     One readback of a ``(B,)`` bool per attempt; the clean path pays
     exactly that one and returns.  Never raises on a breakdown: exhausted
-    elements come back ``STATUS_FAILED`` with their factor as it is."""
+    elements come back ``STATUS_FAILED`` with their factor as it is.
+
+    ``gather`` maps a per-element tensor of this call's elements to the
+    whole batch's (a sharded batch's all-gather along its mesh axis): the
+    ladder decides whether to go on, and counts, on what it gives, so
+    every rank runs the same attempts.  The returned ``FactorInfo`` is of
+    this call's elements."""
+    gather = gather or (lambda x: x)
     dr, r, c, sv = call(Dr, R, C)
     scale = diag_scale(Dr, C, grid)
     ok = status_ok(sv, scale, policy)
     first_bad = sv[..., 2].to(torch.int32)
-    if bool(ok.all()):                  # the clean path's one readback
+    if bool(gather(ok).all()):          # the clean path's one readback
+        if telemetry.enabled():
+            # counted off the readback the ladder pays anyway
+            n = gather(ok).numel()
+            telemetry.inc("robustness.attempts", n)
+            telemetry.inc("robustness.status", n, outcome="ok")
         zeros = torch.zeros(ok.shape, dtype=torch.int32, device=ok.device)
         info = FactorInfo(status=zeros, attempts=zeros + 1,
                           tau=torch.zeros(ok.shape, dtype=torch.float32, device=ok.device),
@@ -310,11 +327,20 @@ def run_ladder(Dr: torch.Tensor, R: torch.Tensor, C: torch.Tensor, grid,
         tau_app = torch.where(failed, sh, tau_app)
         attempts = attempts + failed.to(torch.int32)
         ok = ok | (failed & status_ok(n_sv, scale, policy))
-        if bool(ok.all()):
+        if bool(gather(ok).all()):
             break
     status = torch.where(ok, torch.where(tau_app > 0, STATUS_RECOVERED, STATUS_OK),
                          STATUS_FAILED).to(torch.int32)
-    jittered = bool((tau_app > 0).any())
+    jittered = bool(gather(tau_app > 0).any())
+    if telemetry.enabled():
+        # the ladder path only: its readbacks are off the clean path
+        st_host = gather(status).cpu()
+        telemetry.inc("robustness.attempts", int(gather(attempts).sum()))
+        for code, outcome in ((STATUS_OK, "ok"), (STATUS_RECOVERED, "recovered"),
+                              (STATUS_FAILED, "failed")):
+            n = int((st_host == code).sum())
+            if n:
+                telemetry.inc("robustness.status", n, outcome=outcome)
     matrix = BandedCTSF(grid, Dr, R, C) if (jittered and policy.keep_matrix) else None
     info = FactorInfo(status=status, attempts=attempts, tau=tau_app, min_pivot=sv[..., 0],
                       first_bad_tile=first_bad, matrix=matrix)

@@ -35,6 +35,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from repro_torch.kernels.selinv import selinv_plan
+from repro_torch.runtime import telemetry
 from .batching import LRUCache, bucketed_batched_call
 from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, _plannable
 from .ctsf import BandedCTSF
@@ -175,12 +176,14 @@ def selected_inverse(factor: CholeskyFactor, *,
     of the source problem's inverse."""
     from .solve import _resolve_embedding
     opts = options if options is not None else SolverOptions()
-    c, src, pad = _resolve_embedding(factor, opts.policy)
-    out = SelectedInverse(c.grid, *_selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl, pad))
-    if src is None:
-        return out
-    from .gridpolicy import restrict_selinv
-    return restrict_selinv(out, src)
+    with telemetry.span("selinv.selected_inverse") as sp:
+        c, src, pad = _resolve_embedding(factor, opts.policy)
+        sp.tag(grid=telemetry.rung_tag(c.grid))
+        out = SelectedInverse(c.grid, *_selinv_impl(c.Dr, c.R, c.C, c.grid, opts.impl, pad))
+        if src is None:
+            return out
+        from .gridpolicy import restrict_selinv
+        return restrict_selinv(out, src)
 
 
 # what selinv_batched builds a key (core/batching.py), as the batched
@@ -222,14 +225,17 @@ def selinv_batched(factor: CholeskyFactor, *, bucket: bool = True,
     canonical grid, so a stream of grids on one rung shares one entry."""
     from .solve import _resolve_embedding
     opts = options if options is not None else SolverOptions()
-    c, src, pad = _resolve_embedding(factor, opts.policy)
-    if c.Dr.dim() != 5:
-        raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim={c.Dr.dim()}")
-    entry = _batched_selinv_fn(c.grid, opts, use_start=src is not None)
-    sd, sr, sc = bucketed_batched_call(lambda dr, r, cc: entry.call(dr, r, cc, pad),
-                                       (c.Dr, c.R, c.C), bucket)
-    out = SelectedInverse(c.grid, sd, sr, sc)
-    if src is None:
-        return out
-    from .gridpolicy import restrict_selinv
-    return restrict_selinv(out, src)
+    with telemetry.span("selinv.batched") as sp:
+        c, src, pad = _resolve_embedding(factor, opts.policy)
+        if c.Dr.dim() != 5:
+            raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim="
+                             f"{c.Dr.dim()}")
+        sp.tag(b=c.Dr.shape[0], grid=telemetry.rung_tag(c.grid))
+        entry = _batched_selinv_fn(c.grid, opts, use_start=src is not None)
+        sd, sr, sc = bucketed_batched_call(lambda dr, r, cc: entry.call(dr, r, cc, pad),
+                                           (c.Dr, c.R, c.C), bucket)
+        out = SelectedInverse(c.grid, sd, sr, sc)
+        if src is None:
+            return out
+        from .gridpolicy import restrict_selinv
+        return restrict_selinv(out, src)

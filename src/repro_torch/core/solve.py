@@ -43,6 +43,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.band_solve import card_solve_plan
 from repro_torch.kernels.trsm import solve_panel_cuda
+from repro_torch.runtime import telemetry
 from .batching import LRUCache, bucketed_batched_call
 from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, GraphCache, _plannable
 from .options import SolverOptions
@@ -314,14 +315,16 @@ def forward_solve_many(factor: CholeskyFactor, B: torch.Tensor, *, start_tile: i
 
     Returns the ``(padded_n, k)`` panel Y."""
     opts = _opts(options)
-    ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
-    if src is not None:
-        start += min(int(start_tile), src.n_diag_tiles)
-    else:
-        start = int(start_tile)
-    bd, ba = _split_rhs(g, B)
-    yd, ya = _forward_impl(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
-    return restrict(_merge_panels(yd, ya))
+    with telemetry.span("solve.forward_many", k=B.shape[-1]) as sp:
+        ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+        sp.tag(grid=telemetry.rung_tag(g))
+        if src is not None:
+            start += min(int(start_tile), src.n_diag_tiles)
+        else:
+            start = int(start_tile)
+        bd, ba = _split_rhs(g, B)
+        yd, ya = _forward_impl(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
+        return restrict(_merge_panels(yd, ya))
 
 
 def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor, *,
@@ -330,10 +333,12 @@ def backward_solve_many(factor: CholeskyFactor, Y: torch.Tensor, *,
     sweep; an embedded factor takes and returns the source layout, as in
     :func:`forward_solve_many`."""
     opts = _opts(options)
-    ctsf, _, g, Y, start, restrict = _embedded_panels(factor, opts.policy, Y)
-    yd, ya = _split_rhs(g, Y)
-    xd, xa = _backward_impl(ctsf.Dr, ctsf.R, ctsf.C, yd, ya, g, opts.impl, start)
-    return restrict(_merge_panels(xd, xa))
+    with telemetry.span("solve.backward_many", k=Y.shape[-1]) as sp:
+        ctsf, _, g, Y, start, restrict = _embedded_panels(factor, opts.policy, Y)
+        sp.tag(grid=telemetry.rung_tag(g))
+        yd, ya = _split_rhs(g, Y)
+        xd, xa = _backward_impl(ctsf.Dr, ctsf.R, ctsf.C, yd, ya, g, opts.impl, start)
+        return restrict(_merge_panels(xd, xa))
 
 
 def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
@@ -354,14 +359,16 @@ def solve_many(factor: CholeskyFactor, B: torch.Tensor, *,
     (:func:`_refine_panels`: one more solve), correcting most of the
     ``O(tau)`` bias of the diagonal shift; clean factors skip it."""
     opts = _opts(options)
-    ctsf, _, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
-    bd, ba = _split_rhs(g, B)
-    xd, xa = _solve_panels(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
-    m = _refined_matrix(factor, None)
-    if m is not None and m.grid == g:
-        xd, xa = _refine_panels(ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, g,
-                                opts.impl, start)
-    return restrict(_merge_panels(xd, xa))
+    with telemetry.span("solve.solve_many", k=B.shape[-1]) as sp:
+        ctsf, _, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+        sp.tag(grid=telemetry.rung_tag(g))
+        bd, ba = _split_rhs(g, B)
+        xd, xa = _solve_panels(ctsf.Dr, ctsf.R, ctsf.C, bd, ba, g, opts.impl, start)
+        m = _refined_matrix(factor, None)
+        if m is not None and m.grid == g:
+            xd, xa = _refine_panels(ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa,
+                                    g, opts.impl, start)
+        return restrict(_merge_panels(xd, xa))
 
 
 # what the batched solve builds a key (core/batching.py): keyed on the
@@ -463,28 +470,32 @@ def solve_many_batched(factor: CholeskyFactor, B: torch.Tensor, *,
     if B.dim() != 3 or B.shape[0] != nb or B.shape[1] != rows:
         raise ValueError(f"rhs panels must be (batch={nb}, padded_n={rows}, k), "
                          f"got {tuple(B.shape)}")
-    ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
-    if start_tile is not None:
-        if src is not None:
-            raise ValueError("start_tile= is for a batch embedded by its caller; an "
-                             "embedded factor skips its own identity prefix")
-        start = int(start_tile)
-    use_start = src is not None or start_tile is not None
-    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+    if start_tile is not None and (factor.source_grid is not None or opts.policy is not None):
+        raise ValueError("start_tile= is for a batch embedded by its caller; an "
+                         "embedded factor skips its own identity prefix")
     k = B.shape[2]
-    bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
-    ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
-    entry = _batched_solve_fn(g, opts, use_start)
-    xd, xa = bucketed_batched_call(
-        lambda dr, r, c, pd, pa: entry.call(dr, r, c, pd, pa, start),
-        (ctsf.Dr, ctsf.R, ctsf.C, bd, ba), bucket)
-    m = _refined_matrix(factor, nb)
-    if m is not None and m.grid == g:
-        rentry = _batched_refine_fn(g, opts, use_start)
+    with telemetry.span("solve.solve_many_batched", b=nb, k=k,
+                        grid=telemetry.rung_tag(factor.ctsf.grid)):
+        ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+        if start_tile is not None:
+            start = int(start_tile)
+        use_start = src is not None or start_tile is not None
+        t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+        bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
+        ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
+        entry = _batched_solve_fn(g, opts, use_start)
         xd, xa = bucketed_batched_call(
-            lambda *a: rentry.call(*a, start),
-            (ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, factor.info.tau), bucket)
-    return restrict(torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)], dim=1))
+            lambda dr, r, c, pd, pa: entry.call(dr, r, c, pd, pa, start),
+            (ctsf.Dr, ctsf.R, ctsf.C, bd, ba), bucket)
+        m = _refined_matrix(factor, nb)
+        if m is not None and m.grid == g:
+            rentry = _batched_refine_fn(g, opts, use_start)
+            xd, xa = bucketed_batched_call(
+                lambda *a: rentry.call(*a, start),
+                (ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, factor.info.tau),
+                bucket)
+        return restrict(torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)],
+                                  dim=1))
 
 
 def forward_solve(factor: CholeskyFactor, b: torch.Tensor, *,
@@ -542,11 +553,12 @@ def sample_gmrf_many(factor: CholeskyFactor, *, num: int,
     ``(padded_n, num)``.  For an embedded factor ``z`` is drawn in the
     source layout, so a bucketed factor gives the unbucketed draws for the
     same generator state."""
-    if z is None:
-        z = _normal(factor, (_rhs_grid(factor).padded_n, num), generator)
-    elif z.dim() != 2 or z.shape[1] != num:
-        raise ValueError(f"sample_gmrf_many: z {tuple(z.shape)} is not (padded_n, {num})")
-    return backward_solve_many(factor, z, options=options)
+    with telemetry.span("solve.sample_gmrf_many", num=num):
+        if z is None:
+            z = _normal(factor, (_rhs_grid(factor).padded_n, num), generator)
+        elif z.dim() != 2 or z.shape[1] != num:
+            raise ValueError(f"sample_gmrf_many: z {tuple(z.shape)} is not (padded_n, {num})")
+        return backward_solve_many(factor, z, options=options)
 
 
 def _validate_indices(grid, indices) -> np.ndarray:
@@ -583,14 +595,17 @@ def marginal_variances(factor: CholeskyFactor, indices, *,
     g = _rhs_grid(factor)
     padded = _validate_indices(g, indices)
     dev = factor.ctsf.device
-    if (opts.method or "selinv") == "selinv":
-        from .selinv import selected_inverse
-        sigma = selected_inverse(factor, options=opts)
-        return sigma.diagonal(padded=True)[torch.as_tensor(padded, device=dev)]
+    mth = opts.method or "selinv"
     k = padded.shape[0]
-    E = torch.zeros((g.padded_n, k), dtype=torch.float32, device=dev)
-    E[torch.as_tensor(padded, device=dev), torch.arange(k, device=dev)] = 1.0
-    # unit-vector panels are zero above the smallest selected row
-    start = min(int(padded.min()) // g.t, g.n_diag_tiles) if k else 0
-    Y = forward_solve_many(factor, E, start_tile=start, options=opts)
-    return (Y * Y).sum(dim=0)
+    with telemetry.span("solve.marginal_variances", method=mth, k=k,
+                        grid=telemetry.rung_tag(g)):
+        if mth == "selinv":
+            from .selinv import selected_inverse
+            sigma = selected_inverse(factor, options=opts)
+            return sigma.diagonal(padded=True)[torch.as_tensor(padded, device=dev)]
+        E = torch.zeros((g.padded_n, k), dtype=torch.float32, device=dev)
+        E[torch.as_tensor(padded, device=dev), torch.arange(k, device=dev)] = 1.0
+        # unit-vector panels are zero above the smallest selected row
+        start = min(int(padded.min()) // g.t, g.n_diag_tiles) if k else 0
+        Y = forward_solve_many(factor, E, start_tile=start, options=opts)
+        return (Y * Y).sum(dim=0)

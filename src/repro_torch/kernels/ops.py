@@ -9,9 +9,14 @@ the kernel, and raises for a CPU tensor.
 The task list's tile updates (``potrf``, ``trsm``, ``syrk``, ``gemm``) take
 ``out=``: the kernel writes its result there (it may be the updated tile
 itself, a slot of the tile buffer), and the plain version copies into it.
+
+``plain_calls`` counts the calls that took a plain version, by kernel
+name: the CPU's launch count (``runtime/telemetry.py::count_launches``),
+one a sweep as a kernel is one launch a sweep.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -31,6 +36,8 @@ __all__ = ["potrf", "trsm", "syrk", "gemm", "geadd", "solve_panel", "selinv_step
 
 IMPLS = ("ref", "cuda")
 
+plain_calls: Counter = Counter()
+
 
 def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     """The backend a call on ``x`` runs: ``impl`` if given, else by device."""
@@ -45,6 +52,11 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
+def _plain(name: str):
+    """Count one call of kernel ``name``'s plain version."""
+    plain_calls[name] += 1
+
+
 def _into(out: Optional[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """A plain version's result, copied into ``out`` when there is one."""
     return x if out is None else out.copy_(x)
@@ -55,6 +67,7 @@ def potrf(a: torch.Tensor, impl: Optional[str] = None,
     """Cholesky of a (..., t, t) batch of SPD tiles."""
     if resolve_impl(impl, a) == "cuda":
         return potrf_cuda(a, out=out)
+    _plain("potrf")
     return _into(out, ref.potrf_ref(a))
 
 
@@ -64,6 +77,7 @@ def trsm(l_kk: torch.Tensor, a_mk: torch.Tensor, impl: Optional[str] = None,
     tile, or one L per group: L (..., 1, t, t) against A (..., n, t, t)."""
     if resolve_impl(impl, a_mk) == "cuda":
         return trsm_cuda(l_kk, a_mk, out=out)
+    _plain("trsm")
     return _into(out, ref.trsm_ref(l_kk, a_mk))
 
 
@@ -72,6 +86,7 @@ def syrk(c_kk: torch.Tensor, a_kn: torch.Tensor, impl: Optional[str] = None,
     """``C - A A^T`` over the full tile (the diagonal tile's update)."""
     if resolve_impl(impl, c_kk) == "cuda":
         return syrk_cuda(c_kk, a_kn, out=out)
+    _plain("syrk")
     return _into(out, ref.syrk_ref(c_kk, a_kn))
 
 
@@ -80,6 +95,7 @@ def gemm(c_mk: torch.Tensor, a_mn: torch.Tensor, b_kn: torch.Tensor,
     """``C - A B^T``, batched over C's leading dims with A and B broadcast."""
     if resolve_impl(impl, c_mk) == "cuda":
         return gemm_cuda(c_mk, a_mn, b_kn, out=out)
+    _plain("gemm")
     return _into(out, ref.gemm_ref(c_mk, a_mn, b_kn))
 
 
@@ -87,6 +103,7 @@ def geadd(a: torch.Tensor, b: torch.Tensor, impl: Optional[str] = None) -> torch
     """``A + B``: the combine of the Alg. 3 tree reduction."""
     if resolve_impl(impl, a) == "cuda":
         return geadd_cuda(a, b)
+    _plain("geadd")
     return ref.geadd_ref(a, b)
 
 
@@ -97,6 +114,7 @@ def solve_panel(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False,
     (the batched solves' corner)."""
     if resolve_impl(impl, b_panel) == "cuda":
         return solve_panel_cuda(l_kk, b_panel, trans=trans)
+    _plain("solve_panel")
     return ref.solve_panel_ref(l_kk, b_panel, trans=trans)
 
 
@@ -107,6 +125,7 @@ def selinv_step(s_row: torch.Tensor, g_col: torch.Tensor,
     zeros when ``e_n`` or ``j_n`` is 0."""
     if resolve_impl(impl, s_row) == "cuda":
         return selinv_step_cuda(s_row, g_col)
+    _plain("selinv_step")
     return ref.selinv_step_ref(s_row, g_col)
 
 
@@ -119,6 +138,7 @@ def band_update(w: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
     wider bands, as the reference's dispatch does."""
     if resolve_impl(impl, w) == "cuda":
         return band_update_cuda(w)
+    _plain("band_update")
     if w.shape[-4] <= 6:
         return ref.band_update_unrolled_ref(w)
     return ref.band_update_ref(w)
@@ -132,6 +152,7 @@ def band_forward_sweep(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
     A leading batch axis on every input is one launch for the batch."""
     if resolve_impl(impl, bd) == "cuda":
         return band_forward_sweep_cuda(Dr, R, bd, start_tile=start_tile)
+    _plain("band_forward_sweep")
     return ref.band_forward_sweep_ref(Dr, R, bd, start_tile=start_tile)
 
 
@@ -142,6 +163,7 @@ def band_backward_sweep(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
     the same backend split and batch axis as :func:`band_forward_sweep`."""
     if resolve_impl(impl, yd) == "cuda":
         return band_backward_sweep_cuda(Dr, R, yd, xa, start_tile=start_tile)
+    _plain("band_backward_sweep")
     return ref.band_backward_sweep_ref(Dr, R, yd, xa, start_tile=start_tile)
 
 
@@ -157,6 +179,7 @@ def band_cholesky_sweep(Ac: torch.Tensor, R: torch.Tensor, nchunks: int = 1,
     if resolve_impl(impl, Ac) == "cuda":
         return band_cholesky_sweep_cuda(Ac, R, nchunks=nchunks,
                                         start_tile=start_tile)
+    _plain("band_cholesky_sweep")
     return ref.band_cholesky_sweep_ref(Ac, R, nchunks=nchunks,
                                        start_tile=start_tile)
 
@@ -172,6 +195,7 @@ def band_cholesky_partitioned_sweep(Ac: torch.Tensor, R: torch.Tensor, boundarie
     ``ref.py`` on each partition."""
     if resolve_impl(impl, Ac) == "cuda":
         return band_cholesky_partitioned_sweep_cuda(Ac, R, boundaries, start_tile=start_tile)
+    _plain("band_cholesky_partitioned_sweep")
     return ref.band_cholesky_partitioned_sweep_ref(Ac, R, boundaries, start_tile=start_tile)
 
 
@@ -185,4 +209,5 @@ def selinv_sweep(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
     same two launches for the batch."""
     if resolve_impl(impl, lcol) == "cuda":
         return selinv_sweep_cuda(lcol, R, sc_full, start_tile=start_tile)
+    _plain("selinv_sweep")
     return ref.selinv_sweep_ref(lcol, R, sc_full, start_tile=start_tile)

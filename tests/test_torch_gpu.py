@@ -7,7 +7,10 @@ atol = 2e-4 (float32 on both sides, different summation orders).  The
 partitioned sweep is also held bit for bit to the fused one on
 block-separable input, and each element of a batched kernel launch (the
 sweeps, the band solves, ``solve_panel`` with one L a panel, the selinv
-pre-pass and recurrence) to its unbatched launch.
+pre-pass and recurrence) to its unbatched launch.  The distributed path
+runs on the card as a world of one NCCL rank and as worlds of 2 and 4 gloo
+ranks sharing it (spawned by ``launch/mesh.py::run_local``), and telemetry
+is checked around the card's calls (the solves' corner still captured).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of jax or of the JAX package, so it runs where only
@@ -43,6 +46,7 @@ from repro_torch.kernels.ring import band_row_to_col
 from repro_torch.kernels.selinv import (MAX_SELINV_CLUSTER, selinv_plan, selinv_prepass_cuda,
                                         selinv_step_cuda, selinv_sweep_cuda)
 from repro_torch.kernels.trsm import PANEL_CHUNKS, solve_panel_cuda, trsm_cuda
+from repro_torch.runtime.telemetry import device_counts
 
 pytestmark = pytest.mark.gpu
 
@@ -333,9 +337,9 @@ def test_solves_and_selected_inverse_on_the_card(cuda, t):
     # its launches without running them
     kern = dict(band_forward_sweep=band_forward_sweep_cuda,
                 band_backward_sweep=band_backward_sweep_cuda, solve_panel=solve_panel_cuda)
-    before = _chip_smoke().device_counts(kern)
+    before = device_counts(kern)
     X = solve_many(f, B.to(cuda))
-    after = _chip_smoke().device_counts(kern)
+    after = device_counts(kern)
     assert {k: after[k] - before[k] for k in kern} == dict(
         band_forward_sweep=1, band_backward_sweep=1, solve_panel=2 * nat)
     before = _scounts()
@@ -453,9 +457,9 @@ def test_tasklist_on_the_card(cuda):
     for tree in (False, True):
         calls = []
         for _ in range(2):
-            before = smoke.device_counts(kern)
+            before = device_counts(kern)
             got = factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
-            after = smoke.device_counts(kern)
+            after = device_counts(kern)
             calls.append([after[k] - before[k] for k in names])
         first, launches = calls
         warm = smoke.tasklist_warmup_launches(dict(geadd=launches[4]), 4 if tree else 0)
@@ -905,9 +909,9 @@ def test_tasklist_graph_counts_each_call_once(cuda, tree):
     kern = dict(potrf=potrf_cuda, trsm=trsm_cuda, syrk=syrk_cuda, gemm=gemm_cuda,
                 geadd=geadd_cuda)
     for call in range(3):
-        before, own = smoke.device_counts(kern), {k: f.launches for k, f in kern.items()}
+        before, own = device_counts(kern), {k: f.launches for k, f in kern.items()}
         factorize_tasklist(tm, tree_reduction=tree, tree_workers=4)
-        after = smoke.device_counts(kern)
+        after = device_counts(kern)
         first = {k: want[k] + warm[k] for k in kern}
         assert {k: after[k] - before[k] for k in kern} == (want if call else first)
         assert {k: f.launches - own[k] for k, f in kern.items()} == (
@@ -1431,3 +1435,153 @@ def test_policy_entry_points_on_the_card(cuda, t):
         o = SolverOptions(method=method)
         torch.testing.assert_close(marginal_variances(fp, idx, options=o).cpu(),
                                    marginal_variances(f0, idx, options=o), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the distributed path on the card: a world of one over NCCL, worlds of 2
+# and 4 sharing the card over gloo (ranks spawned by run_local, the rank
+# functions of tests/_torch_ranks.py); telemetry around the card's calls
+# ---------------------------------------------------------------------------
+
+def _ranks():
+    import _torch_ranks
+    from repro_torch.launch.mesh import run_local
+    return _torch_ranks, run_local
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo"), (4, "gloo")])
+def test_distributed_factorize_on_the_card(cuda, world, backend):
+    """Each rank's share and the assembled factor: panels and arrow rows
+    bit for bit the fused ``factorize_window`` of the whole matrix, the
+    corner the same bits on every rank and within 1e-5 of the fused
+    route's; one sweep, log2(world) geadd and the corner's launches a
+    rank."""
+    ranks, run_local = _ranks()
+    A, st = make_arrowhead(16 * 16 + 16, 16, 16, rho=0.0, seed=3)
+    m = BandedCTSF.from_sparse(A, TileGrid(st, t=16), device="cpu")
+    outs = run_local(ranks.distributed, m, 4, (1, world), "model", "cuda", world_size=world,
+                     backend=backend, device_type="cuda", timeout=300)
+    f = factorize_window(BandedCTSF.from_sparse(A, TileGrid(st, t=16), device=cuda))
+    C = f.ctsf.C.cpu()
+    want = {"band_cholesky_sweep": 1, "potrf": 1, "trsm": 1}
+    if world > 1:
+        want["geadd"] = world.bit_length() - 1
+    for o in outs:
+        assert torch.equal(o["full"][0], f.ctsf.Dr.cpu()) and torch.equal(o["full"][1],
+                                                                          f.ctsf.R.cpu())
+        assert torch.equal(o["C"], outs[0]["C"])
+        torch.testing.assert_close(o["C"], C, rtol=0, atol=1e-5 * float(C.abs().max()))
+        assert o["launches"] == want
+
+
+def test_concurrent_mesh_on_the_card(cuda):
+    """The sharded concurrent calls over the ``data`` axis of a (2, 2)
+    mesh of four gloo ranks on the card: each rank's elements bit for bit
+    the unsharded call's (the corner within 1e-5), the logdets the whole
+    batch's on every rank, Σ within 2e-4 of ``selinv_batched``'s, the
+    faulted batch's statuses and attempts the unsharded call's."""
+    from repro_torch.core.concurrent import concurrent_factorize, stack_ctsf
+    from repro_torch.runtime.fault_tolerance import NumericalFaultInjector
+    ranks, run_local = _ranks()
+    mats = []
+    for seed in range(8):
+        A, st = make_arrowhead(160, 16, 16, rho=0.5, seed=seed)
+        mats.append(BandedCTSF.from_sparse(A, TileGrid(st, t=16), device="cpu"))
+    batch = stack_ctsf(mats)
+    faulted = NumericalFaultInjector(seed=0).corrupt(batch, {2: "indefinite", 5: "nan"})
+    outs = run_local(ranks.concurrent, batch, faulted, (2, 2), [None], "cuda", world_size=4,
+                     backend="gloo", device_type="cuda", timeout=300)
+    on = lambda b: BandedCTSF(b.grid, *(x.to(cuda) for x in b.arrays()))
+    f = concurrent_factorize(on(batch))
+    s = selinv_batched(f)
+    ff = concurrent_factorize(on(faulted), options=SolverOptions(regularize=True))
+    for r, o in enumerate(outs):
+        run, lo = o["runs"][0], (r // 2) * 4
+        assert run["offset"] == lo and run["launches"] == {
+            "band_cholesky_sweep": 1, "potrf": 1, "trsm": 1}
+        for a, b in zip(run["factor"][:2], f.ctsf.arrays()[:2]):
+            assert torch.equal(a, b[lo:lo + 4].cpu())
+        C = f.ctsf.C[lo:lo + 4].cpu()
+        torch.testing.assert_close(run["factor"][2], C, rtol=0,
+                                   atol=1e-5 * float(C.abs().max()))
+        torch.testing.assert_close(run["logdet"], f.logdet().cpu(), rtol=1e-5, atol=0)
+        assert torch.equal(run["logdet"], outs[0]["runs"][0]["logdet"])
+        for a, b in zip(run["sigma"], s.arrays()):
+            torch.testing.assert_close(a, b[lo:lo + 4].cpu(), **TOL)
+        info = o["faulted"]["info"]
+        assert torch.equal(info[0], ff.info.status.cpu())
+        assert torch.equal(info[1], ff.info.attempts.cpu())
+        assert torch.equal(info[4], ff.info.first_bad_tile.cpu())
+
+
+def test_telemetry_around_the_card(cuda):
+    """With telemetry enabled the solves' corner graphs still capture (two
+    keys for a new k) and the spans are the reference's; kernel_report of
+    ``factorize_window`` counts one sweep and the corner's launches."""
+    from repro_torch.core.solve import corner_graphs
+    from repro_torch.runtime import telemetry
+    m = _matrix(16, cuda)
+    nat = m.grid.n_arrow_tiles
+    f = factorize_window(m)
+    B = torch.randn((m.grid.padded_n, 7), generator=torch.Generator().manual_seed(0)).to(cuda)
+    corner_graphs.clear()
+    c0 = corner_graphs.captures
+    telemetry.reset()
+    try:
+        with telemetry.capture():
+            X = solve_many(f, B)
+            torch.cuda.synchronize()
+        snap = telemetry.snapshot()
+    finally:
+        telemetry.reset()
+    assert corner_graphs.captures - c0 == 2
+    assert [s["name"] for s in snap["spans"]] == ["solve.solve_many"]
+    assert snap["counters"] == {}
+    torch.testing.assert_close(solve_many(f, B), X, **TOL)
+    rep = telemetry.kernel_report(factorize_window, m, grid=m.grid, sweep="cholesky")
+    assert rep.launches == {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+
+
+@pytest.fixture
+def four_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (NCCL takes one rank a card)")
+    return cuda
+
+
+def test_nccl_collectives_across_cards(four_cards):
+    """The collectives over NCCL, a rank a card, device to device: the
+    tree the same bits on every rank and the sum of the rows, the ring and
+    the quantized sum, the gather in rank order.  The rows are tiles: on
+    the card the butterfly's and the ring's adds are the geadd kernel's."""
+    ranks, run_local = _ranks()
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.standard_normal((4, 3, 8, 8)).astype(np.float32))
+    qdata = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    outs = run_local(ranks.collectives, data, qdata, "cuda", world_size=4, backend="nccl",
+                     device_type="cuda", timeout=300)
+    for o in outs:
+        torch.testing.assert_close(o["tree"], data.sum(0), rtol=1e-6, atol=1e-6)
+        assert torch.equal(o["tree"], outs[0]["tree"])
+        torch.testing.assert_close(o["ring"], data.sum(0), rtol=1e-6, atol=1e-6)
+        q = qdata.sum(0)
+        assert float((o["quantized"] - q).abs().max() / q.abs().max()) < 0.02
+        assert torch.equal(o["gather"], data) and o["launches"] == {"geadd": 2}
+
+
+def test_nccl_distributed_factorize_across_cards(four_cards):
+    """``distributed_factorize`` over NCCL on four cards: panels bit for
+    bit the fused factor's, the corner the same bits on every rank."""
+    ranks, run_local = _ranks()
+    A, st = make_arrowhead(16 * 16 + 16, 16, 16, rho=0.0, seed=3)
+    m = BandedCTSF.from_sparse(A, TileGrid(st, t=16), device="cpu")
+    outs = run_local(ranks.distributed, m, 4, (1, 4), "model", "cuda", world_size=4,
+                     backend="nccl", device_type="cuda", timeout=300)
+    f = factorize_window(BandedCTSF.from_sparse(A, TileGrid(st, t=16), device=four_cards))
+    C = f.ctsf.C.cpu()
+    for o in outs:
+        assert torch.equal(o["full"][0], f.ctsf.Dr.cpu()) and torch.equal(o["full"][1],
+                                                                          f.ctsf.R.cpu())
+        assert torch.equal(o["C"], outs[0]["C"])
+        torch.testing.assert_close(o["C"], C, rtol=0, atol=1e-5 * float(C.abs().max()))
+        assert o["launches"] == {"band_cholesky_sweep": 1, "geadd": 2, "potrf": 1, "trsm": 1}

@@ -488,17 +488,19 @@ def test_mixed_grid_stream_shares_canonical_cache_entries():
     probs = [_problem(96, 10, 5), _problem(90, 9, 3), _problem(88, 11, 2)]
     assert len({POLICY.canonicalize(p[1]) for p in probs}) == 1
     before = set(cache.keys())
-    # tree_chunks=7 keeps the key apart from other tests' entries
-    outs = [factorize_window_batched([m, m], tree_chunks=7, options=PREF)
+    # tree_chunks=6 keeps the key apart from other tests' entries, in both
+    # packages' caches (tests/test_gridpolicy.py's twin uses 7 in the
+    # reference's, test_infra.py 5; one worker may run all three)
+    outs = [factorize_window_batched([m, m], tree_chunks=6, options=PREF)
             for _, _, m, _, _ in probs]
     assert len(set(cache.keys()) - before) == 1
     jcache = J.cholesky._BATCHED_WINDOW_CACHE
     jbefore = set(jcache.keys())
     for _, _, _, _, jm in probs:
-        J.factorize_window_batched([jm, jm], tree_chunks=7, options=JPREF)
+        J.factorize_window_batched([jm, jm], tree_chunks=6, options=JPREF)
     assert len(set(jcache.keys()) - jbefore) == 1
     for (_, g, m, _, _), f in zip(probs, outs):
-        f0 = factorize_window_batched([m, m], tree_chunks=7, options=REF)
+        f0 = factorize_window_batched([m, m], tree_chunks=6, options=REF)
         _close(restrict_factor(f).ctsf.Dr, f0.ctsf.Dr)
         assert f.source_grid == g
 
