@@ -169,6 +169,31 @@ Phases, each of which raises on a failed check:
      corner graphs captured with telemetry enabled; the disabled surface
      of one request, times 3, under 5 % of a cached solve_many (k = 32)
      call, and the enabled call beside the disabled one, in turns;
+   - "serving" (launch/rung_server.py): an INLA service, models
+     make_arrowhead(n, 200, arrow, rho = 0.7, seed 0) at (n, arrow) in
+     {(10,200, 200), (9,000, 200), (8,456, 200)} (the (256, 4, 4) rung) and
+     {(10,010, 10), (8,500, 10)} (the (256, 4, 1) rung), t = 64, each request
+     a θ step τ A + δ I of one model with its own k = 32 panel;
+     request_stream(7, ..., 48, rate 4,000) into RungServer(max_batch 4,
+     max_delay 2e-3) on a SimClock, replayed cold (counted; the corner's
+     graphs cleared first) and warm: every future OK, full and deadline
+     flushes, history and every x bit for bit across the passes, at most
+     one batched_window and batched_solve entry a rung, the corner captured
+     once a (nat, direction, padded batch) in the cold pass and never in the
+     warm one, each batch the launches of one factorize_window_batched and
+     one solve_many_batched call; each request against factorize_window
+     (regularize) + solve_many on its source grid (x within 2e-4 of max|x|,
+     logdet 1e-5, every sixth request's float64 residual ≤ 1e-4); a chaos
+     pass of 16 requests, twice (one indefinite: RECOVERED, tau > 0, its
+     factor's residual against A + tau I ≤ 1e-4; one poisoned by a
+     DispatchFaultInjector: FAILED "dispatch_failed"; the others OK or
+     RECOVERED; events, history and x equal across the passes, every future
+     resolved once); a threaded pass on the wall clock (start(), the
+     corner's graphs cleared, 4 client threads building their requests on
+     the card and submitting while the pump captures, stop(): every future
+     OK within 2e-4 of the replay); telemetry enabled over the warm stream
+     (every serving span, counter, gauge and histogram the reference's
+     server emits for it; the results bit for bit the disabled pass's);
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -231,7 +256,13 @@ Phases, each of which raises on a failed check:
    the partitioned and fused routes on the n = 13,000 matrix (call and
    device time), and the batched sweep of its 8 partitions beside the
    partitioned and fused kernels (gloo worlds sharing a card are checked,
-   not timed: they say nothing of scaling).
+   not timed: they say nothing of scaling); the serving path's warm pass:
+   requests a second, wall p50/p99, each batch's span on the executor's
+   stream (CUDA events) and host time in dispatch and finalize, each batch
+   shape's device time from a CUDA graph and their sum against the pass's
+   wall time, the same 48 requests as a sequential loop of
+   factorize_window(regularize) + solve_many, the bytes a batch of 4's
+   results keep on the card.
 
 The second-to-last lines are the kernel JSON line and the card line; the
 last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
@@ -306,6 +337,20 @@ GLOO_WORLDS = (2, 4)
 # the disabled telemetry surface of one request, times 3, against a cached
 # solve_many (k = 32) call: the reference's gate (tests/test_telemetry.py)
 TELEMETRY_OVERHEAD_LIMIT = 0.05
+# the serving path: an INLA service fitting a few models to datasets of
+# several sizes, each request one θ candidate of one model with its own
+# panel; (n, bandwidth, arrow) at t = 64: three on the (256, 4, 4) rung, two
+# on (256, 4, 1)
+SERVING_CASES = ((10200, 200, 200), (9000, 200, 200), (8456, 200, 200), (10010, 200, 10),
+                 (8500, 200, 10))
+SERVING_REQUESTS, SERVING_RATE, SERVING_K = 48, 4000.0, 32
+SERVING_BATCH, SERVING_DELAY = 4, 2e-3
+# a request's x against the sequential oracle (and the threaded pass's
+# against the replay's), relative to max|x|
+SERVING_X_RTOL = 2e-4
+# the chaos pass: its requests, the one made indefinite, the one poisoned
+CHAOS_REQUESTS, CHAOS_INDEFINITE, CHAOS_POISON = 16, 2, 5
+SERVING_CLIENTS = 4
 # the band-Cholesky sweep's cluster caps (kernels/band_cholesky.py::sweep_plan)
 SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
 # the fused sweep's times before this cluster design (one block a matrix),
@@ -2825,9 +2870,10 @@ def phase_distributed(torch, run_path, mb5, fb5, mbf, card):
 # ---------------------------------------------------------------------------
 
 # What the reference's code emits (src/repro/core/*.py, batching.py,
-# gridpolicy.py, robustness.py): each span's tags, and each counter's and
-# histogram's labels
+# gridpolicy.py, robustness.py, launch/rung_server.py on a clean stream):
+# each span's tags, and each counter's and histogram's labels
 REFERENCE_SPAN_TAGS = {
+    "serving.dispatch": ({"rung", "b", "reason"},), "serving.finalize": ({"rung", "b"},),
     "factorize.window": ({"grid"}, {"grid", "rung"}),
     "factorize.window_batched": ({"b", "grid"}, {"b", "grid", "rung"}),
     "solve.forward_many": ({"k", "grid"},), "solve.backward_many": ({"k", "grid"},),
@@ -2837,9 +2883,13 @@ REFERENCE_SPAN_TAGS = {
 REFERENCE_COUNTER_LABELS = {
     "cache.hit": {"cache"}, "cache.miss": {"cache"}, "cache.eviction": {"cache"},
     "cache.duplicate_trace": {"cache"}, "gridpolicy.rung_hit": {"rung"},
-    "robustness.attempts": set(), "robustness.status": {"outcome"}}
+    "robustness.attempts": set(), "robustness.status": {"outcome"},
+    "serving.requests": set(), "serving.flush": {"reason"}, "serving.completed": {"outcome"}}
 REFERENCE_HISTOGRAM_LABELS = {"cache.trace_seconds": {"cache"},
-                              "gridpolicy.padded_flop_overhead": set()}
+                              "gridpolicy.padded_flop_overhead": set(),
+                              "serving.batch_size": set(), "serving.queue_wait": set(),
+                              "serving.request_seconds": set(),
+                              "serving.device_seconds": {"rung"}}
 
 
 def telemetry_record(snap, what):
@@ -3023,6 +3073,478 @@ def phase_telemetry(torch, run_path, m5, f5, mbf, stream, B32, card):
         raise AssertionError(f"telemetry: the disabled surface of one request, times 3, is "
                              f"{rec['overhead']['ratio']:.4f} of a cached solve_many call "
                              f"(limit {TELEMETRY_OVERHEAD_LIMIT})")
+    return rec
+
+
+def serving_bases(torch):
+    """The serving path's models: one ``make_arrowhead(n, bandwidth, arrow,
+    rho=0.7, seed=0)`` a case of SERVING_CASES, built once on the card
+    (t = 64), with the padded rows of each case's real entries."""
+    import numpy as np
+    from repro_torch.core import BandedCTSF, TileGrid
+    from repro_torch.data import make_arrowhead
+    out = {}
+    for case in SERVING_CASES:
+        A, st = make_arrowhead(*case, rho=0.7, seed=0)
+        m = BandedCTSF.from_sparse(A, TileGrid(st, t=64))
+        out[case] = (m, m.grid.padded_indices(np.arange(case[0])))
+    return out
+
+
+def serving_request(torch, bases, spec):
+    """One request of the INLA service, on the card: the θ step ``τ A + δ
+    I`` of its case's model, (τ, δ) drawn from its spec's seed as
+    theta_batch draws them, and its k-column panel seeded as
+    ``launch/rung_server.py::_build_arrivals`` seeds it."""
+    import numpy as np
+    m, rows = bases[spec["case"]]
+    mb, _ = theta_batch(torch, m, 1, seed=spec["seed"])
+    rng = np.random.default_rng(spec["seed"])
+    rhs = np.zeros((m.grid.padded_n, spec["k"]), np.float32)
+    rhs[rows] = rng.standard_normal((len(rows), spec["k"])).astype(np.float32)
+    return element(mb, 0), torch.from_numpy(rhs).to(m.device)
+
+
+def indefinite_request(torch, m):
+    """A request's matrix made indefinite as faulted_theta_batch makes its
+    element: the middle band diagonal tile dropped by 10 x the mean |band
+    diagonal|."""
+    from repro_torch.core import BandedCTSF
+    Dr = m.Dr.clone()
+    d = torch.diagonal(Dr[:, 0], dim1=-2, dim2=-1)
+    Dr[m.grid.n_diag_tiles // 2, 0] -= 10.0 * d.abs().mean() * torch.eye(m.grid.t,
+                                                                         device=Dr.device)
+    return BandedCTSF(m.grid, Dr, m.R, m.C)
+
+
+def serving_executor(torch, kern_counts):
+    """A RungExecutor on the card (the server's default options: the jitter
+    ladder on) that records, a batch, the launches its dispatch made (the
+    device counts around it), the host seconds in dispatch and finalize,
+    and CUDA events on its stream before its first and after its last
+    launch; an exception a dispatch raises is recorded and raised on."""
+    from repro_torch.launch.rung_server import RungExecutor
+
+    class TimedExecutor(RungExecutor):
+        def __init__(self):
+            super().__init__()
+            self.batches, self.errors = [], []
+
+        def dispatch(self, batch, now):
+            before = kern_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
+            t0 = time.perf_counter()
+            try:
+                inflight = super().dispatch(batch, now)
+            except Exception as err:
+                self.errors.append(f"{type(err).__name__}: {err}")
+                raise
+            host = time.perf_counter() - t0
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
+            after = kern_counts()
+            inflight.record = dict(
+                rids=[r.rid for r in batch.requests], nat=batch.key[0].n_arrow_tiles,
+                reason=batch.reason, dispatch_host_s=host, events=(start, end),
+                launches={k: after[k] - before[k] for k in after if after[k] - before[k]})
+            self.batches.append(inflight.record)
+            return inflight
+
+        def finalize(self, inflight, now):
+            t0 = time.perf_counter()
+            out = super().finalize(inflight, now)
+            inflight.record["finalize_host_s"] = time.perf_counter() - t0
+            return out
+
+    return TimedExecutor()
+
+
+def serve_replay(torch, arrivals, executor=None, injector=None):
+    """One replay of ``arrivals`` through a RungServer(max_batch =
+    SERVING_BATCH, max_delay = SERVING_DELAY) on a SimClock (the default
+    GridBucketPolicy, regularize on); returns the server, the futures and
+    the replay's wall seconds (it ends in a drain, which waits on every
+    batch's event)."""
+    from repro_torch.launch.rung_server import RungServer, SimClock, replay
+    clock = SimClock()
+    server = RungServer(max_batch=SERVING_BATCH, max_delay=SERVING_DELAY, clock=clock,
+                        executor=executor, injector=injector)
+    t0 = time.perf_counter()
+    futures = replay(server, clock, arrivals)
+    return server, futures, time.perf_counter() - t0
+
+
+def batch_launches(nat):
+    """One factorize_window_batched plus one solve_many_batched call."""
+    return {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat, "band_forward_sweep": 1,
+            "band_backward_sweep": 1, "solve_panel": 2 * nat}
+
+
+def held_bytes(torch, results):
+    """The bytes the card's memory keeps for ``results``: every distinct
+    storage their tensors view (x, the factor's arrays, its FactorInfo and
+    kept matrix) once."""
+    seen = {}
+    for r in results:
+        ts = [] if r.x is None else [r.x]
+        if r.factor is not None:
+            ts += list(r.factor.ctsf.arrays())
+            info = r.factor.info
+            if info is not None:
+                ts += [info.status, info.attempts, info.tau, info.min_pivot,
+                       info.first_bad_tile]
+                if info.matrix is not None:
+                    ts += list(info.matrix.arrays())
+        for x in ts:
+            s = x.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def phase_serving(torch, run_path, kern_counts, card):
+    """The phase "serving": the INLA service of SERVING_CASES (5 grids on
+    2 rungs) through RungServer at full width.  A stream of SERVING_REQUESTS
+    requests (request_stream(7, ...)) replayed on a SimClock twice, cold
+    (counted, the corner's graphs cleared first) then warm: every future
+    OK, full and deadline flushes, the histories equal and every x bit for
+    bit across the passes; batched_window and batched_solve gain at most
+    one entry a rung; the corner captured once a (nat, direction, padded
+    batch) the cold pass runs, the warm pass none; each batch the launches
+    of one factorize_window_batched and one solve_many_batched call.  Each
+    request against the sequential oracle (factorize_window(regularize)
+    and solve_many on its source grid): x within SERVING_X_RTOL of max|x|,
+    logdet 1e-5 relative, every sixth request's float64 residual ≤ 1e-4.
+    The chaos pass, twice: CHAOS_REQUESTS requests, one indefinite, a
+    DispatchFaultInjector poisoning one: the indefinite request RECOVERED
+    with tau > 0 and its factor's residual against A + tau I ≤ 1e-4, the
+    poisoned one FAILED "dispatch_failed", its siblings OK or RECOVERED,
+    events, history and x the same in both passes, each future resolved
+    once.  The threaded pass: start(), the corner's graphs cleared,
+    SERVING_CLIENTS client threads building their requests on the card and
+    submitting, stop(): every future OK within SERVING_X_RTOL of the
+    replay's x.  Telemetry enabled over the warm stream: every serving
+    span, counter, gauge and histogram the reference's server emits for
+    it, results bit for bit the warm pass's.  Returns the record and what
+    phase 4 times."""
+    import threading
+    from repro_torch.core import (STATUS_FAILED, STATUS_OK, STATUS_RECOVERED, BandedCTSF,
+                                  SolverOptions, factorize_window, logdet, solve_many)
+    from repro_torch.core.batching import next_pow2
+    from repro_torch.core.robustness import add_diagonal_jitter
+    from repro_torch.core.solve import corner_graphs
+    from repro_torch.data import request_stream
+    from repro_torch.launch.rung_server import RungServer
+    from repro_torch.runtime import telemetry
+    from repro_torch.runtime.fault_tolerance import DispatchFaultInjector
+    rec = {}
+    t0 = time.perf_counter()
+    bases = serving_bases(torch)
+    stream = request_stream(7, SERVING_CASES, SERVING_REQUESTS, rate=SERVING_RATE,
+                            k=SERVING_K)
+    reqs = [serving_request(torch, bases, s) for s in stream]
+    arrivals = [(s["arrival"], m, b, s["deadline"]) for s, (m, b) in zip(stream, reqs)]
+    torch.cuda.synchronize()
+    rec["setup_host_s"] = time.perf_counter() - t0
+    grids = {telemetry.rung_tag(m.grid) for m, _ in reqs}
+    caches = batched_caches()
+
+    # the cold pass, counted: the corner's graphs cleared first
+    def cold():
+        corner_graphs.clear()
+        keys = {k: set(c.keys()) for k, c in caches.items()}
+        c0 = corner_graphs.captures
+        ex = serving_executor(torch, kern_counts)
+        server, futs, wall = serve_replay(torch, arrivals, executor=ex)
+        return (server, futs, ex, corner_graphs.captures - c0,
+                {k: len(set(c.keys()) - keys[k]) for k, c in caches.items()})
+
+    cold_server, cold_futs, cold_ex, captures, added = run_path("serving: cold replay", cold)
+    cold_res = [f.result(timeout=0) for f in cold_futs]
+    reasons = sorted({sig[3] for sig in cold_server.history})
+    rungs = {sig[0] for sig in cold_server.history}
+    want_captures = 2 * len({(b["nat"], next_pow2(len(b["rids"]))) for b in cold_ex.batches})
+    bad_launches = [(b["rids"], b["launches"]) for b in cold_ex.batches
+                    if b["launches"] != batch_launches(b["nat"])]
+    if not (all(r.status == STATUS_OK for r in cold_res) and {"full", "deadline"} <= set(reasons)
+            and len(rungs) == 2 and len(grids) == len(SERVING_CASES)
+            and added["batched_window"] <= 2 and added["batched_solve"] <= 2
+            and captures == want_captures and not bad_launches):
+        raise AssertionError(
+            f"serving, cold replay: statuses {[r.status for r in cold_res]}, flush reasons "
+            f"{reasons} (want full and deadline), rungs {rungs}, grids {grids}, cache entries "
+            f"added {added} (at most 2 each), corner captures {captures} (want "
+            f"{want_captures}), batches off one call's launches {bad_launches}")
+    rec["cold"] = dict(batches=len(cold_server.history), flush_reasons=reasons,
+                       history=[list(h) for h in cold_server.history],
+                       cache_entries_added=added, corner_captures=captures,
+                       launches=run_path.launches["serving: cold replay"])
+    del cold_ex
+    # the warm pass: the same history, every x bit for bit, no capture
+    c0 = corner_graphs.captures
+    warm_ex = serving_executor(torch, kern_counts)
+    warm_server, warm_futs, warm_wall = serve_replay(torch, arrivals, executor=warm_ex)
+    warm_res = [f.result(timeout=0) for f in warm_futs]
+    same = [torch.equal(a.x, b.x) for a, b in zip(cold_res, warm_res)]
+    if not (warm_server.history == cold_server.history and all(same)
+            and all(r.status == STATUS_OK for r in warm_res)
+            and corner_graphs.captures == c0):
+        raise AssertionError(f"serving, warm replay: history equal "
+                             f"{warm_server.history == cold_server.history}, x bit for bit "
+                             f"{same}, statuses {[r.status for r in warm_res]}, captures "
+                             f"{corner_graphs.captures - c0}")
+    del cold_res, cold_futs
+    rec["warm"] = dict(bit_identical_to_cold=True, corner_captures=0)
+    # against the sequential oracle on each request's source grid
+    reg = SolverOptions(regularize=True)
+    errs, lds, resids = [], [], []
+    for i, ((m, b), r) in enumerate(zip(reqs, warm_res)):
+        f = factorize_window(m, options=reg)
+        X = solve_many(f, b)
+        errs.append(((r.x - X).abs().max() / X.abs().max()).item())
+        lds.append(logdet_gate(logdet(r.factor), logdet(f), f"serving request {i}"))
+        if i % 6 == 0:
+            Ad = dense_from_ctsf(torch, m, torch.float64, symmetric=True)
+            x64 = r.x.double()
+            resids.append(((Ad @ x64 - b.double()).abs().max()
+                           / (Ad.abs().max() * x64.abs().max())).item())
+            del Ad
+    if not (max(errs) <= SERVING_X_RTOL and max(resids) <= RESIDUAL_LIMIT):
+        raise AssertionError(f"serving against the sequential oracle: x {max(errs):.3e} of "
+                             f"max|x| (limit {SERVING_X_RTOL}), residual {max(resids):.3e} "
+                             f"(limit {RESIDUAL_LIMIT})")
+    rec["oracle"] = dict(x_rel_max=max(errs), logdet_rel_max=max(lds),
+                         residual_max=max(resids), residuals_checked=len(resids))
+    log("serving, cold and warm replay against the oracle: "
+        + json.dumps({k: rec[k] for k in ("cold", "warm", "oracle")}))
+
+    # the chaos pass, twice: an indefinite request, a poisoned one
+    cstream = request_stream(11, SERVING_CASES, CHAOS_REQUESTS, rate=SERVING_RATE,
+                             k=SERVING_K)
+    creqs = [serving_request(torch, bases, s) for s in cstream]
+    creqs[CHAOS_INDEFINITE] = (indefinite_request(torch, creqs[CHAOS_INDEFINITE][0]),
+                               creqs[CHAOS_INDEFINITE][1])
+    carr = [(s["arrival"], m, b, s["deadline"]) for s, (m, b) in zip(cstream, creqs)]
+    passes = []
+    for _ in range(2):
+        inj = DispatchFaultInjector(seed=3, transient_rate=0.25, poison_rids={CHAOS_POISON})
+        server, futs, _ = serve_replay(torch, carr, injector=inj)
+        passes.append((server, futs, [f.result(timeout=0) for f in futs]))
+    (s1, f1, r1), (s2, f2, r2) = passes
+    ind, poi = r1[CHAOS_INDEFINITE], r1[CHAOS_POISON]
+    siblings = [r.status for i, r in enumerate(r1) if i != CHAOS_POISON]
+    same_x = all((a.x is None and b.x is None) or torch.equal(a.x, b.x) for a, b in zip(r1, r2))
+    resolved_once = all(f.done() and f.duplicate_resolves == 0 for f in f1 + f2)
+    e = creqs[CHAOS_INDEFINITE][0]
+    fr = ind.factor.restrict().ctsf
+    DrJ, CJ = add_diagonal_jitter(e.Dr, e.C, e.grid, torch.tensor(ind.tau, device=e.Dr.device))
+    Ad = dense_from_ctsf(torch, BandedCTSF(e.grid, DrJ, e.R, CJ), torch.float64, symmetric=True)
+    Ld = dense_from_ctsf(torch, fr, torch.float64, symmetric=False)
+    resid = ((Ld @ Ld.mT - Ad).abs().max() / Ad.abs().max()).item()
+    del Ad, Ld
+    if not (ind.status == STATUS_RECOVERED and ind.tau > 0 and resid <= RESIDUAL_LIMIT
+            and torch.isfinite(ind.x).all()
+            and poi.status == STATUS_FAILED and poi.detail == "dispatch_failed"
+            and all(s in (STATUS_OK, STATUS_RECOVERED) for s in siblings)
+            and s1.events == s2.events and s1.history == s2.history and same_x
+            and resolved_once):
+        raise AssertionError(
+            f"serving, chaos pass: indefinite request {ind.status} tau {ind.tau} residual "
+            f"{resid:.3e}; poisoned {poi.status} {poi.detail!r}; siblings {siblings}; "
+            f"events equal {s1.events == s2.events}, history equal "
+            f"{s1.history == s2.history}, x equal {same_x}, resolved once {resolved_once}")
+    rec["chaos"] = dict(statuses=[r.status for r in r1], details=[r.detail for r in r1],
+                        indefinite=dict(tau=ind.tau, attempts=ind.attempts,
+                                        factor_residual=resid),
+                        events=[list(map(str, ev)) for ev in s1.events],
+                        batches=len(s1.history))
+    del passes, r1, r2, f1, f2, s1, s2, carr, creqs
+    log("serving, chaos pass: " + json.dumps(rec["chaos"]))
+
+    # the threaded pass on the wall clock: clients build on the card while
+    # the pump captures the corner's graphs
+    server = RungServer(max_batch=SERVING_BATCH, max_delay=SERVING_DELAY,
+                        executor=serving_executor(torch, kern_counts))
+    server.start()
+    corner_graphs.clear()
+    c0 = corner_graphs.captures
+    futs, errors = [None] * len(stream), []
+
+    def client(j):
+        try:
+            for i in range(j, len(stream), SERVING_CLIENTS):
+                m, b = serving_request(torch, bases, stream[i])
+                futs[i] = server.submit(m, b)
+        except Exception as err:                      # reported and raised below
+            errors.append(f"client {j}: {type(err).__name__}: {err}")
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(j,)) for j in range(SERVING_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=120)
+    try:
+        tres = [f.result(timeout=60) for f in futs if f is not None]
+    finally:
+        server.stop(timeout=60)
+    threaded_wall = time.perf_counter() - t0
+    alive = [c.name for c in clients if c.is_alive()]
+    failed = (errors or alive or len(tres) != len(stream) or server.executor.inner.errors
+              or any(r.status != STATUS_OK for r in tres))
+    terr = [] if failed else [((r.x - w.x).abs().max() / w.x.abs().max()).item()
+                              for r, w in zip(tres, warm_res)]
+    if failed or max(terr) > SERVING_X_RTOL or server._outstanding:
+        raise AssertionError(
+            f"serving, threaded pass: client errors {errors}, clients alive {alive}, "
+            f"dispatch errors {server.executor.inner.errors}, events {server.events}, "
+            f"statuses {[r.status for r in tres]}, x against the replay {terr}")
+    rec["threaded"] = dict(clients=SERVING_CLIENTS, batches=len(server.history),
+                           corner_captures=corner_graphs.captures - c0,
+                           x_rel_max_against_replay=max(terr), wall_s=threaded_wall,
+                           flush_reasons=sorted({h[3] for h in server.history}))
+    del tres
+    log("serving, threaded pass: " + json.dumps(rec["threaded"]))
+
+    # telemetry over the warm stream: the reference's serving names
+    telemetry.reset()
+    telemetry.enable()
+    try:
+        tserver, tfuts, _ = serve_replay(torch, arrivals)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.disable()
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    tres = [f.result(timeout=0) for f in tfuts]
+    rec["telemetry"] = check_serving_telemetry(snap, tserver.history, len(stream))
+    same = all(torch.equal(a.x, b.x) for a, b in zip(tres, warm_res))
+    if not (same and tserver.history == warm_server.history):
+        raise AssertionError("serving with telemetry enabled: results or history differ "
+                             "from the disabled warm pass")
+    rec["telemetry"]["bit_identical_to_disabled"] = True
+    log("serving, telemetry: " + json.dumps(rec["telemetry"]))
+    del tres, tfuts, tserver
+    return rec, dict(arrivals=arrivals, reqs=reqs, warm=(warm_server, warm_res, warm_ex,
+                                                         warm_wall))
+
+
+def check_serving_telemetry(snap, history, n):
+    """A telemetry snapshot of one clean replay against what the
+    reference's server and core emit for it (the same names and labels,
+    counted from the history): spans checked by telemetry_record, the
+    serving counters, gauges and histogram counts exactly, each core span
+    of a batch a child of its serving.dispatch.  Returns the record."""
+    r = telemetry_record(snap, "the serving replay")
+    by_rung = {}
+    for sig in history:
+        by_rung[sig[0]] = by_rung.get(sig[0], 0) + 1
+    nb = len(history)
+    want_c = {"serving.requests": float(n), "serving.completed{outcome=ok}": float(n)}
+    for sig in history:
+        key = f"serving.flush{{reason={sig[3]}}}"
+        want_c[key] = want_c.get(key, 0.0) + 1.0
+    want_h = {"serving.batch_size": nb, "serving.queue_wait": n, "serving.request_seconds": n,
+              **{f"serving.device_seconds{{rung={k}}}": v for k, v in by_rung.items()}}
+    got_c = {k: v for k, v in r["counters"].items() if k.startswith("serving.")}
+    got_h = {k: v for k, v in r["histograms"].items() if k.startswith("serving.")}
+    gauges = sorted(k for k in snap["gauges"] if k.startswith("serving."))
+    names = {s["id"]: s["name"] for s in snap["spans"]}
+    serving = [s for s in snap["spans"] if s["name"].startswith("serving.")]
+    core_parents = {names.get(s["parent"]) for s in snap["spans"]
+                    if s["name"] in ("factorize.window_batched", "solve.solve_many_batched")}
+    if not (got_c == want_c and got_h == want_h
+            and gauges == sorted(f"serving.queue_depth{{rung={k}}}" for k in by_rung)
+            and sorted(s["name"] for s in serving) == sorted(
+                ["serving.dispatch", "serving.finalize"] * nb)
+            and core_parents == {"serving.dispatch"}):
+        raise AssertionError(f"telemetry of the serving replay: counters {got_c} (want "
+                             f"{want_c}), histograms {got_h} (want {want_h}), gauges {gauges}, "
+                             f"core spans' parents {core_parents}")
+    dur = {}
+    for sp in snap["spans"]:
+        dur.setdefault(sp["name"], []).append(sp["dur_us"] / 1e3)
+    return dict(counters=got_c, histograms=got_h, gauges=gauges,
+                spans=len(serving), core_spans_under_dispatch=True,
+                span_ms_median={k: statistics.median(dur[k]) for k in (
+                    "serving.dispatch", "factorize.window_batched",
+                    "solve.solve_many_batched", "serving.finalize")})
+
+
+def batch_device_ms(torch, arrivals):
+    """The device time of one served batch's work, replayed from a CUDA
+    graph: the requests of ``arrivals`` embedded on their rung, then
+    factorize_window_batched and solve_many_batched as the executor calls
+    them, without the ladder (its readback waits on the host)."""
+    from repro_torch.core import (GridBucketPolicy, factorize_window_batched,
+                                  solve_many_batched)
+    from repro_torch.core.gridpolicy import assemble_rung_batch, assemble_rung_rhs
+    mats, panels = [a[1] for a in arrivals], [a[2] for a in arrivals]
+    cgrid = GridBucketPolicy().canonicalize(mats[0].grid)
+    stacked, start = assemble_rung_batch(mats, cgrid)
+    B = assemble_rung_rhs(panels, [m.grid for m in mats], cgrid)
+    return device_ms(torch, lambda: solve_many_batched(
+        factorize_window_batched(stacked, start_tile=start), B, start_tile=start))
+
+
+def time_serving(torch, kern_counts, serving, card):
+    """The serving path's times (phase 4): the warm pass's requests a
+    second and wall p50/p99 (its replay on a SimClock, as fast as the host
+    goes), each batch's span on the executor's stream (CUDA events) and
+    host seconds in dispatch and finalize; the same requests as a
+    sequential loop of factorize_window(regularize) + solve_many (three
+    loops, the median); the bytes one batch's results keep on the card;
+    each batch shape's device time from a CUDA graph (batch_device_ms) and
+    their sum over the pass against its wall time.  Returns the record."""
+    from repro_torch.core import SolverOptions, factorize_window, solve_many
+    from repro_torch.core.batching import next_pow2
+    server, res, ex, wall = serving["warm"]
+    lat = sorted(r.wall_latency_s for r in res)
+    n = len(res)
+    pct = lambda q: lat[min(n - 1, int(q * n))] * 1e3
+    batches = []
+    for b in ex.batches:
+        start, end = b["events"]
+        batches.append(dict(b=len(b["rids"]), nat=b["nat"], reason=b["reason"],
+                            stream_ms=start.elapsed_time(end),
+                            dispatch_host_ms=b["dispatch_host_s"] * 1e3,
+                            finalize_host_ms=b["finalize_host_s"] * 1e3))
+    reg = SolverOptions(regularize=True)
+
+    def loop():
+        for m, b in serving["reqs"]:
+            solve_many(factorize_window(m, options=reg), b)
+        torch.cuda.synchronize()
+
+    loops = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loop()
+        loops.append(time.perf_counter() - t0)
+    full = next(i for i, b in enumerate(ex.batches) if len(b["rids"]) == SERVING_BATCH)
+    held = held_bytes(torch, [res[i] for i in ex.batches[full]["rids"]])
+    # each batch shape's device time with no host gap: its factorization
+    # (no ladder: the readback cannot be captured) and solve in a CUDA graph
+    floors = {}
+    for b in ex.batches:
+        key = (b["nat"], next_pow2(len(b["rids"])))
+        if key not in floors:
+            floors[key] = batch_device_ms(torch, [serving["arrivals"][i] for i in b["rids"]])
+    device_sum = sum(floors[(b["nat"], next_pow2(len(b["rids"])))] for b in ex.batches)
+    rec = dict(requests=n, batches=len(batches), replay_wall_s=wall,
+               requests_per_s=n / wall, wall_p50_ms=pct(0.5), wall_p99_ms=pct(0.99),
+               batch_stream_ms_median=statistics.median(b["stream_ms"] for b in batches),
+               dispatch_host_ms_median=statistics.median(b["dispatch_host_ms"] for b in batches),
+               finalize_host_ms_median=statistics.median(b["finalize_host_ms"]
+                                                         for b in batches),
+               sequential_loop_s=statistics.median(loops), sequential_loops_s=loops,
+               sequential_requests_per_s=n / statistics.median(loops),
+               held_bytes_batch_of_4=held,
+               batch_device_ms={f"nat{k[0]}_b{k[1]}": v for k, v in floors.items()},
+               device_ms_sum=device_sum, device_busy_share=device_sum / (wall * 1e3),
+               batch_times=batches)
+    rec["speedup_over_sequential"] = rec["requests_per_s"] / rec["sequential_requests_per_s"]
+    log(f"time serving, {n} requests of SERVING_CASES: " + json.dumps(rec) + f", card {card}")
     return rec
 
 
@@ -3378,6 +3900,10 @@ def main() -> int:
     telemetry_rec = phase_telemetry(torch, run_path, m5, f5, mbf, stream, B32b, card)
     for what, r in (("distributed", distributed), ("telemetry", telemetry_rec)):
         log(f"phase {what}: " + json.dumps(r))
+    # the rung server on a mixed-size INLA request stream
+    serving_rec, serving = phase_serving(torch, run_path, counts, card)
+    extra_calls.append(("serving", "RungServer, cold replay of 48 requests",
+                        path_launches["serving: cold replay"]))
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:
@@ -4377,6 +4903,9 @@ def main() -> int:
                              f"times the call without it (limit {CLEAN_OVERHEAD_LIMIT})")
     # canonical-grid bucketing: canonical against source grid on #5
     bucketing["times"] = time_bucketing(torch, m5, f5, fp5, stream, mb5, card)
+    # the serving path: the warm pass, the sequential loop, the bytes held
+    serving_rec["times"] = time_serving(torch, counts, serving, card)
+    del serving
     if deferred:
         raise AssertionError("; ".join(deferred))
 

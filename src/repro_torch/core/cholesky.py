@@ -256,6 +256,21 @@ def _warm_up(tiles: torch.Tensor, steps, workers: int) -> None:
         _tree_update(tiles.clone(), 0, tree, workers, "cuda")
 
 
+def capture(graph: "torch.cuda.CUDAGraph"):
+    """``torch.cuda.graph(graph)`` with the capture's errors confined to the
+    capturing thread (``capture_error_mode="thread_local"``), the context of
+    both capture sites (the task list's and the solves' corner).  Under the
+    default global mode, a call that is unsafe during a capture (a
+    ``cudaMalloc`` of the caching allocator, a copy from pageable memory)
+    made by *another* thread fails there and invalidates this capture: a
+    client building its matrices on the card while the rung server's pump
+    thread captures a new corner key.  Another thread's work reaches the
+    captured computation only through an event the capturing stream waits
+    on (``launch/rung_server.py``), and an unsafe call of the capturing
+    thread's own still fails the capture."""
+    return torch.cuda.graph(graph, capture_error_mode="thread_local")
+
+
 def _capture_tasklist(tm: TileMatrix, workers: int) -> _TasklistGraph:
     """Capture the factorization of ``tm``'s pattern: the warm-up on a side
     stream, then the whole schedule into a CUDA graph that clones its
@@ -271,7 +286,7 @@ def _capture_tasklist(tm: TileMatrix, workers: int) -> _TasklistGraph:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS})
-    with torch.cuda.graph(graph):
+    with capture(graph):
         tiles_out = _run_tasklist(tiles_in.clone(), steps, workers, "cuda")
     launches = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS}) - before
     return _TasklistGraph(graph, tiles_in, tiles_out, steps, launches)

@@ -134,13 +134,27 @@ class FactorInfo:
     def element(self, i: int) -> dict:
         """Host-side scalar view of one batch element's outcome: plain
         Python numbers.  Works on unbatched info too, where ``i`` must be
-        0."""
+        0.  Each call reads the five fields to the host; a reader of every
+        element takes :meth:`elements`."""
         pick = lambda a, cast: cast(a.cpu().numpy().reshape(-1)[i])
         return {"status": pick(self.status, int),
                 "attempts": pick(self.attempts, int),
                 "tau": pick(self.tau, float),
                 "min_pivot": pick(self.min_pivot, float),
                 "first_bad_tile": pick(self.first_bad_tile, int)}
+
+    def elements(self) -> list:
+        """Every element's :meth:`element` view, from one read of the five
+        fields to the host: they are stacked as float64 on the device (which
+        holds every int32 and float32 value exactly) and copied once, so a
+        batch of B costs one synchronization, not 5 B.  Unbatched info gives
+        one element."""
+        host = torch.stack([x.reshape(-1).to(torch.float64) for x in (
+            self.status, self.attempts, self.tau, self.min_pivot,
+            self.first_bad_tile)]).cpu().numpy()
+        return [{"status": int(s), "attempts": int(a), "tau": float(t),
+                 "min_pivot": float(p), "first_bad_tile": int(b)}
+                for s, a, t, p, b in host.T]
 
 
 def _diag(x: torch.Tensor) -> torch.Tensor:

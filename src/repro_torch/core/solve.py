@@ -45,7 +45,7 @@ from repro_torch.kernels.band_solve import card_solve_plan
 from repro_torch.kernels.trsm import solve_panel_cuda
 from repro_torch.runtime import telemetry
 from .batching import LRUCache, bucketed_batched_call
-from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, GraphCache, _plannable
+from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, GraphCache, _plannable, capture
 from .options import SolverOptions
 
 __all__ = ["forward_solve", "backward_solve", "solve", "logdet",
@@ -141,11 +141,12 @@ def _corner_on_graph(C: torch.Tensor, panel: torch.Tensor, impl) -> bool:
 
 def _capture_corner(body, C, panels) -> _CornerGraph:
     """Capture ``body`` on static copies of ``C`` and the panels into a CUDA
-    graph whose output stays in the graph's pool.  A failed capture raises."""
+    graph whose output stays in the graph's pool (``cholesky.capture``: other
+    threads may allocate meanwhile).  A failed capture raises."""
     inputs = tuple(x.clone() for x in (C,) + tuple(panels))
     graph = torch.cuda.CUDAGraph()
     before = solve_panel_cuda.launches
-    with torch.cuda.graph(graph):
+    with capture(graph):
         out = body(*inputs, "cuda")
     return _CornerGraph(graph, inputs, out,
                         Counter(solve_panel_cuda=solve_panel_cuda.launches - before))

@@ -1,8 +1,9 @@
-"""Synthetic matrix generators, copies of the JAX package's
-``data/synthetic.py``: ``block_separable_arrowhead`` and the three
-pathological generators of the breakdown-recovery tests (the token
-streams come with the slices that use them).  numpy and scipy only, with
-the reference's seeding, so both packages corrupt the same entries.
+"""Synthetic data, copies of the JAX package's ``data/synthetic.py``:
+``block_separable_arrowhead``, the three pathological generators of the
+breakdown-recovery tests and the serving harness's request stream (the
+token streams come with the slices that use them).  numpy and scipy only,
+with the reference's seeding, so both packages corrupt the same entries
+and replay the same arrivals.
 
 * :func:`indefinite_arrowhead` — SPD arrowhead with a known negative shift
   applied to part of the diagonal (Cholesky breaks down at a predictable
@@ -12,15 +13,20 @@ the reference's seeding, so both packages corrupt the same entries.
   float32 cliff);
 * :func:`nan_contaminated_arrowhead` — SPD with seeded NaN entries
   (symmetrically placed), the "silent NaN downstream" case detection must
-  flag.
+  flag;
+* :func:`request_stream` — seeded Poisson (or Markov-modulated burst)
+  arrivals of mixed-grid request specs for the rung server
+  (``launch/rung_server.py``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["indefinite_arrowhead", "near_singular_arrowhead", "nan_contaminated_arrowhead",
-           "block_separable_arrowhead"]
+           "block_separable_arrowhead", "request_stream"]
 
 
 def _base_arrowhead(n, bandwidth, arrow, rho, seed):
@@ -111,3 +117,75 @@ def block_separable_arrowhead(n: int, bandwidth: int, arrow: int,
         A[ce:hi, lo:ce] = 0
         A[lo:ce, ce:hi] = 0
     return sp.csc_matrix(A), st, tuple([0] + cuts + [ndt])
+
+
+def request_stream(seed: int, cases, num: int, rate: float = 1000.0,
+                   k: int = 4, deadline_budget: Optional[float] = None,
+                   burst_factor: float = 1.0, burst_len: float = 10e-3,
+                   normal_len: float = 50e-3):
+    """Seeded Poisson mixed-grid arrival stream for the serving harness.
+
+    Emits ``num`` host-side request *specs* (no arrays): dicts with
+    ``arrival`` (absolute clock time; exponential inter-arrival gaps at
+    ``rate`` requests per clock unit), ``case`` (one of ``cases``, each an
+    ``(n, bandwidth, arrow)`` triple drawn uniformly), ``seed`` (the
+    request's matrix and right-hand-side seed), ``k`` (the panel width) and
+    ``deadline`` (``arrival + deadline_budget``, or None).  Everything
+    comes from one ``SeedSequence([seed, ...])`` stream, so the same seed
+    replays the same arrival process, and the reference's stream for the
+    same arguments is equal to this one.
+
+    **Burst mode** (``burst_factor > 1``): a two-state Markov-modulated
+    Poisson process, exponential sojourns of mean ``normal_len`` at
+    ``rate`` alternating with sojourns of mean ``burst_len`` at ``rate *
+    burst_factor``.  It is a time change of the unit-rate process (each
+    base draw is integrated through the piecewise-constant rate, the state
+    flips drawn from an independent ``SeedSequence([seed, 17])`` stream),
+    exact by memorylessness, and it leaves the base draws as they are:
+    ``burst_factor=1`` is the plain stream bit for bit.
+    """
+    cases = [tuple(int(v) for v in c) for c in cases]
+    if not cases:
+        raise ValueError("request_stream needs at least one case")
+    if num < 0 or rate <= 0:
+        raise ValueError(f"need num >= 0 and rate > 0, got {num}, {rate}")
+    burst = burst_factor != 1.0
+    if burst and (burst_factor <= 0 or burst_len <= 0 or normal_len <= 0):
+        raise ValueError(
+            f"burst mode needs burst_factor > 0 and positive sojourn "
+            f"means, got {burst_factor}, {burst_len}, {normal_len}")
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 7]))
+    if burst:
+        mrng = np.random.default_rng(np.random.SeedSequence([seed, 17]))
+        state = 0                                    # 0 = normal, 1 = burst
+        flip_at = float(mrng.exponential(normal_len))
+    out = []
+    now = 0.0
+    for _ in range(num):
+        gap = float(rng.exponential(1.0 / rate))
+        if not burst:
+            now += gap
+        else:
+            # integrate the unit-rate exponential through the
+            # piecewise-constant modulated rate
+            work = gap * rate
+            while True:
+                r = rate * (burst_factor if state else 1.0)
+                dt = work / r
+                if now + dt <= flip_at:
+                    now += dt
+                    break
+                work -= (flip_at - now) * r
+                now = flip_at
+                state = 1 - state
+                flip_at = now + float(mrng.exponential(
+                    burst_len if state else normal_len))
+        out.append({
+            "arrival": now,
+            "case": cases[int(rng.integers(len(cases)))],
+            "seed": int(rng.integers(2 ** 31)),
+            "k": int(k),
+            "deadline": (now + deadline_budget
+                         if deadline_budget is not None else None),
+        })
+    return out

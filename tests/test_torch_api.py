@@ -278,3 +278,69 @@ def test_batched_entry_points_are_keyword_only(name):
     with pytest.raises(TypeError):
         positional(f, B)
     assert torch.isfinite(keyword(f, B)).all()
+
+
+def test_api_facade_is_the_references_surface_of_port_objects():
+    """``repro_torch.api.__all__`` is the reference's 41 names in its order,
+    and every name is the port's own object."""
+    import repro.api as japi
+    import repro_torch.api as api
+    from repro_torch.core import robustness
+    assert api.__all__ == japi.__all__ and len(api.__all__) == 41
+    for name in api.__all__:
+        obj = getattr(api, name)
+        if name.startswith("STATUS_"):
+            assert obj is getattr(robustness, name) and obj == getattr(japi, name)
+        else:
+            assert obj.__module__.startswith("repro_torch."), (name, obj.__module__)
+            assert obj is not getattr(japi, name)
+
+
+def _one_deprecation(fn):
+    import warnings
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    dep = [w for w in rec if issubclass(w.category, DeprecationWarning)]
+    assert len(dep) == 1, [str(w.message) for w in rec]
+    assert "options=SolverOptions(" in str(dep[0].message)
+    return out
+
+
+@pytest.mark.parametrize("kwarg", [dict(impl="ref"), dict(sweep="ring"),
+                                   dict(regularize=False)])
+def test_rung_server_legacy_kwargs_warn_once(kwarg):
+    """The server's deprecated per-field keywords warn once each and win
+    over ``options``, as the reference's; by default the ladder is on, an
+    explicit options object is taken as it is."""
+    from repro_torch.launch.rung_server import RungExecutor, RungServer, SimClock
+    ex = _one_deprecation(lambda: RungExecutor(device="cpu", **kwarg))
+    srv = _one_deprecation(lambda: RungServer(clock=SimClock(), device="cpu", **kwarg))
+    (field, value), = kwarg.items()
+    assert getattr(ex.options, field) == getattr(srv.options, field) == value
+    assert srv.executor.inner.options == srv.options
+    assert RungServer(clock=SimClock(), device="cpu").options.regularize is True
+    explicit = RungServer(clock=SimClock(), device="cpu", options=SolverOptions(impl="ref"))
+    assert explicit.options.regularize is None
+
+
+def test_rung_server_options_are_keyword_only():
+    """Past ``max_delay`` the server takes keywords only: the reference's
+    positional ``impl`` raises."""
+    from repro_torch.launch.rung_server import RungExecutor, RungServer
+    with pytest.raises(TypeError):
+        RungServer(None, 4, 1e-3, "ref")
+    with pytest.raises(TypeError):
+        RungExecutor("ref")
+
+
+def test_serving_modules_import_no_jax():
+    """The facade and the server import neither jax nor the reference."""
+    import subprocess
+    import sys
+    code = ("import sys, repro_torch.api, repro_torch.launch.rung_server; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -9,8 +9,11 @@ block-separable input, and each element of a batched kernel launch (the
 sweeps, the band solves, ``solve_panel`` with one L a panel, the selinv
 pre-pass and recurrence) to its unbatched launch.  The distributed path
 runs on the card as a world of one NCCL rank and as worlds of 2 and 4 gloo
-ranks sharing it (spawned by ``launch/mesh.py::run_local``), and telemetry
-is checked around the card's calls (the solves' corner still captured).
+ranks sharing it (spawned by ``launch/mesh.py::run_local``), telemetry
+is checked around the card's calls (the solves' corner still captured),
+the corner's capture completes beside threads that allocate on the card,
+and the rung server serves on the card (its executor's own stream, the CPU
+server's results, a threaded run whose clients build on the card).
 
 Every test here needs a CUDA device and skips without one.  The file
 imports nothing of jax or of the JAX package, so it runs where only
@@ -1540,6 +1543,101 @@ def test_telemetry_around_the_card(cuda):
     torch.testing.assert_close(solve_many(f, B), X, **TOL)
     rep = telemetry.kernel_report(factorize_window, m, grid=m.grid, sweep="cholesky")
     assert rep.launches == {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+
+
+def test_corner_capture_beside_allocating_threads(cuda):
+    """The corner's capture (``cholesky.capture``, thread-local capture
+    errors) completes while other threads allocate on the card and copy from
+    pageable memory, and those threads' calls do not fail."""
+    import threading
+    from repro_torch.core.solve import corner_graphs
+    m = _matrix(16, cuda)
+    f = factorize_window(m)
+    B = torch.randn((m.grid.padded_n, 5), generator=torch.Generator().manual_seed(1)).to(cuda)
+    want = solve_many(f, B)
+    stop, errors = threading.Event(), []
+
+    def churn(j):
+        try:
+            n = 1
+            while not stop.is_set():
+                n = n % 4096 + 1
+                x = torch.from_numpy(np.full((n, 64), j, np.float32)).to(cuda)
+                torch.cuda.empty_cache()
+                (x * 2).sum().item()
+        except Exception as err:
+            errors.append(repr(err))
+
+    threads = [threading.Thread(target=churn, args=(j,)) for j in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        for _ in range(5):
+            corner_graphs.clear()
+            c0 = corner_graphs.captures
+            got = solve_many(f, B)
+            assert corner_graphs.captures - c0 == 2
+            torch.testing.assert_close(got, want, **TOL)
+            torch.testing.assert_close(solve_many(f, B), want, **TOL)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert not errors and not any(t.is_alive() for t in threads)
+
+
+def test_rung_server_on_the_card(cuda):
+    """The rung server on the card: its executor's own stream, results on
+    the card against the CPU server's on the same arrivals (the same
+    history), and a threaded run whose clients build their requests on the
+    card, every wait with a timeout."""
+    import threading
+    from repro_torch.launch.rung_server import RungServer, SimClock, _build_arrivals, replay
+    from repro_torch.data import request_stream
+    stream = request_stream(2, [(300, 70, 70), (260, 70, 70), (300, 70, 10)], 12,
+                            rate=3000.0, k=5)
+
+    def serve(device):
+        clock = SimClock()
+        server = RungServer(max_batch=3, max_delay=1e-3, clock=clock, device=device)
+        futs = replay(server, clock, _build_arrivals(stream, t=16, device=device))
+        return server, [f.result(timeout=0) for f in futs]
+
+    gpu, gres = serve(cuda)
+    cpu, cres = serve("cpu")
+    assert isinstance(gpu.executor.inner.stream, torch.cuda.Stream)
+    assert gpu.history == cpu.history
+    for g, c in zip(gres, cres):
+        assert (g.status, g.attempts) == (c.status, c.attempts) == (STATUS_OK, 1)
+        assert g.x.device.type == "cuda"
+        torch.testing.assert_close(g.x.cpu(), c.x, **TOL)
+    hosts = _build_arrivals(stream, t=16, device="cpu")
+    server = RungServer(max_batch=3, max_delay=1e-3, device=cuda)
+    server.start()
+    futs, errors = [None] * len(hosts), []
+
+    def client(j):
+        try:
+            for i in range(j, len(hosts), 3):
+                _, m, b, _ = hosts[i]
+                mc = BandedCTSF(m.grid, *(x.to(cuda) for x in m.arrays()))
+                futs[i] = server.submit(mc, b.to(cuda))
+        except Exception as err:
+            errors.append(repr(err))
+
+    clients = [threading.Thread(target=client, args=(j,)) for j in range(3)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=60)
+    try:
+        assert not errors and all(f is not None for f in futs)
+        tres = [f.result(timeout=60) for f in futs]
+    finally:
+        server.stop(timeout=60)
+    for r, c in zip(tres, cres):
+        assert r.status == STATUS_OK
+        torch.testing.assert_close(r.x.cpu(), c.x, **TOL)
 
 
 @pytest.fixture
