@@ -194,6 +194,34 @@ Phases, each of which raises on a failed check:
      OK within 2e-4 of the replay); telemetry enabled over the warm stream
      (every serving span, counter, gauge and histogram the reference's
      server emits for it; the results bit for bit the disabled pass's);
+   - "lm" (the LM substrate): lm-100m (examples/train_lm.py's model: 12
+     layers, d_model 768, 12 heads, 4 KV heads, d_ff 2048, vocab 8192,
+     qk_norm) at full width and depth on MarkovStream(8192, seed 0), batch
+     8 x 256, bf16, RunConfig as train() builds it, through launch/train.py
+     (init_state, build_precond + attach_precond, make_train_step): 30
+     steps of AdamW, then 30 of the arrowhead optimizer (r = 32, band 2, a
+     refresh every 10 steps) from the same initialisation; finite losses,
+     the mean of the last 5 below the first 5's; each arrowhead step's
+     launches (band forward 1, backward 1, solve_panel 2; a refresh step
+     also the fused sweep, potrf and trsm 1 each); at steps 10 and 20 the
+     damped matrix A in float64: factor residual <= 1e-4, A^-1 g (the
+     sketch's solve) against a float64 dense solve <= 2e-3; with damping 1
+     on a fresh state precondition is the identity (1e-6); step times
+     (CUDA events), tokens a second, peak memory, the arrowhead's device
+     time apart (sketch + update_stats, factorize, precondition: CUDA
+     graphs) beside its host time, its six kernels at its shapes against
+     their plain versions, three quiet steps (host enqueue against wall,
+     a profiler's kernel sum), and the two optimizers' steps in turns (A, B,
+     B, A, five rounds); qwen2-7b at its published widths with
+     n_layers cut to 2 (1.56 B parameters; the grid clips the band to bt =
+     ndt - 1 = 1), batch 2 x 256 of token_batch, 2 steps of each optimizer:
+     finite losses, the same launches, peak memory; the dense LM server on
+     lm-100m (batch 4, prompt 64, 32 generated) at float32, each decode
+     step's logits against a full forward (<= 1e-3 of max|logit|, the same
+     argmax where the top-2 margin exceeds that), then bf16: prefill ms and
+     decode tokens a second; the INLA twin's main (the objective
+     non-increasing, finite posterior summaries) and the distributed twin
+     at world 1 over NCCL (its factor within 1e-4 of factorize_window's);
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -3548,6 +3576,620 @@ def time_serving(torch, kern_counts, serving, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate: launch/train.py with AdamW and with the arrowhead
+# preconditioner (optim/arrowhead.py on the band-Cholesky and band-solve
+# kernels), launch/serve.py, the examples' twins
+# ---------------------------------------------------------------------------
+
+# lm-100m (examples/train_lm.py's model) at full width and depth on
+# MarkovStream(8192, seed 0), the arrowhead's factor checked after these
+# steps; qwen2-7b at its published widths, n_layers cut to 2, on
+# token_batch (a Markov chain over its 152,064 tokens would not fit the
+# host); the server's batch, prompt and generated tokens
+LM_STEPS, LM_BATCH, LM_SEQ = 30, 8, 256
+LM_CHECK_STEPS = (10, 20)
+QWEN_LAYERS, QWEN_BATCH, QWEN_SEQ, QWEN_STEPS = 2, 2, 256, 2
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+# with damping = 1 on a fresh state (A = I) precondition is the identity,
+# relative to max|g|; the server's decode logits against a full forward,
+# relative to max|logit|
+IDENTITY_LIMIT = 1e-6
+LOGIT_RTOL = 1e-3
+# one arrowhead step's parameters against adamw_update(precondition(...))
+# written out, relative to how far the raw gradient's update lands
+PRECOND_STEP_TOL = 1e-3
+ARROWHEAD_KERNELS = ("band_cholesky_sweep", "potrf", "trsm", "band_forward_sweep",
+                     "band_backward_sweep", "solve_panel")
+
+
+def arrowhead_step_launches(step, every):
+    """The launches of one arrowhead train step: both band-solve sweeps and
+    the corner's solve_panel pair every step; the fused sweep and the
+    corner's potrf and trsm on a refresh step."""
+    want = {"band_forward_sweep": 1, "band_backward_sweep": 1, "solve_panel": 2}
+    if step % every == 0:
+        want.update(band_cholesky_sweep=1, potrf=1, trsm=1)
+    return want
+
+
+def lm_train(torch, cfg, optimizer, batches, kern_counts, snapshot_at=(), dev="cuda:0"):
+    """Train ``cfg`` from seed 0 through launch/train.py's entry points,
+    with ``RunConfig`` as ``train()`` builds it (compute in bfloat16):
+    ``init_state``, ``build_precond`` + ``attach_precond`` (arrowhead),
+    ``make_train_step``, a step a batch.  Records each step's CUDA-event
+    time, its launches (the device counts' difference across the call) and,
+    at ``snapshot_at``, the arrowhead's statistics and factor.  The losses
+    are read after the last step; the peak memory counts what the run
+    allocated beyond what the card held when it began."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.train import attach_precond, init_state, make_train_step
+    from repro_torch.optim.arrowhead import build_precond
+    steps = len(batches)
+    seq = batches[0]["tokens"].shape[1]
+    run = RunConfig(optimizer=optimizer, remat="none", loss_chunk=128,
+                    checkpoint_every=max(10, steps // 4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, run, max_seq=seq)
+    precond = None
+    if optimizer == "arrowhead":
+        precond = build_precond(state.params, r=run.precond_proj_dim, band=run.precond_band,
+                                seed=0)
+        attach_precond(state, precond)
+    step_fn = make_train_step(cfg, run, None, precond, total_steps=steps)
+    events, launches, snaps, metrics = [], [], {}, []
+    for s, b in enumerate(batches):
+        before = kern_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_fn(state, b)
+        e1.record()
+        after = kern_counts()
+        events.append((e0, e1))
+        launches.append({k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)})
+        metrics.append(m)
+        if precond is not None and s in snapshot_at:
+            snaps[s] = {w: {k: v.clone() for k, v in getattr(state, w).items()}
+                        for w in ("precond", "factor")}
+    torch.cuda.synchronize()
+    return dict(state=state, precond=precond, run=run, snaps=snaps, launches=launches,
+                step_fn=step_fn,
+                losses=[float(m["loss"]) for m in metrics],
+                step_ms=[e0.elapsed_time(e1) for e0, e1 in events],
+                peak_bytes=torch.cuda.max_memory_allocated() - start_bytes)
+
+
+def probe_steps(torch, step_fn, state, batch, reps=3):
+    """Train steps on a quiet card (after the measured run): the host's
+    enqueue time (the call returns before the card is done) against the
+    step's wall time to a synchronize, and the kernel time a profiler trace
+    sums over one step (PyTorch's kernels: the repo's own kernels, launched
+    through ctypes, do not show in it), hence the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    enq, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        enq.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    self_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    # the operators' rows: each kernel's time once, under the operator that
+    # launched it (the trace's kernel rows repeat it)
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 key=self_us, reverse=True)
+    dev_us = sum(self_us(e) for e in ops)
+    rec = dict(host_enqueue_ms=statistics.median(enq), wall_ms=statistics.median(wall),
+               profiled_kernel_ms=dev_us / 1e3 if dev_us else None,
+               top_ops=[(e.key, self_us(e) / 1e3, e.count) for e in ops[:12]])
+    if dev_us:
+        rec["device_idle_share"] = 1.0 - rec["profiled_kernel_ms"] / rec["wall_ms"]
+    return rec
+
+
+def steps_in_turns(torch, runs, batch, rounds=5):
+    """Train steps of each optimizer on a quiet card, in turns (A, B, B, A
+    a round), each to a synchronize: host enqueue and wall ms, medians.
+    ``runs`` maps a name to ``(step_fn, state)``."""
+    (na, ra), (nb, rb) = runs.items()
+    times = {na: ([], []), nb: ([], [])}
+    for _ in range(rounds):
+        for name, (fn, state) in ((na, ra), (nb, rb), (nb, rb), (na, ra)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, batch)
+            times[name][0].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[name][1].append((time.perf_counter() - t0) * 1e3)
+    rec = {n: dict(host_enqueue_ms=statistics.median(h), wall_ms=statistics.median(w),
+                   wall_runs=w) for n, (h, w) in times.items()}
+    rec["wall_ratio"] = rec[nb]["wall_ms"] / rec[na]["wall_ms"]
+    return rec
+
+
+def lm_grads(torch, cfg, run, params, batch):
+    """The clipped gradient at ``params`` on ``batch``, as a train step
+    sees it (the arrowhead's checks and timings read its sketch)."""
+    from repro_torch import pytree
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import clip_by_global_norm
+    dev = pytree.leaves(params)[0].device
+    leaves = [p.detach().requires_grad_() for p in pytree.leaves(params)]
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    loss = get_model(cfg).loss(pytree.unflatten(params, leaves), b, cfg, run)
+    grads = pytree.unflatten(params, list(torch.autograd.grad(loss, leaves)))
+    return clip_by_global_norm(grads, run.grad_clip)[0]
+
+
+def check_losses(losses, what):
+    import numpy as np
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        raise AssertionError(f"{what}: losses finite and falling (mean of the last 5 below "
+                             f"the first 5's): first {first:.4f}, last {last:.4f}, {losses}")
+    return dict(first5_mean=first, last5_mean=last, losses=losses)
+
+
+def check_step_launches(launches, precond, every, what):
+    for s, got in enumerate(launches):
+        want = arrowhead_step_launches(s, every) if precond is not None else {}
+        if got != want:
+            raise AssertionError(f"{what}: step {s} launched {got}, expected {want}")
+
+
+def arrowhead_unit_stats(stats):
+    """The statistics scaled to unit max, the damping left as it is.  The
+    clipped gradients of the lm path give statistics some 1e-8 in size,
+    which the damping of 1e-3 swamps (A is damping·I to six digits); at
+    unit max the off-diagonal tiles weigh as much as the diagonal ones, so
+    a factor, solve or kernel that dropped them fails the gates.  Returns
+    the scaled statistics and the scale."""
+    m = max(stats[k].abs().max().item() for k in ("Dr", "R", "C"))
+    return {**stats, **{k: stats[k] / m for k in ("Dr", "R", "C")}}, m
+
+
+def arrowhead_gates(torch, precond, stats, factor, lsk, ask):
+    """Against A = ``damped(stats)`` assembled in float64: the factor
+    residual ``max|L Lᵀ − A| / max|A|`` and the forward error of ``A⁻¹ ĝ``
+    (``solve_sketch``, the path ``precondition`` takes) against a float64
+    dense solve; beside them the same two numbers for the block-diagonal
+    factor (each diagonal tile's Cholesky, every band and arrow tile
+    dropped), what a sweep and solves that skipped every off-diagonal tile
+    would score, and A's spectrum."""
+    from repro_torch.core.ctsf import BandedCTSF
+    g = precond.grid
+    t = g.t
+    dr, R, c = precond.damped(stats)
+    A = dense_from_ctsf(torch, BandedCTSF(g, dr, R, c), torch.float64, symmetric=True)
+    L = torch.tril(dense_from_ctsf(torch, BandedCTSF(g, factor["Dr"], factor["R"], factor["C"]),
+                                   torch.float64, symmetric=False))
+    rhs = torch.cat([lsk.reshape(-1), ask]).double()
+    x64 = torch.linalg.solve(A, rhs)
+    sol_l, sol_a = precond.solve_sketch(factor, lsk, ask)
+    x = torch.cat([sol_l.reshape(-1), sol_a]).double()
+    blk = torch.zeros_like(A)
+    for i in range(g.n_diag_tiles + g.n_arrow_tiles):
+        blk[i * t:(i + 1) * t, i * t:(i + 1) * t] = A[i * t:(i + 1) * t, i * t:(i + 1) * t]
+    ev = torch.linalg.eigvalsh(A)
+    scale, xs = A.abs().max(), x64.abs().max()
+    return dict(residual=((L @ L.mT - A).abs().max() / scale).item(),
+                solve_forward_error=((x - x64).abs().max() / xs).item(),
+                blockdiag_residual=((blk - A).abs().max() / scale).item(),
+                blockdiag_forward_error=((torch.linalg.solve(blk, rhs) - x64).abs().max()
+                                         / xs).item(),
+                stats_max=max(stats[k].abs().max().item() for k in ("Dr", "R", "C")),
+                damping=precond.damping, min_eig=ev.min().item(), max_eig=ev.max().item())
+
+
+def check_arrowhead_factor(torch, precond, snaps, grads):
+    """At each snapshot, the gates of :func:`arrowhead_gates` (factor
+    residual ≤ RESIDUAL_LIMIT, A⁻¹ĝ forward error ≤ SOLVE_RTOL) on the
+    main path's own factor of the lm statistics, and on the card's
+    ``factorize`` of the same statistics at unit max, where the
+    block-diagonal factor must fail both gates (else they could not tell a
+    factor that dropped the off-diagonal tiles); then with damping 1 on a
+    fresh state (A = I) ``precondition`` returns ``grads``."""
+    import dataclasses
+    from repro_torch import pytree
+    lsk, ask = precond.sketch(grads)
+    out = {}
+    for s, snap in sorted(snaps.items()):
+        unit, _ = arrowhead_unit_stats(snap["precond"])
+        for name, stats, factor in (("lm", snap["precond"], snap["factor"]),
+                                    ("unit", unit, precond.factorize(unit))):
+            rec = arrowhead_gates(torch, precond, stats, factor, lsk, ask)
+            out[f"step{s}_{name}"] = rec
+            if not (rec["residual"] <= RESIDUAL_LIMIT and rec["solve_forward_error"] <= SOLVE_RTOL):
+                raise AssertionError(f"arrowhead at step {s}, {name} statistics: factor residual "
+                                     f"{rec['residual']:.3e} (limit {RESIDUAL_LIMIT}), A⁻¹ĝ "
+                                     f"forward error {rec['solve_forward_error']:.3e} (limit "
+                                     f"{SOLVE_RTOL}): {rec}")
+            if name == "unit" and not (rec["blockdiag_residual"] > RESIDUAL_LIMIT
+                                       and rec["blockdiag_forward_error"] > SOLVE_RTOL):
+                raise AssertionError(f"arrowhead at step {s}: on unit-max statistics a "
+                                     f"block-diagonal factor passes the gates: {rec}")
+    unit = dataclasses.replace(precond, damping=1.0)
+    d = unit.precondition(unit.factorize(unit.init_state(lsk.device)), grads)
+    ident = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(pytree.leaves(d), pytree.leaves(grads)))
+    out["identity_rel_err"] = ident
+    if not ident <= IDENTITY_LIMIT:
+        raise AssertionError(f"arrowhead with A = I: precondition moved the gradient by "
+                             f"{ident:.3e} of its max (limit {IDENTITY_LIMIT})")
+    return out
+
+
+def check_precond_reaches_update(torch, cfg, out, batch):
+    """One arrowhead train step (a refresh step) on a copy of the trained
+    state against the same step written out from the entry points: the
+    clipped gradient, ``update_stats``, ``factorize``, ``precondition``,
+    then ``adamw_update`` of the preconditioned gradient.  The parameters
+    must agree with it, relative to how far the same update of the raw
+    gradient lands from it (they differ at the plans' coordinates): a step
+    that handed AdamW the raw gradient fails.  The step's statistics and
+    factor must agree too."""
+    import copy
+    from repro_torch import pytree
+    from repro_torch.optim.adamw import adamw_update
+    state, precond, run = out["state"], out["precond"], out["run"]
+    step = int(state.step)
+    stepped = copy.deepcopy(state)
+    _, m = out["step_fn"](stepped, batch)
+    grads = lm_grads(torch, cfg, run, state.params, batch)
+    stats = precond.update_stats(state.precond, grads)
+    factor = precond.factorize(stats) if step % run.precond_every == 0 else state.factor
+    explicit = {}
+    for name, g in (("preconditioned", precond.precondition(factor, grads)), ("raw", grads)):
+        s = copy.deepcopy(state)
+        adamw_update(g, s.opt, s.params, m["lr"], weight_decay=run.weight_decay)
+        explicit[name] = pytree.leaves(s.params)
+    got = pytree.leaves(stepped.params)
+    err = max((a - b).abs().max().item() for a, b in zip(got, explicit["preconditioned"]))
+    gap = max((a - b).abs().max().item()
+              for a, b in zip(explicit["raw"], explicit["preconditioned"]))
+    stat_err = max(((stepped.precond[k] - stats[k]).abs().max()
+                    / stats[k].abs().max()).item() for k in ("Dr", "R", "C"))
+    fac_err = max(((stepped.factor[k] - factor[k]).abs().max()
+                   / factor[k].abs().max()).item() for k in ("Dr", "R", "C"))
+    rec = dict(step=step, refresh=step % run.precond_every == 0, param_err=err,
+               raw_gradient_gap=gap, stats_rel_err=stat_err, factor_rel_err=fac_err)
+    if not gap > 0:
+        raise AssertionError(f"arrowhead step: the preconditioned and the raw gradient give "
+                             f"the same update, the check would be vacuous: {rec}")
+    rec["param_err_of_gap"] = err / gap
+    if not (err <= PRECOND_STEP_TOL * gap and stat_err <= TOL and fac_err <= TOL):
+        raise AssertionError(f"arrowhead step against adamw_update(precondition(...)): {rec} "
+                             f"(limits {PRECOND_STEP_TOL} of the raw gradient's gap, {TOL})")
+    return rec
+
+
+def assert_parts(torch, got, want, diag, what):
+    """``got`` against ``want``, each part relative to its own size in
+    ``want``: with ``diag`` (a mask) the diagonal entries apart from every
+    other, so the off-diagonal entries of a nearly diagonal factor are held
+    to their own scale; a part that is zero in ``want`` must be zero in
+    ``got``.  Returns the largest relative error."""
+    parts = [torch.ones_like(want, dtype=torch.bool)] if diag is None else [diag, ~diag]
+    errs = [0.0]
+    for mask in parts:
+        w, gm = want[mask], got[mask]
+        scale = w.abs().max().item() if w.numel() else 0.0
+        if scale == 0:
+            if not torch.equal(gm, w):
+                raise AssertionError(f"{what}: nonzero where the plain version is zero")
+            continue
+        errs.append(assert_update(gm, w, scale, what))
+    return max(errs)
+
+
+def arrowhead_kernel_cases(torch, ref, kern, precond, stats, factor, lsk, ask):
+    """Each kernel of the arrowhead's path on the inputs the path gives it:
+    the band-Cholesky sweep of ``damped(stats)``, the corner's potrf and
+    trsm, both band-solve sweeps and solve_panel at k = 1 on ``factor`` and
+    the sketch.  Name -> (kernel call, plain call, the plain call with every
+    off-diagonal tile (a tile's off-diagonal entries, for the corner's
+    tile kernels) of its factor input zeroed, the outputs' diagonal masks,
+    calls a timing, flops, bytes)."""
+    from repro_torch.kernels.ring import band_row_to_col, chunk_layout
+    g = precond.grid
+    t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+    dr, R, c = precond.damped(stats)
+    Ac = band_row_to_col(dr)
+    nch = max(1, min(4, ndt))
+    sweep = kern["band_cholesky_sweep"](Ac, R, nchunks=nch)
+    corner = (c - sweep[2].sum(dim=0))[0, 0].contiguous()
+    lkk = ref.potrf_ref(corner)
+    col = (c - sweep[2].sum(dim=0))[:, 0].contiguous()
+    bd = lsk.reshape(ndt, t, 1).contiguous()
+    xa = ask.reshape(nat, t, 1).contiguous()
+    lc = factor["C"][0, 0].contiguous()
+    fdr, fr = factor["Dr"], factor["R"]
+    # the inputs with their off-diagonal part dropped
+    Ac0, fdr0 = Ac.clone(), fdr.clone()
+    Ac0[:, 1:] = 0
+    fdr0[:, 1:] = 0
+    R0, fr0 = torch.zeros_like(R), torch.zeros_like(fr)
+    diag_of = lambda x: torch.diag_embed(x.diagonal())
+    eye = torch.eye(t, dtype=torch.bool, device=lc.device)
+    band_diag = torch.zeros_like(Ac, dtype=torch.bool)
+    band_diag[:, 0] = eye
+    no = None
+    return {
+        "band_cholesky_sweep": (lambda: kern["band_cholesky_sweep"](Ac, R, nchunks=nch),
+                                lambda: ref.band_cholesky_sweep_ref(Ac, R, nchunks=nch),
+                                lambda: ref.band_cholesky_sweep_ref(Ac0, R0, nchunks=nch),
+                                (band_diag, no, no, no), 1, needed_flops(g)[0],
+                                band_sweep_bytes(g, chunk_layout(ndt, nch)[1])),
+        "potrf": (lambda: kern["potrf"](corner), lambda: ref.potrf_ref(corner),
+                  lambda: ref.potrf_ref(diag_of(corner)), (eye,), 20,
+                  t ** 3 / 3.0, 2 * 4 * t * t),
+        "trsm": (lambda: kern["trsm"](lkk, col), lambda: ref.trsm_ref(lkk, col),
+                 lambda: ref.trsm_ref(diag_of(lkk), col), (no,), 20,
+                 nat * float(t) ** 3, 4 * t * t * (1 + 2 * nat)),
+        "band_forward_sweep": (lambda: kern["band_forward_sweep"](fdr, fr, bd),
+                               lambda: ref.band_forward_sweep_ref(fdr, fr, bd),
+                               lambda: ref.band_forward_sweep_ref(fdr0, fr0, bd), (no, no), 1,
+                               *solve_work(g, 1)["band_forward_sweep"]),
+        "band_backward_sweep": (lambda: kern["band_backward_sweep"](fdr, fr, bd, xa),
+                                lambda: ref.band_backward_sweep_ref(fdr, fr, bd, xa),
+                                lambda: ref.band_backward_sweep_ref(fdr0, fr0, bd, xa), (no,), 1,
+                                *solve_work(g, 1)["band_backward_sweep"]),
+        "solve_panel": (lambda: kern["solve_panel"](lc, xa[0]),
+                        lambda: ref.solve_panel_ref(lc, xa[0]),
+                        lambda: ref.solve_panel_ref(diag_of(lc), xa[0]), (no,), 20,
+                        *solve_work(g, 1)["solve_panel"])}
+
+
+def check_arrowhead_kernels(torch, ref, kern, precond, state, grads):
+    """Each kernel of the arrowhead's path against its plain version, part
+    by part (:func:`assert_parts`), on the lm statistics and the main
+    path's factor, and on the statistics at unit max and their factor.
+    ``dropped_off_diagonal`` is how far the plain version moves, relative
+    to its output's max, when its factor input loses its off-diagonal part:
+    on the unit-max inputs it must exceed TOL, so a kernel that skipped
+    those updates fails.  Returns the records and the lm inputs' cases."""
+    lsk, ask = precond.sketch(grads)
+    unit, _ = arrowhead_unit_stats(state.precond)
+    inputs = {"lm": (state.precond, state.factor), "unit": (unit, precond.factorize(unit))}
+    rec, lm_cases = {}, None
+    for which, (stats, factor) in inputs.items():
+        cases = arrowhead_kernel_cases(torch, ref, kern, precond, stats, factor, lsk, ask)
+        lm_cases = lm_cases or cases
+        for name, (fk, fp, fp0, diags, *_rest) in cases.items():
+            got, want, want0 = fk(), fp(), fp0()
+            tup = lambda x: (x,) if torch.is_tensor(x) else tuple(x)
+            got, want, want0 = tup(got), tup(want), tup(want0)
+            what = f"arrowhead-shape {name}, {which} statistics"
+            err = max(assert_parts(torch, a, b, m, what)
+                      for a, b, m in zip(got, want, diags + (None,) * len(got)))
+            dropped = max(((b - b0).abs().max() / b.abs().max()).item()
+                          for b, b0 in zip(want, want0) if b.abs().max() > 0)
+            abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            rec.setdefault(name, {})[which] = dict(rel_err=err, max_abs_err=abs_err,
+                                                   dropped_off_diagonal=dropped)
+            if which == "unit" and not dropped > TOL:
+                raise AssertionError(f"{what}: dropping the off-diagonal part moves the plain "
+                                     f"version by {dropped:.3e} of its max, within the "
+                                     f"tolerance {TOL}: the check could not see it")
+    return rec, lm_cases
+
+
+def time_arrowhead(torch, ref, kern, precond, state, grads, card):
+    """The arrowhead's own device time apart (CUDA graphs of the calls):
+    sketch + update_stats, factorize (a refresh step's), precondition; the
+    host time of one step's arrowhead calls (enqueue, no synchronize)
+    beside their device time; each of its kernels at the arrowhead's shapes
+    checked against its plain version (:func:`check_arrowhead_kernels`) and
+    timed on the lm inputs, with its bound."""
+    g = precond.grid
+    stats, factor = state.precond, state.factor
+    calls = {"sketch_and_update_stats": lambda: precond.update_stats(stats, grads),
+             "factorize": lambda: precond.factorize(stats),
+             "precondition": lambda: precond.precondition(factor, grads)}
+    rec = {k: device_ms(torch, fn) for k, fn in calls.items()}
+    rec["call_ms"] = {k: time_ms(torch, fn) for k, fn in calls.items()}
+
+    def every_step():
+        precond.update_stats(stats, grads)
+        precond.precondition(factor, grads)
+
+    def refresh_step():
+        precond.factorize(precond.update_stats(stats, grads))
+        precond.precondition(factor, grads)
+
+    for name, fn in (("step", every_step), ("refresh_step", refresh_step)):
+        fn()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        rec[f"{name}_host_ms"] = statistics.median(host)
+        rec[f"{name}_device_ms"] = device_ms(torch, fn)
+    checks, cases = check_arrowhead_kernels(torch, ref, kern, precond, state, grads)
+    kernels = {}
+    for name, (fk, fp, _fp0, _diags, inner, flops, nbytes) in cases.items():
+        b_ms, b_by = bound(flops, nbytes)
+        kernels[name] = dict(shape=dict(t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles,
+                                        nat=g.n_arrow_tiles, k=1),
+                             max_abs_err=checks[name]["lm"]["max_abs_err"], checks=checks[name],
+                             ms=device_ms(torch, fk, calls=inner),
+                             plain_ms=device_ms(torch, fp, calls=inner),
+                             bound_ms=b_ms, bound_by=b_by)
+    rec["kernels"] = kernels
+    log("time arrowhead (lm-100m, r = 32, band 2): " + json.dumps(rec) + f", card {card}")
+    return rec
+
+
+def serve_check(torch, cfg, dev):
+    """The dense LM server at float32 (``Server.generate``'s tokens), then
+    its prefill and decode steps replayed one by one: each step's logits
+    against a full forward of the prompt and the tokens so far, at the last
+    position; the same argmax wherever the top-2 margin exceeds the
+    tolerance."""
+    import numpy as np
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import Server, _pad_caches
+    run = RunConfig(compute_dtype="float32", remat="none", loss_chunk=128)
+    server = Server(cfg, run, max_len=SERVE_PROMPT + SERVE_GEN, seed=0, device=dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
+    out = server.generate({"tokens": prompt}, SERVE_GEN)
+    model = server.model
+    toks = torch.as_tensor(prompt).to(dev)
+    with torch.no_grad():
+        logits, caches = model.prefill(toks)
+        caches = _pad_caches(caches, server.max_len)
+        steps, tok = [], torch.argmax(logits, -1)[:, None]
+        gen = [tok]
+        for i in range(SERVE_GEN - 1):
+            logits, caches = model.decode_step(caches, tok, SERVE_PROMPT + i)
+            steps.append(logits)
+            tok = torch.argmax(logits, -1)[:, None]
+            gen.append(tok)
+        gen = torch.cat(gen, 1)
+        if not np.array_equal(gen.cpu().numpy(), out["tokens"]):
+            raise AssertionError("serve: the replayed decode's tokens differ from "
+                                 "Server.generate's")
+        seq = torch.cat([toks, gen], 1)
+        errs, flips = [], 0
+        for i, dec in enumerate(steps):
+            full, _ = model.prefill(seq[:, :SERVE_PROMPT + i + 1])
+            scale = full.abs().max()
+            errs.append(((dec - full).abs().max() / scale).item())
+            top2 = torch.topk(full, 2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
+            flips += int((sure & (dec.argmax(-1) != full.argmax(-1))).sum())
+    rec = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN, compute_dtype="float32",
+               decode_logit_rel_err_max=max(errs), argmax_flips=flips)
+    if not (max(errs) <= LOGIT_RTOL and flips == 0):
+        raise AssertionError(f"serve: decode logits against the full forward: {rec}")
+    del server, caches
+    # bfloat16: a warm generate, then the timed one
+    server = Server(cfg, RunConfig(remat="none", loss_chunk=128), max_len=SERVE_PROMPT + SERVE_GEN,
+                    seed=0, device=dev)
+    server.generate({"tokens": prompt}, SERVE_GEN)
+    timed = server.generate({"tokens": prompt}, SERVE_GEN)
+    rec["bf16"] = dict(prefill_ms=timed["prefill_s"] * 1e3, decode_s=timed["decode_s"],
+                       decode_tok_per_s=timed["decode_tok_per_s"])
+    return rec
+
+
+def phase_lm(torch, run_path, kern, ref, counts, card):
+    """The LM substrate on the card (see the module docstring, phase 3's
+    "lm").  Returns the phase's record and its launches per call."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.synthetic import MarkovStream, token_batch
+    from repro_torch.examples.train_lm import model_100m
+    dev = "cuda:0"
+    t_phase = time.perf_counter()
+    cfg = model_100m()
+    stream = MarkovStream(cfg.vocab, seed=0)
+    batches = [stream.batch(s, LM_BATCH, LM_SEQ) for s in range(LM_STEPS)]
+    rec, per_call, finals = {"lm-100m": {}}, [], {}
+    for opt in ("adamw", "arrowhead"):
+        out = run_path(f"lm: lm-100m, {opt}, {LM_STEPS} steps", lambda: lm_train(
+            torch, cfg, opt, batches, counts, LM_CHECK_STEPS, dev))
+        what = f"lm-100m {opt}"
+        r = dict(steps=LM_STEPS, batch=LM_BATCH, seq=LM_SEQ, compute_dtype=out["run"].compute_dtype,
+                 step_ms_median=statistics.median(out["step_ms"]), step_ms=out["step_ms"],
+                 peak_bytes=out["peak_bytes"], **check_losses(out["losses"], what))
+        r["tokens_per_s"] = LM_BATCH * LM_SEQ / (r["step_ms_median"] / 1e3)
+        check_step_launches(out["launches"], out["precond"], out["run"].precond_every, what)
+        r["launches_per_step"] = out["launches"][:2]
+        if out["precond"] is not None:
+            per_call += [("lm-100m", "arrowhead train step, refresh", out["launches"][0]),
+                         ("lm-100m", "arrowhead train step", out["launches"][1])]
+            grads = lm_grads(torch, cfg, out["run"], out["state"].params, batches[0])
+            r["factor_checks"] = check_arrowhead_factor(torch, out["precond"], out["snaps"],
+                                                        grads)
+            r["update_check"] = check_precond_reaches_update(torch, cfg, out, batches[-1])
+            r["times"] = time_arrowhead(torch, ref, kern, out["precond"], out["state"], grads,
+                                        card)
+            g = out["precond"].grid
+            r["grid"] = dict(t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles, nat=g.n_arrow_tiles)
+            del grads
+        r["probe"] = probe_steps(torch, out["step_fn"], out["state"], batches[-1])
+        rec["lm-100m"][opt] = r
+        log(f"lm: lm-100m, {opt}: " + json.dumps({k: v for k, v in r.items() if k != "times"})
+            + f", card {card}")
+        finals[opt] = (out["step_fn"], out["state"])
+        del out
+    # the two optimizers' steps in turns on one card (host noise moves a
+    # run's median by tens of percent between runs)
+    rec["lm-100m"]["in_turns"] = steps_in_turns(torch, finals, batches[-1])
+    log("lm: lm-100m, AdamW and arrowhead steps in turns: "
+        + json.dumps(rec["lm-100m"]["in_turns"]) + f", card {card}")
+    del finals
+    torch.cuda.empty_cache()
+    # qwen2-7b at its published widths, n_layers cut to 2 (band 2 over 2
+    # layers: the grid clips the band to bt = ndt - 1 = 1)
+    qcfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=QWEN_LAYERS)
+    qbatches = [token_batch(0, s, QWEN_BATCH, QWEN_SEQ, qcfg.vocab) for s in range(QWEN_STEPS)]
+    rec["qwen2-7b"] = dict(n_layers=QWEN_LAYERS, cut="n_layers 28 -> 2; widths as published")
+    for opt in ("adamw", "arrowhead"):
+        out = run_path(f"lm: qwen2-7b at 2 layers, {opt}", lambda: lm_train(
+            torch, qcfg, opt, qbatches, counts, (), dev))
+        what = f"qwen2-7b at 2 layers, {opt}"
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{what}: losses {out['losses']}")
+        check_step_launches(out["launches"], out["precond"], out["run"].precond_every, what)
+        from repro_torch import pytree
+        rec["qwen2-7b"]["params"] = sum(p.numel() for p in pytree.leaves(out["state"].params))
+        rec["qwen2-7b"][opt] = dict(losses=out["losses"], step_ms=out["step_ms"],
+                                    peak_bytes=out["peak_bytes"],
+                                    launches_per_step=out["launches"])
+        if out["precond"] is not None:
+            g = out["precond"].grid
+            rec["qwen2-7b"]["grid"] = dict(t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles,
+                                           nat=g.n_arrow_tiles)
+        log(f"lm: {what}: " + json.dumps(rec["qwen2-7b"][opt]) + f", card {card}")
+        del out
+        torch.cuda.empty_cache()
+    rec["serve"] = run_path("lm: dense LM server, lm-100m", lambda: serve_check(torch, cfg, dev))
+    log("lm: serve: " + json.dumps(rec["serve"]) + f", card {card}")
+    # the examples' twins
+    from repro_torch.examples import distributed_factorization, inla_gmrf
+    inla = run_path("lm: INLA twin", lambda: inla_gmrf.main([]))
+    f = inla["objective"]
+    if not (all(math.isfinite(v) for v in f) and all(b <= a for a, b in zip(f, f[1:]))
+            and np.isfinite([inla["sd_min"], inla["sd_max"]] + inla["corr"]).all()
+            and inla["samples_finite"]):
+        raise AssertionError(f"INLA twin: objective non-increasing and finite summaries: {inla}")
+    rec["inla"] = inla
+
+    def distributed_world1():
+        import tempfile
+        import torch.distributed as dist
+        with tempfile.TemporaryDirectory(prefix="repro_torch_lm_store_") as tmp:
+            nccl_world_of_one(torch, Path(tmp) / "store")
+            try:
+                return distributed_factorization.main([])
+            finally:
+                dist.destroy_process_group()
+
+    dist_rec = run_path("lm: distributed twin, world 1 (NCCL)", distributed_world1)
+    if not (dist_rec["window_rel_err"] <= 1e-4 and dist_rec["dense_max_err"] <= 1e-4):
+        raise AssertionError(f"distributed twin at world 1: {dist_rec}")
+    rec["distributed"] = dist_rec
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase lm: {rec['wall_s']:.1f} s; " + json.dumps(
+        {k: v for k, v in rec.items() if k not in ("lm-100m",)}) + f", card {card}")
+    return rec, per_call
+
+
 def time_ms(torch, fn, inner=1, reps=7, warmup=2):
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls a rep."""
     for _ in range(warmup):
@@ -3904,6 +4546,10 @@ def main() -> int:
     serving_rec, serving = phase_serving(torch, run_path, counts, card)
     extra_calls.append(("serving", "RungServer, cold replay of 48 requests",
                         path_launches["serving: cold replay"]))
+    # the LM substrate: lm-100m trained with AdamW and the arrowhead
+    # preconditioner, qwen2-7b at 2 layers, the dense LM server, the twins
+    lm_rec, lm_calls = phase_lm(torch, run_path, kern, ref, counts, card)
+    extra_calls += lm_calls
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:
@@ -4210,6 +4856,12 @@ def main() -> int:
             f"device {fmt(on_device.get('library'))} ms, call {fmt(call['library'])} ms; bound "
             f"{b_ms:.5f} ms by {b_by}")
 
+    # the arrowhead's kernels at its own shapes (lm-100m: t = 32, ndt = 12,
+    # bt = 2, nat = 1, k = 1), measured in phase "lm"
+    for entry in kernels:
+        at = lm_rec["lm-100m"]["arrowhead"]["times"]["kernels"].get(entry["name"])
+        if at is not None:
+            entry["arrowhead"] = at
     # gemm and syrk at every split (blocks a tile): the main path's task (one
     # tile) and a batch of the five band tasks with the largest products,
     # each against its plain version and bit for bit across splits, beside

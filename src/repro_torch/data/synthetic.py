@@ -1,8 +1,8 @@
 """Synthetic data, copies of the JAX package's ``data/synthetic.py``:
 ``block_separable_arrowhead``, the three pathological generators of the
-breakdown-recovery tests and the serving harness's request stream (the
-token streams come with the slices that use them).  numpy and scipy only,
-with the reference's seeding, so both packages corrupt the same entries
+breakdown-recovery tests, the serving harness's request stream and the
+training token streams.  numpy and scipy only, with the reference's
+seeding, so both packages corrupt the same entries, draw the same tokens
 and replay the same arrivals.
 
 * :func:`indefinite_arrowhead` — SPD arrowhead with a known negative shift
@@ -16,17 +16,22 @@ and replay the same arrivals.
   flag;
 * :func:`request_stream` — seeded Poisson (or Markov-modulated burst)
   arrivals of mixed-grid request specs for the rung server
-  (``launch/rung_server.py``).
+  (``launch/rung_server.py``);
+* :func:`token_batch` — pure-hash tokens keyed by (seed, step): exactly
+  reproducible on restart from any step, the replay-exact property the
+  fault-tolerant training loop relies on;
+* :class:`MarkovStream` — tokens from a fixed random first-order Markov
+  chain, a learnable distribution for the training examples.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["indefinite_arrowhead", "near_singular_arrowhead", "nan_contaminated_arrowhead",
-           "block_separable_arrowhead", "request_stream"]
+           "block_separable_arrowhead", "request_stream", "token_batch", "MarkovStream"]
 
 
 def _base_arrowhead(n, bandwidth, arrow, rho, seed):
@@ -189,3 +194,48 @@ def request_stream(seed: int, cases, num: int, rate: float = 1000.0,
                          if deadline_budget is not None else None),
         })
     return out
+
+
+def token_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
+                extras: Optional[Dict] = None) -> Dict[str, np.ndarray]:
+    """Stateless batch: tokens = hash(seed, step); labels = next-token."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    toks = rng.integers(0, vocab, size=(batch, seq + 1), dtype=np.int64)
+    out = {"tokens": toks[:, :-1].astype(np.int32),
+           "labels": toks[:, 1:].astype(np.int32)}
+    if extras:
+        out.update(extras)
+    return out
+
+
+class MarkovStream:
+    """First-order Markov chain over ``vocab`` states, fixed by ``seed``.
+
+    Perplexity floor ≈ exp(H(P_row)) — training should push loss towards it.
+    """
+
+    def __init__(self, vocab: int, seed: int = 0, concentration: float = 0.3):
+        rng = np.random.default_rng(seed)
+        logits = rng.standard_normal((vocab, vocab)) / concentration
+        p = np.exp(logits - logits.max(axis=1, keepdims=True))
+        self.P = p / p.sum(axis=1, keepdims=True)
+        self.vocab = vocab
+        self.seed = seed
+        row_h = -(self.P * np.log(self.P + 1e-12)).sum(axis=1)
+        self.entropy_floor = float(row_h.mean())
+
+    def batch(self, step: int, batch: int, seq: int,
+              extras: Optional[Dict] = None) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, step]))
+        toks = np.empty((batch, seq + 1), dtype=np.int64)
+        toks[:, 0] = rng.integers(0, self.vocab, size=batch)
+        # vectorized inverse-cdf sampling per step
+        cdf = np.cumsum(self.P, axis=1)
+        for t in range(seq):
+            u = rng.random(batch)
+            toks[:, t + 1] = (cdf[toks[:, t]] < u[:, None]).sum(axis=1)
+        out = {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}
+        if extras:
+            out.update(extras)
+        return out

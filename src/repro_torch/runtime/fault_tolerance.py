@@ -13,23 +13,26 @@ recovery machinery must catch.
   every decision a hash of the batch's composition, so a chaos schedule
   replays bit for bit;
 * :class:`StragglerMonitor` flags a duration slower than a multiple of the
-  running median.
+  running median;
+* :class:`TrainLoop` drives a training step with retries, and on a hard
+  failure restores the latest checkpoint and replays from its step.
 
 Port of the JAX package's ``runtime/fault_tolerance.py``: the same seeded
-tiles, entries and decisions, on torch tensors.  Its ``TrainLoop`` (retry,
-checkpoint-restart and elastic re-meshing of a training step) needs
-``checkpoint/checkpointer.py`` and comes with the LM substrate (ROADMAP
-A8).
+tiles, entries and decisions, on torch tensors.  ``TrainLoop`` restores
+onto the template state's devices; the reference's elastic re-meshing
+(``state_shardings``) waits for ``sharding/partition.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["FailureInjector", "NumericalFaultInjector", "InjectedDispatchError",
-           "DispatchFaultInjector", "StragglerMonitor"]
+           "DispatchFaultInjector", "StragglerMonitor", "TrainLoop"]
 
 
 class FailureInjector:
@@ -224,3 +227,68 @@ class StragglerMonitor:
     @property
     def median(self) -> float:
         return float(np.median(self.times)) if self.times else 0.0
+
+
+@dataclasses.dataclass
+class TrainLoop:
+    """Drives (state, batch) -> (state, metrics) with fault tolerance.
+
+    A step that raises is retried up to ``max_step_retries`` times; past
+    that it is a hard failure: the latest checkpoint is restored (onto the
+    current state's devices and dtypes) and the loop replays from its step.
+    ``batch_fn(step)`` must be a function of the step alone, so a replay
+    sees the same data.  A step that updates its state in place must raise
+    before it writes (as the injector does), or leave the retry to a
+    restore."""
+    step_fn: Callable
+    batch_fn: Callable                       # step -> host batch
+    checkpointer: Any                        # checkpoint.checkpointer.Checkpointer
+    checkpoint_every: int = 50
+    max_step_retries: int = 2
+    injector: Optional[FailureInjector] = None
+    straggler: StragglerMonitor = dataclasses.field(default_factory=StragglerMonitor)
+    log_every: int = 10
+    log_fn: Callable = print
+
+    def run(self, state: Any, start_step: int, num_steps: int) -> Any:
+        step = start_step
+        history = []
+        while step < start_step + num_steps:
+            batch = self.batch_fn(step)
+            t0 = time.perf_counter()
+            try:
+                new_state, metrics = self._try_step(state, batch, step)
+            except Exception as exc:  # hard failure -> restore & replay
+                self.log_fn(f"[ft] step {step}: hard failure ({exc}); "
+                            f"restoring latest checkpoint")
+                restored = self.checkpointer.latest_step()
+                if restored is None:
+                    raise
+                state = self.checkpointer.restore(state)
+                step = restored
+                continue
+            dt = time.perf_counter() - t0
+            self.straggler.record(step, dt)
+            state = new_state
+            history.append(metrics)
+            if self.log_every and step % self.log_every == 0:
+                self.log_fn(f"step {step}: " + ", ".join(
+                    f"{k}={float(v):.4f}" for k, v in metrics.items()))
+            step += 1
+            if step % self.checkpoint_every == 0:
+                self.checkpointer.save(step, state)
+        self.checkpointer.save(step, state, block=True)
+        self.history = history
+        return state
+
+    def _try_step(self, state, batch, step):
+        last = None
+        for attempt in range(self.max_step_retries + 1):
+            try:
+                if self.injector:
+                    self.injector.maybe_fail(step)
+                return self.step_fn(state, batch)
+            except Exception as exc:
+                last = exc
+                self.log_fn(f"[ft] step {step} attempt {attempt} failed: {exc}")
+        raise last

@@ -1683,3 +1683,38 @@ def test_nccl_distributed_factorize_across_cards(four_cards):
         assert torch.equal(o["C"], outs[0]["C"])
         torch.testing.assert_close(o["C"], C, rtol=0, atol=1e-5 * float(C.abs().max()))
         assert o["launches"] == {"band_cholesky_sweep": 1, "geadd": 2, "potrf": 1, "trsm": 1}
+
+
+@pytest.mark.parametrize("r", [8, 32])
+@pytest.mark.parametrize("band", [1, 2])
+@pytest.mark.parametrize("n_layers", [2, 12])
+def test_arrowhead_factorize_and_precondition_on_the_card(cuda, r, band, n_layers):
+    """The arrowhead preconditioner's ``factorize`` (the fused sweep, the
+    corner's potrf and trsm) and ``precondition`` (both band-solve sweeps,
+    the corner's solve_panel) on the card against the same calls with
+    ``impl="ref"`` on the card, rtol = atol = 2e-4 (relative to each
+    array's max); band 2 over 2 layers clips the band to ``bt = ndt - 1``."""
+    from repro_torch import pytree
+    from repro_torch.optim.arrowhead import build_precond
+    g = torch.Generator(device=cuda).manual_seed(r + band + n_layers)
+    shapes = {"embed": (64, 24), "final_norm": {"scale": (24,)},
+              "layers": {"w": (n_layers, 24, 40), "b": (n_layers, 40)}}
+
+    def rand():
+        return {k: (torch.randn(v, generator=g, device=cuda) if isinstance(v, tuple) else
+                    {kk: torch.randn(vv, generator=g, device=cuda) for kk, vv in v.items()})
+                for k, v in shapes.items()}
+
+    params = rand()
+    pre = build_precond(params, r=r, band=band, ema=0.5, damping=1e-2)
+    state = pre.init_state(cuda)
+    for _ in range(3):
+        grads = rand()
+        state = pre.update_stats(state, grads)
+    f, fr = pre.factorize(state), pre.factorize(state, impl="ref")
+    for k in ("Dr", "R", "C"):
+        scale = float(fr[k].abs().max())
+        torch.testing.assert_close(f[k], fr[k], rtol=2e-4, atol=2e-4 * scale)
+    d, dr = pre.precondition(f, grads), pre.precondition(fr, grads, impl="ref")
+    for a, b in zip(pytree.leaves(d), pytree.leaves(dr)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4 * float(b.abs().max()))
