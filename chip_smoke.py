@@ -222,6 +222,30 @@ Phases, each of which raises on a failed check:
      decode tokens a second; the INLA twin's main (the objective
      non-increasing, finite posterior summaries) and the distributed twin
      at world 1 over NCCL (its factor within 1e-4 of factorize_window's);
+   - "families" (the MoE, SSM, hybrid and encoder-decoder families, each
+     at its published widths): granite-moe-1b-a400m, mamba2-1.3b and
+     whisper-medium at full depth, granite-moe-3b-a800m cut to 20 of its 32
+     layers and zamba2-2.7b to 48 of 54 (AdamW's state and its temporaries
+     of a whole stacked leaf would not fit the card), through
+     launch/train.py: 2 steps of AdamW, then 2 of the arrowhead optimizer
+     from the same initialisation, batch 2 x 256 of token_batch (whisper:
+     with its 1,500 frame embeddings), bf16; finite losses, each arrowhead
+     step's launches as in "lm" and the path's the initial factorization's
+     (sweep, potrf, trsm 1 each) and the steps'; the grid, the parameter
+     count, peak memory, step times (CUDA events); on each family's grid the
+     arrowhead's gates as in "lm": step 0's factor and the card's factor
+     of the statistics at unit max against A in float64 (a block-diagonal
+     factor must fail at unit max), the six kernels part by part against
+     their plain versions, one more step against adamw_update(precondition
+     (...)) written out; the server as in "lm" (float32 at the published
+     widths and 2 layers, zamba2 one superblock of 6, whisper 2 + 2: the
+     replayed decode's tokens generate's, each step's logits against a
+     full forward; SSD chunks of 16, so the prefills span several chunks;
+     MoE at a capacity of the whole sequence, since a one-token step never
+     drops and a longer forward may; then bf16 at full depth: prefill ms,
+     decode tokens a second, peak memory); granite-moe-1b's moe_apply twice
+     on its first layer's input bit for bit, its routing equal to the
+     CPU's on the same input;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -3590,7 +3614,7 @@ def time_serving(torch, kern_counts, serving, card):
 LM_STEPS, LM_BATCH, LM_SEQ = 30, 8, 256
 LM_CHECK_STEPS = (10, 20)
 QWEN_LAYERS, QWEN_BATCH, QWEN_SEQ, QWEN_STEPS = 2, 2, 256, 2
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 32
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_SSD_CHUNK = 4, 64, 32, 16
 # with damping = 1 on a fresh state (A = I) precondition is the identity,
 # relative to max|g|; the server's decode logits against a full forward,
 # relative to max|logit|
@@ -3599,6 +3623,7 @@ LOGIT_RTOL = 1e-3
 # one arrowhead step's parameters against adamw_update(precondition(...))
 # written out, relative to how far the raw gradient's update lands
 PRECOND_STEP_TOL = 1e-3
+UPDATE_CHUNK = 1 << 26     # elements of the written-out AdamW update at a time
 ARROWHEAD_KERNELS = ("band_cholesky_sweep", "potrf", "trsm", "band_forward_sweep",
                      "band_backward_sweep", "solve_panel")
 
@@ -3656,7 +3681,7 @@ def lm_train(torch, cfg, optimizer, batches, kern_counts, snapshot_at=(), dev="c
                         for w in ("precond", "factor")}
     torch.cuda.synchronize()
     return dict(state=state, precond=precond, run=run, snaps=snaps, launches=launches,
-                step_fn=step_fn,
+                step_fn=step_fn, total_steps=steps,
                 losses=[float(m["loss"]) for m in metrics],
                 step_ms=[e0.elapsed_time(e1) for e0, e1 in events],
                 peak_bytes=torch.cuda.max_memory_allocated() - start_bytes)
@@ -3746,14 +3771,21 @@ def check_step_launches(launches, precond, every, what):
 
 
 def arrowhead_unit_stats(stats):
-    """The statistics scaled to unit max, the damping left as it is.  The
-    clipped gradients of the lm path give statistics some 1e-8 in size,
-    which the damping of 1e-3 swamps (A is damping·I to six digits); at
-    unit max the off-diagonal tiles weigh as much as the diagonal ones, so
-    a factor, solve or kernel that dropped them fails the gates.  Returns
-    the scaled statistics and the scale."""
+    """The statistics scaled to unit max, the damping left as it is, and
+    the arrow corner ``C`` then to its own unit max.  The clipped gradients
+    of the lm path give statistics some 1e-8 in size, which the damping of
+    1e-3 swamps (A is damping·I to six digits); at unit max the
+    off-diagonal tiles weigh as much as the diagonal ones, so a factor,
+    solve or kernel that dropped them fails the gates.  The corner's own
+    sketch may be far smaller than the layers' (mamba2-1.3b's: its factor
+    then so nearly diagonal that solve_panel without the off-diagonal
+    entries moves 1e-4 of its output); ``C`` is a principal block of a
+    positive semidefinite matrix, so scaling it up keeps A positive
+    definite.  Returns the scaled statistics and the scale."""
     m = max(stats[k].abs().max().item() for k in ("Dr", "R", "C"))
-    return {**stats, **{k: stats[k] / m for k in ("Dr", "R", "C")}}, m
+    cm = stats["C"].abs().max().item()
+    return {**stats, "Dr": stats["Dr"] / m, "R": stats["R"] / m,
+            "C": stats["C"] / (cm if cm > 0 else m)}, m
 
 
 def arrowhead_gates(torch, precond, stats, factor, lsk, ask):
@@ -3828,39 +3860,61 @@ def check_arrowhead_factor(torch, precond, snaps, grads):
 
 
 def check_precond_reaches_update(torch, cfg, out, batch):
-    """One arrowhead train step (a refresh step) on a copy of the trained
-    state against the same step written out from the entry points: the
-    clipped gradient, ``update_stats``, ``factorize``, ``precondition``,
-    then ``adamw_update`` of the preconditioned gradient.  The parameters
-    must agree with it, relative to how far the same update of the raw
-    gradient lands from it (they differ at the plans' coordinates): a step
-    that handed AdamW the raw gradient fails.  The step's statistics and
-    factor must agree too."""
-    import copy
+    """One arrowhead train step on the trained state against the same step
+    written out from the entry points: the clipped gradient,
+    ``update_stats``, ``factorize`` (on a refresh step), ``precondition``,
+    then ``adamw_update`` of the preconditioned gradient, at the lr of the
+    schedule ``make_train_step`` follows.  The written-out updates run
+    first, on copies of slices of at most UPDATE_CHUNK elements (AdamW is
+    elementwise), the preconditioned one kept on the host, so that the
+    check holds no second copy of the state on the card; then the step runs
+    on the state in place.  Its parameters must agree with the written-out
+    update, relative to how far the same update of the raw gradient lands
+    from it (they differ at the plans' coordinates): a step that handed
+    AdamW the raw gradient fails.  The step's statistics and factor must
+    agree too."""
     from repro_torch import pytree
-    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.adamw import AdamWState, adamw_update, cosine_lr
     state, precond, run = out["state"], out["precond"], out["run"]
-    step = int(state.step)
-    stepped = copy.deepcopy(state)
-    _, m = out["step_fn"](stepped, batch)
+    step, total = int(state.step), out["total_steps"]
+    refresh = step % run.precond_every == 0
+    lr = cosine_lr(step, run.learning_rate, warmup=max(2, total // 10), total=total)
     grads = lm_grads(torch, cfg, run, state.params, batch)
     stats = precond.update_stats(state.precond, grads)
-    factor = precond.factorize(stats) if step % run.precond_every == 0 else state.factor
-    explicit = {}
-    for name, g in (("preconditioned", precond.precondition(factor, grads)), ("raw", grads)):
-        s = copy.deepcopy(state)
-        adamw_update(g, s.opt, s.params, m["lr"], weight_decay=run.weight_decay)
-        explicit[name] = pytree.leaves(s.params)
-    got = pytree.leaves(stepped.params)
-    err = max((a - b).abs().max().item() for a, b in zip(got, explicit["preconditioned"]))
-    gap = max((a - b).abs().max().item()
-              for a, b in zip(explicit["raw"], explicit["preconditioned"]))
-    stat_err = max(((stepped.precond[k] - stats[k]).abs().max()
+    factor = precond.factorize(stats) if refresh else state.factor
+    pre = precond.precondition(factor, grads)
+    expected, gap = [], 0.0
+    with torch.no_grad():
+        for p, m, v, g, gp in zip(*(pytree.leaves(t) for t in (
+                state.params, state.opt.m, state.opt.v, grads, pre))):
+            flat = [x.reshape(-1) for x in (p, m, v, g, gp)]
+            for a in range(0, p.numel(), UPDATE_CHUNK):
+                pc, mc, vc, gc, gpc = (x[a:a + UPDATE_CHUNK] for x in flat)
+                got = {}
+                for name, gx in (("preconditioned", gpc), ("raw", gc)):
+                    s = AdamWState(m=[mc.clone()], v=[vc.clone()], count=state.opt.count)
+                    got[name] = adamw_update([gx], s, [pc.clone()], lr,
+                                             weight_decay=run.weight_decay)[0][0]
+                gap = max(gap, (got["raw"] - got["preconditioned"]).abs().max().item())
+                expected.append(got["preconditioned"].cpu())
+    del grads, pre, got
+    _, m = out["step_fn"](state, batch)
+    if m["lr"] != lr:
+        raise AssertionError(f"arrowhead step: its lr {m['lr']} is not the schedule's {lr}")
+    err, chunks = 0.0, iter(expected)
+    with torch.no_grad():
+        for p in pytree.leaves(state.params):
+            flat = p.reshape(-1)
+            for a in range(0, p.numel(), UPDATE_CHUNK):
+                want = next(chunks).to(p.device)
+                err = max(err, (flat[a:a + UPDATE_CHUNK] - want).abs().max().item())
+    del expected
+    stat_err = max(((state.precond[k] - stats[k]).abs().max()
                     / stats[k].abs().max()).item() for k in ("Dr", "R", "C"))
-    fac_err = max(((stepped.factor[k] - factor[k]).abs().max()
+    fac_err = max(((state.factor[k] - factor[k]).abs().max()
                    / factor[k].abs().max()).item() for k in ("Dr", "R", "C"))
-    rec = dict(step=step, refresh=step % run.precond_every == 0, param_err=err,
-               raw_gradient_gap=gap, stats_rel_err=stat_err, factor_rel_err=fac_err)
+    rec = dict(step=step, refresh=refresh, param_err=err, raw_gradient_gap=gap,
+               stats_rel_err=stat_err, factor_rel_err=fac_err)
     if not gap > 0:
         raise AssertionError(f"arrowhead step: the preconditioned and the raw gradient give "
                              f"the same update, the check would be vacuous: {rec}")
@@ -4031,56 +4085,87 @@ def time_arrowhead(torch, ref, kern, precond, state, grads, card):
     return rec
 
 
-def serve_check(torch, cfg, dev):
-    """The dense LM server at float32 (``Server.generate``'s tokens), then
-    its prefill and decode steps replayed one by one: each step's logits
-    against a full forward of the prompt and the tokens so far, at the last
-    position; the same argmax wherever the top-2 margin exceeds the
-    tolerance."""
+def serve_check(torch, cfg, dev, served=None):
+    """The LM server on ``cfg`` at float32 (``Server.generate``'s tokens),
+    then its prefill and decode steps replayed one by one through the
+    registry's entry points on the server's parameters: the replay's tokens
+    must be generate's, and each step's logits are held against a full
+    forward (``prefill``) of the prompt and the tokens so far, at the last
+    position (<= LOGIT_RTOL of max|logit|, the same argmax wherever the
+    top-2 margin exceeds that); SSD chunks of SERVE_SSD_CHUNK, so the SSM
+    prefills span several chunks.  Then the server on ``served`` (default
+    ``cfg``) in bf16: a warm generate, then the timed one, its tokens'
+    shape and range, its parameters and peak memory.  Whisper's batch
+    carries its frame embeddings."""
     import numpy as np
+    from repro_torch import pytree
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.serve import Server, _pad_caches
-    run = RunConfig(compute_dtype="float32", remat="none", loss_chunk=128)
+    served = served or cfg
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))}
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = rng.standard_normal(
+            (SERVE_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    run = RunConfig(compute_dtype="float32", remat="none", loss_chunk=128,
+                    ssd_chunk=SERVE_SSD_CHUNK)
     server = Server(cfg, run, max_len=SERVE_PROMPT + SERVE_GEN, seed=0, device=dev)
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))
-    out = server.generate({"tokens": prompt}, SERVE_GEN)
-    model = server.model
-    toks = torch.as_tensor(prompt).to(dev)
+    out = server.generate(batch, SERVE_GEN)
+    api, params = server.api, server.params
+    dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     with torch.no_grad():
-        logits, caches = model.prefill(toks)
+        logits, caches = api.prefill(params, dbatch, cfg, run)
         caches = _pad_caches(caches, server.max_len)
         steps, tok = [], torch.argmax(logits, -1)[:, None]
         gen = [tok]
         for i in range(SERVE_GEN - 1):
-            logits, caches = model.decode_step(caches, tok, SERVE_PROMPT + i)
+            logits, caches = api.decode_step(params, caches, tok, SERVE_PROMPT + i, cfg, run)
             steps.append(logits)
             tok = torch.argmax(logits, -1)[:, None]
             gen.append(tok)
         gen = torch.cat(gen, 1)
         if not np.array_equal(gen.cpu().numpy(), out["tokens"]):
-            raise AssertionError("serve: the replayed decode's tokens differ from "
-                                 "Server.generate's")
-        seq = torch.cat([toks, gen], 1)
+            raise AssertionError(f"{cfg.name} serve: the replayed decode's tokens differ from "
+                                 f"Server.generate's")
+        seq = torch.cat([dbatch["tokens"], gen], 1)
         errs, flips = [], 0
         for i, dec in enumerate(steps):
-            full, _ = model.prefill(seq[:, :SERVE_PROMPT + i + 1])
+            full, _ = api.prefill(params, {**dbatch, "tokens": seq[:, :SERVE_PROMPT + i + 1]},
+                                  cfg, run)
             scale = full.abs().max()
             errs.append(((dec - full).abs().max() / scale).item())
             top2 = torch.topk(full, 2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
             flips += int((sure & (dec.argmax(-1) != full.argmax(-1))).sum())
-    rec = dict(batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN, compute_dtype="float32",
+    rec = dict(n_layers=cfg.n_layers, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+               compute_dtype="float32", ssd_chunk=SERVE_SSD_CHUNK,
                decode_logit_rel_err_max=max(errs), argmax_flips=flips)
-    if not (max(errs) <= LOGIT_RTOL and flips == 0):
-        raise AssertionError(f"serve: decode logits against the full forward: {rec}")
-    del server, caches
+    if cfg.family == "moe":
+        rec["capacity_factor"] = cfg.capacity_factor
+    if not (all(math.isfinite(e) for e in errs) and max(errs) <= LOGIT_RTOL and flips == 0):
+        raise AssertionError(f"{cfg.name} serve: decode logits against the full forward: {rec}")
+    del server, caches, params
+    torch.cuda.empty_cache()
     # bfloat16: a warm generate, then the timed one
-    server = Server(cfg, RunConfig(remat="none", loss_chunk=128), max_len=SERVE_PROMPT + SERVE_GEN,
-                    seed=0, device=dev)
-    server.generate({"tokens": prompt}, SERVE_GEN)
-    timed = server.generate({"tokens": prompt}, SERVE_GEN)
-    rec["bf16"] = dict(prefill_ms=timed["prefill_s"] * 1e3, decode_s=timed["decode_s"],
-                       decode_tok_per_s=timed["decode_tok_per_s"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    server = Server(served, RunConfig(remat="none", loss_chunk=128),
+                    max_len=SERVE_PROMPT + SERVE_GEN, seed=0, device=dev)
+    server.generate(batch, SERVE_GEN)
+    timed = server.generate(batch, SERVE_GEN)
+    toks = timed["tokens"]
+    if not (toks.shape == (SERVE_BATCH, SERVE_GEN)
+            and ((0 <= toks) & (toks < served.vocab_padded)).all()):
+        raise AssertionError(f"{served.name} bf16 server: tokens {toks.shape}, "
+                             f"{toks.min()}..{toks.max()}")
+    rec["bf16"] = dict(n_layers=served.n_layers,
+                       params=sum(p.numel() for p in pytree.leaves(server.params)),
+                       prefill_ms=timed["prefill_s"] * 1e3, decode_s=timed["decode_s"],
+                       decode_tok_per_s=timed["decode_tok_per_s"],
+                       peak_bytes=torch.cuda.max_memory_allocated() - start)
+    del server
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -4187,6 +4272,170 @@ def phase_lm(torch, run_path, kern, ref, counts, card):
     rec["wall_s"] = time.perf_counter() - t_phase
     log(f"phase lm: {rec['wall_s']:.1f} s; " + json.dumps(
         {k: v for k, v in rec.items() if k not in ("lm-100m",)}) + f", card {card}")
+    return rec, per_call
+
+
+# phase "families": the MoE, SSM, hybrid and encoder-decoder families at
+# their published widths.  Depth is cut only where AdamW's state would not
+# fit the card (FAMILY_CUTS; granite-moe-3b at 24 layers ran out of memory
+# in AdamW's temporaries of its 3.4 GiB stacked expert leaf); every bf16
+# server keeps its full depth; the float32 server whose decode is held to a
+# full forward runs at 2 layers (zamba2: one superblock of 6; whisper: 2
+# encoder and 2 decoder layers).
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b", "whisper-medium",
+                "granite-moe-3b-a800m", "zamba2-2.7b")
+FAMILY_CUTS = {"granite-moe-3b-a800m": 20, "zamba2-2.7b": 48}
+FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 256, 2
+
+
+def family_cfg(arch, n_layers=None):
+    """``arch``'s config with ``n_layers`` decoder (and encoder) layers;
+    None keeps the published depth."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if n_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers, encoder_layers=(
+        n_layers if cfg.family == "encdec" else cfg.encoder_layers))
+
+
+def family_train(torch, arch, run_path, kern, ref, counts, card):
+    """AdamW, then the arrowhead optimizer, FAM_STEPS steps each from one
+    initialisation (:func:`lm_train`), on token_batch (whisper: with its
+    frame embeddings, launch/train.py's extras).  Gates: finite losses and
+    each arrowhead step's launches; the path's launches are the initial
+    factorization's and the steps'.  On the family's arrowhead grid, as in
+    "lm": the factor of step 0 (a refresh step) and the card's factor of
+    the statistics at unit max against A in float64, where a block-diagonal
+    factor must fail (:func:`check_arrowhead_factor`); the six kernels part
+    by part against their plain versions on both inputs
+    (:func:`check_arrowhead_kernels`); one more step against its update
+    written out (:func:`check_precond_reaches_update`)."""
+    from repro_torch import pytree
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.train import _extras
+    cfg = family_cfg(arch, FAMILY_CUTS.get(arch))
+    batches = [token_batch(0, s, FAM_BATCH, FAM_SEQ, cfg.vocab, _extras(cfg, FAM_BATCH))
+               for s in range(FAM_STEPS)]
+    rec, per_call = dict(n_layers=cfg.n_layers, batch=FAM_BATCH, seq=FAM_SEQ), []
+    if arch in FAMILY_CUTS:
+        rec["cut"] = f"n_layers {family_cfg(arch).n_layers} -> {cfg.n_layers}; widths as published"
+    for opt in ("adamw", "arrowhead"):
+        what = f"families: {arch}, {opt}"
+        out = run_path(what, lambda: lm_train(torch, cfg, opt, batches, counts,
+                                              (0,) if opt == "arrowhead" else ()))
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{what}: losses {out['losses']}")
+        check_step_launches(out["launches"], out["precond"], out["run"].precond_every, what)
+        r = dict(losses=out["losses"], step_ms=out["step_ms"], peak_bytes=out["peak_bytes"],
+                 launches_per_step=out["launches"],
+                 compute_dtype=out["run"].compute_dtype)
+        rec["params"] = sum(p.numel() for p in pytree.leaves(out["state"].params))
+        if out["precond"] is not None:
+            g = out["precond"].grid
+            rec["grid"] = dict(t=g.t, ndt=g.n_diag_tiles, bt=g.band_tiles, nat=g.n_arrow_tiles)
+            want = {k: 1 for k in ("band_cholesky_sweep", "potrf", "trsm")}
+            for step in out["launches"]:
+                for k, v in step.items():
+                    want[k] = want.get(k, 0) + v
+            if run_path.launches[what] != want:
+                raise AssertionError(f"{what}: the path launched {run_path.launches[what]}, "
+                                     f"expected the initial factorization and the steps': {want}")
+            per_call += [(arch, "arrowhead train step, refresh", out["launches"][0]),
+                         (arch, "arrowhead train step", out["launches"][1])]
+            grads = lm_grads(torch, cfg, out["run"], out["state"].params, batches[0])
+            r["factor_checks"] = check_arrowhead_factor(torch, out["precond"], out["snaps"],
+                                                        grads)
+            r["kernel_checks"] = check_arrowhead_kernels(torch, ref, kern, out["precond"],
+                                                         out["state"], grads)[0]
+            del grads
+            r["update_check"] = check_precond_reaches_update(torch, cfg, out, batches[-1])
+        rec[opt] = r
+        log(f"families: {arch}, {opt}: " + json.dumps(r) + f", card {card}")
+        del out
+        torch.cuda.empty_cache()
+    return rec, per_call
+
+
+def moe_determinism(torch, dev):
+    """``moe_apply`` of granite-moe-1b's first layer on its own input (the
+    normed embeddings of token_batch, float32, 2 x 256): two calls give the
+    same bits; the routing (experts, kept assignments, every buffer row's
+    assignment) equals the CPU's on the same input, the output within TOL
+    of the CPU's; in bfloat16, as a train step computes it, two backward
+    passes give the same bits for the input's and every weight's
+    gradient."""
+    from repro_torch import pytree
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import moe_apply, moe_routing
+    cfg = family_cfg("granite-moe-1b-a400m", 1)
+    params = transformer.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    lp = pytree.tree_map(lambda x: x[0], params["layers"])
+    tokens = torch.as_tensor(token_batch(0, 0, FAM_BATCH, FAM_SEQ, cfg.vocab)["tokens"]).to(dev)
+    x = L.norm_apply(lp["ln2"], params["embed"][tokens.long()], cfg.norm)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    with torch.no_grad():
+        y1, y2 = moe_apply(lp["moe"], x, **kw), moe_apply(lp["moe"], x, **kw)
+        r = moe_routing(lp["moe"], x, **kw)
+        cpu_moe = pytree.tree_map(lambda t: t.cpu(), lp["moe"])
+        rc = moe_routing(cpu_moe, x.cpu(), **kw)
+        yc = moe_apply(cpu_moe, x.cpu(), **kw)
+    gy = torch.randn(y1.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+
+    def backward():
+        xs = x.detach().to(torch.bfloat16).requires_grad_()
+        ps = {k: v.detach().clone().requires_grad_() for k, v in lp["moe"].items()}
+        y = moe_apply(ps, xs, **kw)
+        return torch.autograd.grad((y.float() * gy).sum(), [xs] + [ps[k] for k in sorted(ps)])
+
+    g1, g2 = backward(), backward()
+    rec = dict(bit_identical=bool(torch.equal(y1, y2)), cap=r["cap"],
+               backward_bit_identical=all(torch.equal(a, b) for a, b in zip(g1, g2)),
+               assignments=int(r["keep"].numel()), dropped=int((~r["keep"]).sum()),
+               routing_equal_cpu=all(torch.equal(r[k].cpu(), rc[k])
+                                     for k in ("expert", "keep", "slot", "src")),
+               max_abs_err_cpu=(y1.cpu() - yc).abs().max().item(),
+               y_max=yc.abs().max().item())
+    if not (rec["bit_identical"] and rec["backward_bit_identical"] and rec["routing_equal_cpu"]
+            and rec["max_abs_err_cpu"] <= TOL * max(1.0, rec["y_max"])):
+        raise AssertionError(f"granite-moe-1b moe_apply on the card: {rec}")
+    return rec
+
+
+def phase_families(torch, run_path, kern, ref, counts, card):
+    """The phase "families" (see the module docstring).  Returns the
+    phase's record and its launches per call."""
+    import dataclasses
+    dev = "cuda:0"
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the deepest cut needs most of the card
+    rec, per_call = {}, []
+    for arch in FAMILY_ARCHS:
+        r, calls = family_train(torch, arch, run_path, kern, ref, counts, card)
+        per_call += calls
+        # a MoE layer's capacity grows with the sequence (a one-token step
+        # never drops an assignment, a full forward may), so decode and the
+        # full forward agree only where nothing drops: the float32 MoE
+        # server runs at a capacity of the whole sequence
+        cfg = family_cfg(arch, 6 if arch.startswith("zamba2") else 2)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        r["serve"] = run_path(f"families: {arch}, server", lambda: serve_check(
+            torch, cfg, dev, served=family_cfg(arch)))
+        log(f"families: {arch}, server (float32 decode against a full forward; bf16 at full "
+            f"depth): " + json.dumps(r["serve"]) + f", card {card}")
+        rec[arch] = r
+    rec["moe_determinism"] = run_path("families: granite-moe-1b moe_apply twice",
+                                      lambda: moe_determinism(torch, dev))
+    log("families: granite-moe-1b moe_apply on the card: " + json.dumps(rec["moe_determinism"]))
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase families: {rec['wall_s']:.1f} s; " + json.dumps(
+        {a: {k: rec[a][k] for k in ("n_layers", "params", "grid") if k in rec[a]}
+         for a in FAMILY_ARCHS}) + f", card {card}")
     return rec, per_call
 
 
@@ -4550,6 +4799,8 @@ def main() -> int:
     # preconditioner, qwen2-7b at 2 layers, the dense LM server, the twins
     lm_rec, lm_calls = phase_lm(torch, run_path, kern, ref, counts, card)
     extra_calls += lm_calls
+    # every other model family at its published widths under both optimizers
+    extra_calls += phase_families(torch, run_path, kern, ref, counts, card)[1]
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:

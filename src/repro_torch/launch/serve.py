@@ -2,11 +2,13 @@
 
 Port of the JAX package's ``launch/serve.py`` on one device.  ``python -m
 repro_torch.launch.serve --arch qwen2-7b --prompt-len 64 --gen 32
-[--device cpu]`` serves a reduced model on the card unless asked for the
-CPU.  The caches come out of the prefill in the compute dtype (bfloat16
-by default), are padded once to the serving window and then written in
-place, a token a step.  The reference's ``serve.*`` telemetry is emitted
-through ``runtime/telemetry.py``.
+[--device cpu]`` serves a reduced model of any family on the card unless
+asked for the CPU, through the registry's ``prefill`` and ``decode_step``.
+The caches come out of the prefill in the compute dtype (bfloat16 by
+default; the SSM states in float32), their attention ``k``/``v`` padded
+once to the serving window, and are then written in place, a token a
+step.  The reference's ``serve.*`` telemetry is emitted through
+``runtime/telemetry.py``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from repro_torch import configs
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from repro_torch.models.registry import get_model
-from repro_torch.models.transformer import Transformer
 from repro_torch.runtime import telemetry
 from .train import reduce_config
 
@@ -30,8 +31,9 @@ __all__ = ["Server", "main"]
 
 
 def _pad_caches(caches: Dict[str, torch.Tensor], target_len: int) -> Dict[str, torch.Tensor]:
-    """Grow attention caches ``(L, B, S, KV, hd)`` from the prefill length
-    to the serving window."""
+    """Grow the attention caches ``k``/``v`` ``(L, B, S, KV, hd)`` from the
+    prefill length to the serving window; every other cache (whisper's
+    cross ``xk``/``xv``, the SSM states) stays as it is."""
     out = {}
     for name, x in caches.items():
         if name in ("k", "v") and x.ndim == 5 and x.shape[2] < target_len:
@@ -46,28 +48,30 @@ def _sync(device: torch.device) -> None:
 
 
 class Server:
-    """Minimal batched-request server: prefill once, decode greedily."""
+    """Minimal batched-request server: prefill once, decode greedily, through
+    the registry's entry points on the dict of parameters ``params``."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, max_len: int = 512,
                  seed: int = 0, device=None):
         self.cfg, self.run, self.max_len = cfg, run, max_len
         self.device = resolve_device(device)
-        params = get_model(cfg).init(torch.Generator(device=self.device).manual_seed(seed),
-                                     cfg, max_len)
-        self.model = Transformer(cfg, run, params)
+        self.api = get_model(cfg)
+        self.params = self.api.init(torch.Generator(device=self.device).manual_seed(seed),
+                                    cfg, max_len)
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], gen_len: int) -> Dict[str, Any]:
         """``batch``: ``tokens`` (B, S) (numpy or tensor) and, for the vlm
-        stub, ``image_embeds``.  Returns the greedy tokens (numpy, (B,
-        gen_len)), the prefill and decode seconds (host clock around work
-        that ends in a synchronize) and decode tokens a second."""
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
-        image = batch.get("image_embeds")
-        image = None if image is None else torch.as_tensor(image).to(self.device)
+        stub, ``image_embeds``, for whisper ``frame_embeds``.  Returns the
+        greedy tokens (numpy, (B, gen_len)), the prefill and decode seconds
+        (host clock around work that ends in a synchronize) and decode
+        tokens a second."""
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+        tokens = batch["tokens"]
+        params, cfg, run = self.params, self.cfg, self.run
         with telemetry.span("serve.request", b=tokens.shape[0], gen_len=gen_len):
             t0 = time.perf_counter()
-            logits, caches = self.model.prefill(tokens, image)
+            logits, caches = self.api.prefill(params, batch, cfg, run)
             caches = _pad_caches(caches, self.max_len)
             tok = torch.argmax(logits, -1)[:, None]
             _sync(self.device)
@@ -76,7 +80,7 @@ class Server:
             pos = tokens.shape[1]
             t0 = time.perf_counter()
             for i in range(gen_len - 1):
-                logits, caches = self.model.decode_step(caches, tok, pos + i)
+                logits, caches = self.api.decode_step(params, caches, tok, pos + i, cfg, run)
                 tok = torch.argmax(logits, -1)[:, None]
                 out.append(tok)
             gen = torch.cat(out, dim=1)
@@ -112,6 +116,9 @@ def main(argv=None):
     if cfg.family == "vlm":
         batch["image_embeds"] = np.zeros(
             (args.batch, cfg.n_image_tokens, cfg.d_model), np.float32)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     out = server.generate(batch, args.gen)
     print(f"prefill {out['prefill_s']*1e3:.1f} ms; "
           f"decode {out['decode_tok_per_s']:.1f} tok/s; "

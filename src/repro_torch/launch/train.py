@@ -213,6 +213,9 @@ def _extras(cfg, batch):
     if cfg.family == "vlm":
         extras["image_embeds"] = np.zeros(
             (batch, cfg.n_image_tokens, cfg.d_model), np.float32)
+    if cfg.family == "encdec":
+        extras["frame_embeds"] = np.random.default_rng(0).standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return extras
 
 

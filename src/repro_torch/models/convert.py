@@ -19,7 +19,7 @@ from torch import nn
 
 from repro_torch import pytree
 
-__all__ = ["params_from_numpy", "params_to_numpy", "ParamTree"]
+__all__ = ["params_from_numpy", "params_to_numpy", "ParamTree", "LMModule"]
 
 
 def params_from_numpy(tree, device=None) -> Dict[str, Any]:
@@ -57,3 +57,32 @@ class ParamTree(nn.Module):
         """The parameters as a nested dict (the module's own tensors)."""
         return {k: (getattr(self, k).tree() if isinstance(getattr(self, k), ParamTree)
                     else getattr(self, k)) for k in self._keys}
+
+
+class LMModule(nn.Module):
+    """A model family as an ``nn.Module``: its parameters (a dict of the
+    family's ``init`` or one converted from the reference) registered in the
+    reference's leaf order through :class:`ParamTree`, and the registry's
+    entry points for its family (``models/registry.py::get_model``) bound to
+    its config: ``forward`` is ``loss``, ``prefill`` takes the batch dict."""
+
+    def __init__(self, cfg, run, params: Dict[str, Any]):
+        super().__init__()
+        self.cfg, self.run = cfg, run
+        self.tree = ParamTree(params)
+
+    def params(self) -> Dict[str, Any]:
+        return self.tree.tree()
+
+    def _api(self):
+        from .registry import get_model     # the registry imports every family's module
+        return get_model(self.cfg)
+
+    def forward(self, batch):
+        return self._api().loss(self.params(), batch, self.cfg, self.run)
+
+    def prefill(self, batch):
+        return self._api().prefill(self.params(), batch, self.cfg, self.run)
+
+    def decode_step(self, caches, token, pos: int):
+        return self._api().decode_step(self.params(), caches, token, pos, self.cfg, self.run)

@@ -1,6 +1,6 @@
-"""Shared model building blocks of the dense family: norms, rotary, chunked
-(flash-style) attention with GQA, gated MLPs, the chunked loss and the
-layer loop.
+"""Shared model building blocks: norms, rotary, chunked (flash-style)
+attention with GQA (causal or not, self- or cross-attention), gated and
+plain MLPs, the chunked loss and the layer loop.
 
 Port of the JAX package's ``models/layers.py``: plain functions over dicts
 of tensors, the weights in the reference's ``(d_in, d_out)`` layout applied
@@ -28,7 +28,7 @@ __all__ = [
     "dense_init", "embed_init", "rms_norm", "layer_norm", "apply_rope",
     "chunked_attention", "decode_attention", "attention_params",
     "attention_apply", "mlp_params", "mlp_apply", "norm_params", "norm_apply",
-    "chunked_cross_entropy", "scan_or_unroll",
+    "chunked_cross_entropy", "scan_or_unroll", "stack_layers",
 ]
 
 _F32 = torch.float32
@@ -298,16 +298,19 @@ def attention_params(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int
     return p
 
 
-def _project_qkv(p, x, n_heads, n_kv, head_dim, dtype):
+def _project_qkv(p, x, kv_x, n_heads, n_kv, head_dim, dtype):
+    """q from ``x``, k and v from ``kv_x`` (``x`` itself but for
+    cross-attention)."""
     B, S, _ = x.shape
+    Skv = kv_x.shape[1]
     q = torch.matmul(x, p["wq"].to(dtype))
-    k = torch.matmul(x, p["wk"].to(dtype))
-    v = torch.matmul(x, p["wv"].to(dtype))
+    k = torch.matmul(kv_x, p["wk"].to(dtype))
+    v = torch.matmul(kv_x, p["wv"].to(dtype))
     if "bq" in p:
         q, k, v = q + p["bq"].to(dtype), k + p["bk"].to(dtype), v + p["bv"].to(dtype)
     q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    k = k.reshape(B, Skv, n_kv, head_dim)
+    v = v.reshape(B, Skv, n_kv, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -317,42 +320,45 @@ def _project_qkv(p, x, n_heads, n_kv, head_dim, dtype):
 def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
                     n_heads: int, n_kv: int, head_dim: int,
                     positions: Optional[torch.Tensor] = None,
-                    rope_theta: float = 10_000.0,
+                    rope_theta: float = 10_000.0, use_rope: bool = True,
+                    causal: bool = True, kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_len=None, q_chunk: int = 512, kv_chunk: int = 1024,
                     unroll: bool = False) -> Tuple[torch.Tensor, Optional[Tuple]]:
-    """Causal self-attention block with rotary positions.  Returns (out,
-    new_cache).
+    """Full attention block.  Returns (out, new_cache).
 
     Modes:
-      * training/prefill: cache=None -> chunked causal attention; if
-        ``cache_len`` is given the computed k/v are returned for caching.
+      * training/prefill: cache=None -> chunked attention (causal unless
+        ``causal=False``); if ``cache_len`` is given the computed k/v are
+        returned for caching.
       * decode: cache=(k,v) -> write one token at ``cache_len`` (an int;
         the caches are updated in place) and attend.
-
-    The reference's cross-attention mode (``kv_x``, no rope, not causal)
-    serves the whisper decoder and comes with ``models/whisper.py``.
+      * cross: ``kv_x`` set, ``causal=False``, ``use_rope=False`` (the
+        whisper decoder; its encoder is the same without ``kv_x``).
     """
     dtype = x.dtype
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, dtype)
+    q, k, v = _project_qkv(p, x, kv_x if kv_x is not None else x, n_heads, n_kv,
+                           head_dim, dtype)
 
     new_cache = None
     if cache is not None:
         k_cache, v_cache = cache
         pos = int(cache_len)
-        at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, at, rope_theta)
-        k = apply_rope(k, at, rope_theta)
+        if use_rope:
+            at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+            q = apply_rope(q, at, rope_theta)
+            k = apply_rope(k, at, rope_theta)
         k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
         v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache.to(dtype), v_cache.to(dtype), pos)
         new_cache = (k_cache, v_cache)
     else:
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
-        out = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
+        if use_rope:
+            if positions is None:
+                positions = torch.arange(x.shape[1], device=x.device)
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+        out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk, unroll=unroll)
         if cache_len is not None:           # prefill: hand k/v to the caller
             new_cache = (k, v)
@@ -366,17 +372,20 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
-               act: str = "silu") -> Dict[str, Any]:
+               act: str = "silu", bias: bool = False) -> Dict[str, Any]:
     p = {"wi": dense_init(gen, d_model, d_ff),
          "wo": dense_init(gen, d_ff, d_model)}
     if act == "silu":
         p["wg"] = dense_init(gen, d_model, d_ff)
+    if bias:
+        p["bi"] = torch.zeros((d_ff,), dtype=_F32, device=gen.device)
+        p["bo"] = torch.zeros((d_model,), dtype=_F32, device=gen.device)
     return p
 
 
 def mlp_apply(p: Dict[str, Any], x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """Gated (silu) or plain (gelu) MLP; ``bi``/``bo`` biases where the
-    parameters carry them (the reference's whisper blocks)."""
+    parameters carry them (``mlp_params(bias=True)``, the whisper blocks)."""
     dtype = x.dtype
     h = torch.matmul(x, p["wi"].to(dtype))
     if "bi" in p:
@@ -447,6 +456,13 @@ def _keep_matmuls(ctx, op, *args, **kwargs):
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def stack_layers(gen: torch.Generator, cfg, layer_init: Callable, n: int) -> Dict[str, Any]:
+    """``n`` draws of ``layer_init(gen, cfg)`` stacked on a leading axis, as
+    the reference's ``jax.vmap`` init stacks its layers."""
+    per_layer = [layer_init(gen, cfg) for _ in range(n)]
+    return pytree.tree_map(lambda *xs: torch.stack(xs), *per_layer)
 
 
 def scan_or_unroll(body: Callable, carry, xs, *, remat: str = "none"):

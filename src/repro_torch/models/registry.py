@@ -4,19 +4,23 @@ Every family exposes ``init(gen, cfg, max_seq)``, ``loss(params, batch,
 cfg, run)``, ``prefill(params, batch, cfg, run)``, ``decode_step(params,
 caches, token, pos, cfg, run)`` and ``init_cache(cfg, batch, max_len)``,
 resolved here by ``cfg.family``, as in the JAX package's
-``models/registry.py``.  The dense and vlm families run; the others raise
-``NotImplementedError`` naming the module they wait for.  ``input_specs``
-and ``supports_shape`` come with the dry run (``launch/dryrun.py``).
+``models/registry.py``; ``prefill`` takes the batch dict (``tokens``, and
+``image_embeds`` or ``frame_embeds`` where the family reads them) or, but
+for whisper, the token ids alone.  ``module`` is the family's ``nn.Module``
+class (:func:`build_module`).  ``input_specs`` and ``supports_shape`` come
+with the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict
 
-from repro_torch.configs.base import ModelConfig
-from . import transformer
+from torch import nn
 
-__all__ = ["ModelAPI", "get_model"]
+from repro_torch.configs.base import ModelConfig, RunConfig
+from . import mamba2, transformer, whisper, zamba2
+
+__all__ = ["ModelAPI", "get_model", "build_module"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +30,7 @@ class ModelAPI:
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    module: type
 
 
 def _transformer_api() -> ModelAPI:
@@ -39,16 +44,40 @@ def _transformer_api() -> ModelAPI:
         return transformer.prefill(params, batch, cfg, run)
 
     return ModelAPI(_init, transformer.loss, _prefill, transformer.decode_step,
-                    transformer.init_cache)
+                    transformer.init_cache, transformer.Transformer)
 
 
-_FAMILIES = {"dense": _transformer_api, "vlm": _transformer_api}
-_NOT_PORTED = {"moe": "models/moe.py", "ssm": "models/mamba2.py",
-               "hybrid": "models/zamba2.py", "encdec": "models/whisper.py"}
+def _ssm_api(module, cls) -> Callable[[], ModelAPI]:
+    """mamba2 and zamba2: ``prefill`` reads the batch's tokens."""
+    def api() -> ModelAPI:
+        def _prefill(params, batch, cfg, run):
+            tokens = batch["tokens"] if isinstance(batch, dict) else batch
+            return module.prefill(params, tokens, cfg, run)
+
+        return ModelAPI(module.init, module.loss, _prefill, module.decode_step,
+                        module.init_cache, cls)
+    return api
+
+
+def _whisper_api() -> ModelAPI:
+    return ModelAPI(whisper.init, whisper.loss, whisper.prefill, whisper.decode_step,
+                    whisper.init_cache, whisper.Whisper)
+
+
+_FAMILIES = {
+    "dense": _transformer_api,
+    "moe": _transformer_api,
+    "vlm": _transformer_api,
+    "ssm": _ssm_api(mamba2, mamba2.Mamba2),
+    "hybrid": _ssm_api(zamba2, zamba2.Zamba2),
+    "encdec": _whisper_api,
+}
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"family {cfg.family!r} needs {_NOT_PORTED[cfg.family]}, "
-                                  "which is not ported yet")
     return _FAMILIES[cfg.family]()
+
+
+def build_module(cfg: ModelConfig, run: RunConfig, params: Dict[str, Any]) -> nn.Module:
+    """The family's ``nn.Module`` over ``params`` (their storage shared)."""
+    return get_model(cfg).module(cfg, run, params)

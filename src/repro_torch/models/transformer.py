@@ -1,36 +1,34 @@
-"""Dense decoder-only transformer (qwen2, qwen3, command-r backbones) and
-the VLM stub (phi-3-vision: precomputed patch embeddings in the first
-positions).
+"""Dense / MoE / VLM decoder-only transformer (qwen2, qwen3, command-r,
+granite-moe backbones; the VLM stub, phi-3-vision: precomputed patch
+embeddings in the first positions).
 
-Port of the JAX package's ``models/transformer.py`` for ``family ==
-"dense"`` and ``"vlm"``: ``init`` builds a dict of tensors with the layer
-parameters stacked on a leading ``(n_layers, …)`` axis, as the reference's
-``jax.vmap`` init does (the arrowhead preconditioner reads each layer leaf
-as ``leaf.reshape(n_layers, -1)``); ``loss`` / ``prefill`` /
-``decode_step`` loop over that axis.  :class:`Transformer` is the same
-model as an ``nn.Module``.  The MoE family waits for ``models/moe.py``.
+Port of the JAX package's ``models/transformer.py``: ``init`` builds a dict
+of tensors with the layer parameters stacked on a leading ``(n_layers, …)``
+axis, as the reference's ``jax.vmap`` init does (the arrowhead
+preconditioner reads each layer leaf as ``leaf.reshape(n_layers, -1)``);
+``loss`` / ``prefill`` / ``decode_step`` loop over that axis.  A MoE layer
+carries ``moe`` (``models/moe.py``) in place of ``mlp``.
+:class:`Transformer` is the same model as an ``nn.Module``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from . import layers as L
-from .convert import ParamTree
+from .convert import LMModule
+from .moe import moe_apply, moe_params
 
 __all__ = ["init", "init_cache", "loss", "prefill", "decode_step", "Transformer"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError("the MoE family needs models/moe.py, which is not ported yet")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"models/transformer.py runs the dense and vlm families, not "
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"models/transformer.py runs the dense, moe and vlm families, not "
                          f"{cfg.family!r}")
 
 
@@ -39,13 +37,18 @@ def _check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
-    return {
+    p = {
         "ln1": L.norm_params(cfg.d_model, cfg.norm, gen.device),
         "attn": L.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.hd, bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
         "ln2": L.norm_params(cfg.d_model, cfg.norm, gen.device),
-        "mlp": L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                              pad_to=cfg.expert_pad_to)
+    else:
+        p["mlp"] = L.mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
@@ -53,9 +56,7 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     _check_family(cfg)
     params = {"embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model),
               "final_norm": L.norm_params(cfg.d_model, cfg.norm, gen.device)}
-    per_layer = [_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
-    params["layers"] = pytree.tree_map(lambda *xs: torch.stack(xs), *per_layer)
-    del per_layer
+    params["layers"] = L.stack_layers(gen, cfg, _layer_init, cfg.n_layers)
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded)
     return params
@@ -83,8 +84,12 @@ def _layer_apply(lp, h, cfg: ModelConfig, run: RunConfig, *, positions=None,
         cache=cache, cache_len=cache_len, q_chunk=run.q_chunk,
         kv_chunk=run.kv_chunk, unroll=run.unroll_attn)
     h = h + a
-    h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, cfg.norm), cfg.act)
-    return h, new_cache
+    hn = L.norm_apply(lp["ln2"], h, cfg.norm)
+    if cfg.family == "moe":
+        m = moe_apply(lp["moe"], hn, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    else:
+        m = L.mlp_apply(lp["mlp"], hn, cfg.act)
+    return h + m, new_cache
 
 
 def _embed(params, tokens, cfg: ModelConfig, dtype,
@@ -177,26 +182,13 @@ def decode_step(params, caches: Dict[str, Any], token: torch.Tensor, pos: int,
     return logits[:, 0].to(torch.float32), caches
 
 
-class Transformer(nn.Module):
-    """The model as an ``nn.Module``: its parameters, the dict of
-    :func:`init` (or one converted from the reference), registered in the
-    reference's leaf order under its names (``layers.attn.wq``), and the
-    entry points above bound to its config."""
+class Transformer(LMModule):
+    """The model as an ``nn.Module``
+    (:class:`~repro_torch.models.convert.LMModule`): its parameters, the
+    dict of :func:`init` (or one converted from the reference), registered
+    in the reference's leaf order under its names (``layers.attn.wq``), and
+    the registry's entry points bound to its config."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, params: Dict[str, Any]):
-        super().__init__()
         _check_family(cfg)
-        self.cfg, self.run = cfg, run
-        self.tree = ParamTree(params)
-
-    def params(self) -> Dict[str, Any]:
-        return self.tree.tree()
-
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return loss(self.params(), batch, self.cfg, self.run)
-
-    def prefill(self, tokens: torch.Tensor, image_embeds: Optional[torch.Tensor] = None):
-        return prefill(self.params(), tokens, self.cfg, self.run, image_embeds=image_embeds)
-
-    def decode_step(self, caches: Dict[str, Any], token: torch.Tensor, pos: int):
-        return decode_step(self.params(), caches, token, pos, self.cfg, self.run)
+        super().__init__(cfg, run, params)

@@ -1,0 +1,185 @@
+"""Whisper-medium-style encoder-decoder backbone (arXiv:2212.04356).
+
+Port of the JAX package's ``models/whisper.py``.  The audio conv frontend is
+a stub, as in the reference: the batch carries precomputed frame embeddings
+``frame_embeds (B, encoder_seq, d)`` in place of the two mel convolutions.
+Downstream: learned positions, pre-LayerNorm blocks with biases, GELU MLPs,
+an encoder with full (non-causal, rotary-free) self-attention, and a
+decoder with causal self-attention plus cross-attention to the encoder's
+output.  Decode reads the cross keys and values precomputed once by
+:func:`_cross_kv` and writes its self-attention caches in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import pytree
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.ctsf import resolve_device
+from . import layers as L
+from .convert import LMModule
+
+__all__ = ["init", "init_cache", "loss", "prefill", "decode_step", "Whisper", "encode"]
+
+_F32 = torch.float32
+
+
+def _enc_layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    dev = gen.device
+    return {
+        "ln1": L.norm_params(cfg.d_model, "layernorm", dev),
+        "attn": L.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                   bias=True),
+        "ln2": L.norm_params(cfg.d_model, "layernorm", dev),
+        "mlp": L.mlp_params(gen, cfg.d_model, cfg.d_ff, "gelu", bias=True),
+    }
+
+
+def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    p = _enc_layer_init(gen, cfg)
+    p["ln_cross"] = L.norm_params(cfg.d_model, "layernorm", gen.device)
+    p["cross"] = L.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                    bias=True)
+    return p
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, max_seq: int = 4096) -> Dict[str, Any]:
+    """Random parameters drawn from ``gen``, on its device (float32);
+    ``dec_pos`` has ``max_seq`` rows."""
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=gen.device, dtype=_F32)
+    return {
+        "enc_pos": rand(cfg.encoder_seq, cfg.d_model) * 0.01,
+        "enc_layers": L.stack_layers(gen, cfg, _enc_layer_init, cfg.encoder_layers),
+        "enc_norm": L.norm_params(cfg.d_model, "layernorm", gen.device),
+        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model),
+        "dec_pos": rand(max_seq, cfg.d_model) * 0.01,
+        "dec_layers": L.stack_layers(gen, cfg, _dec_layer_init, cfg.n_layers),
+        "dec_norm": L.norm_params(cfg.d_model, "layernorm", gen.device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> Dict[str, Any]:
+    """Empty self-attention (``k``, ``v``) and cross (``xk``, ``xv``)
+    caches on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    kv = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    xkv = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.hd)
+    z = lambda shape: torch.zeros(shape, dtype=dtype, device=dev)
+    return {"k": z(kv), "v": z(kv), "xk": z(xkv), "xv": z(xkv)}
+
+
+def _attn_kw(cfg: ModelConfig, run: RunConfig):
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd, use_rope=False,
+                q_chunk=run.q_chunk, kv_chunk=run.kv_chunk, unroll=run.unroll_attn)
+
+
+def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
+    dtype = L._dtype(run.compute_dtype)
+    h = frame_embeds.to(dtype) + params["enc_pos"][None].to(dtype)
+
+    def body(h, lp):
+        a, _ = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm"),
+                                 causal=False, **_attn_kw(cfg, run))
+        h = h + a
+        h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm"), "gelu")
+        return h, None
+
+    h, _ = L.scan_or_unroll(body, h, params["enc_layers"], remat=run.remat)
+    return L.norm_apply(params["enc_norm"], h, "layernorm")
+
+
+def _dec_layer(lp, h, enc_out, cfg: ModelConfig, run: RunConfig, *, cache=None,
+               cache_len=None, xcache=None):
+    """One decoder layer: self-attention (+cache), cross-attention, MLP."""
+    a, new_cache = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm"),
+                                     cache=cache, cache_len=cache_len, **_attn_kw(cfg, run))
+    h = h + a
+    hn = L.norm_apply(lp["ln_cross"], h, "layernorm")
+    if xcache is not None:
+        # decode: the cross keys and values precomputed, every frame attended
+        dtype = h.dtype
+        B, S, _ = h.shape
+        q = torch.matmul(hn, lp["cross"]["wq"].to(dtype)) + lp["cross"]["bq"].to(dtype)
+        xk, xv = xcache
+        out = L.decode_attention(q.reshape(B, S, cfg.n_heads, cfg.hd), xk.to(dtype),
+                                 xv.to(dtype), xk.shape[1] - 1)
+        x = torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), lp["cross"]["wo"].to(dtype))
+    else:
+        x, _ = L.attention_apply(lp["cross"], hn, causal=False, kv_x=enc_out,
+                                 **_attn_kw(cfg, run))
+    h = h + x
+    h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm"), "gelu")
+    return h, new_cache
+
+
+def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_offset: int = 0,
+             caches=None, fill_cache: bool = False):
+    """The decoder stack and its final norm.  Training / prefill: returns
+    (h, [(k, v) a layer] with ``fill_cache``, else None); decode (``caches``
+    given, one token at ``pos_offset``): (h, caches), written in place."""
+    dtype = L._dtype(run.compute_dtype)
+    S = tokens.shape[1]
+    h = params["embed"][tokens.long()].to(dtype)
+    h = h + params["dec_pos"][pos_offset:pos_offset + S][None].to(dtype)
+    if caches is not None:
+        for i in range(cfg.n_layers):
+            lp = pytree.tree_map(lambda x: x[i], params["dec_layers"])
+            h, _ = _dec_layer(lp, h, None, cfg, run, cache=(caches["k"][i], caches["v"][i]),
+                              cache_len=pos_offset, xcache=(caches["xk"][i], caches["xv"][i]))
+        return L.norm_apply(params["dec_norm"], h, "layernorm"), caches
+
+    h, ys = L.scan_or_unroll(
+        lambda h, lp: _dec_layer(lp, h, enc_out, cfg, run, cache_len=S if fill_cache else None),
+        h, params["dec_layers"], remat=run.remat)
+    return L.norm_apply(params["dec_norm"], h, "layernorm"), ys
+
+
+def loss(params, batch, cfg: ModelConfig, run: RunConfig):
+    """Mean next-token cross-entropy of the decoder (tied embedding) given
+    the encoder's output on ``batch["frame_embeds"]``."""
+    enc_out = encode(params, batch["frame_embeds"], cfg, run)
+    h, _ = _decoder(params, batch["tokens"], enc_out, cfg, run)
+    return L.chunked_cross_entropy(h, params["embed"], batch["labels"],
+                                   chunk=run.loss_chunk, transpose_w=True)
+
+
+def _cross_kv(params, enc_out, cfg: ModelConfig):
+    """Each decoder layer's cross-attention keys and values of the encoder
+    output, stacked ``(n_layers, B, encoder_seq, KV, hd)``."""
+    dtype = enc_out.dtype
+    B, S, _ = enc_out.shape
+    xp = params["dec_layers"]["cross"]
+    proj = lambda w, b: (torch.matmul(enc_out[None], xp[w].to(dtype)[:, None])
+                         + xp[b].to(dtype)[:, None, None]).reshape(
+        cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+    return proj("wk", "bk"), proj("wv", "bv")
+
+
+def prefill(params, batch, cfg: ModelConfig, run: RunConfig):
+    """``batch``: dict(tokens, frame_embeds).  Returns (last-position
+    logits, caches: the self-attention ``k``/``v`` of the prompt and the
+    cross ``xk``/``xv``)."""
+    enc_out = encode(params, batch["frame_embeds"], cfg, run)
+    tokens = batch["tokens"]
+    h, ys = _decoder(params, tokens, enc_out, cfg, run, fill_cache=True)
+    logits = torch.matmul(h[:, -1], params["embed"].to(h.dtype).t())
+    xk, xv = _cross_kv(params, enc_out, cfg)
+    caches = {"k": torch.stack([y[0] for y in ys]), "v": torch.stack([y[1] for y in ys]),
+              "xk": xk, "xv": xv}
+    return logits.to(_F32), caches
+
+
+def decode_step(params, caches, token, pos: int, cfg: ModelConfig, run: RunConfig):
+    """One autoregressive step at cache length ``pos`` (an int): writes the
+    token's self-attention keys and values into ``caches`` in place and
+    returns (logits, caches)."""
+    h, caches = _decoder(params, token, None, cfg, run, pos_offset=pos, caches=caches)
+    logits = torch.matmul(h, params["embed"].to(h.dtype).t())
+    return logits[:, 0].to(_F32), caches
+
+
+class Whisper(LMModule):
+    """The whisper encoder-decoder as an ``nn.Module`` (:class:`~repro_torch.models.convert.LMModule`)."""

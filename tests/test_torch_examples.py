@@ -108,8 +108,8 @@ def test_serve_main_and_telemetry_names():
                  "serve.decode_seconds", "serve.request_seconds"):
         assert name in keys, (name, keys)
     # greedy decode is the argmax of a full forward at every position
-    model = server.model
     seq = torch.cat([torch.as_tensor(batch["tokens"]), torch.as_tensor(res["tokens"])], 1)
     with torch.no_grad():
-        logits, _ = model.prefill(seq[:, :-1])
+        logits, _ = server.api.prefill(server.params, {"tokens": seq[:, :-1]}, server.cfg,
+                                       server.run)
     assert torch.equal(torch.argmax(logits, -1), torch.as_tensor(res["tokens"][:, -1]))

@@ -1,10 +1,13 @@
 """The port's ``models/layers.py`` against the JAX package's, on the CPU:
 the same numpy inputs (from a seed) through each block of both packages,
-float32, rtol 1e-5 unless stated.  The flash attention
-``autograd.Function``'s gradients are held to ``jax.grad`` of the
-reference's custom-VJP ``_flash`` (causal and not, GQA, chunk sizes that do
-not divide the sequence, so both packages shrink them) at rtol 1e-5; the
-gelu branch is the tanh approximation, ``jax.nn.gelu``'s default."""
+float32, rtol 1e-5 unless stated; the attention block in every mode
+(causal with rotary positions, the whisper modes: rotary-free, not causal,
+cross-attention to another sequence) and ``mlp_params(bias=True)``.  The
+flash attention ``autograd.Function``'s gradients are held to ``jax.grad``
+of the reference's custom-VJP ``_flash`` (causal and not, GQA, chunk sizes
+that do not divide the sequence, so both packages shrink them) at rtol
+1e-5; the gelu branch is the tanh approximation, ``jax.nn.gelu``'s
+default."""
 import numpy as np
 import pytest
 import torch
@@ -154,6 +157,52 @@ def test_attention_block_matches_reference(bias, qk_norm):
     _close(got, want)
     _close(tk, wk)
     _close(tv, wv)
+
+
+@pytest.mark.parametrize("mode", ["cross", "encoder"])
+def test_rotary_free_attention_modes_match_reference(mode):
+    """The whisper modes, rotary-free and not causal: cross-attention
+    (queries of 6 tokens, keys and values of a 10-frame ``kv_x``, chunks
+    that do not divide it) and the encoder's self-attention; then a
+    rotary-free decode step (the decoder's self-attention)."""
+    p = _attn_params(True, False, seed=11)
+    tp = params_from_numpy(p)
+    r = _rng(12)
+    x = r.standard_normal((2, 6, 32)).astype(np.float32)
+    kw = dict(n_heads=4, n_kv=2, head_dim=8, use_rope=False, causal=False, q_chunk=4,
+              kv_chunk=3)
+    if mode == "cross":
+        kv = r.standard_normal((2, 10, 32)).astype(np.float32)
+        got, _ = L.attention_apply(tp, _t(x), kv_x=_t(kv), **kw)
+        want, _ = JL.attention_apply(p, x, kv_x=kv, **kw)
+    else:
+        got, _ = L.attention_apply(tp, _t(x), **kw)
+        want, _ = JL.attention_apply(p, x, **kw)
+    _close(got, want)
+    kcache = r.standard_normal((2, 9, 2, 8)).astype(np.float32)
+    vcache = r.standard_normal((2, 9, 2, 8)).astype(np.float32)
+    x1 = r.standard_normal((2, 1, 32)).astype(np.float32)
+    tk, tv = _t(kcache.copy()), _t(vcache.copy())
+    dkw = dict(n_heads=4, n_kv=2, head_dim=8, use_rope=False)
+    got, _ = L.attention_apply(tp, _t(x1), cache=(tk, tv), cache_len=5, **dkw)
+    want, (wk, wv) = JL.attention_apply(p, x1, cache=(kcache, vcache), cache_len=5, **dkw)
+    _close(got, want)
+    _close(tk, wk)
+    _close(tv, wv)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_params_with_biases_are_the_reference_layout(act):
+    """``mlp_params(bias=True)`` adds zero ``bi`` (d_ff) and ``bo``
+    (d_model), as the reference's does; ``mlp_apply`` applies them."""
+    p = L.mlp_params(torch.Generator().manual_seed(0), 16, 40, act, bias=True)
+    jp = JL.mlp_params(jax.random.PRNGKey(0), 16, 40, act, bias=True)
+    assert {k: tuple(v.shape) for k, v in p.items()} == {k: v.shape for k, v in jp.items()}
+    assert not p["bi"].any() and not p["bo"].any()
+    assert "bi" not in L.mlp_params(torch.Generator(), 16, 40, act)
+    jp = jax.tree.map(lambda v: np.asarray(v + 0.05), jp)
+    x = _rng(13).standard_normal((2, 5, 16)).astype(np.float32)
+    _close(L.mlp_apply(params_from_numpy(jp), _t(x), act), JL.mlp_apply(jp, x, act))
 
 
 @pytest.mark.parametrize("act,bias", [("silu", False), ("gelu", True), ("gelu", False)])

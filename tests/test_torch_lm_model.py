@@ -1,5 +1,6 @@
-"""The port's dense model (``models/transformer.py``, ``registry.py``,
-``convert.py``) and configs against the JAX package's, on the CPU: the
+"""The port's dense model (``models/transformer.py``, ``convert.py``), the
+registry of all six families and the configs against the JAX package's,
+on the CPU: the
 reference's parameters carried over by ``params_from_numpy``, the same
 numpy batch through both.  At ``compute_dtype="float32"``: the loss at
 rtol 1e-5 and every gradient at rtol 1e-4 (relative to the leaf's largest
@@ -27,7 +28,7 @@ from repro_torch import configs, pytree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import ParamTree, params_from_numpy, params_to_numpy
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import build_module, get_model
 
 ROOT = Path(__file__).resolve().parents[1]
 BASE = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
@@ -185,17 +186,29 @@ def test_parameters_are_stacked_and_ordered_as_the_reference():
     assert isinstance(model.tree, ParamTree)
 
 
-def test_registry_runs_the_dense_family_and_names_the_rest():
-    assert get_model(configs.get("qwen2-7b")).loss is T.loss
-    assert get_model(configs.get("phi-3-vision-4.2b")).init is not None
-    for arch, module in (("granite-moe-1b-a400m", "models/moe.py"),
-                         ("mamba2-1.3b", "models/mamba2.py"),
-                         ("zamba2-2.7b", "models/zamba2.py"),
-                         ("whisper-medium", "models/whisper.py")):
-        with pytest.raises(NotImplementedError, match=re.escape(module)):
-            get_model(configs.get(arch))
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        T.init(torch.Generator(), configs.get("granite-moe-1b-a400m"))
+def test_registry_resolves_every_family():
+    """``get_model`` resolves each of the six families to its module's
+    entry points and ``build_module`` to its ``nn.Module``; the
+    transformer's init builds a MoE layer where the family says so."""
+    from repro_torch.models import mamba2, whisper, zamba2
+    want = {"qwen2-7b": (T, T.Transformer), "phi-3-vision-4.2b": (T, T.Transformer),
+            "granite-moe-1b-a400m": (T, T.Transformer), "mamba2-1.3b": (mamba2, mamba2.Mamba2),
+            "zamba2-2.7b": (zamba2, zamba2.Zamba2), "whisper-medium": (whisper, whisper.Whisper)}
+    assert {configs.get(a).family for a in want} == {"dense", "vlm", "moe", "ssm", "hybrid",
+                                                     "encdec"}
+    for arch, (module, cls) in want.items():
+        api = get_model(configs.get(arch))
+        assert (api.loss, api.decode_step, api.init_cache) == (
+            module.loss, module.decode_step, module.init_cache), arch
+        assert cls.__name__ in module.__all__
+    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m"), n_layers=1, d_model=32,
+                              n_heads=2, n_kv_heads=1, head_dim=16, d_ff=8, vocab=64)
+    p = T.init(torch.Generator().manual_seed(0), cfg)
+    assert "mlp" not in p["layers"] and p["layers"]["moe"]["wi"].shape == (1, 48, 32, 8)
+    assert p["layers"]["moe"]["router"].shape == (1, 32, 40)
+    assert isinstance(build_module(cfg, RunConfig(**RUN), p), T.Transformer)
+    with pytest.raises(ValueError, match="dense, moe and vlm"):
+        T.init(torch.Generator(), configs.get("mamba2-1.3b"))
 
 
 def test_configs_are_the_reference_configs():

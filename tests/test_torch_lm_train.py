@@ -9,7 +9,9 @@ factor at 1e-4; ``token_batch`` and ``MarkovStream`` bit for bit; AdamW's
 pieces; the checkpointer (roundtrip, keep-k, async, the reference's
 ``TrainState`` paths, a params checkpoint written by either package read by
 the other); ``TrainLoop`` retry and restore (``tests/test_substrate.py``'s
-cases) and ``train()`` end to end."""
+cases) and ``train()`` end to end; every model family (moe, ssm, hybrid,
+encdec) through ``train()`` under both optimizers and through ``Server``,
+and every arch id through both command lines, reduced, on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -24,10 +26,11 @@ from repro.data import synthetic as jsyn
 from repro.launch import train as JTrain
 from repro.optim import adamw as JAdam
 from repro.optim.arrowhead import build_precond as jbuild_precond
-from repro_torch import pytree
+from repro_torch import configs, pytree
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.data import MarkovStream, token_batch
+from repro_torch.launch import serve as Serve
 from repro_torch.launch import train as T
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim.adamw import (adamw_init, adamw_update, clip_by_global_norm,
@@ -324,3 +327,77 @@ def test_train_end_to_end_on_the_cpu(tmp_path, optimizer):
     assert out["loop"].checkpointer.latest_step() == 3
     assert (out["state"].factor is not None) == (optimizer == "arrowhead")
     assert dataclasses.replace(out["cfg"]).n_layers == 4
+
+
+# ---------------------------------------------------------------------------
+# every model family through the trainer and the server
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b", "zamba2-2.7b", "whisper-medium")
+
+
+def _family_cfg(arch):
+    """The arch reduced to 2 layers (zamba2: one superblock of 6; whisper: 2
+    encoder and 2 decoder layers, the depths the arrowhead needs equal)."""
+    cfg = configs.get(arch)
+    return T.reduce_config(cfg, layers=cfg.shared_attn_every or 2)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "arrowhead"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_trains_on_the_cpu(tmp_path, arch, optimizer):
+    """``train()`` with each optimizer: finite losses, the arrowhead's grid
+    one diagonal block a layer (zamba2: a superblock)."""
+    cfg = _family_cfg(arch)
+    out = T.train(cfg, steps=3, batch=2, seq=16, optimizer=optimizer, reduced=False,
+                  checkpoint_dir=str(tmp_path), log_every=0, device="cpu")
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    if optimizer == "arrowhead":
+        depth = cfg.n_layers // (cfg.shared_attn_every or 1)
+        assert out["precond"].n_layers == depth == out["precond"].grid.n_diag_tiles
+        if cfg.family == "encdec":
+            assert cfg.encoder_layers == cfg.n_layers
+        assert all(torch.isfinite(v).all() for v in out["state"].factor.values())
+    else:
+        assert out["state"].factor is None
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_serves_on_the_cpu(arch):
+    """``Server.generate`` through the registry's prefill and decode: the
+    last greedy token is the argmax of a full forward over the prompt and
+    the tokens before it.  A MoE layer's capacity grows with the sequence
+    (a one-token decode step never drops an assignment, a forward of 11
+    may), so the two agree only where nothing is dropped: the MoE server
+    runs at ``capacity_factor = n_experts / top_k``, a capacity of the whole
+    sequence."""
+    cfg = _family_cfg(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    run = RunConfig(remat="none", compute_dtype="float32", loss_chunk=128)
+    server = Serve.Server(cfg, run, max_len=12, device="cpu")
+    r = np.random.default_rng(0)
+    batch = {"tokens": r.integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = r.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    res = server.generate(batch, 4)
+    assert res["tokens"].shape == (2, 4)
+    seq = np.concatenate([batch["tokens"], res["tokens"]], 1)
+    with torch.no_grad():
+        logits, _ = server.api.prefill(server.params, {
+            **{k: torch.from_numpy(v) for k, v in batch.items()},
+            "tokens": torch.from_numpy(seq[:, :-1])}, cfg, run)
+    assert torch.equal(torch.argmax(logits, -1), torch.from_numpy(res["tokens"][:, -1]))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_arch_runs_the_command_lines(tmp_path, arch):
+    """``python -m repro_torch.launch.train`` and ``...serve`` for every
+    arch id, reduced, on the CPU."""
+    out = T.main(["--arch", arch, "--steps", "1", "--batch", "2", "--seq", "8",
+                  "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
+    assert np.isfinite(out["losses"]).all()
+    out = Serve.main(["--arch", arch, "--batch", "1", "--prompt-len", "4", "--gen", "2",
+                      "--device", "cpu"])
+    assert out["tokens"].shape == (1, 2)
