@@ -246,6 +246,44 @@ Phases, each of which raises on a failed check:
      decode tokens a second, peak memory); granite-moe-1b's moe_apply twice
      on its first layer's input bit for bit, its routing equal to the
      CPU's on the same input;
+   - "distributed training" (lm-100m at full width, MarkovStream(8192),
+     the global batch 8 x 256 cut over 4 gloo ranks sharing the card, 3
+     steps each, parameters from a CPU generator of seed 0 in every
+     process): (a) make_compressed_dp_step over data of a (4, 1) mesh,
+     bf16: every rank's parameters the same bits after every step, step
+     1's loss the ranks' mean and its parameters against the step written
+     out in this process (the four ranks' gradients, int8 codes at the
+     group's MAX scale, their exact sum, the clip, one AdamW update;
+     within an ulp of the parameter plus 1e-6 of the largest update), and
+     its magnitudes, which a sign-like first update hides, against the
+     same: the gradient norm before the clip and rank 0's AdamW moments
+     (within 1e-5, relative, of each leaf's max), rank 0's error-feedback
+     residual (within 1e-6 of the leaf's max|gradient|);
+     (b)
+     make_train_step(rules=) through shard_train_step on a (data 2, model
+     2) mesh, AdamW then the arrowhead optimizer: at 2 layers in float32
+     each rank's blocks after every step against the one-process step's
+     slices on the global batch in the same rank (AdamW's moments and the
+     parameters whose gradient exceeds 1e-5 within 1e-3 of the leaf's max,
+     the other parameter elements within twice the learning rates summed;
+     losses within 1e-5); at full depth in bf16 finite losses; in both,
+     replicated leaves and metrics the same bits on every rank, the
+     arrowhead's launches a step those of "lm" in every rank, the state's
+     bytes on the card (the allocator's requested bytes) equal to the
+     rules' block bytes; a sharded save after 2 float32 AdamW steps
+     restored onto a (data 2, model 1) world of 2 (its blocks the saved
+     arrays' slices by the target rules), TrainLoop(state_shardings=)
+     taking step 3 through an injected hard failure and a restore, against
+     the unbroken world's step 3 (within 1e-6 of each leaf's max); (c)
+     GPipe: lm-100m's 12 layers in 4 stages over 4 ranks, 8 microbatches
+     of 2 x 128 in float32, the output (the same bits on every stage) and
+     each stage's gradient slice against the sequential stack on the card
+     (1e-5 of max|out|, 1e-4 of a leaf's max), nothing outside its stage;
+     (d) python -m repro_torch.launch.dryrun --arch qwen2-7b --shape
+     train_4k in a host process started first: status ok, argument bytes
+     the rules' block bytes of the cell (a fake world of 256 here); each
+     step's time and the time inside gloo's collectives, peak memory a
+     rank, the dry run's memory, FLOPs and collective bytes;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -4439,6 +4477,652 @@ def phase_families(torch, run_path, kern, ref, counts, card):
     return rec, per_call
 
 
+# ---------------------------------------------------------------------------
+# phase "distributed training": optim/compress.py, runtime/dp_compressed.py,
+# launch/train.py's sharded step (sharding/partition.py), the checkpointer's
+# elastic restore, sharding/pipeline.py and launch/dryrun.py, on gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+# lm-100m at full width on MarkovStream(8192, seed 0), phase "lm"'s global
+# batch cut over the ranks; parameters from a CPU generator of seed 0, so
+# every rank and the parent draw the same without sending them
+DT_WORLD, DT_STEPS, DT_BATCH, DT_SEQ, DT_F32_LAYERS = 4, 3, 8, 256, 2
+DT_MESH, DT_RESTORE_MESH = (2, 2), (2, 1)
+# the float32 sharded step's blocks against the one-process step's slices,
+# relative to each leaf's max: AdamW's moments everywhere, the parameters
+# where the gradient's root mean square √(v / (1 − b2^t)) is at least
+# DT_FIRM_GRAD.  The ranks average two half-batch gradients where the
+# one-process step takes the whole batch's mean, so they differ by rounding,
+# relative to a leaf's max large where its sums cancel (the embedding's rows:
+# about 1e-4 in a CPU rehearsal); AdamW's update m/(√v + eps) enlarges it
+# without bound as a gradient element nears eps (1e-8), so a parameter
+# element below DT_FIRM_GRAD is held within twice the learning rates
+# summed, the most two updates' directions can part (on the card such
+# embedding elements moved 3.25e-4 of the leaf's max).  A slicing or
+# summing fault moves a block by far more.  Its losses, relative; the restored world's
+# step 3 against the unbroken world's, relative to each leaf's max
+DT_STATE_TOL, DT_LOSS_TOL, DT_RESTORE_TOL, DT_FIRM_GRAD = 1e-3, 1e-5, 1e-6, 1e-5
+# the compressed step 1 against its arithmetic written out on the host:
+# within one float32 ulp of the parameter (the card fuses p − lr·u into one
+# rounding, the host rounds twice) plus this share of the leaf's largest
+# update
+DT_UPDATE_TOL = 1e-6
+# the same step's magnitudes, which its sign-like first update does not
+# show: the mean gradient's norm before the clip, relative, and rank 0's
+# AdamW moments (m = 0.1·g, v = 0.05·g² of the clipped mean), each
+# relative to its leaf's max; the card sums the norm in another order than
+# the host (a few float32 ulps, carried into the clip and so into m and v).
+# Rank 0's error-feedback residual x − q·s (s = max|x|/127) relative to
+# max|x|, not to its own max (about s/2): the rank's gradient x and the one
+# written out here may differ by an ulp of x (the embedding's backward adds
+# in no fixed order), which is 3e-5 of the residual's max (the card, first
+# run) but 1e-7 of max|x|.  A scale off by the group's size, the wire at a
+# rank's own scale, or a residual at the group's scale moves them by far
+# more (the last by about s, 8e-3 of max|x|)
+DT_MOMENT_TOL, DT_RESID_TOL = 1e-5, 1e-6
+# GPipe: lm-100m's 12 layers in 4 stages, 8 microbatches of 2 sequences of
+# 128, float32; against the sequential stack on the card, the output
+# relative to max|out|, each stage's gradient leaf to its max
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 8, 16, 128
+PIPE_OUT_TOL, PIPE_GRAD_TOL = 1e-5, 1e-4
+# the dry run's cell (a host process of its own, started first)
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen2-7b", "train_4k"
+
+
+def _digest(torch, t):
+    """The SHA-256 of a tensor's bytes."""
+    import hashlib
+    return hashlib.sha256(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                          .cpu().numpy().tobytes()).hexdigest()
+
+
+def _on(torch, tree, dev):
+    """``tree`` with every tensor leaf but the host scalars (the step, the
+    count) copied to ``dev``."""
+    from repro_torch import pytree
+    return pytree.tree_map(lambda x: x.to(dev, copy=True) if isinstance(x, torch.Tensor)
+                           and x.ndim else x, tree)
+
+
+def _requested(torch):
+    """The bytes this process's tensors on the card asked the caching
+    allocator for, before its rounding and block splits (which
+    ``memory_allocated`` counts)."""
+    return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+
+def _rel(torch, got, want):
+    want = want.double()
+    return float((got.double() - want).abs().max() / (want.abs().max() + 1e-30))
+
+
+def _block(full, placements, coords, mesh):
+    """The block of ``full`` a rank at ``coords`` of a mesh of shape
+    ``mesh`` holds by ``placements`` (strings: ``S(d)`` or ``R``)."""
+    for md, p in enumerate(placements):
+        if p.startswith("S("):
+            d = int(p[2:-1])
+            n = full.shape[d] // mesh[md]
+            full = full.narrow(d, coords[md] * n, n)
+    return full
+
+
+class GlooClock:
+    """Host seconds inside ``torch.distributed``'s collectives
+    (``all_gather``, ``all_reduce``, ``all_to_all_single``,
+    ``batch_isend_irecv``) while active:
+    on a gloo rank sharing the card each is called on a host copy, whose
+    staging already waited for the card, so the time is the transport's."""
+
+    NAMES = ("all_gather", "all_reduce", "all_to_all_single", "batch_isend_irecv")
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+        for n, fn in self._saved.items():
+            setattr(dist, n, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if isinstance(out, list):       # batch_isend_irecv's requests
+                    for req in out:
+                        req.wait()
+                return out
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+def dt_setup(cfg, n_layers=None):
+    """lm-100m's parameters (``n_layers`` of them) from a CPU generator of
+    seed 0, and phase "distributed training"'s Markov batches."""
+    import dataclasses
+    import torch
+    from repro_torch.data.synthetic import MarkovStream
+    from repro_torch.models.registry import get_model
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, DT_SEQ)
+    stream = MarkovStream(cfg.vocab, seed=0)
+    return cfg, params, [stream.batch(s, DT_BATCH, DT_SEQ) for s in range(DT_STEPS)]
+
+
+def dt_local_grads(torch, cfg, run, params, batch, rank, world, dev):
+    """A rank's gradient of its block of ``batch`` (what the compressed
+    step quantizes at step 1) and its loss."""
+    from repro_torch import pytree
+    from repro_torch.models.registry import get_model
+    n = DT_BATCH // world
+    b = {k: torch.as_tensor(v)[rank * n:(rank + 1) * n].to(dev) for k, v in batch.items()}
+    leaves = [p.detach().requires_grad_() for p in pytree.leaves(params)]
+    loss = get_model(cfg).loss(pytree.unflatten(params, leaves), b, cfg, run)
+    return float(loss.detach()), list(torch.autograd.grad(loss, leaves))
+
+
+def dt_compressed(torch, cfg, run, dev):
+    """(a) on this rank: ``make_compressed_dp_step`` over ``data`` of a
+    (world, 1) mesh, ``DT_STEPS`` steps; each step's parameter digests and
+    gradient norm, and on rank 0 the parameters, AdamW's moments and the
+    error-feedback residuals after step 1."""
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.dp_compressed import make_compressed_dp_step
+    cfg, params, batches = dt_setup(cfg)
+    params = _on(torch, params, dev)
+    api = get_model(cfg)
+    step, ef_init_fn = make_compressed_dp_step(lambda p, b: api.loss(p, b, cfg, run),
+                                               make_local_mesh(dist.get_world_size(), 1),
+                                               axis="data")
+    state = (params, adamw_init(params), ef_init_fn(params))
+    losses, norms, digests, after1, clock, step_s = [], [], [], None, GlooClock(), 0.0
+    for s, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with clock:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        step_s += time.perf_counter() - t0
+        norms.append(float(m["grad_norm"]))
+        digests.append({k: _digest(torch, v) for k, v in pytree.leaves_with_path(state[0])})
+        if s == 0 and dist.get_rank() == 0:
+            after1 = {name: {k: v.to("cpu", copy=True) for k, v in pytree.leaves_with_path(tree)}
+                      for name, tree in (("p", state[0]), ("m", state[1].m),
+                                         ("v", state[1].v), ("e", state[2]))}
+    torch.cuda.synchronize()
+    return dict(losses=losses, grad_norms=norms, digests=digests, after1=after1,
+                ms_per_step=step_s * 1e3 / len(batches),
+                gloo_ms_per_step=clock.seconds * 1e3 / len(batches))
+
+
+def dt_one_process(torch, cfg, run, params, batches, precond, dev):
+    """The one-process step (``rules=None``) on the global batch: the full
+    state after each step, on the card."""
+    from repro_torch import pytree
+    from repro_torch.launch.train import TrainState, attach_precond, make_train_step
+    from repro_torch.optim.adamw import adamw_init
+    st = _on(torch, TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32)),
+             dev)
+    if precond is not None:
+        attach_precond(st, precond)
+    step = make_train_step(cfg, run, None, precond, total_steps=DT_STEPS)
+    out = []
+    for b in batches:
+        st, m = step(st, b)
+        out.append(({k: v.clone() for k, v in pytree.leaves_with_path(st)}, float(m["loss"])))
+    return out
+
+
+def dt_sharded(torch, cfg, run, optimizer, dev, n_layers=None, ckpt=None, unbroken=None):
+    """(b) on this rank: ``make_train_step(rules=)`` through
+    ``shard_train_step`` on a ``DT_MESH`` mesh, only this rank's blocks
+    ever on the card: the state's bytes against the rules' block bytes and
+    what the allocator holds for it; each step's launches and metrics and
+    the replicated leaves' digests; with ``n_layers`` (float32) each step's
+    blocks against the one-process step's slices, a sharded save after 2
+    steps into ``ckpt`` and after 3 into ``unbroken``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import (TrainState, attach_precond, make_train_step,
+                                          shard_train_step)
+    from repro_torch.optim.adamw import adamw_init, cosine_lr
+    from repro_torch.optim.arrowhead import build_precond
+    from repro_torch.runtime.telemetry import count_launches
+    from repro_torch.sharding.partition import make_rules, shard_shape, shard_tree
+    cfg, params, batches = dt_setup(cfg, n_layers)
+    mesh = make_local_mesh(*DT_MESH)
+    rules = make_rules(mesh, cfg, run)
+    full = TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+    precond = None
+    if optimizer == "arrowhead":
+        precond = build_precond(params, r=run.precond_proj_dim, band=run.precond_band, seed=0)
+        attach_precond(full, precond)
+    fn, sh = shard_train_step(make_train_step(cfg, run, rules, precond, total_steps=DT_STEPS),
+                              mesh, rules, full, batches[0])
+    on_card = [(x, s) for x, s in zip(pytree.leaves(full), pytree.leaves(sh))
+               if isinstance(x, torch.Tensor) and x.ndim]
+    gc.collect()
+    torch.cuda.synchronize()
+    base = _requested(torch)
+    state = _on(torch, shard_tree(full, sh), dev)
+    torch.cuda.synchronize()
+    rec = dict(allocator_bytes=_requested(torch) - base,
+               rules_bytes=sum(math.prod(shard_shape(tuple(x.shape), s)) * x.element_size()
+                               for x, s in on_card))
+    blocks = [x for x in pytree.leaves(state) if isinstance(x, torch.Tensor) and x.ndim]
+    rec["state_bytes"] = sum(x.numel() * x.element_size() for x in blocks)
+    if precond is not None:
+        # the initial factor by the card's kernels, as a one-process run makes it
+        state.factor = precond.factorize(state.precond)
+    placements = {p: [str(x) for x in s.placements] for p, s in pytree.leaves_with_path(sh)}
+    ref = (dt_one_process(torch, cfg, run, params, batches, precond, dev)
+           if n_layers is not None else None)
+    del full
+    coords = divmod(dist.get_rank(), DT_MESH[1])
+    launches, metrics, state_rel, loss_rel, by_path, n_soft = [], [], 0.0, 0.0, {}, 0
+    torch.cuda.reset_peak_memory_stats()
+    clock, step_s = GlooClock(), 0.0
+    for s, b in enumerate(batches):
+        if ckpt is not None and s == 2:
+            Checkpointer(ckpt, async_save=False).save(s, state, shardings=sh)
+        got = []
+        t0 = time.perf_counter()
+        with clock:
+            launches.append(count_launches(lambda: got.append(fn(state, b))))
+            state, m = got[0]
+            metrics.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+        step_s += time.perf_counter() - t0
+        if ref is not None:
+            want_state, want_loss = ref[s]
+            lr_sum = sum(cosine_lr(t, run.learning_rate, warmup=max(2, DT_STEPS // 10),
+                                   total=DT_STEPS) for t in range(s + 1))
+            for path, blk in pytree.leaves_with_path(state):
+                want = _block(want_state[path], placements[path], coords, DT_MESH)
+                if tuple(blk.shape) != tuple(want.shape):
+                    raise AssertionError(f"{path}: block {tuple(blk.shape)}, slice "
+                                         f"{tuple(want.shape)}")
+                blk = blk.to(want.device)
+                if path.startswith("0/"):
+                    v = _block(want_state["1/1/" + path[2:]], placements[path], coords, DT_MESH)
+                    firm = torch.sqrt(v / (1 - 0.95 ** (s + 1))) >= DT_FIRM_GRAD
+                    diff = (blk.double() - want.double()).abs()
+                    soft = float(diff[~firm].max()) if bool((~firm).any()) else 0.0
+                    if soft > 2 * lr_sum:
+                        raise AssertionError(f"{path} after step {s}: {soft} where the "
+                                             f"gradient is below {DT_FIRM_GRAD}, beyond twice "
+                                             f"the learning rates' sum {lr_sum}")
+                    n_soft += int((~firm).sum())
+                    blk, want = blk[firm], want[firm]
+                err = _rel(torch, blk, want) if want.numel() else 0.0
+                by_path[path] = max(by_path.get(path, 0.0), err)
+                state_rel = max(state_rel, err)
+            loss_rel = max(loss_rel, abs(metrics[-1]["loss"] - want_loss) / abs(want_loss))
+    torch.cuda.synchronize()
+    rec["ms_per_step"] = step_s * 1e3 / len(batches)
+    rec["gloo_ms_per_step"] = clock.seconds * 1e3 / len(batches)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if unbroken is not None:
+        Checkpointer(unbroken, async_save=False).save(len(batches), state, shardings=sh)
+    rep = {p for p, pl in placements.items() if all(x == "R" for x in pl)}
+    rec.update(launches=launches, metrics=metrics, state_rel=state_rel, loss_rel=loss_rel,
+               state_rel_by_path=by_path, soft_elements=n_soft,
+               replicated_digests={p: _digest(torch, x) for p, x in pytree.leaves_with_path(state)
+                                   if p in rep and isinstance(x, torch.Tensor)})
+    return rec
+
+
+def dt_pipeline(torch, cfg, run, dev):
+    """(c) on this rank: lm-100m's stacked layers through
+    ``pipeline_forward`` in ``PIPE_STAGES`` stages over ``model`` of a
+    (1, world) mesh, against the sequential stack on the card: the output
+    and this stage's slice of the layers' gradient of ``(out * cot).sum()``;
+    nothing outside its own stage."""
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding.pipeline import pipeline_forward, split_stages
+    _, params, _ = dt_setup(cfg)
+    mesh = make_local_mesh(1, dist.get_world_size())
+    s = dist.get_rank(mesh.get_group("model"))
+    per = cfg.n_layers // PIPE_STAGES
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=gen).to(dev)
+    cot = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=gen).to(dev)
+
+    def stage_fn(p, h):
+        return transformer._stack_forward({"layers": p}, h, cfg, run)[0]
+
+    def run_with(fwd):
+        layers = pytree.tree_map(lambda t: t.to(dev).requires_grad_(), params["layers"])
+        out = fwd(layers)
+        return out.detach(), torch.autograd.grad((out * cot).sum(), pytree.leaves(layers))
+
+    want_out, want_grads = run_with(lambda lay: stage_fn(lay, x))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, grads = run_with(lambda lay: pipeline_forward(
+        stage_fn, split_stages(lay, PIPE_STAGES), x, mesh, axis="model",
+        n_microbatches=PIPE_MICRO))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    own = slice(s * per, (s + 1) * per)
+    return dict(stage=s, ms=ms, out_digest=_digest(torch, out),
+                out_rel=_rel(torch, out, want_out),
+                grad_rel=max(_rel(torch, g[own], w[own]) for g, w in zip(grads, want_grads)),
+                grad_elsewhere=max(float(torch.cat([g[:own.start].reshape(-1),
+                                                    g[own.stop:].reshape(-1)]).abs().max())
+                                   for g in grads))
+
+
+def dt_rank(cfg, runs, ckpt, unbroken, device="cuda:0"):
+    """One rank of the world of ``DT_WORLD`` sharing the card: (a); (b) at
+    ``DT_F32_LAYERS`` layers in float32 and at full depth in bf16, each
+    optimizer; (c)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = {"dp": dt_compressed(torch, cfg, runs["bf16"]["adamw"], dev)}
+    for opt in ("adamw", "arrowhead"):
+        torch.cuda.empty_cache()
+        out[f"f32/{opt}"] = dt_sharded(torch, cfg, runs["f32"][opt], opt, dev, DT_F32_LAYERS,
+                                       *((ckpt, unbroken) if opt == "adamw" else (None, None)))
+        torch.cuda.empty_cache()
+        out[f"bf16/{opt}"] = dt_sharded(torch, cfg, runs["bf16"][opt], opt, dev)
+    torch.cuda.empty_cache()
+    out["pipe"] = dt_pipeline(torch, cfg, runs["f32"]["adamw"], dev)
+    return out
+
+
+def dt_restore_rank(cfg, run, ckpt, unbroken, device="cuda:0"):
+    """A rank of the world of 2 (``DT_RESTORE_MESH``): the world of 4's
+    checkpoint of step 2 restored onto its blocks (against the saved
+    arrays' slices), then ``TrainLoop(state_shardings=)`` takes step 3
+    through a hard failure and a restore, against the unbroken world's
+    step 3 saved in ``unbroken``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import TrainState, make_train_step, shard_train_step
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.fault_tolerance import FailureInjector, TrainLoop
+    from repro_torch.sharding.partition import make_rules, shard_tree
+    import os
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    cfg, params, batches = dt_setup(cfg, DT_F32_LAYERS)
+    mesh = make_local_mesh(*DT_RESTORE_MESH)
+    rules = make_rules(mesh, cfg, run)
+    full = TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+    fn, sh = shard_train_step(make_train_step(cfg, run, rules, total_steps=DT_STEPS), mesh,
+                              rules, full, batches[0])
+    template = _on(torch, shard_tree(full, sh), dev)
+    del full
+    placements = {p: [str(x) for x in s.placements] for p, s in pytree.leaves_with_path(sh)}
+    coords = (dist.get_rank(), 0)
+
+    def against(state, path_npz):
+        with np.load(path_npz) as saved:
+            return [(p, torch.equal(blk.cpu(), _block(torch.from_numpy(saved[p]), placements[p],
+                                                      coords, DT_RESTORE_MESH)),
+                     _rel(torch, blk.cpu(), _block(torch.from_numpy(saved[p]), placements[p],
+                                                   coords, DT_RESTORE_MESH)))
+                    for p, blk in pytree.leaves_with_path(state)]
+
+    ckp = Checkpointer(ckpt, async_save=False)
+    restored = ckp.restore(template, shardings=sh)
+    rec = dict(step=int(restored.step),
+               restored_equal=all(eq for _, eq, _ in against(
+                   restored, os.path.join(ckpt, "step_2", "arrays.npz"))),
+               placements={p: placements[p] for p in placements if p.startswith("0/")})
+    loop = TrainLoop(step_fn=fn, batch_fn=lambda s: batches[s], checkpointer=ckp,
+                     checkpoint_every=100, max_step_retries=0, state_shardings=sh,
+                     injector=FailureInjector({2: 1}), log_every=0, log_fn=lambda m: None)
+    state = loop.run(template, 2, 1)
+    cmp = against(state, os.path.join(unbroken, f"step_{DT_STEPS}", "arrays.npz"))
+    rec.update(loss=float(loop.history[0]["loss"]), step3_bit_identical=all(e for _, e, _ in cmp),
+               step3_rel=max(r for _, _, r in cmp))
+    return rec
+
+
+def dt_written_out(torch, cfg, run, dev):
+    """(a)'s step 1 written out here: the four ranks' gradients of their
+    blocks of the batch, int8 codes at the group's MAX scale, their exact
+    sum, the mean, the global-norm clip to 1.0 and one AdamW update (lr
+    1e-3, no weight decay, the bias corrections in float32) from the
+    initial parameters, on the host; rank 0's residual at its own scale.
+    Returns, by path, the initial parameters ``p0`` and, after step 1, the
+    parameters ``p``, AdamW's moments ``m`` and ``v`` and rank 0's residual
+    ``e``; the ranks' mean local loss; the mean gradient's norm before the
+    clip."""
+    import numpy as np
+    from repro_torch import pytree
+    cfg, params, batches = dt_setup(cfg)
+    on_card = _on(torch, params, dev)
+    grads, losses = [], []
+    for r in range(DT_WORLD):
+        loss, g = dt_local_grads(torch, cfg, run, on_card, batches[0], r, DT_WORLD, dev)
+        losses.append(loss)
+        grads.append([x.float().cpu() for x in g])
+    del on_card
+    mean, resid = [], []
+    for xs in zip(*grads):
+        scale = torch.stack([x.abs().max() for x in xs]).max() / 127.0 + 1e-30
+        total = sum(torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32) for x in xs)
+        mean.append(total.to(torch.float32) * scale / DT_WORLD)
+        own = xs[0].abs().max() / 127.0 + 1e-30
+        resid.append(xs[0] - torch.clamp(torch.round(xs[0] / own), -127, 127) * own)
+    norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in mean))
+    clip = torch.clamp(1.0 / torch.clamp_min(norm, 1e-9), max=1.0)
+    bc1 = float(np.float32(1.0) - np.float32(0.9))
+    bc2 = float(np.float32(1.0) - np.float32(0.95))
+    out = {}
+    for (path, p0), g, e, e_x in zip(pytree.leaves_with_path(params), mean, resid,
+                                     zip(*grads)):
+        g = g * clip
+        m, v = (1 - 0.9) * g, (1 - 0.95) * g * g
+        out[path] = dict(p0=p0.float(), m=m, v=v, e=e, xmax=float(e_x[0].abs().max()),
+                         p=p0.float() - 1e-3 * ((m / bc1) / (torch.sqrt(v / bc2) + 1e-8)))
+    return out, sum(losses) / DT_WORLD, float(norm)
+
+
+def check_distributed_training(torch, outs, two, written, local_loss, norm, every):
+    """Gates (a)-(c) and the restore (see the module docstring).  Returns
+    the record."""
+    rec = {}
+    dp = [o["dp"] for o in outs]
+    ulp = torch.finfo(torch.float32).eps
+    got = dp[0]["after1"]
+    upd = max(float(((got["p"][p].float() - w["p"]).abs() - ulp * w["p"].abs()).max())
+              / (float((w["p"] - w["p0"]).abs().max()) or 1.0) for p, w in written.items())
+    moments = {k: max(_rel(torch, got[k][p], w[k]) for p, w in written.items())
+               for k in ("m", "v")}
+    moments["e"] = max(float((got["e"][p].double() - w["e"].double()).abs().max())
+                       / (w["xmax"] or 1.0) for p, w in written.items())
+    rec["compressed_dp"] = dict(
+        losses=dp[0]["losses"], ms_per_step=[d["ms_per_step"] for d in dp],
+        gloo_ms_per_step=[d["gloo_ms_per_step"] for d in dp],
+        bit_identical_on_every_rank=all(d["digests"] == dp[0]["digests"]
+                                        and d["grad_norms"] == dp[0]["grad_norms"] for d in dp),
+        step1_loss_rel=abs(dp[0]["losses"][0] - local_loss) / abs(local_loss),
+        step1_update_rel=upd, step1_grad_norm=dp[0]["grad_norms"][0],
+        step1_grad_norm_written=norm,
+        step1_grad_norm_rel=abs(dp[0]["grad_norms"][0] - norm) / norm,
+        step1_moments_rel=moments)
+    r = rec["compressed_dp"]
+    if not (r["bit_identical_on_every_rank"] and all(math.isfinite(x) for x in r["losses"])
+            and r["step1_loss_rel"] <= 1e-6 and upd <= DT_UPDATE_TOL
+            and r["step1_grad_norm_rel"] <= DT_MOMENT_TOL
+            and max(moments["m"], moments["v"]) <= DT_MOMENT_TOL
+            and moments["e"] <= DT_RESID_TOL):
+        raise AssertionError(f"distributed training (a), compressed DP: {r} (limits "
+                             f"{DT_UPDATE_TOL}, {DT_MOMENT_TOL}, {DT_RESID_TOL})")
+    for opt in ("adamw", "arrowhead"):
+        for dt in ("f32", "bf16"):
+            fs = [o[f"{dt}/{opt}"] for o in outs]
+            what = f"distributed training (b), {dt} {opt}"
+            r = dict(losses=[m["loss"] for m in fs[0]["metrics"]],
+                     ms_per_step=[f["ms_per_step"] for f in fs],
+                     gloo_ms_per_step=[f["gloo_ms_per_step"] for f in fs],
+                     peak_bytes=[f["peak_bytes"] for f in fs],
+                     state_bytes=[f["state_bytes"] for f in fs],
+                     launches_per_step=fs[0]["launches"],
+                     replicated_same_bits=all(f["replicated_digests"] == fs[0]["replicated_digests"]
+                                              and f["metrics"] == fs[0]["metrics"] for f in fs))
+            for i, f in enumerate(fs):
+                check_step_launches(f["launches"], object() if opt == "arrowhead" else None,
+                                    every, f"{what}, rank {i}")
+                if not f["state_bytes"] == f["rules_bytes"] == f["allocator_bytes"]:
+                    raise AssertionError(
+                        f"{what}, rank {i}: state {f['state_bytes']} bytes, the rules' blocks "
+                        f"{f['rules_bytes']}, asked of the allocator {f['allocator_bytes']}")
+            if not (r["replicated_same_bits"] and all(math.isfinite(x) for x in r["losses"])):
+                raise AssertionError(f"{what}: {r}")
+            if dt == "f32":
+                r.update(state_rel=max(f["state_rel"] for f in fs),
+                         loss_rel=max(f["loss_rel"] for f in fs),
+                         soft_elements=[f["soft_elements"] for f in fs],
+                         state_rel_by_path={p: max(f["state_rel_by_path"][p] for f in fs)
+                                            for p in fs[0]["state_rel_by_path"]})
+                if not (r["state_rel"] <= DT_STATE_TOL and r["loss_rel"] <= DT_LOSS_TOL):
+                    raise AssertionError(f"{what} against the one-process step: {r} (limits "
+                                         f"{DT_STATE_TOL}, {DT_LOSS_TOL})")
+            rec[f"sharded_{dt}_{opt}"] = r
+    loss4 = outs[0]["f32/adamw"]["metrics"][2]["loss"]
+    rec["elastic_restore"] = dict(
+        steps=[t["step"] for t in two], restored_equal=all(t["restored_equal"] for t in two),
+        step3_rel=max(t["step3_rel"] for t in two),
+        step3_bit_identical=all(t["step3_bit_identical"] for t in two),
+        loss=two[0]["loss"], unbroken_loss=loss4, placements=two[0]["placements"])
+    r = rec["elastic_restore"]
+    if not (r["steps"] == [2, 2] and r["restored_equal"] and r["step3_rel"] <= DT_RESTORE_TOL
+            and abs(r["loss"] - loss4) <= DT_LOSS_TOL * abs(loss4)):
+        raise AssertionError(f"distributed training (b), elastic restore 4 -> 2: {r}")
+    ps = [o["pipe"] for o in outs]
+    rec["pipeline"] = dict(stages=[p["stage"] for p in ps], ms=[p["ms"] for p in ps],
+                           out_same_on_every_stage=all(p["out_digest"] == ps[0]["out_digest"]
+                                                       for p in ps),
+                           out_rel=max(p["out_rel"] for p in ps),
+                           grad_rel=max(p["grad_rel"] for p in ps),
+                           grad_outside_own_stage=max(p["grad_elsewhere"] for p in ps))
+    r = rec["pipeline"]
+    if not (sorted(r["stages"]) == list(range(PIPE_STAGES)) and r["out_same_on_every_stage"]
+            and r["out_rel"] <= PIPE_OUT_TOL and r["grad_rel"] <= PIPE_GRAD_TOL
+            and r["grad_outside_own_stage"] == 0.0):
+        raise AssertionError(f"distributed training (c), GPipe: {r} (limits {PIPE_OUT_TOL}, "
+                             f"{PIPE_GRAD_TOL})")
+    return rec
+
+
+def dryrun_want_bytes(torch):
+    """The rules' block bytes of the dry run's cell on its 16 x 16 mesh:
+    the parameters and AdamW's two moments, the step and the count, the
+    batch's blocks (on a fake world of 256 ranks here)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig, SHAPES
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.models.registry import get_model, input_specs
+    from repro_torch.sharding.partition import make_rules, sharded_bytes
+    cfg, shape = configs.get(DRYRUN_ARCH), SHAPES[DRYRUN_SHAPE]
+    with FakeTensorMode():
+        params = get_model(cfg).init(torch.Generator(), cfg, shape.seq_len)
+    with fake_world(256):
+        rules = make_rules(make_production_mesh(), cfg, RunConfig(), shape)
+        spec = input_specs(cfg, shape)
+        return (3 * sharded_bytes(params, rules.param_shardings(params)) + 8
+                + sharded_bytes(spec, rules.batch_specs(spec)))
+
+
+def phase_distributed_training(torch, run_path, card):
+    """The phase "distributed training" (see the module docstring).
+    Returns the phase's record."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.examples.train_lm import model_100m
+    from repro_torch.launch.mesh import run_local
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card with this process
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dt_")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH, "--shape",
+         DRYRUN_SHAPE, "--out", tmp], env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cfg = model_100m()
+        base = RunConfig(remat="none", loss_chunk=128, precond_every=10)
+        runs = {dt: {opt: dataclasses.replace(base, optimizer=opt, compute_dtype=name)
+                     for opt in ("adamw", "arrowhead")}
+                for dt, name in (("bf16", "bfloat16"), ("f32", "float32"))}
+        written, local_loss, norm = dt_written_out(torch, cfg, runs["bf16"]["adamw"], "cuda:0")
+        torch.cuda.empty_cache()
+        ckpt, unbroken = os.path.join(tmp, "ckpt"), os.path.join(tmp, "unbroken")
+        t0 = time.perf_counter()
+        outs = run_path("distributed training: world 4 (gloo ranks sharing the card)",
+                        lambda: run_local(dt_rank, cfg, runs, ckpt, unbroken,
+                                          world_size=DT_WORLD, backend="gloo",
+                                          device_type="cuda", timeout=900))
+        world4_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = run_local(dt_restore_rank, cfg, runs["f32"]["adamw"], ckpt, unbroken,
+                        world_size=2, backend="gloo", device_type="cuda", timeout=600)
+        world2_s = time.perf_counter() - t0
+        rec = check_distributed_training(torch, outs, two, written, local_loss, norm,
+                                         base.precond_every)
+        rec.update(world4_s=world4_s, world2_s=world2_s)
+        for k in ("compressed_dp", "sharded_f32_adamw", "sharded_f32_arrowhead",
+                  "sharded_bf16_adamw", "sharded_bf16_arrowhead", "elastic_restore", "pipeline"):
+            log(f"distributed training, {k}: " + json.dumps(rec[k]) + f", card {card}")
+        del outs, two, written
+        t0 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=900)
+        rec["dryrun_wait_s"] = time.perf_counter() - t0
+        if dry.returncode != 0:
+            raise AssertionError(f"dry run exited {dry.returncode}: {stdout}\n{stderr}")
+        with open(os.path.join(tmp, f"{DRYRUN_ARCH}_{DRYRUN_SHAPE}_single.json")) as f:
+            dr = json.load(f)
+        dr.pop("run", None)
+        want = dryrun_want_bytes(torch)
+        rec["dryrun"] = dict(dr, want_argument_bytes=want)
+        if not (dr["status"] == "ok" and dr["memory"]["argument_bytes"] == want):
+            raise AssertionError(f"dry run {DRYRUN_ARCH} {DRYRUN_SHAPE}: {rec['dryrun']}")
+        log(f"distributed training, dry run {DRYRUN_ARCH} {DRYRUN_SHAPE} on a fake world of "
+            f"256 (host process): " + json.dumps(rec["dryrun"]))
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase distributed training: {rec['wall_s']:.1f} s (world 4 {rec['world4_s']:.1f} s, "
+        f"world 2 {rec['world2_s']:.1f} s, waiting on the dry run {rec['dryrun_wait_s']:.1f} s), "
+        f"card {card}")
+    return rec
+
+
 def time_ms(torch, fn, inner=1, reps=7, warmup=2):
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls a rep."""
     for _ in range(warmup):
@@ -4801,6 +5485,9 @@ def main() -> int:
     extra_calls += lm_calls
     # every other model family at its published widths under both optimizers
     extra_calls += phase_families(torch, run_path, kern, ref, counts, card)[1]
+    # the distributed-training path: compressed DP, the sharded step and its
+    # elastic restore, GPipe on gloo ranks sharing the card; the dry run
+    phase_distributed_training(torch, run_path, card)
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:

@@ -8,6 +8,20 @@ checkpoint).  The arrays are keyed by the reference's leaf paths
 either package saved restores into the other with the same arrays.  A save
 copies every leaf to the host before it returns, so the caller may go on
 updating its tensors in place while the writer thread runs.
+
+A sharded state (``shardings=``, a tree of ``sharding/partition.py``'s
+``NamedSharding`` shaped like the state) is gathered to full on every
+rank (the gather is collective, so every rank calls ``save``) and written
+once, by rank 0 of the world, in the writer thread as any other save (the
+other ranks return at once), or before ``save`` returns where the save is
+synchronous (``block``, or ``async_save=False``).  In a world of more than
+one rank every rank meets rank 0 at a barrier after rank 0's write: at once
+in a synchronous save, else in its next :meth:`Checkpointer.wait` (the
+next save's, a restore's, ``latest_step``'s), so no rank reads a checkpoint
+before it is whole and no two writes race at the rename.
+``restore(shardings=)`` places this rank's blocks of each leaf by the
+target shardings, which may be of another mesh than the save's: the
+reference's elastic restore.
 """
 from __future__ import annotations
 
@@ -19,8 +33,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import pytree
+from repro_torch.sharding.partition import gather_tree, shard_tensor
 
 __all__ = ["Checkpointer"]
 
@@ -40,13 +56,24 @@ class Checkpointer:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False        # a sharded save's barrier, still to meet
         os.makedirs(directory, exist_ok=True)
 
     # ---- save ---------------------------------------------------------------
 
     def save(self, step: int, state: Any, meta: Optional[dict] = None,
-             block: bool = False) -> None:
+             block: bool = False, shardings: Optional[Any] = None) -> None:
+        """Write ``state`` as step ``step``; with ``shardings`` every rank
+        of the world calls it (the gather is collective), rank 0 writes."""
         self.wait()
+        sync = block or not self.async_save
+        if shardings is not None:
+            state = gather_tree(state, shardings)
+            self._barrier = dist.get_world_size() > 1
+            if dist.get_rank() != 0:
+                if sync:
+                    self.wait()
+                return
         flat = {k: _host(v) for k, v in pytree.leaves_with_path(state)}
 
         def _write():
@@ -63,16 +90,22 @@ class Checkpointer:
             os.rename(tmp, final)
             self._gc()
 
-        if self.async_save and not block:
+        if not sync:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:
             _write()
+            self.wait()
 
     def wait(self):
+        """Until this rank's save is written, and, after a sharded save in
+        a world of more than one rank, until every rank has come here."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self):
         steps = self.all_steps()
@@ -92,13 +125,17 @@ class Checkpointer:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        self.wait()
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None) -> Any:
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Any:
         """Restore into the structure of ``template``: each tensor leaf
         comes back as a new tensor on the template leaf's device and in its
-        dtype (any other leaf as a numpy array of its dtype)."""
+        dtype (any other leaf as a numpy array of its dtype); with
+        ``shardings`` (the template's structure) as this rank's block of
+        the saved full array."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -107,10 +144,14 @@ class Checkpointer:
         flat = pytree.leaves_with_path(template)
         with np.load(path) as data:
             arrays = [data[k] for k, _ in flat]
+        shs = pytree.leaves(shardings) if shardings is not None else [None] * len(flat)
         leaves = []
-        for (_, leaf), arr in zip(flat, arrays):
+        for (_, leaf), arr, sh in zip(flat, arrays, shs):
             if isinstance(leaf, torch.Tensor):
-                leaves.append(torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype))
+                x = torch.from_numpy(arr)
+                if sh is not None:
+                    x = shard_tensor(x, sh)
+                leaves.append(x.to(device=leaf.device, dtype=leaf.dtype))
             else:
                 leaves.append(arr.astype(np.asarray(leaf).dtype))
         return pytree.unflatten(template, leaves)

@@ -19,11 +19,19 @@ ranks meet through a ``FileStore`` in a new temporary directory, so no
 port is chosen and two launches never meet; a rank that raises or hangs
 fails the launch with its traceback.
 
+:func:`local_world` makes this process a world of one when no process
+group is initialized (``launch/train.py::train``), and :func:`fake_world`
+a world of N ranks in this one process over the ``fake`` backend, whose
+collectives move nothing (``sharding/collectives.py`` records them): the
+dry run's stand-in for the reference's 512 forced host devices
+(``launch/dryrun.py``).  A fake world is only ever this explicit one.
+
 Port of the JAX package's ``launch/mesh.py`` (the launcher is the port's
 own: a JAX process sees all its devices, a torch rank is a process).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing
@@ -36,7 +44,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_local_mesh", "run_local"]
+__all__ = ["make_production_mesh", "make_local_mesh", "run_local", "local_world",
+           "fake_world"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
@@ -74,6 +83,40 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device_type: Optional[str]
     ``cpu``, and the collectives stage its CUDA tensors through host
     memory."""
     return _mesh((data, model), ("data", "model"), device_type)
+
+
+@contextlib.contextmanager
+def local_world():
+    """This process's world: the initialized one, else, for the block, a
+    gloo world of one rank (a ``FileStore`` in a new temporary directory),
+    destroyed after it."""
+    if dist.is_initialized():
+        yield
+        return
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """For the block, a world of ``world_size`` ranks in this process over
+    the ``fake`` backend (``torch.testing._internal.distributed.fake_pg``):
+    this process is rank 0, and every collective on it goes through the
+    collectives' fake transport.  Raises if a group is already
+    initialized."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world needs a process with no process group")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

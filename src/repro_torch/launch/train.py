@@ -1,11 +1,12 @@
 """Training driver: the train step and the fault-tolerant loop.
 
-Port of the JAX package's ``launch/train.py`` on one device, no sharding
-(``rules=None``; ``shard_train_step`` and ``make_rules`` wait for
-``sharding/partition.py``).  ``python -m repro_torch.launch.train --arch
-qwen2-7b --steps 100 [--device cpu]`` trains a (reduced or full) model on
-synthetic Markov data with AdamW or the sTiles arrowhead-preconditioned
-optimizer, on the card unless asked for the CPU.
+Port of the JAX package's ``launch/train.py``.  ``python -m
+repro_torch.launch.train --arch qwen2-7b --steps 100 [--device cpu]``
+trains a (reduced or full) model on synthetic Markov data with AdamW or the
+sTiles arrowhead-preconditioned optimizer, on the card unless asked for the
+CPU, over the world this process belongs to, every rank on the mesh's
+``data`` axis (a world of one when none is initialized:
+``launch/mesh.py::local_world``).
 
 The step runs eagerly: the loss and its gradient by autograd, the
 gradient clipped, preconditioned (arrowhead) and applied by AdamW in
@@ -13,6 +14,27 @@ place.  The arrowhead factorization runs on refresh steps only (``step %
 precond_every == 0``) and the previous factor is kept otherwise; the
 reference computes it every step under ``jit`` and selects it with
 ``jnp.where``, which gives the same results with more launches.
+
+With ``rules`` (``sharding/partition.py``) the step is sharded by
+:func:`shard_train_step`'s state shardings, the reference's GSPMD step
+done by hand (eager autograd and the hand-written kernels are outside any
+sharding propagation):
+
+* state: the parameters and AdamW's ``m``/``v`` are this rank's blocks by
+  ``rules.param_shardings``; the step, the count and the arrowhead's
+  statistics and factor are replicated;
+* compute: every parameter is gathered to full (whole leaves at once), and
+  the loss and gradient taken on this rank's block of the global batch by
+  ``rules.batch_specs`` (ranks along ``model`` take the same block and
+  compute the same thing);
+* gradients: summed over the data-parallel axes in group-rank order
+  (``sharding/collectives.py::ordered_allreduce``, ``data`` then ``pod``)
+  and divided by their size, so every rank holds the same bits; clipped and
+  preconditioned on every rank;
+* update: each rank applies AdamW to its own blocks.
+
+Nothing of the state is written before the preconditioned gradient exists,
+as without rules.
 """
 from __future__ import annotations
 
@@ -24,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, pytree
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -35,8 +58,13 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_lr)
 from repro_torch.optim.arrowhead import ArrowheadPrecond, build_precond
 from repro_torch.runtime.fault_tolerance import TrainLoop
+from repro_torch.sharding.collectives import ordered_allreduce
+from repro_torch.sharding.partition import (NamedSharding, Rules, gather_tree, make_rules,
+                                            shard_tensor, shard_tree)
+from .mesh import local_world, make_local_mesh
 
-__all__ = ["TrainState", "make_train_step", "init_state", "reduce_config", "train", "main"]
+__all__ = ["TrainState", "make_train_step", "shard_train_step", "init_state",
+           "reduce_config", "train", "main"]
 
 
 @dataclasses.dataclass
@@ -78,20 +106,23 @@ def _device_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, torc
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
+def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[Rules] = None,
                     precond: Optional[ArrowheadPrecond] = None,
                     total_steps: int = 10_000):
-    """Returns ``train_step(state, batch) -> (state, metrics)``, which
-    updates ``state`` in place (its parameters, optimizer moments and step;
-    the arrowhead's statistics and factor are replaced).  Nothing of
-    ``state`` is written before the preconditioned gradient exists, so a
-    step that raises before AdamW's update leaves ``state`` as it was and
-    ``TrainLoop``'s retry repeats it exactly.  ``batch`` holds numpy arrays
-    or tensors (moved to the parameters' device); metrics are ``loss`` and
-    ``grad_norm`` (0-d tensors on the device) and ``lr``."""
-    if rules is not None:
-        raise NotImplementedError("sharded training needs sharding/partition.py, which is "
-                                  "not ported yet")
+    """Returns ``train_step(state, batch, shardings=None) -> (state,
+    metrics)``, which updates ``state`` in place (its parameters, optimizer
+    moments and step; the arrowhead's statistics and factor are replaced).
+    Nothing of ``state`` is written before the preconditioned gradient
+    exists, so a step that raises before AdamW's update leaves ``state`` as
+    it was and ``TrainLoop``'s retry repeats it exactly.  ``batch`` holds
+    numpy arrays or tensors (moved to the parameters' device); metrics are
+    ``loss`` and ``grad_norm`` (0-d tensors on the device) and ``lr``.
+
+    With ``rules``, ``shardings`` is required (a ``TrainState`` of
+    ``NamedSharding``, :func:`shard_train_step`'s), ``state`` holds this
+    rank's blocks by it and ``batch`` is the global batch (see the module
+    docstring); without, the state and the batch are whole and no
+    collective runs."""
     api = get_model(cfg)
 
     def value_and_grad(params, batch):
@@ -99,8 +130,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
         loss = api.loss(pytree.unflatten(params, leaves), batch, cfg, run)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        batch = _device_batch(batch, _params_device(state.params))
+    def loss_and_grads(params, batch):
         if run.grad_accum > 1:
             # microbatched gradient accumulation: (B, ...) -> A slices of
             # B/A, one microbatch of activations alive at a time
@@ -109,32 +139,74 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules=None,
             for i in range(a):
                 mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                l, g = value_and_grad(state.params, mb)
+                l, g = value_and_grad(params, mb)
                 g = [x.to(torch.float32) for x in g]
                 gsum = g if gsum is None else [x + y for x, y in zip(gsum, g)]
                 lsum = lsum.to(l.device) + l
-            grads = pytree.unflatten(state.params, [x / a for x in gsum])
-            loss = lsum / a
-        else:
-            loss, g = value_and_grad(state.params, batch)
-            grads = pytree.unflatten(state.params, list(g))
+            return lsum / a, pytree.unflatten(params, [x / a for x in gsum])
+        loss, g = value_and_grad(params, batch)
+        return loss, pytree.unflatten(params, list(g))
+
+    # the data-parallel groups, summed innermost (data) first
+    dp = [] if rules is None or rules.dp_total == 1 else list(reversed(rules.ax.dp))
+
+    def train_step(state: TrainState, batch, shardings: Optional[TrainState] = None
+                   ) -> Tuple[TrainState, Dict]:
+        if (rules is None) != (shardings is None):
+            raise ValueError("a step made with rules takes shard_train_step's shardings, "
+                             "one made without takes none")
+        param_sh = None if shardings is None else shardings.params
+        batch = _device_batch(batch, _params_device(state.params))
+        if rules is not None:
+            batch = {k: shard_tensor(v, NamedSharding(rules.mesh, rules.batch_pspec(v)))
+                     for k, v in batch.items()}
+        loss, grads = loss_and_grads(gather_tree(state.params, param_sh), batch)
+        for axis in dp:
+            group = rules.mesh.get_group(axis)
+            loss = ordered_allreduce(loss, group)
+            grads = pytree.tree_map(lambda g: ordered_allreduce(g, group), grads)
+        if dp:
+            loss = loss / rules.dp_total
+            grads = pytree.tree_map(lambda g: g / rules.dp_total, grads)
         grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
 
         step = int(state.step)
+        stats = factor = None
         if precond is not None:
             stats = precond.update_stats(state.precond, grads)
             factor = (precond.factorize(stats) if step % run.precond_every == 0
                       else state.factor)
             grads = precond.precondition(factor, grads)
             state.precond, state.factor = stats, factor
-
         lr = cosine_lr(step, run.learning_rate,
                        warmup=max(2, total_steps // 10), total=total_steps)
-        adamw_update(grads, state.opt, state.params, lr, weight_decay=run.weight_decay)
+        adamw_update(shard_tree(grads, param_sh), state.opt, state.params, lr,
+                     weight_decay=run.weight_decay)
         state.step = torch.tensor(step + 1, dtype=torch.int32)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def shard_train_step(train_step, mesh, rules: Rules, state: TrainState,
+                     batch_template) -> Tuple[Any, TrainState]:
+    """The state's shardings (from ``state``'s full shapes) and the step
+    bound to them: returns ``(fn, state_shardings)``, ``fn(state, batch)``
+    taking the state as this rank's blocks, ``shard_tree(state,
+    state_shardings)``, and the global batch, which the step cuts by
+    ``rules.batch_specs`` as it comes.  ``batch_template`` is not read: it
+    is there only to keep the reference's signature."""
+    param_sh = rules.param_shardings(state.params)
+    rep = rules.replicated()
+    opt_sh = AdamWState(m=param_sh, v=param_sh, count=rep)
+    pre_sh = None if state.precond is None else pytree.tree_map(lambda _: rep, state.precond)
+    fac_sh = None if state.factor is None else pytree.tree_map(lambda _: rep, state.factor)
+    state_sh = TrainState(param_sh, opt_sh, rep, pre_sh, fac_sh)
+
+    def fn(state, batch):
+        return train_step(state, batch, state_sh)
+
+    return fn, state_sh
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +263,23 @@ def train(arch: Union[str, ModelConfig], steps: int = 50, batch: int = 8, seq: i
         precond = build_precond(state.params, r=run.precond_proj_dim,
                                 band=run.precond_band, seed=seed)
         attach_precond(state, precond)
-    step_fn = make_train_step(cfg, run, None, precond, total_steps=steps)
-
     ckpt = Checkpointer(checkpoint_dir or default_checkpoint_dir(), keep=2)
     stream = MarkovStream(cfg.vocab, seed=seed)
 
     def batch_fn(step):
         return stream.batch(step, batch, seq, _extras(cfg, batch))
 
-    loop = TrainLoop(step_fn=step_fn, batch_fn=batch_fn, checkpointer=ckpt,
-                     checkpoint_every=run.checkpoint_every,
-                     injector=injector, log_every=log_every)
-    final = loop.run(state, 0, steps)
+    with local_world():
+        # every rank of the world on data (the reference's one device is
+        # the world of one)
+        mesh = make_local_mesh(data=dist.get_world_size())
+        rules = make_rules(mesh, cfg, run)
+        step_fn = make_train_step(cfg, run, rules, precond, total_steps=steps)
+        sharded_step, state_sh = shard_train_step(step_fn, mesh, rules, state, batch_fn(0))
+        loop = TrainLoop(step_fn=sharded_step, batch_fn=batch_fn, checkpointer=ckpt,
+                         checkpoint_every=run.checkpoint_every, state_shardings=state_sh,
+                         injector=injector, log_every=log_every)
+        final = loop.run(shard_tree(state, state_sh), 0, steps)
     losses = [float(m["loss"]) for m in loop.history]
     return {"state": final, "losses": losses, "loop": loop, "precond": precond,
             "entropy_floor": stream.entropy_floor, "cfg": cfg, "run": run}

@@ -242,13 +242,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV blocks stream through an online-softmax accumulator and the backward
     pass recomputes score blocks, so live score memory is (B, KV, G, qc, kc)
     in both directions; fully masked causal blocks are skipped (their
-    weights are exact zeros).  ``unroll=True`` is the reference's loop-free
-    lowering for its cost-analysis harness (``launch/dryrun.py``), not
-    ported yet."""
-    if unroll:
-        raise NotImplementedError("unroll=True serves launch/dryrun.py's cost analysis, "
-                                  "which is not ported yet")
+    weights are exact zeros).  ``unroll=True`` is the reference's
+    ``_attention_blocked_unrolled``: the same blocked forward, its gradient
+    taken by autograd through every block (the reference's loop-free
+    lowering for its cost analysis; ``launch/dryrun.py`` counts every loop
+    trip either way)."""
     scale = q.shape[-1] ** -0.5
+    if unroll:
+        return _flash_forward(q * scale, k, v, causal, q_chunk, kv_chunk, q_offset)[0]
     return _Flash.apply(q * scale, k, v, causal, q_chunk, kv_chunk, q_offset)
 
 

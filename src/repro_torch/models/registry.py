@@ -13,14 +13,15 @@ with the dry run (``launch/dryrun.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
+import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from . import mamba2, transformer, whisper, zamba2
 
-__all__ = ["ModelAPI", "get_model", "build_module"]
+__all__ = ["ModelAPI", "get_model", "build_module", "supports_shape", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +82,38 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
 def build_module(cfg: ModelConfig, run: RunConfig, params: Dict[str, Any]) -> nn.Module:
     """The family's ``nn.Module`` over ``params`` (their storage shared)."""
     return get_model(cfg).module(cfg, run, params)
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Returns a skip-reason string, or None if the (arch, shape) cell runs.
+
+    ``long_500k`` needs sub-quadratic attention: it runs for the SSM and
+    hybrid families and is skipped for pure full-attention archs (the
+    dense 500k KV cache per layer is the blow-up the skip rule exists for).
+    """
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return ("full-attention arch: 500k-token dense KV cache per layer "
+                "(see DESIGN.md §6)")
+    return None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Stand-ins for every model input of this cell: tensors on the meta
+    device (shape and dtype, no storage)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": sds((B, S), i32)}
+        if shape.kind == "train":
+            batch["labels"] = sds((B, S), i32)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = sds((B, cfg.n_image_tokens, cfg.d_model), bf16)
+        if cfg.family == "encdec":
+            batch["frame_embeds"] = sds((B, cfg.encoder_seq, cfg.d_model), bf16)
+        return batch
+    # decode: one new token against a seq_len cache
+    return {"token": sds((B, 1), i32), "pos": sds((), i32)}

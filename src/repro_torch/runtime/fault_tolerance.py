@@ -19,8 +19,8 @@ recovery machinery must catch.
 
 Port of the JAX package's ``runtime/fault_tolerance.py``: the same seeded
 tiles, entries and decisions, on torch tensors.  ``TrainLoop`` restores
-onto the template state's devices; the reference's elastic re-meshing
-(``state_shardings``) waits for ``sharding/partition.py``.
+onto the template state's devices, and with ``state_shardings`` onto this
+rank's blocks of another mesh (the reference's elastic re-meshing).
 """
 from __future__ import annotations
 
@@ -239,7 +239,9 @@ class TrainLoop:
     ``batch_fn(step)`` must be a function of the step alone, so a replay
     sees the same data.  A step that updates its state in place must raise
     before it writes (as the injector does), or leave the retry to a
-    restore."""
+    restore.  With ``state_shardings`` (a sharded step's, ``launch/train.py::
+    shard_train_step``) the state is this rank's blocks: checkpoints gather
+    it and a restore places this rank's blocks again."""
     step_fn: Callable
     batch_fn: Callable                       # step -> host batch
     checkpointer: Any                        # checkpoint.checkpointer.Checkpointer
@@ -247,6 +249,7 @@ class TrainLoop:
     max_step_retries: int = 2
     injector: Optional[FailureInjector] = None
     straggler: StragglerMonitor = dataclasses.field(default_factory=StragglerMonitor)
+    state_shardings: Optional[Any] = None
     log_every: int = 10
     log_fn: Callable = print
 
@@ -264,7 +267,7 @@ class TrainLoop:
                 restored = self.checkpointer.latest_step()
                 if restored is None:
                     raise
-                state = self.checkpointer.restore(state)
+                state = self.checkpointer.restore(state, shardings=self.state_shardings)
                 step = restored
                 continue
             dt = time.perf_counter() - t0
@@ -276,8 +279,8 @@ class TrainLoop:
                     f"{k}={float(v):.4f}" for k, v in metrics.items()))
             step += 1
             if step % self.checkpoint_every == 0:
-                self.checkpointer.save(step, state)
-        self.checkpointer.save(step, state, block=True)
+                self.checkpointer.save(step, state, shardings=self.state_shardings)
+        self.checkpointer.save(step, state, block=True, shardings=self.state_shardings)
         self.history = history
         return state
 

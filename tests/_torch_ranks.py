@@ -18,8 +18,8 @@ from repro_torch.core.concurrent import concurrent_factorize, concurrent_logdet,
 from repro_torch.core.distributed import assemble_factor, distributed_factorize, partition_banded
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.runtime.telemetry import count_launches
-from repro_torch.sharding.collectives import (all_gather, quantized_allreduce, ring_allreduce,
-                                              tree_allreduce)
+from repro_torch.sharding.collectives import (all_gather, all_to_all, ordered_allreduce,
+                                              quantized_allreduce, ring_allreduce, tree_allreduce)
 
 
 def _errors(*calls):
@@ -48,7 +48,10 @@ def collectives(data, qdata, device="cpu"):
     out = {"ring": ring_allreduce(x, group),
            "quantized": quantized_allreduce(qdata[rank].to(device), group),
            "gather": all_gather(x[None], group),
-           "gather_bool": all_gather((x > 0)[None], group)}
+           "gather_bool": all_gather((x > 0)[None], group),
+           "ordered": ordered_allreduce(x, group),
+           "to_all": all_to_all(torch.arange(2 * world, dtype=torch.float32).to(device)
+                                + 100 * rank, group)}
     if world & (world - 1):
         out["tree_error"] = _errors(lambda: tree_allreduce(x, group))[0]
     else:
@@ -135,3 +138,165 @@ def strand_peers():
     """Rank 0 waits at an all-reduce that no other rank joins."""
     if dist.get_rank() == 0:
         dist.all_reduce(torch.ones(1))
+
+
+# ---------------------------------------------------------------------------
+# the distributed-training path (optim/compress.py, runtime/dp_compressed.py,
+# sharding/partition.py and pipeline.py, launch/train.py with rules,
+# checkpoint/checkpointer.py's sharded save and elastic restore)
+# ---------------------------------------------------------------------------
+
+def compress(grads, ef, params0, batch, steps):
+    """``ef_compress_allreduce`` of this rank's row of ``grads`` and ``ef``
+    over the ``data`` axis of a ``(world, 1)`` mesh, then ``steps`` steps
+    of ``make_compressed_dp_step`` on a least-squares loss from
+    ``params0`` on the global ``batch``."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.compress import ef_compress_allreduce
+    from repro_torch.runtime.dp_compressed import make_compressed_dp_step
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_local_mesh(world, 1)
+    mean, new_ef = ef_compress_allreduce({k: v[rank] for k, v in grads.items()},
+                                         {k: v[rank] for k, v in ef.items()},
+                                         mesh.get_group("data"))
+
+    def loss_fn(params, b):
+        return torch.mean((b["x"] @ params["w"] - b["y"]) ** 2)
+
+    params = {"w": params0.clone()}
+    step, ef_init_fn = make_compressed_dp_step(loss_fn, mesh, axis="data", lr=0.05)
+    state = (params, adamw_init(params), ef_init_fn(params))
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    return {"mean": mean, "ef": new_ef, "losses": torch.stack(losses), "w": state[0]["w"],
+            "ef_dp": state[2]["w"]}
+
+
+def _sharded_run(cfg, run, params, optimizer, mesh_shape):
+    from repro_torch.launch.train import (TrainState, attach_precond, make_train_step,
+                                          shard_train_step)
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.arrowhead import build_precond
+    from repro_torch.sharding.partition import make_rules
+    from repro_torch import pytree
+    mesh = make_local_mesh(*mesh_shape)
+    rules = make_rules(mesh, cfg, run)
+    # a copy of the launcher's tensors (the spawned ranks share their
+    # memory), since the step updates the state in place
+    params = pytree.tree_map(torch.clone, params)
+    state = TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+    precond = None
+    if optimizer == "arrowhead":
+        precond = build_precond(params, r=run.precond_proj_dim, band=run.precond_band, seed=0)
+        attach_precond(state, precond)
+    step = make_train_step(cfg, run, rules, precond, total_steps=10)
+    return mesh, rules, state, step, precond
+
+
+def _flat(state):
+    from repro_torch import pytree
+    return dict(pytree.leaves_with_path(state))
+
+
+def sharded_train(cfg, run, params, batches, optimizers, mesh_shape, ckpt_dir=None,
+                  save_after=None):
+    """For each optimizer: ``make_train_step(rules=)`` through
+    ``shard_train_step`` on a mesh of ``mesh_shape`` from the full
+    ``params`` over ``batches``; this rank's blocks of the state after
+    every step (by path), the metrics, the blocks' placements; with
+    ``ckpt_dir`` a sharded save after ``save_after`` steps (the first
+    optimizer's run), in the writer thread while the steps go on, waited
+    for at the end, and the same state saved synchronously into
+    ``ckpt_dir + "_sync"`` by a checkpointer of its own."""
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.train import shard_train_step
+    from repro_torch.sharding.partition import shard_tree
+    out = {}
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir is not None else None
+    for i, opt in enumerate(optimizers):
+        mesh, rules, state, step, _ = _sharded_run(cfg, run, params, opt, mesh_shape)
+        fn, sh = shard_train_step(step, mesh, rules, state, batches[0])
+        state = shard_tree(state, sh)
+        states, metrics = [], []
+        for s, b in enumerate(batches):
+            if ckpt_dir is not None and i == 0 and s == save_after:
+                ckpt.save(s, state, shardings=sh)
+                Checkpointer(ckpt_dir + "_sync", async_save=False).save(s, state, shardings=sh)
+            state, m = fn(state, b)
+            states.append({k: v.clone() for k, v in _flat(state).items()})
+            metrics.append({"loss": m["loss"], "grad_norm": m["grad_norm"]})
+        out[opt] = {"states": states, "metrics": metrics, "placements": {
+            p: tuple(str(x) for x in s.placements) for p, s in pytree.leaves_with_path(sh)}}
+    if ckpt is not None:
+        ckpt.wait()
+    return out
+
+
+def train_world(cfg, steps, ckpt_dir):
+    """``launch/train.py::train`` of ``cfg`` (as it is) on this world
+    (every rank on ``data``) on the CPU, checkpointing into ``ckpt_dir``:
+    the losses and the checkpointed steps."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.train import train
+    out = train(cfg, steps=steps, batch=4, seq=32, reduced=False, checkpoint_dir=ckpt_dir,
+                device="cpu", log_every=0)
+    return {"losses": torch.tensor(out["losses"], dtype=torch.float64),
+            "steps": Checkpointer(ckpt_dir).all_steps()}
+
+
+def elastic_restore(cfg, run, params, mesh_shape, ckpt_dir, batch):
+    """The latest checkpoint in ``ckpt_dir`` restored onto this rank's
+    blocks of a mesh of ``mesh_shape`` (``restore(shardings=)``, through
+    ``TrainLoop(state_shardings=)``'s hard-failure path), the target
+    placements, then one more step on ``batch``."""
+    from repro_torch import pytree
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.train import shard_train_step
+    from repro_torch.runtime.fault_tolerance import FailureInjector, TrainLoop
+    from repro_torch.sharding.partition import shard_tree
+    mesh, rules, template, step, _ = _sharded_run(cfg, run, params, "adamw", mesh_shape)
+    fn, sh = shard_train_step(step, mesh, rules, template, batch)
+    ckpt = Checkpointer(ckpt_dir, async_save=False)
+    restored = ckpt.restore(shard_tree(template, sh), shardings=sh)
+    out = {"restored": {k: v.clone() for k, v in _flat(restored).items()},
+           "step": int(restored.step),
+           "placements": {p: tuple(str(x) for x in s.placements)
+                          for p, s in pytree.leaves_with_path(sh)}}
+    # a hard failure at the restored step: TrainLoop restores by the
+    # shardings and takes the step again
+    start = int(restored.step)
+    loop = TrainLoop(step_fn=fn, batch_fn=lambda s: batch, checkpointer=ckpt,
+                     checkpoint_every=100, max_step_retries=0, state_shardings=sh,
+                     injector=FailureInjector({start: 1}), log_every=0,
+                     log_fn=lambda msg: None)
+    state = loop.run(shard_tree(template, sh), start, 1)
+    out["after"] = {k: v.clone() for k, v in _flat(state).items()}
+    out["loss"] = loop.history[0]["loss"]
+    return out
+
+
+def pipeline(ws, x, n_stages, n_microbatches):
+    """``pipeline_forward`` of a tanh stack over the ``model`` axis of a
+    ``(1, world)`` mesh: the output, and this stage's gradient of
+    ``(out ** 2).sum()`` with respect to its slice of the stacked
+    weights."""
+    from repro_torch.sharding.pipeline import pipeline_forward, split_stages
+    mesh = make_local_mesh(1, dist.get_world_size())
+
+    def stage_fn(wstack, h):
+        for w in wstack:
+            h = torch.tanh(h @ w)
+        return h
+
+    w = ws.clone().requires_grad_()
+    out = pipeline_forward(stage_fn, split_stages(w, n_stages), x, mesh, axis="model",
+                           n_microbatches=n_microbatches)
+    (g,) = torch.autograd.grad((out ** 2).sum(), w)
+    s = dist.get_rank(mesh.get_group("model"))
+    per = ws.shape[0] // n_stages
+    return {"out": out.detach(), "grad": g[s * per:(s + 1) * per], "stage": s,
+            "grad_elsewhere": torch.cat([g[:s * per], g[(s + 1) * per:]]).abs().max()
+            if n_stages > 1 else torch.zeros(())}

@@ -1,8 +1,9 @@
 """The port's ``sharding/collectives.py`` on gloo worlds of 1, 2, 3 and 4
 ranks (``launch/mesh.py::run_local``, the plain ``geadd`` on the CPU):
-``tree_allreduce``, ``ring_allreduce``, ``quantized_allreduce`` and
-``all_gather`` against numpy on the same seeded rows, the tree bit for bit
-the same on every rank; at world 4 each against the JAX package's
+``tree_allreduce``, ``ring_allreduce``, ``quantized_allreduce``,
+``all_gather``, ``all_to_all`` and ``ordered_allreduce`` against numpy on
+the same seeded rows, the tree and the ordered sum bit for bit the same on
+every rank; at world 4 each against the JAX package's
 collectives on 4 forced XLA CPU devices (one ``tests/_mdev.py`` subprocess
 for the file) within 1e-6.  A world spawns once for all its checks."""
 import json
@@ -107,3 +108,35 @@ def test_all_gather_stacks_the_ranks_in_order(ranks, world):
     for o in ranks[world]:
         assert torch.equal(o["gather"], torch.from_numpy(DATA[:world]))
         assert torch.equal(o["gather_bool"], torch.from_numpy(DATA[:world] > 0))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_all_to_all_sends_block_i_to_rank_i(ranks, world):
+    for r, o in enumerate(ranks[world]):
+        want = np.concatenate([[100 * i + 2 * r, 100 * i + 2 * r + 1] for i in range(world)])
+        assert torch.equal(o["to_all"], torch.from_numpy(want.astype(np.float32)))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ordered_allreduce_adds_in_rank_order_on_every_rank(ranks, world):
+    # 5 elements: worlds 3 and 4 pad the chunks
+    want = DATA[0]
+    for i in range(1, world):
+        want = want + DATA[i]
+    for o in ranks[world]:
+        assert torch.equal(o["ordered"], torch.from_numpy(want))
+
+
+def test_ordered_allreduce_on_a_fake_world_records_its_two_collectives():
+    from repro_torch.launch.mesh import fake_world, make_local_mesh
+    from repro_torch.sharding import collectives
+    collectives.fake_records.clear()
+    with fake_world(8):
+        group = make_local_mesh(8, 1).get_group("data")
+        out = collectives.ordered_allreduce(torch.ones(3, 7), group)
+    assert out.shape == (3, 7)
+    # 21 elements padded to 8 chunks of 3
+    assert collectives.fake_records == [
+        {"op": "all-to-all", "dtype": "float32", "shape": (24,), "group": 8},
+        {"op": "all-gather", "dtype": "float32", "shape": (24,), "group": 8}]
+    collectives.fake_records.clear()

@@ -1,0 +1,105 @@
+"""The port's dry run (``launch/dryrun.py``) and the registry's
+``input_specs`` / ``supports_shape``: every (arch × shape) cell's input
+stand-ins (shapes and dtypes) and skip reason equal the JAX package's;
+``collective_bytes`` on records built from the reference test's HLO lines
+(``tests/test_train_serve_e2e.py::test_collective_bytes_parser``) gives its
+numbers; and ``python -m repro_torch.launch.dryrun --arch mamba2-1.3b
+--shape long_500k --no-extrapolate`` on the CPU (the reference test's
+cell) exits 0 with status ok, under 16 GiB a device as the reference test
+asks, the reference's record keys, and argument bytes equal to the
+reference rules' shard bytes of that cell on the 16 × 16 mesh (parameters,
+caches, the token and the position, from one ``tests/_mdev.py`` subprocess
+with 256 forced devices, ``jax.eval_shape``)."""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from _mdev import REPO, run_multidevice
+from repro.configs.base import SHAPES as JSHAPES
+from repro.models import registry as jregistry
+from repro import configs as jconfigs
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch.dryrun import collective_bytes
+from repro_torch.models.registry import input_specs, supports_shape
+
+_SHARD_BYTES = """
+import numpy as np, jax
+from jax.sharding import Mesh
+from repro import configs
+from repro.configs.base import RunConfig, SHAPES
+from repro.models.registry import get_model, input_specs
+from repro.sharding.partition import make_rules
+cfg, shape = configs.get("mamba2-1.3b"), SHAPES["long_500k"]
+mesh = Mesh(np.array(jax.devices()).reshape(16, 16), ("data", "model"))
+rules = make_rules(mesh, cfg, RunConfig(), shape)
+api = get_model(cfg)
+params = jax.eval_shape(lambda k: api.init(k, cfg, shape.seq_len), jax.random.PRNGKey(0))
+caches = jax.eval_shape(lambda: api.init_cache(cfg, shape.global_batch, shape.seq_len))
+spec = input_specs(cfg, shape)
+def nbytes(tree, shardings):
+    return sum(int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
+               for x, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shardings)))
+total = (nbytes(params, rules.param_shardings(params)) + nbytes(caches, rules.cache_shardings(caches))
+         + nbytes(spec["token"], rules.batch_specs(spec["token"]))
+         + nbytes(spec["pos"], rules.replicated()))
+print("BYTES", total)
+"""
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_input_specs_and_supports_shape_equal_the_reference(arch):
+    cfg, jcfg = configs.get(arch), jconfigs.get(arch)
+    for name in SHAPES:
+        assert supports_shape(cfg, SHAPES[name]) == jregistry.supports_shape(jcfg, JSHAPES[name])
+        got, want = input_specs(cfg, SHAPES[name]), jregistry.input_specs(jcfg, JSHAPES[name])
+        assert got.keys() == want.keys()
+        for k in want:
+            assert tuple(got[k].shape) == tuple(want[k].shape), (name, k)
+            assert str(got[k].dtype).replace("torch.", "") == str(want[k].dtype), (name, k)
+            assert got[k].device.type == "meta"
+
+
+def test_collective_bytes_of_the_reference_test_lines():
+    # %ar f32[1024,16] all-reduce, groups [4,4]; %ag bf16[512] all-gather,
+    # [8,2]; %rs f32[8] reduce-scatter, [2,8]; %ags (f32[64]) all-gather-start,
+    # [1,4]; %cp f32[4] collective-permute (no groups: 1); the -done and the
+    # add carry no bytes
+    records = [
+        {"op": "all-reduce", "dtype": "float32", "shape": (1024, 16), "group": 4},
+        {"op": "all-gather", "dtype": "bfloat16", "shape": (512,), "group": 2},
+        {"op": "reduce-scatter", "dtype": "float32", "shape": (8,), "group": 8},
+        {"op": "all-gather", "dtype": "float32", "shape": (64,), "group": 4},
+        {"op": "collective-permute", "dtype": "float32", "shape": (4,), "group": 1},
+    ]
+    out = collective_bytes(records)
+    assert out["all-reduce"] == 1024 * 16 * 4
+    assert out["all-gather"] == 512 * 2 / 2 + 64 * 4 / 4
+    assert out["reduce-scatter"] == 8 * 4 * 8
+    assert out["collective-permute"] == 4 * 4
+    assert out["total"] == sum(v for k, v in out.items() if k != "total")
+
+
+def test_dryrun_cell_on_the_cpu(tmp_path):
+    stdout = run_multidevice(_SHARD_BYTES, n_devices=256)
+    want = int(stdout.split("BYTES")[1].split()[0])
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mamba2-1.3b",
+         "--shape", "long_500k", "--no-extrapolate", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(tmp_path / "mamba2-1.3b_long_500k_single.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok"
+    assert rec["mesh"] == "16x16"
+    assert rec["memory"]["total_per_device_gib"] < 16.0
+    assert rec["memory"]["argument_bytes"] == want
+    for key in ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"):
+        assert rec["memory"][key] >= 0
+    assert rec["cost_scanned"]["flops"] > 0 and rec["cost_scanned"]["bytes"] > 0
+    # the gather-compute step gathers every sharded parameter over its axis
+    assert rec["collectives_scanned"]["all-gather"] > 0

@@ -108,9 +108,21 @@ def test_flash_backward_keeps_no_score_matrix():
 
 
 def test_unroll_waits_for_the_dry_run():
+    """``chunked_attention(unroll=True)`` (the dry run's loop-free path)
+    against the reference's ``_attention_blocked_unrolled``: the output and
+    ``jax.grad`` of it for one random cotangent, on every flash case, at the
+    file's flash tolerance."""
     q, k, v = _qkv(0)
-    with pytest.raises(NotImplementedError, match="dryrun"):
-        L.chunked_attention(_t(q), _t(k), _t(v), unroll=True)
+    do = _rng(1).standard_normal(q.shape).astype(np.float32)
+    for causal, qc, kc in FLASH_CASES:
+        kw = dict(causal=causal, q_chunk=qc, kv_chunk=kc, unroll=True)
+        tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+        got = L.chunked_attention(tq, tk, tv, **kw)
+        _close(got, JL.chunked_attention(q, k, v, **kw))
+        f = lambda q_, k_, v_: jnp.sum(JL.chunked_attention(q_, k_, v_, **kw) * do)
+        want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+        for g, w in zip(torch.autograd.grad((got * _t(do)).sum(), (tq, tk, tv)), want):
+            _close(g, w)
 
 
 @pytest.mark.parametrize("cache_len", [5, "per_batch"])

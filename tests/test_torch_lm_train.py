@@ -6,13 +6,15 @@ converted state, one and three steps against the reference's
 loss and grad norm at rtol 1e-5, parameters and AdamW moments at rtol 1e-4
 relative to each leaf's largest entry, the arrowhead's statistics and
 factor at 1e-4; ``token_batch`` and ``MarkovStream`` bit for bit; AdamW's
-pieces; the checkpointer (roundtrip, keep-k, async, the reference's
+pieces; the checkpointer (roundtrip, keep-k, async, a sharded save's
+async write in a world of one, the reference's
 ``TrainState`` paths, a params checkpoint written by either package read by
 the other); ``TrainLoop`` retry and restore (``tests/test_substrate.py``'s
 cases) and ``train()`` end to end; every model family (moe, ssm, hybrid,
 encdec) through ``train()`` under both optimizers and through ``Server``,
 and every arch id through both command lines, reduced, on the CPU."""
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -130,8 +132,41 @@ def test_grad_accumulation_matches_one_batch():
 
 
 def test_sharded_steps_wait_for_the_partition_rules():
-    with pytest.raises(NotImplementedError, match="sharding/partition.py"):
-        T.make_train_step(ModelConfig(**SMALL), RunConfig(), rules=object())
+    """``make_train_step(rules=)`` through ``shard_train_step`` at world 1
+    (``launch/mesh.py::local_world``) equals ``rules=None`` bit for bit,
+    three steps of each optimizer: loss, grad norm and every state leaf."""
+    from repro_torch.launch.mesh import local_world, make_local_mesh
+    from repro_torch.sharding.partition import make_rules, shard_tree
+    cfg = ModelConfig(**SMALL)
+    stream = MarkovStream(128, seed=0)
+    batches = [stream.batch(s, 2, 16) for s in range(STEPS)]
+    for opt in ("adamw", "arrowhead"):
+        run = RunConfig(optimizer=opt, **RUN)
+        states, steps = [], []
+        for _ in range(2):
+            st = T.init_state(torch.Generator().manual_seed(0), cfg, run)
+            pre = None
+            if opt == "arrowhead":
+                pre = build_precond(st.params, r=8, band=2, seed=0)
+                T.attach_precond(st, pre)
+            states.append(st)
+            steps.append(T.make_train_step(cfg, run, None, pre, total_steps=10))
+        with local_world():
+            mesh = make_local_mesh()
+            rules = make_rules(mesh, cfg, run)
+            pre = build_precond(states[1].params, r=8, band=2, seed=0) if opt == "arrowhead" \
+                else None
+            fn, sh = T.shard_train_step(T.make_train_step(cfg, run, rules, pre, total_steps=10),
+                                        mesh, rules, states[1], batches[0])
+            states[1] = shard_tree(states[1], sh)
+            for b in batches:
+                states[0], m0 = steps[0](states[0], b)
+                states[1], m1 = fn(states[1], b)
+                assert torch.equal(m0["loss"], m1["loss"])
+                assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+        for (p0, a), (p1, b) in zip(pytree.leaves_with_path(states[0]),
+                                    pytree.leaves_with_path(states[1])):
+            assert p0 == p1 and torch.equal(a, b), p0
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +246,32 @@ def test_checkpoint_async(tmp_path):
     ck.wait()
     assert ck.all_steps() == [1]
     assert torch.equal(ck.restore({"w": w})["w"], torch.ones(4))
+
+
+def test_a_sharded_save_in_a_world_of_one_is_written_in_the_writer_thread(tmp_path,
+                                                                         monkeypatch):
+    """``save(shardings=)`` in a world of one returns before its write (the
+    write waits until it has), as an unsharded save does."""
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.launch.mesh import local_world, make_local_mesh
+    from repro_torch.sharding.partition import NamedSharding, PartitionSpec
+    returned, seen, savez = threading.Event(), [], np.savez
+
+    def late_savez(*args, **kw):
+        seen.append(returned.wait(30))
+        savez(*args, **kw)
+
+    monkeypatch.setattr(C.np, "savez", late_savez)
+    with local_world():
+        sh = {"w": NamedSharding(make_local_mesh(), PartitionSpec("data"))}
+        ck = Checkpointer(str(tmp_path), keep=1)
+        w = torch.ones(4)
+        ck.save(1, {"w": w}, shardings=sh)
+        returned.set()
+        w += 1
+        out = ck.restore({"w": w}, shardings=sh)
+    assert seen == [True]
+    assert torch.equal(out["w"], torch.ones(4))
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):
