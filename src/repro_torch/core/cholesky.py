@@ -597,6 +597,8 @@ def _factorize(Dr, R, C, grid: TileGrid, call: Callable, regularize,
         return out
 
     Dr_L, R_L, C_L, info = run_ladder(Dr, R, C, grid, kept, policy, gather)
+    if len(words) == 1:                 # the clean path: its one attempt's word
+        return CholeskyFactor(BandedCTSF(grid, Dr_L, R_L, C_L), words[0], info)
     final = words[0]
     for n, word in enumerate(words[1:], start=2):
         final = torch.where((info.attempts == n)[..., None], word, final)

@@ -312,16 +312,19 @@ def run_ladder(Dr: torch.Tensor, R: torch.Tensor, C: torch.Tensor, grid,
     scale = diag_scale(Dr, C, grid)
     ok = status_ok(sv, scale, policy)
     first_bad = sv[..., 2].to(torch.int32)
+    # made before the readback, while the sweep still runs, so that the
+    # clean path launches nothing after it
+    attempts = torch.ones(ok.shape, dtype=torch.int32, device=ok.device)
+    tau_app = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+    clean = torch.zeros_like(attempts)
     if bool(gather(ok).all()):          # the clean path's one readback
         if telemetry.enabled():
             # counted off the readback the ladder pays anyway
             n = gather(ok).numel()
             telemetry.inc("robustness.attempts", n)
             telemetry.inc("robustness.status", n, outcome="ok")
-        zeros = torch.zeros(ok.shape, dtype=torch.int32, device=ok.device)
-        info = FactorInfo(status=zeros, attempts=zeros + 1,
-                          tau=torch.zeros(ok.shape, dtype=torch.float32, device=ok.device),
-                          min_pivot=sv[..., 0], first_bad_tile=first_bad, matrix=None)
+        info = FactorInfo(status=clean, attempts=attempts, tau=tau_app, min_pivot=sv[..., 0],
+                          first_bad_tile=first_bad, matrix=None)
         return dr, r, c, info
     shifts = [torch.tensor(tau, dtype=torch.float32, device=scale.device) * scale
               for tau in policy.taus]
@@ -329,8 +332,6 @@ def run_ladder(Dr: torch.Tensor, R: torch.Tensor, C: torch.Tensor, grid,
         shifts.append(gershgorin_shift(Dr, R, C, grid)
                       + torch.tensor(policy.gershgorin_margin, dtype=torch.float32,
                                      device=scale.device) * scale)
-    tau_app = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
-    attempts = torch.ones(ok.shape, dtype=torch.int32, device=ok.device)
     for shift in shifts:
         failed = ~ok
         sh = torch.where(failed, shift, torch.zeros_like(shift))

@@ -4,8 +4,11 @@ hardware.
 For every (architecture × input shape × mesh) cell this runs the port's
 real step — ``train_step`` with ``rules`` (loss + grad + AdamW, sharded as
 ``launch/train.py`` shards it) for train shapes, ``prefill`` for prefill
-shapes, ``decode_step`` for decode shapes — as rank 0 of the production
-mesh of a fake world of 256 or 512 ranks, and records:
+shapes, ``decode_step`` for decode shapes — as one rank of the
+production mesh of a fake world of 256 or 512 ranks, the last of the first
+``model`` group (``rank``: under the causal sequence split its query block
+visits every key block, so it computes the most; the others hold the same
+shapes), and records:
 
   * ``memory``: this rank's argument bytes (the state's, caches' and
     batch's blocks by the rules), output bytes, and the peak of live bytes
@@ -19,8 +22,8 @@ mesh of a fake world of 256 or 512 ranks, and records:
     2-layer runs of the cell.
 
 Stand-in for the reference's 512 forced XLA host devices: a process group
-of the ``fake`` backend (``launch/mesh.py::fake_world``, this process rank
-0), whose collectives move nothing and are recorded by
+of the ``fake`` backend (``launch/mesh.py::fake_world``, this process the
+rank above), whose collectives move nothing and are recorded by
 ``sharding/collectives.py``'s fake transport, and ``FakeTensorMode``
 tensors on ``--device``: shapes, dtypes and devices without storage, so
 nothing is allocated and no card is needed.  The default device is
@@ -34,15 +37,15 @@ while a tensor on it does (autograd's saved tensors included).
 
 What it counts that XLA's cost analysis does not: every trip of every
 loop (layers, attention blocks, loss chunks, SSD chunks), so the scanned
-FLOPs and collective bytes equal the extrapolated ones (the unfused bytes
-need not: a stacked leaf's per-layer slice has a full-size gradient in the
-backward, bytes that grow with the square of the depth).  What it does not
-count: fusion — the bytes are every operation's inputs and outputs,
-unfused, an upper bound of what a fused step moves; and the peak is eager
-PyTorch's without its caching allocator's rounding.  The port's step gathers every parameter
-(and cache) to full and computes unsplit on each rank (``sharding/
-partition.py``), so the memory and the FLOPs are that design's, not the
-reference's Megatron split.
+FLOPs, collective bytes and unfused bytes equal the extrapolated ones (the
+layer loop takes its slices by one ``unbind``).  What it does not count:
+fusion — the bytes are every operation's inputs and outputs, unfused, an
+upper bound of what a fused step moves; and the peak is eager PyTorch's
+without its caching allocator's rounding.  A train cell runs the split
+step (``sharding/split.py``): each layer gathered over ``data`` inside the
+layer loop, the compute split over ``model`` (TP, SP, EP; the SSD mixer
+whole), so its memory, FLOPs and collectives are the split's; prefill and
+decode gather every parameter (and cache) whole and compute unsplit.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --multi-pod
@@ -61,6 +64,7 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, pytree
 from repro_torch.configs.base import ModelConfig, RunConfig, SHAPES, ShapeConfig
@@ -69,7 +73,7 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.sharding import collectives
 from repro_torch.sharding.partition import (Rules, gather_tree, make_rules, shard_shape,
                                             shard_tensor)
-from .mesh import fake_world, make_production_mesh
+from .mesh import PRODUCTION_SHAPES, fake_world, make_production_mesh
 from .train import TrainState, make_train_step, shard_train_step
 
 __all__ = ["dryrun_cell", "collective_bytes", "default_device", "main"]
@@ -280,13 +284,13 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 "mesh": "2x16x16" if multi_pod else "16x16",
                 "status": "skipped", "reason": skip}
 
-    with fake_world(512 if multi_pod else 256):
+    with fake_world(512 if multi_pod else 256, rank=PRODUCTION_SHAPES[multi_pod][-1] - 1):
         mesh = make_production_mesh(multi_pod=multi_pod)
         rules = make_rules(mesh, cfg, run, shape)
         rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                                "mesh": "x".join(str(int(s)) for s in mesh.mesh.shape),
                                "status": "ok", "device": device,
-                               "run": dataclasses.asdict(run)}
+                               "rank": dist.get_rank(), "run": dataclasses.asdict(run)}
         t0 = time.time()
         got = _run_cell(cfg, shape, run, rules, device)
         rec["run_s"] = round(time.time() - t0, 1)

@@ -44,8 +44,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_production_mesh", "make_local_mesh", "run_local", "local_world",
-           "fake_world"]
+__all__ = ["PRODUCTION_SHAPES", "make_production_mesh", "make_local_mesh", "run_local",
+           "local_world", "fake_world"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
@@ -67,13 +67,16 @@ def _mesh(shape: Sequence[int], names: Sequence[str], device_type: Optional[str]
                             mesh_dim_names=tuple(names))
 
 
+# the production mesh's shape, single pod (False) and multi-pod (True)
+PRODUCTION_SHAPES = {False: (16, 16), True: (2, 16, 16)}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] = None):
     """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
     ``(2, 16, 16)`` over ``("pod", "data", "model")``; raises unless the
     world has exactly that many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mesh(shape, axes, device_type)
+    return _mesh(PRODUCTION_SHAPES[multi_pod], axes, device_type)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device_type: Optional[str] = None):
@@ -103,16 +106,16 @@ def local_world():
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
+def fake_world(world_size: int, rank: int = 0):
     """For the block, a world of ``world_size`` ranks in this process over
     the ``fake`` backend (``torch.testing._internal.distributed.fake_pg``):
-    this process is rank 0, and every collective on it goes through the
-    collectives' fake transport.  Raises if a group is already
+    this process is rank ``rank``, and every collective on it goes through
+    the collectives' fake transport.  Raises if a group is already
     initialized."""
     if dist.is_initialized():
         raise RuntimeError("fake_world needs a process with no process group")
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
     try:
         yield
     finally:

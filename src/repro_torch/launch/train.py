@@ -16,21 +16,29 @@ reference computes it every step under ``jit`` and selects it with
 ``jnp.where``, which gives the same results with more launches.
 
 With ``rules`` (``sharding/partition.py``) the step is sharded by
-:func:`shard_train_step`'s state shardings, the reference's GSPMD step
-done by hand (eager autograd and the hand-written kernels are outside any
-sharding propagation):
+:func:`shard_train_step`'s state shardings and split by the rules' split
+context (``sharding/split.py``), the reference's GSPMD step done by hand
+(eager autograd and the hand-written kernels are outside any sharding
+propagation):
 
 * state: the parameters and AdamW's ``m``/``v`` are this rank's blocks by
   ``rules.param_shardings``; the step, the count and the arrowhead's
   statistics and factor are replicated;
-* compute: every parameter is gathered to full (whole leaves at once), and
-  the loss and gradient taken on this rank's block of the global batch by
-  ``rules.batch_specs`` (ranks along ``model`` take the same block and
-  compute the same thing);
-* gradients: summed over the data-parallel axes in group-rank order
-  (``sharding/collectives.py::ordered_allreduce``, ``data`` then ``pod``)
-  and divided by their size, so every rank holds the same bits; clipped and
-  preconditioned on every rank;
+* compute: the loss of this rank's block of the global batch by
+  ``rules.batch_specs``, the model given the split context as
+  ``constrain=``: each layer gathered over the data-parallel axes inside
+  the layer loop and freed after it (under ``remat="full"`` gathered again
+  in the backward), the attention, MLP, experts, embedding and loss split
+  over ``model`` (TP, SP, EP; the SSD mixer whole, the one exception);
+* gradients: a sharded leaf's gradient leaves its layer as this rank's
+  block by the ordered reduce-scatter; a leaf replicated over a data-parallel axis is
+  summed over it in group-rank order (``sharding/collectives.py::
+  ordered_allreduce``, ``data`` then ``pod``; a leaf ``model`` replicates
+  and a rank uses in part was summed over ``model`` inside the backward);
+  all are divided by the data-parallel size, so replicated leaves are the
+  same bits on every rank; the global norm is the ranks' partial sums
+  added over the mesh (``optim/adamw.py::global_norm``); the arrowhead
+  sketches from the blocks that own its coordinates and lifts into them;
 * update: each rank applies AdamW to its own blocks.
 
 Nothing of the state is written before the preconditioned gradient exists,
@@ -59,8 +67,8 @@ from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
 from repro_torch.optim.arrowhead import ArrowheadPrecond, build_precond
 from repro_torch.runtime.fault_tolerance import TrainLoop
 from repro_torch.sharding.collectives import ordered_allreduce
-from repro_torch.sharding.partition import (NamedSharding, Rules, gather_tree, make_rules,
-                                            shard_tensor, shard_tree)
+from repro_torch.sharding.partition import (NamedSharding, Rules, make_rules, shard_tensor,
+                                            shard_tree, spec_axes)
 from .mesh import local_world, make_local_mesh
 
 __all__ = ["TrainState", "make_train_step", "shard_train_step", "init_state",
@@ -124,13 +132,16 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[Rules] = N
     docstring); without, the state and the batch are whole and no
     collective runs."""
     api = get_model(cfg)
+    split = rules.split() if rules is not None else None
 
-    def value_and_grad(params, batch):
+    def value_and_grad(params, batch, specs):
         leaves = [p.detach().requires_grad_() for p in pytree.leaves(params)]
-        loss = api.loss(pytree.unflatten(params, leaves), batch, cfg, run)
+        tree = pytree.unflatten(params, leaves)
+        kw = {} if split is None else {"constrain": split.bind(tree, specs)}
+        loss = api.loss(tree, batch, cfg, run, **kw)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    def loss_and_grads(params, batch):
+    def loss_and_grads(params, batch, specs):
         if run.grad_accum > 1:
             # microbatched gradient accumulation: (B, ...) -> A slices of
             # B/A, one microbatch of activations alive at a time
@@ -139,16 +150,31 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[Rules] = N
             for i in range(a):
                 mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                l, g = value_and_grad(params, mb)
+                l, g = value_and_grad(params, mb, specs)
                 g = [x.to(torch.float32) for x in g]
                 gsum = g if gsum is None else [x + y for x, y in zip(gsum, g)]
                 lsum = lsum.to(l.device) + l
-            return lsum / a, pytree.unflatten(params, [x / a for x in gsum])
-        loss, g = value_and_grad(params, batch)
-        return loss, pytree.unflatten(params, list(g))
+            return lsum / a, [x / a for x in gsum]
+        loss, g = value_and_grad(params, batch, specs)
+        return loss, list(g)
 
-    # the data-parallel groups, summed innermost (data) first
-    dp = [] if rules is None or rules.dp_total == 1 else list(reversed(rules.ax.dp))
+    def dp_sum(loss, grads, specs):
+        """The loss and each leaf replicated over a data-parallel axis summed
+        over it in rank order (one buffer an axis, innermost ``data``
+        first), then everything divided by the data-parallel size."""
+        for axis in reversed(rules.ax.dp):
+            if rules.sizes[axis] == 1:
+                continue
+            which = [i for i, sp in enumerate(specs) if axis not in spec_axes(sp)]
+            flat = torch.cat([loss.reshape(1).to(torch.float32)]
+                             + [grads[i].reshape(-1).to(torch.float32) for i in which])
+            flat = ordered_allreduce(flat, rules.mesh.get_group(axis))
+            loss, off = flat[0], 1
+            for i in which:
+                n = grads[i].numel()
+                grads[i] = flat[off:off + n].reshape(grads[i].shape).to(grads[i].dtype)
+                off += n
+        return loss / rules.dp_total, [g / rules.dp_total for g in grads]
 
     def train_step(state: TrainState, batch, shardings: Optional[TrainState] = None
                    ) -> Tuple[TrainState, Dict]:
@@ -156,32 +182,28 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, rules: Optional[Rules] = N
             raise ValueError("a step made with rules takes shard_train_step's shardings, "
                              "one made without takes none")
         param_sh = None if shardings is None else shardings.params
+        specs = None if param_sh is None else pytree.tree_map(lambda sh: sh.spec, param_sh)
         batch = _device_batch(batch, _params_device(state.params))
         if rules is not None:
             batch = {k: shard_tensor(v, NamedSharding(rules.mesh, rules.batch_pspec(v)))
                      for k, v in batch.items()}
-        loss, grads = loss_and_grads(gather_tree(state.params, param_sh), batch)
-        for axis in dp:
-            group = rules.mesh.get_group(axis)
-            loss = ordered_allreduce(loss, group)
-            grads = pytree.tree_map(lambda g: ordered_allreduce(g, group), grads)
-        if dp:
-            loss = loss / rules.dp_total
-            grads = pytree.tree_map(lambda g: g / rules.dp_total, grads)
-        grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+        loss, grads = loss_and_grads(state.params, batch, specs)
+        if rules is not None and rules.dp_total > 1:
+            loss, grads = dp_sum(loss, grads, pytree.leaves(specs))
+        grads = pytree.unflatten(state.params, grads)
+        grads, gnorm = clip_by_global_norm(grads, run.grad_clip, param_sh)
 
         step = int(state.step)
         stats = factor = None
         if precond is not None:
-            stats = precond.update_stats(state.precond, grads)
+            stats = precond.update_stats(state.precond, grads, param_sh)
             factor = (precond.factorize(stats) if step % run.precond_every == 0
                       else state.factor)
-            grads = precond.precondition(factor, grads)
+            grads = precond.precondition(factor, grads, shardings=param_sh)
             state.precond, state.factor = stats, factor
         lr = cosine_lr(step, run.learning_rate,
                        warmup=max(2, total_steps // 10), total=total_steps)
-        adamw_update(shard_tree(grads, param_sh), state.opt, state.params, lr,
-                     weight_decay=run.weight_decay)
+        adamw_update(grads, state.opt, state.params, lr, weight_decay=run.weight_decay)
         state.step = torch.tensor(step + 1, dtype=torch.int32)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 

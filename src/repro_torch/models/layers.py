@@ -10,6 +10,14 @@ softmax statistics compute in float32 and cast back.  Attention never
 materializes the ``(S, S)`` score matrix: key/value blocks stream through
 an online-softmax accumulator, and the backward pass recomputes score
 blocks from the saved log-sum-exp (:class:`_Flash`).
+
+Under a sharded train step the blocks take ``constrain=``, the step's
+split context (``sharding/split.py``), at the reference's call sites: the
+layer loop gathers each layer over the data-parallel axes, attention is
+split by heads over ``model`` where both head counts divide it (else each
+rank takes its query block against keys and values gathered over
+``model``), the MLP by columns and rows, and the loss and the embedding by
+vocabulary blocks.
 """
 from __future__ import annotations
 
@@ -23,12 +31,14 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch import pytree
+from repro_torch.sharding.collectives import (all_gather_rs, all_gather_split, all_reduce_id,
+                                              all_reduce_max, split_ag)
 
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "layer_norm", "apply_rope",
     "chunked_attention", "decode_attention", "attention_params",
     "attention_apply", "mlp_params", "mlp_apply", "norm_params", "norm_apply",
-    "chunked_cross_entropy", "scan_or_unroll", "stack_layers",
+    "chunked_cross_entropy", "scan_or_unroll", "stack_layers", "embed_lookup",
 ]
 
 _F32 = torch.float32
@@ -78,10 +88,15 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (x * scale + bias).to(dt)
 
 
-def norm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, kind: str = "rms"):
+def norm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, kind: str = "rms",
+               constrain=None):
+    """``constrain``: the split context of the stream ``x`` belongs to; a
+    scale applied to a sequence block gets its gradient summed over
+    ``model``."""
+    rep = constrain.rep if constrain is not None else (lambda t: t)
     if kind == "layernorm":
-        return layer_norm(x, p["scale"], p["bias"])
-    return rms_norm(x, p["scale"])
+        return layer_norm(x, rep(p["scale"]), rep(p["bias"]))
+    return rms_norm(x, rep(p["scale"]))
 
 
 # ---------------------------------------------------------------------------
@@ -299,14 +314,15 @@ def attention_params(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int
     return p
 
 
-def _project_qkv(p, x, kv_x, n_heads, n_kv, head_dim, dtype):
-    """q from ``x``, k and v from ``kv_x`` (``x`` itself but for
-    cross-attention)."""
-    B, S, _ = x.shape
-    Skv = kv_x.shape[1]
-    q = torch.matmul(x, p["wq"].to(dtype))
-    k = torch.matmul(kv_x, p["wk"].to(dtype))
-    v = torch.matmul(kv_x, p["wv"].to(dtype))
+def _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype):
+    """q from ``xq``, k from ``xk`` and v from ``xv``: one stream for all
+    three, the cross-attention's ``kv_x`` for k and v, or the three copies
+    a split block enters (``Split.enter(x, 3)``)."""
+    B, S, _ = xq.shape
+    Skv = xk.shape[1]
+    q = torch.matmul(xq, p["wq"].to(dtype))
+    k = torch.matmul(xk, p["wk"].to(dtype))
+    v = torch.matmul(xv, p["wv"].to(dtype))
     if "bq" in p:
         q, k, v = q + p["bq"].to(dtype), k + p["bk"].to(dtype), v + p["bv"].to(dtype)
     q = q.reshape(B, S, n_heads, head_dim)
@@ -325,7 +341,8 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
                     causal: bool = True, kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_len=None, q_chunk: int = 512, kv_chunk: int = 1024,
-                    unroll: bool = False) -> Tuple[torch.Tensor, Optional[Tuple]]:
+                    unroll: bool = False, constrain=None
+                    ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Full attention block.  Returns (out, new_cache).
 
     Modes:
@@ -336,17 +353,36 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
         the caches are updated in place) and attend.
       * cross: ``kv_x`` set, ``causal=False``, ``use_rope=False`` (the
         whisper decoder; its encoder is the same without ``kv_x``).
+      * split (``constrain``, training only): ``x`` is the stream in its
+        layout, ``kv_x`` whole on every rank (entered by the caller); the
+        output is in the stream's layout (:func:`_attention_split`).
     """
-    dtype = x.dtype
-    q, k, v = _project_qkv(p, x, kv_x if kv_x is not None else x, n_heads, n_kv,
-                           head_dim, dtype)
+    kw = dict(positions=positions, rope_theta=rope_theta, use_rope=use_rope, causal=causal,
+              q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
+    if constrain is not None:
+        if cache is not None or cache_len is not None:
+            raise ValueError("the split attention block trains; prefill and decode take "
+                             "whole parameters")
+        return _attention_split(constrain, p, x, n_heads=n_heads, n_kv=n_kv,
+                                head_dim=head_dim, kv_x=kv_x, **kw), None
+    kv = kv_x if kv_x is not None else x
+    return _attend(p, x, kv, kv, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, cache=cache,
+                   cache_len=cache_len, **kw)
+
+
+def _attend(p, xq, xk, xv, *, n_heads, n_kv, head_dim, positions, rope_theta, use_rope,
+            causal, cache, cache_len, q_chunk, kv_chunk, unroll):
+    """The attention block's body on whole inputs (:func:`attention_apply`
+    less the split): q from ``xq``, k and v from ``xk`` and ``xv``."""
+    dtype = xq.dtype
+    q, k, v = _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype)
 
     new_cache = None
     if cache is not None:
         k_cache, v_cache = cache
         pos = int(cache_len)
         if use_rope:
-            at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+            at = torch.full((1, 1), pos, dtype=torch.int32, device=xq.device)
             q = apply_rope(q, at, rope_theta)
             k = apply_rope(k, at, rope_theta)
         k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
@@ -356,7 +392,7 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
     else:
         if use_rope:
             if positions is None:
-                positions = torch.arange(x.shape[1], device=x.device)
+                positions = torch.arange(xq.shape[1], device=xq.device)
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
         out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
@@ -366,6 +402,64 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
     out = out.reshape(out.shape[0], out.shape[1], n_heads * head_dim)
     out = torch.matmul(out, p["wo"].to(dtype))
     return out, new_cache
+
+
+def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_theta,
+                     use_rope, causal, q_chunk, kv_chunk, unroll):
+    """The attention block split over ``model`` (``c`` the stream's split
+    context).  Where both head counts divide ``model``: heads, the stream
+    entered whole (the sequence all-gathered under SP) into
+    :func:`_attend` with this rank's column blocks of ``wq``/``wk``/``wv``
+    and row block of ``wo``, the partial output left by a reduce-scatter.
+    Otherwise the sequence: this rank's query block (the stream's block
+    under SP) with ``wq``/``wk``/``wv``/``wo`` gathered over ``model``
+    against the keys and values of every block, all-gathered (a causal
+    block skips what lies after it, so the last rank works most)."""
+    tp = c.tp
+    qcols, kvcols = n_heads * head_dim, n_kv * head_dim
+    norms = ({"q_norm": c.tp_rep(p["q_norm"]), "k_norm": c.tp_rep(p["k_norm"])}
+             if "q_norm" in p else {})
+    if tp == 1 or (n_heads % tp == 0 and n_kv % tp == 0):
+        xq, xk, xv = c.enter(x, 3) if kv_x is None else (c.enter(x), kv_x, kv_x)
+        pb = {"wq": c.block(p["wq"], 1, qcols), "wk": c.block(p["wk"], 1, kvcols),
+              "wv": c.block(p["wv"], 1, kvcols), "wo": c.block(p["wo"], 0, qcols), **norms}
+        if "bq" in p:
+            pb.update(bq=c.block(p["bq"], 0, qcols), bk=c.block(p["bk"], 0, kvcols),
+                      bv=c.block(p["bv"], 0, kvcols))
+        out, _ = _attend(pb, xq, xk, xv, n_heads=n_heads // tp, n_kv=n_kv // tp,
+                         head_dim=head_dim, positions=positions, rope_theta=rope_theta,
+                         use_rope=use_rope, causal=causal, cache=None, cache_len=None,
+                         q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
+        return c.leave(out)
+    # the sequence split: this rank's queries (the stream's block under SP)
+    whole_x = not c.sp
+    if whole_x and x.shape[1] % tp:
+        raise ValueError(f"attention of {n_heads}/{n_kv} heads splits over model of {tp} "
+                         f"only by its sequence, and {x.shape[1]} positions do not divide")
+    xb = split_ag(x, c.model, dim=1) if whole_x else x
+    B, sb = xb.shape[:2]
+    off = c.q_offset(sb)
+    pw = {"wq": c.whole(p["wq"], 1, qcols), "wk": c.whole(p["wk"], 1, kvcols),
+          "wv": c.whole(p["wv"], 1, kvcols), **norms}
+    if "bq" in p:
+        pw.update(bq=c.tp_rep(p["bq"]), bk=c.tp_rep(p["bk"]), bv=c.tp_rep(p["bv"]))
+    xkv = xb if kv_x is None else kv_x
+    q, k, v = _project_qkv(pw, xb, xkv, xkv, n_heads, n_kv, head_dim, x.dtype)
+    if use_rope:
+        pos = (positions if positions is not None
+               else torch.arange(x.shape[1] * (tp if c.sp else 1), device=x.device))
+        pos = pos[..., off:off + sb]                 # this block's positions
+        q = apply_rope(q, pos, rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, pos, rope_theta)
+    if kv_x is None:
+        # every block's keys and values: their gradient, each rank's
+        # queries' part, reduce-scattered back to the block
+        k, v = all_gather_rs(k, c.model, dim=1), all_gather_rs(v, c.model, dim=1)
+    out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                            q_offset=off if causal else 0, unroll=unroll)
+    out = torch.matmul(out.reshape(B, sb, qcols), c.whole(p["wo"], 0, qcols).to(x.dtype))
+    return all_gather_split(out, c.model, dim=1) if whole_x else out
 
 
 # ---------------------------------------------------------------------------
@@ -384,21 +478,46 @@ def mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def mlp_apply(p: Dict[str, Any], x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(p: Dict[str, Any], x: torch.Tensor, act: str = "silu",
+              constrain=None) -> torch.Tensor:
     """Gated (silu) or plain (gelu) MLP; ``bi``/``bo`` biases where the
-    parameters carry them (``mlp_params(bias=True)``, the whisper blocks)."""
+    parameters carry them (``mlp_params(bias=True)``, the whisper blocks).
+
+    With ``constrain`` (the stream's split context) and d_ff divisible by
+    ``model``: Megatron's column-split ``wi``/``wg`` and row-split ``wo``,
+    the stream entered whole and the partial output left (a reduce-scatter
+    of the sequence under SP, else an all-reduce); otherwise each rank
+    runs the whole MLP on its sequence block (or, on a whole stream, the
+    whole of it)."""
     dtype = x.dtype
-    h = torch.matmul(x, p["wi"].to(dtype))
-    if "bi" in p:
-        h = h + p["bi"].to(dtype)
+    wi, wo, wg, bi, bo = p["wi"], p["wo"], p.get("wg"), p.get("bi"), p.get("bo")
+    c = constrain
+    split = c is not None and c.tp > 1 and c.cfg.d_ff % c.tp == 0
+    xg = x
+    if split:
+        f = c.cfg.d_ff
+        x, xg = c.enter(x, 2) if wg is not None else (c.enter(x), None)
+        wi, wo = c.block(wi, 1, f), c.block(wo, 0, f)
+        wg = c.block(wg, 1, f) if wg is not None else None
+        bi = c.block(bi, 0, f) if bi is not None else None
+    elif c is not None and c.sp:
+        f = c.cfg.d_ff
+        wi, wo = c.whole(wi, 1, f), c.whole(wo, 0, f)
+        wg = c.whole(wg, 1, f) if wg is not None else None
+        bi = c.tp_rep(bi) if bi is not None else None
+    h = torch.matmul(x, wi.to(dtype))
+    if bi is not None:
+        h = h + bi.to(dtype)
     if act == "silu":
-        g = torch.matmul(x, p["wg"].to(dtype))
+        g = torch.matmul(xg, wg.to(dtype))
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    out = torch.matmul(h, p["wo"].to(dtype))
-    if "bo" in p:
-        out = out + p["bo"].to(dtype)
+    out = torch.matmul(h, wo.to(dtype))
+    if split:
+        out = c.leave(out)
+    if bo is not None:
+        out = out + (c.rep(bo) if c is not None else bo).to(dtype)
     return out
 
 
@@ -418,31 +537,113 @@ def _ce_chunk(hb, lb, w, softcap: float, transpose_w: bool):
     return torch.sum((logz - tgt) * mask), mask.sum()
 
 
+class _LogSumExpVocab(torch.autograd.Function):
+    """The log-sum-exp over the last axis of logits split over ``group``
+    by vocabulary blocks: the max exactly, the shifted exponentials' sum
+    in rank order; its gradient ``exp(l − lse)``, as ``torch.logsumexp``'s
+    backward computes it."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        m = all_reduce_max(logits.amax(dim=-1), group)
+        se = all_reduce_id(torch.exp(logits - m[..., None]).sum(dim=-1), group)
+        lse = torch.log(se) + m
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(logits - lse[..., None]), None
+
+
+def _ce_chunk_vocab(hb, lb, w, softcap: float, transpose_w: bool, v0: int, group):
+    """:func:`_ce_chunk` on this rank's vocabulary block ``[v0, v0 + V_b)``
+    of ``w``: the max, the sum of exponentials and the target's logit
+    combined over ``model`` (the max exactly, the sums in rank order), so
+    every rank has every token's loss, the same bits."""
+    wt = w.to(hb.dtype)
+    logits = torch.matmul(hb, wt.t() if transpose_w else wt).to(_F32)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    vb = logits.shape[-1]
+    logz = _LogSumExpVocab.apply(logits, group)
+    local = lb.long() - v0
+    inside = (local >= 0) & (local < vb)
+    tgt = torch.gather(logits, -1, local.clamp(0, vb - 1)[..., None])[..., 0]
+    tgt = all_reduce_id(torch.where(inside, tgt, torch.zeros((), dtype=_F32,
+                                                             device=tgt.device)), group)
+    mask = (lb >= 0).to(_F32)
+    return torch.sum((logz - tgt) * mask), mask.sum()
+
+
 def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                           softcap: float = 0.0, chunk: int = 512,
-                          transpose_w: bool = False) -> torch.Tensor:
+                          transpose_w: bool = False, constrain=None) -> torch.Tensor:
     """Mean next-token CE without materializing full (B, S, V) logits.
 
     h: (B, S, D); w: (D, V) (or (V, D) with transpose_w); labels: (B, S),
     -1 = masked.  Walks sequence chunks; under autograd each chunk's logits
     are recomputed in the backward pass (``torch.utils.checkpoint``),
     bounding live logit memory to (B, chunk, V).
+
+    With ``constrain`` (the stream's split context; ``w`` this rank's
+    block, gathered here over the data-parallel axes): where the rules cut
+    the vocabulary over ``model``, the stream is entered whole and each
+    rank takes the logits of its vocabulary block (vocabulary-parallel);
+    otherwise (a ``model`` size that does not divide the vocabulary) every
+    rank takes the whole loss.
     """
+    c = constrain
+    if c is not None:
+        w = c.gather(w)
+        vocab = c.vocab_block(w, 0 if transpose_w else 1)
+        if vocab is not None:
+            return _cross_entropy_chunks(c.enter(h), w, labels, softcap, chunk, transpose_w,
+                                         vocab=(vocab[0], c.model))
+        h = c.redundant(h)
+    return _cross_entropy_chunks(h, w, labels, softcap, chunk, transpose_w)
+
+
+def _cross_entropy_chunks(h, w, labels, softcap, chunk, transpose_w, vocab=None):
     B, S, D = h.shape
     c = min(chunk, S)
     while S % c:
         c -= 1
     tot = torch.zeros((), dtype=_F32, device=h.device)
     cnt = torch.zeros((), dtype=_F32, device=h.device)
+    fn, extra = (_ce_chunk, ()) if vocab is None else (_ce_chunk_vocab, vocab)
     for i in range(S // c):
         hb, lb = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
-            part, n = checkpoint(_ce_chunk, hb, lb, w, softcap, transpose_w,
+            part, n = checkpoint(fn, hb, lb, w, softcap, transpose_w, *extra,
                                  use_reentrant=False)
         else:
-            part, n = _ce_chunk(hb, lb, w, softcap, transpose_w)
+            part, n = fn(hb, lb, w, softcap, transpose_w, *extra)
         tot, cnt = tot + part, cnt + n
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, dtype, constrain=None) -> torch.Tensor:
+    """``w[tokens]`` in ``dtype``, whole on every rank.  With ``constrain``
+    (``w`` this rank's block, gathered here over the data-parallel axes)
+    and the vocabulary cut over ``model``: each rank looks up the tokens
+    of its vocabulary block (zeros elsewhere) and the parts are summed
+    over ``model`` (one term of each sum is not zero, so the sum is the
+    lookup's bits); the caller lays the result out by ``constrain(h,
+    "act")``."""
+    if constrain is None:
+        return w[tokens.long()].to(dtype)
+    w = constrain.gather(w)
+    vocab = constrain.vocab_block(w, 0)
+    if vocab is None:
+        return w[tokens.long()].to(dtype)
+    v0, n = vocab
+    local = tokens.long() - v0
+    inside = (local >= 0) & (local < n)
+    e = w[local.clamp(0, n - 1)].to(dtype)
+    e = torch.where(inside[..., None], e, torch.zeros((), dtype=dtype, device=e.device))
+    return all_reduce_id(e, constrain.model)
 
 
 # ---------------------------------------------------------------------------
@@ -466,26 +667,46 @@ def stack_layers(gen: torch.Generator, cfg, layer_init: Callable, n: int) -> Dic
     return pytree.tree_map(lambda *xs: torch.stack(xs), *per_layer)
 
 
-def scan_or_unroll(body: Callable, carry, xs, *, remat: str = "none"):
+def scan_or_unroll(body: Callable, carry, xs, *, remat: str = "none", constrain=None,
+                   gather: bool = True):
     """Run ``body(carry, xs_slice)`` over the leading axis of the tree
     ``xs`` (the stacked layers), the reference's ``lax.scan``/unroll as a
-    loop.  Under autograd ``remat`` picks what a layer keeps for the
-    backward pass: ``"none"`` everything, ``"full"`` only its input (the
-    layer recomputed, ``torch.utils.checkpoint``), ``"dots"`` its
-    matmul outputs (a selective checkpoint).  Returns ``(carry, ys)``,
-    ``ys`` the list of the bodies' second outputs, or None."""
+    loop; the slices are taken by one ``unbind`` a leaf (a slice's
+    gradient is then one stack, where indexing a layer at a time would make
+    a gradient of the whole stack a layer).  Under autograd ``remat`` picks
+    what a layer keeps for the backward pass: ``"none"`` everything,
+    ``"full"`` only its input (the layer recomputed,
+    ``torch.utils.checkpoint``), ``"dots"`` its matmul outputs (a
+    selective checkpoint).  Returns ``(carry, ys)``, ``ys`` the list of the
+    bodies' second outputs, or None.
+
+    With ``constrain`` (a split context) ``xs`` holds this rank's blocks:
+    each body gathers its own slice over the data-parallel axes first
+    (``gather=False``: it does not, for an outer loop whose body loops
+    again), inside the checkpoint, so the backward gathers again and no
+    two layers are gathered at once under remat; the gradient leaves each
+    layer as this rank's block."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat must be 'none', 'full' or 'dots', got {remat!r}")
-    step = body
+    fn = body
+    if constrain is not None and gather:
+        def fn(c, lp):
+            return body(c, constrain.gather(lp))
+    step = fn
     if remat != "none" and torch.is_grad_enabled():
         kw = {"use_reentrant": False}
         if remat == "dots":
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _keep_matmuls)
-        step = functools.partial(checkpoint, body, **kw)
-    n = pytree.leaves(xs)[0].shape[0]
+        step = functools.partial(checkpoint, fn, **kw)
+    if constrain is not None:
+        slices = constrain.slices(xs)
+    else:
+        leaves = pytree.leaves(xs)
+        slices = [pytree.unflatten(xs, list(row))
+                  for row in zip(*(x.unbind(0) for x in leaves))]
     ys: List[Any] = []
-    for i in range(n):
-        carry, y = step(carry, pytree.tree_map(lambda x: x[i], xs))
+    for lp in slices:
+        carry, y = step(carry, lp)
         ys.append(y)
     return carry, (ys if ys and ys[0] is not None else None)

@@ -16,6 +16,13 @@ The reference masks after it (``where(causal, exp(seg), 0)``); above the
 diagonal ``seg`` is positive, so its ``exp`` can overflow and the gradient
 becomes ``0·inf = NaN``.  The forward values are the same wherever the
 reference's are finite.
+
+``loss`` takes ``constrain=``, a sharded step's split context, as the
+reference's does.  The SSD mixer is the split's one exception: it is not
+split over ``model`` (the reference's packed ``w_in`` does not cut by
+heads), so each layer is gathered whole over both axes and runs on the
+whole sequence on every ``model`` rank, and ``constrain(h, "act")`` cuts
+its output back to the stream's block.
 """
 from __future__ import annotations
 
@@ -160,10 +167,24 @@ def _gate_out(p, y, z, dtype):
     return torch.matmul(y, p["w_out"].to(dtype))
 
 
-def mamba_apply(p, h, cfg: ModelConfig, chunk: int = 64, return_state: bool = False):
+def mamba_apply(p, h, cfg: ModelConfig, chunk: int = 64, return_state: bool = False,
+                constrain=None):
     """Full-sequence Mamba2 block (training / prefill).  Returns (h + out,
     None) or, with ``return_state``, (h + out, (final_state, conv_tail)),
-    ``conv_tail`` the last ``ssm_conv`` raw (pre-conv) inputs for decode."""
+    ``conv_tail`` the last ``ssm_conv`` raw (pre-conv) inputs for decode.
+    With ``constrain`` (the stream's split context) ``h`` is the stream in
+    its layout and so is ``h + out``: the layer runs whole on every rank,
+    its ``model`` blocks and the sequence all-gathered (their gradients cut
+    back to the blocks)."""
+    if constrain is not None:
+        c = constrain
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        p = dict(p, w_in=c.whole_redundant(p["w_in"], 1, 2 * cfg.d_inner + 2 * g * n
+                                           + cfg.ssm_heads),
+                 conv=c.whole_redundant(p["conv"], 1, cfg.d_inner + 2 * g * n),
+                 w_out=c.whole_redundant(p["w_out"], 0, cfg.d_inner))
+        out, state = mamba_apply(p, c.redundant(h), cfg, chunk, return_state)
+        return c(out, "act"), state
     dtype = h.dtype
     di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     B, S, _ = h.shape
@@ -242,7 +263,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _embed(params, tokens, dtype):
-    return params["embed"][tokens.long()].to(dtype)
+    return L.embed_lookup(params["embed"], tokens, dtype)
 
 
 def _lm_head(params, h):
@@ -250,14 +271,20 @@ def _lm_head(params, h):
     return torch.matmul(h, params["unembed"].to(h.dtype))
 
 
-def loss(params, batch, cfg: ModelConfig, run: RunConfig):
+def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
+    """Mean next-token cross-entropy; ``constrain``: a sharded step's split
+    context (``params`` then this rank's blocks)."""
     dtype = L._dtype(run.compute_dtype)
-    h = _embed(params, batch["tokens"], dtype)
-    h, _ = L.scan_or_unroll(lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk),
-                            h, params["layers"], remat=run.remat)
-    h = L.rms_norm(h, params["final_norm"]["scale"])
+    c = constrain.at(batch["tokens"].shape[1]) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], batch["tokens"], dtype, c)
+    if c is not None:
+        h = c(h, "act")
+    h, _ = L.scan_or_unroll(
+        lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk, constrain=c),
+        h, params["layers"], remat=run.remat, constrain=c)
+    h = L.norm_apply(params["final_norm"], h, "rms", c)
     return L.chunked_cross_entropy(h, params["unembed"], batch["labels"],
-                                   chunk=run.loss_chunk)
+                                   chunk=run.loss_chunk, constrain=c)
 
 
 def prefill(params, tokens, cfg: ModelConfig, run: RunConfig):

@@ -18,6 +18,14 @@ same terms in sorted order, so float32 results agree to rounding).  The
 backward pass does too: the dispatch's gradient gathers each token's kept
 rows and sums them in slot order (:class:`_Dispatch`), where a gather's
 own backward would add them by atomics, in bf16 an order-dependent ulp.
+
+Split over ``model`` (``constrain=``, a sharded step's split context) the
+sequence is entered whole (the routing needs every token: capacity is a
+sequence's) and routed alike on every rank.  Where ``model`` divides the
+padded expert count (``Rules.ep``) each rank dispatches, runs and combines
+only its own experts' rows (EP); otherwise each rank runs every expert on
+its block of d_ff.  Either way a rank's combine is a part of each token's
+sum, which the stream's ``leave`` adds over ``model`` in rank order.
 """
 from __future__ import annotations
 
@@ -53,16 +61,18 @@ def _capacity(S: int, top_k: int, capacity_factor: float, E: int) -> int:
 
 
 def moe_routing(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
-                capacity_factor: float = 1.25) -> Dict[str, torch.Tensor]:
+                capacity_factor: float = 1.25, n_padded: int = 0
+                ) -> Dict[str, torch.Tensor]:
     """The dispatch plan of ``x`` (B, S, D): each sequence's assignments in
     token-major order, ``(B, S·k)``: ``expert``, ``gate`` (renormalised
     softmax weights, float32, differentiable to the router), ``keep``
     (within capacity) and ``slot`` (the buffer row ``e·C + c`` a kept
     assignment fills); and ``src`` ``(B, Ep·C)``, the assignment each buffer
-    row holds (``-1``: empty), with ``cap`` and ``ep``."""
+    row holds (``-1``: empty), with ``cap`` and ``ep``.  ``n_padded``: the
+    padded expert count, where ``p["wi"]`` holds only a rank's experts."""
     B, S, _ = x.shape
     E = p["router"].shape[1]
-    Ep = p["wi"].shape[0]
+    Ep = n_padded or p["wi"].shape[0]
     cap = _capacity(S, top_k, capacity_factor, E)
     logits = torch.matmul(x, p["router"].to(x.dtype)).to(_F32)
     gates, idx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
@@ -118,25 +128,47 @@ class _Dispatch(torch.autograd.Function):
 
 
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+              capacity_factor: float = 1.25, constrain=None) -> torch.Tensor:
+    """The MoE MLP of ``x`` (B, S, D); with ``constrain`` (the stream's
+    split context) ``x`` is the stream in its layout and so is the result
+    (see the module docstring)."""
     dtype = x.dtype
+    c = constrain
+    wi, wg, wo, router = p["wi"], p["wg"], p["wo"], p["router"]
+    Ep = wi.shape[0]
+    first, n = 0, Ep                   # the experts this rank runs
+    if c is not None and c.tp > 1:
+        x = c.enter(x)
+        router = c.tp_rep(router)
+        Ep = c.cfg.n_experts_padded
+        if c.is_cut(wi, 0, Ep):        # EP: this rank's experts
+            first, n = c.rank * wi.shape[0], wi.shape[0]
+        else:                          # each expert's d_ff block
+            f = c.cfg.d_ff
+            wi, wg, wo = c.block(wi, 2, f), c.block(wg, 2, f), c.block(wo, 1, f)
     B, S, D = x.shape
-    r = moe_routing(p, x, top_k=top_k, capacity_factor=capacity_factor)
-    cap, Ep = r["cap"], r["ep"]
+    r = moe_routing({"router": router, "wi": wi}, x, top_k=top_k,
+                    capacity_factor=capacity_factor, n_padded=Ep)
+    cap = r["cap"]
+    rows = slice(first * cap, (first + n) * cap)
+    # this rank's buffer rows: each assignment's row among them, or none
+    slot = r["slot"] - first * cap
+    keep = r["keep"] & (slot >= 0) & (slot < n * cap)
+    slot = slot.clamp(0, n * cap - 1)
     # dispatch: buffer row (e, c) gathers its assignment's token
-    src = r["src"]
+    src = r["src"][:, rows]
     tok = torch.div(src.clamp_min(0), top_k, rounding_mode="floor")
-    buf = _Dispatch.apply(x, tok, src >= 0, r["slot"], r["keep"], top_k).reshape(B, Ep, cap, D)
+    buf = _Dispatch.apply(x, tok, src >= 0, slot, keep, top_k).reshape(B, n, cap, D)
 
-    h = torch.einsum("becd,edf->becf", buf, p["wi"].to(dtype))
-    g = torch.einsum("becd,edf->becf", buf, p["wg"].to(dtype))
+    h = torch.einsum("becd,edf->becf", buf, wi.to(dtype))
+    g = torch.einsum("becd,edf->becf", buf, wg.to(dtype))
     h = F.silu(g) * h
-    out = torch.einsum("becf,efd->becd", h, p["wo"].to(dtype)).reshape(B, Ep * cap, D)
+    out = torch.einsum("becf,efd->becd", h, wo.to(dtype)).reshape(B, n * cap, D)
 
     # combine: each assignment gathers its row (dropped ones add zero), the
     # token's top_k rows summed in slot order
-    slot = r["slot"].clamp_max(Ep * cap - 1)
     y = torch.gather(out, 1, slot[..., None].expand(B, S * top_k, D))
-    w = torch.where(r["keep"], r["gate"], torch.zeros((), dtype=_F32, device=x.device))
+    w = torch.where(keep, r["gate"], torch.zeros((), dtype=_F32, device=x.device))
     y = y * w.to(dtype)[..., None]
-    return y.reshape(B, S, top_k, D).sum(dim=2)
+    y = y.reshape(B, S, top_k, D).sum(dim=2)
+    return c.leave(y) if c is not None and c.tp > 1 else y

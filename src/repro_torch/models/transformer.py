@@ -8,7 +8,11 @@ axis, as the reference's ``jax.vmap`` init does (the arrowhead
 preconditioner reads each layer leaf as ``leaf.reshape(n_layers, -1)``);
 ``loss`` / ``prefill`` / ``decode_step`` loop over that axis.  A MoE layer
 carries ``moe`` (``models/moe.py``) in place of ``mlp``.
-:class:`Transformer` is the same model as an ``nn.Module``.
+:class:`Transformer` is the same model as an ``nn.Module``.  ``loss`` takes
+``constrain=``, a sharded step's split context (``sharding/split.py``), as
+the reference's does: the residual stream then lives in the rules' ``act``
+layout (the sequence on ``model`` under SP) and each block is split over
+``model``.
 """
 from __future__ import annotations
 
@@ -76,25 +80,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def _layer_apply(lp, h, cfg: ModelConfig, run: RunConfig, *, positions=None,
-                 cache=None, cache_len=None):
+                 cache=None, cache_len=None, constrain=None):
     a, new_cache = L.attention_apply(
-        lp["attn"], L.norm_apply(lp["ln1"], h, cfg.norm),
+        lp["attn"], L.norm_apply(lp["ln1"], h, cfg.norm, constrain),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
         positions=positions, rope_theta=cfg.rope_theta,
         cache=cache, cache_len=cache_len, q_chunk=run.q_chunk,
-        kv_chunk=run.kv_chunk, unroll=run.unroll_attn)
+        kv_chunk=run.kv_chunk, unroll=run.unroll_attn, constrain=constrain)
     h = h + a
-    hn = L.norm_apply(lp["ln2"], h, cfg.norm)
+    hn = L.norm_apply(lp["ln2"], h, cfg.norm, constrain)
     if cfg.family == "moe":
-        m = moe_apply(lp["moe"], hn, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        m = moe_apply(lp["moe"], hn, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                      constrain=constrain)
     else:
-        m = L.mlp_apply(lp["mlp"], hn, cfg.act)
-    return h + m, new_cache
+        m = L.mlp_apply(lp["mlp"], hn, cfg.act, constrain=constrain)
+    h = h + m
+    if constrain is not None:
+        h = constrain(h, "act")   # the residual stream stays in the SP layout
+    return h, new_cache
 
 
 def _embed(params, tokens, cfg: ModelConfig, dtype,
-           image_embeds: Optional[torch.Tensor] = None):
-    h = params["embed"][tokens.long()].to(dtype)
+           image_embeds: Optional[torch.Tensor] = None, constrain=None):
+    h = L.embed_lookup(params["embed"], tokens, dtype, constrain)
     if cfg.n_image_tokens and image_embeds is not None:
         # VLM stub: precomputed patch embeddings occupy the first positions
         n = cfg.n_image_tokens
@@ -104,7 +112,7 @@ def _embed(params, tokens, cfg: ModelConfig, dtype,
 
 def _stack_forward(params, h, cfg: ModelConfig, run: RunConfig, *,
                    positions=None, caches=None, cache_len=None,
-                   fill_cache: bool = False):
+                   fill_cache: bool = False, constrain=None):
     """Loop over the stacked layers.  Returns (h, new_caches); a decode
     step writes its token into ``caches`` in place."""
     if caches is not None:
@@ -117,9 +125,9 @@ def _stack_forward(params, h, cfg: ModelConfig, run: RunConfig, *,
 
     def body(h, lp):
         return _layer_apply(lp, h, cfg, run, positions=positions,
-                            cache_len=cache_len if fill_cache else None)
+                            cache_len=cache_len if fill_cache else None, constrain=constrain)
 
-    h, ys = L.scan_or_unroll(body, h, params["layers"], remat=run.remat)
+    h, ys = L.scan_or_unroll(body, h, params["layers"], remat=run.remat, constrain=constrain)
     new_caches = None
     if fill_cache and ys is not None:
         new_caches = {"k": torch.stack([y[0] for y in ys]),
@@ -140,17 +148,22 @@ def _logits(params, h, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-         run: RunConfig) -> torch.Tensor:
+         run: RunConfig, constrain=None) -> torch.Tensor:
     """Mean next-token cross-entropy.  batch: tokens (B,S) int, labels (B,S)
-    int (-1 = masked), optional image_embeds."""
+    int (-1 = masked), optional image_embeds.  ``constrain``: a sharded
+    step's split context (``params`` then this rank's blocks)."""
     _check_family(cfg)
     dtype = L._dtype(run.compute_dtype)
-    h = _embed(params, batch["tokens"], cfg, dtype, batch.get("image_embeds"))
-    h, _ = _stack_forward(params, h, cfg, run)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    c = constrain.at(batch["tokens"].shape[1]) if constrain is not None else None
+    h = _embed(params, batch["tokens"], cfg, dtype, batch.get("image_embeds"), c)
+    if c is not None:
+        h = c(h, "act")
+    h, _ = _stack_forward(params, h, cfg, run, constrain=c)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm, c)
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return L.chunked_cross_entropy(h, w, batch["labels"], softcap=cfg.logit_softcap,
-                                   chunk=run.loss_chunk, transpose_w=cfg.tie_embeddings)
+                                   chunk=run.loss_chunk, transpose_w=cfg.tie_embeddings,
+                                   constrain=c)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, run: RunConfig,

@@ -8,6 +8,10 @@ an encoder with full (non-causal, rotary-free) self-attention, and a
 decoder with causal self-attention plus cross-attention to the encoder's
 output.  Decode reads the cross keys and values precomputed once by
 :func:`_cross_kv` and writes its self-attention caches in place.
+``loss`` takes ``constrain=``, a sharded step's split context: encoder and
+decoder are two streams of their own lengths, each split as the dense
+blocks are, and the decoder's cross-attention reads the encoder's output
+entered whole once.
 """
 from __future__ import annotations
 
@@ -76,28 +80,40 @@ def _attn_kw(cfg: ModelConfig, run: RunConfig):
                 q_chunk=run.q_chunk, kv_chunk=run.kv_chunk, unroll=run.unroll_attn)
 
 
-def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig, run: RunConfig) -> torch.Tensor:
+def encode(params, frame_embeds: torch.Tensor, cfg: ModelConfig, run: RunConfig,
+           constrain=None) -> torch.Tensor:
+    """The encoder's output; with ``constrain`` (a sharded step's split
+    context) in the layout of its stream (:meth:`Split.at
+    <repro_torch.sharding.split.Split.at>` of ``encoder_seq``)."""
     dtype = L._dtype(run.compute_dtype)
-    h = frame_embeds.to(dtype) + params["enc_pos"][None].to(dtype)
+    c = constrain.at(frame_embeds.shape[1]) if constrain is not None else None
+    pos = c.gather(params["enc_pos"]) if c is not None else params["enc_pos"]
+    h = frame_embeds.to(dtype) + pos[None].to(dtype)
+    if c is not None:
+        h = c(h, "act")
 
     def body(h, lp):
-        a, _ = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm"),
-                                 causal=False, **_attn_kw(cfg, run))
+        a, _ = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm", c),
+                                 causal=False, constrain=c, **_attn_kw(cfg, run))
         h = h + a
-        h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm"), "gelu")
+        h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm", c), "gelu",
+                            constrain=c)
         return h, None
 
-    h, _ = L.scan_or_unroll(body, h, params["enc_layers"], remat=run.remat)
-    return L.norm_apply(params["enc_norm"], h, "layernorm")
+    h, _ = L.scan_or_unroll(body, h, params["enc_layers"], remat=run.remat, constrain=c)
+    return L.norm_apply(params["enc_norm"], h, "layernorm", c)
 
 
 def _dec_layer(lp, h, enc_out, cfg: ModelConfig, run: RunConfig, *, cache=None,
-               cache_len=None, xcache=None):
-    """One decoder layer: self-attention (+cache), cross-attention, MLP."""
-    a, new_cache = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm"),
-                                     cache=cache, cache_len=cache_len, **_attn_kw(cfg, run))
+               cache_len=None, xcache=None, constrain=None):
+    """One decoder layer: self-attention (+cache), cross-attention, MLP.
+    With ``constrain`` ``enc_out`` is whole on every rank (entered)."""
+    c = constrain
+    a, new_cache = L.attention_apply(lp["attn"], L.norm_apply(lp["ln1"], h, "layernorm", c),
+                                     cache=cache, cache_len=cache_len, constrain=c,
+                                     **_attn_kw(cfg, run))
     h = h + a
-    hn = L.norm_apply(lp["ln_cross"], h, "layernorm")
+    hn = L.norm_apply(lp["ln_cross"], h, "layernorm", c)
     if xcache is not None:
         # decode: the cross keys and values precomputed, every frame attended
         dtype = h.dtype
@@ -108,22 +124,28 @@ def _dec_layer(lp, h, enc_out, cfg: ModelConfig, run: RunConfig, *, cache=None,
                                  xv.to(dtype), xk.shape[1] - 1)
         x = torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), lp["cross"]["wo"].to(dtype))
     else:
-        x, _ = L.attention_apply(lp["cross"], hn, causal=False, kv_x=enc_out,
+        x, _ = L.attention_apply(lp["cross"], hn, causal=False, kv_x=enc_out, constrain=c,
                                  **_attn_kw(cfg, run))
     h = h + x
-    h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm"), "gelu")
+    h = h + L.mlp_apply(lp["mlp"], L.norm_apply(lp["ln2"], h, "layernorm", c), "gelu",
+                        constrain=c)
     return h, new_cache
 
 
 def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_offset: int = 0,
-             caches=None, fill_cache: bool = False):
+             caches=None, fill_cache: bool = False, constrain=None):
     """The decoder stack and its final norm.  Training / prefill: returns
     (h, [(k, v) a layer] with ``fill_cache``, else None); decode (``caches``
-    given, one token at ``pos_offset``): (h, caches), written in place."""
+    given, one token at ``pos_offset``): (h, caches), written in place.
+    ``constrain``: the decoder stream's split context (training)."""
+    c = constrain
     dtype = L._dtype(run.compute_dtype)
     S = tokens.shape[1]
-    h = params["embed"][tokens.long()].to(dtype)
-    h = h + params["dec_pos"][pos_offset:pos_offset + S][None].to(dtype)
+    h = L.embed_lookup(params["embed"], tokens, dtype, c)
+    pos = c.gather(params["dec_pos"]) if c is not None else params["dec_pos"]
+    h = h + pos[pos_offset:pos_offset + S][None].to(dtype)
+    if c is not None:
+        h = c(h, "act")
     if caches is not None:
         for i in range(cfg.n_layers):
             lp = pytree.tree_map(lambda x: x[i], params["dec_layers"])
@@ -132,18 +154,27 @@ def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_o
         return L.norm_apply(params["dec_norm"], h, "layernorm"), caches
 
     h, ys = L.scan_or_unroll(
-        lambda h, lp: _dec_layer(lp, h, enc_out, cfg, run, cache_len=S if fill_cache else None),
-        h, params["dec_layers"], remat=run.remat)
-    return L.norm_apply(params["dec_norm"], h, "layernorm"), ys
+        lambda h, lp: _dec_layer(lp, h, enc_out, cfg, run, cache_len=S if fill_cache else None,
+                                 constrain=c),
+        h, params["dec_layers"], remat=run.remat, constrain=c)
+    return L.norm_apply(params["dec_norm"], h, "layernorm", c), ys
 
 
-def loss(params, batch, cfg: ModelConfig, run: RunConfig):
+def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
     """Mean next-token cross-entropy of the decoder (tied embedding) given
-    the encoder's output on ``batch["frame_embeds"]``."""
-    enc_out = encode(params, batch["frame_embeds"], cfg, run)
-    h, _ = _decoder(params, batch["tokens"], enc_out, cfg, run)
+    the encoder's output on ``batch["frame_embeds"]``; ``constrain``: a
+    sharded step's split context (``params`` then this rank's blocks)."""
+    frames, tokens = batch["frame_embeds"], batch["tokens"]
+    enc_out = encode(params, frames, cfg, run, constrain)
+    c = None
+    if constrain is not None:
+        # the encoder's output whole on every rank, entered once for every
+        # decoder layer's cross-attention (its gradient summed once)
+        enc_out = constrain.at(frames.shape[1]).enter(enc_out)
+        c = constrain.at(tokens.shape[1])
+    h, _ = _decoder(params, tokens, enc_out, cfg, run, constrain=c)
     return L.chunked_cross_entropy(h, params["embed"], batch["labels"],
-                                   chunk=run.loss_chunk, transpose_w=True)
+                                   chunk=run.loss_chunk, transpose_w=True, constrain=c)
 
 
 def _cross_kv(params, enc_out, cfg: ModelConfig):

@@ -15,7 +15,11 @@ axis, so its grid has ``n_super`` diagonal blocks, as the reference's has.
 Under ``run.remat`` a superblock is checkpointed and, inside it, each Mamba2
 layer again (nested non-reentrant checkpoints), which bounds the recompute
 window to one layer's intra-chunk tensors.  Only ``n_super`` key/value
-caches exist.
+caches exist.  ``loss`` takes ``constrain=``, a sharded step's split
+context: the shared block is gathered over the data-parallel axes at each
+application and split over ``model`` as the dense blocks are (its
+``proj_out`` gathered whole), the Mamba2 layers are the SSD exception
+(``models/mamba2.py``).
 """
 from __future__ import annotations
 
@@ -78,31 +82,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _shared_apply(sp, h, h0, cfg: ModelConfig, run: RunConfig, *, cache=None,
-                  cache_len=None):
+                  cache_len=None, constrain=None):
+    c = constrain
     x = torch.cat([h, h0], dim=-1)
     a, new_cache = L.attention_apply(
-        sp["attn"], L.norm_apply(sp["ln1"], x, "rms"),
+        sp["attn"], L.norm_apply(sp["ln1"], x, "rms", c),
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, cache=cache, cache_len=cache_len,
-        q_chunk=run.q_chunk, kv_chunk=run.kv_chunk, unroll=run.unroll_attn)
+        q_chunk=run.q_chunk, kv_chunk=run.kv_chunk, unroll=run.unroll_attn, constrain=c)
     x = x + a
-    x = x + L.mlp_apply(sp["mlp"], L.norm_apply(sp["ln2"], x, "rms"), "silu")
-    return h + torch.matmul(x, sp["proj_out"].to(h.dtype)), new_cache
+    x = x + L.mlp_apply(sp["mlp"], L.norm_apply(sp["ln2"], x, "rms", c), "silu", constrain=c)
+    w = sp["proj_out"]
+    if c is not None:
+        d2 = 2 * cfg.d_model
+        w = c.whole(w, 0, d2) if c.sp else c.whole_redundant(w, 0, d2)
+    return h + torch.matmul(x, w.to(h.dtype)), new_cache
 
 
-def _forward(params, h, cfg: ModelConfig, run: RunConfig, *, fill_cache: bool = False):
+def _forward(params, h, cfg: ModelConfig, run: RunConfig, *, fill_cache: bool = False,
+             constrain=None):
     """Training / prefill.  Returns (h, caches or None)."""
+    c = constrain
     h0 = h
     cache_len = h.shape[1] if fill_cache else None
 
     def super_body(h, mp):
-        h, kv = _shared_apply(params["shared"], h, h0, cfg, run, cache_len=cache_len)
+        shared = c.gather(params["shared"]) if c is not None else params["shared"]
+        h, kv = _shared_apply(shared, h, h0, cfg, run, cache_len=cache_len, constrain=c)
         h, states = L.scan_or_unroll(
-            lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk, return_state=fill_cache),
-            h, mp, remat=run.remat if not fill_cache else "none")
+            lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk, return_state=fill_cache,
+                                      constrain=c),
+            h, mp, remat=run.remat if not fill_cache else "none", constrain=c)
         return h, (states, kv)
 
-    h, ys = L.scan_or_unroll(super_body, h, params["mamba"], remat=run.remat)
+    h, ys = L.scan_or_unroll(super_body, h, params["mamba"], remat=run.remat, constrain=c,
+                             gather=False)
     if not fill_cache:
         return h, None
     state = torch.stack([s[0] for states, _ in ys for s in states])
@@ -132,13 +146,18 @@ def _lm_head(params, h):
     return torch.matmul(h, params["unembed"].to(h.dtype))
 
 
-def loss(params, batch, cfg: ModelConfig, run: RunConfig):
+def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
+    """Mean next-token cross-entropy; ``constrain``: a sharded step's split
+    context (``params`` then this rank's blocks)."""
     dtype = L._dtype(run.compute_dtype)
-    h = params["embed"][batch["tokens"].long()].to(dtype)
-    h, _ = _forward(params, h, cfg, run)
-    h = L.rms_norm(h, params["final_norm"]["scale"])
+    c = constrain.at(batch["tokens"].shape[1]) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], batch["tokens"], dtype, c)
+    if c is not None:
+        h = c(h, "act")
+    h, _ = _forward(params, h, cfg, run, constrain=c)
+    h = L.norm_apply(params["final_norm"], h, "rms", c)
     return L.chunked_cross_entropy(h, params["unembed"], batch["labels"],
-                                   chunk=run.loss_chunk)
+                                   chunk=run.loss_chunk, constrain=c)
 
 
 def prefill(params, tokens, cfg: ModelConfig, run: RunConfig):

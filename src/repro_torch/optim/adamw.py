@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch import pytree
+from repro_torch.sharding.collectives import ordered_allreduce
+from repro_torch.sharding.partition import is_owner
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_lr",
            "global_norm", "clip_by_global_norm"]
@@ -39,13 +41,33 @@ def adamw_init(params) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in pytree.leaves(tree)))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The 2-norm of every leaf of ``tree`` together.  With ``shardings``
+    (``tree``'s ``NamedSharding``s, its leaves this rank's blocks) each
+    rank sums the squares of its blocks, a leaf the mesh replicates counted
+    by one rank only (``sharding/partition.py::is_owner``), and the partial
+    sums are added over every mesh axis in rank order, so every rank holds
+    the same bits."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in pytree.leaves(tree)))
+    sh = pytree.leaves(shardings)
+    leaves = pytree.leaves(tree)
+    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x, s in zip(leaves, sh):
+        if is_owner(s):
+            sq = sq + torch.sum(torch.square(x.to(torch.float32)))
+    mesh = sh[0].mesh
+    for name in reversed(mesh.mesh_dim_names):
+        if mesh.size(mesh.mesh_dim_names.index(name)) > 1:
+            sq = ordered_allreduce(sq.reshape(1), mesh.get_group(name))[0]
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    n = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, shardings=None):
+    """``tree`` scaled to a global norm of at most ``max_norm``, and the
+    norm (:func:`global_norm`; ``shardings`` for a tree of blocks)."""
+    n = global_norm(tree, shardings)
     scale = torch.clamp(max_norm / torch.clamp_min(n, 1e-9), max=1.0)
     return pytree.tree_map(lambda x: x * scale, tree), n
 

@@ -22,6 +22,13 @@ pair (replayed from the solves' corner graph):
 so with A = I the update reduces exactly to the raw gradient.  The sample
 plans are drawn on the host in the reference's leaf order from one seeded
 numpy generator, so both packages sketch the same coordinates.
+
+Under a sharded step (``shardings=``, the gradient's leaves this rank's
+blocks) each rank reads the sampled coordinates its blocks own, a leaf the
+mesh replicates read by one rank only, zeros elsewhere, and the ``L × r +
+r`` floats are summed over the mesh (each sum has one term that is not
+zero, so it is exact); the lift adds into every block that holds a sampled
+coordinate, replicated copies alike.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from repro_torch.core.cholesky import _factorize_window_impl
 from repro_torch.core.ctsf import resolve_device
 from repro_torch.core.solve import _backward_impl, _forward_impl
 from repro_torch.core.structure import ArrowheadStructure, TileGrid
+from repro_torch.sharding.collectives import ordered_allreduce
+from repro_torch.sharding.partition import block_index, full_shape, is_owner
 
 __all__ = ["ArrowheadPrecond", "build_precond"]
 
@@ -69,6 +78,9 @@ class ArrowheadPrecond:
     # the plans' indices as int64 tensors, per device
     _index: Dict[str, Tuple[list, list]] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+    # the plans' local indices in this rank's blocks, per device and layout
+    _local: Dict[Any, Tuple[list, list]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     def init_state(self, device=None) -> Dict[str, torch.Tensor]:
         """Zero statistics on ``device`` (None: the card)."""
@@ -90,28 +102,87 @@ class ArrowheadPrecond:
             self._index[key] = (as_t(self.layer_plan), as_t(self.arrow_plan))
         return self._index[key]
 
+    def _owned(self, grads, shardings):
+        """For each plan entry (layer plan, then arrow plan): ``(local,
+        held, counted)``, the sampled coordinates' flat indices in this
+        rank's block of the leaf (0 where it holds none), whether it holds
+        each, and whether it is the one rank that counts it; cached by
+        device and by the sampled leaves' layout (block shape, this rank's
+        block on each dimension, ownership), so equal layouts share an
+        entry."""
+        dev = pytree.leaves(grads)[0].device
+        blocks = dict(pytree.leaves_with_path(grads))
+        sh = dict(pytree.leaves_with_path(shardings))
+        names = sorted({name for name, _ in self.layer_plan + self.arrow_plan})
+        key = (str(dev),) + tuple(
+            (n, tuple(blocks[n].shape), tuple(block_index(sh[n], blocks[n].ndim)),
+             is_owner(sh[n])) for n in names)
+        if key in self._local:
+            return self._local[key]
+        out = []
+        for plan, rows in ((self.layer_plan, 1), (self.arrow_plan, 0)):
+            for name, idx in plan:
+                s, blk = sh[name], tuple(blocks[name].shape)
+                full = full_shape(blk, s)[rows:]
+                cut = block_index(s, len(blk))[rows:]
+                multi = np.unravel_index(np.asarray(idx), full)
+                held = np.ones(len(idx), bool)
+                local = []
+                for m, f, b, (n, i) in zip(multi, full, blk[rows:], cut):
+                    held &= (m // b) == i
+                    local.append(np.where(held, m - i * b, 0) if n > 1 else m)
+                flat = np.ravel_multi_index([np.where(held, x, 0) for x in local], blk[rows:])
+                t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+                out.append((t(flat, torch.int64), t(held, torch.bool),
+                            t(held & is_owner(s), torch.bool)))
+        self._local[key] = (out[:len(self.layer_plan)], out[len(self.layer_plan):])
+        return self._local[key]
+
     # ---- sketching ---------------------------------------------------------
 
-    def sketch(self, grads) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Project grads to per-layer sketches.
+    def sketch(self, grads, shardings=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Project grads to per-layer sketches.  ``shardings``: the
+        gradient's ``NamedSharding``s, its leaves this rank's blocks.
 
         Returns (layer_sketch (L, r), arrow_sketch (r,)).
         """
         layer_leaves, arrow_leaves = _group_leaves(grads)
         by_name, by_name_a = dict(layer_leaves), dict(arrow_leaves)
-        lidx, aidx = self._indices(layer_leaves[0][1].device)
-        parts = [by_name[name].reshape(self.n_layers, -1).to(torch.float32)[:, idx]
-                 for (name, _), idx in zip(self.layer_plan, lidx)]
+        if shardings is None:
+            lidx, aidx = self._indices(layer_leaves[0][1].device)
+            lsel = [(i, None) for i in lidx]
+            asel = [(i, None) for i in aidx]
+        else:
+            lown, aown = self._owned(grads, shardings)
+            lsel = [(loc, counted) for loc, _, counted in lown]
+            asel = [(loc, counted) for loc, _, counted in aown]
+
+        def read(x, sel):
+            idx, counted = sel
+            v = x[..., idx]
+            return v if counted is None else torch.where(counted, v, torch.zeros_like(v))
+
+        parts = [read(by_name[name].reshape(self.n_layers, -1).to(torch.float32), sel)
+                 for (name, _), sel in zip(self.layer_plan, lsel)]
         lsk = torch.cat(parts, dim=1)[:, : self.r]
-        aparts = [by_name_a[name].reshape(-1).to(torch.float32)[idx]
-                  for (name, _), idx in zip(self.arrow_plan, aidx)]
+        aparts = [read(by_name_a[name].reshape(-1).to(torch.float32), sel)
+                  for (name, _), sel in zip(self.arrow_plan, asel)]
         ask = torch.cat(aparts)[: self.r]
+        if shardings is not None:
+            mesh = pytree.leaves(shardings)[0].mesh
+            both = torch.cat([lsk.reshape(-1), ask])
+            for name in reversed(mesh.mesh_dim_names):
+                if mesh.size(mesh.mesh_dim_names.index(name)) > 1:
+                    both = ordered_allreduce(both, mesh.get_group(name))
+            lsk, ask = both[:lsk.numel()].reshape(lsk.shape), both[lsk.numel():]
         return lsk, ask
 
     # ---- statistics --------------------------------------------------------
 
-    def update_stats(self, state, grads):
-        lsk, ask = self.sketch(grads)                    # (L, r), (r,)
+    def update_stats(self, state, grads, shardings=None):
+        """The statistics after this step's gradient (``shardings``: see
+        :meth:`sketch`)."""
+        lsk, ask = self.sketch(grads, shardings)         # (L, r), (r,)
         bt = self.grid.band_tiles
         e = self.ema
         # band blocks: Dr[m, d] += lsk_m lsk_{m-d}^T
@@ -184,35 +255,48 @@ class ArrowheadPrecond:
         xd, xa = _backward_impl(factor["Dr"], factor["R"], factor["C"], yd, ya, g, impl)
         return xd[..., 0].reshape(self.n_layers, self.r), xa[..., 0].reshape(-1)[: self.r]
 
-    def precondition(self, factor, grads, *, impl=None):
+    def precondition(self, factor, grads, *, impl=None, shardings=None):
         """d = g + lift(A^{-1} ĝ − ĝ); returns a new tree (``grads`` is
-        not written).  ``impl`` as in :meth:`factorize`."""
-        lsk, ask = self.sketch(grads)
+        not written).  ``impl`` as in :meth:`factorize`; ``shardings`` as
+        in :meth:`sketch`."""
+        lsk, ask = self.sketch(grads, shardings)
         sol_l, sol_a = self.solve_sketch(factor, lsk, ask, impl=impl)
         # scale correction so magnitudes stay gradient-like
-        return self._lift(grads, sol_l - lsk, sol_a - ask)
+        return self._lift(grads, sol_l - lsk, sol_a - ask, shardings)
 
-    def _lift(self, grads, dl, da):
+    def _lift(self, grads, dl, da, shardings=None):
         """Add ``dl`` / ``da`` at the plans' coordinates of copies of the
-        sampled leaves.  ``index_add_`` accumulates repeated indices, as the
+        sampled leaves (of a rank's blocks, where it holds them, with
+        ``shardings``).  ``index_add_`` accumulates repeated indices, as the
         reference's ``.at[idx].add`` does: a top-up plan entry may sample a
         leaf already in the plan, at indices the first entry shares."""
         layer_leaves, arrow_leaves = _group_leaves(grads)
         by_name, by_name_a = dict(layer_leaves), dict(arrow_leaves)
-        lidx, aidx = self._indices(dl.device)
+        if shardings is None:
+            lidx, aidx = self._indices(dl.device)
+            lidx, aidx = [(i, None) for i in lidx], [(i, None) for i in aidx]
+        else:
+            lown, aown = self._owned(grads, shardings)
+            lidx = [(loc, held) for loc, held, _ in lown]
+            aidx = [(loc, held) for loc, held, _ in aown]
         lifted: Dict[str, torch.Tensor] = {}
         for plan, idxs, leaves, upd, rows in (
                 (self.layer_plan, lidx, by_name, dl, self.n_layers),
                 (self.arrow_plan, aidx, by_name_a, da[None], 1)):
             off = 0
-            for (name, idx), idx_t in zip(plan, idxs):
+            for (name, idx), (idx_t, held) in zip(plan, idxs):
                 width = min(len(idx), self.r - off) if off < self.r else 0
                 if width <= 0:
                     continue
                 if name not in lifted:
                     lifted[name] = leaves[name].reshape(rows, -1).clone()
                 flat = lifted[name]
-                flat.index_add_(1, idx_t[:width], upd[:, off: off + width].to(flat.dtype))
+                vals = upd[:, off: off + width].to(flat.dtype)
+                if held is None:
+                    flat.index_add_(1, idx_t[:width], vals)
+                else:
+                    mine = held[:width]
+                    flat.index_add_(1, idx_t[:width][mine], vals[:, mine])
                 off += width
         return pytree.unflatten(grads, [
             lifted[p].reshape(leaf.shape) if p in lifted else leaf

@@ -17,6 +17,20 @@ concatenates along another axis (a sharded parameter gathered to full,
 tensor in group-rank order, so every rank ends with the same bits (a
 data-parallel gradient's mean, ``launch/train.py``): an ``all_to_all`` of
 chunks, each summed by one rank, then an ``all_gather`` of the sums.
+``reduce_scatter`` is its first half: every rank keeps its own block of
+the rank-order sum along a dimension, the same bits as ``ordered_allreduce``'s
+slice, whatever the group's size.
+
+The split train step (``sharding/split.py``) differentiates through these,
+as ``torch.autograd.Function`` pairs whose backward is the forward's
+transpose: :func:`all_gather_rs` (all-gather, its gradient reduce-scattered),
+:func:`reduce_scatter_ag` (the reverse), :func:`all_reduce_id` (an ordered
+all-reduce, the gradient passed through), :func:`identity_ar` (the
+reverse: a tensor used in part on every rank, its gradient summed), and
+for work every rank repeats on the same data, :func:`split_ag` (this
+rank's block, the gradient all-gathered) and :func:`all_gather_split` (an
+all-gather, the gradient cut back to this rank's block).  Every sum among
+them adds in group-rank order.
 
 Every function takes the ``ProcessGroup`` of a mesh dimension
 (``mesh.get_group(axis)``, ``launch/mesh.py``), the counterpart of an axis
@@ -47,7 +61,9 @@ import torch.distributed as dist
 from repro_torch.kernels import ops
 
 __all__ = ["tree_allreduce", "ring_allreduce", "quantized_allreduce", "all_gather",
-           "all_to_all", "ordered_allreduce", "sendrecv", "fake_records"]
+           "all_to_all", "ordered_allreduce", "reduce_scatter", "all_reduce_max", "sendrecv",
+           "all_gather_rs", "all_gather_rs_n", "reduce_scatter_ag", "all_reduce_id", "identity_ar", "split_ag",
+           "all_gather_split", "fake_records"]
 
 # what the fake transport was asked to move, in call order (the dry run's
 # collective bytes, launch/dryrun.py)
@@ -196,6 +212,18 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return got.to(x.device) if staged else got
 
 
+def _rank_order_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (n equal chunks along its flat order) through :func:`all_to_all`,
+    and the n received copies of this rank's chunk summed in group-rank
+    order: this rank's chunk of the sum, flat."""
+    n = dist.get_world_size(group)
+    rows = all_to_all(x.reshape(-1), group).reshape(n, -1)
+    mine = rows[0]
+    for i in range(1, n):
+        mine = mine + rows[i]
+    return mine
+
+
 def ordered_allreduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``group``, every element added
     in group-rank order, so every rank holds the same bits whatever the
@@ -212,9 +240,195 @@ def ordered_allreduce(x: torch.Tensor, group) -> torch.Tensor:
     c = -(-flat.numel() // n)
     if c * n != flat.numel():
         flat = torch.cat([flat, flat.new_zeros(c * n - flat.numel())])
-    rows = all_to_all(flat, group).reshape(n, c)
-    mine = rows[0]
-    for i in range(1, n):
-        mine = mine + rows[i]
-    del rows
+    mine = _rank_order_sum(flat, group)
     return all_gather(mine, group)[:x.numel()].reshape(x.shape)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``x``
+    over ``group`` (``x.shape[dim]`` a multiple of the group's size):
+    :func:`ordered_allreduce`'s first half, the n blocks through
+    :func:`all_to_all` and added in group-rank order, so a rank holds the
+    same bits as the all-reduce's slice.  Each rank sends and receives one
+    copy of ``x``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
+                         f"divide into {n} blocks")
+    front = x.movedim(dim, 0)
+    shape = (front.shape[0] // n,) + tuple(front.shape[1:])
+    return _rank_order_sum(front.contiguous(), group).reshape(shape).movedim(0, dim)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` (exact in any order)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _all_reduce(x, dist.ReduceOp.MAX, group)
+
+
+# ---------------------------------------------------------------------------
+# autograd pairs of the split step: each backward is its forward's transpose
+# ---------------------------------------------------------------------------
+
+def _block_of(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (a contiguous copy)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not divide into {n} "
+                         f"blocks")
+    b = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * b, b).contiguous()
+
+
+class _AllGatherRS(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, dim=ctx.dim), None, None
+
+
+class _AllGatherRSn(torch.autograd.Function):
+    """One all-gather, handed out as ``n`` tensors (one a consumer); the
+    backward reduces the n gradients together in one collective
+    (``reduce_scatter``, or ``ordered_allreduce`` with ``dim`` None and no
+    gather) and adds the n sums, the last consumer's first."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        ctx.group, ctx.dim, ctx.n = group, dim, n
+        full = x.view_as(x) if dim is None else all_gather(x, group, dim=dim)
+        return tuple(full.view_as(full) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        zero = next(g for g in gs if g is not None)
+        gs = torch.stack([g if g is not None else torch.zeros_like(zero) for g in gs])
+        if ctx.dim is None:
+            r = ordered_allreduce(gs, ctx.group)
+        else:
+            r = reduce_scatter(gs, ctx.group, dim=ctx.dim + 1)
+        out = r[-1]
+        for i in range(ctx.n - 2, -1, -1):
+            out = out + r[i]
+        return out, None, None, None
+
+
+class _ReduceScatterAG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, dim=ctx.dim), None, None
+
+
+class _AllReduceId(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return ordered_allreduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _IdentityAR(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ordered_allreduce(g.contiguous(), ctx.group), None
+
+
+class _SplitAG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block_of(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, dim=ctx.dim), None, None
+
+
+class _AllGatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.group, ctx.dim), None, None
+
+
+def _one(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
+def all_gather_rs(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim``; the gradient is reduce-scattered
+    (:func:`reduce_scatter`): each rank's use of the whole is a part of
+    the work, so the parts' gradients are summed.  A sharded weight
+    gathered for a layer, or a sequence gathered for a tensor-parallel
+    block."""
+    return x if _one(group) else _AllGatherRS.apply(x, group, dim)
+
+
+def all_gather_rs_n(x: torch.Tensor, group, dim, n: int):
+    """``n`` consumers' copies of one all-gather of ``x`` along ``dim``
+    (``dim`` None: ``x`` itself, the gradient all-reduced, as
+    :func:`identity_ar`): each consumer's gradient is summed over the group
+    on its own, as the reference's partitioned step sums each projection's
+    partial, and the n sums are then added (the last consumer's first, as
+    autograd would add n separate gathers' gradients)."""
+    if _one(group):
+        return (x,) * n
+    return _AllGatherRSn.apply(x, group, dim, n)
+
+
+def reduce_scatter_ag(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`reduce_scatter` along ``dim``; the gradient is all-gathered.
+    A tensor-parallel block's partial output returned to the
+    sequence-sharded stream."""
+    return x if _one(group) else _ReduceScatterAG.apply(x, group, dim)
+
+
+def all_reduce_id(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`ordered_allreduce`; the gradient passes through unchanged
+    (each rank's term of the sum gets the sum's gradient)."""
+    return x if _one(group) else _AllReduceId.apply(x, group)
+
+
+def identity_ar(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; the gradient is :func:`ordered_allreduce`'d.  A
+    tensor every rank holds whole and uses in part (a replicated weight
+    on a sequence block, a head block of a bias), so every rank ends with
+    its whole gradient, the same bits."""
+    return x if _one(group) else _IdentityAR.apply(x, group)
+
+
+def split_ag(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``; the gradient is
+    all-gathered.  Work every rank repeats on the same whole tensor,
+    handed on as blocks."""
+    return x if _one(group) else _SplitAG.apply(x, group, dim)
+
+
+def all_gather_split(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim``; the gradient is cut back to this rank's
+    block, for work every rank then repeats on the same whole tensor (its
+    gradient the same on every rank)."""
+    return x if _one(group) else _AllGatherSplit.apply(x, group, dim)

@@ -29,10 +29,14 @@ as in JAX.  :func:`shard_tensor` cuts this rank's block of a full tensor,
 (``sharding/collectives.py::all_gather``), and ``shard_tree`` /
 ``gather_tree`` do so leaf by leaf.
 
-The rules partition the *state*: what a rank stores.  The port's compute is
-not split across ``model`` (no Megatron TP/EP/SP): a step gathers each leaf
-to full and computes on it (``launch/train.py``), so :meth:`Rules.constrain`
-is the identity and the port's models take no ``constrain``.
+The rules partition the *state*: what a rank stores.  What a rank computes
+on it is ``sharding/split.py``'s :class:`~repro_torch.sharding.split.Split`,
+built from the rules (:meth:`Rules.split`): each layer gathered over the
+data-parallel axes inside the layer loop, Megatron TP and SP over
+``model``, experts over ``model`` where ``Rules.ep`` holds (else each
+expert's d_ff).  The port's models take it as ``constrain=`` at the
+reference's call sites, and :meth:`Rules.constrain` lays an activation out
+by :meth:`Rules.act_pspec` through it (``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ import torch
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.sharding.collectives import all_gather
+from repro_torch.sharding.split import Split
 
 __all__ = ["PartitionSpec", "P", "NamedSharding", "MeshAxes", "Rules", "make_rules",
            "shard_shape", "shard_tensor", "gather_tensor", "shard_tree", "gather_tree",
-           "sharded_bytes"]
+           "sharded_bytes", "spec_axes", "is_owner", "full_shape", "block_index"]
 
 
 def _canon(entry):
@@ -184,6 +189,7 @@ class Rules:
                    and cfg.n_experts_padded % self.tp_size == 0)
         self.seq_sharded = run.activation_sharding in ("sequence",
                                                        "sequence_all")
+        self._split: Optional[Split] = None
 
     # ---- parameters --------------------------------------------------------
 
@@ -225,12 +231,19 @@ class Rules:
 
     # ---- activations -------------------------------------------------------
 
+    def split(self) -> Split:
+        """The split context over this mesh (``sharding/split.py``), made
+        once, when first asked for (it needs the mesh's groups)."""
+        if self._split is None:
+            self._split = Split(self)
+        return self._split
+
     def constrain(self, x, kind: str):
-        """The identity: the port's compute is not split across ``model``
-        (each step gathers its leaves to full), so no activation is
-        constrained; :meth:`act_pspec` gives the spec the reference would
-        impose."""
-        return x
+        """``x``, whole on every ``model`` rank, laid out as
+        :meth:`act_pspec` says over ``model``: cut to this rank's block,
+        its gradient all-gathered (:meth:`Split.__call__
+        <repro_torch.sharding.split.Split.__call__>`)."""
+        return self.split()(x, kind)
 
     def act_pspec(self, kind: str, ndim: int) -> Optional[PartitionSpec]:
         dp = self.ax.dp
@@ -302,7 +315,7 @@ def make_rules(mesh, cfg: ModelConfig, run: RunConfig,
 # placing and gathering by a sharding
 # ---------------------------------------------------------------------------
 
-def _blocks(sharding: NamedSharding, ndim: int):
+def block_index(sharding: NamedSharding, ndim: int):
     """Per tensor dimension ``(blocks, index)``: how many blocks the mesh
     cuts it into and which of them this rank holds (mixed radix over the
     entry's axes, the first most significant: pod-major)."""
@@ -318,10 +331,30 @@ def _blocks(sharding: NamedSharding, ndim: int):
     return out
 
 
+def spec_axes(spec: PartitionSpec) -> Tuple[str, ...]:
+    """Every mesh axis a spec names, in order."""
+    return tuple(a for e in spec for a in _axes(e))
+
+
+def is_owner(sharding: NamedSharding) -> bool:
+    """Whether this rank is the one that counts its block of a leaf once
+    over the mesh: its coordinate is 0 on every axis the spec replicates
+    the leaf over (a sum over the mesh of the owners' parts counts each
+    element once)."""
+    used = spec_axes(sharding.spec)
+    coord = dict(zip(sharding.mesh.mesh_dim_names, sharding.mesh.get_coordinate()))
+    return all(coord[a] == 0 for a in sharding.mesh.mesh_dim_names if a not in used)
+
+
+def full_shape(block_shape, sharding: NamedSharding) -> Tuple[int, ...]:
+    """The whole tensor's shape of which a rank's block has ``block_shape``."""
+    return tuple(b * n for b, (n, _) in zip(block_shape, block_index(sharding, len(block_shape))))
+
+
 def shard_shape(shape, sharding: NamedSharding) -> Tuple[int, ...]:
     """The shape of one rank's block of a tensor of ``shape``."""
     out = []
-    for s, (n, _) in zip(shape, _blocks(sharding, len(shape))):
+    for s, (n, _) in zip(shape, block_index(sharding, len(shape))):
         if s % n:
             raise ValueError(f"dimension of {s} does not divide into {n} blocks "
                              f"({sharding!r})")
@@ -332,7 +365,7 @@ def shard_shape(shape, sharding: NamedSharding) -> Tuple[int, ...]:
 def shard_tensor(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of the full tensor ``x``, a contiguous copy (a
     replicated ``x`` is returned as it is)."""
-    blocks = _blocks(sharding, x.ndim)
+    blocks = block_index(sharding, x.ndim)
     if all(n == 1 for n, _ in blocks):
         return x
     size = shard_shape(x.shape, sharding)

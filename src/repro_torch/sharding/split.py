@@ -1,0 +1,244 @@
+"""The split context: what a rank computes of a sharded train step.
+
+``Rules`` (``sharding/partition.py``) says where each leaf of the state
+lives; this module says how a step computes on those blocks, the
+reference's GSPMD split done by hand.  A :class:`Split` is what the port's
+models take as ``constrain=`` at the reference's call sites: called as
+``constrain(x, kind)`` it lays a tensor every ``model`` rank holds whole
+out as ``Rules.act_pspec(kind)``'s block (the reference's
+``with_sharding_constraint``), and its methods are the collectives a split
+layer runs, each an autograd pair of ``sharding/collectives.py`` whose sums
+add in group-rank order.
+
+* FSDP: a layer's leaves arrive as this rank's blocks and are gathered
+  over the data-parallel axes their specs name (:meth:`gather`), one layer
+  at a time inside the layer loop (``models/layers.py::scan_or_unroll``);
+  the gradient leaves as a block through the ordered reduce-scatter.
+* Megatron TP and SP over ``model``: with ``run.activation_sharding``
+  ``"sequence"`` or ``"sequence_all"`` the residual stream lives as this
+  rank's sequence block; a tensor-parallel block :meth:`enter`\\ s by an
+  all-gather of the sequence and :meth:`leave`\\ s by a reduce-scatter.
+  With ``"replicated"`` (or a sequence ``model`` does not divide) the
+  stream is whole on every rank, and the pair is the identity and an
+  all-reduce.  Column blocks (``wq``, ``wk``, ``wv``, ``wi``, ``wg``) and
+  row blocks (``wo``) are the rules' ``model`` blocks (:meth:`block`).
+* A leaf the rules replicate over ``model`` and a rank uses in part (a
+  norm's scale on a sequence block, a bias's head block, the router) goes
+  through :meth:`rep` / :meth:`tp_rep`, whose gradient is summed over
+  ``model``; work every rank repeats on the same data (the SSD mixer, the
+  one exception) goes through :meth:`redundant` and
+  :meth:`whole_redundant`, whose gradients are cut back to blocks.
+
+``Split(rules)`` holds the groups; :meth:`bind` registers a step's
+parameter blocks with their specs, and :meth:`at` binds the context to a
+residual stream of a given sequence length, which fixes whether that
+stream is sequence-sharded.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch import pytree
+from repro_torch.sharding.collectives import (all_gather_rs, all_gather_rs_n, all_gather_split,
+                                              all_reduce_id, identity_ar, reduce_scatter_ag,
+                                              split_ag)
+
+__all__ = ["Split"]
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class Split:
+    """The split context of a step over ``rules``' mesh (see the module
+    docstring).  ``tp`` is the ``model`` axis's size, ``rank`` this rank's
+    place on it; ``sp`` whether the bound stream is sequence-sharded
+    (:meth:`at`), ``seq`` its whole length (None until bound)."""
+
+    def __init__(self, rules):
+        self.rules = rules
+        self.cfg = rules.cfg
+        self.mesh = rules.mesh
+        self.tp = rules.tp_size
+        self.dp_axes = tuple(rules.ax.dp)
+        self.model = rules.mesh.get_group(rules.ax.tp) if self.tp > 1 else None
+        self.rank = dist.get_rank(self.model) if self.model is not None else 0
+        self.seq: Optional[int] = None
+        self.sp = False
+        self._specs = WeakIdKeyDictionary()
+
+    # ---- binding -------------------------------------------------------------
+
+    def bind(self, params, specs) -> "Split":
+        """Register ``params``' leaves (this rank's blocks) with their
+        ``PartitionSpec``s (a tree of ``params``' structure); returns
+        self."""
+        for x, s in zip(pytree.leaves(params), pytree.leaves(specs)):
+            self._specs[x] = s
+        return self
+
+    def at(self, seq: int) -> "Split":
+        """This context bound to a residual stream of ``seq`` positions:
+        sequence-sharded when the rules say so and ``model`` divides it."""
+        out = copy.copy(self)
+        out.seq = int(seq)
+        out.sp = bool(self.rules.seq_sharded and self.tp > 1 and seq % self.tp == 0)
+        return out
+
+    def slices(self, stacked) -> list:
+        """The stacked leaves of ``stacked`` taken apart on their leading
+        axis, one ``unbind`` a leaf: a list of per-layer trees whose leaves
+        carry their spec less its first entry."""
+        leaves = pytree.leaves(stacked)
+        parts = [x.unbind(0) for x in leaves]
+        out = []
+        for i in range(leaves[0].shape[0]):
+            row = [p[i] for p in parts]
+            for x, s in zip(leaves, row):
+                spec = self._specs.get(x)
+                if spec is not None:
+                    self._specs[s] = type(spec)(*tuple(spec)[1:])
+            out.append(pytree.unflatten(stacked, row))
+        return out
+
+    # ---- FSDP -----------------------------------------------------------------
+
+    def gather(self, tree):
+        """``tree``'s leaves gathered over the data-parallel axes their
+        specs put them on (the last axis of an entry first, so
+        ``("pod", "data")`` comes back pod-major); the gradient leaves as
+        this rank's block by the ordered reduce-scatter.  A leaf without a
+        registered spec is taken as it is."""
+        def one(x):
+            spec = self._specs.get(x)
+            if spec is None:
+                return x
+            for d, entry in enumerate(spec):
+                for a in reversed(_axes(entry)):
+                    if a in self.dp_axes:
+                        x = all_gather_rs(x, self.mesh.get_group(a), dim=d)
+            return x
+        return pytree.tree_map(one, tree)
+
+    # ---- the stream's layout ----------------------------------------------------
+
+    def __call__(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        """``x`` laid out as ``rules.act_pspec(kind)`` over ``model``: a
+        tensor whole on every rank along the dimension the spec puts on
+        ``model`` is cut to this rank's block (the gradient all-gathered);
+        one already cut (the extent of a bound stream's block) is returned
+        as it is.  Kinds without a ``model`` dimension, or one ``model``
+        does not divide, return ``x``."""
+        spec = self.rules.act_pspec(kind, x.ndim)
+        if spec is None or self.tp == 1:
+            return x
+        dims = [d for d, e in enumerate(spec) if self.rules.ax.tp in _axes(e)]
+        if not dims or x.shape[dims[0]] % self.tp:
+            return x
+        d = dims[0]
+        if kind == "act" and self.seq is not None:
+            if not self.sp:
+                return x
+            if x.shape[d] == self.seq // self.tp:
+                return x
+            if x.shape[d] != self.seq:
+                raise ValueError(f"constrain(act): a stream of {self.seq} positions, got a "
+                                 f"tensor of {x.shape[d]}")
+        return split_ag(x, self.model, dim=d)
+
+    def enter(self, x: torch.Tensor, n: int = 1):
+        """The stream into a tensor-parallel block, whole on every rank:
+        the sequence all-gathered (SP), else ``x`` itself; the gradient,
+        each rank's part, summed (reduce-scattered, or all-reduced).  With
+        ``n``, a tuple of ``n`` copies for ``n`` projections, each
+        projection's gradient summed over ``model`` before the projections'
+        are added (the reference's order of the sums)."""
+        if n > 1:
+            return all_gather_rs_n(x, self.model, 1 if self.sp else None, n)
+        if self.sp:
+            return all_gather_rs(x, self.model, dim=1)
+        return identity_ar(x, self.model)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A tensor-parallel block's partial output (each rank's term of
+        the sum) back into the stream: reduce-scattered along the sequence
+        (SP), else all-reduced; in rank order."""
+        if self.sp:
+            return reduce_scatter_ag(y, self.model, dim=1)
+        return all_reduce_id(y, self.model)
+
+    def redundant(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream whole on every rank for work every rank repeats (the
+        SSD exception): the sequence all-gathered, the gradient cut back;
+        a stream that is whole already is returned as it is."""
+        if self.sp:
+            return all_gather_split(x, self.model, dim=1)
+        return x
+
+    def q_offset(self, local: int) -> int:
+        """The first position of this rank's block of a sequence of which
+        it holds ``local`` positions."""
+        return self.rank * local if self.tp > 1 else 0
+
+    # ---- leaves ---------------------------------------------------------------
+
+    def rep(self, p: torch.Tensor) -> torch.Tensor:
+        """A leaf replicated over ``model`` applied to the stream: on a
+        sequence block each rank's gradient is a part, summed over
+        ``model``; on a whole stream every rank's is the whole."""
+        return identity_ar(p, self.model) if self.sp else p
+
+    def tp_rep(self, p: torch.Tensor) -> torch.Tensor:
+        """A leaf replicated over ``model`` used inside a tensor-parallel
+        block: its gradient summed over ``model``."""
+        return identity_ar(p, self.model)
+
+    def is_cut(self, w: torch.Tensor, dim: int, full: int) -> bool:
+        """Whether ``w`` holds this rank's ``model`` block of ``full``
+        along ``dim`` (the rules cut a dimension ``model`` divides)."""
+        return self.tp > 1 and w.shape[dim] * self.tp == full and w.shape[dim] != full
+
+    def block(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """This rank's ``model`` block of a weight along ``dim`` (``full``
+        its whole extent) for a tensor-parallel block: the rules' block
+        itself, or cut from a replicated leaf (its gradient summed)."""
+        if self.tp == 1 or self.is_cut(w, dim, full):
+            return w
+        if full % self.tp:
+            raise ValueError(f"a dimension of {full} does not split over model of {self.tp}")
+        b = full // self.tp
+        return self.tp_rep(w).narrow(dim, self.rank * b, b)
+
+    def whole(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """A weight whole along ``dim`` for work each rank does on its own
+        part of the data (a sequence block): its ``model`` blocks
+        all-gathered, or the replicated leaf; the gradient summed."""
+        if self.is_cut(w, dim, full):
+            return all_gather_rs(w, self.model, dim=dim)
+        return self.tp_rep(w)
+
+    def whole_redundant(self, w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+        """A weight whole along ``dim`` for work every rank repeats: its
+        ``model`` blocks all-gathered, the gradient cut back to the block."""
+        if self.is_cut(w, dim, full):
+            return all_gather_split(w, self.model, dim=dim)
+        return w
+
+    def vocab_block(self, w: torch.Tensor, dim: int) -> Optional[Tuple[int, int]]:
+        """``(first row, rows)`` of this rank's vocabulary block of the
+        embedding or unembedding ``w`` (vocabulary along ``dim``), or None
+        when the rules leave the vocabulary whole."""
+        full = self.cfg.vocab_padded
+        if not self.is_cut(w, dim, full):
+            return None
+        n = w.shape[dim]
+        return self.rank * n, n
+

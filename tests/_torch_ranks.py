@@ -251,7 +251,8 @@ def elastic_restore(cfg, run, params, mesh_shape, ckpt_dir, batch):
     """The latest checkpoint in ``ckpt_dir`` restored onto this rank's
     blocks of a mesh of ``mesh_shape`` (``restore(shardings=)``, through
     ``TrainLoop(state_shardings=)``'s hard-failure path), the target
-    placements, then one more step on ``batch``."""
+    placements, then one more step on ``batch``; and that step taken
+    straight from the restored state on the same mesh (``straight``)."""
     from repro_torch import pytree
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.launch.train import shard_train_step
@@ -275,6 +276,9 @@ def elastic_restore(cfg, run, params, mesh_shape, ckpt_dir, batch):
     state = loop.run(shard_tree(template, sh), start, 1)
     out["after"] = {k: v.clone() for k, v in _flat(state).items()}
     out["loss"] = loop.history[0]["loss"]
+    state, m = fn(ckpt.restore(shard_tree(template, sh), step=start, shardings=sh), batch)
+    out["straight"] = {k: v.clone() for k, v in _flat(state).items()}
+    out["straight_loss"] = m["loss"]
     return out
 
 
@@ -300,3 +304,114 @@ def pipeline(ws, x, n_stages, n_microbatches):
     return {"out": out.detach(), "grad": g[s * per:(s + 1) * per], "stage": s,
             "grad_elsewhere": torch.cat([g[:s * per], g[(s + 1) * per:]]).abs().max()
             if n_stages > 1 else torch.zeros(())}
+
+
+# ---------------------------------------------------------------------------
+# the split step (sharding/split.py): one step of each case, the meter of
+# what a rank holds, FLOPs a rank, reduce_scatter
+# ---------------------------------------------------------------------------
+
+def tp_case_config(arch, upd):
+    """A case's config: ``arch`` reduced to 2 layers of width 64 and a
+    vocabulary of 256, then ``upd``."""
+    from repro_torch import configs
+    from repro_torch.launch.train import reduce_config
+    return dataclasses.replace(reduce_config(configs.get(arch), layers=2, d_model=64, vocab=256),
+                               **upd)
+
+
+def _one_step(cfg, run, params, batch, mesh_shape, mode=None):
+    """One sharded step of ``cfg`` from ``params`` on a mesh of
+    ``mesh_shape`` (under the context ``mode``, if given): this rank's state
+    blocks by path, the metrics, the placements."""
+    import contextlib
+    from repro_torch import pytree
+    from repro_torch.launch.train import (TrainState, make_train_step, shard_train_step)
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.sharding.partition import make_rules, shard_tree
+    mesh = make_local_mesh(*mesh_shape)
+    rules = make_rules(mesh, cfg, run)
+    params = pytree.tree_map(torch.clone, params)
+    state = TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+    fn, sh = shard_train_step(make_train_step(cfg, run, rules, total_steps=10), mesh, rules,
+                              state, batch)
+    state = shard_tree(state, sh)
+    with mode if mode is not None else contextlib.nullcontext():
+        state, m = fn(state, batch)
+    return ({k: v.clone() for k, v in _flat(state).items()},
+            {"loss": m["loss"], "grad_norm": m["grad_norm"]},
+            {p: tuple(str(x) for x in s.placements) for p, s in pytree.leaves_with_path(sh)})
+
+
+def _whole_step(cfg, run, params, batch, mode=None):
+    """One step without rules on the whole batch (under the context
+    ``mode``, if given): the state by path and the loss."""
+    import contextlib
+    from repro_torch import pytree
+    from repro_torch.launch.train import TrainState, make_train_step
+    from repro_torch.optim.adamw import adamw_init
+    params = pytree.tree_map(torch.clone, params)
+    state = TrainState(params, adamw_init(params), torch.zeros((), dtype=torch.int32))
+    step = make_train_step(cfg, run, None, total_steps=10)
+    with mode if mode is not None else contextlib.nullcontext():
+        state, m = step(state, batch)
+    return {k: v.clone() for k, v in _flat(state).items()}, m["loss"]
+
+
+class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
+    """The shapes of every tensor an operation allocates (views, which
+    hold no storage of their own, are not counted), in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.is_view:
+            return out
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
+    """On a world of 4: each of ``cases`` (name -> (arch, cfg update, mesh
+    shape, run fields)) one sharded step from ``inits[name]`` on
+    ``batches[name]``; for the names in ``whole`` also the step without
+    rules; ``meter`` (a name) again under a dispatch mode recording every
+    output's shape; ``flops`` (a name) its FLOPs and the whole step's;
+    ``reduce_scatter`` and ``ordered_allreduce`` of this rank's row of
+    ``rs_data`` over the world along dimensions 0 and 1."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.sharding.collectives import reduce_scatter
+    out = {}
+    for name, (arch, upd, shape, rupd) in cases.items():
+        cfg = tp_case_config(arch, upd)
+        run = RunConfig(**dict(dict(compute_dtype="float32", remat="none", loss_chunk=16),
+                               **rupd))
+        blocks, metrics, placements = _one_step(cfg, run, inits[name], batches[name], shape)
+        out[name] = {"blocks": blocks, "metrics": metrics, "placements": placements}
+        if name in whole:
+            out[name]["whole"] = _whole_step(cfg, run, inits[name], batches[name])
+        if name == meter:
+            mode = _Shapes()
+            _one_step(cfg, run, inits[name], batches[name], shape, mode)
+            out[name]["shapes"] = sorted(set(mode.shapes))
+        if name == flops:
+            fc, fw = FlopCounterMode(display=False), FlopCounterMode(display=False)
+            _one_step(cfg, run, inits[name], batches[name], shape, fc)
+            _whole_step(cfg, run, inits[name], batches[name], fw)
+            out[name]["flops"] = (fc.get_total_flops(), fw.get_total_flops())
+    mesh = make_local_mesh(1, dist.get_world_size())
+    group = mesh.get_group("model")
+    x = rs_data[dist.get_rank()]
+    out["rs"] = {d: (reduce_scatter(x, group, dim=d), ordered_allreduce(x, group)) for d in (0, 1)}
+    # Rules.constrain: a whole (B, S, D) activation laid out as "act"
+    from repro_torch.sharding.partition import make_rules
+    rules = make_rules(mesh, tp_case_config("qwen2-7b", {}), RunConfig())
+    out["constrain"] = {kind: rules.constrain(rs_data[:, :, :4].clone(), kind)
+                        for kind in ("act", "qkv")}
+    return out

@@ -9,7 +9,10 @@ cell) exits 0 with status ok, under 16 GiB a device as the reference test
 asks, the reference's record keys, and argument bytes equal to the
 reference rules' shard bytes of that cell on the 16 × 16 mesh (parameters,
 caches, the token and the position, from one ``tests/_mdev.py`` subprocess
-with 256 forced devices, ``jax.eval_shape``)."""
+with 256 forced devices, ``jax.eval_shape``); and a dense train cell at one
+layer runs the split step, its per-device FLOPs within 25 % of the split's
+count from the shapes, as the first and as the last rank of a ``model``
+group."""
 import json
 import os
 import subprocess
@@ -96,10 +99,56 @@ def test_dryrun_cell_on_the_cpu(tmp_path):
         rec = json.load(f)
     assert rec["status"] == "ok"
     assert rec["mesh"] == "16x16"
+    assert rec["rank"] == 15            # the last rank of the first model group
     assert rec["memory"]["total_per_device_gib"] < 16.0
     assert rec["memory"]["argument_bytes"] == want
     for key in ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"):
         assert rec["memory"][key] >= 0
     assert rec["cost_scanned"]["flops"] > 0 and rec["cost_scanned"]["bytes"] > 0
-    # the gather-compute step gathers every sharded parameter over its axis
+    # decode gathers every sharded parameter (and cache) whole over its axes
     assert rec["collectives_scanned"]["all-gather"] > 0
+
+
+def _split_flops(cfg, shape, run, tp, dp, rank=0):
+    """The split train step's FLOPs on one rank of a dense model, counted
+    from the shapes: every matmul a forward, a recompute (remat "full") and
+    a backward of two (input and weight) on this rank's share (its
+    sequence block of the projections, its column blocks of the MLP, its
+    vocabulary block of the loss, whose chunks recompute their logits
+    too); the flash blocks this rank's causal queries visit, 2 products
+    each forward and again in the recompute, 5 in the backward."""
+    B, S = shape.global_batch // dp, shape.seq_len
+    T = B * S
+    D, H, KV, hd, F, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+                          cfg.vocab_padded)
+    dense = 2 * T / tp * (D * (2 * H + 2 * KV) * hd + 3 * D * F) * cfg.n_layers
+    sb = S // tp
+    qc, kc = min(run.q_chunk, sb), min(run.kv_chunk, S)
+    visited = sum(1 for qi in range(sb // qc) for ki in range(S // kc)
+                  if ki * kc <= qi * qc + rank * sb + qc - 1)
+    flash = 2 * B * H * qc * kc * hd * visited * cfg.n_layers
+    loss = 2 * T * D * V / tp
+    return 4 * dense + 9 * flash + 4 * loss
+
+
+@pytest.mark.parametrize("rank", [0, 15])
+def test_dense_train_cell_at_one_layer_splits_the_flops(rank):
+    """qwen2-7b at its published widths cut to one layer, train_4k on the
+    16 × 16 mesh of a fake world of 256, as the first and as the last rank
+    of a ``model`` group (the first and the last sequence block: causal
+    queries visit 1 and 4 key blocks, the dry run's own rank being the
+    last): the per-device FLOPs within 25 % of that rank's split count from
+    the shapes, and nothing near the whole step's (16 times that, and
+    more)."""
+    import dataclasses
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.dryrun import _run_cell
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.sharding.partition import make_rules
+    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=1)
+    shape, run = SHAPES["train_4k"], RunConfig()
+    with fake_world(256, rank=rank):
+        rules = make_rules(make_production_mesh(), cfg, run, shape)
+        got = _run_cell(cfg, shape, run, rules, "cpu")
+    want = _split_flops(cfg, shape, run, tp=16, dp=16, rank=rank)
+    assert abs(got["flops"] - want) <= 0.25 * want, (got["flops"], want)

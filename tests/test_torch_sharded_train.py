@@ -15,9 +15,12 @@ are one AdamW update after 2 steps, within 1e-4 of max.  Then the elastic restor
 checkpointer, synchronously, the same arrays), a world of 2 on a ``(data 2, model 1)``
 mesh restores it onto its own blocks (equal to the saved arrays, the
 placements the target rules'), and ``TrainLoop(state_shardings=)`` takes
-step 3 through a hard failure and a restore, bit for bit the unbroken world
-of 4's step 3.  Last, ``train()`` called inside a world of 2 runs
-data-parallel over it."""
+step 3 through a hard failure and a restore, bit for bit that mesh's step
+3 taken straight from the restored state; against the unbroken world of
+4's step 3 it is held by the tolerances of the reference comparison (the
+step's compute is split over ``model``, so a mesh with another ``model``
+size adds in another order).  Last, ``train()`` called inside a world of 2
+runs data-parallel over it."""
 import os
 import tempfile
 
@@ -223,13 +226,43 @@ def test_async_and_synchronous_sharded_saves_write_the_same_arrays(runs):
             np.testing.assert_array_equal(a[k], b[k])
 
 
+# the learning rates of steps 1 and 2 (10 total steps, warm-up 2), which
+# bound the key bias after step 3 as LR1 bounds it after step 2
+LR12 = (1.5e-4 + 3e-4) * (1 + 1e-6)
+
+
 def test_train_loop_restores_onto_another_mesh_and_continues_bit_for_bit(runs):
+    """On the restored (data 2, model 1) mesh, step 3 through a hard failure
+    and ``TrainLoop``'s restore is bit for bit that mesh's step 3 taken
+    straight from the restored state: the loss and every block."""
+    for out in runs["two"]:
+        assert torch.equal(out["loss"], out["straight_loss"])
+        assert out["after"].keys() == out["straight"].keys()
+        for path, block in out["after"].items():
+            assert torch.equal(block, out["straight"][path]), path
+
+
+def test_restored_step_matches_the_unbroken_world_by_the_reference_tolerances(runs):
+    """The restored world's step 3 against the unbroken world of 4's on
+    (data 2, model 2), by the reference comparison's tolerances: the step
+    is split over ``model``, and model sizes 1 and 2 add its sums in other
+    orders, so the two meshes' bits differ."""
     four, two = runs["four"], runs["two"]
     for rank, out in enumerate(two):
-        assert torch.equal(out["loss"], four[0]["adamw"]["metrics"][2]["loss"])
+        _close(out["loss"], four[0]["adamw"]["metrics"][2]["loss"].numpy(), 1e-5)
         for path, block in out["after"].items():
-            full = _full(four, "adamw", 3, path)
-            assert torch.equal(block, _block(full, out["placements"][path], (rank, 0))), path
+            want = _block(_full(four, "adamw", 3, path), out["placements"][path],
+                          (rank, 0)).numpy()
+            name = path.split("/")[-1]
+            if name == "bk":
+                # as in the reference comparison: rounding noise, bounded
+                # by the learning rates of the updates so far
+                assert tuple(block.shape) == want.shape
+                if path.startswith("0/"):
+                    assert float(block.abs().max()) <= LR12 and np.abs(want).max() <= LR12
+                continue
+            _close(block, want, BIAS_RTOL if name in ("bq", "bv") and path.startswith("0/")
+                   else 1e-5)
 
 
 def test_train_runs_data_parallel_over_the_world_it_is_called_in(tmp_path):
