@@ -302,6 +302,23 @@ Phases, each of which raises on a failed check:
      38.2 GB of phase "lm"); each step's time and the time inside gloo's
      collectives, peak memory a rank, the dry run's memory, FLOPs and
      collective bytes;
+   - "split serving" (prefill and decode under the split: the families'
+     prefill(constrain=) and decode_step(constrain=), the caches grown by
+     launch/serve.py::grow_caches): (a) qwen2-7b and (b) mamba2-1.3b with
+     run.ssm_head_shard (the SSD mixer by heads) at their published widths,
+     n_layers cut to 2, parameters from a CPU generator of seed 0 in every
+     process, on a (data 1, model 4) mesh of 4 gloo ranks sharing the card:
+     a float32 prefill of 2 x 120 tokens grown to a window of 256 (the K/V
+     caches' sequence in blocks of 64 on model), then 16 greedy decode steps
+     (positions 120-135, across the block boundary at 128), against the
+     same calls run first in this process: every call's logits within 1e-5
+     of max|logit| and the same tokens, each rank's cache bytes the rules'
+     block bytes, each rank's peak at most half the one-process peak; then
+     bf16, a warm run and a timed one: decode tokens a second and the share
+     inside gloo's collectives; (c) python -m repro_torch.launch.dryrun
+     --arch qwen2-7b --shape decode_32k --no-extrapolate in a host process
+     started first: status ok, argument bytes the rules' block bytes (a
+     fake world of 256 here), under 4 GiB a device;
 4. timings at the main paths' shapes: each kernel, its plain version and
    a one-call PyTorch yardstick where there is one (device time, for all
    three alike, from CUDA events around a CUDA graph of the calls; call
@@ -4161,7 +4178,7 @@ def serve_check(torch, cfg, dev, served=None):
     import numpy as np
     from repro_torch import pytree
     from repro_torch.configs.base import RunConfig
-    from repro_torch.launch.serve import Server, _pad_caches
+    from repro_torch.launch.serve import Server, grow_caches
     served = served or cfg
     rng = np.random.default_rng(0)
     batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))}
@@ -4176,7 +4193,7 @@ def serve_check(torch, cfg, dev, served=None):
     dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     with torch.no_grad():
         logits, caches = api.prefill(params, dbatch, cfg, run)
-        caches = _pad_caches(caches, server.max_len)
+        caches = grow_caches(caches, server.max_len)
         steps, tok = [], torch.argmax(logits, -1)[:, None]
         gen = [tok]
         for i in range(SERVE_GEN - 1):
@@ -5372,6 +5389,272 @@ def phase_distributed_training(torch, run_path, card):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase "split serving": prefill and decode under the split
+# (sharding/split.py; the families' prefill(constrain=) and
+# decode_step(constrain=), launch/serve.py::grow_caches) on gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+# (a) qwen2-7b and (b) mamba2-1.3b (run.ssm_head_shard: the SSD mixer split
+# by heads) at their published widths, n_layers cut to phase "lm"'s 2, on
+# (data 1, model 4): a float32 prefill of SS_BATCH x SS_PROMPT tokens grown
+# to a window of SS_WINDOW, then SS_STEPS greedy decode steps (positions
+# 120-135: qwen2-7b's cache blocks are 64 positions, so the steps cross the
+# boundary at 128 from rank 1's block into rank 2's), against the same calls
+# in one process on the card first: every call's logits within SS_LOGIT_TOL
+# of the one-process call's max|logit| and the same greedy tokens; each
+# rank's cache bytes the rules' block bytes; each rank's peak at most
+# SS_PEAK_SHARE of the one-process run's. Then bf16 on each rank: a warm
+# run and a timed one, decode tokens a second and the share inside gloo
+SS_WORLD, SS_MESH = 4, (1, 4)
+SS_BATCH, SS_PROMPT, SS_WINDOW, SS_STEPS = 2, 120, 256, 16
+SS_LOGIT_TOL, SS_PEAK_SHARE = 1e-5, 0.5
+SS_ARCHS = (("qwen2-7b", {}), ("mamba2-1.3b", {"ssm_head_shard": True}))
+# (c) the dry run's decode cell (a host process of its own, started first):
+# status ok, the rules' block bytes as its arguments, under 4 GiB a device
+SS_DRYRUN_ARCH, SS_DRYRUN_SHAPE, SS_DRYRUN_PEAK_GIB = "qwen2-7b", "decode_32k", 4.0
+
+
+def ss_setup(arch):
+    """(a)/(b)'s model (published widths, ``QWEN_LAYERS`` layers), its
+    parameters from a CPU generator of seed 0 (every rank and the parent
+    draw the same without sending them) and the prompt."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    cfg = dataclasses.replace(configs.get(arch), n_layers=QWEN_LAYERS)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, SS_WINDOW)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                                (SS_BATCH, SS_PROMPT)))
+    return cfg, params, tokens
+
+
+def ss_serve(torch, cfg, run, params, tokens, dev, rules=None, specs=None):
+    """``prefill``, the caches grown to ``SS_WINDOW``, ``SS_STEPS`` greedy
+    ``decode_step`` calls on ``dev``; with ``rules`` under the split
+    (``params`` this rank's blocks, ``specs`` their specs): the logits of
+    every call, the tokens, the caches and the host seconds of the prefill
+    and of the decode steps (each ending in a synchronize)."""
+    from repro_torch import pytree
+    from repro_torch.launch.serve import grow_caches
+    from repro_torch.models.registry import get_model
+    api = get_model(cfg)
+    kw, src, dst = {}, None, None
+    if rules is not None:
+        split = rules.split().bind(params, specs)
+        kw = {"constrain": split}
+        meta = lambda n: api.init_cache(cfg, SS_BATCH, n, dtype=torch.float32, device="meta")
+        src, dst = rules.cache_shardings(meta(SS_PROMPT)), rules.cache_shardings(meta(SS_WINDOW))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, {"tokens": tokens.to(dev)}, cfg, run, **kw)
+        caches = grow_caches(caches, SS_WINDOW, src, dst)
+        if rules is not None:
+            split.bind(caches, pytree.tree_map(lambda sh: sh.spec, dst))
+        tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        got, toks = [logits.float().cpu()], [tok]
+        t0 = time.perf_counter()
+        for i in range(SS_STEPS):
+            logits, caches = api.decode_step(params, caches, tok, SS_PROMPT + i, cfg, run, **kw)
+            tok = torch.argmax(logits, -1)[:, None]
+            got.append(logits.float().cpu())
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return dict(logits=got, tokens=torch.cat(toks, 1).cpu(), caches=caches,
+                prefill_s=prefill_s, decode_s=decode_s)
+
+
+def ss_one_process(torch, arch, flags, dev):
+    """(a)/(b) in this process on the card, float32: the logits, the tokens
+    and the peak (bytes above what was allocated before the parameters)."""
+    import gc
+    from repro_torch.configs.base import RunConfig
+    cfg, params, tokens = ss_setup(arch)
+    run = RunConfig(compute_dtype="float32", remat="none", **flags)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    on_card = _on(torch, params, dev)
+    del params
+    out = ss_serve(torch, cfg, run, on_card, tokens, dev)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del out["caches"], on_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ss_rank(archs, device="cuda:0"):
+    """One rank of the world of ``SS_WORLD`` sharing the card: for each of
+    ``archs`` ((arch, run flags)) its blocks of (a)/(b) on ``SS_MESH``,
+    only they ever on the card: the float32 split serving (logits, tokens,
+    its cache bytes and the rules' block bytes, its peak), then bf16, a
+    warm run and a timed one (prefill and decode seconds, the seconds
+    inside gloo)."""
+    import gc
+    import torch
+    from repro_torch import pytree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.partition import make_rules, shard_tree, sharded_bytes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = make_local_mesh(*SS_MESH)
+    out = {}
+    for arch, flags in archs:
+        cfg, params, tokens = ss_setup(arch)
+        rec = {}
+        for dt in ("float32", "bfloat16"):
+            run = RunConfig(compute_dtype=dt, remat="none", **flags)
+            rules = make_rules(mesh, cfg, run)
+            specs = rules.param_specs(params)
+            blocks = shard_tree(params, rules.param_shardings(params))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            on_card = _on(torch, blocks, dev)
+            del blocks
+            if dt == "bfloat16":
+                ss_serve(torch, cfg, run, on_card, tokens, dev, rules, specs)     # warm
+            clock = GlooClock()
+            with clock:
+                got = ss_serve(torch, cfg, run, on_card, tokens, dev, rules, specs)
+            meta = get_model(cfg).init_cache(cfg, SS_BATCH, SS_WINDOW, dtype=torch.float32,
+                                             device="meta")
+            r = dict(prefill_s=got["prefill_s"], decode_s=got["decode_s"],
+                     gloo_s=clock.seconds, peak_bytes=torch.cuda.max_memory_allocated() - base)
+            if dt == "float32":
+                r.update(logits=got["logits"], tokens=got["tokens"],
+                         cache_bytes=sum(x.numel() * x.element_size()
+                                         for x in pytree.leaves(got["caches"])),
+                         block_bytes=sharded_bytes(meta, rules.cache_shardings(meta)))
+            rec[dt] = r
+            del got, on_card
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arch] = rec
+        del params
+        gc.collect()
+    return out
+
+
+def ss_dryrun_want_bytes(torch):
+    """The rules' block bytes of (c)'s cell on its 16 x 16 mesh: the
+    parameters, the caches, the token and the position (on a fake world of
+    256 ranks here)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig, SHAPES
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.models.registry import get_model, input_specs
+    from repro_torch.sharding.partition import make_rules, sharded_bytes
+    cfg, shape = configs.get(SS_DRYRUN_ARCH), SHAPES[SS_DRYRUN_SHAPE]
+    api = get_model(cfg)
+    with FakeTensorMode():
+        params = api.init(torch.Generator(), cfg, shape.seq_len)
+    caches = api.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
+    with fake_world(256):
+        rules = make_rules(make_production_mesh(), cfg, RunConfig(), shape)
+        spec = input_specs(cfg, shape)
+        return (sharded_bytes(params, rules.param_shardings(params))
+                + sharded_bytes(caches, rules.cache_shardings(caches))
+                + sharded_bytes({"token": spec["token"]}, rules.batch_specs({"token": spec["token"]}))
+                + 4)
+
+
+def phase_split_serving(torch, run_path, card):
+    """The phase "split serving" (see the module docstring).  Returns the
+    phase's record."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import run_local
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card with this process
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ss_")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", SS_DRYRUN_ARCH, "--shape",
+         SS_DRYRUN_SHAPE, "--no-extrapolate", "--out", tmp],
+        env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rec = {}
+    try:
+        one = {}
+        for arch, flags in SS_ARCHS:
+            t0 = time.perf_counter()
+            one[arch] = ss_one_process(torch, arch, flags, "cuda:0")
+            one[arch]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = run_path("split serving: world 4 (gloo ranks sharing the card)",
+                        lambda: run_local(ss_rank, SS_ARCHS, world_size=SS_WORLD,
+                                          backend="gloo", device_type="cuda", timeout=900))
+        rec["world4_s"] = time.perf_counter() - t0
+        for arch, flags in SS_ARCHS:
+            o = one[arch]
+            err = max(_rel(torch, got, want) for r in outs
+                      for got, want in zip(r[arch]["float32"]["logits"], o["logits"]))
+            same = all(torch.equal(r[arch]["float32"]["tokens"], o["tokens"]) for r in outs)
+            f32 = [r[arch]["float32"] for r in outs]
+            bf = [r[arch]["bfloat16"] for r in outs]
+            steps = SS_BATCH * SS_STEPS
+            a = dict(mesh=list(SS_MESH), n_layers=QWEN_LAYERS, flags=flags, batch=SS_BATCH,
+                     prompt=SS_PROMPT, window=SS_WINDOW, steps=SS_STEPS,
+                     logit_rel_err_max=err, same_tokens=same,
+                     one_process_peak_bytes=o["peak_bytes"],
+                     one_process_f32_prefill_s=o["prefill_s"],
+                     one_process_f32_decode_s=o["decode_s"],
+                     peak_bytes=[x["peak_bytes"] for x in f32],
+                     cache_bytes=[x["cache_bytes"] for x in f32],
+                     block_bytes=[x["block_bytes"] for x in f32],
+                     f32_decode_s=[x["decode_s"] for x in f32],
+                     bf16_prefill_s=[x["prefill_s"] for x in bf],
+                     bf16_decode_s=[x["decode_s"] for x in bf],
+                     bf16_decode_tok_per_s=[steps / x["decode_s"] for x in bf],
+                     bf16_gloo_share=[x["gloo_s"] / (x["prefill_s"] + x["decode_s"]) for x in bf],
+                     bf16_peak_bytes=[x["peak_bytes"] for x in bf])
+            rec[arch] = a
+            log(f"split serving, {arch}: " + json.dumps(a) + f", card {card}")
+            if not (err <= SS_LOGIT_TOL and same
+                    and all(x["cache_bytes"] == x["block_bytes"] for x in f32)
+                    and max(a["peak_bytes"]) <= SS_PEAK_SHARE * o["peak_bytes"]):
+                raise AssertionError(f"split serving {arch} on {SS_MESH}: {a} (limits "
+                                     f"{SS_LOGIT_TOL}, peak {SS_PEAK_SHARE} of the one process)")
+        del outs
+        t0 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=900)
+        rec["dryrun_wait_s"] = time.perf_counter() - t0
+        if dry.returncode != 0:
+            raise AssertionError(f"dry run exited {dry.returncode}: {stdout}\n{stderr}")
+        with open(os.path.join(tmp, f"{SS_DRYRUN_ARCH}_{SS_DRYRUN_SHAPE}_single.json")) as f:
+            dr = json.load(f)
+        dr.pop("run", None)
+        want = ss_dryrun_want_bytes(torch)
+        rec["dryrun"] = dict(dr, want_argument_bytes=want)
+        if not (dr["status"] == "ok" and dr["memory"]["argument_bytes"] == want
+                and dr["memory"]["total_per_device_gib"] < SS_DRYRUN_PEAK_GIB):
+            raise AssertionError(f"dry run {SS_DRYRUN_ARCH} {SS_DRYRUN_SHAPE}: {rec['dryrun']} "
+                                 f"(limit {SS_DRYRUN_PEAK_GIB} GiB a device)")
+        log(f"split serving, dry run {SS_DRYRUN_ARCH} {SS_DRYRUN_SHAPE} on a fake world of 256 "
+            f"(host process): " + json.dumps(rec["dryrun"]))
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase split serving: {rec['wall_s']:.1f} s (world 4 {rec['world4_s']:.1f} s, "
+        f"waiting on the dry run {rec['dryrun_wait_s']:.1f} s), card {card}")
+    return rec
+
+
 def time_ms(torch, fn, inner=1, reps=7, warmup=2):
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls a rep."""
     for _ in range(warmup):
@@ -5737,6 +6020,9 @@ def main() -> int:
     # the distributed-training path: compressed DP, the sharded step and its
     # elastic restore, GPipe on gloo ranks sharing the card; the dry run
     phase_distributed_training(torch, run_path, card)
+    # prefill and decode under the split on gloo ranks sharing the card; the
+    # dry run's decode cell
+    phase_split_serving(torch, run_path, card)
     main_launches = {k: sum(p.get(k, 0) for p in path_launches.values()) for k in kern}
     unused = [k for k, v in main_launches.items() if not v]
     if unused:

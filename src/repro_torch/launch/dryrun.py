@@ -41,11 +41,17 @@ FLOPs, collective bytes and unfused bytes equal the extrapolated ones (the
 layer loop takes its slices by one ``unbind``).  What it does not count:
 fusion — the bytes are every operation's inputs and outputs, unfused, an
 upper bound of what a fused step moves; and the peak is eager PyTorch's
-without its caching allocator's rounding.  A train cell runs the split
-step (``sharding/split.py``): each layer gathered over ``data`` inside the
-layer loop, the compute split over ``model`` (TP, SP, EP; the SSD mixer
-whole), so its memory, FLOPs and collectives are the split's; prefill and
-decode gather every parameter (and cache) whole and compute unsplit.
+without its caching allocator's rounding.  Every cell runs the split
+(``sharding/split.py``) on this rank's blocks: each layer gathered over
+``data`` inside the layer loop, the compute split over ``model`` (TP, SP,
+EP; the SSD mixer by heads with ``run.ssm_head_shard``, else whole), so
+its memory, FLOPs and collectives are the split's.  A train cell runs the
+sharded step; a prefill cell ``prefill(constrain=)`` on the batch's block,
+its caches coming out as blocks in the rules' cache layout; a decode cell
+``decode_step(constrain=)`` on the caches' blocks
+(``Rules.cache_shardings``: batch on ``data``, the K/V caches' sequence on
+``model``, the SSD state by heads, the conv buffer by channels), which it
+updates in place, attending by flash decoding over ``model``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --multi-pod
@@ -71,8 +77,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig, SHAPES, ShapeConfig
 from repro_torch.models.registry import get_model, input_specs, supports_shape
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.sharding import collectives
-from repro_torch.sharding.partition import (Rules, gather_tree, make_rules, shard_shape,
-                                            shard_tensor)
+from repro_torch.sharding.partition import Rules, make_rules, shard_shape
+from repro_torch.sharding.split import Split
 from .mesh import PRODUCTION_SHAPES, fake_world, make_production_mesh
 from .train import TrainState, make_train_step, shard_train_step
 
@@ -133,13 +139,19 @@ def _nbytes(t: torch.Tensor) -> int:
 class _Meter(torch.utils._python_dispatch.TorchDispatchMode):
     """Live bytes (each output storage counted while a tensor on it lives),
     their peak, and the bytes of every non-view operation's tensor inputs
-    and outputs."""
+    and outputs.  ``base`` is the arguments' bytes and ``held`` their
+    tensors, whose storages are counted in ``base`` once for the whole
+    call (a view of one, a layer's slice of a stacked leaf, adds
+    nothing)."""
 
-    def __init__(self, base: int):
+    def __init__(self, base: int, held=()):
         super().__init__()
         self.live = self.peak = base
         self.moved = 0
         self._refs: Dict[int, List[int]] = {}
+        for t in held:
+            st = t.untyped_storage()
+            self._refs[st._cdata] = [st.nbytes(), 1]      # never dropped
 
     def _drop(self, key):
         ref = self._refs[key]
@@ -189,12 +201,14 @@ def _tree_bytes(tree) -> int:
     return sum(_nbytes(x) for x in pytree.leaves(tree) if isinstance(x, torch.Tensor))
 
 
-def _measure(fn, args_bytes: int):
-    """Run ``fn()`` under the meter and the FLOP counter; returns its
-    output and the readings."""
+def _measure(fn, args_bytes: int, held=()):
+    """Run ``fn()`` under the meter and the FLOP counter (``held``: the
+    argument tensors, :class:`_Meter`); returns its output and the
+    readings."""
     from torch.utils.flop_counter import FlopCounterMode
     collectives.fake_records.clear()
-    with _Meter(args_bytes) as meter, FlopCounterMode(display=False) as flops:
+    held = [t for t in pytree.leaves(held) if isinstance(t, torch.Tensor)]
+    with _Meter(args_bytes, held) as meter, FlopCounterMode(display=False) as flops:
         out = fn()
     records = list(collectives.fake_records)
     collectives.fake_records.clear()
@@ -226,13 +240,14 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules
             args = (_tree_bytes(state) + 8
                     + sum(math.prod(shard_shape(tuple(x.shape), rules.batch_specs(spec)[k]))
                           * x.element_size() for k, x in spec.items()))
-            (state, metrics), r = _measure(lambda: fn(state, spec), args)
+            (state, metrics), r = _measure(lambda: fn(state, spec), args, (state, spec))
             out_bytes = _tree_bytes((state.params, state.opt.m, state.opt.v)) + 8 + _tree_bytes(
                 {k: v for k, v in metrics.items() if isinstance(v, torch.Tensor)})
             alias = out_bytes - _tree_bytes({k: v for k, v in metrics.items()
                                              if isinstance(v, torch.Tensor)})
             return {"args": args, "out": out_bytes, "alias": alias, **r}
 
+        split = Split(rules).bind(params, rules.param_specs(full))
         if shape.kind == "prefill":
             bsh = rules.batch_specs(spec)
             batch = {k: _empty(shard_shape(tuple(x.shape), bsh[k]), x.dtype, dev)
@@ -241,31 +256,26 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules
 
             def prefill():
                 with torch.no_grad():
-                    return api.prefill(gather_tree(params, param_sh), batch, cfg, run)
+                    return api.prefill(params, batch, cfg, run, constrain=split)
 
-            out, r = _measure(prefill, args)
+            out, r = _measure(prefill, args, (params, batch))
             return {"args": args, "out": _tree_bytes(out), "alias": 0, **r}
 
-        # decode: one new token against a seq_len cache
+        # decode: one new token against a seq_len cache, in the rules' blocks
         caches_full = api.init_cache(cfg, shape.global_batch, shape.seq_len, device="cpu")
         cache_sh = rules.cache_shardings(caches_full)
         caches = _blocks(caches_full, cache_sh, dev)
+        split.bind(caches, pytree.tree_map(lambda sh: sh.spec, cache_sh))
         tsh = rules.batch_specs(spec)["token"]
         token = _empty(shard_shape(tuple(spec["token"].shape), tsh), torch.int32, dev)
         args = _tree_bytes(params) + _tree_bytes(caches) + _nbytes(token) + 4
 
         def decode():
             with torch.no_grad():
-                full_caches = gather_tree(caches, cache_sh)
-                logits, new = api.decode_step(gather_tree(params, param_sh), full_caches,
-                                              token, shape.seq_len - 1, cfg, run)
-                # the updated caches back into this rank's blocks, in place
-                for blk, x, sh in zip(pytree.leaves(caches), pytree.leaves(new),
-                                      pytree.leaves(cache_sh)):
-                    blk.copy_(shard_tensor(x, sh))
-                return logits
+                return api.decode_step(params, caches, token, shape.seq_len - 1, cfg, run,
+                                       constrain=split)[0]
 
-        logits, r = _measure(decode, args)
+        logits, r = _measure(decode, args, (params, caches, token))
         return {"args": args, "out": _nbytes(logits) + _tree_bytes(caches),
                 "alias": _tree_bytes(caches), **r}
 

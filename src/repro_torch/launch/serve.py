@@ -18,6 +18,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import configs
@@ -25,21 +26,61 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.runtime import telemetry
+from repro_torch.sharding.collectives import all_gather, all_to_all
+from repro_torch.sharding.partition import MeshAxes, P, spec_axes
 from .train import reduce_config
 
-__all__ = ["Server", "main"]
+__all__ = ["Server", "grow_caches", "main"]
 
 
-def _pad_caches(caches: Dict[str, torch.Tensor], target_len: int) -> Dict[str, torch.Tensor]:
-    """Grow the attention caches ``k``/``v`` ``(L, B, S, KV, hd)`` from the
-    prefill length to the serving window; every other cache (whisper's
-    cross ``xk``/``xv``, the SSM states) stays as it is."""
+def grow_caches(caches: Dict[str, Any], target_len: int, src=None, dst=None) -> Dict[str, Any]:
+    """The attention caches ``k``/``v`` ``(L, B, S, KV, hd)`` grown from the
+    prefill length S to the serving window ``target_len`` (zeros after S);
+    every other cache (whisper's cross ``xk``/``xv``, the SSM states) as it
+    is.
+
+    With ``src`` and ``dst``, the rules' cache shardings of the prefill's
+    caches and of the grown ones (``Rules.cache_shardings`` of
+    ``init_cache`` at the two lengths), ``caches`` are this rank's blocks
+    and so is the result: a sequence cut over ``model`` at both lengths
+    moves by one uneven all-to-all over ``model``, each position to the
+    rank whose block of the window holds it, so no rank holds more than
+    its blocks; one whole at both is padded, one cut only in the window
+    narrowed to this rank's block."""
     out = {}
     for name, x in caches.items():
-        if name in ("k", "v") and x.ndim == 5 and x.shape[2] < target_len:
-            x = F.pad(x, (0, 0, 0, 0, 0, target_len - x.shape[2]))
+        if name in ("k", "v") and x.ndim == 5:
+            if src is not None:
+                x = _grow_block(x, target_len, src[name], dst[name])
+            elif x.shape[2] < target_len:
+                x = F.pad(x, (0, 0, 0, 0, 0, target_len - x.shape[2]))
         out[name] = x
     return out
+
+
+def _grow_block(x: torch.Tensor, target_len: int, src, dst) -> torch.Tensor:
+    """:func:`grow_caches` of one cache block ``x`` laid out by ``src``
+    into the window's block laid out by ``dst`` (the sequence on axis 2)."""
+    tp = MeshAxes.from_mesh(src.mesh).tp
+    group = src.mesh.get_group(tp)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    src_cut, dst_cut = (tp in spec_axes(P(s.spec[2])) for s in (src, dst))
+    if src_cut and not dst_cut:
+        x, src_cut = all_gather(x, group, dim=2), False
+    tb = target_len // n if dst_cut else target_len
+    lo = r * tb if dst_cut else 0
+    if not src_cut:
+        part = x[:, :, lo:lo + tb]
+    else:
+        sb = x.shape[2]
+        if sb * n > target_len:
+            raise ValueError(f"a prompt of {sb * n} positions does not fit a window of "
+                             f"{target_len}")
+        span = lambda s, d: max(0, min((s + 1) * sb, (d + 1) * tb) - max(s * sb, d * tb))
+        part = all_to_all(x.movedim(2, 0).contiguous(), group,
+                          send=[span(r, d) for d in range(n)],
+                          recv=[span(s, r) for s in range(n)]).movedim(0, 2)
+    return F.pad(part, (0, 0, 0, 0, 0, tb - part.shape[2])).contiguous()
 
 
 def _sync(device: torch.device) -> None:
@@ -72,7 +113,7 @@ class Server:
         with telemetry.span("serve.request", b=tokens.shape[0], gen_len=gen_len):
             t0 = time.perf_counter()
             logits, caches = self.api.prefill(params, batch, cfg, run)
-            caches = _pad_caches(caches, self.max_len)
+            caches = grow_caches(caches, self.max_len)
             tok = torch.argmax(logits, -1)[:, None]
             _sync(self.device)
             prefill_t = time.perf_counter() - t0

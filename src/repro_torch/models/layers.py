@@ -11,13 +11,16 @@ materializes the ``(S, S)`` score matrix: key/value blocks stream through
 an online-softmax accumulator, and the backward pass recomputes score
 blocks from the saved log-sum-exp (:class:`_Flash`).
 
-Under a sharded train step the blocks take ``constrain=``, the step's
-split context (``sharding/split.py``), at the reference's call sites: the
-layer loop gathers each layer over the data-parallel axes, attention is
-split by heads over ``model`` where both head counts divide it (else each
-rank takes its query block against keys and values gathered over
-``model``), the MLP by columns and rows, and the loss and the embedding by
-vocabulary blocks.
+Under a sharded train step, prefill or decode step the blocks take
+``constrain=``, the split context (``sharding/split.py``), at the
+reference's call sites: the layer loop gathers each layer over the
+data-parallel axes, attention is split by heads over ``model`` where both
+head counts divide it (else each rank takes its query block against keys
+and values gathered over ``model``), the MLP by columns and rows, and the
+loss, the embedding and the logits by vocabulary blocks.  A prefill's keys
+and values come back in the rules' cache layout (the sequence on
+``model``); a decode step attends by flash decoding over those blocks
+(:func:`_attention_decode_split`).
 """
 from __future__ import annotations
 
@@ -32,13 +35,14 @@ from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch import pytree
 from repro_torch.sharding.collectives import (all_gather_rs, all_gather_split, all_reduce_id,
-                                              all_reduce_max, split_ag)
+                                              all_reduce_max, all_to_all, split_ag)
 
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "layer_norm", "apply_rope",
     "chunked_attention", "decode_attention", "attention_params",
     "attention_apply", "mlp_params", "mlp_apply", "norm_params", "norm_apply",
-    "chunked_cross_entropy", "scan_or_unroll", "stack_layers", "embed_lookup",
+    "chunked_cross_entropy", "scan_or_unroll", "stack_layers", "embed_lookup", "lm_logits",
+    "cross_decode", "whole_columns",
 ]
 
 _F32 = torch.float32
@@ -353,18 +357,24 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
         the caches are updated in place) and attend.
       * cross: ``kv_x`` set, ``causal=False``, ``use_rope=False`` (the
         whisper decoder; its encoder is the same without ``kv_x``).
-      * split (``constrain``, training only): ``x`` is the stream in its
-        layout, ``kv_x`` whole on every rank (entered by the caller); the
-        output is in the stream's layout (:func:`_attention_split`).
+      * split (``constrain``): ``x`` is the stream in its layout, ``kv_x``
+        whole on every rank (entered by the caller); the output is in the
+        stream's layout (:func:`_attention_split`), and a prefill's k/v
+        come back in the rules' cache layout (``Rules.cache_pspec``: this
+        rank's sequence block where ``model`` divides the length, else
+        whole).  A decode step's caches are such blocks, registered with
+        their specs (``Split.bind``), and it attends by flash decoding
+        (:func:`_attention_decode_split`).
     """
     kw = dict(positions=positions, rope_theta=rope_theta, use_rope=use_rope, causal=causal,
               q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
     if constrain is not None:
-        if cache is not None or cache_len is not None:
-            raise ValueError("the split attention block trains; prefill and decode take "
-                             "whole parameters")
+        if cache is not None:
+            return _attention_decode_split(constrain, p, x, n_heads=n_heads, n_kv=n_kv,
+                                           head_dim=head_dim, rope_theta=rope_theta,
+                                           use_rope=use_rope, cache=cache, pos=int(cache_len))
         return _attention_split(constrain, p, x, n_heads=n_heads, n_kv=n_kv,
-                                head_dim=head_dim, kv_x=kv_x, **kw), None
+                                head_dim=head_dim, kv_x=kv_x, cache_len=cache_len, **kw)
     kv = kv_x if kv_x is not None else x
     return _attend(p, x, kv, kv, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, cache=cache,
                    cache_len=cache_len, **kw)
@@ -404,8 +414,23 @@ def _attend(p, xq, xk, xv, *, n_heads, n_kv, head_dim, positions, rope_theta, us
     return out, new_cache
 
 
+def _heads_to_cache(c, x):
+    """A prefill's keys or values of this rank's heads, ``(B, S, KV/tp,
+    hd)`` over the whole sequence, in the cache layout: one all-to-all
+    from heads to sequence blocks (block i of the sequence to rank i)
+    where ``model`` divides S, else all-gathered whole."""
+    B, S, kb, hd = x.shape
+    if c.tp == 1:
+        return x
+    if S % c.tp:
+        return c.model_gather(x, 2)
+    sb = S // c.tp
+    got = all_to_all(x.transpose(0, 1).contiguous(), c.model)     # block i: rank i's heads
+    return got.reshape(c.tp, sb, B, kb, hd).permute(2, 1, 0, 3, 4).reshape(B, sb, c.tp * kb, hd)
+
+
 def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_theta,
-                     use_rope, causal, q_chunk, kv_chunk, unroll):
+                     use_rope, causal, q_chunk, kv_chunk, unroll, cache_len=None):
     """The attention block split over ``model`` (``c`` the stream's split
     context).  Where both head counts divide ``model``: heads, the stream
     entered whole (the sequence all-gathered under SP) into
@@ -414,7 +439,11 @@ def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_
     Otherwise the sequence: this rank's query block (the stream's block
     under SP) with ``wq``/``wk``/``wv``/``wo`` gathered over ``model``
     against the keys and values of every block, all-gathered (a causal
-    block skips what lies after it, so the last rank works most)."""
+    block skips what lies after it, so the last rank works most).  With
+    ``cache_len`` (prefill) returns ``(out, (k, v))``, the keys and values
+    in the cache layout: the sequence split's own block, or the head
+    split's heads moved to sequence blocks (:func:`_heads_to_cache`);
+    else ``(out, None)``."""
     tp = c.tp
     qcols, kvcols = n_heads * head_dim, n_kv * head_dim
     norms = ({"q_norm": c.tp_rep(p["q_norm"]), "k_norm": c.tp_rep(p["k_norm"])}
@@ -426,11 +455,13 @@ def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_
         if "bq" in p:
             pb.update(bq=c.block(p["bq"], 0, qcols), bk=c.block(p["bk"], 0, kvcols),
                       bv=c.block(p["bv"], 0, kvcols))
-        out, _ = _attend(pb, xq, xk, xv, n_heads=n_heads // tp, n_kv=n_kv // tp,
-                         head_dim=head_dim, positions=positions, rope_theta=rope_theta,
-                         use_rope=use_rope, causal=causal, cache=None, cache_len=None,
-                         q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
-        return c.leave(out)
+        out, kv = _attend(pb, xq, xk, xv, n_heads=n_heads // tp, n_kv=n_kv // tp,
+                          head_dim=head_dim, positions=positions, rope_theta=rope_theta,
+                          use_rope=use_rope, causal=causal, cache=None, cache_len=cache_len,
+                          q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
+        if kv is not None:
+            kv = (_heads_to_cache(c, kv[0]), _heads_to_cache(c, kv[1]))
+        return c.leave(out), kv
     # the sequence split: this rank's queries (the stream's block under SP)
     whole_x = not c.sp
     if whole_x and x.shape[1] % tp:
@@ -452,6 +483,7 @@ def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_
         q = apply_rope(q, pos, rope_theta)
         if kv_x is None:
             k = apply_rope(k, pos, rope_theta)
+    kv = (k, v) if cache_len is not None else None     # this block's: the cache layout
     if kv_x is None:
         # every block's keys and values: their gradient, each rank's
         # queries' part, reduce-scattered back to the block
@@ -459,7 +491,115 @@ def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_
     out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                             q_offset=off if causal else 0, unroll=unroll)
     out = torch.matmul(out.reshape(B, sb, qcols), c.whole(p["wo"], 0, qcols).to(x.dtype))
-    return all_gather_split(out, c.model, dim=1) if whole_x else out
+    return (all_gather_split(out, c.model, dim=1) if whole_x else out), kv
+
+
+def whole_columns(c, x, w, b, cols: int) -> torch.Tensor:
+    """``x @ w (+ b)`` with all ``cols`` columns on every rank: this
+    rank's column block of ``w`` (the rules cut its columns over
+    ``model``) all-gathered over ``model``, else ``w`` whole."""
+    cut = c.is_cut(w, 1, cols)
+    y = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        y = y + (c.block(b, 0, cols) if cut else b).to(x.dtype)
+    return c.model_gather(y, -1) if cut else y
+
+
+def _flash_decode(c, q, k_blk, v_blk, last: int) -> torch.Tensor:
+    """:func:`decode_attention` of one token over a cache whose sequence
+    is cut over ``model``: this rank scores its block ``(B, Tb, KV, D)``,
+    masking its positions after ``last`` (the last valid one in the
+    block's own coordinates: below 0 masks the whole block, past its end
+    none) with ``-1e30``; the row max comes from an all-reduce MAX over
+    ``model`` and the exponentials' sums and the weighted values from one
+    ordered sum.  A block wholly masked scores ``-1e30`` against the real
+    max of position 0 (rank 0's, always valid), so its weights are exact
+    zeros and add nothing."""
+    B, _, H, D = q.shape
+    Tb, KV = k_blk.shape[1], k_blk.shape[2]
+    q5 = (q * D ** -0.5).reshape(B, KV, H // KV, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", q5.to(_F32), k_blk.to(_F32))
+    valid = torch.arange(Tb, device=q.device) <= last
+    s = torch.where(valid, s, torch.full((), -1e30, device=q.device))
+    m = c.model_max(s.amax(-1))                                       # (B, KV, G)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_blk.to(_F32))
+    tot = all_reduce_id(torch.cat([acc, p.sum(-1)[..., None]], dim=-1), c.model)
+    out = tot[..., :D] / tot[..., D:]
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _attend_cache(c, q, k_cache, v_cache, last: int, dtype) -> torch.Tensor:
+    """One token's attention over a decode cache: flash decoding where the
+    rules cut its sequence over ``model`` (``last`` a global position),
+    else :func:`decode_attention` on the whole cache."""
+    off = c.cache_offset(k_cache)
+    if off is None:
+        return decode_attention(q, k_cache.to(dtype), v_cache.to(dtype), last)
+    return _flash_decode(c, q, k_cache.to(dtype), v_cache.to(dtype), last - off)
+
+
+def _rows_out(c, out, wo, rows: int) -> torch.Tensor:
+    """``out @ wo`` for ``out`` whole on every rank: this rank's row block
+    of ``wo`` (the rules cut its rows over ``model``) on its columns of
+    ``out``, the partial left (an ordered all-reduce), else ``wo``
+    whole."""
+    if not c.is_cut(wo, 0, rows):
+        return torch.matmul(out, wo.to(out.dtype))
+    rb = wo.shape[0]
+    return c.leave(torch.matmul(out[..., c.rank * rb:(c.rank + 1) * rb], wo.to(out.dtype)))
+
+
+def _attention_decode_split(c, p, x, *, n_heads, n_kv, head_dim, rope_theta, use_rope,
+                            cache, pos: int):
+    """One decode step of the attention block under a split (``c`` the
+    one-token stream's context, ``x`` ``(B, 1, D)`` whole on every
+    ``model`` rank): the token's q/k/v from this rank's column blocks of
+    ``wq``/``wk``/``wv``, all-gathered over ``model`` to whole heads (a
+    few kilobytes a token), rotary at the global position ``pos``; the
+    rank whose cache block holds ``pos`` writes the token's k/v into it in
+    place; flash decoding over the blocks (:func:`_attend_cache`); the
+    output through this rank's row block of ``wo``, left."""
+    B, dtype = x.shape[0], x.dtype
+    qcols, kvcols = n_heads * head_dim, n_kv * head_dim
+    q = whole_columns(c, x, p["wq"], p.get("bq"), qcols).reshape(B, 1, n_heads, head_dim)
+    k = whole_columns(c, x, p["wk"], p.get("bk"), kvcols).reshape(B, 1, n_kv, head_dim)
+    v = whole_columns(c, x, p["wv"], p.get("bv"), kvcols).reshape(B, 1, n_kv, head_dim)
+    if "q_norm" in p:
+        q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
+    if use_rope:
+        at = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+        q, k = apply_rope(q, at, rope_theta), apply_rope(k, at, rope_theta)
+    k_cache, v_cache = cache
+    local = pos - (c.cache_offset(k_cache) or 0)
+    if 0 <= local < k_cache.shape[1]:                   # this rank's block holds pos
+        k_cache[:, local:local + 1] = k.to(k_cache.dtype)
+        v_cache[:, local:local + 1] = v.to(v_cache.dtype)
+    out = _attend_cache(c, q, k_cache, v_cache, pos, dtype)
+    return _rows_out(c, out.reshape(B, 1, qcols), p["wo"], qcols), cache
+
+
+def cross_decode(p: Dict[str, Any], x: torch.Tensor, xcache, *, n_heads: int, head_dim: int,
+                 constrain=None) -> torch.Tensor:
+    """One token's cross-attention against precomputed keys and values
+    ``xcache = (xk, xv)`` ``(B, T, KV, hd)``, every position attended (the
+    whisper decoder's decode step): q from ``wq`` + ``bq``, no rotary, the
+    output through ``wo``.  With ``constrain`` (the one-token stream's
+    split context) the caches are blocks in the rules' layout, attended as
+    :func:`_attention_decode_split` attends (nothing written)."""
+    B, S, _ = x.shape
+    qcols = n_heads * head_dim
+    xk, xv = xcache
+    if constrain is None:
+        q = torch.matmul(x, p["wq"].to(x.dtype)) + p["bq"].to(x.dtype)
+        out = decode_attention(q.reshape(B, S, n_heads, head_dim), xk.to(x.dtype),
+                               xv.to(x.dtype), xk.shape[1] - 1)
+        return torch.matmul(out.reshape(B, S, qcols), p["wo"].to(x.dtype))
+    c = constrain
+    q = whole_columns(c, x, p["wq"], p["bq"], qcols).reshape(B, S, n_heads, head_dim)
+    total = xk.shape[1] * (c.tp if c.cache_offset(xk) is not None else 1)
+    out = _attend_cache(c, q, xk, xv, total - 1, x.dtype)
+    return _rows_out(c, out.reshape(B, S, qcols), p["wo"], qcols)
 
 
 # ---------------------------------------------------------------------------
@@ -644,6 +784,26 @@ def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, dtype, constrain=None) -
     e = w[local.clamp(0, n - 1)].to(dtype)
     e = torch.where(inside[..., None], e, torch.zeros((), dtype=dtype, device=e.device))
     return all_reduce_id(e, constrain.model)
+
+
+def lm_logits(h: torch.Tensor, w: torch.Tensor, *, transpose_w: bool = False,
+              softcap: float = 0.0, constrain=None) -> torch.Tensor:
+    """``h @ w`` (``w`` ``(D, V)``, or ``(V, D)`` with ``transpose_w``) in
+    ``h``'s dtype, soft-capped where ``softcap`` is set.  With ``constrain``
+    (``h`` whole on every rank, ``w`` this rank's block, gathered here over
+    the data-parallel axes) and the vocabulary cut over ``model``: this
+    rank's vocabulary block of the logits, all-gathered over ``model``, so
+    every rank returns them whole."""
+    c = constrain
+    if c is not None:
+        w = c.gather(w)
+    wt = w.to(h.dtype)
+    logits = torch.matmul(h, wt.t() if transpose_w else wt)
+    if c is not None and c.vocab_block(w, 0 if transpose_w else 1) is not None:
+        logits = c.model_gather(logits, -1)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
 
 
 # ---------------------------------------------------------------------------

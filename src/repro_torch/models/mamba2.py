@@ -17,12 +17,26 @@ diagonal ``seg`` is positive, so its ``exp`` can overflow and the gradient
 becomes ``0·inf = NaN``.  The forward values are the same wherever the
 reference's are finite.
 
-``loss`` takes ``constrain=``, a sharded step's split context, as the
-reference's does.  The SSD mixer is the split's one exception: it is not
-split over ``model`` (the reference's packed ``w_in`` does not cut by
-heads), so each layer is gathered whole over both axes and runs on the
-whole sequence on every ``model`` rank, and ``constrain(h, "act")`` cuts
-its output back to the stream's block.
+``loss``, ``prefill`` and ``decode_step`` take ``constrain=``, a split
+context (``sharding/split.py``), as the reference's do.  With
+``run.ssm_head_shard`` (the rules lay ``ssm_x`` out by heads) a training or
+prefill layer runs this rank's heads on the whole sequence (the stream
+entered): ``w_in`` is gathered over ``model`` one layer at a time and its
+z, x and dt columns narrowed to the rank's heads, B and C kept whole (cut
+by groups where ``model`` divides ``ssm_groups``), the conv channels,
+``a_log``, ``d_skip``, ``dt_bias`` and ``gate_norm`` narrowed alike, the
+gated RMSNorm's mean square over ``d_inner`` summed over ``model``, and
+``w_out``'s row block's partial output left.  With the flag off the SSD
+mixer is the split's one recorded exception: each layer is gathered whole
+over both axes and runs on the whole sequence on every ``model`` rank, and
+``constrain(h, "act")`` cuts its output back to the stream's block.
+Either way a prefill's final state and conv tail come back as this rank's
+blocks of the rules' cache layout (the state by heads, the conv buffer by
+a contiguous block of its packed channels).  A decode step under a split
+is head-parallel whatever the flag, as the cache's layout is: the token's
+projection from ``w_in``'s column block, all-gathered; the conv on the
+rank's block of the buffer, its activations all-gathered; the SSD update,
+the gated norm and ``w_out``'s rows on the state's heads, left.
 """
 from __future__ import annotations
 
@@ -31,7 +45,6 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from . import layers as L
@@ -167,24 +180,138 @@ def _gate_out(p, y, z, dtype):
     return torch.matmul(y, p["w_out"].to(dtype))
 
 
+# ---------------------------------------------------------------------------
+# the split over ``model`` (sharding/split.py)
+# ---------------------------------------------------------------------------
+
+def _local(cfg: ModelConfig, c, mode: Optional[str], device) -> Dict[str, Any]:
+    """The SSD heads this ``model`` rank runs and the packed indices that
+    select them: ``mode`` ``"heads"`` takes, in every group, this rank's
+    block of the group's heads (B and C whole; the decode state's layout,
+    ``Rules.cache_pspec``), ``"groups"`` this rank's block of groups (B
+    and C cut with them), None every head.  ``heads``/``groups`` are the
+    global indices in ``(group, head)`` order; ``chan`` the heads'
+    channels of ``x``, ``z`` and ``gate_norm``; ``xbc`` the conv channels
+    (``x``, then B, then C); ``cols`` the ``w_in`` columns (``z``, ``xbc``,
+    ``dt``); ``contiguous`` whether ``chan`` is this rank's contiguous
+    block of ``d_inner`` (the rules' row block of ``w_out``)."""
+    di, g, n, hg, pd = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                        cfg.ssm_heads // cfg.ssm_groups, cfg.ssm_head_dim)
+    ar = lambda a, b: torch.arange(a, b, device=device)
+    if mode == "heads":
+        hb = hg // c.tp
+        heads = (ar(0, g)[:, None] * hg + ar(c.rank * hb, (c.rank + 1) * hb)).reshape(-1)
+        groups = ar(0, g)
+    elif mode == "groups":
+        gb = g // c.tp
+        groups = ar(c.rank * gb, (c.rank + 1) * gb)
+        heads = (groups[:, None] * hg + ar(0, hg)).reshape(-1)
+    else:
+        heads, groups = ar(0, g * hg), ar(0, g)
+    chan = (heads[:, None] * pd + ar(0, pd)).reshape(-1)
+    gn = (groups[:, None] * n + ar(0, n)).reshape(-1)
+    xbc = torch.cat([chan, di + gn, di + g * n + gn])
+    cols = torch.cat([chan, di + xbc, 2 * di + 2 * g * n + heads])
+    return {"heads": heads, "groups": groups, "chan": chan, "xbc": xbc, "cols": cols,
+            "contiguous": mode == "groups" or (mode == "heads" and g == 1)}
+
+
+def _ssd_mode(cfg: ModelConfig, c) -> Optional[str]:
+    """How ``run.ssm_head_shard`` splits the SSD mixer over ``model`` (see
+    :func:`_local`): by groups where ``model`` divides them, else by heads
+    within each group where it divides a group's heads, else not at all."""
+    g, hg = cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups
+    if c.tp == 1 or not c.rules.run.ssm_head_shard:
+        return None
+    if g % c.tp == 0:
+        return "groups"
+    return "heads" if hg % c.tp == 0 else None
+
+
+def _gate_norm_split(c, y, z, scale, di: int, dtype, cut: bool) -> torch.Tensor:
+    """The gated RMSNorm over ``d_inner`` of this rank's channels ``y``
+    (``z`` and ``scale`` cut alike): the mean square's sum over ``model``
+    in rank order where the channels are cut."""
+    x = (y * F.silu(z.to(_F32)).to(dtype)).to(_F32)
+    ss = (x * x).sum(dim=-1, keepdim=True)
+    ms = (c.model_sum(ss) if cut else ss) / di
+    return (x * torch.rsqrt(ms + 1e-6) * scale).to(dtype)
+
+
+def _out_rows(c, w_out, sel, di: int):
+    """``w_out``'s rows of this rank's channels: the rules' row block
+    where it is that block, else the rows taken from the whole leaf."""
+    if sel["contiguous"]:
+        return c.block(w_out, 0, di)
+    return c.whole(w_out, 0, di).index_select(0, sel["chan"])
+
+
+def _cache_block(c, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A cache computed whole over ``model`` cut to this rank's block along
+    ``dim`` where ``model`` divides it (``Rules.cache_pspec``)."""
+    if c.tp == 1 or x.shape[dim] % c.tp:
+        return x
+    b = x.shape[dim] // c.tp
+    return x.narrow(dim, c.rank * b, b).contiguous()
+
+
+def _mamba_split(p, h, cfg: ModelConfig, chunk: int, return_state: bool, c):
+    """:func:`mamba_apply` under a split (see the module docstring)."""
+    di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    K, conv_ch = 2 * di + 2 * g * n + nh, di + 2 * g * n
+    mode = _ssd_mode(cfg, c)
+    if mode is None:
+        # the recorded exception: the layer whole on every rank
+        pw = dict(p, w_in=c.whole_redundant(p["w_in"], 1, K),
+                  conv=c.whole_redundant(p["conv"], 1, conv_ch),
+                  w_out=c.whole_redundant(p["w_out"], 0, di))
+        out, state = mamba_apply(pw, c.redundant(h), cfg, chunk, return_state)
+        if state is not None:
+            state = (_cache_block(c, state[0], 2), _cache_block(c, state[1], 2))
+        return c(out, "act"), state
+    dtype = h.dtype
+    sel = _local(cfg, c, mode, h.device)
+    hl, gl, dl = len(sel["heads"]), len(sel["groups"]), len(sel["chan"])
+    xin = c.enter(L.rms_norm(h, c.rep(p["ln"]["scale"])))       # the whole sequence
+    B, S, _ = xin.shape
+    w_in = c.whole(p["w_in"], 1, K)
+    proj = torch.matmul(xin, w_in.index_select(1, sel["cols"]).to(dtype))
+    z, xbc, dt = proj[..., :dl], proj[..., dl:dl + len(sel["xbc"])], proj[..., -hl:]
+    rep = lambda t: c.tp_rep(t).index_select(0, sel["heads"])
+    conv = c.whole(p["conv"], 1, conv_ch).index_select(1, sel["xbc"])
+    conv_b = c.tp_rep(p["conv_b"]).index_select(0, sel["xbc"])
+    xbc = F.silu(_causal_conv(xbc, conv.to(dtype), conv_b.to(dtype)))
+    x = xbc[..., :dl].reshape(B, S, hl, cfg.ssm_head_dim)
+    bmat = xbc[..., dl:dl + gl * n].reshape(B, S, gl, n)
+    cmat = xbc[..., dl + gl * n:].reshape(B, S, gl, n)
+    dt = F.softplus(dt.to(_F32) + rep(p["dt_bias"]))
+    y, final_state = ssd_chunked(x, dt, rep(p["a_log"]), bmat, cmat, rep(p["d_skip"]),
+                                 chunk=chunk)
+    gate = c.tp_rep(p["gate_norm"]).index_select(0, sel["chan"])
+    yn = _gate_norm_split(c, y.reshape(B, S, dl), z, gate, di, dtype, True)
+    out = c.leave(torch.matmul(yn, _out_rows(c, p["w_out"], sel, di).to(dtype)))
+    if not return_state:
+        return h + out, None
+    if mode == "groups":        # the cache cuts the state by heads, if at all
+        final_state = _cache_block(c, c.model_gather(final_state, 1), 2)
+    # the conv tail in the cache's layout: the raw inputs of its channels
+    ch = torch.arange(conv_ch, device=h.device)
+    ch = _cache_block(c, ch, 0)
+    tail = torch.matmul(xin[:, -cfg.ssm_conv:], w_in.index_select(1, di + ch).to(dtype))
+    return h + out, (final_state, tail)
+
+
 def mamba_apply(p, h, cfg: ModelConfig, chunk: int = 64, return_state: bool = False,
                 constrain=None):
     """Full-sequence Mamba2 block (training / prefill).  Returns (h + out,
     None) or, with ``return_state``, (h + out, (final_state, conv_tail)),
     ``conv_tail`` the last ``ssm_conv`` raw (pre-conv) inputs for decode.
     With ``constrain`` (the stream's split context) ``h`` is the stream in
-    its layout and so is ``h + out``: the layer runs whole on every rank,
-    its ``model`` blocks and the sequence all-gathered (their gradients cut
-    back to the blocks)."""
+    its layout and so is ``h + out``, and the state and the conv tail are
+    this rank's blocks in the rules' cache layout (see the module
+    docstring)."""
     if constrain is not None:
-        c = constrain
-        g, n = cfg.ssm_groups, cfg.ssm_state
-        p = dict(p, w_in=c.whole_redundant(p["w_in"], 1, 2 * cfg.d_inner + 2 * g * n
-                                           + cfg.ssm_heads),
-                 conv=c.whole_redundant(p["conv"], 1, cfg.d_inner + 2 * g * n),
-                 w_out=c.whole_redundant(p["w_out"], 0, cfg.d_inner))
-        out, state = mamba_apply(p, c.redundant(h), cfg, chunk, return_state)
-        return c(out, "act"), state
+        return _mamba_split(p, h, cfg, chunk, return_state, constrain)
     dtype = h.dtype
     di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     B, S, _ = h.shape
@@ -204,10 +331,16 @@ def mamba_apply(p, h, cfg: ModelConfig, chunk: int = 64, return_state: bool = Fa
     return h + out, None
 
 
-def mamba_decode(p, h, cache, cfg: ModelConfig):
+def mamba_decode(p, h, cache, cfg: ModelConfig, constrain=None):
     """One-token Mamba2 step.  h: (B, 1, d); cache: dict(state (B, G, HG,
     P, N) float32, conv (B, w, conv_ch)), both updated in place.  Returns
-    (h + out, cache)."""
+    (h + out, cache).  With ``constrain`` (the one-token stream's split
+    context) the caches are this rank's blocks in the rules' layout,
+    registered with their specs, and the step is head-parallel where the
+    state is cut by heads, whatever ``run.ssm_head_shard`` says (see the
+    module docstring)."""
+    if constrain is not None:
+        return _mamba_decode_split(p, h, cache, cfg, constrain)
     dtype = h.dtype
     di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     B = h.shape[0]
@@ -226,6 +359,52 @@ def mamba_decode(p, h, cache, cfg: ModelConfig):
     y, new_state = ssd_decode(cache["state"], x, dt, p["a_log"], bvec, cvec, p["d_skip"])
     cache["state"].copy_(new_state)
     out = _gate_out(p, y.reshape(B, di), z, dtype)
+    return h + out[:, None], cache
+
+
+def _mamba_decode_split(p, h, cache, cfg: ModelConfig, c):
+    """:func:`mamba_decode` under a split: the token's projection from this
+    rank's column block of ``w_in``, all-gathered over ``model``; the conv
+    on this rank's block of the conv buffer's channels (with its block of
+    ``conv``), the activations all-gathered; the SSD update, the gated
+    norm and ``w_out``'s rows on this rank's heads of the state, the
+    output left."""
+    dtype = h.dtype
+    di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    K, conv_ch = 2 * di + 2 * g * n + nh, di + 2 * g * n
+    B = h.shape[0]
+    hn = L.rms_norm(h[:, 0], p["ln"]["scale"])
+    proj = L.whole_columns(c, hn, p["w_in"], None, K)
+    z, xbc, dt = _split_proj(proj, cfg)
+    conv_c, state = cache["conv"], cache["state"]
+    cut = c.on_model(conv_c, 2)
+    if cut:
+        cb = conv_c.shape[2]
+        xbc = xbc[..., c.rank * cb:(c.rank + 1) * cb]
+        kernel, bias = c.block(p["conv"], 1, conv_ch), c.block(p["conv_b"], 0, conv_ch)
+    else:
+        kernel, bias = c.whole(p["conv"], 1, conv_ch), p["conv_b"]
+    conv_buf = torch.cat([conv_c[:, 1:].to(dtype), xbc[:, None]], dim=1)
+    conv_c.copy_(conv_buf)
+    act = F.silu((conv_buf * kernel.to(dtype)[None]).sum(dim=1) + bias.to(dtype))
+    xbc = c.model_gather(act, -1) if cut else act
+    heads_cut = c.cache_offset(state, 2) is not None
+    sel = _local(cfg, c, "heads" if heads_cut else None, h.device)
+    hl = len(sel["heads"])
+    x = xbc.index_select(-1, sel["chan"]).reshape(B, hl, cfg.ssm_head_dim)
+    bvec = xbc[..., di: di + g * n].reshape(B, g, n)
+    cvec = xbc[..., di + g * n:].reshape(B, g, n)
+    dt = F.softplus(dt.index_select(-1, sel["heads"]).to(_F32)
+                    + p["dt_bias"].index_select(0, sel["heads"]))
+    y, new_state = ssd_decode(state, x, dt, p["a_log"].index_select(0, sel["heads"]), bvec, cvec,
+                              p["d_skip"].index_select(0, sel["heads"]))
+    state.copy_(new_state)
+    yn = _gate_norm_split(c, y.reshape(B, -1), z.index_select(-1, sel["chan"]),
+                          p["gate_norm"].index_select(0, sel["chan"]), di, dtype, heads_cut)
+    if heads_cut:
+        out = c.leave(torch.matmul(yn, _out_rows(c, p["w_out"], sel, di).to(dtype)))
+    else:
+        out = torch.matmul(yn, c.whole(p["w_out"], 0, di).to(dtype))
     return h + out[:, None], cache
 
 
@@ -262,13 +441,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     return init_mamba_cache(cfg, batch, dtype=dtype, device=device)
 
 
-def _embed(params, tokens, dtype):
-    return L.embed_lookup(params["embed"], tokens, dtype)
-
-
-def _lm_head(params, h):
+def _lm_head(params, h, constrain=None):
     h = L.rms_norm(h, params["final_norm"]["scale"])
-    return torch.matmul(h, params["unembed"].to(h.dtype))
+    return L.lm_logits(h, params["unembed"], constrain=constrain)
 
 
 def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
@@ -287,30 +462,40 @@ def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
                                    chunk=run.loss_chunk, constrain=c)
 
 
-def prefill(params, tokens, cfg: ModelConfig, run: RunConfig):
+def prefill(params, tokens, cfg: ModelConfig, run: RunConfig, constrain=None):
     """Full forward collecting each layer's final SSM state and conv tail.
-    Returns (last-position logits, caches)."""
+    Returns (last-position logits, caches).  With ``constrain`` (a split
+    context) the logits come back whole over ``model`` and the caches as
+    this rank's blocks in the rules' cache layout."""
     dtype = L._dtype(run.compute_dtype)
-    h = _embed(params, tokens, dtype)
+    c = constrain.at(tokens.shape[1]) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], tokens, dtype, c)
+    if c is not None:
+        h = c(h, "act")
     h, ys = L.scan_or_unroll(
-        lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk, return_state=True),
-        h, params["layers"], remat=run.remat)
-    logits = _lm_head(params, h[:, -1:])
+        lambda h, lp: mamba_apply(lp, h, cfg, chunk=run.ssd_chunk, return_state=True,
+                                  constrain=c),
+        h, params["layers"], remat=run.remat, constrain=c)
+    logits = _lm_head(params, c.last(h) if c is not None else h[:, -1:], c)
     cache = {"state": torch.stack([y[0] for y in ys]),
              "conv": torch.stack([y[1] for y in ys]).to(dtype)}
     return logits[:, 0].to(_F32), cache
 
 
-def decode_step(params, caches, token, pos, cfg: ModelConfig, run: RunConfig):
+def decode_step(params, caches, token, pos, cfg: ModelConfig, run: RunConfig, constrain=None):
     """One step; writes each layer's state and conv buffer into ``caches``
-    in place and returns (logits, caches)."""
+    in place and returns (logits, caches).  With ``constrain`` (a split
+    context) ``caches`` are this rank's blocks, bound with their specs
+    (``Split.bind``)."""
     dtype = L._dtype(run.compute_dtype)
-    h = _embed(params, token, dtype)
-    for i in range(cfg.n_layers):
-        lp = pytree.tree_map(lambda x: x[i], params["layers"])
-        h, _ = mamba_decode(lp, h, {"state": caches["state"][i], "conv": caches["conv"][i]},
-                            cfg)
-    logits = _lm_head(params, h)
+    c = constrain.at(1) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], token, dtype, c)
+    layers = (c.slices(caches) if c is not None
+              else [{"state": s, "conv": v} for s, v in zip(caches["state"], caches["conv"])])
+    it = iter(layers)
+    h, _ = L.scan_or_unroll(lambda h, lp: mamba_decode(lp, h, next(it), cfg, constrain=c),
+                            h, params["layers"], constrain=c)
+    logits = _lm_head(params, h, c)
     return logits[:, 0].to(_F32), caches
 
 

@@ -1,12 +1,14 @@
 """Unified model API over the architecture families.
 
 Every family exposes ``init(gen, cfg, max_seq)``, ``loss(params, batch,
-cfg, run)``, ``prefill(params, batch, cfg, run)``, ``decode_step(params,
-caches, token, pos, cfg, run)`` and ``init_cache(cfg, batch, max_len)``,
-resolved here by ``cfg.family``, as in the JAX package's
-``models/registry.py``; ``prefill`` takes the batch dict (``tokens``, and
-``image_embeds`` or ``frame_embeds`` where the family reads them) or, but
-for whisper, the token ids alone.  ``module`` is the family's ``nn.Module``
+cfg, run, constrain=None)``, ``prefill(params, batch, cfg, run,
+constrain=None)``, ``decode_step(params, caches, token, pos, cfg, run,
+constrain=None)`` and ``init_cache(cfg, batch, max_len)``, resolved here by
+``cfg.family``, as in the JAX package's ``models/registry.py``; ``prefill``
+takes the batch dict (``tokens``, and ``image_embeds`` or ``frame_embeds``
+where the family reads them) or, but for whisper, the token ids alone.
+``constrain`` is a split context (``sharding/split.py``): the entry point
+then runs on this rank's blocks.  ``module`` is the family's ``nn.Module``
 class (:func:`build_module`).  ``input_specs`` and ``supports_shape`` come
 with the dry run (``launch/dryrun.py``).
 """
@@ -38,11 +40,12 @@ def _transformer_api() -> ModelAPI:
     def _init(gen, cfg, max_seq=0):
         return transformer.init(gen, cfg)
 
-    def _prefill(params, batch, cfg, run):
+    def _prefill(params, batch, cfg, run, constrain=None):
         if isinstance(batch, dict):
             return transformer.prefill(params, batch["tokens"], cfg, run,
-                                       image_embeds=batch.get("image_embeds"))
-        return transformer.prefill(params, batch, cfg, run)
+                                       image_embeds=batch.get("image_embeds"),
+                                       constrain=constrain)
+        return transformer.prefill(params, batch, cfg, run, constrain=constrain)
 
     return ModelAPI(_init, transformer.loss, _prefill, transformer.decode_step,
                     transformer.init_cache, transformer.Transformer)
@@ -51,9 +54,9 @@ def _transformer_api() -> ModelAPI:
 def _ssm_api(module, cls) -> Callable[[], ModelAPI]:
     """mamba2 and zamba2: ``prefill`` reads the batch's tokens."""
     def api() -> ModelAPI:
-        def _prefill(params, batch, cfg, run):
+        def _prefill(params, batch, cfg, run, constrain=None):
             tokens = batch["tokens"] if isinstance(batch, dict) else batch
-            return module.prefill(params, tokens, cfg, run)
+            return module.prefill(params, tokens, cfg, run, constrain=constrain)
 
         return ModelAPI(module.init, module.loss, _prefill, module.decode_step,
                         module.init_cache, cls)

@@ -8,11 +8,11 @@ axis, as the reference's ``jax.vmap`` init does (the arrowhead
 preconditioner reads each layer leaf as ``leaf.reshape(n_layers, -1)``);
 ``loss`` / ``prefill`` / ``decode_step`` loop over that axis.  A MoE layer
 carries ``moe`` (``models/moe.py``) in place of ``mlp``.
-:class:`Transformer` is the same model as an ``nn.Module``.  ``loss`` takes
-``constrain=``, a sharded step's split context (``sharding/split.py``), as
-the reference's does: the residual stream then lives in the rules' ``act``
-layout (the sequence on ``model`` under SP) and each block is split over
-``model``.
+:class:`Transformer` is the same model as an ``nn.Module``.  ``loss``,
+``prefill`` and ``decode_step`` take ``constrain=``, a split context
+(``sharding/split.py``), as the reference's do: the residual stream then
+lives in the rules' ``act`` layout (the sequence on ``model`` under SP),
+each block is split over ``model``, and the caches are the rules' blocks.
 """
 from __future__ import annotations
 
@@ -20,7 +20,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from . import layers as L
@@ -114,20 +113,29 @@ def _stack_forward(params, h, cfg: ModelConfig, run: RunConfig, *,
                    positions=None, caches=None, cache_len=None,
                    fill_cache: bool = False, constrain=None):
     """Loop over the stacked layers.  Returns (h, new_caches); a decode
-    step writes its token into ``caches`` in place."""
+    step writes its token into ``caches`` in place (under a split, its
+    blocks: each layer's slice keeps the spec the caller bound,
+    ``Split.bind``)."""
+    c = constrain
     if caches is not None:
-        for i in range(cfg.n_layers):
-            lp = pytree.tree_map(lambda x: x[i], params["layers"])
-            h, _ = _layer_apply(lp, h, cfg, run, positions=positions,
-                                cache=(caches["k"][i], caches["v"][i]),
-                                cache_len=cache_len)
+        kv = (c.slices({"k": caches["k"], "v": caches["v"]}) if c is not None
+              else [{"k": k, "v": v} for k, v in zip(caches["k"], caches["v"])])
+        it = iter(kv)
+
+        def step(h, lp):
+            layer = next(it)
+            return _layer_apply(lp, h, cfg, run, positions=positions,
+                                cache=(layer["k"], layer["v"]), cache_len=cache_len,
+                                constrain=c)
+
+        h, _ = L.scan_or_unroll(step, h, params["layers"], constrain=c)
         return h, caches
 
     def body(h, lp):
         return _layer_apply(lp, h, cfg, run, positions=positions,
-                            cache_len=cache_len if fill_cache else None, constrain=constrain)
+                            cache_len=cache_len if fill_cache else None, constrain=c)
 
-    h, ys = L.scan_or_unroll(body, h, params["layers"], remat=run.remat, constrain=constrain)
+    h, ys = L.scan_or_unroll(body, h, params["layers"], remat=run.remat, constrain=c)
     new_caches = None
     if fill_cache and ys is not None:
         new_caches = {"k": torch.stack([y[0] for y in ys]),
@@ -135,12 +143,10 @@ def _stack_forward(params, h, cfg: ModelConfig, run: RunConfig, *,
     return h, new_caches
 
 
-def _logits(params, h, cfg: ModelConfig):
-    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    logits = torch.matmul(h, w.to(h.dtype))
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+def _logits(params, h, cfg: ModelConfig, constrain=None):
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return L.lm_logits(h, w, transpose_w=cfg.tie_embeddings, softcap=cfg.logit_softcap,
+                       constrain=constrain)
 
 
 # ---------------------------------------------------------------------------
@@ -167,31 +173,43 @@ def loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, run: RunConfig,
-            image_embeds: Optional[torch.Tensor] = None
+            image_embeds: Optional[torch.Tensor] = None, constrain=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process a full prompt; returns (last-position logits, filled caches
-    of shape (n_layers, B, S, KV, hd) in the compute dtype)."""
+    of shape (n_layers, B, S, KV, hd) in the compute dtype).  With
+    ``constrain`` (a split context, ``params`` this rank's blocks and
+    ``tokens`` its batch block) the prompt runs as the split train forward
+    does, the logits come back whole over ``model`` and the caches as this
+    rank's blocks in the rules' cache layout (``Rules.cache_pspec``)."""
     _check_family(cfg)
     dtype = L._dtype(run.compute_dtype)
     S = tokens.shape[1]
-    h = _embed(params, tokens, cfg, dtype, image_embeds)
-    h, caches = _stack_forward(params, h, cfg, run, cache_len=S, fill_cache=True)
-    h = L.norm_apply(params["final_norm"], h[:, -1:], cfg.norm)
-    logits = _logits(params, h, cfg)
+    c = constrain.at(S) if constrain is not None else None
+    h = _embed(params, tokens, cfg, dtype, image_embeds, c)
+    if c is not None:
+        h = c(h, "act")
+    h, caches = _stack_forward(params, h, cfg, run, cache_len=S, fill_cache=True, constrain=c)
+    h = L.norm_apply(params["final_norm"], c.last(h) if c is not None else h[:, -1:], cfg.norm)
+    logits = _logits(params, h, cfg, c)
     return logits[:, 0].to(torch.float32), caches
 
 
 def decode_step(params, caches: Dict[str, Any], token: torch.Tensor, pos: int,
-                cfg: ModelConfig, run: RunConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                cfg: ModelConfig, run: RunConfig, constrain=None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One autoregressive step. token: (B, 1) int; pos: the cache length
     (an int).  Writes the token's keys and values into ``caches`` in place
-    and returns (logits, caches)."""
+    and returns (logits, caches).  With ``constrain`` (a split context)
+    ``caches`` are this rank's blocks, bound with their specs
+    (``Split.bind``), and attention is flash decoding over them
+    (``models/layers.py``); the logits come back whole over ``model``."""
     _check_family(cfg)
     dtype = L._dtype(run.compute_dtype)
-    h = _embed(params, token, cfg, dtype)
-    h, caches = _stack_forward(params, h, cfg, run, caches=caches, cache_len=pos)
+    c = constrain.at(1) if constrain is not None else None
+    h = _embed(params, token, cfg, dtype, constrain=c)
+    h, caches = _stack_forward(params, h, cfg, run, caches=caches, cache_len=pos, constrain=c)
     h = L.norm_apply(params["final_norm"], h, cfg.norm)
-    logits = _logits(params, h, cfg)
+    logits = _logits(params, h, cfg, c)
     return logits[:, 0].to(torch.float32), caches
 
 

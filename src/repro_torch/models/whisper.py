@@ -8,10 +8,11 @@ an encoder with full (non-causal, rotary-free) self-attention, and a
 decoder with causal self-attention plus cross-attention to the encoder's
 output.  Decode reads the cross keys and values precomputed once by
 :func:`_cross_kv` and writes its self-attention caches in place.
-``loss`` takes ``constrain=``, a sharded step's split context: encoder and
-decoder are two streams of their own lengths, each split as the dense
-blocks are, and the decoder's cross-attention reads the encoder's output
-entered whole once.
+``loss``, ``prefill`` and ``decode_step`` take ``constrain=``, a split
+context: encoder and decoder are two streams of their own lengths, each
+split as the dense blocks are, and the decoder's cross-attention reads the
+encoder's output entered whole once; the cross caches are the rules'
+blocks (whole where ``model`` does not divide ``encoder_seq``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.ctsf import resolve_device
 from . import layers as L
@@ -116,13 +116,8 @@ def _dec_layer(lp, h, enc_out, cfg: ModelConfig, run: RunConfig, *, cache=None,
     hn = L.norm_apply(lp["ln_cross"], h, "layernorm", c)
     if xcache is not None:
         # decode: the cross keys and values precomputed, every frame attended
-        dtype = h.dtype
-        B, S, _ = h.shape
-        q = torch.matmul(hn, lp["cross"]["wq"].to(dtype)) + lp["cross"]["bq"].to(dtype)
-        xk, xv = xcache
-        out = L.decode_attention(q.reshape(B, S, cfg.n_heads, cfg.hd), xk.to(dtype),
-                                 xv.to(dtype), xk.shape[1] - 1)
-        x = torch.matmul(out.reshape(B, S, cfg.n_heads * cfg.hd), lp["cross"]["wo"].to(dtype))
+        x = L.cross_decode(lp["cross"], hn, xcache, n_heads=cfg.n_heads, head_dim=cfg.hd,
+                           constrain=c)
     else:
         x, _ = L.attention_apply(lp["cross"], hn, causal=False, kv_x=enc_out, constrain=c,
                                  **_attn_kw(cfg, run))
@@ -137,7 +132,8 @@ def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_o
     """The decoder stack and its final norm.  Training / prefill: returns
     (h, [(k, v) a layer] with ``fill_cache``, else None); decode (``caches``
     given, one token at ``pos_offset``): (h, caches), written in place.
-    ``constrain``: the decoder stream's split context (training)."""
+    ``constrain``: the decoder stream's split context (the caches then
+    this rank's blocks, bound with their specs)."""
     c = constrain
     dtype = L._dtype(run.compute_dtype)
     S = tokens.shape[1]
@@ -147,11 +143,18 @@ def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_o
     if c is not None:
         h = c(h, "act")
     if caches is not None:
-        for i in range(cfg.n_layers):
-            lp = pytree.tree_map(lambda x: x[i], params["dec_layers"])
-            h, _ = _dec_layer(lp, h, None, cfg, run, cache=(caches["k"][i], caches["v"][i]),
-                              cache_len=pos_offset, xcache=(caches["xk"][i], caches["xv"][i]))
-        return L.norm_apply(params["dec_norm"], h, "layernorm"), caches
+        names = ("k", "v", "xk", "xv")
+        layers = (c.slices({k: caches[k] for k in names}) if c is not None
+                  else [dict(zip(names, x)) for x in zip(*(caches[k] for k in names))])
+        it = iter(layers)
+
+        def step(h, lp):
+            l = next(it)
+            return _dec_layer(lp, h, None, cfg, run, cache=(l["k"], l["v"]),
+                              cache_len=pos_offset, xcache=(l["xk"], l["xv"]), constrain=c)
+
+        h, _ = L.scan_or_unroll(step, h, params["dec_layers"], constrain=c)
+        return L.norm_apply(params["dec_norm"], h, "layernorm", c), caches
 
     h, ys = L.scan_or_unroll(
         lambda h, lp: _dec_layer(lp, h, enc_out, cfg, run, cache_len=S if fill_cache else None,
@@ -177,38 +180,67 @@ def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
                                    chunk=run.loss_chunk, transpose_w=True, constrain=c)
 
 
-def _cross_kv(params, enc_out, cfg: ModelConfig):
+def _cross_kv(params, enc_out, cfg: ModelConfig, constrain=None):
     """Each decoder layer's cross-attention keys and values of the encoder
-    output, stacked ``(n_layers, B, encoder_seq, KV, hd)``."""
+    output, stacked ``(n_layers, B, encoder_seq, KV, hd)``.  With
+    ``constrain`` (the encoder stream's split context, ``enc_out`` in its
+    layout) this rank's blocks in the rules' cache layout: its sequence
+    block where ``model`` divides ``encoder_seq``, else whole; each layer's
+    ``wk``/``wv`` gathered whole."""
     dtype = enc_out.dtype
     B, S, _ = enc_out.shape
-    xp = params["dec_layers"]["cross"]
-    proj = lambda w, b: (torch.matmul(enc_out[None], xp[w].to(dtype)[:, None])
-                         + xp[b].to(dtype)[:, None, None]).reshape(
-        cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-    return proj("wk", "bk"), proj("wv", "bv")
+    c = constrain
+    if c is None:
+        xp = params["dec_layers"]["cross"]
+        proj = lambda w, b: (torch.matmul(enc_out[None], xp[w].to(dtype)[:, None])
+                             + xp[b].to(dtype)[:, None, None]).reshape(
+            cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+        return proj("wk", "bk"), proj("wv", "bv")
+    if c.tp > 1 and not c.sp and S % c.tp == 0:         # a whole stream, a cut cache
+        enc_out = enc_out.narrow(1, c.rank * (S // c.tp), S // c.tp)
+    cols = cfg.n_kv_heads * cfg.hd
+    ks, vs = [], []
+    for lp in c.slices(params["dec_layers"]):
+        xp = c.gather(lp["cross"])
+        for w, b, out in (("wk", "bk", ks), ("wv", "bv", vs)):
+            y = torch.matmul(enc_out, c.whole(xp[w], 1, cols).to(dtype)) + xp[b].to(dtype)
+            out.append(y.reshape(B, enc_out.shape[1], cfg.n_kv_heads, cfg.hd))
+    return torch.stack(ks), torch.stack(vs)
 
 
-def prefill(params, batch, cfg: ModelConfig, run: RunConfig):
+def prefill(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
     """``batch``: dict(tokens, frame_embeds).  Returns (last-position
     logits, caches: the self-attention ``k``/``v`` of the prompt and the
-    cross ``xk``/``xv``)."""
-    enc_out = encode(params, batch["frame_embeds"], cfg, run)
-    tokens = batch["tokens"]
-    h, ys = _decoder(params, tokens, enc_out, cfg, run, fill_cache=True)
-    logits = torch.matmul(h[:, -1], params["embed"].to(h.dtype).t())
-    xk, xv = _cross_kv(params, enc_out, cfg)
+    cross ``xk``/``xv``).  With ``constrain`` (a split context) the
+    logits come back whole over ``model`` and the caches as this rank's
+    blocks in the rules' cache layout."""
+    frames, tokens = batch["frame_embeds"], batch["tokens"]
+    enc_out = encode(params, frames, cfg, run, constrain)
+    ce = c = None
+    enc_whole = enc_out
+    if constrain is not None:
+        ce, c = constrain.at(frames.shape[1]), constrain.at(tokens.shape[1])
+        enc_whole = ce.enter(enc_out)
+    h, ys = _decoder(params, tokens, enc_whole, cfg, run, fill_cache=True, constrain=c)
+    h = c.last(h) if c is not None else h[:, -1:]
+    logits = L.lm_logits(h, params["embed"], transpose_w=True, constrain=c)[:, 0]
+    xk, xv = _cross_kv(params, enc_out, cfg, ce)
     caches = {"k": torch.stack([y[0] for y in ys]), "v": torch.stack([y[1] for y in ys]),
               "xk": xk, "xv": xv}
     return logits.to(_F32), caches
 
 
-def decode_step(params, caches, token, pos: int, cfg: ModelConfig, run: RunConfig):
+def decode_step(params, caches, token, pos: int, cfg: ModelConfig, run: RunConfig,
+                constrain=None):
     """One autoregressive step at cache length ``pos`` (an int): writes the
     token's self-attention keys and values into ``caches`` in place and
-    returns (logits, caches)."""
-    h, caches = _decoder(params, token, None, cfg, run, pos_offset=pos, caches=caches)
-    logits = torch.matmul(h, params["embed"].to(h.dtype).t())
+    returns (logits, caches).  With ``constrain`` (a split context)
+    ``caches`` are this rank's blocks, bound with their specs
+    (``Split.bind``)."""
+    c = constrain.at(1) if constrain is not None else None
+    h, caches = _decoder(params, token, None, cfg, run, pos_offset=pos, caches=caches,
+                         constrain=c)
+    logits = L.lm_logits(h, params["embed"], transpose_w=True, constrain=c)
     return logits[:, 0].to(_F32), caches
 
 

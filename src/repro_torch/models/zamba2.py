@@ -15,11 +15,12 @@ axis, so its grid has ``n_super`` diagonal blocks, as the reference's has.
 Under ``run.remat`` a superblock is checkpointed and, inside it, each Mamba2
 layer again (nested non-reentrant checkpoints), which bounds the recompute
 window to one layer's intra-chunk tensors.  Only ``n_super`` key/value
-caches exist.  ``loss`` takes ``constrain=``, a sharded step's split
-context: the shared block is gathered over the data-parallel axes at each
-application and split over ``model`` as the dense blocks are (its
-``proj_out`` gathered whole), the Mamba2 layers are the SSD exception
-(``models/mamba2.py``).
+caches exist.  ``loss``, ``prefill`` and ``decode_step`` take
+``constrain=``, a split context: the shared block is gathered over the
+data-parallel axes at each application and split over ``model`` as the
+dense blocks are (its ``proj_out`` gathered whole), the Mamba2 layers as
+``models/mamba2.py`` splits them (by heads with ``run.ssm_head_shard``,
+else the SSD exception), the caches the rules' blocks.
 """
 from __future__ import annotations
 
@@ -126,24 +127,35 @@ def _forward(params, h, cfg: ModelConfig, run: RunConfig, *, fill_cache: bool = 
                "v": torch.stack([kv[1] for _, kv in ys])}
 
 
-def _decode(params, h, caches, pos: int, cfg: ModelConfig, run: RunConfig):
-    """One token through every superblock; the caches written in place."""
+def _decode(params, h, caches, pos: int, cfg: ModelConfig, run: RunConfig, constrain=None):
+    """One token through every superblock; the caches written in place
+    (under a split, this rank's blocks, bound with their specs)."""
+    c = constrain
     h0 = h
-    per = cfg.shared_attn_every
-    for i in range(_n_super(cfg)):
-        h, _ = _shared_apply(params["shared"], h, h0, cfg, run,
-                             cache=(caches["k"][i], caches["v"][i]), cache_len=pos)
-        for j in range(per):
-            lp = pytree.tree_map(lambda x: x[i, j], params["mamba"])
-            layer = i * per + j
-            h, _ = mamba_decode(lp, h, {"state": caches["ssm"]["state"][layer],
-                                        "conv": caches["ssm"]["conv"][layer]}, cfg)
+    if c is not None:
+        kv, ssm = c.slices({"k": caches["k"], "v": caches["v"]}), c.slices(caches["ssm"])
+    else:
+        kv = [{"k": k, "v": v} for k, v in zip(caches["k"], caches["v"])]
+        ssm = [{"state": s, "conv": v}
+               for s, v in zip(caches["ssm"]["state"], caches["ssm"]["conv"])]
+    kv_it, ssm_it = iter(kv), iter(ssm)
+
+    def super_body(h, mp):
+        shared = c.gather(params["shared"]) if c is not None else params["shared"]
+        layer = next(kv_it)
+        h, _ = _shared_apply(shared, h, h0, cfg, run, cache=(layer["k"], layer["v"]),
+                             cache_len=pos, constrain=c)
+        h, _ = L.scan_or_unroll(lambda h, lp: mamba_decode(lp, h, next(ssm_it), cfg, constrain=c),
+                                h, mp, constrain=c)
+        return h, None
+
+    h, _ = L.scan_or_unroll(super_body, h, params["mamba"], constrain=c, gather=False)
     return h
 
 
-def _lm_head(params, h):
+def _lm_head(params, h, constrain=None):
     h = L.rms_norm(h, params["final_norm"]["scale"])
-    return torch.matmul(h, params["unembed"].to(h.dtype))
+    return L.lm_logits(h, params["unembed"], constrain=constrain)
 
 
 def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
@@ -160,25 +172,34 @@ def loss(params, batch, cfg: ModelConfig, run: RunConfig, constrain=None):
                                    chunk=run.loss_chunk, constrain=c)
 
 
-def prefill(params, tokens, cfg: ModelConfig, run: RunConfig):
+def prefill(params, tokens, cfg: ModelConfig, run: RunConfig, constrain=None):
     """Full forward; returns (last-position logits, caches in the compute
-    dtype but the float32 SSM states)."""
+    dtype but the float32 SSM states).  With ``constrain`` (a split
+    context) the logits come back whole over ``model`` and the caches as
+    this rank's blocks in the rules' cache layout."""
     dtype = L._dtype(run.compute_dtype)
-    h = params["embed"][tokens.long()].to(dtype)
-    h, caches = _forward(params, h, cfg, run, fill_cache=True)
-    logits = _lm_head(params, h[:, -1:])
+    c = constrain.at(tokens.shape[1]) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], tokens, dtype, c)
+    if c is not None:
+        h = c(h, "act")
+    h, caches = _forward(params, h, cfg, run, fill_cache=True, constrain=c)
+    logits = _lm_head(params, c.last(h) if c is not None else h[:, -1:], c)
     caches["ssm"]["conv"] = caches["ssm"]["conv"].to(dtype)
     caches["k"], caches["v"] = caches["k"].to(dtype), caches["v"].to(dtype)
     return logits[:, 0].to(_F32), caches
 
 
-def decode_step(params, caches, token, pos: int, cfg: ModelConfig, run: RunConfig):
+def decode_step(params, caches, token, pos: int, cfg: ModelConfig, run: RunConfig,
+                constrain=None):
     """One autoregressive step at cache length ``pos`` (an int); writes
-    into ``caches`` in place and returns (logits, caches)."""
+    into ``caches`` in place and returns (logits, caches).  With
+    ``constrain`` (a split context) ``caches`` are this rank's blocks,
+    bound with their specs (``Split.bind``)."""
     dtype = L._dtype(run.compute_dtype)
-    h = params["embed"][token.long()].to(dtype)
-    h = _decode(params, h, caches, pos, cfg, run)
-    return _lm_head(params, h)[:, 0].to(_F32), caches
+    c = constrain.at(1) if constrain is not None else None
+    h = L.embed_lookup(params["embed"], token, dtype, c)
+    h = _decode(params, h, caches, pos, cfg, run, c)
+    return _lm_head(params, h, c)[:, 0].to(_F32), caches
 
 
 class Zamba2(LMModule):

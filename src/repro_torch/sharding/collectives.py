@@ -199,16 +199,22 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, group, send=None, recv=None) -> torch.Tensor:
     """``x`` cut into n equal leading-axis blocks, block i sent to group
     rank i; returns the n blocks received, concatenated in group-rank
-    order (a tensor of ``x``'s shape)."""
+    order (a tensor of ``x``'s shape).  With ``send`` and ``recv`` (n row
+    counts each) the blocks are uneven: ``send[i]`` leading rows of ``x``
+    go to rank i, in order, and ``recv[i]`` rows come from rank i."""
+    rows = x.shape[0] if recv is None else sum(recv)
+    shape = (rows,) + tuple(x.shape[1:])
     if _fake(group):
-        return _record("all-to-all", x, x.shape, group)
+        return _record("all-to-all", x, shape, group)
     staged = _staged(x, group)
     wire = _host(x) if staged else x.contiguous()
-    got = torch.empty_like(wire)
-    dist.all_to_all_single(got, wire, group=group)
+    got = torch.empty(shape, dtype=wire.dtype, device=wire.device,
+                      pin_memory=staged)
+    dist.all_to_all_single(got, wire, output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
     return got.to(x.device) if staged else got
 
 

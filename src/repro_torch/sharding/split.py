@@ -1,4 +1,5 @@
-"""The split context: what a rank computes of a sharded train step.
+"""The split context: what a rank computes of a sharded train step, a
+prefill or a decode step.
 
 ``Rules`` (``sharding/partition.py``) says where each leaf of the state
 lives; this module says how a step computes on those blocks, the
@@ -29,10 +30,22 @@ add in group-rank order.
   one exception) goes through :meth:`redundant` and
   :meth:`whole_redundant`, whose gradients are cut back to blocks.
 
+* Serving: a prefill is the train forward's split on the prompt, its
+  last position made whole by :meth:`last`.  A decode step's stream is one
+  token, whole on every ``model`` rank (``at(1)``: ``enter`` the identity,
+  ``leave`` an ordered all-reduce), against caches held as the rules'
+  blocks (``Rules.cache_pspec``), registered with their specs like the
+  parameters: :meth:`on_model` says whether a cache's dimension is cut
+  over ``model`` and :meth:`cache_offset` gives this rank's first position
+  of a sequence-sharded cache (rank ``pos // len`` holds position
+  ``pos``; a length ``model`` does not divide stays whole); the flash
+  decoding's statistics combine by :meth:`model_max` and ordered sums, and
+  activations cut over ``model`` come back whole by :meth:`model_gather`.
+
 ``Split(rules)`` holds the groups; :meth:`bind` registers a step's
-parameter blocks with their specs, and :meth:`at` binds the context to a
-residual stream of a given sequence length, which fixes whether that
-stream is sequence-sharded.
+parameter blocks (and a decode step's cache blocks) with their specs, and
+:meth:`at` binds the context to a residual stream of a given sequence
+length, which fixes whether that stream is sequence-sharded.
 """
 from __future__ import annotations
 
@@ -44,9 +57,9 @@ import torch.distributed as dist
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import pytree
-from repro_torch.sharding.collectives import (all_gather_rs, all_gather_rs_n, all_gather_split,
-                                              all_reduce_id, identity_ar, reduce_scatter_ag,
-                                              split_ag)
+from repro_torch.sharding.collectives import (all_gather, all_gather_rs, all_gather_rs_n,
+                                              all_gather_split, all_reduce_id, all_reduce_max,
+                                              identity_ar, reduce_scatter_ag, split_ag)
 
 __all__ = ["Split"]
 
@@ -187,6 +200,50 @@ class Split:
         """The first position of this rank's block of a sequence of which
         it holds ``local`` positions."""
         return self.rank * local if self.tp > 1 else 0
+
+    def last(self, h: torch.Tensor) -> torch.Tensor:
+        """The stream's last position ``(B, 1, D)``, whole on every rank:
+        under SP the last rank's, all-gathered (one position a rank)."""
+        if not self.sp:
+            return h[:, -1:]
+        return all_gather(h[:, -1:].contiguous(), self.model, dim=1)[:, -1:]
+
+    # ---- decode caches ----------------------------------------------------------
+
+    def on_model(self, x: torch.Tensor, dim: int) -> bool:
+        """Whether the registered leaf ``x`` (a cache block, or one
+        layer's slice of it, :meth:`slices`) is cut over ``model`` along
+        ``dim``."""
+        spec = self._specs.get(x)
+        return (self.tp > 1 and spec is not None and dim < len(spec)
+                and self.rules.ax.tp in _axes(spec[dim]))
+
+    def cache_offset(self, cache: torch.Tensor, dim: int = 1) -> Optional[int]:
+        """This rank's first position of the sequence-sharded cache block
+        ``cache`` (the sequence along ``dim``; the rank ``pos // len``
+        holds position ``pos``), or None where the rules keep the cache
+        whole over ``model`` (a length ``model`` does not divide)."""
+        if self.tp > 1 and cache not in self._specs:
+            raise ValueError("a decode step under a split takes its caches as blocks "
+                             "registered with their specs (Split.bind)")
+        if not self.on_model(cache, dim):
+            return None
+        return self.rank * cache.shape[dim]
+
+    def model_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every ``model`` rank's ``x`` concatenated along ``dim`` in rank
+        order (an activation's blocks made whole; no gradient pair)."""
+        return x if self.tp == 1 else all_gather(x.contiguous(), self.model, dim=dim)
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every ``model`` rank's ``x`` in rank order, which
+        every rank then uses whole on its own part of the work: the
+        gradient, every rank's use, is summed too."""
+        return all_reduce_id(identity_ar(x, self.model), self.model)
+
+    def model_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of every ``model`` rank's ``x``."""
+        return x if self.tp == 1 else all_reduce_max(x, self.model)
 
     # ---- leaves ---------------------------------------------------------------
 

@@ -415,3 +415,61 @@ def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
     out["constrain"] = {kind: rules.constrain(rs_data[:, :, :4].clone(), kind)
                         for kind in ("act", "qkv")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode under the split (sharding/split.py): a prompt, the
+# caches grown to the serving window, greedy decode steps
+# ---------------------------------------------------------------------------
+
+def split_serving(cases, inits, batches, window, steps):
+    """On a world of 4: each of ``cases`` (name -> (arch, cfg update, mesh
+    shape, run fields)) from ``inits[name]`` on ``batches[name]`` split by
+    the rules: ``prefill(constrain=)`` on this rank's batch block, the
+    caches grown to ``window`` (``launch/serve.py::grow_caches``) and bound,
+    then ``steps`` greedy ``decode_step(constrain=)`` calls; the logits of
+    every call, the greedy tokens, this rank's cache blocks by path, the
+    placements, and the shapes of every tensor the prefill and the decode
+    steps made (:class:`_Shapes`)."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.serve import grow_caches
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.partition import make_rules, shard_tree
+    out = {}
+    for name, (arch, upd, shape, rupd) in cases.items():
+        cfg = tp_case_config(arch, upd)
+        run = RunConfig(**dict(dict(compute_dtype="float32", remat="none"), **rupd))
+        api = get_model(cfg)
+        mesh = make_local_mesh(*shape)
+        rules = make_rules(mesh, cfg, run)
+        params = inits[name]
+        blocks = shard_tree(params, rules.param_shardings(params))
+        split = rules.split().bind(blocks, rules.param_specs(params))
+        batch = shard_tree(batches[name], rules.batch_specs(batches[name]))
+        B, S = batches[name]["tokens"].shape
+        meta = lambda n: api.init_cache(cfg, B, n, dtype=torch.float32, device="meta")
+        src, dst = rules.cache_shardings(meta(S)), rules.cache_shardings(meta(window))
+        pre, dec = _Shapes(), _Shapes()
+        with torch.no_grad():
+            with pre:
+                logits, caches = api.prefill(blocks, batch, cfg, run, constrain=split)
+            caches = grow_caches(caches, window, src, dst)
+            split.bind(caches, pytree.tree_map(lambda sh: sh.spec, dst))
+            tok = torch.argmax(logits, -1)[:, None]
+            got, toks = [logits], [tok]
+            with dec:
+                for i in range(steps):
+                    logits, caches = api.decode_step(blocks, caches, tok, S + i, cfg, run,
+                                                     constrain=split)
+                    tok = torch.argmax(logits, -1)[:, None]
+                    got.append(logits)
+                    toks.append(tok)
+        out[name] = {"logits": got, "tokens": torch.cat(toks, dim=1),
+                     "caches": {p: x.clone() for p, x in pytree.leaves_with_path(caches)},
+                     "placements": {p: tuple(str(x) for x in s.placements)
+                                    for p, s in pytree.leaves_with_path(dst)},
+                     "data_rank": dist.get_rank(mesh.get_group("data")),
+                     "prefill_shapes": sorted(set(pre.shapes)),
+                     "decode_shapes": sorted(set(dec.shapes))}
+    return out

@@ -3,16 +3,18 @@
 stand-ins (shapes and dtypes) and skip reason equal the JAX package's;
 ``collective_bytes`` on records built from the reference test's HLO lines
 (``tests/test_train_serve_e2e.py::test_collective_bytes_parser``) gives its
-numbers; and ``python -m repro_torch.launch.dryrun --arch mamba2-1.3b
---shape long_500k --no-extrapolate`` on the CPU (the reference test's
-cell) exits 0 with status ok, under 16 GiB a device as the reference test
-asks, the reference's record keys, and argument bytes equal to the
-reference rules' shard bytes of that cell on the 16 × 16 mesh (parameters,
-caches, the token and the position, from one ``tests/_mdev.py`` subprocess
-with 256 forced devices, ``jax.eval_shape``); and a dense train cell at one
-layer runs the split step, its per-device FLOPs within 25 % of the split's
-count from the shapes, as the first and as the last rank of a ``model``
-group."""
+numbers; ``python -m repro_torch.launch.dryrun --arch mamba2-1.3b --shape
+long_500k --no-extrapolate`` on the CPU (the reference test's cell) exits
+0 with status ok, under 16 GiB a device as the reference test asks, the
+reference's record keys, and argument bytes equal to the reference rules'
+shard bytes of that cell on the 16 × 16 mesh (parameters, caches, the
+token and the position, from one ``tests/_mdev.py`` subprocess with 256
+forced devices, ``jax.eval_shape``); the qwen2-7b decode_32k cell, whose
+batch ``data`` cuts, exits 0 too, with the reference rules' shard bytes
+from the same subprocess and under 4 GiB a device; and a dense train cell
+at one layer runs the split step, its per-device FLOPs within 25 % of the
+split's count from the shapes, as the first and as the last rank of a
+``model`` group."""
 import json
 import os
 import subprocess
@@ -36,21 +38,48 @@ from repro import configs
 from repro.configs.base import RunConfig, SHAPES
 from repro.models.registry import get_model, input_specs
 from repro.sharding.partition import make_rules
-cfg, shape = configs.get("mamba2-1.3b"), SHAPES["long_500k"]
 mesh = Mesh(np.array(jax.devices()).reshape(16, 16), ("data", "model"))
-rules = make_rules(mesh, cfg, RunConfig(), shape)
-api = get_model(cfg)
-params = jax.eval_shape(lambda k: api.init(k, cfg, shape.seq_len), jax.random.PRNGKey(0))
-caches = jax.eval_shape(lambda: api.init_cache(cfg, shape.global_batch, shape.seq_len))
-spec = input_specs(cfg, shape)
 def nbytes(tree, shardings):
     return sum(int(np.prod(s.shard_shape(x.shape))) * x.dtype.itemsize
                for x, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shardings)))
-total = (nbytes(params, rules.param_shardings(params)) + nbytes(caches, rules.cache_shardings(caches))
-         + nbytes(spec["token"], rules.batch_specs(spec["token"]))
-         + nbytes(spec["pos"], rules.replicated()))
-print("BYTES", total)
+for arch, shape_name in CELLS:
+    cfg, shape = configs.get(arch), SHAPES[shape_name]
+    rules = make_rules(mesh, cfg, RunConfig(), shape)
+    api = get_model(cfg)
+    params = jax.eval_shape(lambda k: api.init(k, cfg, shape.seq_len), jax.random.PRNGKey(0))
+    caches = jax.eval_shape(lambda: api.init_cache(cfg, shape.global_batch, shape.seq_len))
+    spec = input_specs(cfg, shape)
+    total = (nbytes(params, rules.param_shardings(params))
+             + nbytes(caches, rules.cache_shardings(caches))
+             + nbytes(spec["token"], rules.batch_specs(spec["token"]))
+             + nbytes(spec["pos"], rules.replicated()))
+    print("BYTES", arch, shape_name, total)
 """
+# the decode cells the CLI tests run, their argument bytes by the reference's
+# rules computed in one subprocess
+DECODE_CELLS = [("mamba2-1.3b", "long_500k"), ("qwen2-7b", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def shard_bytes():
+    stdout = run_multidevice(_SHARD_BYTES.replace("CELLS", repr(DECODE_CELLS)), n_devices=256)
+    out = {}
+    for line in stdout.splitlines():
+        if line.startswith("BYTES"):
+            _, arch, shape, n = line.split()
+            out[(arch, shape)] = int(n)
+    return out
+
+
+def _run_cli(tmp_path, arch, shape):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--no-extrapolate", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(tmp_path / f"{arch}_{shape}_single.json") as f:
+        return json.load(f)
 
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
@@ -86,27 +115,30 @@ def test_collective_bytes_of_the_reference_test_lines():
     assert out["total"] == sum(v for k, v in out.items() if k != "total")
 
 
-def test_dryrun_cell_on_the_cpu(tmp_path):
-    stdout = run_multidevice(_SHARD_BYTES, n_devices=256)
-    want = int(stdout.split("BYTES")[1].split()[0])
-    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mamba2-1.3b",
-         "--shape", "long_500k", "--no-extrapolate", "--out", str(tmp_path)],
-        env=env, capture_output=True, text=True, timeout=600, cwd=REPO)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    with open(tmp_path / "mamba2-1.3b_long_500k_single.json") as f:
-        rec = json.load(f)
+def test_dryrun_cell_on_the_cpu(tmp_path, shard_bytes):
+    rec = _run_cli(tmp_path, "mamba2-1.3b", "long_500k")
     assert rec["status"] == "ok"
     assert rec["mesh"] == "16x16"
     assert rec["rank"] == 15            # the last rank of the first model group
     assert rec["memory"]["total_per_device_gib"] < 16.0
-    assert rec["memory"]["argument_bytes"] == want
+    assert rec["memory"]["argument_bytes"] == shard_bytes[("mamba2-1.3b", "long_500k")]
     for key in ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"):
         assert rec["memory"][key] >= 0
     assert rec["cost_scanned"]["flops"] > 0 and rec["cost_scanned"]["bytes"] > 0
-    # decode gathers every sharded parameter (and cache) whole over its axes
+    # decode gathers each layer's blocks over data (FSDP), one layer at a time
     assert rec["collectives_scanned"]["all-gather"] > 0
+
+
+def test_dense_decode_cell_runs_on_the_blocks(tmp_path, shard_bytes):
+    """qwen2-7b decode_32k: the batch of 128 cut over ``data``, the K/V
+    caches' sequence over ``model`` (flash decoding): ``status ok``, the
+    argument bytes the reference rules' blocks, under 4 GiB a device."""
+    rec = _run_cli(tmp_path, "qwen2-7b", "decode_32k")
+    assert rec["status"] == "ok"
+    assert rec["memory"]["argument_bytes"] == shard_bytes[("qwen2-7b", "decode_32k")]
+    assert rec["memory"]["total_per_device_gib"] < 4.0
+    # the row max of the flash-decoding softmax, combined over model
+    assert rec["collectives_scanned"]["all-reduce"] > 0
 
 
 def _split_flops(cfg, shape, run, tp, dp, rank=0):

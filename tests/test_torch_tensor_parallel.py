@@ -22,7 +22,8 @@ the loss and the gradient norm within 1e-5.  The cases:
   expert's d_ff on ``model``);
 * (c) ``whisper``, ``zamba2`` and ``mamba2`` at (data 2, model 2): the two
   streams of the encoder-decoder, the shared block, and the SSD exception
-  (mamba2 under remat "full").
+  (mamba2 under remat "full"); ``mamba2_heads``, the same under
+  ``ssm_head_shard``: the SSD mixer split by heads over ``model``.
 
 Then, against the one-process step of the port (no reference run):
 ``replicated``, the dense model at (data 2, model 2) with
@@ -66,6 +67,7 @@ REFERENCE = {
     "whisper": ("whisper-medium", {}, (2, 2), {}),
     "zamba2": ("zamba2-2.7b", {}, (2, 2), {}),
     "mamba2": ("mamba2-1.3b", {}, (2, 2), dict(remat="full")),
+    "mamba2_heads": ("mamba2-1.3b", {}, (2, 2), dict(remat="full", ssm_head_shard=True)),
 }
 PORT_ONLY = {
     "replicated": ("qwen2-7b", dict(DENSE, d_ff=128), (2, 2),
