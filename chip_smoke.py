@@ -299,13 +299,21 @@ Phases, each of which raises on a failed check:
      moments cut into each rank's slices and saved a file a rank) by (b)'s
      tolerances, then 2 bf16 steps: finite losses, replicated leaves the
      same bits, each rank's peak at most 19.1 GB (half the one-process
-     38.2 GB of phase "lm"); each step's time and the time inside gloo's
-     collectives, peak memory a rank, the dry run's memory, FLOPs and
-     collective bytes;
+     38.2 GB of phase "lm"); (f) mamba2-1.3b the same way on (data 1,
+     model 4) with run.ssm_head_shard off (each rank's Mamba2 layers on its
+     block of 64 positions: the conv's halo from the rank before, the
+     blocks' SSD states folded in rank order), each rank's peak recorded
+     beside the one-process step's; the dry run of mamba2-1.3b and
+     zamba2-2.7b train_4k (--no-extrapolate, host processes started
+     first): status ok, below 16 GiB and at most 8e13 and 2e14 FLOPs a
+     device; each step's time and the time inside gloo's collectives, peak
+     memory a rank, the dry runs' memory, FLOPs and collective bytes;
    - "split serving" (prefill and decode under the split: the families'
      prefill(constrain=) and decode_step(constrain=), the caches grown by
-     launch/serve.py::grow_caches): (a) qwen2-7b and (b) mamba2-1.3b with
-     run.ssm_head_shard (the SSD mixer by heads) at their published widths,
+     launch/serve.py::grow_caches): (a) qwen2-7b, (b) mamba2-1.3b with
+     run.ssm_head_shard (the SSD mixer by heads) and (d) mamba2-1.3b with
+     it off (the SSD mixer on each rank's 30 prompt positions) at their
+     published widths,
      n_layers cut to 2, parameters from a CPU generator of seed 0 in every
      process, on a (data 1, model 4) mesh of 4 gloo ranks sharing the card:
      a float32 prefill of 2 x 120 tokens grown to a window of 256 (the K/V
@@ -4585,6 +4593,23 @@ DRYRUN_PEAK_GIB, DRYRUN_FLOPS = 16.0, 4.8e14
 # QWEN_STEPS bf16 steps; each rank's peak at most half the one-process
 # step's 38.2 GB (phase "lm")
 DT_QWEN_MESH, DT_QWEN_PEAK = (2, 2), 19.1e9
+# (f) mamba2-1.3b at its published widths, n_layers cut to 2, the same
+# batch on (data 1, model 4) with run.ssm_head_shard off (the rules'
+# sequence layout of the SSD mixer's input): each rank runs its Mamba2
+# layers on its block of 64 positions, the conv's halo from the rank
+# before, the blocks' states folded in rank order; float32 step 1 by (b)'s
+# tolerances against the one-process step, bf16 finite, each rank's peak
+# recorded beside the one-process step's
+DT_MAMBA_MESH = (1, 4)
+# the split cases of the phase: tag -> (arch, mesh, a rank's peak limit or
+# None)
+DT_SPLITS = {"qwen": ("qwen2-7b", DT_QWEN_MESH, DT_QWEN_PEAK),
+             "mamba": ("mamba2-1.3b", DT_MAMBA_MESH, None)}
+# the SSD families' train cells in the dry run (host processes of their
+# own, started first, no extrapolation): status ok, the peak a device below
+# DRYRUN_PEAK_GIB, at most these FLOPs a device (with the mixer on the whole
+# sequence on every model rank the CPU dry run read 6.34e14 and 1.40e15)
+DRYRUN_SSD = {"mamba2-1.3b": 8e13, "zamba2-2.7b": 2e14}
 # the split step's peak a rank of the bf16 lm-100m run (b): at most the
 # step that gathered whole leaves, 1.75 GB
 DT_PEAK = 1.75e9
@@ -4628,12 +4653,23 @@ def _block(full, placements, coords, mesh):
     return full
 
 
+class _Finished:
+    """A point-to-point request already waited for."""
+
+    @staticmethod
+    def wait(timeout=None):
+        return True
+
+
 class GlooClock:
     """Host seconds inside ``torch.distributed``'s collectives
     (``all_gather``, ``all_reduce``, ``all_to_all_single``,
     ``batch_isend_irecv``) while active:
     on a gloo rank sharing the card each is called on a host copy, whose
-    staging already waited for the card, so the time is the transport's."""
+    staging already waited for the card, so the time is the transport's.
+    ``batch_isend_irecv``'s requests are waited for inside the clock and
+    handed back as finished ones: a gloo send request waited for twice
+    waits for a second send that never comes."""
 
     NAMES = ("all_gather", "all_reduce", "all_to_all_single", "batch_isend_irecv")
 
@@ -4655,6 +4691,7 @@ class GlooClock:
                 if isinstance(out, list):       # batch_isend_irecv's requests
                     for req in out:
                         req.wait()
+                    return [_Finished()] * len(out)
                 return out
             finally:
                 self.seconds += time.perf_counter() - t0
@@ -4892,44 +4929,49 @@ def dt_pipeline(torch, cfg, run, dev):
                                    for g in grads))
 
 
-def dt_qwen_setup():
-    """(e)'s model, parameters (a CPU generator of seed 0, as every rank and
-    the parent draw them) and batches: qwen2-7b at its published widths cut
-    to ``QWEN_LAYERS``, phase "lm"'s token batches."""
+def dt_split_setup(tag):
+    """(e)/(f)'s model, parameters (a CPU generator of seed 0, as every rank
+    and the parent draw them) and batches: the case's arch at its published
+    widths cut to ``QWEN_LAYERS``, phase "lm"'s token batches."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models.registry import get_model
-    cfg = dataclasses.replace(configs.get("qwen2-7b"), n_layers=QWEN_LAYERS)
+    cfg = dataclasses.replace(configs.get(DT_SPLITS[tag][0]), n_layers=QWEN_LAYERS)
     params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, QWEN_SEQ)
     return cfg, params, [token_batch(0, s, QWEN_BATCH, QWEN_SEQ, cfg.vocab)
                          for s in range(QWEN_STEPS)]
 
 
-def dt_qwen_placements(cfg, run, params):
-    """The rules' placements of (e)'s parameters on ``DT_QWEN_MESH`` (on a
+def dt_split_placements(cfg, run, params, mesh):
+    """The rules' placements of (e)/(f)'s parameters on a ``mesh`` (on a
     fake world of its size: shapes only)."""
     from repro_torch import pytree
     from repro_torch.launch.mesh import fake_world, make_local_mesh
     from repro_torch.sharding.partition import make_rules
-    with fake_world(math.prod(DT_QWEN_MESH)):
-        rules = make_rules(make_local_mesh(*DT_QWEN_MESH), cfg, run)
+    with fake_world(math.prod(mesh)):
+        rules = make_rules(make_local_mesh(*mesh), cfg, run)
         return {p: [str(x) for x in s.placements]
                 for p, s in pytree.leaves_with_path(rules.param_shardings(params))}
 
 
-def dt_qwen_one_process(torch, run, tmp, dev):
-    """(e)'s one-process float32 step 1 in this process, on the card: the
-    loss, and AdamW's moments after it cut into each rank's slices by the
-    rules and saved, a file a rank (``qwen_rank{r}.pt`` under ``tmp``), for
-    the ranks to read after their own step 1."""
+def dt_split_one_process(torch, tag, run, tmp, dev):
+    """(e)/(f)'s one-process float32 step 1 in this process, on the card: the
+    loss, the peak (bytes above what was allocated before the state), and
+    AdamW's moments after it cut into each rank's slices by the rules and
+    saved, a file a rank (``{tag}_rank{r}.pt`` under ``tmp``), for the ranks
+    to read after their own step 1."""
     import gc
     from repro_torch import pytree
     from repro_torch.launch.train import TrainState, make_train_step
     from repro_torch.optim.adamw import adamw_init
-    cfg, params, batches = dt_qwen_setup()
-    placements = dt_qwen_placements(cfg, run, params)
+    mesh = DT_SPLITS[tag][1]
+    cfg, params, batches = dt_split_setup(tag)
+    placements = dt_split_placements(cfg, run, params, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     on_card = _on(torch, params, dev)
     del params
     state = TrainState(on_card, adamw_init(on_card), torch.zeros((), dtype=torch.int32))
@@ -4939,22 +4981,23 @@ def dt_qwen_one_process(torch, run, tmp, dev):
     state, m = make_train_step(cfg, run, None, total_steps=QWEN_STEPS)(state, batches[0])
     loss = float(m["loss"])
     ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
     moments = {name: {p: x.to("cpu") for p, x in pytree.leaves_with_path(tree)}
                for name, tree in (("m", state.opt.m), ("v", state.opt.v))}
     del state, m
     gc.collect()
     torch.cuda.empty_cache()
-    for r in range(math.prod(DT_QWEN_MESH)):
-        coords = divmod(r, DT_QWEN_MESH[1])
-        torch.save({name: {p: _block(x, placements[p], coords, DT_QWEN_MESH).contiguous()
+    for r in range(math.prod(mesh)):
+        coords = divmod(r, mesh[1])
+        torch.save({name: {p: _block(x, placements[p], coords, mesh).contiguous()
                            for p, x in tree.items()} for name, tree in moments.items()},
-                   os.path.join(tmp, f"qwen_rank{r}.pt"))
-    return dict(loss=loss, ms=ms)
+                   os.path.join(tmp, f"{tag}_rank{r}.pt"))
+    return dict(loss=loss, ms=ms, peak_bytes=peak)
 
 
-def dt_qwen(torch, runs, tmp, want_loss, dev):
-    """(e) on this rank: qwen2-7b (``dt_qwen_setup``) on ``DT_QWEN_MESH``,
-    only this rank's blocks ever on the card; float32 step 1 against the
+def dt_split(torch, tag, runs, tmp, want_loss, dev):
+    """(e)/(f) on this rank: the case's model (``dt_split_setup``) on its
+    mesh, only this rank's blocks ever on the card; float32 step 1 against the
     one-process step's slices (gate (b)'s tolerances: the parameters, whose
     step-0 learning rate is 0, equal to the initial blocks; AdamW's moments
     within ``DT_STATE_TOL`` of each leaf's max; the loss within
@@ -4967,10 +5010,10 @@ def dt_qwen(torch, runs, tmp, want_loss, dev):
     from repro_torch.launch.train import TrainState, make_train_step, shard_train_step
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.sharding.partition import make_rules, shard_tree
-    cfg, params, batches = dt_qwen_setup()
+    cfg, params, batches = dt_split_setup(tag)
     shapes = pytree.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
                              params)
-    mesh = make_local_mesh(*DT_QWEN_MESH)
+    mesh = make_local_mesh(*DT_SPLITS[tag][1])
     rec = {}
     for dt in ("f32", "bf16"):
         run = runs[dt]["adamw"]
@@ -5003,7 +5046,7 @@ def dt_qwen(torch, runs, tmp, want_loss, dev):
                                      for p, x in pytree.leaves_with_path(state)
                                      if p in rep and isinstance(x, torch.Tensor)})
         if dt == "f32":
-            want = torch.load(os.path.join(tmp, f"qwen_rank{dist.get_rank()}.pt"), mmap=True)
+            want = torch.load(os.path.join(tmp, f"{tag}_rank{dist.get_rank()}.pt"), mmap=True)
             by_path, state_rel = {}, 0.0
             init = dict(pytree.leaves_with_path(blocks))
             for path, blk in pytree.leaves_with_path(state):
@@ -5026,10 +5069,11 @@ def dt_qwen(torch, runs, tmp, want_loss, dev):
     return rec
 
 
-def dt_rank(cfg, runs, ckpt, unbroken, qwen_tmp, qwen_loss, device="cuda:0"):
+def dt_rank(cfg, runs, ckpt, unbroken, split_tmp, split_loss, device="cuda:0"):
     """One rank of the world of ``DT_WORLD`` sharing the card: (a); (b) at
     ``DT_F32_LAYERS`` layers in float32 and at full depth in bf16, each
-    optimizer; (c); (e)."""
+    optimizer; (c); (e) and (f) (``split_loss``: each case's one-process
+    loss)."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(device)
@@ -5043,7 +5087,9 @@ def dt_rank(cfg, runs, ckpt, unbroken, qwen_tmp, qwen_loss, device="cuda:0"):
     torch.cuda.empty_cache()
     out["pipe"] = dt_pipeline(torch, cfg, runs["f32"]["adamw"], dev)
     torch.cuda.empty_cache()
-    out["qwen"] = dt_qwen(torch, runs, qwen_tmp, qwen_loss, dev)
+    for tag in DT_SPLITS:
+        torch.cuda.empty_cache()
+        out[tag] = dt_split(torch, tag, runs, split_tmp, split_loss[tag], dev)
     return out
 
 
@@ -5252,26 +5298,28 @@ def check_distributed_training(torch, outs, two, written, local_loss, norm, ever
             and abs(r["loss"] - loss4) <= DT_LOSS_TOL * abs(loss4)):
         raise AssertionError(f"distributed training (b), elastic restore 4 -> 2: {r} (limits "
                              f"{DT_RESTORE_TOL}, {2 * r['lr_sum']})")
-    qs = [o["qwen"] for o in outs]
-    rec["qwen"] = {dt: dict(losses=qs[0][dt]["losses"], step_ms=[q[dt]["step_ms"] for q in qs],
-                            gloo_ms=[q[dt]["gloo_ms"] for q in qs],
-                            peak_bytes=[q[dt]["peak_bytes"] for q in qs],
-                            replicated_same_bits=all(
-                                q[dt]["replicated_digests"] == qs[0][dt]["replicated_digests"]
-                                and q[dt]["losses"] == qs[0][dt]["losses"] for q in qs))
-                   for dt in ("f32", "bf16")}
-    rq = rec["qwen"]
-    rq["f32"].update(state_rel=max(q["f32"]["state_rel"] for q in qs),
-                     loss_rel=max(q["f32"]["loss_rel"] for q in qs),
-                     state_rel_by_path={p: max(q["f32"]["state_rel_by_path"][p] for q in qs)
-                                        for p in qs[0]["f32"]["state_rel_by_path"]})
-    if not (rq["f32"]["state_rel"] <= DT_STATE_TOL and rq["f32"]["loss_rel"] <= DT_LOSS_TOL
-            and all(r["replicated_same_bits"] for r in rq.values())
-            and all(math.isfinite(x) for r in rq.values() for x in r["losses"])
-            and max(max(r["peak_bytes"]) for r in rq.values()) <= DT_QWEN_PEAK):
-        raise AssertionError(f"distributed training (e), qwen2-7b at {QWEN_LAYERS} layers on "
-                             f"{DT_QWEN_MESH}: {rq} (limits {DT_STATE_TOL}, {DT_LOSS_TOL}, "
-                             f"{DT_QWEN_PEAK})")
+    for tag, gate in zip(DT_SPLITS, "ef"):
+        arch, mesh, peak = DT_SPLITS[tag]
+        qs = [o[tag] for o in outs]
+        rec[tag] = {dt: dict(losses=qs[0][dt]["losses"], step_ms=[q[dt]["step_ms"] for q in qs],
+                             gloo_ms=[q[dt]["gloo_ms"] for q in qs],
+                             peak_bytes=[q[dt]["peak_bytes"] for q in qs],
+                             replicated_same_bits=all(
+                                 q[dt]["replicated_digests"] == qs[0][dt]["replicated_digests"]
+                                 and q[dt]["losses"] == qs[0][dt]["losses"] for q in qs))
+                    for dt in ("f32", "bf16")}
+        rq = rec[tag]
+        rq["f32"].update(state_rel=max(q["f32"]["state_rel"] for q in qs),
+                         loss_rel=max(q["f32"]["loss_rel"] for q in qs),
+                         state_rel_by_path={p: max(q["f32"]["state_rel_by_path"][p] for q in qs)
+                                            for p in qs[0]["f32"]["state_rel_by_path"]})
+        if not (rq["f32"]["state_rel"] <= DT_STATE_TOL and rq["f32"]["loss_rel"] <= DT_LOSS_TOL
+                and all(r["replicated_same_bits"] for r in rq.values())
+                and all(math.isfinite(x) for r in rq.values() for x in r["losses"])
+                and (peak is None or max(max(r["peak_bytes"]) for r in rq.values()) <= peak)):
+            raise AssertionError(f"distributed training ({gate}), {arch} at {QWEN_LAYERS} layers "
+                                 f"on {mesh}: {rq} (limits {DT_STATE_TOL}, {DT_LOSS_TOL}, "
+                                 f"{peak})")
     ps = [o["pipe"] for o in outs]
     rec["pipeline"] = dict(stages=[p["stage"] for p in ps], ms=[p["ms"] for p in ps],
                            out_same_on_every_stage=all(p["out_digest"] == ps[0]["out_digest"]
@@ -5325,6 +5373,11 @@ def phase_distributed_training(torch, run_path, card):
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH, "--shape",
          DRYRUN_SHAPE, "--out", tmp], env=dict(os.environ, PYTHONPATH=str(SRC)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    dry_ssd = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+         DRYRUN_SHAPE, "--no-extrapolate", "--out", tmp],
+        env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for arch in DRYRUN_SSD}
     try:
         cfg = model_100m()
         base = RunConfig(remat="none", loss_chunk=128, precond_every=10)
@@ -5332,18 +5385,21 @@ def phase_distributed_training(torch, run_path, card):
                      for opt in ("adamw", "arrowhead")}
                 for dt, name in (("bf16", "bfloat16"), ("f32", "float32"))}
         written, local_loss, norm = dt_written_out(torch, cfg, runs["bf16"]["adamw"], "cuda:0")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        qwen_one = dt_qwen_one_process(torch, runs["f32"]["adamw"], tmp, "cuda:0")
-        qwen_one["wall_s"] = time.perf_counter() - t0
-        log(f"distributed training (e), qwen2-7b at {QWEN_LAYERS} layers, the one-process "
-            f"float32 step 1: " + json.dumps(qwen_one) + f", card {card}")
+        one = {}
+        for tag, gate in zip(DT_SPLITS, "ef"):
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            one[tag] = dt_split_one_process(torch, tag, runs["f32"]["adamw"], tmp, "cuda:0")
+            one[tag]["wall_s"] = time.perf_counter() - t0
+            log(f"distributed training ({gate}), {DT_SPLITS[tag][0]} at {QWEN_LAYERS} layers, "
+                f"the one-process float32 step 1: " + json.dumps(one[tag]) + f", card {card}")
         torch.cuda.empty_cache()
         ckpt, unbroken = os.path.join(tmp, "ckpt"), os.path.join(tmp, "unbroken")
         t0 = time.perf_counter()
         outs = run_path("distributed training: world 4 (gloo ranks sharing the card)",
                         lambda: run_local(dt_rank, cfg, runs, ckpt, unbroken, tmp,
-                                          qwen_one["loss"], world_size=DT_WORLD, backend="gloo",
+                                          {tag: o["loss"] for tag, o in one.items()},
+                                          world_size=DT_WORLD, backend="gloo",
                                           device_type="cuda", timeout=900))
         world4_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5353,10 +5409,11 @@ def phase_distributed_training(torch, run_path, card):
         rec = check_distributed_training(torch, outs, two, written, local_loss, norm,
                                          base.precond_every)
         rec.update(world4_s=world4_s, world2_s=world2_s)
-        rec["qwen"]["one_process"] = qwen_one
+        for tag, o in one.items():
+            rec[tag]["one_process"] = o
         for k in ("compressed_dp", "sharded_f32_adamw", "sharded_f32_arrowhead",
                   "sharded_bf16_adamw", "sharded_bf16_arrowhead", "elastic_restore", "pipeline",
-                  "qwen"):
+                  *DT_SPLITS):
             log(f"distributed training, {k}: " + json.dumps(rec[k]) + f", card {card}")
         del outs, two, written
         t0 = time.perf_counter()
@@ -5377,10 +5434,27 @@ def phase_distributed_training(torch, run_path, card):
                                  f"{DRYRUN_PEAK_GIB} GiB, {DRYRUN_FLOPS} FLOPs a device)")
         log(f"distributed training, dry run {DRYRUN_ARCH} {DRYRUN_SHAPE} on a fake world of "
             f"256 (host process): " + json.dumps(rec["dryrun"]))
+        for arch, limit in DRYRUN_SSD.items():
+            stdout, stderr = dry_ssd[arch].communicate(timeout=900)
+            if dry_ssd[arch].returncode != 0:
+                raise AssertionError(f"dry run {arch} exited {dry_ssd[arch].returncode}: "
+                                     f"{stdout}\n{stderr}")
+            with open(os.path.join(tmp, f"{arch}_{DRYRUN_SHAPE}_single.json")) as f:
+                dr = json.load(f)
+            dr.pop("run", None)
+            rec[f"dryrun_{arch}"] = dr
+            if not (dr["status"] == "ok"
+                    and dr["memory"]["total_per_device_gib"] < DRYRUN_PEAK_GIB
+                    and dr["cost_scanned"]["flops"] <= limit):
+                raise AssertionError(f"dry run {arch} {DRYRUN_SHAPE}: {dr} (limits "
+                                     f"{DRYRUN_PEAK_GIB} GiB, {limit} FLOPs a device)")
+            log(f"distributed training, dry run {arch} {DRYRUN_SHAPE} on a fake world of 256 "
+                f"(host process): " + json.dumps(dr))
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
+        for p in (dry, *dry_ssd.values()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     rec["wall_s"] = time.perf_counter() - t_phase
     log(f"phase distributed training: {rec['wall_s']:.1f} s (world 4 {rec['world4_s']:.1f} s, "
@@ -5396,8 +5470,10 @@ def phase_distributed_training(torch, run_path, card):
 # sharing the card
 # ---------------------------------------------------------------------------
 
-# (a) qwen2-7b and (b) mamba2-1.3b (run.ssm_head_shard: the SSD mixer split
-# by heads) at their published widths, n_layers cut to phase "lm"'s 2, on
+# (a) qwen2-7b, (b) mamba2-1.3b with run.ssm_head_shard (the SSD mixer split
+# by heads) and (d) mamba2-1.3b with it off (the SSD mixer on each rank's
+# block of 30 prompt positions, chunked by 30 where one process chunks the
+# 120 by 60) at their published widths, n_layers cut to phase "lm"'s 2, on
 # (data 1, model 4): a float32 prefill of SS_BATCH x SS_PROMPT tokens grown
 # to a window of SS_WINDOW, then SS_STEPS greedy decode steps (positions
 # 120-135: qwen2-7b's cache blocks are 64 positions, so the steps cross the
@@ -5410,7 +5486,10 @@ def phase_distributed_training(torch, run_path, card):
 SS_WORLD, SS_MESH = 4, (1, 4)
 SS_BATCH, SS_PROMPT, SS_WINDOW, SS_STEPS = 2, 120, 256, 16
 SS_LOGIT_TOL, SS_PEAK_SHARE = 1e-5, 0.5
-SS_ARCHS = (("qwen2-7b", {}), ("mamba2-1.3b", {"ssm_head_shard": True}))
+# name -> (arch, run flags)
+SS_ARCHS = {"qwen2-7b": ("qwen2-7b", {}),
+            "mamba2-1.3b": ("mamba2-1.3b", {"ssm_head_shard": True}),
+            "mamba2-1.3b-seq": ("mamba2-1.3b", {})}
 # (c) the dry run's decode cell (a host process of its own, started first):
 # status ok, the rules' block bytes as its arguments, under 4 GiB a device
 SS_DRYRUN_ARCH, SS_DRYRUN_SHAPE, SS_DRYRUN_PEAK_GIB = "qwen2-7b", "decode_32k", 4.0
@@ -5493,7 +5572,7 @@ def ss_one_process(torch, arch, flags, dev):
 
 def ss_rank(archs, device="cuda:0"):
     """One rank of the world of ``SS_WORLD`` sharing the card: for each of
-    ``archs`` ((arch, run flags)) its blocks of (a)/(b) on ``SS_MESH``,
+    ``archs`` (name -> (arch, run flags)) its blocks of (a)/(b)/(d) on ``SS_MESH``,
     only they ever on the card: the float32 split serving (logits, tokens,
     its cache bytes and the rules' block bytes, its peak), then bf16, a
     warm run and a timed one (prefill and decode seconds, the seconds
@@ -5509,7 +5588,7 @@ def ss_rank(archs, device="cuda:0"):
     dev = torch.device(device)
     mesh = make_local_mesh(*SS_MESH)
     out = {}
-    for arch, flags in archs:
+    for name, (arch, flags) in archs.items():
         cfg, params, tokens = ss_setup(arch)
         rec = {}
         for dt in ("float32", "bfloat16"):
@@ -5540,7 +5619,7 @@ def ss_rank(archs, device="cuda:0"):
             del got, on_card
             gc.collect()
             torch.cuda.empty_cache()
-        out[arch] = rec
+        out[name] = rec
         del params
         gc.collect()
     return out
@@ -5588,22 +5667,22 @@ def phase_split_serving(torch, run_path, card):
     rec = {}
     try:
         one = {}
-        for arch, flags in SS_ARCHS:
+        for name, (arch, flags) in SS_ARCHS.items():
             t0 = time.perf_counter()
-            one[arch] = ss_one_process(torch, arch, flags, "cuda:0")
-            one[arch]["wall_s"] = time.perf_counter() - t0
+            one[name] = ss_one_process(torch, arch, flags, "cuda:0")
+            one[name]["wall_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         outs = run_path("split serving: world 4 (gloo ranks sharing the card)",
                         lambda: run_local(ss_rank, SS_ARCHS, world_size=SS_WORLD,
                                           backend="gloo", device_type="cuda", timeout=900))
         rec["world4_s"] = time.perf_counter() - t0
-        for arch, flags in SS_ARCHS:
-            o = one[arch]
+        for name, (arch, flags) in SS_ARCHS.items():
+            o = one[name]
             err = max(_rel(torch, got, want) for r in outs
-                      for got, want in zip(r[arch]["float32"]["logits"], o["logits"]))
-            same = all(torch.equal(r[arch]["float32"]["tokens"], o["tokens"]) for r in outs)
-            f32 = [r[arch]["float32"] for r in outs]
-            bf = [r[arch]["bfloat16"] for r in outs]
+                      for got, want in zip(r[name]["float32"]["logits"], o["logits"]))
+            same = all(torch.equal(r[name]["float32"]["tokens"], o["tokens"]) for r in outs)
+            f32 = [r[name]["float32"] for r in outs]
+            bf = [r[name]["bfloat16"] for r in outs]
             steps = SS_BATCH * SS_STEPS
             a = dict(mesh=list(SS_MESH), n_layers=QWEN_LAYERS, flags=flags, batch=SS_BATCH,
                      prompt=SS_PROMPT, window=SS_WINDOW, steps=SS_STEPS,
@@ -5620,12 +5699,12 @@ def phase_split_serving(torch, run_path, card):
                      bf16_decode_tok_per_s=[steps / x["decode_s"] for x in bf],
                      bf16_gloo_share=[x["gloo_s"] / (x["prefill_s"] + x["decode_s"]) for x in bf],
                      bf16_peak_bytes=[x["peak_bytes"] for x in bf])
-            rec[arch] = a
-            log(f"split serving, {arch}: " + json.dumps(a) + f", card {card}")
+            rec[name] = a
+            log(f"split serving, {name}: " + json.dumps(a) + f", card {card}")
             if not (err <= SS_LOGIT_TOL and same
                     and all(x["cache_bytes"] == x["block_bytes"] for x in f32)
                     and max(a["peak_bytes"]) <= SS_PEAK_SHARE * o["peak_bytes"]):
-                raise AssertionError(f"split serving {arch} on {SS_MESH}: {a} (limits "
+                raise AssertionError(f"split serving {name} on {SS_MESH}: {a} (limits "
                                      f"{SS_LOGIT_TOL}, peak {SS_PEAK_SHARE} of the one process)")
         del outs
         t0 = time.perf_counter()

@@ -44,8 +44,8 @@ upper bound of what a fused step moves; and the peak is eager PyTorch's
 without its caching allocator's rounding.  Every cell runs the split
 (``sharding/split.py``) on this rank's blocks: each layer gathered over
 ``data`` inside the layer loop, the compute split over ``model`` (TP, SP,
-EP; the SSD mixer by heads with ``run.ssm_head_shard``, else whole), so
-its memory, FLOPs and collectives are the split's.  A train cell runs the
+EP; the SSD mixer by heads with ``run.ssm_head_shard``, else by
+sequence blocks), so its memory, FLOPs and collectives are the split's.  A train cell runs the
 sharded step; a prefill cell ``prefill(constrain=)`` on the batch's block,
 its caches coming out as blocks in the rules' cache layout; a decode cell
 ``decode_step(constrain=)`` on the caches' blocks

@@ -26,11 +26,23 @@ z, x and dt columns narrowed to the rank's heads, B and C kept whole (cut
 by groups where ``model`` divides ``ssm_groups``), the conv channels,
 ``a_log``, ``d_skip``, ``dt_bias`` and ``gate_norm`` narrowed alike, the
 gated RMSNorm's mean square over ``d_inner`` summed over ``model``, and
-``w_out``'s row block's partial output left.  With the flag off the SSD
-mixer is the split's one recorded exception: each layer is gathered whole
-over both axes and runs on the whole sequence on every ``model`` rank, and
-``constrain(h, "act")`` cuts its output back to the stream's block.
-Either way a prefill's final state and conv tail come back as this rank's
+``w_out``'s row block's partial output left.  With the flag off (the
+rules' default ``ssm_x`` layout, by sequence) and the stream cut over
+``model`` a layer runs every head on this rank's sequence block only:
+``w_in``, ``conv`` and ``w_out`` gathered whole a layer at a time and the
+replicated leaves taken as they are, each gradient a part summed over
+``model``; the norm, the projections and the gated norm within each
+position; the causal conv on the block behind a halo of the
+``ssm_conv - 1`` raw positions before it (``Split.halo``: from the rank
+before, zeros on rank 0); the SSD chunked over the block from a zero
+state, then every rank's end state and total log decay stacked over
+``model`` (``Split.stacked``) and folded in rank order into the state
+entering the block (``_SeqCarry``), from which the chunk loop runs as the
+reference's scan reaches the block.  Where the stream is whole on every
+rank (``activation_sharding="replicated"``, or a sequence ``model`` does
+not divide) every rank runs the whole layer, as the reference does.  A
+prefill's final state (the fold over every block, on every rank) and
+conv tail (the last rank's, all-gathered) come back as this rank's
 blocks of the rules' cache layout (the state by heads, the conv buffer by
 a contiguous block of its packed channels).  A decode step under a split
 is head-parallel whatever the flag, as the cache's layout is: the token's
@@ -61,12 +73,20 @@ _F32 = torch.float32
 # SSD core
 # ---------------------------------------------------------------------------
 
-def ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int = 64):
+def ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int = 64, carry=None):
     """SSD forward.
 
     x: (B, S, H, P); dt: (B, S, H) (post-softplus); a_log: (H,);
     bmat/cmat: (B, S, G, N); d_skip: (H,).  Returns (y, final_state) with
     y in x's dtype and final_state (B, G, HG, P, N) float32.
+
+    ``carry`` (None: a zero state before the first position) is a function
+    ``carry(s, a)`` of the state these positions end in from a zero start
+    ``s`` (B, G, HG, P, N) and their total log decay ``a = Σ dt·A``
+    (B, G, HG), returning the state before the first position: a block of
+    a sequence split, whose carry folds the blocks before it
+    (:class:`_SeqCarry`).  The chunk loop then starts from it, as the
+    reference's scan reaches the block.
     """
     B, S, H, P = x.shape
     G, N = bmat.shape[2], bmat.shape[3]
@@ -103,6 +123,11 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int = 64):
     # ---- inter-chunk recurrence: the state *before* each chunk ----------
     chunk_decay = torch.exp(last[:, :, 0])               # (B,nc,G,HG)
     h = torch.zeros((B, G, HG, P, N), dtype=_F32, device=x.device)
+    if carry is not None:
+        s = h
+        for c in range(nc):
+            s = s * chunk_decay[:, c, ..., None, None] + state_c[:, c]
+        h = carry(s, last[:, :, 0].sum(dim=1))
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
@@ -219,7 +244,9 @@ def _local(cfg: ModelConfig, c, mode: Optional[str], device) -> Dict[str, Any]:
 def _ssd_mode(cfg: ModelConfig, c) -> Optional[str]:
     """How ``run.ssm_head_shard`` splits the SSD mixer over ``model`` (see
     :func:`_local`): by groups where ``model`` divides them, else by heads
-    within each group where it divides a group's heads, else not at all."""
+    within each group where it divides a group's heads; None (the flag off,
+    or neither dividing): every head, on this rank's sequence block where
+    the stream is cut, else on the whole stream."""
     g, hg = cfg.ssm_groups, cfg.ssm_heads // cfg.ssm_groups
     if c.tp == 1 or not c.rules.run.ssm_head_shard:
         return None
@@ -255,20 +282,79 @@ def _cache_block(c, x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.narrow(dim, c.rank * b, b).contiguous()
 
 
+class _SeqCarry:
+    """:func:`ssd_chunked`'s ``carry`` on rank r's block of a sequence split
+    over ``model``: every rank's zero-start end state ``s_j`` and total log
+    decay ``a_j`` stacked over ``model`` (:meth:`Split.stacked`, the
+    gradient summed back to rank j), and the state entering block r, the
+    reference's scan over the blocks before it written as a sum,
+    ``h_r = Σ_{j<r} exp(Σ_{j<k<r} a_k) s_j`` (the exponent's masked
+    entries ``-inf`` before the ``exp``, so every rank's whole stack, rank
+    0's too, takes part in the gradient's collective).  With ``final`` it
+    also keeps the sequence's end state, the same sum over every block (a
+    prefill's cache), in ``self.final``."""
+
+    def __init__(self, c, final: bool):
+        self.c, self.want_final, self.final = c, final, None
+
+    def _entering(self, s, cum, r: int) -> torch.Tensor:
+        j = torch.arange(self.c.tp, device=s.device).reshape(-1, 1, 1, 1)
+        expo = torch.where(j < r, cum[r - 1] - cum, torch.full((), -torch.inf, device=s.device))
+        return torch.einsum("jbgh,jbghpn->bghpn", torch.exp(expo), s)
+
+    def __call__(self, s, a):
+        s, cum = self.c.stacked(s), torch.cumsum(self.c.stacked(a), dim=0)
+        if self.want_final:
+            self.final = self._entering(s, cum, self.c.tp)
+        return self._entering(s, cum, self.c.rank)
+
+
+def _mamba_seq(p, h, cfg: ModelConfig, chunk: int, return_state: bool, c):
+    """:func:`mamba_apply` on this rank's block of a sequence split over
+    ``model`` (see the module docstring)."""
+    dtype = h.dtype
+    di, g, n, nh, w = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+    K, conv_ch = 2 * di + 2 * g * n + nh, di + 2 * g * n
+    B, S, _ = h.shape
+    hn = L.rms_norm(h, c.rep(p["ln"]["scale"]))
+    proj = torch.matmul(hn, c.whole(p["w_in"], 1, K).to(dtype))
+    z, xbc, dt = _split_proj(proj, cfg)
+    raw = torch.cat([c.halo(xbc, w - 1), xbc], dim=1)       # the conv's inputs
+    conv = _causal_conv(raw, c.whole(p["conv"], 1, conv_ch).to(dtype),
+                        c.rep(p["conv_b"]).to(dtype))
+    xbc = F.silu(conv[:, w - 1:])
+    x = xbc[..., :di].reshape(B, S, nh, cfg.ssm_head_dim)
+    bmat = xbc[..., di: di + g * n].reshape(B, S, g, n)
+    cmat = xbc[..., di + g * n:].reshape(B, S, g, n)
+    dt = F.softplus(dt.to(_F32) + c.rep(p["dt_bias"]))
+    carry = _SeqCarry(c, return_state)
+    y, _ = ssd_chunked(x, dt, c.rep(p["a_log"]), bmat, cmat, c.rep(p["d_skip"]), chunk=chunk,
+                       carry=carry)
+    out = _gate_out(dict(gate_norm=c.rep(p["gate_norm"]), w_out=c.whole(p["w_out"], 0, di)),
+                    y.reshape(B, S, di), z, dtype)
+    if not return_state:
+        return h + out, None
+    # the conv tail: the sequence's last raw inputs, the last rank's
+    tail = c.stacked(raw[:, -min(w, c.seq):])[-1]
+    return h + out, (_cache_block(c, carry.final, 2), _cache_block(c, tail, 2))
+
+
 def _mamba_split(p, h, cfg: ModelConfig, chunk: int, return_state: bool, c):
     """:func:`mamba_apply` under a split (see the module docstring)."""
     di, g, n, nh = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     K, conv_ch = 2 * di + 2 * g * n + nh, di + 2 * g * n
     mode = _ssd_mode(cfg, c)
+    if mode is None and c.sp:
+        return _mamba_seq(p, h, cfg, chunk, return_state, c)
     if mode is None:
-        # the recorded exception: the layer whole on every rank
+        # the stream whole on every rank: the layer whole on every rank
         pw = dict(p, w_in=c.whole_redundant(p["w_in"], 1, K),
                   conv=c.whole_redundant(p["conv"], 1, conv_ch),
                   w_out=c.whole_redundant(p["w_out"], 0, di))
-        out, state = mamba_apply(pw, c.redundant(h), cfg, chunk, return_state)
+        out, state = mamba_apply(pw, h, cfg, chunk, return_state)
         if state is not None:
             state = (_cache_block(c, state[0], 2), _cache_block(c, state[1], 2))
-        return c(out, "act"), state
+        return out, state
     dtype = h.dtype
     sel = _local(cfg, c, mode, h.device)
     hl, gl, dl = len(sel["heads"]), len(sel["groups"]), len(sel["chan"])

@@ -20,7 +20,7 @@ caches exist.  ``loss``, ``prefill`` and ``decode_step`` take
 data-parallel axes at each application and split over ``model`` as the
 dense blocks are (its ``proj_out`` gathered whole), the Mamba2 layers as
 ``models/mamba2.py`` splits them (by heads with ``run.ssm_head_shard``,
-else the SSD exception), the caches the rules' blocks.
+else on this rank's sequence block), the caches the rules' blocks.
 """
 from __future__ import annotations
 

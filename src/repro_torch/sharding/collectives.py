@@ -26,11 +26,13 @@ as ``torch.autograd.Function`` pairs whose backward is the forward's
 transpose: :func:`all_gather_rs` (all-gather, its gradient reduce-scattered),
 :func:`reduce_scatter_ag` (the reverse), :func:`all_reduce_id` (an ordered
 all-reduce, the gradient passed through), :func:`identity_ar` (the
-reverse: a tensor used in part on every rank, its gradient summed), and
-for work every rank repeats on the same data, :func:`split_ag` (this
-rank's block, the gradient all-gathered) and :func:`all_gather_split` (an
-all-gather, the gradient cut back to this rank's block).  Every sum among
-them adds in group-rank order.
+reverse: a tensor used in part on every rank, its gradient summed),
+:func:`shift` (rank r takes rank r − k's tensor, the gradient sent back:
+a sequence block's halo from the blocks before it), and for work every
+rank repeats on the same data, :func:`split_ag` (this rank's block, the
+gradient all-gathered) and :func:`all_gather_split` (an all-gather, the
+gradient cut back to this rank's block).  Every sum among them adds in
+group-rank order.
 
 Every function takes the ``ProcessGroup`` of a mesh dimension
 (``mesh.get_group(axis)``, ``launch/mesh.py``), the counterpart of an axis
@@ -62,8 +64,8 @@ from repro_torch.kernels import ops
 
 __all__ = ["tree_allreduce", "ring_allreduce", "quantized_allreduce", "all_gather",
            "all_to_all", "ordered_allreduce", "reduce_scatter", "all_reduce_max", "sendrecv",
-           "all_gather_rs", "all_gather_rs_n", "reduce_scatter_ag", "all_reduce_id", "identity_ar", "split_ag",
-           "all_gather_split", "fake_records"]
+           "all_gather_rs", "all_gather_rs_n", "reduce_scatter_ag", "all_reduce_id", "identity_ar", "shift",
+           "split_ag", "all_gather_split", "fake_records"]
 
 # what the fake transport was asked to move, in call order (the dry run's
 # collective bytes, launch/dryrun.py)
@@ -358,6 +360,26 @@ class _IdentityAR(torch.autograd.Function):
         return ordered_allreduce(g.contiguous(), ctx.group), None
 
 
+def _shifted(x: torch.Tensor, group, k: int) -> torch.Tensor:
+    """Every rank's ``x`` sent ``k`` ranks up the group (down for a
+    negative ``k``) around the ring: rank r returns rank r − k's, or zeros
+    where r − k is not a rank of the group."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    got = sendrecv(x.contiguous(), (r + k) % n, (r - k) % n, group)
+    return got if 0 <= r - k < n else torch.zeros_like(got)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, k):
+        ctx.group, ctx.k = group, k
+        return _shifted(x, group, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shifted(g, ctx.group, -ctx.k), None, None
+
+
 class _SplitAG(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -424,6 +446,14 @@ def identity_ar(x: torch.Tensor, group) -> torch.Tensor:
     on a sequence block, a head block of a bias), so every rank ends with
     its whole gradient, the same bits."""
     return x if _one(group) else _IdentityAR.apply(x, group)
+
+
+def shift(x: torch.Tensor, group, k: int = 1) -> torch.Tensor:
+    """Rank r's result is rank r − k's ``x`` (every rank's of one shape),
+    zeros on the first ``k`` ranks; the gradient goes back the ``k`` ranks
+    (the last ``k`` ranks' is dropped).  One point-to-point exchange around
+    the group's ring each way; ``k`` is at least 1."""
+    return torch.zeros_like(x) if _one(group) else _Shift.apply(x, group, k)
 
 
 def split_ag(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

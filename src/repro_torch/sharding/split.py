@@ -26,9 +26,15 @@ add in group-rank order.
 * A leaf the rules replicate over ``model`` and a rank uses in part (a
   norm's scale on a sequence block, a bias's head block, the router) goes
   through :meth:`rep` / :meth:`tp_rep`, whose gradient is summed over
-  ``model``; work every rank repeats on the same data (the SSD mixer, the
-  one exception) goes through :meth:`redundant` and
-  :meth:`whole_redundant`, whose gradients are cut back to blocks.
+  ``model``; work every rank repeats on the same data (a layer on a
+  stream whole on every rank, the loss where ``model`` does not divide the
+  vocabulary) goes through :meth:`redundant` and :meth:`whole_redundant`,
+  whose gradients are cut back to blocks.
+* A recurrence along a sequence-sharded stream (the SSD mixer and its
+  causal conv) runs on this rank's block: :meth:`halo` brings the
+  positions before the block from the ranks that hold them, and
+  :meth:`stacked` hands every rank each rank's carry (a block's state) to
+  fold in rank order.
 
 * Serving: a prefill is the train forward's split on the prompt, its
   last position made whole by :meth:`last`.  A decode step's stream is one
@@ -59,7 +65,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch import pytree
 from repro_torch.sharding.collectives import (all_gather, all_gather_rs, all_gather_rs_n,
                                               all_gather_split, all_reduce_id, all_reduce_max,
-                                              identity_ar, reduce_scatter_ag, split_ag)
+                                              identity_ar, reduce_scatter_ag, shift, split_ag)
 
 __all__ = ["Split"]
 
@@ -190,11 +196,36 @@ class Split:
 
     def redundant(self, x: torch.Tensor) -> torch.Tensor:
         """The stream whole on every rank for work every rank repeats (the
-        SSD exception): the sequence all-gathered, the gradient cut back;
-        a stream that is whole already is returned as it is."""
+        loss where ``model`` does not divide the vocabulary): the sequence
+        all-gathered, the gradient cut back; a stream that is whole
+        already is returned as it is."""
         if self.sp:
             return all_gather_split(x, self.model, dim=1)
         return x
+
+    def halo(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The ``rows`` positions before this rank's block of the
+        sequence-sharded ``x`` ``(B, S / tp, ...)``: the blocks of the
+        ranks before it, one :func:`shift` a block the halo reaches back
+        (each rank's last ``min(rows, S / tp)`` positions), zeros before
+        the sequence's start; the gradient goes back to the ranks the
+        positions came from."""
+        sl = x.shape[1]
+        take = min(rows, sl)
+        hops = min(-(-rows // sl), self.tp - 1)
+        tail = x[:, sl - take:]
+        got = torch.cat([shift(tail, self.model, k) for k in range(hops, 0, -1)], dim=1)
+        got = got[:, max(got.shape[1] - rows, 0):]
+        if got.shape[1] < rows:
+            pad = got.new_zeros((got.shape[0], rows - got.shape[1]) + tuple(got.shape[2:]))
+            got = torch.cat([pad, got], dim=1)
+        return got
+
+    def stacked(self, x: torch.Tensor) -> torch.Tensor:
+        """Every ``model`` rank's ``x`` stacked along a new leading axis in
+        rank order; the gradient of each rank's slice summed over ``model``
+        in rank order (reduce-scattered) back to that rank."""
+        return all_gather_rs(x.unsqueeze(0).contiguous(), self.model, dim=0)
 
     def q_offset(self, local: int) -> int:
         """The first position of this rank's block of a sequence of which

@@ -376,6 +376,47 @@ class _Shapes(torch.utils._python_dispatch.TorchDispatchMode):
         return out
 
 
+class _InMamba:
+    """The shapes (:class:`_Shapes`) of every operation a Mamba2 layer's
+    split forward runs (``models/mamba2.py::_mamba_split``, wrapped for the
+    block; a remat's recompute included), in order."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def __enter__(self):
+        from repro_torch.models import mamba2
+        orig = self._orig = mamba2._mamba_split
+
+        def inside(*args, **kwargs):
+            mode = _Shapes()
+            try:
+                with mode:
+                    return orig(*args, **kwargs)
+            finally:
+                self.shapes += mode.shapes
+        mamba2._mamba_split = inside
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba2
+        mamba2._mamba_split = self._orig
+
+
+def ssd_whole_sequence(cfg, batch, seq):
+    """The shapes a Mamba2 layer of ``cfg`` makes over the whole sequence
+    of ``seq`` positions for ``batch`` sequences (one chunk of the whole
+    sequence): the stream, the projection, the conv's channels, x, dt, B
+    and C, the gated norm's input, and the intra-chunk scores, decay and
+    cumulative decay."""
+    di, g, n, nh, pd = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads,
+                        cfg.ssm_head_dim)
+    b, s = batch, seq
+    return {(b, s, cfg.d_model), (b, s, 2 * di + 2 * g * n + nh), (b, s, di + 2 * g * n),
+            (b, s, nh, pd), (b, s, nh), (b, s, g, n), (b, s, di),
+            (b, 1, s, s, g), (b, 1, s, s, g, nh // g), (b, 1, s, g, nh // g)}
+
+
 def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
     """On a world of 4: each of ``cases`` (name -> (arch, cfg update, mesh
     shape, run fields)) one sharded step from ``inits[name]`` on
@@ -392,8 +433,11 @@ def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
         cfg = tp_case_config(arch, upd)
         run = RunConfig(**dict(dict(compute_dtype="float32", remat="none", loss_chunk=16),
                                **rupd))
-        blocks, metrics, placements = _one_step(cfg, run, inits[name], batches[name], shape)
-        out[name] = {"blocks": blocks, "metrics": metrics, "placements": placements}
+        layer = _InMamba()
+        blocks, metrics, placements = _one_step(cfg, run, inits[name], batches[name], shape,
+                                                layer)
+        out[name] = {"blocks": blocks, "metrics": metrics, "placements": placements,
+                     "layer_shapes": sorted(set(layer.shapes))}
         if name in whole:
             out[name]["whole"] = _whole_step(cfg, run, inits[name], batches[name])
         if name == meter:
@@ -450,9 +494,9 @@ def split_serving(cases, inits, batches, window, steps):
         B, S = batches[name]["tokens"].shape
         meta = lambda n: api.init_cache(cfg, B, n, dtype=torch.float32, device="meta")
         src, dst = rules.cache_shardings(meta(S)), rules.cache_shardings(meta(window))
-        pre, dec = _Shapes(), _Shapes()
+        pre, dec, layer = _Shapes(), _Shapes(), _InMamba()
         with torch.no_grad():
-            with pre:
+            with layer, pre:
                 logits, caches = api.prefill(blocks, batch, cfg, run, constrain=split)
             caches = grow_caches(caches, window, src, dst)
             split.bind(caches, pytree.tree_map(lambda sh: sh.spec, dst))
@@ -471,5 +515,72 @@ def split_serving(cases, inits, batches, window, steps):
                                     for p, s in pytree.leaves_with_path(dst)},
                      "data_rank": dist.get_rank(mesh.get_group("data")),
                      "prefill_shapes": sorted(set(pre.shapes)),
+                     "layer_shapes": sorted(set(layer.shapes)),
                      "decode_shapes": sorted(set(dec.shapes))}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SSD mixer on a sequence split over ``model`` (models/mamba2.py)
+# ---------------------------------------------------------------------------
+
+def _seq_split(cfg, shape, seq):
+    """The split context of a ``shape`` mesh bound to a stream of ``seq``
+    positions (the rules' default sequence sharding, ``ssm_head_shard``
+    off)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.sharding.partition import make_rules
+    c = make_rules(make_local_mesh(*shape), cfg, RunConfig(compute_dtype="float32")).split()
+    return c.at(seq)
+
+
+def _leaves(d):
+    return {k: torch.from_numpy(v).requires_grad_() for k, v in d.items()}
+
+
+def ssd_sequence(cfg, cases, inputs):
+    """On a world of 4: each of ``cases`` (name -> (mesh shape, S, chunk))
+    with ``inputs[name]`` (numpy arrays by name) on this rank's sequence
+    block of a split over ``model``: the SSD core (``ssd_chunked`` with
+    the split's carry) and the Mamba2 layer (``mamba_apply(constrain=)``,
+    its whole parameters on every rank), each with the gradients of the
+    sum of its outputs against the inputs' cotangents (the final state's
+    term on the last ``model`` rank, the cache blocks' on every rank), and
+    the shapes of every tensor the layer's forward and backward made."""
+    from repro_torch.models.mamba2 import _SeqCarry, mamba_apply, ssd_chunked
+    out = {}
+    for name, (shape, seq, chunk) in cases.items():
+        c = _seq_split(cfg, shape, seq)
+        sl = seq // c.tp
+        blk = lambda a: a.narrow(1, c.rank * sl, sl).contiguous()
+        inp = inputs[name]
+        a = _leaves({k: inp[k] for k in ("x", "dt", "a_log", "b", "c", "d")})
+        xs = {k: blk(v) if v.ndim > 1 else v for k, v in a.items()}
+        carry = _SeqCarry(c, True)
+        y, _ = ssd_chunked(xs["x"], xs["dt"], xs["a_log"], xs["b"], xs["c"], xs["d"],
+                           chunk=chunk, carry=carry)
+        loss = (y * blk(torch.from_numpy(inp["cy"]))).sum()
+        if c.rank == c.tp - 1:
+            loss = loss + (carry.final * torch.from_numpy(inp["cs"])).sum()
+        loss.backward()
+        ssd = {"y": y.detach(), "final": carry.final.detach(),
+               "grads": {k: blk(v.grad) if v.ndim > 1 else v.grad for k, v in a.items()}}
+        params = {k: torch.from_numpy(v).requires_grad_() for k, v in inp.items()
+                  if k.startswith("p/")}
+        p = {k[2:]: v for k, v in params.items()}
+        p["ln"] = {"scale": p.pop("ln")}
+        h = blk(torch.from_numpy(inp["h"])).requires_grad_()
+        rec = _Shapes()
+        with rec:
+            o, (state, tail) = mamba_apply(p, h, cfg, chunk=chunk, return_state=True,
+                                           constrain=c)
+            hb, cb = state.shape[2], tail.shape[2]
+            loss = ((o * blk(torch.from_numpy(inp["co"]))).sum()
+                    + (state * torch.from_numpy(inp["cs"]).narrow(2, c.rank * hb, hb)).sum()
+                    + (tail * torch.from_numpy(inp["ct"]).narrow(2, c.rank * cb, cb)).sum())
+            loss.backward()
+        layer = {"out": o.detach(), "state": state.detach(), "tail": tail.detach(),
+                 "grads": dict({k: v.grad for k, v in params.items()}, h=h.grad)}
+        out[name] = {"rank": c.rank, "tp": c.tp, "ssd": ssd, "layer": layer,
+                     "shapes": sorted(set(rec.shapes))}
     return out

@@ -11,10 +11,11 @@ shard bytes of that cell on the 16 × 16 mesh (parameters, caches, the
 token and the position, from one ``tests/_mdev.py`` subprocess with 256
 forced devices, ``jax.eval_shape``); the qwen2-7b decode_32k cell, whose
 batch ``data`` cuts, exits 0 too, with the reference rules' shard bytes
-from the same subprocess and under 4 GiB a device; and a dense train cell
-at one layer runs the split step, its per-device FLOPs within 25 % of the
+from the same subprocess and under 4 GiB a device; a dense train cell at
+one layer runs the split step, its per-device FLOPs within 25 % of the
 split's count from the shapes, as the first and as the last rank of a
-``model`` group."""
+``model`` group; and so does mamba2-1.3b's train cell at one layer, the
+SSD mixer on the rank's sequence block."""
 import json
 import os
 import subprocess
@@ -183,4 +184,50 @@ def test_dense_train_cell_at_one_layer_splits_the_flops(rank):
         rules = make_rules(make_production_mesh(), cfg, run, shape)
         got = _run_cell(cfg, shape, run, rules, "cpu")
     want = _split_flops(cfg, shape, run, tp=16, dp=16, rank=rank)
+    assert abs(got["flops"] - want) <= 0.25 * want, (got["flops"], want)
+
+
+def _ssm_split_flops(cfg, shape, run, tp, dp):
+    """The split train step's FLOPs on one rank of the attention-free
+    Mamba2 model, counted from the shapes, the SSD mixer on this rank's
+    sequence block (``run.ssm_head_shard`` off): every matmul a forward, a
+    recompute (remat "full") and a backward of two, on the rank's block of
+    the projections (``w_in``, ``w_out``) and of the SSD's einsums (the
+    chunk's scores and its quadratic output, the chunk states, the carried
+    state's output; chunks of ``min(ssd_chunk, S / tp)``), the fold over
+    the blocks' states, and the vocabulary block of the loss."""
+    B, S = shape.global_batch // dp, shape.seq_len
+    sl = S // tp
+    T = B * sl
+    D, di, G, N, H, P, V = (cfg.d_model, cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                            cfg.ssm_heads, cfg.ssm_head_dim, cfg.vocab_padded)
+    K = 2 * di + 2 * G * N + H
+    Q = min(run.ssd_chunk, sl)
+    proj = 2 * T * (D * K + di * D)
+    ssd = 2 * T * Q * (G * N + H * P) + 2 * T * H * P * N * 2 + 2 * tp * B * H * P * N
+    loss = 2 * B * S * D * V / tp
+    return 4 * (proj + ssd) * cfg.n_layers + 4 * loss
+
+
+def test_ssm_train_cell_at_one_layer_splits_the_flops():
+    """mamba2-1.3b at its published widths cut to one layer, train_4k on
+    the 16 × 16 mesh of a fake world of 256, as the dry run's rank (the
+    last of the first ``model`` group): with ``ssm_head_shard`` off (the
+    rules' sequence layout of ``ssm_x``) the per-device FLOPs within 25 %
+    of the split count from the shapes, the SSD mixer on the rank's
+    sequence block (the layer run on the whole sequence on every
+    ``model`` rank reads about four times that at one layer, the loss's
+    share unchanged)."""
+    import dataclasses
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.dryrun import _run_cell
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.sharding.partition import make_rules
+    cfg = dataclasses.replace(configs.get("mamba2-1.3b"), n_layers=1)
+    shape, run = SHAPES["train_4k"], RunConfig()
+    assert not run.ssm_head_shard
+    with fake_world(256, rank=15):
+        rules = make_rules(make_production_mesh(), cfg, run, shape)
+        got = _run_cell(cfg, shape, run, rules, "cpu")
+    want = _ssm_split_flops(cfg, shape, run, tp=16, dp=16)
     assert abs(got["flops"] - want) <= 0.25 * want, (got["flops"], want)

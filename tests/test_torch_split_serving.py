@@ -19,9 +19,10 @@ whole over ``model``), the same greedy tokens, and each cache block after
 the last step equal, within 1e-5 of the leaf's max, to the reference's
 shard at that device position; during the decode steps no rank makes a
 tensor of a sharded cache's whole shape (the whole leaf, or one layer of
-it, with any of the batch's cuts); and with ``ssm_head_shard`` the prefill
-makes no tensor of the SSD mixer's whole heads (the flag-off cases do: the
-recorded exception).  The cases:
+it, with any of the batch's cuts); with ``ssm_head_shard`` the prefill
+makes no tensor of the SSD mixer's whole heads, and with the flag off
+(every head on this rank's sequence block) no operation of a Mamba2
+layer's prefill makes a tensor over the whole sequence.  The cases:
 
 * ``seqsplit``: the dense model whose 6 query and 2 key/value heads do not
   divide ``model`` of 4 (the sequence-split prefill; decode's q/k/v
@@ -271,4 +272,17 @@ def test_head_parallel_ssd_computes_only_its_heads(runs, name):
         if CASES[name][3].get("ssm_head_shard"):
             assert not made, (name, made)
         else:
-            assert made == whole, (name, made)   # the recorded exception: whole heads
+            # every head on this rank's sequence block: the heads' whole
+            # state, never the whole sequence's decay
+            b, s = BATCH // CASES[name][2][0], PROMPT
+            assert made == {x for x in whole if x[2:4] != (s, s)}, (name, made)
+
+
+@pytest.mark.parametrize("name", [n for n in SSM if not CASES[n][3].get("ssm_head_shard")])
+def test_sequence_split_ssd_never_makes_the_whole_sequence(runs, name):
+    cfg = _torch_ranks.tp_case_config(*CASES[name][:2])
+    whole = _torch_ranks.ssd_whole_sequence(cfg, BATCH // CASES[name][2][0], PROMPT)
+    for out in runs["port"]:
+        shapes = set(out[name]["layer_shapes"])
+        assert shapes, name
+        assert not whole & shapes, (name, whole & shapes)

@@ -21,9 +21,12 @@ the loss and the gradient norm within 1e-5.  The cases:
   8 experts on ``model`` (EP) and 3, which ``model`` does not divide (each
   expert's d_ff on ``model``);
 * (c) ``whisper``, ``zamba2`` and ``mamba2`` at (data 2, model 2): the two
-  streams of the encoder-decoder, the shared block, and the SSD exception
-  (mamba2 under remat "full"); ``mamba2_heads``, the same under
-  ``ssm_head_shard``: the SSD mixer split by heads over ``model``.
+  streams of the encoder-decoder, the shared block, and the SSD mixer on
+  each rank's sequence block (mamba2 under remat "full"), ``mamba2_m4``
+  the same at (data 1, model 4); ``mamba2_heads``, mamba2 at (2, 2) under
+  ``ssm_head_shard``: the SSD mixer split by heads over ``model``.  With
+  the flag off no operation of a Mamba2 layer's forward (the remat's
+  recompute included) makes a tensor over the whole sequence.
 
 Then, against the one-process step of the port (no reference run):
 ``replicated``, the dense model at (data 2, model 2) with
@@ -67,6 +70,7 @@ REFERENCE = {
     "whisper": ("whisper-medium", {}, (2, 2), {}),
     "zamba2": ("zamba2-2.7b", {}, (2, 2), {}),
     "mamba2": ("mamba2-1.3b", {}, (2, 2), dict(remat="full")),
+    "mamba2_m4": ("mamba2-1.3b", {}, (1, 4), dict(remat="full")),
     "mamba2_heads": ("mamba2-1.3b", {}, (2, 2), dict(remat="full", ssm_head_shard=True)),
 }
 PORT_ONLY = {
@@ -226,6 +230,18 @@ def test_replicated_leaves_and_metrics_are_the_same_bits_on_every_rank(runs, nam
         for path, block in r["blocks"].items():
             if all(p == "R" for p in r["placements"].get(path, ("R",))):
                 assert torch.equal(block, r0["blocks"][path]), (name, path)
+
+
+@pytest.mark.parametrize("name", ["mamba2", "mamba2_m4", "zamba2"])
+def test_sequence_split_ssd_never_makes_the_whole_sequence(runs, name):
+    arch, upd, shape, _ = runs["cases"][name]
+    cfg = _torch_ranks.tp_case_config(arch, upd)
+    b, seq = 4 // shape[0], 16                  # _batch's 4 x 16, the batch cut over data
+    whole = _torch_ranks.ssd_whole_sequence(cfg, b, seq)
+    for out in runs["port"]:
+        shapes = set(out[name]["layer_shapes"])
+        assert shapes, name
+        assert not whole & shapes, (name, whole & shapes)
 
 
 def _layouts(per, pspec, sizes):
