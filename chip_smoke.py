@@ -223,14 +223,17 @@ Phases, each of which raises on a failed check:
      decode tokens a second; the INLA twin's main (the objective
      non-increasing, finite posterior summaries) and the distributed twin
      at world 1 over NCCL (its factor within 1e-4 of factorize_window's);
-   - "families" (the MoE, SSM, hybrid and encoder-decoder families, each
-     at its published widths): granite-moe-1b-a400m, mamba2-1.3b and
+   - "families" (the MoE, SSM, hybrid, encoder-decoder and vlm families,
+     each at its published widths): granite-moe-1b-a400m, mamba2-1.3b and
      whisper-medium at full depth, granite-moe-3b-a800m cut to 20 of its 32
-     layers and zamba2-2.7b to 48 of 54 (AdamW's state and its temporaries
-     of a whole stacked leaf would not fit the card), through
-     launch/train.py: 2 steps of AdamW, then 2 of the arrowhead optimizer
-     from the same initialisation, batch 2 x 256 of token_batch (whisper:
-     with its 1,500 frame embeddings), bf16; finite losses, each arrowhead
+     layers, zamba2-2.7b to 48 of 54 and phi-3-vision-4.2b to 28 of 32
+     (AdamW's state and its temporaries of a whole stacked leaf would not
+     fit the card; phi-3-vision's 32 fit alone at 76.5 GB, too near the
+     card's 79.2 beside what earlier phases keep), through launch/train.py: 2 steps of AdamW, then 2 of
+     the arrowhead optimizer from the same initialisation, batch 2 x 256 of
+     token_batch (whisper: with its 1,500 frame embeddings; phi-3-vision
+     2 x 512, its 256 image embeddings from default_rng(step) over the
+     first positions), bf16; finite losses, each arrowhead
      step's launches as in "lm" and the path's the initial factorization's
      (sweep, potrf, trsm 1 each) and the steps'; the grid, the parameter
      count, peak memory, step times (CUDA events); on each family's grid the
@@ -242,6 +245,7 @@ Phases, each of which raises on a failed check:
      widths and 2 layers, zamba2 one superblock of 6, whisper 2 + 2: the
      replayed decode's tokens generate's, each step's logits against a
      full forward; SSD chunks of 16, so the prefills span several chunks;
+     phi-3-vision's prompt 256 seeded image embeddings and 64 tokens;
      MoE at a capacity of the whole sequence, since a one-token step never
      drops and a longer forward may; then bf16 at full depth: prefill ms,
      decode tokens a second, peak memory); granite-moe-1b's moe_apply twice
@@ -290,7 +294,8 @@ Phases, each of which raises on a failed check:
      each stage's gradient slice against the sequential stack on the card
      (1e-5 of max|out|, 1e-4 of a leaf's max), nothing outside its stage;
      (d) python -m repro_torch.launch.dryrun --arch qwen2-7b --shape
-     train_4k in a host process started first: status ok, argument bytes
+     train_4k --no-extrapolate (the scanned count is the extrapolated one)
+     in a host process started first: status ok, argument bytes
      the rules' block bytes of the cell (a fake world of 256 here), the
      split's peak below 16 GiB a device and at most 4.8e14 FLOPs a device;
      (e) qwen2-7b at its published widths, n_layers cut to 2, phase "lm"'s
@@ -303,17 +308,29 @@ Phases, each of which raises on a failed check:
      model 4) with run.ssm_head_shard off (each rank's Mamba2 layers on its
      block of 64 positions: the conv's halo from the rank before, the
      blocks' SSD states folded in rank order), each rank's peak recorded
-     beside the one-process step's; the dry run of mamba2-1.3b and
-     zamba2-2.7b train_4k (--no-extrapolate, host processes started
-     first): status ok, below 16 GiB and at most 8e13 and 2e14 FLOPs a
-     device; each step's time and the time inside gloo's collectives, peak
-     memory a rank, the dry runs' memory, FLOPs and collective bytes;
+     beside the one-process step's; (g) command-r-plus-104b (the tied
+     embedding: one leaf for the vocabulary-parallel lookup and the
+     transposed loss) at 2 layers, its vocabulary of 256,000 kept and its
+     width cut to d_model 1,536, on (data 2, model 2): float32 step 1 by
+     the same gates (no bf16 steps); the dry
+     run of mamba2-1.3b and zamba2-2.7b train_4k (--no-extrapolate, host
+     processes started first): status ok, below 16 GiB and at most 8e13 and
+     2e14 FLOPs a device; and of qwen2-72b and command-r-plus-104b
+     train_4k the same way, started before phase "families": below 16 GiB, at most
+     1 % above the CPU dry run's 2.381e15 and 3.421e15 FLOPs a device; each
+     step's time and the
+     time inside gloo's collectives, peak memory a rank, the dry runs'
+     memory, FLOPs and collective bytes;
    - "split serving" (prefill and decode under the split: the families'
      prefill(constrain=) and decode_step(constrain=), the caches grown by
      launch/serve.py::grow_caches): (a) qwen2-7b, (b) mamba2-1.3b with
-     run.ssm_head_shard (the SSD mixer by heads) and (d) mamba2-1.3b with
-     it off (the SSD mixer on each rank's 30 prompt positions) at their
-     published widths,
+     run.ssm_head_shard (the SSD mixer by heads), (d) mamba2-1.3b with
+     it off (the SSD mixer on each rank's 30 prompt positions), (e)
+     command-r-plus-104b (the tied embedding at its vocabulary of 256,000
+     and width of 12,288, drawn on the card by the parent, which saves
+     each rank's blocks for it) and (f) phi-3-vision-4.2b (a prompt of 256
+     seeded image embeddings and 64 tokens, in blocks of 80 on model, a
+     window of 384) at their published widths,
      n_layers cut to 2, parameters from a CPU generator of seed 0 in every
      process, on a (data 1, model 4) mesh of 4 gloo ranks sharing the card:
      a float32 prefill of 2 x 120 tokens grown to a window of 256 (the K/V
@@ -322,8 +339,8 @@ Phases, each of which raises on a failed check:
      same calls run first in this process: every call's logits within 1e-5
      of max|logit| and the same tokens, each rank's cache bytes the rules'
      block bytes, each rank's peak at most half the one-process peak; then
-     bf16, a warm run and a timed one: decode tokens a second and the share
-     inside gloo's collectives; (c) python -m repro_torch.launch.dryrun
+     (but for (e) and (f)) bf16, a warm run and a timed one: decode tokens
+     a second and the share inside gloo's collectives; (c) python -m repro_torch.launch.dryrun
      --arch qwen2-7b --shape decode_32k --no-extrapolate in a host process
      started first: status ok, argument bytes the rules' block bytes (a
      fake world of 256 here), under 4 GiB a device;
@@ -4182,20 +4199,24 @@ def serve_check(torch, cfg, dev, served=None):
     prefills span several chunks.  Then the server on ``served`` (default
     ``cfg``) in bf16: a warm generate, then the timed one, its tokens'
     shape and range, its parameters and peak memory.  Whisper's batch
-    carries its frame embeddings."""
+    carries its frame embeddings, the vlm's its image embeddings
+    (:func:`image_embeds`) before a prompt of ``SERVE_PROMPT`` tokens."""
     import numpy as np
     from repro_torch import pytree
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.serve import Server, grow_caches
     served = served or cfg
     rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))}
+    prompt = SERVE_PROMPT + (cfg.n_image_tokens if cfg.family == "vlm" else 0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, prompt))}
     if cfg.family == "encdec":
         batch["frame_embeds"] = rng.standard_normal(
             (SERVE_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = image_embeds(cfg, SERVE_BATCH, 0)
     run = RunConfig(compute_dtype="float32", remat="none", loss_chunk=128,
                     ssd_chunk=SERVE_SSD_CHUNK)
-    server = Server(cfg, run, max_len=SERVE_PROMPT + SERVE_GEN, seed=0, device=dev)
+    server = Server(cfg, run, max_len=prompt + SERVE_GEN, seed=0, device=dev)
     out = server.generate(batch, SERVE_GEN)
     api, params = server.api, server.params
     dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
@@ -4205,7 +4226,7 @@ def serve_check(torch, cfg, dev, served=None):
         steps, tok = [], torch.argmax(logits, -1)[:, None]
         gen = [tok]
         for i in range(SERVE_GEN - 1):
-            logits, caches = api.decode_step(params, caches, tok, SERVE_PROMPT + i, cfg, run)
+            logits, caches = api.decode_step(params, caches, tok, prompt + i, cfg, run)
             steps.append(logits)
             tok = torch.argmax(logits, -1)[:, None]
             gen.append(tok)
@@ -4216,14 +4237,14 @@ def serve_check(torch, cfg, dev, served=None):
         seq = torch.cat([dbatch["tokens"], gen], 1)
         errs, flips = [], 0
         for i, dec in enumerate(steps):
-            full, _ = api.prefill(params, {**dbatch, "tokens": seq[:, :SERVE_PROMPT + i + 1]},
+            full, _ = api.prefill(params, {**dbatch, "tokens": seq[:, :prompt + i + 1]},
                                   cfg, run)
             scale = full.abs().max()
             errs.append(((dec - full).abs().max() / scale).item())
             top2 = torch.topk(full, 2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > LOGIT_RTOL * scale
             flips += int((sure & (dec.argmax(-1) != full.argmax(-1))).sum())
-    rec = dict(n_layers=cfg.n_layers, batch=SERVE_BATCH, prompt=SERVE_PROMPT, gen=SERVE_GEN,
+    rec = dict(n_layers=cfg.n_layers, batch=SERVE_BATCH, prompt=prompt, gen=SERVE_GEN,
                compute_dtype="float32", ssd_chunk=SERVE_SSD_CHUNK,
                decode_logit_rel_err_max=max(errs), argmax_flips=flips)
     if cfg.family == "moe":
@@ -4237,7 +4258,7 @@ def serve_check(torch, cfg, dev, served=None):
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     server = Server(served, RunConfig(remat="none", loss_chunk=128),
-                    max_len=SERVE_PROMPT + SERVE_GEN, seed=0, device=dev)
+                    max_len=prompt + SERVE_GEN, seed=0, device=dev)
     server.generate(batch, SERVE_GEN)
     timed = server.generate(batch, SERVE_GEN)
     toks = timed["tokens"]
@@ -4361,17 +4382,47 @@ def phase_lm(torch, run_path, kern, ref, counts, card):
     return rec, per_call
 
 
-# phase "families": the MoE, SSM, hybrid and encoder-decoder families at
-# their published widths.  Depth is cut only where AdamW's state would not
-# fit the card (FAMILY_CUTS; granite-moe-3b at 24 layers ran out of memory
-# in AdamW's temporaries of its 3.4 GiB stacked expert leaf); every bf16
+# phase "families": the MoE, SSM, hybrid, encoder-decoder and vlm families
+# at their published widths.  Depth is cut only where AdamW's state would
+# not fit the card (FAMILY_CUTS; granite-moe-3b at 24 layers ran out of
+# memory in AdamW's temporaries of its 3.4 GiB stacked expert leaf;
+# phi-3-vision-4.2b at its 32 layers fit alone at 76.5 GB of the card's
+# 79.2 at peak, too near the edge beside what the earlier phases keep on
+# the card, so it trains at 28, about 67 GB); every bf16
 # server keeps its full depth; the float32 server whose decode is held to a
 # full forward runs at 2 layers (zamba2: one superblock of 6; whisper: 2
 # encoder and 2 decoder layers).
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b", "whisper-medium",
-                "granite-moe-3b-a800m", "zamba2-2.7b")
-FAMILY_CUTS = {"granite-moe-3b-a800m": 20, "zamba2-2.7b": 48}
+                "granite-moe-3b-a800m", "zamba2-2.7b", "phi-3-vision-4.2b")
+FAMILY_CUTS = {"granite-moe-3b-a800m": 20, "zamba2-2.7b": 48, "phi-3-vision-4.2b": 28}
 FAM_BATCH, FAM_SEQ, FAM_STEPS = 2, 256, 2
+# the vlm family's sequences hold its 256 image positions and 256 of text
+FAM_SEQS = {"phi-3-vision-4.2b": 512}
+
+
+def image_embeds(cfg, batch, seed):
+    """The vlm stub's precomputed patch embeddings, ``(batch,
+    n_image_tokens, d_model)`` float32 from ``default_rng(seed)`` (the
+    trainer's and the server's own batches carry zeros, where a misplaced
+    splice would not show)."""
+    import numpy as np
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+
+
+def family_batches(cfg, arch):
+    """``FAM_STEPS`` token batches of ``FAM_BATCH`` x the family's sequence
+    (``FAM_SEQS``, else ``FAM_SEQ``) with launch/train.py's extras (whisper's
+    frame embeddings), the vlm's image embeddings seeded by the step."""
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.train import _extras
+    out = []
+    for s in range(FAM_STEPS):
+        extras = _extras(cfg, FAM_BATCH)
+        if cfg.family == "vlm":
+            extras["image_embeds"] = image_embeds(cfg, FAM_BATCH, s)
+        out.append(token_batch(0, s, FAM_BATCH, FAM_SEQS.get(arch, FAM_SEQ), cfg.vocab, extras))
+    return out
 
 
 def family_cfg(arch, n_layers=None):
@@ -4399,12 +4450,10 @@ def family_train(torch, arch, run_path, kern, ref, counts, card):
     (:func:`check_arrowhead_kernels`); one more step against its update
     written out (:func:`check_precond_reaches_update`)."""
     from repro_torch import pytree
-    from repro_torch.data.synthetic import token_batch
-    from repro_torch.launch.train import _extras
     cfg = family_cfg(arch, FAMILY_CUTS.get(arch))
-    batches = [token_batch(0, s, FAM_BATCH, FAM_SEQ, cfg.vocab, _extras(cfg, FAM_BATCH))
-               for s in range(FAM_STEPS)]
-    rec, per_call = dict(n_layers=cfg.n_layers, batch=FAM_BATCH, seq=FAM_SEQ), []
+    batches = family_batches(cfg, arch)
+    rec = dict(n_layers=cfg.n_layers, batch=FAM_BATCH, seq=FAM_SEQS.get(arch, FAM_SEQ))
+    per_call = []
     if arch in FAMILY_CUTS:
         rec["cut"] = f"n_layers {family_cfg(arch).n_layers} -> {cfg.n_layers}; widths as published"
     for opt in ("adamw", "arrowhead"):
@@ -4499,6 +4548,9 @@ def phase_families(torch, run_path, kern, ref, counts, card):
     dev = "cuda:0"
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()        # the deepest cut needs most of the card
+    free, total = torch.cuda.mem_get_info()
+    log(f"families: the card holds {torch.cuda.memory_allocated()} bytes allocated, "
+        f"{torch.cuda.memory_reserved()} reserved, {total - free} in use of {total}")
     rec, per_call = {}, []
     for arch in FAMILY_ARCHS:
         r, calls = family_train(torch, arch, run_path, kern, ref, counts, card)
@@ -4603,13 +4655,28 @@ DT_QWEN_MESH, DT_QWEN_PEAK = (2, 2), 19.1e9
 DT_MAMBA_MESH = (1, 4)
 # the split cases of the phase: tag -> (arch, mesh, a rank's peak limit or
 # None)
+# (g) command-r-plus-104b, the tied embedding, at 2 layers with its
+# vocabulary of 256,000 and its width cut to d_model 1,536 (AdamW at the
+# published width needs about 100 GB for 2 layers), the same way on
+# (data 2, model 2): the one leaf's gradient the lookup's and the loss's
+DT_TIED_MESH, DT_TIED_WIDTH = (2, 2), 1536
 DT_SPLITS = {"qwen": ("qwen2-7b", DT_QWEN_MESH, DT_QWEN_PEAK),
-             "mamba": ("mamba2-1.3b", DT_MAMBA_MESH, None)}
+             "mamba": ("mamba2-1.3b", DT_MAMBA_MESH, None),
+             "tied": ("command-r-plus-104b", DT_TIED_MESH, None)}
+# a split case's config beside its n_layers cut; the cases that take only
+# the float32 step 1 (no bf16 steps)
+DT_SPLIT_CFG = {"tied": {"d_model": DT_TIED_WIDTH}}
+DT_F32_ONLY = ("tied",)
 # the SSD families' train cells in the dry run (host processes of their
 # own, started first, no extrapolation): status ok, the peak a device below
 # DRYRUN_PEAK_GIB, at most these FLOPs a device (with the mixer on the whole
 # sequence on every model rank the CPU dry run read 6.34e14 and 1.40e15)
 DRYRUN_SSD = {"mamba2-1.3b": 8e13, "zamba2-2.7b": 2e14}
+# the two widest train cells, the same way: below DRYRUN_PEAK_GIB (they
+# read 17.919 and 25.248 GiB while the split held the whole sequence at
+# its ends and blocks) and at most 1 % above the FLOPs a device the CPU dry
+# run read (2.381e15 and 3.421e15)
+DRYRUN_TRAIN = {"qwen2-72b": 2.405e15, "command-r-plus-104b": 3.455e15}
 # the split step's peak a rank of the bf16 lm-100m run (b): at most the
 # step that gathered whole leaves, 1.75 GB
 DT_PEAK = 1.75e9
@@ -4930,15 +4997,17 @@ def dt_pipeline(torch, cfg, run, dev):
 
 
 def dt_split_setup(tag):
-    """(e)/(f)'s model, parameters (a CPU generator of seed 0, as every rank
-    and the parent draw them) and batches: the case's arch at its published
-    widths cut to ``QWEN_LAYERS``, phase "lm"'s token batches."""
+    """(e)/(f)/(g)'s model, parameters (a CPU generator of seed 0, as every
+    rank and the parent draw them) and batches: the case's arch at its
+    published widths (``DT_SPLIT_CFG``'s cut aside) and ``QWEN_LAYERS``
+    layers, phase "lm"'s token batches."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.data.synthetic import token_batch
     from repro_torch.models.registry import get_model
-    cfg = dataclasses.replace(configs.get(DT_SPLITS[tag][0]), n_layers=QWEN_LAYERS)
+    cfg = dataclasses.replace(configs.get(DT_SPLITS[tag][0]), n_layers=QWEN_LAYERS,
+                              **DT_SPLIT_CFG.get(tag, {}))
     params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, QWEN_SEQ)
     return cfg, params, [token_batch(0, s, QWEN_BATCH, QWEN_SEQ, cfg.vocab)
                          for s in range(QWEN_STEPS)]
@@ -5015,7 +5084,7 @@ def dt_split(torch, tag, runs, tmp, want_loss, dev):
                              params)
     mesh = make_local_mesh(*DT_SPLITS[tag][1])
     rec = {}
-    for dt in ("f32", "bf16"):
+    for dt in ("f32",) if tag in DT_F32_ONLY else ("f32", "bf16"):
         run = runs[dt]["adamw"]
         rules = make_rules(mesh, cfg, run)
         fn, sh = shard_train_step(make_train_step(cfg, run, rules, total_steps=QWEN_STEPS),
@@ -5298,7 +5367,7 @@ def check_distributed_training(torch, outs, two, written, local_loss, norm, ever
             and abs(r["loss"] - loss4) <= DT_LOSS_TOL * abs(loss4)):
         raise AssertionError(f"distributed training (b), elastic restore 4 -> 2: {r} (limits "
                              f"{DT_RESTORE_TOL}, {2 * r['lr_sum']})")
-    for tag, gate in zip(DT_SPLITS, "ef"):
+    for tag, gate in zip(DT_SPLITS, "efg"):
         arch, mesh, peak = DT_SPLITS[tag]
         qs = [o[tag] for o in outs]
         rec[tag] = {dt: dict(losses=qs[0][dt]["losses"], step_ms=[q[dt]["step_ms"] for q in qs],
@@ -5307,7 +5376,7 @@ def check_distributed_training(torch, outs, two, written, local_loss, norm, ever
                              replicated_same_bits=all(
                                  q[dt]["replicated_digests"] == qs[0][dt]["replicated_digests"]
                                  and q[dt]["losses"] == qs[0][dt]["losses"] for q in qs))
-                    for dt in ("f32", "bf16")}
+                    for dt in qs[0]}
         rq = rec[tag]
         rq["f32"].update(state_rel=max(q["f32"]["state_rel"] for q in qs),
                          loss_rel=max(q["f32"]["loss_rel"] for q in qs),
@@ -5356,8 +5425,34 @@ def dryrun_want_bytes(torch):
                 + sharded_bytes(spec, rules.batch_specs(spec)))
 
 
-def phase_distributed_training(torch, run_path, card):
+def start_train_dryruns(tmp):
+    """The train_4k dry runs of ``DRYRUN_TRAIN`` (--no-extrapolate), host
+    processes of their own writing under ``tmp`` (one thread each: fake
+    tensors compute nothing): minutes of host and no card each, so the
+    script starts them before phase "families" and reads them in phase
+    "distributed training"; stopped at exit if still running."""
+    import atexit
+    import os
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+         DRYRUN_SHAPE, "--no-extrapolate", "--out", tmp],
+        env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for arch in DRYRUN_TRAIN}
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def phase_distributed_training(torch, run_path, card, train_dry=None):
     """The phase "distributed training" (see the module docstring).
+    ``train_dry``: ``(directory, processes)`` of the dry runs
+    :func:`start_train_dryruns` started (None: the phase starts them).
     Returns the phase's record."""
     import dataclasses
     import os
@@ -5371,13 +5466,15 @@ def phase_distributed_training(torch, run_path, card):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dt_")
     dry = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH, "--shape",
-         DRYRUN_SHAPE, "--out", tmp], env=dict(os.environ, PYTHONPATH=str(SRC)),
+         DRYRUN_SHAPE, "--no-extrapolate", "--out", tmp],
+        env=dict(os.environ, PYTHONPATH=str(SRC)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     dry_ssd = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
          DRYRUN_SHAPE, "--no-extrapolate", "--out", tmp],
         env=dict(os.environ, PYTHONPATH=str(SRC)),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for arch in DRYRUN_SSD}
+    train_tmp, train_procs = train_dry or (tmp, start_train_dryruns(tmp))
     try:
         cfg = model_100m()
         base = RunConfig(remat="none", loss_chunk=128, precond_every=10)
@@ -5386,7 +5483,7 @@ def phase_distributed_training(torch, run_path, card):
                 for dt, name in (("bf16", "bfloat16"), ("f32", "float32"))}
         written, local_loss, norm = dt_written_out(torch, cfg, runs["bf16"]["adamw"], "cuda:0")
         one = {}
-        for tag, gate in zip(DT_SPLITS, "ef"):
+        for tag, gate in zip(DT_SPLITS, "efg"):
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
             one[tag] = dt_split_one_process(torch, tag, runs["f32"]["adamw"], tmp, "cuda:0")
@@ -5434,12 +5531,14 @@ def phase_distributed_training(torch, run_path, card):
                                  f"{DRYRUN_PEAK_GIB} GiB, {DRYRUN_FLOPS} FLOPs a device)")
         log(f"distributed training, dry run {DRYRUN_ARCH} {DRYRUN_SHAPE} on a fake world of "
             f"256 (host process): " + json.dumps(rec["dryrun"]))
-        for arch, limit in DRYRUN_SSD.items():
-            stdout, stderr = dry_ssd[arch].communicate(timeout=900)
-            if dry_ssd[arch].returncode != 0:
-                raise AssertionError(f"dry run {arch} exited {dry_ssd[arch].returncode}: "
+        for arch, limit in {**DRYRUN_SSD, **DRYRUN_TRAIN}.items():
+            proc, where = ((dry_ssd[arch], tmp) if arch in DRYRUN_SSD
+                           else (train_procs[arch], train_tmp))
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"dry run {arch} exited {proc.returncode}: "
                                      f"{stdout}\n{stderr}")
-            with open(os.path.join(tmp, f"{arch}_{DRYRUN_SHAPE}_single.json")) as f:
+            with open(os.path.join(where, f"{arch}_{DRYRUN_SHAPE}_single.json")) as f:
                 dr = json.load(f)
             dr.pop("run", None)
             rec[f"dryrun_{arch}"] = dr
@@ -5451,11 +5550,12 @@ def phase_distributed_training(torch, run_path, card):
             log(f"distributed training, dry run {arch} {DRYRUN_SHAPE} on a fake world of 256 "
                 f"(host process): " + json.dumps(dr))
     finally:
-        for p in (dry, *dry_ssd.values()):
+        for p in (dry, *dry_ssd.values(), *train_procs.values()):
             if p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(train_tmp, ignore_errors=True)
     rec["wall_s"] = time.perf_counter() - t_phase
     log(f"phase distributed training: {rec['wall_s']:.1f} s (world 4 {rec['world4_s']:.1f} s, "
         f"world 2 {rec['world2_s']:.1f} s, waiting on the dry run {rec['dryrun_wait_s']:.1f} s), "
@@ -5489,31 +5589,56 @@ SS_LOGIT_TOL, SS_PEAK_SHARE = 1e-5, 0.5
 # name -> (arch, run flags)
 SS_ARCHS = {"qwen2-7b": ("qwen2-7b", {}),
             "mamba2-1.3b": ("mamba2-1.3b", {"ssm_head_shard": True}),
-            "mamba2-1.3b-seq": ("mamba2-1.3b", {})}
+            "mamba2-1.3b-seq": ("mamba2-1.3b", {}),
+            "command-r-plus-104b": ("command-r-plus-104b", {}),
+            "phi-3-vision-4.2b": ("phi-3-vision-4.2b", {})}
+# (e) command-r-plus-104b, the tied embedding at its published vocabulary
+# of 256,000 and width of 12,288 (about 6.3e9 parameters, 25 GB, at 2
+# layers), is drawn once, on the card by the parent (a CUDA generator of
+# seed 0) for its one-process run, which then saves each rank's blocks, a
+# file a rank, for the ranks to load: drawn in every process it would not
+# fit the host, nor, drawn there by the ranks, the card (a rank's draw ran
+# out of its memory), and drawn on the CPU a rank at a time it would take
+# some 4 minutes; (f) phi-3-vision-4.2b's prompt is 256 image embeddings
+# (seeded) and 64 tokens, in blocks of 80 on model, grown to a window of
+# 384: arch -> (prompt, window)
+SS_SAVED = ("command-r-plus-104b",)
+# the cases the gates hold at float32 only (no bf16 timing runs)
+SS_F32_ONLY = ("command-r-plus-104b", "phi-3-vision-4.2b")
+SS_SHAPES = {"phi-3-vision-4.2b": (320, 384)}
 # (c) the dry run's decode cell (a host process of its own, started first):
 # status ok, the rules' block bytes as its arguments, under 4 GiB a device
 SS_DRYRUN_ARCH, SS_DRYRUN_SHAPE, SS_DRYRUN_PEAK_GIB = "qwen2-7b", "decode_32k", 4.0
 
 
-def ss_setup(arch):
-    """(a)/(b)'s model (published widths, ``QWEN_LAYERS`` layers), its
-    parameters from a CPU generator of seed 0 (every rank and the parent
-    draw the same without sending them) and the prompt."""
+def ss_shape(arch):
+    """The case's prompt length and serving window."""
+    return SS_SHAPES.get(arch, (SS_PROMPT, SS_WINDOW))
+
+
+def ss_setup(arch, device="cpu"):
+    """The case's model (published widths, ``QWEN_LAYERS`` layers), its
+    parameters from a generator of seed 0 on ``device`` (every rank and
+    the parent draw the same without sending them) and the prompt's batch
+    (tokens; the vlm's image embeddings before them)."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.models.registry import get_model
     cfg = dataclasses.replace(configs.get(arch), n_layers=QWEN_LAYERS)
-    params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, SS_WINDOW)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab,
-                                                                (SS_BATCH, SS_PROMPT)))
-    return cfg, params, tokens
+    prompt, window = ss_shape(arch)
+    params = get_model(cfg).init(torch.Generator(device=device).manual_seed(0), cfg, window)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SS_BATCH, prompt)))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(image_embeds(cfg, SS_BATCH, 0))
+    return cfg, params, batch
 
 
-def ss_serve(torch, cfg, run, params, tokens, dev, rules=None, specs=None):
-    """``prefill``, the caches grown to ``SS_WINDOW``, ``SS_STEPS`` greedy
-    ``decode_step`` calls on ``dev``; with ``rules`` under the split
+def ss_serve(torch, cfg, run, params, batch, dev, rules=None, specs=None):
+    """``prefill``, the caches grown to the case's window, ``SS_STEPS``
+    greedy ``decode_step`` calls on ``dev``; with ``rules`` under the split
     (``params`` this rank's blocks, ``specs`` their specs): the logits of
     every call, the tokens, the caches and the host seconds of the prefill
     and of the decode steps (each ending in a synchronize)."""
@@ -5521,17 +5646,19 @@ def ss_serve(torch, cfg, run, params, tokens, dev, rules=None, specs=None):
     from repro_torch.launch.serve import grow_caches
     from repro_torch.models.registry import get_model
     api = get_model(cfg)
+    prompt, window = ss_shape(cfg.name)
     kw, src, dst = {}, None, None
     if rules is not None:
         split = rules.split().bind(params, specs)
         kw = {"constrain": split}
         meta = lambda n: api.init_cache(cfg, SS_BATCH, n, dtype=torch.float32, device="meta")
-        src, dst = rules.cache_shardings(meta(SS_PROMPT)), rules.cache_shardings(meta(SS_WINDOW))
+        src, dst = rules.cache_shardings(meta(prompt)), rules.cache_shardings(meta(window))
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = api.prefill(params, {"tokens": tokens.to(dev)}, cfg, run, **kw)
-        caches = grow_caches(caches, SS_WINDOW, src, dst)
+        logits, caches = api.prefill(params, {k: v.to(dev) for k, v in batch.items()}, cfg, run,
+                                     **kw)
+        caches = grow_caches(caches, window, src, dst)
         if rules is not None:
             split.bind(caches, pytree.tree_map(lambda sh: sh.spec, dst))
         tok = torch.argmax(logits, -1)[:, None]
@@ -5540,7 +5667,7 @@ def ss_serve(torch, cfg, run, params, tokens, dev, rules=None, specs=None):
         got, toks = [logits.float().cpu()], [tok]
         t0 = time.perf_counter()
         for i in range(SS_STEPS):
-            logits, caches = api.decode_step(params, caches, tok, SS_PROMPT + i, cfg, run, **kw)
+            logits, caches = api.decode_step(params, caches, tok, prompt + i, cfg, run, **kw)
             tok = torch.argmax(logits, -1)[:, None]
             got.append(logits.float().cpu())
             toks.append(tok)
@@ -5550,30 +5677,73 @@ def ss_serve(torch, cfg, run, params, tokens, dev, rules=None, specs=None):
                 prefill_s=prefill_s, decode_s=decode_s)
 
 
-def ss_one_process(torch, arch, flags, dev):
-    """(a)/(b) in this process on the card, float32: the logits, the tokens
-    and the peak (bytes above what was allocated before the parameters)."""
+def ss_saved_path(tmp, arch, rank):
+    """Where the parent saves rank ``rank``'s blocks of a case of
+    ``SS_SAVED``."""
+    return os.path.join(tmp, f"ss_{arch}_rank{rank}.pt")
+
+
+def ss_one_process(torch, arch, flags, dev, tmp):
+    """The case in this process on the card, float32: the logits, the
+    tokens and the peak (bytes above what was allocated before the
+    parameters).  A case of ``SS_SAVED`` is drawn on the card, and each
+    rank's blocks by the rules on ``SS_MESH`` are then saved under ``tmp``
+    (:func:`ss_saved_path`)."""
     import gc
+    from repro_torch import pytree
     from repro_torch.configs.base import RunConfig
-    cfg, params, tokens = ss_setup(arch)
+    saved = arch in SS_SAVED
     run = RunConfig(compute_dtype="float32", remat="none", **flags)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    on_card = _on(torch, params, dev)
+    cfg, params, batch = ss_setup(arch, dev if saved else "cpu")
+    on_card = params if saved else _on(torch, params, dev)
     del params
-    out = ss_serve(torch, cfg, run, on_card, tokens, dev)
+    gc.collect()
+    out = ss_serve(torch, cfg, run, on_card, batch, dev)
     out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    del out["caches"], on_card
+    del out["caches"]
+    if saved:
+        placements = dt_split_placements(cfg, run, on_card, SS_MESH)
+        for r in range(math.prod(SS_MESH)):
+            coords = divmod(r, SS_MESH[1])
+            torch.save({p: _block(x, placements[p], coords, SS_MESH).contiguous().cpu()
+                        for p, x in pytree.leaves_with_path(on_card)},
+                       ss_saved_path(tmp, arch, r))
+    del on_card
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def ss_rank(archs, device="cuda:0"):
+def ss_saved_blocks(torch, arch, tmp, rules_of):
+    """A case of ``SS_SAVED`` on this rank: its config, its blocks as the
+    parent saved them (loaded on the host), the parameters' specs by the
+    rules ``rules_of(cfg)`` gives, and the batch."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import configs, pytree
+    from repro_torch.models.registry import get_model
+    cfg = dataclasses.replace(configs.get(arch), n_layers=QWEN_LAYERS)
+    prompt, window = ss_shape(arch)
+    with FakeTensorMode():
+        shapes = get_model(cfg).init(torch.Generator(), cfg, window)
+    saved = torch.load(ss_saved_path(tmp, arch, dist.get_rank()), mmap=True)
+    blocks = pytree.unflatten(shapes, [saved[p] for p, _ in pytree.leaves_with_path(shapes)])
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (SS_BATCH, prompt)))}
+    return cfg, blocks, rules_of(cfg).param_specs(shapes), batch
+
+
+def ss_rank(archs, tmp, device="cuda:0"):
     """One rank of the world of ``SS_WORLD`` sharing the card: for each of
-    ``archs`` (name -> (arch, run flags)) its blocks of (a)/(b)/(d) on ``SS_MESH``,
-    only they ever on the card: the float32 split serving (logits, tokens,
+    ``archs`` (name -> (arch, run flags)) its blocks of (a)/(b)/(d)/(e)/(f)
+    on ``SS_MESH``, only they ever on the card (a case of ``SS_SAVED``
+    loaded from the parent's files under ``tmp``, :func:`ss_saved_blocks`):
+    the float32 split serving (logits, tokens,
     its cache bytes and the rules' block bytes, its peak), then bf16, a
     warm run and a timed one (prefill and decode seconds, the seconds
     inside gloo)."""
@@ -5589,25 +5759,29 @@ def ss_rank(archs, device="cuda:0"):
     mesh = make_local_mesh(*SS_MESH)
     out = {}
     for name, (arch, flags) in archs.items():
-        cfg, params, tokens = ss_setup(arch)
+        if arch in SS_SAVED:
+            cfg, held, specs, batch = ss_saved_blocks(
+                torch, arch, tmp, lambda c: make_rules(mesh, c, RunConfig(**flags)))
+        else:
+            cfg, params, batch = ss_setup(arch)
         rec = {}
-        for dt in ("float32", "bfloat16"):
+        for dt in ("float32",) if arch in SS_F32_ONLY else ("float32", "bfloat16"):
             run = RunConfig(compute_dtype=dt, remat="none", **flags)
             rules = make_rules(mesh, cfg, run)
-            specs = rules.param_specs(params)
-            blocks = shard_tree(params, rules.param_shardings(params))
+            if arch not in SS_SAVED:
+                specs = rules.param_specs(params)
+                held = shard_tree(params, rules.param_shardings(params))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            on_card = _on(torch, blocks, dev)
-            del blocks
+            on_card = _on(torch, held, dev)
             if dt == "bfloat16":
-                ss_serve(torch, cfg, run, on_card, tokens, dev, rules, specs)     # warm
+                ss_serve(torch, cfg, run, on_card, batch, dev, rules, specs)     # warm
             clock = GlooClock()
             with clock:
-                got = ss_serve(torch, cfg, run, on_card, tokens, dev, rules, specs)
-            meta = get_model(cfg).init_cache(cfg, SS_BATCH, SS_WINDOW, dtype=torch.float32,
-                                             device="meta")
+                got = ss_serve(torch, cfg, run, on_card, batch, dev, rules, specs)
+            meta = get_model(cfg).init_cache(cfg, SS_BATCH, ss_shape(arch)[1],
+                                             dtype=torch.float32, device="meta")
             r = dict(prefill_s=got["prefill_s"], decode_s=got["decode_s"],
                      gloo_s=clock.seconds, peak_bytes=torch.cuda.max_memory_allocated() - base)
             if dt == "float32":
@@ -5620,8 +5794,11 @@ def ss_rank(archs, device="cuda:0"):
             gc.collect()
             torch.cuda.empty_cache()
         out[name] = rec
-        del params
+        del held
+        if arch not in SS_SAVED:
+            del params
         gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5669,11 +5846,11 @@ def phase_split_serving(torch, run_path, card):
         one = {}
         for name, (arch, flags) in SS_ARCHS.items():
             t0 = time.perf_counter()
-            one[name] = ss_one_process(torch, arch, flags, "cuda:0")
+            one[name] = ss_one_process(torch, arch, flags, "cuda:0", tmp)
             one[name]["wall_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         outs = run_path("split serving: world 4 (gloo ranks sharing the card)",
-                        lambda: run_local(ss_rank, SS_ARCHS, world_size=SS_WORLD,
+                        lambda: run_local(ss_rank, SS_ARCHS, tmp, world_size=SS_WORLD,
                                           backend="gloo", device_type="cuda", timeout=900))
         rec["world4_s"] = time.perf_counter() - t0
         for name, (arch, flags) in SS_ARCHS.items():
@@ -5682,14 +5859,15 @@ def phase_split_serving(torch, run_path, card):
                       for got, want in zip(r[name]["float32"]["logits"], o["logits"]))
             same = all(torch.equal(r[name]["float32"]["tokens"], o["tokens"]) for r in outs)
             f32 = [r[name]["float32"] for r in outs]
-            bf = [r[name]["bfloat16"] for r in outs]
+            bf = [r[name]["bfloat16"] for r in outs if "bfloat16" in r[name]]
             steps = SS_BATCH * SS_STEPS
             a = dict(mesh=list(SS_MESH), n_layers=QWEN_LAYERS, flags=flags, batch=SS_BATCH,
-                     prompt=SS_PROMPT, window=SS_WINDOW, steps=SS_STEPS,
+                     prompt=ss_shape(arch)[0], window=ss_shape(arch)[1], steps=SS_STEPS,
                      logit_rel_err_max=err, same_tokens=same,
                      one_process_peak_bytes=o["peak_bytes"],
                      one_process_f32_prefill_s=o["prefill_s"],
                      one_process_f32_decode_s=o["decode_s"],
+                     one_process_wall_s=o["wall_s"],
                      peak_bytes=[x["peak_bytes"] for x in f32],
                      cache_bytes=[x["cache_bytes"] for x in f32],
                      block_bytes=[x["block_bytes"] for x in f32],
@@ -6094,11 +6272,16 @@ def main() -> int:
     # preconditioner, qwen2-7b at 2 layers, the dense LM server, the twins
     lm_rec, lm_calls = phase_lm(torch, run_path, kern, ref, counts, card)
     extra_calls += lm_calls
+    # the widest train cells' dry runs, minutes of host each, beside the
+    # card-bound training of the families (read in "distributed training")
+    import tempfile
+    train_dry_tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    train_dry = (train_dry_tmp, start_train_dryruns(train_dry_tmp))
     # every other model family at its published widths under both optimizers
     extra_calls += phase_families(torch, run_path, kern, ref, counts, card)[1]
     # the distributed-training path: compressed DP, the sharded step and its
     # elastic restore, GPipe on gloo ranks sharing the card; the dry run
-    phase_distributed_training(torch, run_path, card)
+    phase_distributed_training(torch, run_path, card, train_dry)
     # prefill and decode under the split on gloo ranks sharing the card; the
     # dry run's decode cell
     phase_split_serving(torch, run_path, card)

@@ -55,6 +55,8 @@ updates in place, attending by flash decoding over ``model``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --multi-pod
+  python -m repro_torch.launch.dryrun --arch command-r-plus-104b --shape train_4k \
+      --no-extrapolate --layers 2 --parts
   python -m repro_torch.launch.dryrun --all --out results/dryrun_torch
 """
 from __future__ import annotations
@@ -64,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 import weakref
 from typing import Any, Dict, Iterable, List, Optional
@@ -82,7 +85,7 @@ from repro_torch.sharding.split import Split
 from .mesh import PRODUCTION_SHAPES, fake_world, make_production_mesh
 from .train import TrainState, make_train_step, shard_train_step
 
-__all__ = ["dryrun_cell", "collective_bytes", "default_device", "main"]
+__all__ = ["dryrun_cell", "collective_bytes", "default_device", "print_parts", "main"]
 
 _DTYPE_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2, "int64": 8,
                 "int32": 4, "int16": 2, "uint8": 1, "int8": 1, "bool": 1}
@@ -136,15 +139,40 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _part() -> str:
+    """The part of the step an operation belongs to: the innermost function
+    of the port's models on the Python stack (``file::qualified name``)
+    and, where it called into the sharding package, the outermost function
+    there; else that sharding function, else the autograd node running
+    the operation; ``bwd`` inside a backward pass, ``fwd`` outside."""
+    node = torch._C._current_autograd_node()
+    model = shard = None
+    f = sys._getframe(2)
+    while f is not None and model is None:
+        name = f.f_code.co_filename.replace(os.sep, "/")
+        tag = f"{name.rsplit('/repro_torch/', 1)[-1]}::{f.f_code.co_qualname}"
+        if "/repro_torch/models/" in name:
+            model = tag
+        elif "/repro_torch/sharding/" in name:
+            shard = tag
+        f = f.f_back
+    tag = " > ".join(t for t in (model, shard) if t) or (
+        node.name() if node is not None else "step")
+    return ("bwd " if node is not None else "fwd ") + tag
+
+
 class _Meter(torch.utils._python_dispatch.TorchDispatchMode):
     """Live bytes (each output storage counted while a tensor on it lives),
     their peak, and the bytes of every non-view operation's tensor inputs
     and outputs.  ``base`` is the arguments' bytes and ``held`` their
     tensors, whose storages are counted in ``base`` once for the whole
     call (a view of one, a layer's slice of a stacked leaf, adds
-    nothing)."""
+    nothing).  With ``parts``, each storage is charged to the part that
+    made it (:func:`_part`): ``at_peak`` is the live bytes of each part at
+    the peak (the arguments under ``args``), ``reach`` the most live bytes
+    while each part ran."""
 
-    def __init__(self, base: int, held=()):
+    def __init__(self, base: int, held=(), parts: bool = False):
         super().__init__()
         self.live = self.peak = base
         self.moved = 0
@@ -152,6 +180,10 @@ class _Meter(torch.utils._python_dispatch.TorchDispatchMode):
         for t in held:
             st = t.untyped_storage()
             self._refs[st._cdata] = [st.nbytes(), 1]      # never dropped
+        self.base, self.parts = base, parts
+        self._owner: Dict[int, str] = {}         # the storages made here: their parts
+        self.at_peak: Dict[str, int] = {"args": base}
+        self.reach: Dict[str, int] = {}
 
     def _drop(self, key):
         ref = self._refs[key]
@@ -159,6 +191,7 @@ class _Meter(torch.utils._python_dispatch.TorchDispatchMode):
         if ref[1] == 0:
             self.live -= ref[0]
             del self._refs[key]
+            self._owner.pop(key, None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -168,14 +201,24 @@ class _Meter(torch.utils._python_dispatch.TorchDispatchMode):
             ins = [t for t in torch.utils._pytree.tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
             self.moved += sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in flat_out)
+        part = _part() if self.parts else None
         for t in flat_out:
             st = t.untyped_storage()
             key = st._cdata
             if key not in self._refs:
                 self._refs[key] = [st.nbytes(), 0]
                 self.live += st.nbytes()
+                if part is not None:
+                    self._owner[key] = part
             self._refs[key][1] += 1
             weakref.finalize(t, self._drop, key)
+        if part is not None:
+            self.reach[part] = max(self.reach.get(part, 0), self.live)
+            if self.live > self.peak:
+                at = {"args": self.base}
+                for key, owner in self._owner.items():
+                    at[owner] = at.get(owner, 0) + self._refs[key][0]
+                self.at_peak = at
         self.peak = max(self.peak, self.live)
         return out
 
@@ -201,23 +244,26 @@ def _tree_bytes(tree) -> int:
     return sum(_nbytes(x) for x in pytree.leaves(tree) if isinstance(x, torch.Tensor))
 
 
-def _measure(fn, args_bytes: int, held=()):
+def _measure(fn, args_bytes: int, held=(), parts: bool = False):
     """Run ``fn()`` under the meter and the FLOP counter (``held``: the
     argument tensors, :class:`_Meter`); returns its output and the
     readings."""
     from torch.utils.flop_counter import FlopCounterMode
     collectives.fake_records.clear()
     held = [t for t in pytree.leaves(held) if isinstance(t, torch.Tensor)]
-    with _Meter(args_bytes, held) as meter, FlopCounterMode(display=False) as flops:
+    with _Meter(args_bytes, held, parts) as meter, FlopCounterMode(display=False) as flops:
         out = fn()
     records = list(collectives.fake_records)
     collectives.fake_records.clear()
-    return out, {"flops": float(flops.get_total_flops()), "bytes": float(meter.moved),
-                 "peak": meter.peak, "records": records}
+    got = {"flops": float(flops.get_total_flops()), "bytes": float(meter.moved),
+           "peak": meter.peak, "records": records}
+    if parts:
+        got["parts"] = {"at_peak": meter.at_peak, "reach": meter.reach}
+    return out, got
 
 
 def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules,
-              device: str) -> Dict[str, Any]:
+              device: str, parts: bool = False) -> Dict[str, Any]:
     """One step of the cell as this rank, under a fake mode; returns the
     argument and output bytes and :func:`_measure`'s readings."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -240,7 +286,7 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules
             args = (_tree_bytes(state) + 8
                     + sum(math.prod(shard_shape(tuple(x.shape), rules.batch_specs(spec)[k]))
                           * x.element_size() for k, x in spec.items()))
-            (state, metrics), r = _measure(lambda: fn(state, spec), args, (state, spec))
+            (state, metrics), r = _measure(lambda: fn(state, spec), args, (state, spec), parts)
             out_bytes = _tree_bytes((state.params, state.opt.m, state.opt.v)) + 8 + _tree_bytes(
                 {k: v for k, v in metrics.items() if isinstance(v, torch.Tensor)})
             alias = out_bytes - _tree_bytes({k: v for k, v in metrics.items()
@@ -258,7 +304,7 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules
                 with torch.no_grad():
                     return api.prefill(params, batch, cfg, run, constrain=split)
 
-            out, r = _measure(prefill, args, (params, batch))
+            out, r = _measure(prefill, args, (params, batch), parts)
             return {"args": args, "out": _tree_bytes(out), "alias": 0, **r}
 
         # decode: one new token against a seq_len cache, in the rules' blocks
@@ -275,17 +321,24 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, rules: Rules
                 return api.decode_step(params, caches, token, shape.seq_len - 1, cfg, run,
                                        constrain=split)[0]
 
-        logits, r = _measure(decode, args, (params, caches, token))
+        logits, r = _measure(decode, args, (params, caches, token), parts)
         return {"args": args, "out": _nbytes(logits) + _tree_bytes(caches),
                 "alias": _tree_bytes(caches), **r}
 
 
 def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 run: Optional[RunConfig] = None, extrapolate: bool = True,
-                verbose: bool = True, device: Optional[str] = None) -> Dict[str, Any]:
-    """Run one cell on a fake world; return the dry-run record."""
+                verbose: bool = True, device: Optional[str] = None,
+                layers: Optional[int] = None, parts: bool = False) -> Dict[str, Any]:
+    """Run one cell on a fake world; return the dry-run record.  ``layers``
+    cuts the depth (a hybrid's superblocks, an encoder-decoder's both
+    stacks; the record says so); ``parts`` adds the peak's parts
+    (``memory["parts"]``: each part's live bytes at the peak and the most
+    live bytes while it ran, :class:`_Meter`)."""
     device = device or default_device()
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = _reduced_layers(cfg, layers)
     shape = SHAPES[shape_name]
     run = run or RunConfig()
     skip = supports_shape(cfg, shape)
@@ -301,8 +354,10 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
                                "mesh": "x".join(str(int(s)) for s in mesh.mesh.shape),
                                "status": "ok", "device": device,
                                "rank": dist.get_rank(), "run": dataclasses.asdict(run)}
+        if layers is not None:
+            rec["layers"] = _layer_count(cfg)
         t0 = time.time()
-        got = _run_cell(cfg, shape, run, rules, device)
+        got = _run_cell(cfg, shape, run, rules, device, parts)
         rec["run_s"] = round(time.time() - t0, 1)
         rec["memory"] = {
             "argument_bytes": int(got["args"]),
@@ -312,6 +367,8 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "peak_bytes": int(got["peak"]),
             "total_per_device_gib": round(got["peak"] / 2 ** 30, 3),
         }
+        if parts:
+            rec["memory"]["parts"] = got["parts"]
         rec["cost_scanned"] = {"flops": got["flops"], "bytes": got["bytes"]}
         rec["collectives_scanned"] = collective_bytes(got["records"])
 
@@ -338,6 +395,20 @@ def dryrun_cell(arch: str, shape_name: str, multi_pod: bool = False,
     return rec
 
 
+def print_parts(rec: Dict[str, Any], top: int = 12) -> None:
+    """The ``top`` parts of a record's peak (:func:`dryrun_cell` with
+    ``parts``), in GiB: what each holds at the peak, and the most live
+    bytes while each ran."""
+    gib = 2 ** 30
+    parts = rec["memory"]["parts"]
+    print(f"[dryrun] {rec['arch']} {rec['shape']}: the peak's parts (GiB held at the peak)")
+    for name, nb in sorted(parts["at_peak"].items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {nb / gib:8.3f}  {name}")
+    print(f"[dryrun] {rec['arch']} {rec['shape']}: the most GiB live while each part ran")
+    for name, nb in sorted(parts["reach"].items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {nb / gib:8.3f}  {name}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Dry-run the sharded step of every "
                                             "(architecture x shape) cell on a fake world.")
@@ -351,6 +422,12 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="device of the fake tensors (default: cuda where torch is built "
                         "with CUDA, else cpu)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="cut every cell to this many layers (superblocks of a hybrid)")
+    p.add_argument("--parts", type=int, nargs="?", const=12, default=0, metavar="N",
+                   help="print the N (default 12) largest parts of each cell's peak: the "
+                        "bytes each part holds at the peak and the most bytes live while "
+                        "it ran")
     args = p.parse_args(argv)
 
     cells = []
@@ -367,7 +444,10 @@ def main(argv=None):
     for arch, shape in cells:
         try:
             rec = dryrun_cell(arch, shape, multi_pod=args.multi_pod,
-                              extrapolate=not args.no_extrapolate, device=args.device)
+                              extrapolate=not args.no_extrapolate, device=args.device,
+                              layers=args.layers, parts=bool(args.parts))
+            if args.parts:
+                print_parts(rec, args.parts)
         except Exception as exc:  # record, keep going
             rec = {"arch": arch, "shape": shape, "status": "error",
                    "mesh": "2x16x16" if args.multi_pod else "16x16",

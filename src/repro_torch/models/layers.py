@@ -17,7 +17,15 @@ reference's call sites: the layer loop gathers each layer over the
 data-parallel axes, attention is split by heads over ``model`` where both
 head counts divide it (else each rank takes its query block against keys
 and values gathered over ``model``), the MLP by columns and rows, and the
-loss, the embedding and the logits by vocabulary blocks.  A prefill's keys
+loss, the embedding and the logits by vocabulary blocks.  What a rank
+holds at once is bounded as Megatron's sequence parallelism bounds it: the
+embedding is reduce-scattered into the rank's sequence block, the
+gathered input of the attention's and the MLP's column projections is
+not kept for their backward (``Split.enter_columns``), the loss's chunks
+return their gradients to the blocks one at a time (:class:`_VocabCE`),
+under a remat policy the norms recompute their float32 temporaries, and
+the flash blocks go a few batch rows at a time, every row's arithmetic
+that of the whole batch's.  A prefill's keys
 and values come back in the rules' cache layout (the sequence on
 ``model``); a decode step attends by flash decoding over those blocks
 (:func:`_attention_decode_split`).
@@ -35,7 +43,8 @@ from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch import pytree
 from repro_torch.sharding.collectives import (all_gather_rs, all_gather_split, all_reduce_id,
-                                              all_reduce_max, all_to_all, split_ag)
+                                              all_reduce_max, all_to_all, reduce_scatter_ag,
+                                              row_pieces, split_ag)
 
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "layer_norm", "apply_rope",
@@ -96,11 +105,19 @@ def norm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, kind: str = "rms",
                constrain=None):
     """``constrain``: the split context of the stream ``x`` belongs to; a
     scale applied to a sequence block gets its gradient summed over
-    ``model``."""
+    ``model``.  Under autograd and a remat policy (the split's
+    ``run.remat`` "full" or "dots") the norm keeps only its input for its
+    backward, which recomputes it: its float32 temporaries are not held
+    while the rest of a layer, or the loss, runs.  Under "none" it keeps
+    them, as the run asked."""
     rep = constrain.rep if constrain is not None else (lambda t: t)
     if kind == "layernorm":
-        return layer_norm(x, rep(p["scale"]), rep(p["bias"]))
-    return rms_norm(x, rep(p["scale"]))
+        args = (layer_norm, x, rep(p["scale"]), rep(p["bias"]))
+    else:
+        args = (rms_norm, x, rep(p["scale"]))
+    if constrain is not None and constrain.remat != "none" and torch.is_grad_enabled():
+        return checkpoint(*args, use_reentrant=False)       # the same operations
+    return args[0](*args[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +249,18 @@ def _flash_backward(q, k, v, out, lse, do, causal, q_chunk, kv_chunk, q_offset):
     return dq, dk.reshape(B, Skv, KV, D).to(k.dtype), dv.reshape(B, Skv, KV, D).to(v.dtype)
 
 
+def _flash_rows(q, k, q_chunk: int, kv_chunk: int):
+    """Ranges of batch rows whose float32 score block ``(b, KV, G, qc,
+    kc)`` takes at most
+    :data:`~repro_torch.sharding.collectives.PIECE_BYTES` (at least one
+    row): the flash blocks run a range at a time, every row's arithmetic
+    that of the whole batch's, so the live blocks of a wide layer stay a
+    fraction of one sequence's."""
+    B, Sq, H, _ = q.shape
+    qc, kc = _chunk_size(Sq, q_chunk), _chunk_size(k.shape[1], kv_chunk)
+    return row_pieces(B, H * qc * kc * 4)
+
+
 class _Flash(torch.autograd.Function):
     """Flash attention core (q pre-scaled), the reference's custom-VJP
     ``_flash``: O(S) residuals, the backward pass recomputing score blocks
@@ -240,15 +269,27 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_chunk: int, kv_chunk: int, q_offset: int):
-        out, lse = _flash_forward(q, k, v, causal, q_chunk, kv_chunk, q_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_chunk, kv_chunk, q_offset)
+        ranges = _flash_rows(q, k, q_chunk, kv_chunk)
+        parts = [_flash_forward(q[r0:r1], k[r0:r1], v[r0:r1], *ctx.args) for r0, r1 in ranges]
+        if len(parts) == 1:
+            out, lse = parts[0]
+        else:
+            out = torch.cat([o for o, _ in parts])
+            lse = torch.cat([l for _, l in parts], dim=1)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, *ctx.args)
+        ranges = _flash_rows(q, k, *ctx.args[1:3])
+        parts = [_flash_backward(q[r0:r1], k[r0:r1], v[r0:r1], out[r0:r1], lse[:, r0:r1],
+                                 do[r0:r1], *ctx.args) for r0, r1 in ranges]
+        if len(parts) == 1:
+            dq, dk, dv = parts[0]
+        else:
+            dq, dk, dv = (torch.cat(x) for x in zip(*parts))
         return dq, dk, dv, None, None, None, None
 
 
@@ -318,15 +359,17 @@ def attention_params(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int
     return p
 
 
-def _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype):
-    """q from ``xq``, k from ``xk`` and v from ``xv``: one stream for all
-    three, the cross-attention's ``kv_x`` for k and v, or the three copies
-    a split block enters (``Split.enter(x, 3)``)."""
-    B, S, _ = xq.shape
-    Skv = xk.shape[1]
-    q = torch.matmul(xq, p["wq"].to(dtype))
-    k = torch.matmul(xk, p["wk"].to(dtype))
-    v = torch.matmul(xv, p["wv"].to(dtype))
+def _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype, mats=None):
+    """q from ``xq``, k from ``xk`` and v from ``xv`` (one stream for all
+    three, or the cross-attention's ``kv_x`` for k and v); ``mats``: the
+    three products already made (a split block's, ``Split.enter_columns``),
+    to which the biases and norms are applied."""
+    if mats is None:
+        mats = (torch.matmul(xq, p["wq"].to(dtype)), torch.matmul(xk, p["wk"].to(dtype)),
+                torch.matmul(xv, p["wv"].to(dtype)))
+    q, k, v = mats
+    B, S = q.shape[:2]
+    Skv = k.shape[1]
     if "bq" in p:
         q, k, v = q + p["bq"].to(dtype), k + p["bk"].to(dtype), v + p["bv"].to(dtype)
     q = q.reshape(B, S, n_heads, head_dim)
@@ -381,11 +424,12 @@ def attention_apply(p: Dict[str, Any], x: torch.Tensor, *,
 
 
 def _attend(p, xq, xk, xv, *, n_heads, n_kv, head_dim, positions, rope_theta, use_rope,
-            causal, cache, cache_len, q_chunk, kv_chunk, unroll):
+            causal, cache, cache_len, q_chunk, kv_chunk, unroll, mats=None):
     """The attention block's body on whole inputs (:func:`attention_apply`
-    less the split): q from ``xq``, k and v from ``xk`` and ``xv``."""
+    less the split): q from ``xq``, k and v from ``xk`` and ``xv``, or the
+    projections ``mats`` (:func:`_project_qkv`)."""
     dtype = xq.dtype
-    q, k, v = _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype)
+    q, k, v = _project_qkv(p, xq, xk, xv, n_heads, n_kv, head_dim, dtype, mats)
 
     new_cache = None
     if cache is not None:
@@ -402,7 +446,7 @@ def _attend(p, xq, xk, xv, *, n_heads, n_kv, head_dim, positions, rope_theta, us
     else:
         if use_rope:
             if positions is None:
-                positions = torch.arange(xq.shape[1], device=xq.device)
+                positions = torch.arange(q.shape[1], device=q.device)
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
         out = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
@@ -449,13 +493,18 @@ def _attention_split(c, p, x, *, n_heads, n_kv, head_dim, kv_x, positions, rope_
     norms = ({"q_norm": c.tp_rep(p["q_norm"]), "k_norm": c.tp_rep(p["k_norm"])}
              if "q_norm" in p else {})
     if tp == 1 or (n_heads % tp == 0 and n_kv % tp == 0):
-        xq, xk, xv = c.enter(x, 3) if kv_x is None else (c.enter(x), kv_x, kv_x)
         pb = {"wq": c.block(p["wq"], 1, qcols), "wk": c.block(p["wk"], 1, kvcols),
               "wv": c.block(p["wv"], 1, kvcols), "wo": c.block(p["wo"], 0, qcols), **norms}
         if "bq" in p:
             pb.update(bq=c.block(p["bq"], 0, qcols), bk=c.block(p["bk"], 0, kvcols),
                       bv=c.block(p["bv"], 0, kvcols))
-        out, kv = _attend(pb, xq, xk, xv, n_heads=n_heads // tp, n_kv=n_kv // tp,
+        ws = [pb[k].to(x.dtype) for k in ("wq", "wk", "wv")]
+        if kv_x is None:
+            mats = c.enter_columns(x, ws)
+        else:
+            mats = (*c.enter_columns(x, ws[:1]), torch.matmul(kv_x, ws[1]),
+                    torch.matmul(kv_x, ws[2]))
+        out, kv = _attend(pb, x, kv_x, kv_x, mats=mats, n_heads=n_heads // tp, n_kv=n_kv // tp,
                           head_dim=head_dim, positions=positions, rope_theta=rope_theta,
                           use_rope=use_rope, causal=causal, cache=None, cache_len=cache_len,
                           q_chunk=q_chunk, kv_chunk=kv_chunk, unroll=unroll)
@@ -633,23 +682,27 @@ def mlp_apply(p: Dict[str, Any], x: torch.Tensor, act: str = "silu",
     wi, wo, wg, bi, bo = p["wi"], p["wo"], p.get("wg"), p.get("bi"), p.get("bo")
     c = constrain
     split = c is not None and c.tp > 1 and c.cfg.d_ff % c.tp == 0
-    xg = x
+    g = None
     if split:
         f = c.cfg.d_ff
-        x, xg = c.enter(x, 2) if wg is not None else (c.enter(x), None)
         wi, wo = c.block(wi, 1, f), c.block(wo, 0, f)
         wg = c.block(wg, 1, f) if wg is not None else None
         bi = c.block(bi, 0, f) if bi is not None else None
-    elif c is not None and c.sp:
-        f = c.cfg.d_ff
-        wi, wo = c.whole(wi, 1, f), c.whole(wo, 0, f)
-        wg = c.whole(wg, 1, f) if wg is not None else None
-        bi = c.tp_rep(bi) if bi is not None else None
-    h = torch.matmul(x, wi.to(dtype))
+        cols = [wi.to(dtype)] + ([wg.to(dtype)] if wg is not None else [])
+        h, *gs = c.enter_columns(x, cols)
+        g = gs[0] if gs else None
+    else:
+        if c is not None and c.sp:
+            f = c.cfg.d_ff
+            wi, wo = c.whole(wi, 1, f), c.whole(wo, 0, f)
+            wg = c.whole(wg, 1, f) if wg is not None else None
+            bi = c.tp_rep(bi) if bi is not None else None
+        h = torch.matmul(x, wi.to(dtype))
     if bi is not None:
         h = h + bi.to(dtype)
     if act == "silu":
-        g = torch.matmul(xg, wg.to(dtype))
+        if g is None:
+            g = torch.matmul(x, wg.to(dtype))
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
@@ -677,44 +730,84 @@ def _ce_chunk(hb, lb, w, softcap: float, transpose_w: bool):
     return torch.sum((logz - tgt) * mask), mask.sum()
 
 
-class _LogSumExpVocab(torch.autograd.Function):
-    """The log-sum-exp over the last axis of logits split over ``group``
-    by vocabulary blocks: the max exactly, the shifted exponentials' sum
-    in rank order; its gradient ``exp(l − lse)``, as ``torch.logsumexp``'s
-    backward computes it."""
-
-    @staticmethod
-    def forward(ctx, logits, group):
-        m = all_reduce_max(logits.amax(dim=-1), group)
-        se = all_reduce_id(torch.exp(logits - m[..., None]).sum(dim=-1), group)
-        lse = torch.log(se) + m
-        ctx.save_for_backward(logits, lse)
-        return lse
-
-    @staticmethod
-    def backward(ctx, g):
-        logits, lse = ctx.saved_tensors
-        return g[..., None] * torch.exp(logits - lse[..., None]), None
-
-
-def _ce_chunk_vocab(hb, lb, w, softcap: float, transpose_w: bool, v0: int, group):
+class _VocabCE(torch.autograd.Function):
     """:func:`_ce_chunk` on this rank's vocabulary block ``[v0, v0 + V_b)``
     of ``w``: the max, the sum of exponentials and the target's logit
-    combined over ``model`` (the max exactly, the sums in rank order), so
-    every rank has every token's loss, the same bits."""
-    wt = w.to(hb.dtype)
-    logits = torch.matmul(hb, wt.t() if transpose_w else wt).to(_F32)
-    if softcap:
-        logits = torch.tanh(logits / softcap) * softcap
-    vb = logits.shape[-1]
-    logz = _LogSumExpVocab.apply(logits, group)
-    local = lb.long() - v0
-    inside = (local >= 0) & (local < vb)
-    tgt = torch.gather(logits, -1, local.clamp(0, vb - 1)[..., None])[..., 0]
-    tgt = all_reduce_id(torch.where(inside, tgt, torch.zeros((), dtype=_F32,
-                                                             device=tgt.device)), group)
-    mask = (lb >= 0).to(_F32)
-    return torch.sum((logz - tgt) * mask), mask.sum()
+    combined over ``group`` (the max exactly, the sums in rank order), so
+    every rank has every token's loss, the same bits.  Only the chunk's
+    log-sum-exp is kept for the backward, which recomputes the logits and
+    takes their gradient in place, each sum in the order autograd adds it:
+    ``exp(l − lse)·g`` with the target's ``−g`` added at its index, through
+    the soft cap where one is set (``tanh``'s gradient ``1 − tanh²``
+    between the two scalings), then the product's gradients by autograd.
+    The chunks of one loss share ``acc``: each adds its gradient of ``w``
+    into one float32 sum in the order their backwards run (autograd's
+    order), and the last returns it, so a chunk's backward holds one
+    float32 logits block (two with a soft cap) and one float32 gradient of
+    the vocabulary block, not the several that autograd and a checkpoint's
+    recompute hold."""
+
+    @staticmethod
+    def forward(ctx, hb, w, lb, softcap: float, transpose_w: bool, v0: int, group, acc):
+        wt = w.to(hb.dtype)
+        logits = torch.matmul(hb, wt.t() if transpose_w else wt).to(_F32)
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        vb = logits.shape[-1]
+        m = all_reduce_max(logits.amax(dim=-1), group)
+        se = all_reduce_id((logits - m[..., None]).exp_().sum(dim=-1), group)
+        lse = torch.log(se) + m
+        local = lb.long() - v0
+        inside = (local >= 0) & (local < vb)
+        idx = local.clamp(0, vb - 1)
+        tgt = torch.gather(logits, -1, idx[..., None])[..., 0]
+        zero = torch.zeros((), dtype=_F32, device=tgt.device)
+        tgt = all_reduce_id(torch.where(inside, tgt, zero), group)
+        mask = (lb >= 0).to(_F32)
+        ctx.save_for_backward(hb, w, lse, idx, inside, mask)
+        ctx.softcap, ctx.transpose_w, ctx.acc = softcap, transpose_w, acc
+        acc["left"] += 1
+        return torch.sum((lse - tgt) * mask), mask.sum()
+
+    @staticmethod
+    def backward(ctx, g, _):
+        hb, w, lse, idx, inside, mask = ctx.saved_tensors
+        softcap = ctx.softcap
+        with torch.enable_grad():
+            h_ = hb.detach().requires_grad_()
+            wt = w.detach().to(hb.dtype).requires_grad_()
+            out = torch.matmul(h_, wt.t() if ctx.transpose_w else wt)
+        zero = torch.zeros((), dtype=_F32, device=g.device)
+        gt = g.expand(mask.shape) * mask                  # d(sum((lse − tgt)·mask))
+        d = out.detach().to(_F32)                        # the logits, then their gradient
+        if softcap:
+            t = torch.tanh(d / softcap)
+            d = t * softcap
+        d.sub_(lse[..., None]).exp_().mul_(gt[..., None])
+        d.add_(0.0)                                       # + the gather's zeros
+        d.scatter_add_(-1, idx[..., None], (zero + torch.where(inside, -gt, zero))[..., None])
+        if softcap:                                       # (· softcap), tanh, (/ softcap)
+            d = torch.ops.aten.tanh_backward(d.mul_(softcap), t).div_(softcap)
+            del t
+        d = d.to(out.dtype)                               # the float32 block freed here
+        dh, dwt = torch.autograd.grad(out, (h_, wt), d)
+        del d, out
+        acc = ctx.acc
+        if acc.get("w") is None:
+            acc["w"] = dwt.to(w.dtype)                    # the cast's backward
+        else:
+            acc["w"].add_(dwt)                            # autograd's sum, in place
+        acc["left"] -= 1
+        return (dh, (acc.pop("w") if not acc["left"] else None), None, None, None, None, None,
+                None)
+
+
+def _loss_chunk(S: int, chunk: int) -> int:
+    """The loss's chunk length: the largest divisor of ``S`` up to ``chunk``."""
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return c
 
 
 def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -731,47 +824,93 @@ def chunked_cross_entropy(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     block, gathered here over the data-parallel axes): where the rules cut
     the vocabulary over ``model``, the stream is entered whole and each
     rank takes the logits of its vocabulary block (vocabulary-parallel);
-    otherwise (a ``model`` size that does not divide the vocabulary) every
+    a sequence-sharded stream is gathered once, in its own dtype, as the
+    chunks, each chunk's gradient summed straight into the blocks that hold
+    it (:meth:`Split.enter_chunks
+    <repro_torch.sharding.split.Split.enter_chunks>`), and each chunk
+    keeps only its log-sum-exp (:class:`_VocabCE`, no checkpoint).
+    Otherwise (a ``model`` size that does not divide the vocabulary) every
     rank takes the whole loss.
     """
     c = constrain
+    vocab = None
     if c is not None:
         w = c.gather(w)
         vocab = c.vocab_block(w, 0 if transpose_w else 1)
+        if vocab is None:
+            h = c.redundant(h)
+    if vocab is not None:
+        size = _loss_chunk(labels.shape[1], chunk)
+        hs = c.enter_chunks(h, size)
+        vocab = (vocab[0], c.model)
+    else:
+        size = _loss_chunk(h.shape[1], chunk)
+        hs = [h[:, i * size:(i + 1) * size] for i in range(h.shape[1] // size)]
+    return _cross_entropy_chunks(hs, size, w, labels, softcap, transpose_w, vocab)
+
+
+def _cross_entropy_chunks(hs, c, w, labels, softcap, transpose_w, vocab=None):
+    tot = torch.zeros((), dtype=_F32, device=w.device)
+    cnt = torch.zeros((), dtype=_F32, device=w.device)
+    acc = {"left": 0}
+    for i, hb in enumerate(hs):
+        lb = labels[:, i * c:(i + 1) * c]
         if vocab is not None:
-            return _cross_entropy_chunks(c.enter(h), w, labels, softcap, chunk, transpose_w,
-                                         vocab=(vocab[0], c.model))
-        h = c.redundant(h)
-    return _cross_entropy_chunks(h, w, labels, softcap, chunk, transpose_w)
-
-
-def _cross_entropy_chunks(h, w, labels, softcap, chunk, transpose_w, vocab=None):
-    B, S, D = h.shape
-    c = min(chunk, S)
-    while S % c:
-        c -= 1
-    tot = torch.zeros((), dtype=_F32, device=h.device)
-    cnt = torch.zeros((), dtype=_F32, device=h.device)
-    fn, extra = (_ce_chunk, ()) if vocab is None else (_ce_chunk_vocab, vocab)
-    for i in range(S // c):
-        hb, lb = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
-        if torch.is_grad_enabled():
-            part, n = checkpoint(fn, hb, lb, w, softcap, transpose_w, *extra,
+            part, n = _VocabCE.apply(hb, w, lb, softcap, transpose_w, *vocab, acc)
+        elif torch.is_grad_enabled():
+            part, n = checkpoint(_ce_chunk, hb, lb, w, softcap, transpose_w,
                                  use_reentrant=False)
         else:
-            part, n = fn(hb, lb, w, softcap, transpose_w, *extra)
+            part, n = _ce_chunk(hb, lb, w, softcap, transpose_w)
         tot, cnt = tot + part, cnt + n
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, dtype, constrain=None) -> torch.Tensor:
-    """``w[tokens]`` in ``dtype``, whole on every rank.  With ``constrain``
-    (``w`` this rank's block, gathered here over the data-parallel axes)
-    and the vocabulary cut over ``model``: each rank looks up the tokens
-    of its vocabulary block (zeros elsewhere) and the parts are summed
-    over ``model`` (one term of each sum is not zero, so the sum is the
-    lookup's bits); the caller lays the result out by ``constrain(h,
-    "act")``."""
+class _VocabLookup(torch.autograd.Function):
+    """``where(inside, w[local], 0)`` in ``dtype``, a vocabulary block's
+    part of a lookup, made a piece of batch rows at a time (no float32
+    copy of the whole lookup is made); the gradient of ``w`` accumulated
+    piece by piece, rows in order, by ``index_put_``, as the plain
+    lookup's backward accumulates all of them at once."""
+
+    @staticmethod
+    def forward(ctx, w, local, inside, dtype):
+        ctx.save_for_backward(local, inside)
+        ctx.w_shape, ctx.w_dtype = w.shape, w.dtype
+        out = torch.empty(tuple(local.shape) + (w.shape[1],), dtype=dtype, device=w.device)
+        zero = torch.zeros((), dtype=dtype, device=w.device)
+        row = local[0].numel() * w.shape[1] * w.element_size()
+        for r0, r1 in row_pieces(local.shape[0], row):
+            e = w[local[r0:r1]].to(dtype)
+            out[r0:r1] = torch.where(inside[r0:r1, ..., None], e, zero)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        local, inside = ctx.saved_tensors
+        gw = torch.zeros(ctx.w_shape, dtype=ctx.w_dtype, device=g.device)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        row = local[0].numel() * ctx.w_shape[1] * gw.element_size()
+        for r0, r1 in row_pieces(local.shape[0], row):
+            gp = torch.where(inside[r0:r1, ..., None], g[r0:r1], zero).to(gw.dtype)
+            gw.index_put_((local[r0:r1],), gp, accumulate=True)
+        return gw, None, None, None
+
+
+def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, dtype, constrain=None, *,
+                 whole: bool = False) -> torch.Tensor:
+    """``w[tokens]`` in ``dtype``.  With ``constrain`` (``w`` this rank's
+    block, gathered here over the data-parallel axes) and the vocabulary
+    cut over ``model``: each rank looks up the tokens of its vocabulary
+    block (zeros elsewhere, :class:`_VocabLookup`) and the parts are
+    summed over ``model`` (one term of each sum is not zero, so the sum is
+    the lookup's bits): on a sequence-sharded stream reduce-scattered
+    straight into this rank's sequence block (Megatron's sequence-parallel
+    embedding), else all-reduced, whole on every rank.  ``whole``: the
+    all-reduce on any stream, for a caller that adds to the whole lookup
+    before laying it out.  Otherwise the lookup is whole and the caller
+    lays it out by ``constrain(h, "act")``, which takes a block as it
+    is."""
     if constrain is None:
         return w[tokens.long()].to(dtype)
     w = constrain.gather(w)
@@ -781,8 +920,9 @@ def embed_lookup(w: torch.Tensor, tokens: torch.Tensor, dtype, constrain=None) -
     v0, n = vocab
     local = tokens.long() - v0
     inside = (local >= 0) & (local < n)
-    e = w[local.clamp(0, n - 1)].to(dtype)
-    e = torch.where(inside[..., None], e, torch.zeros((), dtype=dtype, device=e.device))
+    e = _VocabLookup.apply(w, local.clamp(0, n - 1), inside, dtype)
+    if constrain.sp and not whole:
+        return reduce_scatter_ag(e, constrain.model, dim=1)
     return all_reduce_id(e, constrain.model)
 
 

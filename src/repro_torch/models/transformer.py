@@ -101,11 +101,17 @@ def _layer_apply(lp, h, cfg: ModelConfig, run: RunConfig, *, positions=None,
 
 def _embed(params, tokens, cfg: ModelConfig, dtype,
            image_embeds: Optional[torch.Tensor] = None, constrain=None):
+    """The token lookup in the stream's layout (this rank's sequence block
+    under SP, ``L.embed_lookup``), the VLM stub's precomputed patch
+    embeddings over the first ``n_image_tokens`` positions: on a block,
+    those of them that fall inside it."""
     h = L.embed_lookup(params["embed"], tokens, dtype, constrain)
     if cfg.n_image_tokens and image_embeds is not None:
-        # VLM stub: precomputed patch embeddings occupy the first positions
         n = cfg.n_image_tokens
-        h = torch.cat([image_embeds.to(dtype), h[:, n:]], dim=1)
+        off = constrain.q_offset(h.shape[1]) if h.shape[1] < tokens.shape[1] else 0
+        k = min(max(n - off, 0), h.shape[1])
+        if k:
+            h = torch.cat([image_embeds[:, off:off + k].to(dtype), h[:, k:]], dim=1)
     return h
 
 

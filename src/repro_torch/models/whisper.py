@@ -137,7 +137,7 @@ def _decoder(params, tokens, enc_out, cfg: ModelConfig, run: RunConfig, *, pos_o
     c = constrain
     dtype = L._dtype(run.compute_dtype)
     S = tokens.shape[1]
-    h = L.embed_lookup(params["embed"], tokens, dtype, c)
+    h = L.embed_lookup(params["embed"], tokens, dtype, c, whole=True)
     pos = c.gather(params["dec_pos"]) if c is not None else params["dec_pos"]
     h = h + pos[pos_offset:pos_offset + S][None].to(dtype)
     if c is not None:

@@ -32,7 +32,14 @@ a sequence block's halo from the blocks before it), and for work every
 rank repeats on the same data, :func:`split_ag` (this rank's block, the
 gradient all-gathered) and :func:`all_gather_split` (an all-gather, the
 gradient cut back to this rank's block).  Every sum among them adds in
-group-rank order.
+group-rank order.  A reduce-scatter along a later dimension than the first
+goes in pieces of batch rows of at most :data:`PIECE_BYTES`
+(:func:`row_pieces`), so a rank holds one piece's copies beside its
+input, not two more copies of the whole; :func:`gather_columns` enters a
+sequence block into column-parallel projections without keeping the
+gathered sequence; :func:`all_gather_chunks` hands a gathered sequence
+out a chunk at a time and sums each chunk's gradient straight into the
+blocks that hold it (:func:`reduce_to_blocks`).
 
 Every function takes the ``ProcessGroup`` of a mesh dimension
 (``mesh.get_group(axis)``, ``launch/mesh.py``), the counterpart of an axis
@@ -64,7 +71,8 @@ from repro_torch.kernels import ops
 
 __all__ = ["tree_allreduce", "ring_allreduce", "quantized_allreduce", "all_gather",
            "all_to_all", "ordered_allreduce", "reduce_scatter", "all_reduce_max", "sendrecv",
-           "all_gather_rs", "all_gather_rs_n", "reduce_scatter_ag", "all_reduce_id", "identity_ar", "shift",
+           "PIECE_BYTES", "row_pieces", "reduce_to_blocks", "all_gather_rs", "gather_columns",
+           "all_gather_chunks", "reduce_scatter_ag", "all_reduce_id", "identity_ar", "shift",
            "split_ag", "all_gather_split", "fake_records"]
 
 # what the fake transport was asked to move, in call order (the dry run's
@@ -252,22 +260,76 @@ def ordered_allreduce(x: torch.Tensor, group) -> torch.Tensor:
     return all_gather(mine, group)[:x.numel()].reshape(x.shape)
 
 
+# the most bytes of one piece of batch rows in which the split makes or
+# moves a large tensor (``row_pieces``)
+PIECE_BYTES = 1 << 28
+
+
+def row_pieces(rows: int, row_bytes: int):
+    """Ranges ``(r0, r1)`` of ``rows`` batch rows of ``row_bytes`` each, at
+    most :data:`PIECE_BYTES` a range (at least one row): the pieces in
+    which a reduce-scatter along a later dimension, a gathered sequence's
+    projections, the vocabulary-parallel lookup and the flash blocks go,
+    every row's arithmetic that of the whole batch's."""
+    per = max(1, PIECE_BYTES // max(1, row_bytes))
+    return [(r, min(r + per, rows)) for r in range(0, rows, per)]
+
+
 def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """This rank's block along ``dim`` of the sum of every rank's ``x``
     over ``group`` (``x.shape[dim]`` a multiple of the group's size):
     :func:`ordered_allreduce`'s first half, the n blocks through
     :func:`all_to_all` and added in group-rank order, so a rank holds the
     same bits as the all-reduce's slice.  Each rank sends and receives one
-    copy of ``x``."""
+    copy of ``x``; along a later dimension than the first it goes in
+    pieces of batch rows (:func:`row_pieces`: each piece's send copy, its
+    all-to-all and its block of the sum, then the blocks laid out as the
+    whole's), every element the same rank-order sum whatever the pieces."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter: dimension {dim} of {tuple(x.shape)} does not "
                          f"divide into {n} blocks")
-    front = x.movedim(dim, 0)
-    shape = (front.shape[0] // n,) + tuple(front.shape[1:])
-    return _rank_order_sum(front.contiguous(), group).reshape(shape).movedim(0, dim)
+    rows = x.shape[0]
+    pieces = (row_pieces(rows, x[0].numel() * x.element_size()) if dim and rows > 1
+              else [(0, rows)])
+    out = None
+    for r0, r1 in pieces:
+        front = (x if len(pieces) == 1 else x[r0:r1]).movedim(dim, 0)
+        shape = (front.shape[0] // n,) + tuple(front.shape[1:])
+        got = _rank_order_sum(front.contiguous(), group).reshape(shape)
+        if len(pieces) == 1:
+            return got.movedim(0, dim)
+        if out is None:     # the pieces' layout: x's dimension 0 second
+            out = got.new_empty((shape[0], rows) + shape[2:])
+        out[:, r0:r1] = got
+    return out.movedim(0, dim)
+
+
+def reduce_to_blocks(x: torch.Tensor, group, start: int, block: int) -> torch.Tensor:
+    """The sum of every rank's ``x`` ``(B, c, ...)`` over ``group``, each
+    element added in group-rank order (:func:`reduce_scatter`'s bits), of
+    the positions ``[start, start + c)`` of a sequence whose consecutive
+    blocks of ``block`` positions the group's ranks hold in rank order:
+    this rank's positions of it, sequence-major ``(k, B, ...)`` (``k``
+    possibly 0).  One all-to-all of uneven blocks, each rank's rows to the
+    rank that holds them, in pieces of batch rows (:func:`row_pieces`)."""
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    c = x.shape[1]
+    held = [max(0, min(start + c, (j + 1) * block) - max(start, j * block)) for j in range(n)]
+    rest = tuple(x.shape[2:])
+    out = x.new_empty((held[me], x.shape[0]) + rest)
+    row = n * max(held) * math.prod(rest) * x.element_size()
+    for r0, r1 in row_pieces(x.shape[0], row):
+        front = x[r0:r1].transpose(0, 1).contiguous()
+        got = all_to_all(front, group, send=held, recv=[held[me]] * n)
+        rows = got.reshape((n, held[me], r1 - r0) + rest)
+        mine = rows[0]
+        for i in range(1, n):
+            mine = mine + rows[i]
+        out[:, r0:r1] = mine
+    return out
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
@@ -302,30 +364,91 @@ class _AllGatherRS(torch.autograd.Function):
         return reduce_scatter(g, ctx.group, dim=ctx.dim), None, None
 
 
-class _AllGatherRSn(torch.autograd.Function):
-    """One all-gather, handed out as ``n`` tensors (one a consumer); the
-    backward reduces the n gradients together in one collective
-    (``reduce_scatter``, or ``ordered_allreduce`` with ``dim`` None and no
-    gather) and adds the n sums, the last consumer's first."""
+class _GatherColumns(torch.autograd.Function):
+    """``x`` entered whole over ``group`` (all-gathered along ``dim``, or
+    ``x`` itself where ``dim`` is None) and multiplied by each of ``ws``:
+    Megatron's sequence-parallel entry into column-parallel projections.
+    The gathered ``x`` is not kept for the backward (and is made a piece
+    of batch rows at a time where the whole would pass
+    :data:`PIECE_BYTES`).  The backward sums each projection's input
+    gradient over ``group`` on its own (:func:`reduce_scatter`, or
+    :func:`ordered_allreduce`) and adds the sums the last projection's
+    first, as the reference's partitioned step sums each projection's
+    partial, then gathers ``x`` again for the weights' gradients; every
+    product is the one autograd takes through ``torch.matmul``."""
 
     @staticmethod
-    def forward(ctx, x, group, dim, n):
-        ctx.group, ctx.dim, ctx.n = group, dim, n
-        full = x.view_as(x) if dim is None else all_gather(x, group, dim=dim)
-        return tuple(full.view_as(full) for _ in range(n))
+    def forward(ctx, x, group, dim, *ws):
+        ctx.group, ctx.dim = group, dim
+        ctx.save_for_backward(x, *ws)
+        if dim is None:
+            return tuple(torch.matmul(x, w) for w in ws)
+        n = dist.get_world_size(group)
+        pieces = row_pieces(x.shape[0], x[0].numel() * n * x.element_size())
+        if len(pieces) == 1:
+            full = all_gather(x, group, dim=dim)
+            return tuple(torch.matmul(full, w) for w in ws)
+        shape = list(x.shape)
+        shape[dim] *= n
+        outs = tuple(x.new_empty(shape[:-1] + [w.shape[1]]) for w in ws)
+        for r0, r1 in pieces:
+            full = all_gather(x[r0:r1], group, dim=dim)
+            for o, w in zip(outs, ws):
+                o[r0:r1] = torch.matmul(full, w)
+        return outs
 
     @staticmethod
     def backward(ctx, *gs):
-        zero = next(g for g in gs if g is not None)
-        gs = torch.stack([g if g is not None else torch.zeros_like(zero) for g in gs])
-        if ctx.dim is None:
-            r = ordered_allreduce(gs, ctx.group)
-        else:
-            r = reduce_scatter(gs, ctx.group, dim=ctx.dim + 1)
-        out = r[-1]
-        for i in range(ctx.n - 2, -1, -1):
-            out = out + r[i]
-        return out, None, None, None
+        x, *ws = ctx.saved_tensors
+        group, dim = ctx.group, ctx.dim
+        shape = list(x.shape)
+        if dim is not None:
+            shape[dim] *= dist.get_world_size(group)
+        gs = [g if g is not None else x.new_zeros(shape[:-1] + [w.shape[1]])
+              for g, w in zip(gs, ws)]
+        dx = None
+        for g, w in zip(reversed(gs), reversed(ws)):
+            part = g.reshape(-1, g.shape[-1]).mm(w.t()).reshape(g.shape[:-1] + (w.shape[0],))
+            part = (ordered_allreduce(part, group) if dim is None
+                    else reduce_scatter(part, group, dim=dim))
+            dx = part if dx is None else dx + part
+        # gathered again only now, not beside the input gradients' sums
+        full = x if dim is None else all_gather(x, group, dim=dim)
+        f2 = full.reshape(-1, full.shape[-1])
+        dws = [f2.t().mm(g.reshape(-1, g.shape[-1])) for g in gs]
+        return (dx, None, None, *dws)
+
+
+class _GatheredChunk(torch.autograd.Function):
+    """A chunk of a sequence all-gathered once over ``group`` (``chunk``,
+    positions ``[start, start + len)`` of the gather, made without
+    autograd), handed to its consumer as it is.  Its gradient is summed
+    straight into the ranks whose blocks hold its positions
+    (:func:`reduce_to_blocks`) and written into ``acc``, the gradient of
+    the block ``x`` that the chunks share; the chunk whose gradient
+    completes it returns it (the others return none), so the block's
+    gradient is never added to."""
+
+    @staticmethod
+    def forward(ctx, x, chunk, group, start, acc):
+        ctx.group, ctx.start, ctx.acc, ctx.x_shape = group, start, acc, x.shape
+        ctx.chunk_shape = chunk.shape
+        return chunk.view_as(chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc, (B, sb) = ctx.acc, ctx.x_shape[:2]
+        if g is None:
+            g = torch.zeros(ctx.chunk_shape, dtype=acc["dtype"], device=acc["device"])
+        if acc.get("buf") is None:      # sequence-major, the reduce-scatter's layout
+            acc["buf"] = g.new_empty((sb, B) + tuple(g.shape[2:]))
+        part = reduce_to_blocks(g, ctx.group, ctx.start, sb)
+        lo = max(ctx.start - dist.get_rank(ctx.group) * sb, 0)
+        acc["buf"][lo:lo + part.shape[0]] = part
+        acc["left"] -= 1
+        if acc["left"]:
+            return None, None, None, None, None
+        return acc.pop("buf").transpose(0, 1), None, None, None, None
 
 
 class _ReduceScatterAG(torch.autograd.Function):
@@ -415,16 +538,37 @@ def all_gather_rs(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return x if _one(group) else _AllGatherRS.apply(x, group, dim)
 
 
-def all_gather_rs_n(x: torch.Tensor, group, dim, n: int):
-    """``n`` consumers' copies of one all-gather of ``x`` along ``dim``
-    (``dim`` None: ``x`` itself, the gradient all-reduced, as
-    :func:`identity_ar`): each consumer's gradient is summed over the group
-    on its own, as the reference's partitioned step sums each projection's
-    partial, and the n sums are then added (the last consumer's first, as
-    autograd would add n separate gathers' gradients)."""
+def gather_columns(x: torch.Tensor, group, dim, ws):
+    """``x @ w`` for each of ``ws`` (column blocks) with ``x`` entered whole
+    over ``group``: all-gathered along ``dim``, or ``x`` itself where
+    ``dim`` is None, the gradient then summed (:class:`_GatherColumns`:
+    the gathered ``x`` not kept; each projection's input gradient summed
+    over the group on its own, the sums added the last projection's
+    first)."""
     if _one(group):
-        return (x,) * n
-    return _AllGatherRSn.apply(x, group, dim, n)
+        return tuple(torch.matmul(x, w) for w in ws)
+    return _GatherColumns.apply(x, group, dim, *ws)
+
+
+def all_gather_chunks(x: torch.Tensor, group, size: int):
+    """``x`` ``(B, S_b, ...)``, this rank's block of a sequence, all-gathered
+    along the sequence once (the blocks in rank order) and handed out as
+    consecutive chunks of ``size`` positions (``size`` dividing the whole),
+    an iterator that makes each chunk's autograd node when it is taken,
+    for work that walks the sequence a chunk at a time (the loss).  Each
+    chunk's gradient is summed into the blocks that hold its positions as
+    soon as it exists (:class:`_GatheredChunk`), so neither the chunks'
+    gradients nor their whole is ever held together; the block's gradient
+    is every element's rank-order sum, as :func:`all_gather_rs`'s."""
+    if _one(group):
+        return iter(x.split(size, dim=1))
+    full = all_gather(x.detach(), group, dim=1)
+    n = full.shape[1] // size
+    acc = {"left": n, "dtype": x.dtype, "device": x.device}
+    # made one at a time as the caller walks them, so each chunk's
+    # gradient is reduced as soon as its consumer's backward made it
+    return (_GatheredChunk.apply(x, full[:, i * size:(i + 1) * size], group, i * size, acc)
+            for i in range(n))
 
 
 def reduce_scatter_ag(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

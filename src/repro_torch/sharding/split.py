@@ -21,8 +21,15 @@ add in group-rank order.
   all-gather of the sequence and :meth:`leave`\\ s by a reduce-scatter.
   With ``"replicated"`` (or a sequence ``model`` does not divide) the
   stream is whole on every rank, and the pair is the identity and an
-  all-reduce.  Column blocks (``wq``, ``wk``, ``wv``, ``wi``, ``wg``) and
-  row blocks (``wo``) are the rules' ``model`` blocks (:meth:`block`).
+  all-reduce.  Column-parallel projections enter through
+  :meth:`enter_columns`, which keeps no gathered stream for the backward.
+  The stream's ends are Megatron's too: the vocabulary-parallel lookup is
+  reduce-scattered straight into this rank's block
+  (``models/layers.py::embed_lookup``), and the loss gathers the stream
+  once and returns each chunk's gradient to the blocks as soon as it
+  exists (:meth:`enter_chunks`).  Column blocks (``wq``, ``wk``, ``wv``,
+  ``wi``, ``wg``) and row blocks (``wo``) are the rules' ``model`` blocks
+  (:meth:`block`).
 * A leaf the rules replicate over ``model`` and a rank uses in part (a
   norm's scale on a sequence block, a bias's head block, the router) goes
   through :meth:`rep` / :meth:`tp_rep`, whose gradient is summed over
@@ -63,8 +70,8 @@ import torch.distributed as dist
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch import pytree
-from repro_torch.sharding.collectives import (all_gather, all_gather_rs, all_gather_rs_n,
-                                              all_gather_split, all_reduce_id, all_reduce_max,
+from repro_torch.sharding.collectives import (all_gather, all_gather_chunks, all_gather_rs,
+                                              all_gather_split, gather_columns, all_reduce_id, all_reduce_max,
                                               identity_ar, reduce_scatter_ag, shift, split_ag)
 
 __all__ = ["Split"]
@@ -80,7 +87,9 @@ class Split:
     """The split context of a step over ``rules``' mesh (see the module
     docstring).  ``tp`` is the ``model`` axis's size, ``rank`` this rank's
     place on it; ``sp`` whether the bound stream is sequence-sharded
-    (:meth:`at`), ``seq`` its whole length (None until bound)."""
+    (:meth:`at`), ``seq`` its whole length (None until bound); ``remat``
+    the rules' ``run.remat``, which the norms also follow
+    (``models/layers.py::norm_apply``)."""
 
     def __init__(self, rules):
         self.rules = rules
@@ -92,6 +101,7 @@ class Split:
         self.rank = dist.get_rank(self.model) if self.model is not None else 0
         self.seq: Optional[int] = None
         self.sp = False
+        self.remat = rules.run.remat
         self._specs = WeakIdKeyDictionary()
 
     # ---- binding -------------------------------------------------------------
@@ -173,18 +183,36 @@ class Split:
                                  f"tensor of {x.shape[d]}")
         return split_ag(x, self.model, dim=d)
 
-    def enter(self, x: torch.Tensor, n: int = 1):
+    def enter(self, x: torch.Tensor):
         """The stream into a tensor-parallel block, whole on every rank:
         the sequence all-gathered (SP), else ``x`` itself; the gradient,
-        each rank's part, summed (reduce-scattered, or all-reduced).  With
-        ``n``, a tuple of ``n`` copies for ``n`` projections, each
-        projection's gradient summed over ``model`` before the projections'
-        are added (the reference's order of the sums)."""
-        if n > 1:
-            return all_gather_rs_n(x, self.model, 1 if self.sp else None, n)
+        each rank's part, summed (reduce-scattered, or all-reduced)."""
         if self.sp:
             return all_gather_rs(x, self.model, dim=1)
         return identity_ar(x, self.model)
+
+    def enter_columns(self, x: torch.Tensor, ws):
+        """``x @ w`` for each of ``ws`` (this rank's column blocks, in the
+        stream's dtype) with the stream entered as :meth:`enter` enters it,
+        Megatron's sequence-parallel entry: the gathered stream is not kept
+        for the backward, which gathers it again for the weights'
+        gradients, and each projection's input gradient is summed over
+        ``model`` on its own before the projections' are added (the
+        reference's order of the sums; ``collectives.gather_columns``)."""
+        return gather_columns(x, self.model, 1 if self.sp else None, ws)
+
+    def enter_chunks(self, x: torch.Tensor, size: int):
+        """The stream whole on every rank as consecutive chunks of ``size``
+        positions (an iterator), for work that walks it a chunk at a time
+        (the loss):
+        under SP one all-gather of the sequence in the stream's dtype,
+        each chunk's gradient summed straight into the blocks that hold
+        its positions (``collectives.all_gather_chunks``); else
+        :meth:`enter`'s stream, sliced."""
+        if self.sp:
+            return all_gather_chunks(x, self.model, size)
+        x = self.enter(x)
+        return iter([x[:, i * size:(i + 1) * size] for i in range(x.shape[1] // size)])
 
     def leave(self, y: torch.Tensor) -> torch.Tensor:
         """A tensor-parallel block's partial output (each rank's term of

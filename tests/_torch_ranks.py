@@ -417,16 +417,19 @@ def ssd_whole_sequence(cfg, batch, seq):
             (b, 1, s, s, g), (b, 1, s, s, g, nh // g), (b, 1, s, g, nh // g)}
 
 
-def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
+def tp_cases(cases, inits, batches, whole, meter, flops, rs_data, pieces=()):
     """On a world of 4: each of ``cases`` (name -> (arch, cfg update, mesh
     shape, run fields)) one sharded step from ``inits[name]`` on
     ``batches[name]``; for the names in ``whole`` also the step without
     rules; ``meter`` (a name) again under a dispatch mode recording every
-    output's shape; ``flops`` (a name) its FLOPs and the whole step's;
-    ``reduce_scatter`` and ``ordered_allreduce`` of this rank's row of
-    ``rs_data`` over the world along dimensions 0 and 1."""
+    output's shape; ``flops`` (a name) its FLOPs and the whole step's; the
+    names in ``pieces`` again with ``collectives.PIECE_BYTES`` at 64 (every
+    piecewise gather, reduce-scatter, lookup and flash block one batch row
+    a piece); ``reduce_scatter`` and ``ordered_allreduce`` of this rank's
+    row of ``rs_data`` over the world along dimensions 0 and 1."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs.base import RunConfig
+    from repro_torch.sharding import collectives
     from repro_torch.sharding.collectives import reduce_scatter
     out = {}
     for name, (arch, upd, shape, rupd) in cases.items():
@@ -444,6 +447,12 @@ def tp_cases(cases, inits, batches, whole, meter, flops, rs_data):
             mode = _Shapes()
             _one_step(cfg, run, inits[name], batches[name], shape, mode)
             out[name]["shapes"] = sorted(set(mode.shapes))
+        if name in pieces:
+            keep, collectives.PIECE_BYTES = collectives.PIECE_BYTES, 64
+            try:
+                out[name]["pieces"] = _one_step(cfg, run, inits[name], batches[name], shape)[:2]
+            finally:
+                collectives.PIECE_BYTES = keep
         if name == flops:
             fc, fw = FlopCounterMode(display=False), FlopCounterMode(display=False)
             _one_step(cfg, run, inits[name], batches[name], shape, fc)

@@ -15,7 +15,10 @@ from the same subprocess and under 4 GiB a device; a dense train cell at
 one layer runs the split step, its per-device FLOPs within 25 % of the
 split's count from the shapes, as the first and as the last rank of a
 ``model`` group; and so does mamba2-1.3b's train cell at one layer, the
-SSD mixer on the rank's sequence block."""
+SSD mixer on the rank's sequence block; command-r-plus-104b's train cell at 2
+layers (``dryrun_cell(layers=2)``) holds at most 4 whole-sequence copies of
+the stream beyond its arguments and saved layer inputs (the split's ends
+and blocks cut); with ``parts`` a cell's peak is the sum of its parts."""
 import json
 import os
 import subprocess
@@ -231,3 +234,48 @@ def test_ssm_train_cell_at_one_layer_splits_the_flops():
         got = _run_cell(cfg, shape, run, rules, "cpu")
     want = _ssm_split_flops(cfg, shape, run, tp=16, dp=16)
     assert abs(got["flops"] - want) <= 0.25 * want, (got["flops"], want)
+
+
+# the depth-independent part of a train cell's peak, in copies of one data
+# rank's stream whole over the sequence in bf16 (B · S · D · 2 bytes): the
+# split holds one such tensor at a time (the lookup's partial sums, the
+# stream the loss gathers, or the output gradient a row-parallel block
+# gathers) beside a layer's recomputed working set or the loss's vocabulary
+# block, its gradient and one chunk's logits; command-r-plus-104b at 2
+# layers reads 3.2 copies (9.8 before the split's ends were cut)
+FIXED_COPIES = 4
+
+
+def test_tied_train_cell_holds_few_whole_sequence_copies():
+    """command-r-plus-104b (tied embeddings, the widest model) at its
+    published widths cut to 2 layers, train_4k as the dry run's rank of a
+    fake world of 256: the peak less the arguments and the layers' saved
+    inputs (a sequence block each under remat "full") is at most
+    FIXED_COPIES whole-sequence copies of the stream."""
+    from repro_torch.launch.dryrun import dryrun_cell
+    rec = dryrun_cell("command-r-plus-104b", "train_4k", extrapolate=False, verbose=False,
+                      device="cpu", layers=2)
+    assert rec["status"] == "ok" and rec["layers"] == 2, rec
+    cfg, shape = configs.get("command-r-plus-104b"), SHAPES["train_4k"]
+    whole = shape.global_batch // 16 * shape.seq_len * cfg.d_model * 2
+    mem = rec["memory"]
+    fixed = mem["peak_bytes"] - mem["argument_bytes"] - 2 * whole // 16
+    assert 0 < fixed <= FIXED_COPIES * whole, fixed / whole
+
+
+def test_peak_parts_sum_to_the_peak():
+    """``dryrun_cell(..., layers=1, parts=True)`` on qwen2-7b train_4k: the
+    bytes each part holds at the peak (the arguments under ``args``) add up
+    to the peak, the most live while any part ran is the peak, and the
+    parts name the port's functions."""
+    from repro_torch.launch.dryrun import dryrun_cell
+    rec = dryrun_cell("qwen2-7b", "train_4k", extrapolate=False, verbose=False, device="cpu",
+                      layers=1, parts=True)
+    assert rec["status"] == "ok" and rec["layers"] == 1, rec
+    mem = rec["memory"]
+    at_peak, reach = mem["parts"]["at_peak"], mem["parts"]["reach"]
+    assert sum(at_peak.values()) == mem["peak_bytes"]
+    assert at_peak["args"] == mem["argument_bytes"]
+    assert max(reach.values()) == mem["peak_bytes"]
+    assert all(k.startswith(("fwd ", "bwd ")) for k in reach), sorted(reach)[:5]
+    assert any("models/layers.py::" in k for k in at_peak), sorted(at_peak)

@@ -249,6 +249,48 @@ def test_chunked_cross_entropy_and_gradient_match_reference(softcap, transpose_w
     _close(gw, ww, rtol=1e-4)
 
 
+class _NormSplit:
+    """The two attributes of a split context ``norm_apply`` reads."""
+
+    def __init__(self, remat):
+        self.remat = remat
+
+    @staticmethod
+    def rep(t):
+        return t
+
+
+@pytest.mark.parametrize("kind", ["rms", "layernorm"])
+def test_split_norm_recomputes_only_under_a_remat_policy(kind):
+    """A norm on a split stream keeps its float32 temporaries for the
+    backward under remat "none", as the run asks, and only its input under
+    "full" and "dots" (recomputed in its own backward); the output and the
+    gradients are the same bits every way."""
+    rng = np.random.default_rng(0)
+    x0 = torch.tensor(rng.standard_normal((2, 8, 16)), dtype=torch.bfloat16)
+    p0 = {"scale": torch.tensor(1 + 0.1 * rng.standard_normal(16), dtype=torch.float32),
+          "bias": torch.tensor(0.1 * rng.standard_normal(16), dtype=torch.float32)}
+    if kind == "rms":
+        p0.pop("bias")
+    got = {}
+    for remat in ("none", "full", "dots"):
+        x = x0.clone().requires_grad_()
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel() * t.element_size()) or t, lambda t: t):
+            y = L.norm_apply(p, x, "layernorm" if kind == "layernorm" else "rms",
+                             constrain=_NormSplit(remat))
+        y.float().square().sum().backward()
+        got[remat] = (sum(saved), y.detach(), x.grad, *(p[k].grad for k in sorted(p)))
+    f32_copy = x0.numel() * 4
+    assert got["none"][0] >= f32_copy, got["none"][0]
+    for remat in ("full", "dots"):
+        assert got[remat][0] < f32_copy, (remat, got[remat][0])
+        for a, b in zip(got[remat][1:], got["none"][1:]):
+            assert torch.equal(a, b), remat
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_layer_loop_remat_gives_the_same_loss_and_gradient(remat):
     """``remat`` changes what is kept for the backward pass, not the

@@ -34,7 +34,11 @@ layer's prefill makes a tensor over the whole sequence.  The cases:
 * ``zamba2`` with the flag off and on at (2, 2);
 * ``whisper`` at (2, 2) with 63 encoder frames, a cross cache ``model``
   does not divide (kept whole on every rank) beside a self-attention cache
-  it does.
+  it does;
+* ``vlm``: reduced phi-3-vision at (1, 4), the prompt's first 8 positions
+  its image embeddings (``default_rng(0)``), across the blocks of ranks 0
+  and 1; ``tied``: reduced command-r-plus at (2, 2), one embedding leaf
+  for the lookup and the transposed logits.
 """
 import os
 import tempfile
@@ -61,6 +65,8 @@ CASES = {
     "zamba2": ("zamba2-2.7b", {}, (2, 2), {}),
     "zamba2_heads": ("zamba2-2.7b", {}, (2, 2), dict(ssm_head_shard=True)),
     "whisper": ("whisper-medium", dict(encoder_seq=63), (2, 2), {}),
+    "vlm": ("phi-3-vision-4.2b", {}, (1, 4), {}),
+    "tied": ("command-r-plus-104b", {}, (2, 2), {}),
 }
 SSM = ("mamba2", "mamba2_heads", "zamba2", "zamba2_heads")
 BATCH, PROMPT, WINDOW, STEPS = 4, 16, 32, 3
@@ -158,6 +164,9 @@ def _inputs():
         if cfg.family == "encdec":
             out[f"{name}/batch/frame_embeds"] = rng.standard_normal(
                 (BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            out[f"{name}/batch/image_embeds"] = rng.standard_normal(
+                (BATCH, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
     return out
 
 

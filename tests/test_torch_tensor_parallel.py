@@ -26,7 +26,19 @@ the loss and the gradient norm within 1e-5.  The cases:
   the same at (data 1, model 4); ``mamba2_heads``, mamba2 at (2, 2) under
   ``ssm_head_shard``: the SSD mixer split by heads over ``model``.  With
   the flag off no operation of a Mamba2 layer's forward (the remat's
-  recompute included) makes a tensor over the whole sequence.
+  recompute included) makes a tensor over the whole sequence;
+* (g) ``vlm``: reduced phi-3-vision at (data 1, model 4), its 8 image
+  embeddings (``default_rng(0)``, in both packages' batches) over the
+  first 8 of 16 positions, which cross the sequence blocks of ``model``
+  ranks 0 and 1; ``tied``: reduced command-r-plus at (2, 2), whose one
+  embedding leaf serves the vocabulary-parallel lookup and the transposed
+  loss, its gradient the sum of both uses; both again with every
+  piecewise gather, reduce-scatter, lookup and flash block one batch row a
+  piece (``collectives.PIECE_BYTES`` at 64), bit for bit the step that
+  takes each whole;
+* (h) ``softcap``: the dense model at (data 2, model 2) with
+  ``logit_softcap`` 1.0 (a cap the reduced model's logits reach): the
+  vocabulary-parallel loss through the cap's ``tanh`` and its gradient.
 
 Then, against the one-process step of the port (no reference run):
 ``replicated``, the dense model at (data 2, model 2) with
@@ -72,12 +84,18 @@ REFERENCE = {
     "mamba2": ("mamba2-1.3b", {}, (2, 2), dict(remat="full")),
     "mamba2_m4": ("mamba2-1.3b", {}, (1, 4), dict(remat="full")),
     "mamba2_heads": ("mamba2-1.3b", {}, (2, 2), dict(remat="full", ssm_head_shard=True)),
+    "vlm": ("phi-3-vision-4.2b", {}, (1, 4), {}),
+    "tied": ("command-r-plus-104b", {}, (2, 2), {}),
+    "softcap": ("qwen2-7b", dict(logit_softcap=1.0), (2, 2), {}),
 }
 PORT_ONLY = {
     "replicated": ("qwen2-7b", dict(DENSE, d_ff=128), (2, 2),
                    dict(activation_sharding="replicated")),
     "meter": ("qwen2-7b", {}, (2, 2), dict(remat="full")),
 }
+# the cases run again with every piecewise collective, lookup and flash
+# block one batch row a piece
+PIECES = ("tied", "vlm")
 TOL = 1e-5
 # the moments of a gradient that is zero in exact arithmetic (m = 0.1·g,
 # g rounding noise of some 1e-11 here)
@@ -106,6 +124,9 @@ for name, (arch, upd, shape, rupd) in CASES.items():
     if cfg.family == "encdec":
         batch["frame_embeds"] = np.random.default_rng(0).standard_normal(
             (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = np.random.default_rng(0).standard_normal(
+            (4, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
     fn, _ = T.shard_train_step(T.make_train_step(cfg, run, rules, None, total_steps=10),
                                mesh, rules, state, batch)
     with mesh:
@@ -137,6 +158,9 @@ def _batch(cfg):
     if cfg.family == "encdec":
         b["frame_embeds"] = np.random.default_rng(0).standard_normal(
             (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        b["image_embeds"] = np.random.default_rng(0).standard_normal(
+            (4, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
     return b
 
 
@@ -165,7 +189,7 @@ def runs():
             inits[name] = get_model(cfg).init(torch.Generator().manual_seed(0), cfg, 16)
     port = run_local(_torch_ranks.tp_cases, cases, inits, batches,
                      ("replicated", "meter", "seqsplit"), "meter", "seqsplit", RS_DATA,
-                     world_size=4)
+                     PIECES, world_size=4)
     return {"ref": ref, "port": port, "inits": inits, "cases": cases}
 
 
@@ -197,6 +221,21 @@ def test_each_rank_block_equals_the_reference_shard(runs, name):
             _close(block, want, TOL, (name, rank, path))
         _close(r["metrics"]["loss"], ref[f"{name}/loss"], TOL, "loss")
         _close(r["metrics"]["grad_norm"], ref[f"{name}/grad_norm"], TOL, "grad_norm")
+
+
+@pytest.mark.parametrize("name", PIECES)
+def test_pieces_give_the_same_bits(runs, name):
+    """A step whose gathers, reduce-scatters, vocabulary lookup and flash
+    blocks go a batch row at a time equals, bit for bit, the step that
+    takes each whole (the pieces' bound only limits what a rank holds)."""
+    for out in runs["port"]:
+        r = out[name]
+        blocks, metrics = r["pieces"]
+        assert set(blocks) == set(r["blocks"])
+        for path, block in blocks.items():
+            assert torch.equal(block, r["blocks"][path]), (name, path)
+        for k, v in metrics.items():
+            assert torch.equal(v, r["metrics"][k]), (name, k)
 
 
 def _slice(full, placements, coords, mesh):
