@@ -420,6 +420,7 @@ result where there is no CUDA device or no checkout around the script.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -3045,29 +3046,63 @@ REFERENCE_HISTOGRAM_LABELS = {"cache.trace_seconds": {"cache"},
                               "serving.batch_size": set(), "serving.queue_wait": set(),
                               "serving.request_seconds": set(),
                               "serving.device_seconds": {"rung"}}
+# the port's own: the sub-spans inside its entry points (no tags), and the
+# CUDA kernels' launches, labelled by kernel, tile, matrices or tiles and,
+# for a panel, its width
+PORT_SPANS = {"factorize.prepare", "factorize.sweep", "factorize.corner", "factorize.logdet",
+              "solve.prepare", "solve.forward", "solve.corner", "solve.backward",
+              "solve.refine", "solve.assemble", "selinv.prepare", "selinv.seed",
+              "selinv.sweep", "selinv.diagonal", "serving.assemble"}
+PORT_LAUNCH_LABELS = ({"kernel", "t", "n"}, {"kernel", "t", "n", "k"})
+
+
+def _label_keys(key):
+    name, _, labels = key.partition("{")
+    return name, {kv.split("=")[0] for kv in labels.rstrip("}").split(",") if kv}
 
 
 def telemetry_record(snap, what):
     """A snapshot's spans as ``(name, parent name)`` pairs with their tags,
     its counters and histogram counts, after checking every name, tag and
-    label against the reference's; returns the record."""
-    names = {s["id"]: s["name"] for s in snap["spans"]}
+    label against the reference's; the port's own sub-spans (each span's
+    parent its nearest ancestor that is not one) and launch counts are
+    checked for their names and labels and kept apart, under
+    ``port_spans`` and ``launches``.  Returns the record."""
+    by_id = {s["id"]: s for s in snap["spans"]}
+
+    def parent(s):
+        p = by_id.get(s["parent"])
+        while p is not None and p["name"] in PORT_SPANS:
+            p = by_id.get(p["parent"])
+        return None if p is None else p["name"]
+
     for s in snap["spans"]:
-        if set(s["tags"]) not in [set(x) for x in REFERENCE_SPAN_TAGS.get(s["name"], ())]:
+        allowed = [set()] if s["name"] in PORT_SPANS else [
+            set(x) for x in REFERENCE_SPAN_TAGS.get(s["name"], ())]
+        if set(s["tags"]) not in allowed:
             raise AssertionError(f"telemetry, {what}: span {s['name']} with tags "
-                                 f"{sorted(s['tags'])} is not one the reference emits")
-    for kind, allowed in (("counters", REFERENCE_COUNTER_LABELS),
-                          ("histograms", REFERENCE_HISTOGRAM_LABELS)):
-        for key in snap[kind]:
-            name, _, labels = key.partition("{")
-            keys = {kv.split("=")[0] for kv in labels.rstrip("}").split(",") if kv}
-            if name not in allowed or keys != allowed[name]:
+                                 f"{sorted(s['tags'])} is not one the reference or the port "
+                                 "emits")
+    launches = {k: v for k, v in snap["counters"].items() if k.startswith("kernel.launches{")}
+    for key in launches:
+        if _label_keys(key)[1] not in PORT_LAUNCH_LABELS:
+            raise AssertionError(f"telemetry, {what}: counter {key} has other labels than "
+                                 f"{PORT_LAUNCH_LABELS}")
+    counters = {k: v for k, v in snap["counters"].items() if k not in launches}
+    for kind, allowed, keys in (("counters", REFERENCE_COUNTER_LABELS, counters),
+                                ("histograms", REFERENCE_HISTOGRAM_LABELS, snap["histograms"])):
+        for key in keys:
+            name, labels = _label_keys(key)
+            if name not in allowed or labels != allowed[name]:
                 raise AssertionError(f"telemetry, {what}: {kind[:-1]} {key} is not one the "
                                      "reference emits")
-    return dict(spans=sorted(([s["name"], names.get(s["parent"]),
+    return dict(spans=sorted(([s["name"], parent(s),
                                {k: str(v) for k, v in sorted(s["tags"].items())}]
-                              for s in snap["spans"]), key=str),
-                counters=snap["counters"],
+                              for s in snap["spans"] if s["name"] not in PORT_SPANS), key=str),
+                port_spans=sorted(([s["name"], by_id[s["parent"]]["name"] if s["parent"] in by_id
+                                    else None] for s in snap["spans"]
+                                   if s["name"] in PORT_SPANS), key=str),
+                counters=counters, launches=launches,
                 histograms={k: h["count"] for k, h in snap["histograms"].items()})
 
 
@@ -3605,7 +3640,7 @@ def check_serving_telemetry(snap, history, n):
     got_h = {k: v for k, v in r["histograms"].items() if k.startswith("serving.")}
     gauges = sorted(k for k in snap["gauges"] if k.startswith("serving."))
     names = {s["id"]: s["name"] for s in snap["spans"]}
-    serving = [s for s in snap["spans"] if s["name"].startswith("serving.")]
+    serving = [s for s in snap["spans"] if s["name"] in ("serving.dispatch", "serving.finalize")]
     core_parents = {names.get(s["parent"]) for s in snap["spans"]
                     if s["name"] in ("factorize.window_batched", "solve.solve_many_batched")}
     if not (got_c == want_c and got_h == want_h
@@ -6906,7 +6941,8 @@ def main() -> int:
     while chain_want.shape[0] > 1:
         chain_want = ref.geadd_ref(chain_want[0::2], chain_want[1::2])
     chain_want = chain_want[0]
-    entry["pdl"] = dict(cuda_runtime=runtime, cuda_driver=driver, default=geadd_cuda.__kwdefaults__["pdl"])
+    entry["pdl"] = dict(cuda_runtime=runtime, cuda_driver=driver,
+                        default=inspect.signature(geadd_cuda).parameters["pdl"].default)
     for pdl in (False, True):
         if not torch.equal(geadd_chain(pdl), chain_want):
             raise AssertionError(f"the geadd chain, pdl={pdl}: not bit-identical to the plain "
@@ -7391,7 +7427,8 @@ def partitioned_call(src: Path, rounds: int = 9) -> int:
     m, plan, _ = partitioned_matrix(torch, mid)
     opts = SolverOptions(partition_plan=plan)
     fn = lambda: logdet(factorize_window(m, options=opts))
-    defaults = geadd_cuda.__kwdefaults__ or {}
+    # the defaults of the function a counted wrapper calls, set per mode
+    defaults = getattr(geadd_cuda, "__wrapped__", geadd_cuda).__kwdefaults__ or {}
     modes = ("pdl_on", "pdl_off", "torch_add") if "pdl" in defaults else ("default",
                                                                            "torch_add")
     leaves = torch.randn((2 * 3, 4, 4, 64, 64), generator=torch.Generator(

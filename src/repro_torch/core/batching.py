@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.runtime import telemetry
 
-__all__ = ["LRUCache", "RungQueue", "RungQueueFull", "bucketed_batched_call",
-           "next_pow2"]
+__all__ = ["LRUCache", "RungQueue", "RungQueueFull", "bucketed_batched_call", "pad_batch",
+           "cut_batch", "next_pow2"]
 
 
 class RungQueueFull(RuntimeError):
@@ -227,19 +227,34 @@ def next_pow2(b: int) -> int:
     return 1 << max(b - 1, 0).bit_length()
 
 
+def pad_batch(arrays: Tuple[torch.Tensor, ...], bucket: bool):
+    """``(padded, b)``: ``arrays`` with their leading batch axis of ``b``
+    padded to a power of two by repeating the last element (as they are
+    with ``bucket=False`` or a batch already a power of two), and the batch
+    size :func:`cut_batch` cuts results back to."""
+    b = arrays[0].shape[0]
+    nb = next_pow2(b) if bucket else b
+    if nb == b:
+        return tuple(arrays), b
+    pad = nb - b
+    return tuple(torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))])
+                 for a in arrays), b
+
+
+def cut_batch(outs, b: int):
+    """Outputs of a padded batch (a tensor or a tuple of them, each with
+    the batch axis leading) cut back to its first ``b`` elements; an
+    output of ``b`` elements is returned as it is."""
+    if torch.is_tensor(outs):
+        return outs if outs.shape[0] == b else outs[:b]
+    return tuple(o if o.shape[0] == b else o[:b] for o in outs)
+
+
 def bucketed_batched_call(fn: Callable, arrays: Tuple[torch.Tensor, ...], bucket: bool):
     """Call ``fn(*arrays)`` on a batch padded to a power of two: the leading
     batch axis of every array is padded by repeating its last element, and
     every output (a tensor or a tuple of them, each with the batch axis
     leading) is cut back to the batch.  ``bucket=False`` calls ``fn`` as
     it is."""
-    b = arrays[0].shape[0]
-    nb = next_pow2(b) if bucket else b
-    if nb == b:
-        return fn(*arrays)
-    pad = nb - b
-    arrays = tuple(torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]) for a in arrays)
-    outs = fn(*arrays)
-    if torch.is_tensor(outs):
-        return outs[:b]
-    return tuple(o[:b] for o in outs)
+    padded, b = pad_batch(arrays, bucket)
+    return cut_batch(fn(*padded), b)

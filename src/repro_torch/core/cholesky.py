@@ -48,14 +48,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.band_cholesky import MAX_PLAN_TILES, sweep_plan
-from repro_torch.kernels.gemm import geadd_cuda, gemm_cuda, syrk_cuda
-from repro_torch.kernels.potrf import TILE_SIZES, potrf_cuda
-from repro_torch.kernels.trsm import trsm_cuda
+from repro_torch.kernels.potrf import TILE_SIZES
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from repro_torch.runtime import telemetry
-from .batching import LRUCache, bucketed_batched_call
+from .batching import LRUCache, cut_batch, pad_batch
 from .ctsf import BandedCTSF, TileMatrix
 from .options import SolverOptions
 from .robustness import FactorInfo, RegularizePolicy, fold_corner_status, run_ladder
@@ -155,8 +153,6 @@ def _run_tasklist(tiles: torch.Tensor, steps, workers: int, impl) -> torch.Tenso
     return tiles
 
 
-# the kernels a factorization on the card launches
-_TASKLIST_KERNELS = (potrf_cuda, trsm_cuda, syrk_cuda, gemm_cuda, geadd_cuda)
 # captured factorizations kept at once; each holds its own input and output
 # tile buffers (23 MB each on Table II matrix 5) and its memory pool
 TASKLIST_GRAPH_CACHE = 4
@@ -185,18 +181,23 @@ class _TasklistGraph:
     tiles_out: torch.Tensor         # the factor, written by a replay
     steps: list                     # the schedule whose index tensors the graph reads
     launches: Counter               # the graph's launches by kernel wrapper name
+    labelled: Counter = dataclasses.field(default_factory=Counter)  # _build.recording's
 
 
 class GraphCache(LRUCache):
     """Captured CUDA graphs by key: an :class:`~repro_torch.core.batching.
     LRUCache` of at most ``max_entries``, least recently used first out,
     whose ``stats()`` count hits, misses and evictions; an entry has the
-    ``graph`` and the ``launches`` its capture recorded, by kernel wrapper
-    name.  ``captures`` counts the captures made; ``recorded`` counts the
-    launches the captures recorded into their graphs (the wrappers count
-    these calls as their own), and ``replayed`` those that the replays made
-    on the card.  The graph caches are the port's own (the reference's
-    ``jax.jit`` caches report nothing), so they report to no telemetry."""
+    ``graph``, the ``launches`` its capture recorded, by kernel wrapper
+    name, and the same launches ``labelled`` as ``kernels/_build.py::
+    recording`` keeps them.  ``captures`` counts the captures made;
+    ``recorded`` counts the launches the captures recorded into their graphs
+    (the wrappers count these calls as their own), and ``replayed`` those
+    that the replays made on the card.  The graph caches are the port's own
+    (the reference's ``jax.jit`` caches report nothing): their lookups
+    report to no telemetry, and a replay counts its launches in
+    ``kernel.launches`` while telemetry is on, as the wrappers count the
+    launches they make."""
 
     def __init__(self, max_entries: int, name: Optional[str] = None):
         super().__init__(max_entries, name)
@@ -226,6 +227,9 @@ class GraphCache(LRUCache):
     def replay(self, entry) -> None:
         entry.graph.replay()
         self.replayed.update(entry.launches)
+        if telemetry.enabled():
+            for (_, labels), n in entry.labelled.items():
+                telemetry.inc("kernel.launches", n, **dict(labels))
 
 
 class TasklistGraphs(GraphCache):
@@ -285,11 +289,9 @@ def _capture_tasklist(tm: TileMatrix, workers: int) -> _TasklistGraph:
         _warm_up(tiles_in, steps, workers)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS})
-    with capture(graph):
+    with capture(graph), _build.recording() as log:
         tiles_out = _run_tasklist(tiles_in.clone(), steps, workers, "cuda")
-    launches = Counter({k.__name__: k.launches for k in _TASKLIST_KERNELS}) - before
-    return _TasklistGraph(graph, tiles_in, tiles_out, steps, launches)
+    return _TasklistGraph(graph, tiles_in, tiles_out, steps, _build.by_wrapper(log), log)
 
 
 def factorize_tasklist(tm: TileMatrix, *, tree_reduction: bool = False, tree_workers: int = 8,
@@ -399,15 +401,16 @@ class CholeskyFactor:
         the identity prefix of a canonical-grid embedding too, so an
         embedded factor gives its source problem's.  A batched factor gives
         one value per element."""
-        g = self.ctsf.grid
-        db = torch.diagonal(self.ctsf.Dr[..., 0, :, :], dim1=-2, dim2=-1)
-        total = torch.log(torch.abs(db)).sum(dim=(-2, -1))
-        nat = g.n_arrow_tiles
-        if nat > 0:
-            ar = torch.arange(nat, device=self.ctsf.C.device)
-            dc = torch.diagonal(self.ctsf.C[..., ar, ar, :, :], dim1=-2, dim2=-1)
-            total = total + torch.log(torch.abs(dc)).sum(dim=(-2, -1))
-        return 2.0 * total
+        with telemetry.span("factorize.logdet", device=True):
+            g = self.ctsf.grid
+            db = torch.diagonal(self.ctsf.Dr[..., 0, :, :], dim1=-2, dim2=-1)
+            total = torch.log(torch.abs(db)).sum(dim=(-2, -1))
+            nat = g.n_arrow_tiles
+            if nat > 0:
+                ar = torch.arange(nat, device=self.ctsf.C.device)
+                dc = torch.diagonal(self.ctsf.C[..., ar, ar, :, :], dim1=-2, dim2=-1)
+                total = total + torch.log(torch.abs(dc)).sum(dim=(-2, -1))
+            return 2.0 * total
 
 
 def _corner_dense_cholesky(c: torch.Tensor, impl: Optional[str]) -> torch.Tensor:
@@ -506,47 +509,52 @@ def _factorize_window_impl(Dr, R, C, grid: TileGrid, impl: Optional[str],
 
     Returns ``(Dr_L, R_L, C_L, status)``, ``status`` the (..., 3) float32
     word ``[min_pivot, nonfinite, first_bad]`` over band and corner (a
-    corner breakdown reports ``first_bad = ndt``)."""
+    corner breakdown reports ``first_bad = ndt``).  The device spans
+    ``factorize.sweep`` (the layout conversions and the sweep) and
+    ``factorize.corner`` (the Schur sum, the corner's Cholesky and the
+    status fold) split the time."""
     nat = grid.n_arrow_tiles
     start_tile = int(start_tile)
-    if plan is not None and plan.n_tiles != grid.n_diag_tiles:
-        raise ValueError(
-            f"partition plan covers {plan.n_tiles} diagonal tiles but the grid has "
-            f"{grid.n_diag_tiles}; rebuild the plan for this grid (PartitionPlan.shifted "
-            "embeds a plan into a canonical grid)")
-    mode = sweep
-    if mode == "auto":
-        if plan is not None and plan.n_partitions > 1:
-            mode = "partitioned"
+    with telemetry.span("factorize.sweep", device=True):
+        if plan is not None and plan.n_tiles != grid.n_diag_tiles:
+            raise ValueError(
+                f"partition plan covers {plan.n_tiles} diagonal tiles but the grid has "
+                f"{grid.n_diag_tiles}; rebuild the plan for this grid (PartitionPlan.shifted "
+                "embeds a plan into a canonical grid)")
+        mode = sweep
+        if mode == "auto":
+            if plan is not None and plan.n_partitions > 1:
+                mode = "partitioned"
+            else:
+                mode = "fused" if ops.resolve_impl(impl, Dr) == "cuda" else "ring"
+        if mode == "window":
+            Dr_out, R_out = _band_arrow_sweep(Dr, R, grid, impl, start_tile)
+            # the window sweep carries no status: fold the same word from the
+            # emitted factor (the row layout keeps the diagonal at [:, 0], all
+            # that sweep_status reads of it besides finiteness), as the
+            # reference does
+            status = ref.sweep_status(Dr_out, R_out)
+            schur = lambda: _corner_schur(R_out, tree_chunks, impl)
+        elif mode == "partitioned":
+            panels, R_out, leaves, status = ops.band_cholesky_partitioned_sweep(
+                band_row_to_col(Dr), R, plan.boundaries, start_tile=start_tile, impl=impl)
+            Dr_out = band_col_to_row(panels)
+            # one Schur leaf per partition: the Alg. 3 binary tree combines
+            # them before the shared corner
+            schur = lambda: tree_combine(leaves.movedim(-5, 0).contiguous(), impl=impl)
         else:
-            mode = "fused" if ops.resolve_impl(impl, Dr) == "cuda" else "ring"
-    if mode == "window":
-        Dr_out, R_out = _band_arrow_sweep(Dr, R, grid, impl, start_tile)
-        # the window sweep carries no status: fold the same word from the
-        # emitted factor (the row layout keeps the diagonal at [:, 0], all
-        # that sweep_status reads of it besides finiteness), as the
-        # reference does
-        status = ref.sweep_status(Dr_out, R_out)
-        schur = lambda: _corner_schur(R_out, tree_chunks, impl)
-    elif mode == "partitioned":
-        panels, R_out, leaves, status = ops.band_cholesky_partitioned_sweep(
-            band_row_to_col(Dr), R, plan.boundaries, start_tile=start_tile, impl=impl)
-        Dr_out = band_col_to_row(panels)
-        # one Schur leaf per partition: the Alg. 3 binary tree combines them
-        # before the shared corner
-        schur = lambda: tree_combine(leaves.movedim(-5, 0).contiguous(), impl=impl)
-    else:
-        nchunks = max(1, min(tree_chunks or 1, grid.n_diag_tiles or 1))
-        panels, R_out, leaves, status = ops.band_cholesky_sweep(
-            band_row_to_col(Dr), R, nchunks=nchunks, start_tile=start_tile,
-            impl="cuda" if mode == "fused" else "ref")
-        Dr_out = band_col_to_row(panels)
-        # the chunks are the tree-reduction leaves; summing them is the
-        # root combine of the paper's Alg. 3 chain
-        schur = lambda: leaves.sum(dim=-5)
-    C_out = _corner_dense_cholesky(C - schur(), impl) if nat else C
-    return Dr_out, R_out, C_out, fold_corner_status(
-        status, C_out, grid.n_diag_tiles, nat)
+            nchunks = max(1, min(tree_chunks or 1, grid.n_diag_tiles or 1))
+            panels, R_out, leaves, status = ops.band_cholesky_sweep(
+                band_row_to_col(Dr), R, nchunks=nchunks, start_tile=start_tile,
+                impl="cuda" if mode == "fused" else "ref")
+            Dr_out = band_col_to_row(panels)
+            # the chunks are the tree-reduction leaves; summing them is the
+            # root combine of the paper's Alg. 3 chain
+            schur = lambda: leaves.sum(dim=-5)
+    with telemetry.span("factorize.corner", device=True):
+        C_out = _corner_dense_cholesky(C - schur(), impl) if nat else C
+        return Dr_out, R_out, C_out, fold_corner_status(
+            status, C_out, grid.n_diag_tiles, nat)
 
 
 def _embed_matrix(m: BandedCTSF, policy):
@@ -740,46 +748,43 @@ def factorize_window_batched(batch, *, tree_chunks: int = 8, bucket: bool = True
     ``factor.info`` carries ``(B,)`` status, attempts and tau, so one
     poisoned θ-candidate is a flagged element, not a failed sweep."""
     opts = options if options is not None else SolverOptions()
-    if start_tile is not None and opts.policy is not None:
-        raise ValueError("start_tile= is for pre-embedded batches and the bucketing policy "
-                         "embeds itself; pass one or the other")
-    if isinstance(batch, (list, tuple)):
-        if not batch:
-            raise ValueError("batched factorization needs at least one matrix")
-        grid = batch[0].grid
-        if any(m.grid != grid for m in batch):
-            raise ValueError("batched factorization needs equal structure: every matrix "
-                             "of the batch on one grid; use concurrent.stack_ctsf(policy=...) "
-                             "to embed mixed grids onto a shared canonical rung first")
-        Dr, R, C = (torch.stack(x) for x in zip(*(m.arrays() for m in batch)))
-    else:
-        grid = batch.grid
-        Dr, R, C = batch.arrays()
-        if Dr.dim() != 5:
-            raise ValueError(f"batched CTSF needs a leading batch axis, got Dr.dim()="
-                             f"{Dr.dim()}")
-    with telemetry.span("factorize.window_batched", b=Dr.shape[0],
-                        grid=telemetry.rung_tag(grid)) as sp:
-        source, start = None, int(start_tile or 0)
-        if opts.policy is not None:
-            emb, source, start = _embed_matrix(BandedCTSF(grid, Dr, R, C), opts.policy)
-            Dr, R, C, grid = emb.Dr, emb.R, emb.C, emb.grid
-            sp.tag(rung=telemetry.rung_tag(grid))
-            opts = _shift_plan(opts, start)
-        entry = _batched_window_fn(grid, opts, tree_chunks,
-                                   use_start=source is not None or start_tile is not None)
-        call = lambda dr, r, c: entry.call(dr, r, c, start)
-        infos = []
-
-        def run(dr, r, c):
-            f = _factorize(dr, r, c, grid, call, opts.regularize)
-            infos.append(f.info)
-            return f.ctsf.arrays() + (f.status,) + _info_arrays(f.info)
-
-        out = bucketed_batched_call(run, (Dr, R, C), bucket)
+    with telemetry.span("factorize.window_batched") as sp:
+        with telemetry.span("factorize.prepare"):
+            if start_tile is not None and opts.policy is not None:
+                raise ValueError("start_tile= is for pre-embedded batches and the bucketing "
+                                 "policy embeds itself; pass one or the other")
+            if isinstance(batch, (list, tuple)):
+                if not batch:
+                    raise ValueError("batched factorization needs at least one matrix")
+                grid = batch[0].grid
+                if any(m.grid != grid for m in batch):
+                    raise ValueError("batched factorization needs equal structure: every "
+                                     "matrix of the batch on one grid; use concurrent."
+                                     "stack_ctsf(policy=...) to embed mixed grids onto a "
+                                     "shared canonical rung first")
+                Dr, R, C = (torch.stack(x) for x in zip(*(m.arrays() for m in batch)))
+            else:
+                grid = batch.grid
+                Dr, R, C = batch.arrays()
+                if Dr.dim() != 5:
+                    raise ValueError(f"batched CTSF needs a leading batch axis, got "
+                                     f"Dr.dim()={Dr.dim()}")
+            sp.tag(b=Dr.shape[0], grid=telemetry.rung_tag(grid))
+            source, start = None, int(start_tile or 0)
+            if opts.policy is not None:
+                emb, source, start = _embed_matrix(BandedCTSF(grid, Dr, R, C), opts.policy)
+                Dr, R, C, grid = emb.Dr, emb.R, emb.C, emb.grid
+                sp.tag(rung=telemetry.rung_tag(grid))
+                opts = _shift_plan(opts, start)
+            entry = _batched_window_fn(grid, opts, tree_chunks,
+                                       use_start=source is not None or start_tile is not None)
+            padded, nb = pad_batch((Dr, R, C), bucket)
+        f = _factorize(*padded, grid, lambda dr, r, c: entry.call(dr, r, c, start),
+                       opts.regularize)
+        out = cut_batch(f.ctsf.arrays() + (f.status,) + _info_arrays(f.info), nb)
     info = None
-    if infos[-1] is not None:
+    if f.info is not None:
         # the unpadded batch is the original kept for the refinement
-        info = FactorInfo(*out[4:], matrix=None if infos[-1].matrix is None
+        info = FactorInfo(*out[4:], matrix=None if f.info.matrix is None
                           else BandedCTSF(grid, Dr, R, C))
     return CholeskyFactor(BandedCTSF(grid, *out[:3]), out[3], info, source_grid=source)

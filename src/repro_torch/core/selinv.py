@@ -36,7 +36,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ring import band_col_to_row, band_row_to_col
 from repro_torch.kernels.selinv import selinv_plan
 from repro_torch.runtime import telemetry
-from .batching import LRUCache, bucketed_batched_call
+from .batching import LRUCache, cut_batch, pad_batch
 from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, _plannable
 from .ctsf import BandedCTSF
 from .options import SolverOptions
@@ -73,18 +73,19 @@ class SelectedInverse:
     def diagonal(self, padded: bool = False) -> torch.Tensor:
         """diag(Σ), INLA's posterior marginal variances of every latent at
         once: the unpadded (..., n) diagonal unless ``padded``, one row a
-        batch element."""
-        g = self.grid
-        db = torch.diagonal(self.Dr[..., 0, :, :], dim1=-2, dim2=-1)   # (..., ndt, t)
-        full = db.reshape(db.shape[:-2] + (-1,))
-        if g.n_arrow_tiles:
-            ar = torch.arange(g.n_arrow_tiles, device=self.C.device)
-            dc = torch.diagonal(self.C[..., ar, ar, :, :], dim1=-2, dim2=-1)
-            full = torch.cat([full, dc.reshape(dc.shape[:-2] + (-1,))], dim=-1)
-        if padded:
-            return full
-        idx = g.padded_indices(np.arange(g.structure.n))
-        return full[..., torch.as_tensor(idx, device=full.device)]
+        batch element.  Host span ``selinv.diagonal``."""
+        with telemetry.span("selinv.diagonal"):
+            g = self.grid
+            db = torch.diagonal(self.Dr[..., 0, :, :], dim1=-2, dim2=-1)   # (..., ndt, t)
+            full = db.reshape(db.shape[:-2] + (-1,))
+            if g.n_arrow_tiles:
+                ar = torch.arange(g.n_arrow_tiles, device=self.C.device)
+                dc = torch.diagonal(self.C[..., ar, ar, :, :], dim1=-2, dim2=-1)
+                full = torch.cat([full, dc.reshape(dc.shape[:-2] + (-1,))], dim=-1)
+            if padded:
+                return full
+            idx = g.padded_indices(np.arange(g.structure.n))
+            return full[..., torch.as_tensor(idx, device=full.device)]
 
     def covariance(self, i: int, j: int) -> torch.Tensor:
         """Σ_ij for element indices of the original matrix, wherever the
@@ -152,16 +153,21 @@ def _selinv_impl(Dr, R, C, grid: TileGrid, impl=None, start_tile: int = 0):
     """Blocked Takahashi sweep over one factor, or a batch of them (a
     leading axis on every array): ``(Sd, Sr, Sc)`` in the row-band /
     arrow-row / lower-corner layout of :class:`SelectedInverse`.
-    ``start_tile`` declares the first columns an identity-embedding prefix."""
+    ``start_tile`` declares the first columns an identity-embedding prefix.
+    The device spans ``selinv.seed`` (the corner's Σ) and ``selinv.sweep``
+    (the layout conversions, the pre-pass and the recurrence) split the
+    time."""
     t, ndt, nat, bt = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles, grid.band_tiles
     lead = tuple(Dr.shape[:-4])
-    sc_full = corner_sigma(C)
-    if ndt == 0:
-        return (Dr.new_zeros(lead + (0, bt + 1, t, t)), R.new_zeros(lead + (0, nat, t, t)),
-                _tril_tiles(sc_full))
-    panels, sr = ops.selinv_sweep(band_row_to_col(Dr), R, sc_full, start_tile, impl=impl)
-    # panels[j, e] = Σ_{j+e, j} -> Sd[m, d] = Σ_{m, m-d}
-    return band_col_to_row(panels), sr, _tril_tiles(sc_full)
+    with telemetry.span("selinv.seed", device=True):
+        sc_full = corner_sigma(C)
+        sc = _tril_tiles(sc_full)
+    with telemetry.span("selinv.sweep", device=True):
+        if ndt == 0:
+            return Dr.new_zeros(lead + (0, bt + 1, t, t)), R.new_zeros(lead + (0, nat, t, t)), sc
+        panels, sr = ops.selinv_sweep(band_row_to_col(Dr), R, sc_full, start_tile, impl=impl)
+        # panels[j, e] = Σ_{j+e, j} -> Sd[m, d] = Σ_{m, m-d}
+        return band_col_to_row(panels), sr, sc
 
 
 def selected_inverse(factor: CholeskyFactor, *,
@@ -226,14 +232,15 @@ def selinv_batched(factor: CholeskyFactor, *, bucket: bool = True,
     from .solve import _resolve_embedding
     opts = options if options is not None else SolverOptions()
     with telemetry.span("selinv.batched") as sp:
-        c, src, pad = _resolve_embedding(factor, opts.policy)
-        if c.Dr.dim() != 5:
-            raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim="
-                             f"{c.Dr.dim()}")
-        sp.tag(b=c.Dr.shape[0], grid=telemetry.rung_tag(c.grid))
-        entry = _batched_selinv_fn(c.grid, opts, use_start=src is not None)
-        sd, sr, sc = bucketed_batched_call(lambda dr, r, cc: entry.call(dr, r, cc, pad),
-                                           (c.Dr, c.R, c.C), bucket)
+        with telemetry.span("selinv.prepare"):
+            c, src, pad = _resolve_embedding(factor, opts.policy)
+            if c.Dr.dim() != 5:
+                raise ValueError(f"selinv_batched needs a leading batch axis, got Dr.ndim="
+                                 f"{c.Dr.dim()}")
+            sp.tag(b=c.Dr.shape[0], grid=telemetry.rung_tag(c.grid))
+            entry = _batched_selinv_fn(c.grid, opts, use_start=src is not None)
+            padded, nb = pad_batch((c.Dr, c.R, c.C), bucket)
+        sd, sr, sc = cut_batch(entry.call(*padded, pad), nb)
         out = SelectedInverse(c.grid, sd, sr, sc)
         if src is None:
             return out

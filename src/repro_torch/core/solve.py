@@ -40,11 +40,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.band_solve import card_solve_plan
-from repro_torch.kernels.trsm import solve_panel_cuda
 from repro_torch.runtime import telemetry
-from .batching import LRUCache, bucketed_batched_call
+from .batching import LRUCache, bucketed_batched_call, cut_batch, pad_batch
 from .cholesky import BATCHED_CACHE, BatchedEntry, CholeskyFactor, GraphCache, _plannable, capture
 from .options import SolverOptions
 
@@ -126,6 +125,7 @@ class _CornerGraph:
     inputs: tuple                   # C and the panels, copied in before a replay
     out: torch.Tensor               # the solved arrow panel, written by a replay
     launches: Counter               # the graph's launches by kernel wrapper name
+    labelled: Counter               # the same launches as _build.recording keeps them
 
 
 corner_graphs = GraphCache(CORNER_GRAPH_CACHE, name="corner_graphs")
@@ -145,11 +145,9 @@ def _capture_corner(body, C, panels) -> _CornerGraph:
     threads may allocate meanwhile).  A failed capture raises."""
     inputs = tuple(x.clone() for x in (C,) + tuple(panels))
     graph = torch.cuda.CUDAGraph()
-    before = solve_panel_cuda.launches
-    with capture(graph):
+    with capture(graph), _build.recording() as log:
         out = body(*inputs, "cuda")
-    return _CornerGraph(graph, inputs, out,
-                        Counter(solve_panel_cuda=solve_panel_cuda.launches - before))
+    return _CornerGraph(graph, inputs, out, _build.by_wrapper(log), log)
 
 
 def _corner(body, backward: bool, C, panels, impl):
@@ -174,6 +172,28 @@ def _corner(body, backward: bool, C, panels, impl):
         return entry.out.clone()
 
 
+def _forward_band(Dr, R, bd, grid, impl=None, start_tile: int = 0):
+    """The band rows of ``L Y = B``: one
+    :func:`repro_torch.kernels.ops.band_forward_sweep` -> ``(yd, acc_a)``,
+    the arrow-RHS sums riding it."""
+    t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
+    if ndt:
+        return ops.band_forward_sweep(Dr, R, bd, start_tile=start_tile, impl=impl)
+    lead, k = tuple(bd.shape[:-3]), bd.shape[-1]
+    return bd.new_zeros(lead + (0, t, k)), bd.new_zeros(lead + (nat, t, k))
+
+
+def _backward_band(Dr, R, yd, xa, grid, impl=None, start_tile: int = 0):
+    """The band rows of ``L^T X = Y`` once the arrow panel ``xa`` is
+    solved: one :func:`repro_torch.kernels.ops.band_backward_sweep`."""
+    t, ndt = grid.t, grid.n_diag_tiles
+    if ndt:
+        return ops.band_backward_sweep(Dr, R, yd, xa.contiguous(), start_tile=start_tile,
+                                       impl=impl)
+    lead, k = tuple(yd.shape[:-3]), yd.shape[-1]
+    return yd.new_zeros(lead + (0, t, k))
+
+
 def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
     """Solve ``L Y = B`` for an RHS panel: bd (ndt, t, k), ba (nat, t, k).
 
@@ -182,13 +202,8 @@ def _forward_impl(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
     substitution with one ``solve_panel`` per corner tile (:func:`_corner`).
     ``start_tile`` exploits RHS sparsity: when the panel is zero above band
     tile ``start_tile``, Y is zero there too and the sweep starts at it."""
-    t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
-    lead, k = tuple(bd.shape[:-3]), bd.shape[-1]
-    if ndt:
-        yd, acc_a = ops.band_forward_sweep(Dr, R, bd, start_tile=start_tile, impl=impl)
-    else:
-        yd, acc_a = bd.new_zeros(lead + (0, t, k)), bd.new_zeros(lead + (nat, t, k))
-    if not nat:
+    yd, acc_a = _forward_band(Dr, R, bd, grid, impl, start_tile)
+    if not grid.n_arrow_tiles:
         return yd, ba
     return yd, _corner(_forward_corner, False, C, (ba, acc_a), impl)
 
@@ -200,23 +215,26 @@ def _backward_impl(Dr, R, C, yd, ya, grid, impl=None, start_tile: int = 0):
     then the band part as one
     :func:`repro_torch.kernels.ops.band_backward_sweep`.  Rows below
     ``start_tile`` (an identity prefix with zero RHS) stay zero."""
-    t, ndt, nat = grid.t, grid.n_diag_tiles, grid.n_arrow_tiles
-    lead, k = tuple(yd.shape[:-3]), yd.shape[-1]
-    xa = _corner(_backward_corner, True, C, (ya,), impl) if nat else ya
-    if ndt:
-        xd = ops.band_backward_sweep(Dr, R, yd, xa.contiguous(), start_tile=start_tile,
-                                     impl=impl)
-    else:
-        xd = yd.new_zeros(lead + (0, t, k))
-    return xd, xa
+    xa = _corner(_backward_corner, True, C, (ya,), impl) if grid.n_arrow_tiles else ya
+    return _backward_band(Dr, R, yd, xa, grid, impl, start_tile), xa
 
 
 def _solve_panels(Dr, R, C, bd, ba, grid, impl=None, start_tile: int = 0):
-    """Full ``A X = B`` on split panels: forward then backward sweep.  A
-    leading batch axis on every input solves each element against its own
-    factor, each sweep one launch for the batch."""
-    yd, ya = _forward_impl(Dr, R, C, bd, ba, grid, impl, start_tile)
-    return _backward_impl(Dr, R, C, yd, ya, grid, impl, start_tile)
+    """Full ``A X = B`` on split panels: the forward band sweep, the corner
+    both ways (:func:`_corner`, forward then backward substitution), the
+    backward band sweep, each under its device span (``solve.forward``,
+    ``solve.corner``, ``solve.backward``).  A leading batch axis on every
+    input solves each element against its own factor, each sweep one
+    launch for the batch."""
+    with telemetry.span("solve.forward", device=True):
+        yd, acc_a = _forward_band(Dr, R, bd, grid, impl, start_tile)
+    with telemetry.span("solve.corner", device=True):
+        xa = ba
+        if grid.n_arrow_tiles:
+            ya = _corner(_forward_corner, False, C, (ba, acc_a), impl)
+            xa = _corner(_backward_corner, True, C, (ya,), impl)
+    with telemetry.span("solve.backward", device=True):
+        return _backward_band(Dr, R, yd, xa, grid, impl, start_tile), xa
 
 
 def _resolve_embedding(factor: CholeskyFactor, policy=None):
@@ -477,26 +495,28 @@ def solve_many_batched(factor: CholeskyFactor, B: torch.Tensor, *,
     k = B.shape[2]
     with telemetry.span("solve.solve_many_batched", b=nb, k=k,
                         grid=telemetry.rung_tag(factor.ctsf.grid)):
-        ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
-        if start_tile is not None:
-            start = int(start_tile)
-        use_start = src is not None or start_tile is not None
-        t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
-        bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
-        ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
-        entry = _batched_solve_fn(g, opts, use_start)
-        xd, xa = bucketed_batched_call(
-            lambda dr, r, c, pd, pa: entry.call(dr, r, c, pd, pa, start),
-            (ctsf.Dr, ctsf.R, ctsf.C, bd, ba), bucket)
+        with telemetry.span("solve.prepare"):
+            ctsf, src, g, B, start, restrict = _embedded_panels(factor, opts.policy, B)
+            if start_tile is not None:
+                start = int(start_tile)
+            use_start = src is not None or start_tile is not None
+            t, ndt, nat = g.t, g.n_diag_tiles, g.n_arrow_tiles
+            bd = B[:, :ndt * t].reshape(nb, ndt, t, k).contiguous()
+            ba = B[:, ndt * t:].reshape(nb, nat, t, k).contiguous()
+            entry = _batched_solve_fn(g, opts, use_start)
+            padded, nb = pad_batch((ctsf.Dr, ctsf.R, ctsf.C, bd, ba), bucket)
+        xd, xa = cut_batch(entry.call(*padded, start), nb)
         m = _refined_matrix(factor, nb)
         if m is not None and m.grid == g:
-            rentry = _batched_refine_fn(g, opts, use_start)
-            xd, xa = bucketed_batched_call(
-                lambda *a: rentry.call(*a, start),
-                (ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa, factor.info.tau),
-                bucket)
-        return restrict(torch.cat([xd.reshape(nb, ndt * t, k), xa.reshape(nb, nat * t, k)],
-                                  dim=1))
+            with telemetry.span("solve.refine"):
+                rentry = _batched_refine_fn(g, opts, use_start)
+                xd, xa = bucketed_batched_call(
+                    lambda *a: rentry.call(*a, start),
+                    (ctsf.Dr, ctsf.R, ctsf.C, m.Dr, m.R, m.C, bd, ba, xd, xa,
+                     factor.info.tau), bucket)
+        with telemetry.span("solve.assemble"):
+            return restrict(torch.cat([xd.reshape(nb, ndt * t, k),
+                                       xa.reshape(nb, nat * t, k)], dim=1))
 
 
 def forward_solve(factor: CholeskyFactor, b: torch.Tensor, *,

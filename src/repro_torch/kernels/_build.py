@@ -7,19 +7,33 @@ name carries a hash of the sources and flags, so an edited kernel is
 rebuilt and a current one is loaded as it is.  :func:`build_all` compiles
 every missing library at once, one ``nvcc`` process per source, and is
 what ``chip_smoke.py`` calls first.  Nothing here runs at import time.
+
+:func:`counted` is the launch counter every ``*_cuda`` wrapper of
+``kernels/*.py`` carries: a launch is a call of a kernel's C entry point
+that :func:`check` passed.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from collections import Counter
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
-__all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check"]
+import torch
+
+from repro_torch.runtime import telemetry
+
+__all__ = ["SOURCES", "build_all", "load", "ptxas_report", "check", "counted", "recording",
+           "by_wrapper", "tiles", "batch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -129,8 +143,102 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
+# per thread: the C entry points check passed, by name, and the log of the
+# capture being recorded (recording)
+_local = threading.local()
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
+    """Raise if a C entry point returned a CUDA error; else count the call
+    of ``what`` for :func:`counted`."""
     if code != 0:
         msg = lib.stiles_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+    _passed()[what] += 1
+
+
+def _passed() -> Counter:
+    passed = getattr(_local, "passed", None)
+    if passed is None:
+        passed = _local.passed = Counter()
+    return passed
+
+
+def counted(labels: Callable[..., dict]):
+    """Decorate the wrapper ``<kernel>_cuda`` of a CUDA kernel: its
+    ``launches`` attribute counts the calls that launched the kernel (that
+    reached :func:`check` for ``<kernel>``; an empty input launches
+    nothing).  While telemetry is on, each launch opens
+    ``record_function("stiles.<kernel>")`` for a running profiler and
+    counts one ``kernel.launches`` labelled ``kernel`` and ``labels(*args,
+    **kwargs)`` (``t``, ``n`` the matrices or tiles it covers, ``k`` the
+    panel width where there is one).  A launch into a CUDA-graph capture
+    counts nothing in telemetry: the capture's :func:`recording` keeps it,
+    and the graph cache counts it at each replay."""
+    def wrap(fn):
+        kernel = fn.__name__.removesuffix("_cuda")
+
+        @functools.wraps(fn)
+        def launch(*args, **kwargs):
+            passed = _passed()
+            before = passed[kernel]
+            on = telemetry.enabled()
+            if on and torch.autograd._profiler_enabled():
+                with torch.autograd.profiler.record_function(f"stiles.{kernel}"):
+                    out = fn(*args, **kwargs)
+            else:
+                out = fn(*args, **kwargs)
+            if passed[kernel] == before:
+                return out
+            launch.launches += 1
+            log = getattr(_local, "log", None)
+            if log is not None:
+                log[fn.__name__, _label_items(kernel, labels(*args, **kwargs))] += 1
+            elif on and not (torch.cuda.is_initialized()
+                             and torch.cuda.is_current_stream_capturing()):
+                telemetry.inc("kernel.launches", kernel=kernel, **labels(*args, **kwargs))
+            return out
+
+        launch.launches = 0
+        return launch
+    return wrap
+
+
+def tiles(x: torch.Tensor) -> dict:
+    """``kernel.launches`` labels of a launch over the (..., t, t) tiles of
+    ``x``: ``t`` and ``n`` the tiles."""
+    t = x.shape[-1]
+    return {"t": t, "n": x.numel() // (t * t)}
+
+
+def batch(x: torch.Tensor, dims: int, **more) -> dict:
+    """``kernel.launches`` labels of a launch over the matrices of ``x``,
+    one a leading index before its last ``dims`` axes: ``t`` (the last
+    axis's), ``n`` the matrices, and ``more`` (the panel width ``k`` where
+    there is one)."""
+    return {"t": x.shape[-1], "n": math.prod(x.shape[:-dims]), **more}
+
+
+def _label_items(kernel: str, labels: dict) -> tuple:
+    return (("kernel", kernel),) + tuple(sorted(labels.items()))
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the counted launches this thread makes in the block, a CUDA
+    graph's capture: yields a Counter of ``(wrapper name, labels)``, the
+    labels ``kernel.launches``'s as ``(key, value)`` pairs."""
+    log, prev = Counter(), getattr(_local, "log", None)
+    _local.log = log
+    try:
+        yield log
+    finally:
+        _local.log = prev
+
+
+def by_wrapper(log: Counter) -> Counter:
+    """A :func:`recording`'s launches by kernel wrapper name."""
+    out = Counter()
+    for (name, _), n in log.items():
+        out[name] += n
+    return out

@@ -214,6 +214,7 @@ def _check_sweep_inputs(name: str, Ac: torch.Tensor, R: torch.Tensor) -> int:
     return t
 
 
+@_build.counted(lambda Ac, *a, **kw: _build.batch(Ac, 4))
 def band_cholesky_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor,
                              nchunks: int = 1, start_tile: int = 0, *,
                              max_cluster: int = SWEEP_CLUSTER):
@@ -248,13 +249,10 @@ def band_cholesky_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor,
         schur.data_ptr(), status.data_ptr(), table.data_ptr(), plan.cluster, ndt, b1 - 1, nat,
         t, csz, int(start_tile), int(math.prod(lead)), stream)
     _build.check(lib, code, "band_cholesky_sweep")
-    band_cholesky_sweep_cuda.launches += 1
     return panels, R_out, schur, status
 
 
-band_cholesky_sweep_cuda.launches = 0
-
-
+@_build.counted(lambda Ac, *a, **kw: _build.batch(Ac, 4))
 def band_cholesky_partitioned_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor, boundaries,
                                          start_tile: int = 0, *,
                                          max_cluster: int = SWEEP_CLUSTER):
@@ -291,11 +289,7 @@ def band_cholesky_partitioned_sweep_cuda(Ac: torch.Tensor, R: torch.Tensor, boun
         words.data_ptr(), table.data_ptr(), plan.cluster, ctypes.addressof(host_bounds),
         nparts, b1 - 1, nat, t, int(start_tile), int(math.prod(lead)), stream)
     _build.check(lib, code, "band_cholesky_partitioned_sweep")
-    band_cholesky_partitioned_sweep_cuda.launches += 1
     return panels, R_out, schur, combine_sweep_status(words)
-
-
-band_cholesky_partitioned_sweep_cuda.launches = 0
 
 
 def sweep_max_active_clusters(t: int, cluster: int) -> int:

@@ -237,6 +237,7 @@ def _launch(name: str, plan: SolvePlan, backward: bool, Dr, R, rhs, xa, out, acc
     _build.check(lib, code, name)
 
 
+@_build.counted(lambda Dr, R, bd, *a, **kw: _build.batch(Dr, 4, k=bd.shape[-1]))
 def band_forward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
                             start_tile: int = 0, *, max_cluster: int = SOLVE_CLUSTER,
                             width: Optional[int] = None):
@@ -261,10 +262,10 @@ def band_forward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, bd: torch.Tensor,
     yd = torch.empty_like(bd)
     acca = bd.new_empty(lead + (nat, t, k))
     _launch("band_forward_sweep", plan, False, Dr, R, bd, None, yd, acca, start_tile)
-    band_forward_sweep_cuda.launches += 1
     return yd, acca
 
 
+@_build.counted(lambda Dr, R, yd, *a, **kw: _build.batch(Dr, 4, k=yd.shape[-1]))
 def band_backward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor,
                              xa: torch.Tensor, start_tile: int = 0, *,
                              max_cluster: int = SOLVE_CLUSTER,
@@ -285,9 +286,4 @@ def band_backward_sweep_cuda(Dr: torch.Tensor, R: torch.Tensor, yd: torch.Tensor
     plan = _plan(Dr, nat, k, max_cluster, width)
     xd = torch.empty_like(yd)
     _launch("band_backward_sweep", plan, True, Dr, R, yd, xa, xd, None, start_tile)
-    band_backward_sweep_cuda.launches += 1
     return xd
-
-
-band_forward_sweep_cuda.launches = 0
-band_backward_sweep_cuda.launches = 0

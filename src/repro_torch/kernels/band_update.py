@@ -24,6 +24,7 @@ from .tile_sum import tile_sum_plan
 __all__ = ["band_update_cuda"]
 
 
+@_build.counted(lambda w: _build.batch(w, 4))
 def band_update_cuda(w: torch.Tensor) -> torch.Tensor:
     """``w (b+1, b+1, t, t)`` or a batch ``(B, b+1, b+1, t, t)`` -> ``u
     (..., b+1, t, t)`` on the card.  Each window's tiles must be contiguous;
@@ -58,8 +59,4 @@ def band_update_cuda(w: torch.Tensor) -> torch.Tensor:
         _build.check(lib, lib.stiles_band_update_f32(
             wb.data_ptr(), u.data_ptr(), batch, b1, t, wb.stride(0), plan.sub, plan.cluster,
             plan.per_rank, stream), "band_update")
-        band_update_cuda.launches += 1
     return u if w.dim() == 5 else u[0]
-
-
-band_update_cuda.launches = 0

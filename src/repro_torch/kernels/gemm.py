@@ -91,6 +91,7 @@ def _launch(name: str, c, a, b, out, split) -> torch.Tensor:
     return out
 
 
+@_build.counted(lambda c, *a, **kw: _build.tiles(c))
 def gemm_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               out: Optional[torch.Tensor] = None, *, split: Optional[int] = None) -> torch.Tensor:
     """``C - A B^T`` on the card for a (..., t, t) batch C, with A and B
@@ -99,25 +100,16 @@ def gemm_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     overlap A or B.  One launch; ``split`` (blocks a tile, see
     :func:`gemm_split`) is for measurement: every split gives the same
     bits."""
-    out = _launch("gemm", c, a, b, out, split)
-    gemm_cuda.launches += 1
-    return out
+    return _launch("gemm", c, a, b, out, split)
 
 
-gemm_cuda.launches = 0
-
-
+@_build.counted(lambda c, *a, **kw: _build.tiles(c))
 def syrk_cuda(c: torch.Tensor, a: torch.Tensor,
               out: Optional[torch.Tensor] = None, *, split: Optional[int] = None) -> torch.Tensor:
     """``C - A A^T`` on the card over the full tile, as ``syrk_pallas``
     computes it: the kernel of :func:`gemm_cuda` with B = A; ``out`` and
     ``split`` as there."""
-    out = _launch("syrk", c, a, a, out, split)
-    syrk_cuda.launches += 1
-    return out
-
-
-syrk_cuda.launches = 0
+    return _launch("syrk", c, a, a, out, split)
 
 
 def _operands(x: torch.Tensor) -> Tuple[torch.Tensor, int, int, int]:
@@ -147,6 +139,7 @@ def _geadd_operands(a: torch.Tensor, b: torch.Tensor):
     return a, b, sa, sb, outer, inner
 
 
+@_build.counted(lambda a, *args, **kw: _build.tiles(a))
 def geadd_cuda(a: torch.Tensor, b: torch.Tensor, *, pdl: bool = True) -> torch.Tensor:
     """``A + B`` on the card for two (..., t, t) batches of one shape; each
     may be a strided view along its first dim (the tree's even and odd
@@ -164,11 +157,7 @@ def geadd_cuda(a: torch.Tensor, b: torch.Tensor, *, pdl: bool = True) -> torch.T
                                            inner, sa, sb, sm_count(a.device), int(pdl),
                                            stream),
                  "geadd")
-    geadd_cuda.launches += 1
     return out
-
-
-geadd_cuda.launches = 0
 
 
 def geadd_floor_cuda(a: torch.Tensor, b: torch.Tensor, *, pdl: bool = True) -> None:

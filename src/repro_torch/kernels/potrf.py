@@ -75,6 +75,7 @@ def check_out(name: str, like: torch.Tensor, out) -> torch.Tensor:
     return out
 
 
+@_build.counted(lambda a, *args, **kw: _build.tiles(a))
 def potrf_cuda(a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cholesky of a (..., t, t) batch of SPD tiles on the card: L lower
     (zeros above the diagonal); a non-positive pivot gives NaN from that
@@ -89,8 +90,4 @@ def potrf_cuda(a: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Ten
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _build.check(lib, lib.stiles_potrf_f32(a.data_ptr(), out.data_ptr(), nb, t,
                                            stream), "potrf")
-    potrf_cuda.launches += 1
     return out
-
-
-potrf_cuda.launches = 0

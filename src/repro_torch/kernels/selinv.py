@@ -142,6 +142,7 @@ def _check_sweep_inputs(name: str, lcol: torch.Tensor, R: torch.Tensor,
     return t
 
 
+@_build.counted(lambda lcol, *a, **kw: _build.batch(lcol, 4))
 def selinv_prepass_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
                         start_tile: int = 0) -> torch.Tensor:
     """The sweep's pre-pass on the card: ``work (ndt, bt + 2 nat + 2, t,
@@ -160,13 +161,10 @@ def selinv_prepass_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tens
     _build.check(lib, lib.stiles_selinv_prepass_f32(
         lcol.data_ptr(), R.data_ptr(), sc_full.data_ptr(), work.data_ptr(), math.prod(lead),
         ndt, b1 - 1, nat, t, int(start_tile), stream), "selinv_prepass")
-    selinv_prepass_cuda.launches += 1
     return work
 
 
-selinv_prepass_cuda.launches = 0
-
-
+@_build.counted(lambda lcol, *a, **kw: _build.batch(lcol, 4))
 def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor,
                       start_tile: int = 0, *, max_cluster: int = SELINV_CLUSTER,
                       work: Optional[torch.Tensor] = None):
@@ -201,13 +199,10 @@ def selinv_sweep_cuda(lcol: torch.Tensor, R: torch.Tensor, sc_full: torch.Tensor
     _build.check(lib, lib.stiles_selinv_sweep_f32(
         work.data_ptr(), panels.data_ptr(), acols.data_ptr(), math.prod(lead), ndt, b1 - 1,
         nat, t, plan.cluster, plan.diag_split, int(start_tile), stream), "selinv_sweep")
-    selinv_sweep_cuda.launches += 1
     return panels, acols
 
 
-selinv_sweep_cuda.launches = 0
-
-
+@_build.counted(lambda s_row, g_col: _build.batch(s_row, 3))
 def selinv_step_cuda(s_row: torch.Tensor, g_col: torch.Tensor) -> torch.Tensor:
     """``s_row (e_n, j_n, t, t)`` Σ tiles and ``g_col (j_n, t, t)`` the
     normalized factor column -> ``u (e_n, t, t)``, ``u[e] = sum_j s_row[e,
@@ -237,8 +232,4 @@ def selinv_step_cuda(s_row: torch.Tensor, g_col: torch.Tensor) -> torch.Tensor:
     _build.check(lib, lib.stiles_selinv_step_f32(
         s_row.data_ptr(), g_col.data_ptr(), u.data_ptr(), e_n, j_n, t, plan.sub,
         plan.cluster, plan.per_rank, stream), "selinv_step")
-    selinv_step_cuda.launches += 1
     return u
-
-
-selinv_step_cuda.launches = 0

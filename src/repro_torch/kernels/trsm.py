@@ -33,6 +33,7 @@ __all__ = ["trsm_cuda", "solve_panel_cuda", "solve_panel_chunk", "PANEL_CHUNKS"]
 PANEL_CHUNKS = (1, 2, 4, 8)   # the chunk widths csrc/solve_panel.cu is built for
 
 
+@_build.counted(lambda l_kk, a_mk, *a, **kw: _build.tiles(a_mk))
 def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``X = A L^{-T}`` on the card.  ``l_kk`` is one (t, t) tile for the
@@ -61,11 +62,7 @@ def trsm_cuda(l_kk: torch.Tensor, a_mk: torch.Tensor,
     stream = torch.cuda.current_stream(a_mk.device).cuda_stream
     _build.check(lib, lib.stiles_trsm_f32(l_kk.data_ptr(), a_mk.data_ptr(),
                                           out.data_ptr(), nb, t, group, stream), "trsm")
-    trsm_cuda.launches += 1
     return out
-
-
-trsm_cuda.launches = 0
 
 
 def solve_panel_chunk(nb: int, k: int, at_once: int,
@@ -87,6 +84,8 @@ def solve_panel_chunk(nb: int, k: int, at_once: int,
     return chunk, -(-k // chunk)
 
 
+@_build.counted(lambda l_kk, b_panel, *a, **kw: _build.batch(b_panel, 2, t=b_panel.shape[-2],
+                                                              k=b_panel.shape[-1]))
 def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = False, *,
                      chunk: Optional[int] = None) -> torch.Tensor:
     """``L X = B`` (or ``L^T X = B``) on the card for a (..., t, k) batch of
@@ -118,8 +117,4 @@ def solve_panel_cuda(l_kk: torch.Tensor, b_panel: torch.Tensor, trans: bool = Fa
     _build.check(lib, lib.stiles_solve_panel_f32(l_kk.data_ptr(), b_panel.data_ptr(),
                                                  out.data_ptr(), nb, t, k, chunk, per_l,
                                                  int(trans), int(vec), stream), "solve_panel")
-    solve_panel_cuda.launches += 1
     return out
-
-
-solve_panel_cuda.launches = 0

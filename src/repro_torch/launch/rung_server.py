@@ -88,11 +88,17 @@ hash the batch composition, so a chaos schedule replays bit for bit.
 
 Port of the JAX package's ``launch/rung_server.py``; run it from the command line with
 ``python -m repro_torch.launch.rung_server`` (the card by default,
-``--device cpu`` on the CPU).  Two departures: a result's ``x`` is a
-tensor on the server's device (the reference returns numpy), and
+``--device cpu`` on the CPU).  Three departures: a result's ``x`` is a
+tensor on the server's device (the reference returns numpy);
 ``submit`` touches no device memory (the reference copies the panel to
-the device there); a request's tensors reach the server's device at
-dispatch, on the pump's thread.
+the device there), so a request's tensors reach the server's device at
+dispatch, on the pump's thread; and the telemetry: the histogram
+``serving.device_seconds`` is a batch's device time (CUDA events from
+dispatch to ``done``; the reference's is the clock around finalize),
+``serving.assemble`` is a span of the port's own, and the fault paths
+(retries, bisections, quarantines, sheds, overload rejections, breaker
+transitions, stragglers, degradation steps) report through ``events``
+alone, where the reference also counts them in telemetry.
 """
 from __future__ import annotations
 
@@ -230,9 +236,6 @@ class _DegradationState:
             self.level += 1
             self._last_step = now
             self._below_since = None
-            if telemetry.enabled():
-                telemetry.inc("serving.degradation_step", direction="up")
-                telemetry.gauge("serving.degradation_level", self.level)
 
     def update(self, now: float, utilization: float) -> None:
         p = self.policy
@@ -248,10 +251,6 @@ class _DegradationState:
                   and now - self._below_since >= p.recover_dwell):
                 self.level -= 1
                 self._below_since = now
-                if telemetry.enabled():
-                    telemetry.inc("serving.degradation_step",
-                                  direction="down")
-                    telemetry.gauge("serving.degradation_level", self.level)
         else:
             self._below_since = None
 
@@ -502,8 +501,6 @@ class RungScheduler:
                     return key
                 self._shed_buffer.append((key, victim, SHED_SLACK))
             else:
-                if telemetry.enabled():
-                    telemetry.inc("serving.overload_reject", scope=scope)
                 raise RungOverloadError(scope, telemetry.rung_tag(cgrid),
                                         depth, limit)
         q.push(req, req.flush_by)
@@ -674,12 +671,17 @@ class _Inflight:
     """One dispatched-but-not-finalized batch: its factor and solutions
     (their launches queued on the executor's stream), the event recorded
     after the last launch (None on the CPU), and the metadata to route the
-    results home."""
+    results home.  While telemetry is on, ``begin`` is an event recorded at
+    the dispatch's start, and ``device_s`` the batch's device time, from
+    ``begin`` to ``done`` (read once ``finalize`` has waited on ``done``;
+    on the CPU the dispatch's own time, the host being the device)."""
     batch: RungBatch
     factor: CholeskyFactor
     start: int
     X: Optional[torch.Tensor]
     done: Optional["torch.cuda.Event"]
+    begin: Optional["torch.cuda.Event"] = None
+    device_s: Optional[float] = None
 
 
 # a request's outcome where the factorization ran without the ladder
@@ -763,22 +765,30 @@ class RungExecutor:
         reqs = batch.requests
         with telemetry.span("serving.dispatch", rung=telemetry.rung_tag(cgrid),
                             b=len(reqs), reason=batch.reason), self._on_stream():
-            inputs = [self._inputs(r) for r in reqs]
-            stacked, start = assemble_rung_batch([m for m, _ in inputs], cgrid)
+            begin, t0 = None, time.perf_counter()
+            if self.stream is not None and telemetry.enabled():
+                begin = torch.cuda.Event(enable_timing=True)
+                begin.record(self.stream)
+            with telemetry.span("serving.assemble"):
+                inputs = [self._inputs(r) for r in reqs]
+                stacked, start = assemble_rung_batch([m for m, _ in inputs], cgrid)
+                B = None if k is None else assemble_rung_rhs(
+                    [b for _, b in inputs], [r.grid for r in reqs], cgrid)
             factor = factorize_window_batched(
                 stacked, tree_chunks=self.tree_chunks,
                 bucket=self.bucket, start_tile=start, options=self.options)
             X = None
-            if k is not None:
-                B = assemble_rung_rhs([b for _, b in inputs],
-                                      [r.grid for r in reqs], cgrid)
+            if B is not None:
                 X = solve_many_batched(factor, B, start_tile=start,
                                        bucket=self.bucket, options=self.options)
-            done = None
+            done, device_s = None, None
             if self.stream is not None:
-                done = torch.cuda.Event()
+                done = torch.cuda.Event(enable_timing=begin is not None)
                 done.record(self.stream)
-            return _Inflight(batch=batch, factor=factor, start=start, X=X, done=done)
+            elif telemetry.enabled():
+                device_s = time.perf_counter() - t0
+            return _Inflight(batch=batch, factor=factor, start=start, X=X, done=done,
+                             begin=begin, device_s=device_s)
 
     def _handed_out(self, inflight: _Inflight) -> List[torch.Tensor]:
         """The executor stream's tensors the caller's stream reads: the
@@ -804,6 +814,8 @@ class RungExecutor:
                             b=len(batch.requests)):
             if inflight.done is not None:
                 inflight.done.synchronize()
+                if inflight.begin is not None:
+                    inflight.device_s = inflight.begin.elapsed_time(inflight.done) / 1e3
                 here = torch.cuda.current_stream(self.device)
                 for x in self._handed_out(inflight):
                     x.record_stream(here)
@@ -933,9 +945,6 @@ class ResilientRungExecutor:
 
             def on_transition(state, now, _tag=tag):
                 self.events.append(("breaker", _tag, state, round(now, 9)))
-                if telemetry.enabled():
-                    telemetry.inc("serving.breaker_transition", state=state,
-                                  rung=_tag)
 
             br = self._breakers[key] = CircuitBreaker(
                 failure_threshold=self.breaker_threshold,
@@ -983,13 +992,12 @@ class ResilientRungExecutor:
         results = self.inner.finalize(raw, now)
         dt = self.clock() - t0
         self._step += 1
-        if telemetry.enabled():
-            telemetry.observe("serving.device_seconds", dt, rung=tag)
+        # the batch's device time, where the inner executor measured it
+        device_s = getattr(raw, "device_s", None)
+        if telemetry.enabled() and device_s is not None:
+            telemetry.observe("serving.device_seconds", device_s, rung=tag)
         if self.monitor.record(self._step, dt):
             self.events.append(("straggler", tag, self._step, round(dt, 9)))
-            if telemetry.enabled():
-                telemetry.inc("serving.straggler", rung=tag)
-                telemetry.gauge("serving.straggler_seconds", dt, rung=tag)
             if self.on_straggler is not None:
                 self.on_straggler(self.clock())
         return results
@@ -1001,9 +1009,6 @@ class ResilientRungExecutor:
         self.events.append(("fail", tag, rids, attempt,
                             type(err).__name__))
         self.breaker(batch.key).record_failure(now)
-        if telemetry.enabled():
-            telemetry.inc("serving.dispatch_failure", kind=type(err).__name__,
-                          rung=tag)
 
     # -- executor interface -------------------------------------------------
 
@@ -1054,7 +1059,6 @@ class ResilientRungExecutor:
         t = self.clock()
         self.events.append(("quarantine", tag, req.rid, round(t, 9)))
         if telemetry.enabled():
-            telemetry.inc("serving.quarantine", rung=tag)
             telemetry.inc("serving.completed", outcome="failed")
         wall = time.perf_counter() - req.submitted_wall \
             if req.submitted_wall else 0.0
@@ -1076,8 +1080,6 @@ class ResilientRungExecutor:
             self.sleep_fn(self._backoff(tag, rids, attempt))
             self.events.append(("retry", tag, rids, attempt,
                                 round(self.clock(), 9)))
-            if telemetry.enabled():
-                telemetry.inc("serving.retry", rung=tag)
             try:
                 results = self._try_once(batch, attempt)
                 self.breaker(batch.key).record_success(self.clock())
@@ -1087,8 +1089,6 @@ class ResilientRungExecutor:
         if len(batch.requests) == 1:
             return [self._quarantine(batch, attempts=retries + 1)]
         self.events.append(("bisect", tag, rids, round(self.clock(), 9)))
-        if telemetry.enabled():
-            telemetry.inc("serving.bisect", rung=tag)
         mid = len(batch.requests) // 2
         out: List[RungResult] = []
         for part in (batch.requests[:mid], batch.requests[mid:]):
@@ -1236,8 +1236,6 @@ class RungServer:
                 if mode == "raise":
                     raise
                 fut._resolve(self._shed_result(req, SHED_OVERLOAD, now))
-                if telemetry.enabled():
-                    telemetry.inc("serving.shed", detail=SHED_OVERLOAD)
                 return fut
             self._outstanding[rid] = fut
         return fut
@@ -1302,7 +1300,6 @@ class RungServer:
             if req.future is not None:
                 req.future._resolve(res)
         if telemetry.enabled():
-            telemetry.inc("serving.shed", len(batch.requests), detail=detail)
             telemetry.inc("serving.completed", len(batch.requests),
                           outcome="shed")
 
@@ -1394,9 +1391,6 @@ class RungServer:
                     flush_reason=FLUSH_SHED, batch_size=1, rung="",
                     detail=SHED_SHUTDOWN)
                 fut._resolve(res)
-            if unresolved and telemetry.enabled():
-                telemetry.inc("serving.shed", len(unresolved),
-                              detail=SHED_SHUTDOWN)
             leftover = [f.rid for f in self._outstanding.values()
                         if not f.done()]
             assert not leftover, \

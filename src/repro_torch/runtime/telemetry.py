@@ -17,16 +17,31 @@ tile size against algorithmic intensity with per-kernel flop/byte counts
 Recording happens in the host code around the kernel launches only.  A
 span measures host wall time around its call, as the reference's does
 around JAX's asynchronous dispatch: CUDA launches return before the card
-finishes, and no span or counter synchronizes the card.  What must be
-observed from the card (the breakdown status word of
+finishes, and no span or counter synchronizes the card.  A span opened
+with ``device=True`` also records a timing event on the current CUDA
+stream at entry and one at exit (on the card, outside a stream capture);
+the registry keeps the pairs pending and :meth:`Telemetry.snapshot`
+resolves those the card has passed into the span's ``dev_us``, so a
+snapshot taken after a synchronize has the device time of every such
+span.  What must be observed from the card (the breakdown status word of
 ``kernels.ops.band_cholesky_sweep``) is recorded after the host has read
 it back for its own reasons (the jitter ladder's readback).
 ``inc``/``observe``/``gauge`` refuse a ``torch.Tensor`` with
 ``TypeError``: a ``float()`` of a CUDA tensor is a hidden device sync,
 so passing one fails at the call site, the counterpart of the reference
-failing loudly on a JAX tracer.  No hook runs inside a CUDA-graph capture
-(the task list's and the solves' corner's): the graph caches report to no
-registry.
+failing loudly on a JAX tracer.
+
+Every span and every CUDA kernel launch (``kernel.launches``, labelled
+``kernel``, ``t``, ``n`` and, for a panel, ``k``: ``kernels/_build.py::
+counted``) is named to ``torch.profiler`` through ``record_function``
+while telemetry is on and a profiler runs, so a profile shows the
+program's spans beside the card's kernels.  A launch inside a CUDA-graph
+capture (the task list's and the solves' corner's) counts nothing when
+it is recorded; the graph cache's entry keeps it, and each replay counts
+it (``core/cholesky.py::GraphCache.replay``).  Span times are kept on the
+host's monotonic clock from an epoch taken with the wall clock beside it
+(``epoch_unix_ns``), so the spans and the profiler's device events share
+one timeline.
 
 Telemetry is **disabled by default** (enable with :func:`enable`, the
 ``REPRO_TELEMETRY=1`` environment variable, or the :func:`capture`
@@ -58,11 +73,14 @@ Exporters:
 * :func:`to_prometheus_text` — Prometheus text exposition (counters,
   gauges, histograms as summaries with quantile labels);
 * :func:`to_chrome_trace` — spans as Chrome trace-event JSON ("X"
-  complete events), viewable in Perfetto / ``chrome://tracing``;
+  complete events on the Unix epoch in µs, ``torch.profiler``'s), viewable
+  in Perfetto / ``chrome://tracing`` over a profiler's trace;
   :func:`write_trace` writes it with the metrics beside.
 
 Port of the JAX package's ``runtime/telemetry.py``; the registry and the
-exporters are the reference's, line for line.
+exporters are the reference's, with three additions of the port's own:
+device-timed spans, the wall-clock epoch, and the Chrome trace on the Unix
+epoch (the reference's starts at the registry's epoch).
 """
 from __future__ import annotations
 
@@ -136,16 +154,22 @@ _NOOP_SPAN = _NoopSpan()
 
 class _Span:
     """A live span: context manager that pushes onto the per-thread stack
-    on entry (capturing its parent) and records itself on exit."""
-    __slots__ = ("_reg", "name", "tags", "id", "parent", "t0")
+    on entry (capturing its parent) and records itself on exit; with
+    ``device`` it also records a timing event on the current CUDA stream
+    at entry and at exit (see :meth:`Telemetry.span`)."""
+    __slots__ = ("_reg", "name", "tags", "id", "parent", "t0", "device", "events", "rf")
 
-    def __init__(self, reg: "Telemetry", name: str, tags: Dict[str, Any]):
+    def __init__(self, reg: "Telemetry", name: str, tags: Dict[str, Any],
+                 device: bool = False):
         self._reg = reg
         self.name = name
         self.tags = tags
         self.id = None
         self.parent = None
         self.t0 = None
+        self.device = device
+        self.events = None
+        self.rf = None
 
     def tag(self, **tags) -> "_Span":
         """Attach tags discovered mid-span (e.g. the canonical rung after
@@ -158,10 +182,24 @@ class _Span:
         self.parent = stack[-1].id if stack else None
         self.id = next(self._reg._ids)
         stack.append(self)
+        # the span's own cost (the profiler's name, the events) is inside it
         self.t0 = time.perf_counter_ns()
+        if torch.autograd._profiler_enabled():
+            self.rf = torch.autograd.profiler.record_function(self.name)
+            self.rf.__enter__()
+        if (self.device and torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            stream = torch.cuda.current_stream()
+            self.events = (stream,) + self._reg._take_events(stream.device_index)
+            self.events[1].record(stream)
         return self
 
     def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[2].record(self.events[0])
+            self._reg._reap()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
         t1 = time.perf_counter_ns()
         stack = self._reg._span_stack()
         if stack and stack[-1] is self:
@@ -239,6 +277,17 @@ def _render_key(name: str, labels: Tuple[Tuple[str, str], ...]) -> str:
 # Registry
 # ---------------------------------------------------------------------------
 
+# finished device spans kept pending before the registry resolves those the
+# card has passed (a query of each event, no synchronize)
+_RESOLVE_EVERY = 256
+
+
+def _clock_anchor() -> Tuple[int, int]:
+    """``(time.time_ns(), time.perf_counter_ns())`` read together: the wall
+    clock's reading at the monotonic clock's."""
+    return time.time_ns(), time.perf_counter_ns()
+
+
 class Telemetry:
     """Thread-safe metric + span registry.
 
@@ -262,9 +311,11 @@ class Telemetry:
         self._hists: Dict[Tuple[str, tuple], _Hist] = {}
         self._spans: List[Dict[str, Any]] = []
         self._spans_dropped = 0
+        self._pending: List[tuple] = []     # (record, device, start event, end event)
+        self._free: Dict[int, list] = {}    # the resolved spans' event pairs, by device
         self._local = threading.local()
         self._ids = itertools.count(1)
-        self._epoch = time.perf_counter_ns()
+        self._epoch_unix, self._epoch = _clock_anchor()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -280,14 +331,15 @@ class Telemetry:
     def reset(self):
         """Drop all recorded metrics and finished spans (the enabled flag
         and the span-id counter are untouched; live spans finish into the
-        cleared buffers)."""
+        cleared buffers) and take a new clock epoch."""
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
             self._spans.clear()
             self._spans_dropped = 0
-            self._epoch = time.perf_counter_ns()
+            self._pending.clear()
+            self._epoch_unix, self._epoch = _clock_anchor()
 
     # -- recording ----------------------------------------------------------
 
@@ -318,12 +370,16 @@ class Telemetry:
                 h = self._hists[key] = _Hist(self.max_samples)
             h.add(v)
 
-    def span(self, name: str, **tags):
+    def span(self, name: str, device: bool = False, **tags):
         """Open a nestable wall-clock span (use as a context manager).
-        Returns the shared no-op span while disabled."""
+        With ``device`` the span is also timed on the card: on a CUDA
+        device outside a stream capture it records a timing event on the
+        current stream at entry and at exit, and :meth:`snapshot` gives
+        the time between them as ``dev_us`` once the card has passed the
+        second.  Returns the shared no-op span while disabled."""
         if not self._enabled:
             return _NOOP_SPAN
-        return _Span(self, name, tags)
+        return _Span(self, name, tags, device)
 
     def hist_summary(self, name: str, **labels) -> Optional[Dict[str, float]]:
         """Summary (count/sum/min/max/mean/p50/p90/p99) of one histogram
@@ -349,8 +405,48 @@ class Telemetry:
         with self._lock:
             if len(self._spans) < self.max_spans:
                 self._spans.append(rec)
+                if span.events is not None:
+                    stream, e0, e1 = span.events
+                    self._pending.append((rec, stream.device_index, e0, e1))
             else:
                 self._spans_dropped += 1
+
+    def _take_events(self, device: int) -> tuple:
+        """Two timing events for a device span on the card ``device``: a
+        resolved span's pair (an event may be recorded again), else new."""
+        with self._lock:
+            free = self._free.get(device)
+            if free:
+                return free.pop()
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def _reap(self):
+        """Resolve the pending device spans the card has passed, oldest
+        first up to the first it has not (all of them past
+        ``_RESOLVE_EVERY``), at a device span's exit: within its own time."""
+        with self._lock:
+            if len(self._pending) >= _RESOLVE_EVERY:
+                self._resolve()
+            n = 0
+            while n < len(self._pending) and self._pending[n][3].query():
+                rec, device, e0, e1 = self._pending[n]
+                rec["dev_us"] = e0.elapsed_time(e1) * 1e3
+                self._free.setdefault(device, []).append((e0, e1))
+                n += 1
+            del self._pending[:n]
+
+    def _resolve(self):
+        """Give each pending device span whose end event the card has
+        passed its ``dev_us`` and keep its events for reuse; the rest stay
+        pending.  Never waits on the card.  Called with the lock held."""
+        left = []
+        for rec, device, e0, e1 in self._pending:
+            if e1.query():
+                rec["dev_us"] = e0.elapsed_time(e1) * 1e3
+                self._free.setdefault(device, []).append((e0, e1))
+            else:
+                left.append((rec, device, e0, e1))
+        self._pending = left
 
     # -- exporters ----------------------------------------------------------
 
@@ -358,10 +454,16 @@ class Telemetry:
         """Plain-dict view of everything recorded so far: ``counters`` and
         ``gauges`` keyed ``name{label=value,...}``, ``histograms`` mapped
         to their summaries (count/sum/min/max/mean/p50/p90/p99), and (by
-        default) the finished ``spans`` with parent ids intact."""
+        default) the finished ``spans`` with parent ids intact.  A span
+        starts ``ts_us`` after the epoch, which is ``epoch_unix_ns`` on the
+        wall clock, and lasts ``dur_us`` on the host; a device span the
+        card has passed (after a synchronize: all of them) carries its
+        device time as ``dev_us``."""
         with self._lock:
+            self._resolve()
             out: Dict[str, Any] = {
                 "enabled": self._enabled,
+                "epoch_unix_ns": self._epoch_unix,
                 "counters": {_render_key(*k): v
                              for k, v in sorted(self._counters.items())},
                 "gauges": {_render_key(*k): v
@@ -410,22 +512,27 @@ class Telemetry:
 
     def to_chrome_trace(self) -> Dict[str, Any]:
         """Spans as Chrome trace-event JSON (``ph="X"`` complete events,
-        microsecond timestamps) — ``json.dump`` the result and open it in
-        Perfetto (ui.perfetto.dev) or ``chrome://tracing``.  Span/parent
-        ids ride in ``args`` so the tree survives the export."""
+        ``ts`` in microseconds on the Unix epoch, as ``torch.profiler``'s
+        events are, so the two files overlay) — ``json.dump`` the result and
+        open it in Perfetto (ui.perfetto.dev) or ``chrome://tracing``.
+        Span/parent ids and a device span's ``dev_us`` ride in ``args`` so
+        the tree survives the export."""
         pid = os.getpid()
         with self._lock:
+            self._resolve()
+            epoch_us = self._epoch_unix / 1e3
             spans = [dict(s, tags=dict(s["tags"])) for s in self._spans]
         events = [{
             "name": s["name"],
             "cat": s["name"].split(".", 1)[0],
             "ph": "X",
-            "ts": s["ts_us"],
+            "ts": epoch_us + s["ts_us"],
             "dur": s["dur_us"],
             "pid": pid,
             "tid": s["tid"],
             "args": {**s["tags"], "span_id": s["id"],
-                     "parent_id": s["parent"]},
+                     "parent_id": s["parent"],
+                     **({"dev_us": s["dev_us"]} if "dev_us" in s else {})},
         } for s in spans]
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
@@ -491,10 +598,10 @@ def observe(name: str, value: float, **labels):
         _DEFAULT.observe(name, value, **labels)
 
 
-def span(name: str, **tags):
+def span(name: str, device: bool = False, **tags):
     if not _DEFAULT._enabled:
         return _NOOP_SPAN
-    return _Span(_DEFAULT, name, tags)
+    return _Span(_DEFAULT, name, tags, device)
 
 
 def hist_summary(name: str, **labels) -> Optional[Dict[str, float]]:
@@ -542,8 +649,8 @@ def write_trace(path: str, registry: Optional[Telemetry] = None):
 # ---------------------------------------------------------------------------
 
 def cuda_kernels() -> Dict[str, Callable]:
-    """The CUDA kernel wrappers by kernel name; each counts its calls in
-    its ``launches`` attribute."""
+    """The CUDA kernel wrappers by kernel name; each counts its launches in
+    its ``launches`` attribute (``kernels/_build.py::counted``)."""
     from repro_torch.kernels.band_cholesky import (band_cholesky_partitioned_sweep_cuda,
                                                    band_cholesky_sweep_cuda)
     from repro_torch.kernels.band_solve import band_backward_sweep_cuda, band_forward_sweep_cuda

@@ -22,6 +22,9 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import importlib.util
+import re
+import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +53,7 @@ from repro_torch.kernels.selinv import (MAX_SELINV_CLUSTER, selinv_plan, selinv_
                                         selinv_step_cuda, selinv_sweep_cuda)
 from repro_torch.kernels.trsm import PANEL_CHUNKS, solve_panel_cuda, trsm_cuda
 from repro_torch.runtime.telemetry import device_counts
+from _torch_spans import reference_view, tree
 
 pytestmark = pytest.mark.gpu
 
@@ -1519,7 +1523,10 @@ def test_concurrent_mesh_on_the_card(cuda):
 
 def test_telemetry_around_the_card(cuda):
     """With telemetry enabled the solves' corner graphs still capture (two
-    keys for a new k) and the spans are the reference's; kernel_report of
+    keys for a new k); the spans are the reference's with the port's own
+    sub-spans under them (``tests/_torch_spans.py``), the device-timed ones
+    with their device time; the only counters are ``kernel.launches``, by
+    kernel the call's launches on the card; kernel_report of
     ``factorize_window`` counts one sweep and the corner's launches."""
     from repro_torch.core.solve import corner_graphs
     from repro_torch.runtime import telemetry
@@ -1532,17 +1539,106 @@ def test_telemetry_around_the_card(cuda):
     telemetry.reset()
     try:
         with telemetry.capture():
+            before = device_counts()
             X = solve_many(f, B)
             torch.cuda.synchronize()
+            grown = {k: v - before[k] for k, v in device_counts().items() if v != before[k]}
         snap = telemetry.snapshot()
     finally:
         telemetry.reset()
     assert corner_graphs.captures - c0 == 2
-    assert [s["name"] for s in snap["spans"]] == ["solve.solve_many"]
-    assert snap["counters"] == {}
+    assert [s["name"] for s in reference_view(snap)["spans"]] == ["solve.solve_many"]
+    assert tree(snap) == sorted([("solve.solve_many", None)] + [
+        (n, "solve.solve_many") for n in ("solve.forward", "solve.corner", "solve.backward")])
+    assert all(s["dev_us"] > 0 for s in snap["spans"] if s["name"] != "solve.solve_many")
+    counted = Counter()
+    for key, v in snap["counters"].items():
+        assert key.startswith("kernel.launches{")
+        counted[re.search(r"kernel=(\w+)", key)[1]] += v
+    assert counted == grown and grown["solve_panel"] == 2 * nat
     torch.testing.assert_close(solve_many(f, B), X, **TOL)
     rep = telemetry.kernel_report(factorize_window, m, grid=m.grid, sweep="cholesky")
     assert rep.launches == {"band_cholesky_sweep": 1, "potrf": nat, "trsm": nat}
+
+
+def test_device_span_resolved_after_a_sync(cuda):
+    """A device span's ``dev_us`` is the card's time between its events: a
+    snapshot taken while the card still runs the span's work does not wait
+    and leaves it out, one after a synchronize has it; a host span has
+    none."""
+    from repro_torch.runtime.telemetry import Telemetry
+    reg = Telemetry(enabled=True)
+    torch.cuda.synchronize()
+    with reg.span("long", device=True):
+        torch.cuda._sleep(50_000_000)          # tens of ms on the card
+    with reg.span("host"):
+        pass
+    t0 = time.perf_counter()
+    early = {s["name"]: s for s in reg.snapshot()["spans"]}
+    waited = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    late = {s["name"]: s for s in reg.snapshot()["spans"]}
+    assert "dev_us" not in early["long"] and waited < 5e-3
+    assert late["long"]["dev_us"] > 5e3 > late["long"]["dur_us"]
+    assert "dev_us" not in late["host"]
+    trace = {e["name"]: e for e in reg.to_chrome_trace()["traceEvents"]}
+    assert trace["long"]["args"]["dev_us"] == late["long"]["dev_us"]
+
+
+def test_no_device_event_under_a_capture(cuda):
+    """Under a stream capture a device span records no event (it gets no
+    ``dev_us`` and leaves nothing pending) and a kernel launch counts
+    nothing in telemetry; the capture's own launches are the graph's."""
+    from repro_torch.runtime import telemetry
+    a = torch.eye(16, device=cuda).repeat(2, 1, 1) * 4.0
+    potrf_cuda(a)                               # loaded before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    telemetry.reset()
+    try:
+        with telemetry.capture():
+            with torch.cuda.graph(graph):
+                with telemetry.span("captured", device=True):
+                    out = potrf_cuda(a)
+            graph.replay()
+            torch.cuda.synchronize()
+            snap = telemetry.snapshot()
+            pending = len(telemetry.get_registry()._pending)
+    finally:
+        telemetry.reset()
+    (span,) = snap["spans"]
+    assert span["name"] == "captured" and "dev_us" not in span and pending == 0
+    assert snap["counters"] == {}
+    torch.testing.assert_close(out, ref.potrf_ref(a), **TOL)
+
+
+def test_solve_panel_launches_counted_at_the_corner_replays(cuda):
+    """``kernel.launches{kernel=solve_panel}`` grows by exactly
+    ``device_counts()``'s growth across ``solve_many_batched`` calls whose
+    corner the graphs replay (the first call of the batch shape captures
+    them), each launch labelled with its tile, panel width and batch."""
+    from repro_torch.core.solve import corner_graphs
+    from repro_torch.runtime import telemetry
+    mb = _theta_batch_on(cuda)
+    nat = mb.grid.n_arrow_tiles
+    f = factorize_window_batched(mb)
+    B = torch.randn((4, mb.grid.padded_n, 3), generator=torch.Generator().manual_seed(2)).to(cuda)
+    corner_graphs.clear()
+    telemetry.reset()
+    try:
+        with telemetry.capture():
+            before, replays = device_counts()["solve_panel"], sum(corner_graphs.replayed.values())
+            for _ in range(3):
+                solve_many_batched(f, B)
+            torch.cuda.synchronize()
+            grown = device_counts()["solve_panel"] - before
+            snap = telemetry.snapshot()
+    finally:
+        telemetry.reset()
+    got = {k: v for k, v in snap["counters"].items() if "kernel=solve_panel" in k}
+    assert got == {f"kernel.launches{{k=3,kernel=solve_panel,n=4,t={mb.grid.t}}}": grown}
+    assert grown == 3 * 2 * nat
+    assert sum(corner_graphs.replayed.values()) - replays == 2 * 2 * nat
 
 
 def test_corner_capture_beside_allocating_threads(cuda):

@@ -8,7 +8,8 @@ signature; a served stream's ``history`` equal to the reference's, every
 status, attempts and tau exactly, every ``x`` within rtol = atol = 1e-5
 (float32 on both sides, different summation orders); the port's own
 replay bit for bit; the telemetry it emits (counters, gauges, histogram
-counts, spans and their parents) the reference's.  Port-only contracts:
+counts, spans and their parents) the reference's, the port's own
+sub-spans (``tests/_torch_spans.py``) left out.  Port-only contracts:
 ``submit`` keeps the caller's objects and touches no device, a server
 with no ``device=`` is the card's (and raises without one), ``finalize``
 reads a batch's outcome to the host once, a result's ``x`` is a tensor and
@@ -39,6 +40,7 @@ from repro_torch.launch.rung_server import (FLUSH_DEADLINE, FLUSH_DRAIN, FLUSH_F
                                             RungScheduler, RungServer, SimClock)
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.fault_tolerance import NumericalFaultInjector
+from _torch_spans import reference_view
 
 # ``repro_torch.core`` re-exports the ``solve`` function, shadowing the
 # module attribute: the module's private cache is reached through importlib
@@ -270,15 +272,18 @@ def test_deadline_budget_respected_under_replay():
 
 
 def _telemetry_of(mod, tel, arrivals):
+    """A replay's snapshot and its spans as ``(name, parent name, tags)``,
+    the port's own sub-spans (``tests/_torch_spans.py``) left out."""
     with tel.capture() as reg:
         reg.reset()
         server, results = _serve(mod, arrivals)
         snap = reg.snapshot()
         reg.reset()
-    names = {s["id"]: s["name"] for s in snap["spans"]}
+    view = reference_view(snap)
+    names = {s["id"]: s["name"] for s in view["spans"]}
     spans = sorted((s["name"], names.get(s["parent"]),
                     tuple(sorted((k, str(v)) for k, v in s["tags"].items())))
-                   for s in snap["spans"])
+                   for s in view["spans"])
     return server, results, snap, spans
 
 

@@ -9,11 +9,17 @@ equal to the reference's exactly, the exporters' round trips, the named
 and anonymous ``LRUCache``s; and the hooks of the ported core: the
 mixed-grid run's counters (with their values), histograms and spans and
 the jitter ladder's counters, equal to the reference's run on the same
-inputs."""
+inputs (the port's own sub-spans, ``tests/_torch_spans.py``, left out of
+the comparison and checked on their own: their tree a call, no device
+time on the CPU, none of them and no ``record_function`` while disabled),
+the clock epoch against the wall clock, the launch counter of
+``kernels/_build.py`` on a stand-in wrapper and a graph replay's
+``kernel.launches``."""
 import json
 import re
 import threading
 import time
+from collections import Counter
 
 import jax
 import numpy as np
@@ -27,17 +33,18 @@ from repro.core.batching import LRUCache as JLRUCache
 from repro.runtime import telemetry as jtelemetry
 from repro_torch.core import (ArrowheadStructure, BandedCTSF, GridBucketPolicy, SolverOptions,
                               TileGrid, factorize_window, factorize_window_batched,
-                              selinv_batched, solve_many)
+                              selinv_batched, solve_many, solve_many_batched)
 from repro_torch.core import cholesky as tcholesky
 from repro_torch.core import selinv as tselinv
 from repro_torch.core.batching import LRUCache
 from repro_torch.core.cholesky import GraphCache
 from repro_torch.data import make_arrowhead
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.ring import band_row_to_col
 from repro_torch.runtime import telemetry
 from repro_torch.runtime.telemetry import (Telemetry, count_launches, kernel_report,
                                            sweep_cost)
+from _torch_spans import PORT_SPANS, reference_view, tree
 
 JREF = J.SolverOptions(impl="ref")
 
@@ -193,10 +200,49 @@ def test_capture_restores_previous_state():
     assert telemetry.snapshot()["counters"]["inside"] == 1.0
 
 
-def test_disabled_overhead_on_cached_solve_many_under_5pct():
-    """The reference's gate: the disabled cost of the telemetry surface one
-    request crosses, times 3, under 5 % of one cached ``solve_many`` call
-    (here the plain backend's on the CPU; on the card ``chip_smoke.py``)."""
+def _request_surface(grid):
+    """The reference's surface of one request: a span with a late tag, a
+    counter and a histogram."""
+    with telemetry.span("solve.solve_many", k=4) as sp:
+        sp.tag(grid=telemetry.rung_tag(grid))
+    telemetry.inc("cache.hit", cache="batched_window")
+    telemetry.observe("lat", 1.0)
+
+
+def _solve_sub_spans(grid):
+    """The port's sub-spans of one batched solve, the device-timed ones
+    with ``device=True``."""
+    with telemetry.span("solve.prepare"):
+        pass
+    for name in ("solve.forward", "solve.corner", "solve.backward"):
+        with telemetry.span(name, device=True):
+            pass
+    with telemetry.span("solve.assemble"):
+        pass
+
+
+@_build.counted(lambda x: {"t": 8, "n": 1})
+def _standin_cuda(x):
+    """A stand-in kernel wrapper: one checked launch of nothing."""
+    _build.check(None, 0, "_standin")
+    return x
+
+
+def _solve_launches(grid):
+    """The launch counter around the launches of one solve on the card:
+    two band sweeps and 2 nat ``solve_panel``."""
+    for _ in range(2 + 2 * grid.n_arrow_tiles):
+        _standin_cuda(None)
+
+
+@pytest.mark.parametrize("surface", [_request_surface, _solve_sub_spans, _solve_launches],
+                         ids=["request", "sub_spans", "launches"])
+def test_disabled_overhead_on_cached_solve_many_under_5pct(surface):
+    """The reference's gate, on each part of what one request crosses while
+    telemetry is off (the reference's surface, the port's sub-spans of a
+    solve, the launch counter around its launches): the disabled cost,
+    times 3, under 5 % of one cached ``solve_many`` call (here the plain
+    backend's on the CPU; on the card ``chip_smoke.py``)."""
     m, _ = _pair()
     f = factorize_window(m)
     B = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -212,13 +258,144 @@ def test_disabled_overhead_on_cached_solve_many_under_5pct():
     n = 5000
     t0 = time.perf_counter()
     for _ in range(n):
-        with telemetry.span("solve.solve_many", k=4) as sp:
-            sp.tag(grid=telemetry.rung_tag(m.grid))
-        telemetry.inc("cache.hit", cache="batched_window")
-        telemetry.observe("lat", 1.0)
+        surface(m.grid)
     per_request = (time.perf_counter() - t0) / n
     assert 3 * per_request < 0.05 * dispatch, (
         f"disabled telemetry {per_request * 1e6:.2f}us/request vs call {dispatch * 1e6:.1f}us")
+    assert telemetry.snapshot()["spans"] == [] and telemetry.snapshot()["counters"] == {}
+
+
+def test_span_epoch_on_the_wall_clock():
+    """A span's ``epoch_unix_ns + ts_us`` is its start on the wall clock,
+    within the wall-clock readings taken around it, before and after a
+    reset (a new epoch); the Chrome trace's ``ts`` is the same instant in
+    microseconds."""
+    reg = Telemetry(enabled=True)
+    for _ in range(2):
+        w0 = time.time_ns()
+        with reg.span("s"):
+            pass
+        w1 = time.time_ns()
+        snap = reg.snapshot()
+        (rec,) = snap["spans"]
+        start = snap["epoch_unix_ns"] + rec["ts_us"] * 1e3
+        # the epoch reads the two clocks one after the other: a microsecond
+        assert w0 - 1e3 <= start <= w1 + 1e3
+        (ev,) = reg.to_chrome_trace()["traceEvents"]
+        assert ev["ts"] == pytest.approx(start / 1e3, abs=1.0)
+        assert "dev_us" not in rec and "dev_us" not in ev["args"]
+        time.sleep(0.01)
+        reg.reset()
+
+
+def _entry_points(m, B):
+    """A θ step's entry points on a batch of two: the factorization and
+    its log-determinant, the batched solve, the batched selected inverse
+    and its diagonal."""
+    f = factorize_window_batched([m, m])
+    f.logdet()
+    solve_many_batched(f, B)
+    selinv_batched(f).diagonal()
+
+
+def _batch_panels(m, k=1):
+    return torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, m.grid.padded_n, k)).astype(np.float32))
+
+
+def test_entry_point_sub_spans():
+    """Each entry point's sub-spans on one small batch, under the names the
+    benchmark reads, each a child of its entry point's span (the
+    log-determinant's and the diagonal's their own); no device time on the
+    CPU; every span named to a running profiler."""
+    m, _ = _pair()
+    B = _batch_panels(m)
+    telemetry.enable()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _entry_points(m, B)
+    snap = telemetry.snapshot()
+    fwb, smb, sb = "factorize.window_batched", "solve.solve_many_batched", "selinv.batched"
+    assert tree(snap) == sorted([
+        (fwb, None), ("factorize.prepare", fwb), ("factorize.sweep", fwb),
+        ("factorize.corner", fwb), ("factorize.logdet", None),
+        (smb, None), ("solve.prepare", smb), ("solve.forward", smb), ("solve.corner", smb),
+        ("solve.backward", smb), ("solve.assemble", smb),
+        (sb, None), ("selinv.prepare", sb), ("selinv.seed", sb), ("selinv.sweep", sb),
+        ("selinv.diagonal", None)])
+    assert {n for n, parent in tree(snap) if n not in (fwb, smb, sb)} <= PORT_SPANS
+    assert not any("dev_us" in s for s in snap["spans"])
+    assert all(s["tags"] == {} for s in snap["spans"] if s["name"] in PORT_SPANS)
+    assert {n for n, _ in tree(snap)} <= {e.name for e in prof.events()}
+
+
+def test_disabled_entry_points_record_nothing():
+    """With telemetry off the entry points open no span and no
+    ``record_function`` (a running profiler sees none of their names) and
+    count nothing."""
+    m, _ = _pair()
+    B = _batch_panels(m)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _entry_points(m, B)
+    assert not [e.name for e in prof.events()
+                if e.name.split(".")[0] in ("factorize", "solve", "selinv", "stiles")]
+    snap = telemetry.snapshot()
+    assert snap["spans"] == [] and snap["counters"] == {} and snap["histograms"] == {}
+
+
+def test_launch_counter_on_a_stand_in_wrapper():
+    """``kernels/_build.py::counted``: ``launches`` counts the calls that
+    reached ``check`` (an empty call launches nothing), whatever the
+    telemetry; while on, each launch is one ``kernel.launches`` with its
+    labels; a recording (a capture's) keeps its block's launches in place
+    of telemetry."""
+    @_build.counted(lambda x, n: {"t": 8, "n": n})
+    def fake_cuda(x, n):
+        if n:
+            _build.check(None, 0, "fake")
+        return x
+
+    assert fake_cuda(7, 3) == 7 and fake_cuda(7, 0) == 7
+    assert (fake_cuda.launches, fake_cuda.__name__) == (1, "fake_cuda")
+    assert telemetry.snapshot()["counters"] == {}
+    telemetry.enable()
+    for n in (3, 0, 2, 3):
+        fake_cuda(None, n)
+    want = {"kernel.launches{kernel=fake,n=2,t=8}": 1.0,
+            "kernel.launches{kernel=fake,n=3,t=8}": 2.0}
+    assert telemetry.snapshot()["counters"] == want and fake_cuda.launches == 4
+    with _build.recording() as log:
+        fake_cuda(None, 3)
+        fake_cuda(None, 3)
+        fake_cuda(None, 0)
+    assert log == Counter({("fake_cuda", (("kernel", "fake"), ("n", 3), ("t", 8))): 2})
+    assert _build.by_wrapper(log) == Counter(fake_cuda=2)
+    assert telemetry.snapshot()["counters"] == want and fake_cuda.launches == 6
+
+
+def test_graph_replay_counts_its_launches():
+    """A graph cache's replay counts the launches its capture recorded,
+    labelled, in ``kernel.launches`` while telemetry is on and nothing
+    while off, beside the cache's own ``replayed``."""
+    class Graph:
+        def replay(self):
+            pass
+
+    class Entry:
+        graph = Graph()
+        labelled = Counter({("solve_panel_cuda", (("k", 1), ("kernel", "solve_panel"),
+                                                  ("n", 8), ("t", 64))): 4})
+        launches = _build.by_wrapper(labelled)
+
+    cache = GraphCache(2)
+    entry = cache.add("k", Entry())
+    cache.replay(entry)
+    assert telemetry.snapshot()["counters"] == {}
+    telemetry.enable()
+    cache.replay(entry)
+    cache.replay(entry)
+    assert telemetry.snapshot()["counters"] == {
+        "kernel.launches{k=1,kernel=solve_panel,n=8,t=64}": 8.0}
+    assert cache.replayed == Counter(solve_panel_cuda=12)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +620,9 @@ def test_mixed_grid_snapshot_matches_reference():
         jax.block_until_ready(J.solve_many(jf, jax.numpy.asarray(B), options=JREF))
         J.selinv_batched(jfb, options=JREF)
     snap = telemetry.snapshot()
-    assert _shape(snap) == _shape(jtelemetry.snapshot())
+    assert _shape(reference_view(snap)) == _shape(jtelemetry.snapshot())
+    assert {s["name"] for s in snap["spans"]} - {s["name"] for s in reference_view(snap)["spans"]} \
+        <= PORT_SPANS
     counters = snap["counters"]
     assert counters["cache.miss{cache=batched_window}"] >= 1
     assert counters["cache.hit{cache=batched_window}"] >= 1
